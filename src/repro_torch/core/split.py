@@ -10,9 +10,10 @@ The head->body and body->tail cut points are real wire boundaries: a
 reporting the measured bytes in `out["wire_bytes"]`.
 
 This is the port of `repro/core/split.py` for token models with attention
-layers: the serving path's subset (caches, slots, segments, forward).
-Params and caches are nested dicts of tensors keyed as the JAX pytrees;
-caches are written in place.
+layers: the serving path's subset (caches, slots, page pools, segments,
+forward with chunked-prefill continuation). Params and caches are nested
+dicts of tensors keyed as the JAX pytrees; caches and page pools are
+written in place.
 """
 from __future__ import annotations
 
@@ -158,20 +159,153 @@ class SplitModel:
         """A copy of slot `slot` of the shared cache as a batch=1 cache."""
         return tree_map(lambda s: s.narrow(1, slot, 1).clone(), shared)
 
+    # ------------------------------------------------- paged allocation
+    # The paged serving cache replaces the dense (slot, window) pair with a
+    # PAGE POOL: every attention-cache leaf becomes (n_cycles, n_pages,
+    # page_size, ...) and a per-slot BLOCK TABLE of physical page ids maps a
+    # slot's logical blocks onto pool pages (serve/paged_engine.py owns the
+    # host-side allocator). A pool is literally `init_cache(n_pages,
+    # page_size)` — batch axis = page axis — so the page axis is uniformly
+    # axis 1 of every leaf, after the stacked-layer axis. The ops below
+    # write the pool in place.
+
+    def paged_cache_unsupported(self) -> Optional[str]:
+        """None when this model can serve from a paged pool; otherwise the
+        reason it cannot. Paging assumes every cached layer is a uniform
+        full-window attention cache (one ring layout shared by all leaves);
+        recurrent state (mamba/rwkv), MLA latents, local-attention windows,
+        encoder outputs and dense prefix stacks keep per-slot state the
+        block tables cannot express yet."""
+        cfg = self.cfg
+        if cfg.arch_type in ("vit", "audio", "vlm"):
+            return f"arch_type {cfg.arch_type!r} has no token decode loop"
+        if any(kind != "attn" for kind in cfg.layer_pattern):
+            return (f"layer pattern {cfg.layer_pattern} has non-'attn' "
+                    f"layers")
+        if cfg.attention is not None and cfg.attention.mla is not None:
+            return "MLA latent caches are not paged yet"
+        if cfg.n_dense_layers:
+            return f"{cfg.n_dense_layers} dense prefix layers are not paged"
+        if cfg.encoder is not None:
+            return "encoder models have no token decode loop"
+        return None
+
+    def init_paged_cache(self, n_pages: int, page_size: int,
+                         dtype=torch.float32, *, device="cuda") -> Params:
+        """The device-side page pool: one page axis shared by head, body
+        and tail stacks (a page id is valid in every layer's pool)."""
+        reason = self.paged_cache_unsupported()
+        if reason is not None:
+            raise ValueError(f"{self.cfg.name}: paged cache unsupported — "
+                             f"{reason}")
+        return self.init_cache(n_pages, page_size, dtype, device=device)
+
+    @staticmethod
+    def paged_seg_view(seg_cache: Params, tables: torch.Tensor) -> Params:
+        """Inject the (S, n_blocks) block tables into every stacked layer
+        group of one segment's pool (expanded over the cycle axis, so each
+        layer sees them); `apply_attention` detects the key and takes the
+        paged decode path. The pool leaves are shared, not copied: writes
+        through the view land in the pool."""
+        stacks = {}
+        for name, stack in seg_cache["stack"].items():
+            n = stack["positions"].shape[0]
+            stacks[name] = dict(stack, block_tables=tables[None].expand(
+                (n,) + tuple(tables.shape)))
+        return {"stack": stacks}
+
+    @staticmethod
+    def strip_paged_view(seg_cache: Params) -> Params:
+        """Drop the injected block tables, leaving the bare pool tree."""
+        return {"stack": {name: {k: v for k, v in stack.items()
+                                 if k != "block_tables"}
+                          for name, stack in seg_cache["stack"].items()}}
+
+    @staticmethod
+    def paged_gather(pool: Params, tables: torch.Tensor) -> Params:
+        """Gather per-slot dense cache views out of a pool: leaf
+        (n, P, page, ...) + tables (S, nb) -> (n, S, nb*page, ...), laid out
+        exactly like a dense `init_cache(S, nb*page)` slot cache (block j
+        covers width indices [j*page, (j+1)*page)). The result is a copy."""
+        S, nb = tables.shape
+        idx = tables.long()
+
+        def g(leaf):
+            out = leaf[:, idx]                       # (n, S, nb, page, ...)
+            return out.reshape(leaf.shape[0], S, nb * leaf.shape[2],
+                               *leaf.shape[3:])
+        return tree_map(g, pool)
+
+    @staticmethod
+    def paged_scatter_token(pool: Params, dense: Params,
+                            tables: torch.Tensor,
+                            pos: torch.Tensor) -> Params:
+        """Write back the single token each slot just wrote at width index
+        `pos` (S,) of its dense view (the decode-step inverse of
+        `paged_gather` — everything else in the dense view is unchanged
+        pool content), in place."""
+        S = tables.shape[0]
+        s_idx = torch.arange(S, device=tables.device)
+        pos = pos.long()
+
+        def sc(pool_leaf, dense_leaf):
+            page_len = pool_leaf.shape[2]
+            page = tables[s_idx, pos // page_len].long()     # (S,)
+            off = pos % page_len
+            vals = dense_leaf[:, s_idx, pos]                 # (n, S, ...)
+            pool_leaf[:, page, off] = vals.to(pool_leaf.dtype)
+        tree_map(sc, pool, dense)
+        return pool
+
+    @staticmethod
+    def paged_scatter_slot(pool: Params, single: Params,
+                           table_row: torch.Tensor, write_mask: torch.Tensor,
+                           scratch_page: int) -> Params:
+        """Scatter one slot's batch=1 dense cache (width nb*page) into its
+        pages, in place. `write_mask` (nb,) bool selects the blocks to land;
+        masked blocks (shared prefix pages, unallocated entries) are
+        redirected to the scratch page, which is never read for a live
+        slot."""
+        nb = table_row.shape[0]
+        dest = torch.where(write_mask, table_row,
+                           torch.full_like(table_row, scratch_page)).long()
+
+        def sc(pool_leaf, dense_leaf):
+            page_len = pool_leaf.shape[2]
+            r = dense_leaf[:, 0].reshape(dense_leaf.shape[0], nb, page_len,
+                                         *dense_leaf.shape[3:])
+            pool_leaf[:, dest] = r.to(pool_leaf.dtype)
+        tree_map(sc, pool, single)
+        return pool
+
+    @staticmethod
+    def paged_copy_page(pool: Params, src: int, dst: int) -> Params:
+        """Copy one physical page across every layer's pool, in place — the
+        COW divergence copy for a shared boundary page."""
+        tree_map(lambda a: a[:, dst].copy_(a[:, src]), pool)
+        return pool
+
     # -------------------------------------------------------------- embed
-    def _embed(self, head_p, batch, mode, prompt, dtype):
+    def _embed(self, head_p, batch, mode, prompt, dtype, chunk_start=None):
         emb = head_p["embed"]
         toks = batch["tokens"]
         B, S = toks.shape
         x = emb["tok"].to(dtype)[toks.long()]
         n_prefix = 0
-        if prompt is not None and mode != "decode":
+        if prompt is not None and mode != "decode" and chunk_start is None:
             pr = prompt[None].expand((B,) + tuple(prompt.shape))
             x = torch.cat([pr.to(dtype), x], dim=1)
             n_prefix += prompt.shape[0]
         T = x.shape[1]
         if mode == "decode":
             base = batch["pos"][:, None]
+        elif chunk_start is not None:
+            # chunked-prefill continuation: this chunk's tokens sit at
+            # positions [chunk_start, chunk_start + T) of an already
+            # partially-filled cache; no soft prompt is prepended (it went
+            # in with the first chunk)
+            base = chunk_start[:, None] + torch.arange(
+                T, dtype=torch.int32, device=x.device)[None]
         else:
             base = torch.arange(T, dtype=torch.int32,
                                 device=x.device)[None].expand(B, T)
@@ -186,21 +320,26 @@ class SplitModel:
         return x, aux, cache
 
     def head_fwd(self, head_p, prompt, batch, *, mode="train", cache=None,
-                 dtype=torch.float32) -> Dict[str, Any]:
+                 dtype=torch.float32, chunk_start=None) -> Dict[str, Any]:
         """Client-side: embed (+prompts) -> head layers. Output `smashed` is
-        the cut-layer activation sent to the server."""
+        the cut-layer activation sent to the server. `chunk_start` (B,)
+        marks a chunked-prefill continuation: the batch's tokens extend a
+        partially-filled prefill cache starting at those positions
+        (attention then runs write-then-attend over the full cache, like
+        decode, instead of chunk-local causal)."""
         x, positions, seq_pos, n_prefix = self._embed(
-            head_p, batch, mode, prompt, dtype)
+            head_p, batch, mode, prompt, dtype, chunk_start)
         ctx = L.Ctx(mode=mode, positions=positions, seq_pos=seq_pos,
-                    causal=True)
+                    causal=True, has_context=chunk_start is not None)
         x, aux, new_cache = self._seg_fwd(head_p, x, ctx, cache)
         return {"smashed": x, "positions": positions, "seq_pos": seq_pos,
                 "n_prefix": n_prefix, "aux": aux, "cache": new_cache,
-                "mode": mode}
+                "mode": mode, "has_context": chunk_start is not None}
 
     def _ctx_from(self, head_out) -> L.Ctx:
         return L.Ctx(mode=head_out["mode"], positions=head_out["positions"],
-                     seq_pos=head_out["seq_pos"], causal=True)
+                     seq_pos=head_out["seq_pos"], causal=True,
+                     has_context=head_out.get("has_context", False))
 
     def body_fwd(self, body_p, smashed, head_out, *, cache=None):
         """Server-side: frozen body over the smashed activations."""
@@ -232,17 +371,23 @@ class SplitModel:
     # -------------------------------------------------------------- routes
     def forward(self, params, batch, *, route="split", mode="train",
                 cache=None, dtype=torch.float32, prompt=None, last_only=True,
-                wire_generator: Optional[torch.Generator] = None):
+                wire_generator: Optional[torch.Generator] = None,
+                chunk_start=None):
         """route='split': head -> body -> tail, every smashed tensor
         crossing the head_body / body_tail wire boundaries through their
         codecs; out['wire_bytes'] holds the measured bytes per link.
         route='local': head -> tail directly (zero server communication).
         `wire_generator` draws stochastic-rounding noise (training); None
-        rounds to nearest."""
-        prompt = params["prompt"] if prompt is None else prompt
+        rounds to nearest. `chunk_start` (B,) runs a chunked-prefill
+        continuation (see `head_fwd`); the soft prompt went in with the
+        first chunk, so none is prepended here."""
+        if chunk_start is not None:
+            prompt = None
+        else:
+            prompt = params["prompt"] if prompt is None else prompt
         hc = cache["head"] if cache is not None else None
         ho = self.head_fwd(params["head"], prompt, batch, mode=mode,
-                           cache=hc, dtype=dtype)
+                           cache=hc, dtype=dtype, chunk_start=chunk_start)
         x, aux = ho["smashed"], ho["aux"]
         new_cache = {"head": ho["cache"]} if cache is not None else None
         wire_bytes = {}

@@ -11,6 +11,7 @@ Kernels (csrc/, built by `build.py` into one shared library at first use):
   quant            — int8 wire quantize / dequantize      (quant.cu)
   flash_attention  — causal GQA prefill attention          (flash_attention.cu)
                      slot-cache decode attention           (decode_attention.cu)
+                     paged decode attention      (paged_decode_attention.cu)
 """
 from __future__ import annotations
 
@@ -31,12 +32,14 @@ def on_cuda(x: torch.Tensor) -> bool:
 
 def wrappers() -> Dict[str, Callable]:
     """The launch wrappers on the serving path, by kernel name."""
-    from repro_torch.kernels.flash_attention.decode import decode_attention_fwd
+    from repro_torch.kernels.flash_attention.decode import (
+        decode_attention_fwd, paged_decode_attention_fwd)
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
     from repro_torch.kernels.quant.kernel import dequantize_fwd, quantize_fwd
     return {"quantize_int8": quantize_fwd, "dequantize_int8": dequantize_fwd,
             "flash_attention_prefill": flash_attention_fwd,
-            "decode_attention": decode_attention_fwd}
+            "decode_attention": decode_attention_fwd,
+            "paged_decode_attention": paged_decode_attention_fwd}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -14,10 +14,26 @@ slot to that slot's ring-buffer cache. Two versions of the same function:
       the (B, W, Hkv) cache contracted against (B, Hkv, G) query rows with
       no materialized head repeat.
 
-`decode_attention` picks by device: the plain version for CPU tensors, the
-kernel for CUDA tensors. Masking is wholly data-driven (kv validity +
-position vs the slot's query position), so ragged per-slot lengths and
-ring-buffer layouts need no host-side bookkeeping.
+The paged variant reads a slot's keys out of a shared PAGE POOL through
+its block table instead of a per-slot cache:
+
+  `paged_decode_attention_fwd` — the launch wrapper of
+      `csrc/paged_decode_attention.cu`, the Hopper kernel that replaces the
+      TPU kernel `repro/kernels/flash_attention/decode.py::
+      paged_decode_attention_fwd`: one block per (slot, kv head) resolves
+      each key's page from the table and reads the pool in its
+      (P, page, Hkv, Dh) layout through strides, with no gathered copy.
+  `paged_gather_decode` — the plain version (the JAX package's XLA path,
+      `decode.py:356-366`): gather `pool[block_tables]` into the dense
+      per-slot view, then `grouped_decode`. With nb * page == W it is
+      `decode_attention` on the gathered caches, which makes the paged
+      engine provably equal to the dense one.
+
+`decode_attention` and `paged_decode_attention` pick by device: the plain
+version for CPU tensors, the kernel for CUDA tensors. Masking is wholly
+data-driven (kv validity + position vs the slot's query position), so
+ragged per-slot lengths, ring-buffer layouts and unallocated pages (the
+NULL page's positions are -1) need no host-side bookkeeping.
 """
 from __future__ import annotations
 
@@ -137,3 +153,121 @@ def decode_attention(
     return decode_attention_fwd(
         q, k, v, q_positions.to(torch.int32), kv_positions.to(torch.int32),
         scale=scale, sliding_window=sliding_window, softcap=softcap)
+
+
+# ----------------------------------------------------------- paged variant
+def paged_decode_attention_fwd(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor,
+                               block_tables: torch.Tensor,
+                               q_positions: torch.Tensor,
+                               kv_positions: torch.Tensor, *, scale: float,
+                               sliding_window: Optional[int],
+                               softcap: Optional[float]) -> torch.Tensor:
+    """q (B, 1, Hq, Dh), k_pool (P, page, Hkv, Dh), v_pool (P, page, Hkv,
+    Dv) f32 CUDA with unit stride on head_dim; block_tables (B, nb),
+    q_positions (B,) and kv_positions (P, page) int32 on the same device.
+    The table's page ids must lie in [0, P): the engine allocates them from
+    the pool, and checking here would need a device sync. Returns
+    (B, 1, Hq, Dv) f32."""
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if not t.is_cuda or t.dtype != torch.float32 or t.dim() != 4:
+            raise ValueError(f"paged_decode_attention_fwd: {name} must be a "
+                             f"4-D f32 CUDA tensor, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        if t.stride(3) != 1:
+            raise ValueError(f"paged_decode_attention_fwd: {name} needs unit "
+                             f"stride on head_dim")
+    B, Sq, Hq, Dh = q.shape
+    P, page, Hkv, Dv = v_pool.shape
+    if Sq != 1 or k_pool.shape != (P, page, Hkv, Dh):
+        raise ValueError(f"paged_decode_attention_fwd: shapes q "
+                         f"{tuple(q.shape)} k_pool {tuple(k_pool.shape)} "
+                         f"v_pool {tuple(v_pool.shape)} disagree")
+    if Hq % Hkv or Hq // Hkv > MAX_GROUP or Dh > D_MAX or Dv > D_MAX:
+        raise ValueError(f"paged_decode_attention_fwd takes a GQA group <= "
+                         f"{MAX_GROUP} and head_dim <= {D_MAX}, got Hq={Hq} "
+                         f"Hkv={Hkv} Dh={Dh} Dv={Dv}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B:
+        raise ValueError(f"paged_decode_attention_fwd: block_tables must be "
+                         f"(B={B}, nb), got {tuple(block_tables.shape)}")
+    nb = block_tables.shape[1]
+    for name, t, shape in (("block_tables", block_tables, (B, nb)),
+                           ("q_positions", q_positions, (B,)),
+                           ("kv_positions", kv_positions, (P, page))):
+        if t.dtype != torch.int32 or t.device != q.device \
+                or tuple(t.shape) != shape:
+            raise ValueError(f"paged_decode_attention_fwd: {name} must be "
+                             f"int32 {shape} on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if len({q.device, k_pool.device, v_pool.device}) != 1:
+        raise ValueError("paged_decode_attention_fwd: q and the pools on "
+                         "different devices")
+    if sliding_window is not None and sliding_window < 1:
+        raise ValueError(f"sliding_window must be >= 1, got {sliding_window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"softcap must be > 0, got {softcap}")
+    out = torch.empty((B, 1, Hq, Dv), dtype=torch.float32, device=q.device)
+    check(library().sfp_paged_decode_attention_fwd(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), q_positions.data_ptr(),
+        kv_positions.data_ptr(), out.data_ptr(), B, nb, page, Hq, Hkv, Dh,
+        Dv, q.stride(0), q.stride(2), k_pool.stride(0), k_pool.stride(1),
+        k_pool.stride(2), v_pool.stride(0), v_pool.stride(1),
+        v_pool.stride(2), block_tables.stride(0), block_tables.stride(1),
+        q_positions.stride(0), kv_positions.stride(0),
+        kv_positions.stride(1), out.stride(0), out.stride(2),
+        int(sliding_window or 0), float(softcap or 0.0), float(scale),
+        current_stream()), "sfp_paged_decode_attention_fwd")
+    paged_decode_attention_fwd.launches += 1
+    return out
+
+
+paged_decode_attention_fwd.launches = 0
+
+
+def paged_gather_decode(q, k_pool, v_pool, block_tables, q_positions,
+                        kv_positions, *, scale, sliding_window, softcap):
+    """Gather each slot's pages into the dense (B, nb * page) view — block
+    j covers width indices [j * page, (j + 1) * page) — and attend it with
+    `grouped_decode`."""
+    B, nb = block_tables.shape
+    P, page, Hkv, Dh = k_pool.shape
+    bt = block_tables.long()
+    kg = k_pool[bt].reshape(B, nb * page, Hkv, Dh)
+    vg = v_pool[bt].reshape(B, nb * page, Hkv, v_pool.shape[-1])
+    kvp = kv_positions[bt].reshape(B, nb * page)
+    return grouped_decode(q, kg, vg, q_positions, kvp, scale=scale,
+                          sliding_window=sliding_window, softcap=softcap)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,              # (B, 1, Hq, Dh) — ONE token per slot
+    k: torch.Tensor,              # (P, page, Hkv, Dh) — the page POOL
+    v: torch.Tensor,              # (P, page, Hkv, Dv)
+    *,
+    block_tables: torch.Tensor,   # (B, n_blocks) int32 physical page ids
+    q_positions: torch.Tensor,    # (B,) absolute position of the query
+    kv_positions: torch.Tensor,   # (P, page) absolute positions, -1 = empty
+    causal: bool = True,
+    sliding_window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """`decode_attention` against a page pool: slot b's keys live in pool
+    pages `block_tables[b]` (logical block j = width range
+    [j * page, (j + 1) * page)). Unallocated blocks point at the null page
+    whose positions are -1, so they mask out like empty ring slots."""
+    if q.shape[1] != 1:
+        raise ValueError(f"decode_attention is single-query, got {q.shape}")
+    if not causal:
+        raise ValueError("decode attention is causal by construction")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not on_cuda(q):
+        return paged_gather_decode(
+            q, k, v, block_tables, q_positions, kv_positions, scale=scale,
+            sliding_window=sliding_window, softcap=softcap)
+    return paged_decode_attention_fwd(
+        q, k, v, block_tables.to(torch.int32), q_positions.to(torch.int32),
+        kv_positions.to(torch.int32), scale=scale,
+        sliding_window=sliding_window, softcap=softcap)

@@ -4,9 +4,18 @@ Single-query cache reads (Sq=1 with q_offset / explicit kv_positions — the
 decode hot path, including ring-buffer caches) go to `decode.py`'s
 `decode_attention`. Calls without positions (prefill from position 0) go to
 the prefill kernel on a CUDA tensor and to the plain `ref.attention` on a
-CPU one. Multi-query calls WITH positions (chunked-prefill continuation)
-belong to the paged engine: the plain version serves them on the CPU, and
-on CUDA they raise until that slice ports them.
+CPU one.
+
+Multi-query calls WITH positions (the paged engine's chunked-prefill
+continuation) run the plain `ref.attention` on every device. That is what
+the JAX package does on every backend, the TPU included
+(`repro/kernels/flash_attention/ops.py:91-95`): no Pallas kernel computes
+this call, so no TPU kernel is replaced here. A kernel of the port's own
+for it is later work.
+
+Decode against a PAGE POOL (per-slot block tables instead of per-slot
+caches) is `decode.paged_decode_attention`, re-exported here: its callers
+hold a pool and block tables, so it never routes through `flash_attention`.
 """
 from __future__ import annotations
 
@@ -16,10 +25,12 @@ import torch
 
 from repro_torch.kernels import on_cuda
 from repro_torch.kernels.flash_attention import ref
-from repro_torch.kernels.flash_attention.decode import decode_attention
+from repro_torch.kernels.flash_attention.decode import (
+    decode_attention, paged_decode_attention)
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 
-__all__ = ["flash_attention", "prefill_attention", "decode_attention"]
+__all__ = ["flash_attention", "prefill_attention", "decode_attention",
+           "paged_decode_attention"]
 
 
 def prefill_attention(q, k, v, *, causal=True, sliding_window=None,
@@ -63,10 +74,6 @@ def flash_attention(
             q, k, v, q_positions=q_positions, kv_positions=kvp,
             sliding_window=sliding_window, softcap=softcap, scale=scale)
     if needs_pos:
-        if on_cuda(q):
-            raise NotImplementedError(
-                "multi-query attention with positions (chunked prefill) is "
-                "the paged engine's path; it is ported with that slice")
         return ref.attention(q, k, v, causal=causal, q_offset=q_offset,
                              kv_positions=kv_positions,
                              sliding_window=sliding_window, softcap=softcap,

@@ -1,4 +1,4 @@
-"""Continuous-batching split-serving launcher (dense engine).
+"""Continuous-batching split-serving launcher.
 
 The port of `repro/launch/serve.py`: runs the `serve.ServeEngine` — slot-
 based shared KV cache, interleaved prefill/decode so requests join
@@ -8,13 +8,23 @@ tokens/s, p50/p99 latency, slot occupancy, and the measured smashed-tensor
 wire traffic next to the analytical per-token model, in the JAX launcher's
 report lines.
 
+Paged engine knobs: `--page-size N` (N > 0) swaps in the
+`PagedServeEngine` — page-pool KV with per-slot block tables — with
+`--n-pages` sizing the pool (default: one full window per slot),
+`--shared-prefix K` prepending K deterministic common-prefix tokens to
+every request with copy-on-write page sharing across same-tenant
+requests, and `--prefill-chunk C` streaming prompts in C-token pieces.
+Paging never changes the wire protocol; a prefix HIT meters fewer prefill
+bytes, so measured <= analytical when sharing kicks in.
+
 Runs on the GPU unless asked for the CPU (--device cpu):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
       --requests 16 --slots 8 --tenants 4 --wire int8
+  PYTHONPATH=src python -m repro_torch.launch.serve --page-size 16 \\
+      --shared-prefix 24 --prefill-chunk 8
 
-The paged engine (--page-size > 0, --shared-prefix, --prefill-chunk),
-tensor-parallel serving (--mesh-model > 1), checkpoint loading (--params)
+Tensor-parallel serving (--mesh-model > 1), checkpoint loading (--params)
 and the trace exporters (--trace-out, --metrics-every) belong to later
 slices of the port; those flags exit with a message naming the slice.
 """
@@ -32,7 +42,8 @@ from repro_torch.core.split import resolve_device
 from repro_torch.obs.trace import LEVELS, make_tracer
 from repro_torch.runtime import WireSpec
 from repro_torch.runtime.meter import MB
-from repro_torch.serve import (ServeConfig, ServeEngine, TenantBank,
+from repro_torch.serve import (PagedServeConfig, PagedServeEngine,
+                               ServeConfig, ServeEngine, TenantBank,
                                WorkloadConfig, synthetic_requests)
 from repro_torch.tree import tree_leaves
 
@@ -58,10 +69,14 @@ def personalized_bank(model: SplitModel, params, n_tenants: int,
     return bank
 
 
+def shared_prefix_tokens(n: int, vocab_size: int):
+    """The deterministic synthetic shared prefix (a pure function of its
+    length, standing in for a common system prompt), by the JAX launcher's
+    formula."""
+    return tuple(int(1 + (i * 13) % (vocab_size - 1)) for i in range(n))
+
+
 def _later_slice(args) -> str:
-    if args.page_size > 0 or args.shared_prefix or args.prefill_chunk:
-        return ("the paged engine (--page-size, --shared-prefix, "
-                "--prefill-chunk) is ported with the paged-serving slice")
     if args.mesh_model > 1:
         return "--mesh-model > 1 is ported with the multi-device slice"
     if args.params:
@@ -96,14 +111,18 @@ def main(argv=None):
     ap.add_argument("--decode-block", type=int, default=8,
                     help="tokens per decode dispatch (1 = per-token)")
     ap.add_argument("--page-size", type=int, default=0,
-                    help="paged engine (later slice); 0 keeps the dense "
-                         "slot cache")
+                    help="tokens per KV page; > 0 serves with the paged "
+                         "engine, 0 (default) keeps the dense slot cache")
     ap.add_argument("--n-pages", type=int, default=None,
-                    help="page-pool size (paged engine, later slice)")
+                    help="page-pool size incl. the 2 reserved pages "
+                         "(default: one full window per slot)")
     ap.add_argument("--shared-prefix", type=int, default=0,
-                    help="shared prefix tokens (paged engine, later slice)")
+                    help="prepend this many deterministic common-prefix "
+                         "tokens to every request, shared copy-on-write "
+                         "across same-tenant requests (paged engine only)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
-                    help="chunked prefill (paged engine, later slice)")
+                    help="stream prompts in pieces of this many tokens "
+                         "(paged engine only; default: monolithic)")
     ap.add_argument("--mesh-model", type=int, default=1,
                     help="tensor-parallel serving (later slice); 1 = "
                          "single-device")
@@ -143,10 +162,26 @@ def main(argv=None):
 
     tracer = make_tracer(args.trace_level, profiler=args.trace_profiler)
     bank = personalized_bank(model, params, args.tenants)
-    engine = ServeEngine(model, params, bank,
-                         ServeConfig(n_slots=args.slots, max_seq=args.max_seq,
-                                     decode_block=args.decode_block),
-                         tracer=tracer, device=device)
+    if args.page_size > 0:
+        engine = PagedServeEngine(
+            model, params, bank,
+            PagedServeConfig(n_slots=args.slots, max_seq=args.max_seq,
+                             decode_block=args.decode_block,
+                             page_size=args.page_size,
+                             n_pages=args.n_pages,
+                             shared_prefix=shared_prefix_tokens(
+                                 args.shared_prefix, cfg.vocab_size) or None,
+                             prefill_chunk=args.prefill_chunk),
+            tracer=tracer, device=device)
+    else:
+        if args.shared_prefix or args.prefill_chunk:
+            raise SystemExit("--shared-prefix/--prefill-chunk need the "
+                             "paged engine: pass --page-size N")
+        engine = ServeEngine(model, params, bank,
+                             ServeConfig(n_slots=args.slots,
+                                         max_seq=args.max_seq,
+                                         decode_block=args.decode_block),
+                             tracer=tracer, device=device)
     reqs = synthetic_requests(WorkloadConfig(
         n_requests=args.requests,
         mean_interarrival=args.mean_interarrival,
@@ -167,15 +202,28 @@ def main(argv=None):
           f"decode steps | rejected {stats['rejected']}")
     measured = stats["wire_bytes"]
     # compare against what was actually SERVED — admission control may
-    # have rejected part of the trace
+    # have rejected part of the trace. A shared prefix counts toward every
+    # served request's prompt here; prefix HITS skip re-transmitting those
+    # activations, so the measured total dips below analytical as the hit
+    # ratio climbs.
+    prefix_n = args.shared_prefix if args.page_size > 0 else 0
     analytical = serve_comm_breakdown(
         wire, d_model=cfg.d_model, soft_prompt_len=split.prompt_len,
-        requests=[(len(f.req.tokens), f.req.max_new)
+        requests=[(len(f.req.tokens) + prefix_n, f.req.max_new)
                   for f in stats["finished"]])
     print(f"wire [{wire.describe()}]: {measured['total'] / MB:.3f} MB "
           f"measured ({measured['head_body'] / MB:.3f} head_body + "
           f"{measured['body_tail'] / MB:.3f} body_tail) vs "
           f"{sum(analytical.values()) / MB:.3f} MB analytical")
+    if args.page_size > 0:
+        print(f"pages: {stats['n_pages']} x {stats['page_size']} tok | "
+              f"peak {stats['peak_pages']} | "
+              f"in use {stats['pages_in_use']} | "
+              f"COW copies {stats['page_copies']} | "
+              f"prefix hits {stats['prefix_hits']}/"
+              f"{stats['prefix_hits'] + stats['prefix_misses']} "
+              f"(ratio {stats['prefix_hit_ratio']:.2f}) | "
+              f"prefill chunks {stats['prefill_chunks']}")
     if tracer.enabled:
         print(json.dumps({"metrics": engine.live_stats(),
                           "trace_records": len(tracer.records())},

@@ -1,4 +1,4 @@
-"""Layer library, the subset the dense serving path runs.
+"""Layer library, the subset the dense and paged serving paths run.
 
 Functional style, as in `repro/models/layers.py`: each block kind has
 ``init_<kind>(generator, cfg, device) -> params`` and
@@ -6,10 +6,11 @@ Functional style, as in `repro/models/layers.py`: each block kind has
 nested dicts of tensors keyed exactly as the JAX pytrees; dense weights are
 (d_in, d_out).
 
-Caches are updated IN PLACE: the decode ring write and the prefill ring
-fill assign into the cache tensors they are given (views of the stacked
-per-layer cache) and return the same dict. The JAX package returns fresh
-arrays instead; the values written are the same.
+Caches are updated IN PLACE: the decode ring write, the paged pool write,
+the prefill ring fill and the chunked-prefill write assign into the cache
+tensors they are given (views of the stacked per-layer cache or page pool)
+and return the same dict. The JAX package returns fresh arrays instead; the
+values written are the same.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention.decode import decode_attention
+from repro_torch.kernels.flash_attention.decode import (
+    decode_attention, paged_decode_attention)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import AttentionConfig, ModelConfig
 
@@ -149,6 +151,26 @@ def _cache_write(cache: Params, names: Tuple[str, ...], values,
     return cache
 
 
+def _paged_cache_write(cache: Params, names: Tuple[str, ...], values,
+                       pos: torch.Tensor):
+    """One decode token into a paged pool, in place: slot b's token at
+    absolute position `pos[b]` lands at offset pos % page_size of physical
+    page block_tables[b, pos // page_size]. Idle slots' tables point every
+    block at the scratch page, so their (discarded) writes never touch a
+    live page; duplicate scratch writes are fine because scratch is never
+    read for a live slot."""
+    bt = cache["block_tables"]                           # (S, n_blocks)
+    page_len = cache["positions"].shape[1]
+    pos = pos.long()
+    b_idx = torch.arange(pos.shape[0], device=pos.device)
+    page = bt[b_idx, pos // page_len].long()             # (B,)
+    off = pos % page_len
+    for name, val in zip(names, values):
+        cache[name][page, off] = val[:, 0].to(cache[name].dtype)
+    cache["positions"][page, off] = pos.to(torch.int32)
+    return cache
+
+
 def _gqa_attend(q, k, v, ctx: Ctx, att: AttentionConfig, *, window, softcap,
                 kv_positions=None, q_offset=None, causal=True, scale=None):
     return flash_attention(
@@ -164,13 +186,6 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
         raise NotImplementedError("MLA attention is not ported yet")
     if att.mrope_sections is not None and ctx.positions.dim() == 3:
         raise NotImplementedError("M-RoPE is not ported yet")
-    if cache is not None and "block_tables" in cache:
-        raise NotImplementedError(
-            "paged KV caches are the paged engine's; ported with that slice")
-    if ctx.has_context:
-        raise NotImplementedError(
-            "chunked-prefill continuation is the paged engine's; ported "
-            "with that slice")
     B, S, D = x.shape
     h = apply_norm(p["ln"], x, cfg.norm)
     window = att.sliding_window if kind == "attn_local" else None
@@ -185,7 +200,15 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
-    if ctx.mode == "decode":
+    if ctx.mode == "decode" and "block_tables" in cache:
+        # paged decode: write through the block table, then attend the
+        # slot's pages (gathered on the CPU, read in place by the kernel)
+        _paged_cache_write(cache, ("k", "v"), (k, v), sp[:, 0])
+        out = paged_decode_attention(
+            q, cache["k"], cache["v"], block_tables=cache["block_tables"],
+            q_positions=sp[:, 0], kv_positions=cache["positions"],
+            sliding_window=window, softcap=att.attn_logit_softcap)
+    elif ctx.mode == "decode":
         # decode fast path: single-query cache-read kernel, never the
         # full flash machinery (see kernels/flash_attention/decode.py)
         _cache_write(cache, ("k", "v"), (k, v), sp[:, 0])
@@ -193,6 +216,19 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
             q, cache["k"], cache["v"], q_positions=sp[:, 0],
             kv_positions=cache["positions"], sliding_window=window,
             softcap=att.attn_logit_softcap)
+    elif ctx.has_context and cache is not None:
+        # chunked-prefill continuation: land this chunk's K/V in the cache
+        # first, then attend over everything cached so far (earlier chunks
+        # + this one) with absolute query positions
+        w = cache["positions"].shape[1]
+        slot = (sp % w).long()
+        b_idx = torch.arange(B, device=x.device)[:, None]
+        cache["k"][b_idx, slot] = k.to(cache["k"].dtype)
+        cache["v"][b_idx, slot] = v.to(cache["v"].dtype)
+        cache["positions"][b_idx, slot] = sp.to(torch.int32)
+        out = _gqa_attend(q, cache["k"], cache["v"], ctx, att,
+                          window=window, softcap=att.attn_logit_softcap,
+                          kv_positions=cache["positions"], q_offset=sp[:, 0])
     else:
         out = _gqa_attend(q, k, v, ctx, att, window=window,
                           softcap=att.attn_logit_softcap, causal=ctx.causal)

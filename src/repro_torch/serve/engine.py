@@ -107,8 +107,7 @@ class ServeEngine:
         self.meter.attach_tracer(self.tracer)
 
         S = cfg.n_slots
-        self.cache = model.init_cache(S, seq_len=cfg.max_seq,
-                                      dtype=torch.float32, device=self.device)
+        self.cache = self._alloc_cache()
         self._tokens = np.zeros((S,), np.int32)     # next input per slot
         self._pos = np.zeros((S,), np.int32)
         self._tenants = np.zeros((S,), np.int32)
@@ -129,6 +128,14 @@ class ServeEngine:
         self.rejected = 0
         self.tokens_out = 0
         self._occupancy_sum = 0.0
+
+    def _alloc_cache(self):
+        """The shared n-slot KV cache, one full `max_seq` window per slot.
+        The paged engine overrides this: its page pool replaces the dense
+        cache, which it never allocates."""
+        return self.model.init_cache(self.cfg.n_slots,
+                                     seq_len=self.cfg.max_seq,
+                                     dtype=torch.float32, device=self.device)
 
     # -------------------------------------------------------------- wire
     @staticmethod
@@ -251,10 +258,20 @@ class ServeEngine:
             self._multi[n_steps] = fn
         return fn
 
+    def _can_admit(self, req: Request) -> bool:
+        """Head-of-line admission gate beyond free slots (the paged engine
+        waits here when the page pool cannot cover the request)."""
+        return True
+
     def _admit_from_queue(self, done: List[Finished]) -> None:
+        """Admit up to `prefills_per_step` queued requests into free slots
+        (head-of-line order; `_can_admit` can stall the queue without
+        dropping it)."""
         admitted = 0
         while (self._queue and self._free
                and admitted < self.cfg.prefills_per_step):
+            if not self._can_admit(self._queue[0]):
+                break
             fin = self._admit_one(self._queue.pop(0))
             admitted += 1
             if fin is not None:
@@ -277,6 +294,8 @@ class ServeEngine:
         return toks, logits, wb
 
     def _release_slot(self, slot: int) -> None:
+        """Return a retired slot to the free list (the paged engine also
+        releases the slot's pages and scrubs its block table)."""
         self._free.append(slot)
 
     def step(self) -> List[Finished]:

@@ -1,6 +1,6 @@
-"""Steps of the continuous-batching split-serving engine.
+"""Steps of the continuous-batching split-serving engines.
 
-The port of `repro/serve/steps.py:65-170`. Every step crosses the two wire
+The port of `repro/serve/steps.py:65-290`. Every step crosses the two wire
 boundaries:
 
 * `make_tenant_prefill_step` — one request joins: head (+ the tenant's soft
@@ -18,6 +18,16 @@ boundaries:
   loop over the same per-token body (the JAX package's `lax.scan`). Slot
   retirement is deferred to loop exit; a slot's wire bytes stop counting
   the moment it retires, via the per-step `remaining > t` activity mask.
+* `make_paged_decode_step` / `make_paged_multi_decode_step` — the same over
+  a PAGE POOL with per-slot block tables (serve/paged_engine.py). Head,
+  body and each present tenant's tail attend through the tables
+  (`paged_decode_attention`) and write their token into the pool in place.
+  The JAX step gathers the tail pool densely and scatters one token back,
+  because its vmapped tail cannot write a shared pool; grouped by tenant,
+  the port's tail writes through its rows' tables directly. The math per
+  row is the same.
+* `make_chunk_continue_step` — a chunked-prefill continuation: the chunk's
+  tokens extend a partially filled batch=1 cache at absolute positions.
 
 Wire accounting: prefill transmits exactly the request's smashed tensor;
 decode transmits per OCCUPIED row (`Boundary.transmit(rows=n_active)`).
@@ -124,3 +134,106 @@ def make_multi_decode_step(model: SplitModel, n_steps: int, *,
         logits = torch.stack(all_logits) if with_logits else None
         return torch.stack(toks), logits, cache, acc
     return multi_decode_step
+
+
+# ------------------------------------------------------------- paged steps
+def make_paged_decode_step(model: SplitModel, *, dtype=torch.float32):
+    """paged_decode_step(shared, bank, tenant_ids, tokens, pos, active,
+    pool, tables) -> (next_tok (S,), logits (S, V), pool, wire_bytes).
+
+    The paged twin of `make_batched_decode_step`: the shared KV cache is a
+    page pool, written in place, and `tables` (S, n_blocks) int32 on the
+    pool's device maps each slot's logical blocks to physical pages.
+    Retired slots' table rows point every block at the scratch page, so
+    their (discarded) writes never touch a live page. Wire accounting is
+    identical to the dense step — paging is memory-only."""
+    wire = model.wire
+
+    def paged_decode_step(shared, bank, tenant_ids, tokens, pos, active,
+                          pool, tables):
+        batch = {"tokens": tokens[:, None], "pos": pos}
+        ho = model.head_fwd(shared["head"], None, batch, mode="decode",
+                            cache=model.paged_seg_view(pool["head"], tables),
+                            dtype=dtype)
+        n_active = np.float32(np.count_nonzero(active))
+        x, b_hb = wire.head_body.transmit(ho["smashed"], train=False,
+                                          rows=n_active)
+        bo = model.body_fwd(shared["body"], x, ho,
+                            cache=model.paged_seg_view(pool["body"], tables))
+        x, b_bt = wire.body_tail.transmit(bo["smashed"], train=False,
+                                          rows=n_active)
+        S = x.shape[0]
+        logits = x.new_zeros((S, model.cfg.num_classes
+                              or model.cfg.vocab_size), dtype=torch.float32)
+        for tenant in np.unique(tenant_ids[active]):
+            rows = np.flatnonzero(active & (tenant_ids == tenant))
+            idx = torch.as_tensor(rows, device=x.device)
+            p_rows = pos[idx][:, None]
+            head_out = {"mode": "decode", "positions": p_rows,
+                        "seq_pos": p_rows, "n_prefix": 0}
+            to = model.tail_fwd(
+                bank.tail(int(tenant)), x[idx], head_out,
+                cache=model.paged_seg_view(pool["tail"], tables[idx]))
+            logits[idx] = to["logits"][:, 0].float()
+        next_tok = logits.argmax(-1).to(torch.int32)
+        return next_tok, logits, pool, {"head_body": b_hb,
+                                        "body_tail": b_bt}
+    return paged_decode_step
+
+
+def make_paged_multi_decode_step(model: SplitModel, n_steps: int, *,
+                                 dtype=torch.float32,
+                                 with_logits: bool = True):
+    """`make_multi_decode_step` over the page pool: n_steps greedy tokens
+    per slot through the paged per-token body. The block tables are loop
+    constants — pages are preallocated for a request's whole lifetime at
+    admission, so no table changes mid-dispatch.
+
+    A slot that retires mid-loop keeps riding through the head and body,
+    but its position FREEZES (`pos + (remaining > t + 1)`): advancing past
+    the request's total would walk its write pointer off its allocated
+    pages into NULL table entries (a dense ring just wraps; pages
+    cannot)."""
+    decode_step = make_paged_decode_step(model, dtype=dtype)
+
+    def paged_multi_decode_step(shared, bank, tenant_ids, tokens, pos,
+                                remaining, pool, tables):
+        acc = {name: np.float32(0.0) for name in BOUNDARY_NAMES}
+        toks, all_logits = [], []
+        for t in range(n_steps):
+            tok, logits, pool, wb = decode_step(
+                shared, bank, tenant_ids, tokens, pos, remaining > t, pool,
+                tables)
+            acc = {k: np.float32(acc[k] + wb[k]) for k in acc}
+            toks.append(tok)
+            if with_logits:
+                all_logits.append(logits)
+            advance = torch.as_tensor((remaining > t + 1).astype(np.int32),
+                                      device=pos.device)
+            tokens, pos = tok, pos + advance
+        logits = torch.stack(all_logits) if with_logits else None
+        return torch.stack(toks), logits, pool, acc
+    return paged_multi_decode_step
+
+
+def make_chunk_continue_step(model: SplitModel, *, dtype=torch.float32):
+    """chunk_step(shared, tail, batch, cache, chunk_start) ->
+    (next_tok (1,), last_logits (1, V), cache, wire_bytes).
+
+    A chunked-prefill CONTINUATION: `batch["tokens"]` (1, T) extends a
+    partially filled batch=1 prefill cache, in place, starting at absolute
+    position `chunk_start` (1,). The soft prompt went in with the first
+    chunk, so none is prepended; attention runs write-then-attend over the
+    full cache. Wire bytes are the chunk's smashed tensors — summed over
+    chunks they equal the monolithic prefill's (the payload is linear in
+    rows)."""
+    def chunk_step(shared, tail, batch, cache, chunk_start):
+        params = {"head": shared["head"], "body": shared["body"],
+                  "tail": tail}
+        out = model.forward(params, batch, route="split", mode="prefill",
+                            cache=cache, dtype=dtype,
+                            chunk_start=chunk_start)
+        logits = out["logits"][:, -1, :].float()
+        next_tok = logits.argmax(-1).to(torch.int32)
+        return next_tok, logits, out["cache"], out["wire_bytes"]
+    return chunk_step

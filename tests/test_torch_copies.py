@@ -16,12 +16,14 @@ import repro.models.config as jmc  # noqa: E402
 from repro.obs import trace as jtrace  # noqa: E402
 from repro.runtime import codec as jcodec  # noqa: E402
 from repro.runtime import meter as jmeter  # noqa: E402
+from repro.serve import paging as jpaging  # noqa: E402
 from repro.serve import workload as jworkload  # noqa: E402
 import repro_torch.configs as tconfigs  # noqa: E402
 import repro_torch.models.config as tmc  # noqa: E402
 from repro_torch.obs import trace as ttrace  # noqa: E402
 from repro_torch.runtime import codec as tcodec  # noqa: E402
 from repro_torch.runtime import meter as tmeter  # noqa: E402
+from repro_torch.serve import paging as tpaging  # noqa: E402
 from repro_torch.serve import workload as tworkload  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -64,6 +66,53 @@ def test_synthetic_requests_identical(seed):
             (rb.rid, rb.tenant, rb.max_new, rb.arrival)
         np.testing.assert_array_equal(ra.tokens, rb.tokens)
         assert ra.tokens.dtype == rb.tokens.dtype
+
+
+def _drive_pool(mod, seed, n_ops=400):
+    """A random alloc / alloc_many / share / free sequence (misuse
+    included) on a small pool; returns everything observable after each
+    operation: the result or the exception's type and message, the free
+    list and the refcounts."""
+    rng = np.random.default_rng(seed)
+    pool = mod.PagePool(11, 4)
+    held, log = [], []
+    for _ in range(n_ops):
+        op = rng.integers(0, 5)
+        try:
+            if op == 0:
+                res = pool.alloc()
+                held.append(res)
+            elif op == 1:
+                res = pool.alloc_many(int(rng.integers(0, 5)))
+                held.extend(res)
+            elif op == 2 and held:
+                res = pool.share(held[rng.integers(len(held))])
+                held.append(res)
+            elif op == 3 and held:
+                res = pool.free(held.pop(rng.integers(len(held))))
+            else:   # misuse: reserved, unallocated or double frees
+                res = pool.free(int(rng.integers(0, 11)))
+        except (RuntimeError, ValueError) as exc:
+            res = (type(exc).__name__, str(exc))
+        log.append((op, res, pool.free_list(), pool.n_free, pool.n_used,
+                    [pool.refcount(i) for i in range(11)]))
+    return log
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_page_pool_identical(seed):
+    """The copied `serve/paging.py` behaves as the original on the same
+    random operation sequence: results, exceptions, free lists and
+    refcounts after every step."""
+    assert _drive_pool(jpaging, seed) == _drive_pool(tpaging, seed)
+    assert [(f.name, f.default) for f in
+            dataclasses.fields(jpaging.PrefixEntry)] == \
+        [(f.name, f.default) for f in dataclasses.fields(tpaging.PrefixEntry)]
+    for name in ("NULL_PAGE", "SCRATCH_PAGE", "N_RESERVED"):
+        assert getattr(jpaging.PagePool, name) == \
+            getattr(tpaging.PagePool, name)
+    with pytest.raises(tpaging.PagePoolExhausted):
+        tpaging.PagePool(3, 1).alloc_many(2)
 
 
 def test_traffic_meter_state_identical():
@@ -131,6 +180,8 @@ def test_port_imports_no_jax_and_no_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    names = {p.name for p in files}
+    assert {"paging.py", "paged_engine.py"} <= names
     offenders = {str(p.relative_to(ROOT)): _FORBIDDEN.findall(p.read_text())
                  for p in files}
     assert {k: v for k, v in offenders.items() if v} == {}

@@ -97,12 +97,29 @@ def test_decode_kernel_matches_plain(gen, G, Dh, window, softcap):
 
 
 def test_wrappers_raise_instead_of_falling_back(gen):
+    """Wrong inputs raise on CUDA tensors. Multi-query attention with
+    positions (the chunked-prefill continuation) is the plain version on
+    every device, as in the JAX package: no TPU kernel computes it, so no
+    kernel launches for it."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.kernels.flash_attention.decode import \
+        paged_decode_attention_fwd
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.quant.ops import dequantize_int8
     q = torch.randn((1, 4, 2, 8), device="cuda")
-    with pytest.raises(NotImplementedError, match="paged"):
-        flash_attention(q, q, q, q_offset=torch.zeros(1, dtype=torch.int32,
-                                                      device="cuda"))
+    off = torch.zeros(1, dtype=torch.int32, device="cuda")
+    before = launch_counts()
+    got = flash_attention(q, q, q, q_offset=off)
+    assert launch_counts() == before
+    assert torch.equal(got, ref.attention(q, q, q, q_offset=off))
+    pool = torch.zeros((4, 8, 2, 8), device="cuda")
+    tables = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    kvp = torch.full((4, 8), -1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="block_tables"):
+        paged_decode_attention_fwd(q[:, :1], pool, pool, tables.long(), off,
+                                   kvp, scale=1.0, sliding_window=None,
+                                   softcap=None)
     with pytest.raises(ValueError):
         dequantize_int8(torch.zeros((2, 3), dtype=torch.int8, device="cuda"),
                         torch.ones((2, 1), device="cuda"),
@@ -141,3 +158,92 @@ def test_engine_on_card_matches_cpu(gen):
         np.testing.assert_array_equal(out["cuda"][rid].tokens, f.tokens)
         np.testing.assert_allclose(out["cuda"][rid].logits, f.logits,
                                    atol=1e-4, rtol=1e-4)
+
+
+def _paged_case(gen, B, nb, page, Hq, Hkv, Dh, lens):
+    """Shuffled pool pages, NULL entries past each slot's length, stale
+    positions past it on its last page, an all-SCRATCH idle row for a
+    slot of length 0."""
+    P = 2 + B * nb + 3
+    q = torch.randn((B, 1, Hq, Dh), generator=gen, device="cuda")
+    k = torch.randn((P, page, Hkv, Dh), generator=gen, device="cuda")
+    v = torch.randn((P, page, Hkv, Dh), generator=gen, device="cuda")
+    perm = np.random.default_rng(B * nb + page).permutation(np.arange(2, P))
+    kvp = np.full((P, page), -1, np.int32)
+    kvp[1] = 0                                   # scratch: garbage
+    tables = np.zeros((B, nb), np.int32)
+    for b, n in enumerate(lens):
+        if n == 0:
+            tables[b] = 1
+            continue
+        for j in range(-(-n // page)):
+            pid = perm[b * nb + j]
+            tables[b, j] = pid
+            m = min(page, n - j * page)
+            kvp[pid, :m] = j * page + np.arange(m)
+            kvp[pid, m:] = 10 ** 6
+    qp = torch.tensor([max(n - 1, 0) for n in lens], dtype=torch.int32)
+    return (q, k, v, torch.from_numpy(tables).cuda(), qp.cuda(),
+            torch.from_numpy(kvp).cuda())
+
+
+@pytest.mark.parametrize("page,G,Dh,window,softcap", [
+    (8, 5, 128, None, None), (16, 5, 128, None, None), (5, 1, 32, None, None),
+    (16, 8, 64, None, 25.0), (8, 5, 128, 64, 50.0)])
+def test_paged_decode_kernel_matches_plain(gen, page, G, Dh, window,
+                                           softcap):
+    from repro_torch.kernels.flash_attention.decode import (
+        paged_decode_attention, paged_decode_attention_fwd,
+        paged_gather_decode)
+    B, nb, Hkv = 5, 9, 2
+    lens = [0, 1, 40, nb * page, 2 * page + 3]
+    q, k, v, tables, qp, kvp = _paged_case(gen, B, nb, page, G * Hkv, Hkv,
+                                           Dh, lens)
+    n = paged_decode_attention_fwd.launches
+    got = paged_decode_attention(q, k, v, block_tables=tables,
+                                 q_positions=qp, kv_positions=kvp,
+                                 sliding_window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert paged_decode_attention_fwd.launches == n + 1
+    want = paged_gather_decode(q, k, v, tables, qp, kvp, scale=Dh ** -0.5,
+                               sliding_window=window, softcap=softcap)
+    assert torch.isfinite(got).all()            # the idle row included
+    assert float((got - want).abs().max()) <= ATTN_TOL
+
+
+def test_paged_engine_on_card_matches_cpu(gen):
+    from repro_torch.configs import get_config
+    from repro_torch.core import SplitConfig, SplitModel
+    from repro_torch.launch.serve import personalized_bank
+    from repro_torch.runtime import WireSpec
+    from repro_torch.serve import (PagedServeConfig, PagedServeEngine,
+                                   TenantBank, WorkloadConfig,
+                                   synthetic_requests)
+    from repro_torch.tree import tree_map
+    cfg = get_config("qwen2.5-14b").reduced(n_layers=3, d_model=64, d_ff=128,
+                                            vocab_size=128)
+    model = SplitModel(cfg, SplitConfig(head_cycles=1, tail_cycles=1,
+                                        prompt_len=4), WireSpec.make("fp32"))
+    params = model.init(torch.Generator().manual_seed(1), device="cpu")
+    bank = personalized_bank(model, params, 2, jitter=0.2)
+    reqs = synthetic_requests(WorkloadConfig(
+        n_requests=5, prompt_choices=(6, 10), new_token_choices=(3, 5),
+        n_tenants=2, vocab_size=128, seed=4))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = PagedServeEngine(
+            model, tree_map(lambda x: x.to(dev), params),
+            TenantBank(tree_map(lambda x: x.to(dev), bank.tails),
+                       bank.prompts.to(dev)),
+            PagedServeConfig(n_slots=2, max_seq=32, decode_block=2,
+                             page_size=8, shared_prefix=(5, 6, 7),
+                             prefill_chunk=4),
+            collect_logits=True, device=dev)
+        st = eng.run(reqs)
+        out[dev] = ({f.req.rid: f for f in st["finished"]},
+                    st["wire_bytes"], st["page_copies"], st["prefix_hits"])
+    for rid, f in out["cpu"][0].items():
+        np.testing.assert_array_equal(out["cuda"][0][rid].tokens, f.tokens)
+        np.testing.assert_allclose(out["cuda"][0][rid].logits, f.logits,
+                                   atol=1e-4, rtol=1e-4)
+    assert out["cuda"][1:] == out["cpu"][1:]

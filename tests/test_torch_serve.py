@@ -200,8 +200,10 @@ def test_launcher_main_on_cpu(capsys):
     assert stats["n_finished"] == 5
     out = capsys.readouterr().out
     assert "tok/s" in out and "MB analytical" in out
-    with pytest.raises(SystemExit, match="paged"):
-        launch_serve.main(["--device", "cpu", "--page-size", "16"])
+    # flags of later slices exit naming theirs (the paged flags run:
+    # tests/test_torch_paged.py)
+    with pytest.raises(SystemExit, match="multi-device"):
+        launch_serve.main(["--device", "cpu", "--mesh-model", "2"])
 
 
 def test_engine_without_device_refuses_cpu_fallback():
