@@ -8,7 +8,9 @@ Phases, each of which fails the run with a nonzero exit:
   2. build the CUDA kernels from src/repro_torch/csrc (one nvcc per source,
      all at once, linked into one library);
   3. each kernel against its plain PyTorch version on the card, at the
-     serving paths' shapes (Qwen2.5-14B widths), with its time, the plain
+     serving paths' shapes (Qwen2.5-14B widths) and the training path's
+     (ViT-Base: int8 wire on activations and broadcast gradients, EL2N,
+     non-causal prefill), with its time, the plain
      version's, one PyTorch library call's where one computes the same
      function, and the least time the card could take (bound);
   4. engine parity: the reduced Qwen2.5 family (with a GQA group of 5)
@@ -29,7 +31,21 @@ Phases, each of which fails the run with a nonzero exit:
      request finishes, the pool drains, every join copies its boundary
      page, metered wire bytes are within 0.1% of the exact count, and
      every kernel of the paged path was launched, then a profiled replay;
-  7. the `kernels` JSON line, then the device line last.
+  7. training parity: one SFPrompt round of the reduced ViT (3 layers,
+     d_model 64) on the card and on the CPU from the same seeded weights,
+     data and wire noise, with the fp32 wire and with the int8 wire —
+     metered bytes, kept_frac and kept sets equal, params and losses
+     within 1e-4 on both wires;
+  8. the training path at full width: ViT-Base (12 layers, d_model 768,
+     head 1 / body 10 / tail 1, prompt 16, 224x224 images, 213 tokens) on
+     cifar100-syn, 8 clients of 64 samples, K = 4, U = 2, gamma 0.5, int8
+     wire on both boundaries, two `SFPromptTrainer.round`s and
+     `evaluate` on 128 test samples; every metric finite, metered bytes
+     per boundary within 0.1% of `sfprompt_comm_breakdown` and params
+     bytes equal to it, and every kernel of the path was launched (launch
+     counts zeroed just before the run), then a profiled replay of one
+     round;
+  9. the `kernels` JSON line, then the device line last.
 
 Needs a CUDA device and the repository's src/ beside this file; without
 either it exits nonzero and prints no result.
@@ -51,8 +67,10 @@ OUT = ROOT / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
 ATTN_TOL = 2e-5
+EL2N_TOL = 1e-5               # |kernel - one-pass plain| <= tol (1 + |plain|)
 PARITY_TOL = 1e-4
 PAGED_WIRE_TOL = 1e-3
+TRAIN_WIRE_TOL = 1e-3
 
 # TPU kernels each CUDA kernel replaces (file:line of the def)
 REPLACES = {
@@ -62,6 +80,7 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/flash_attention/decode.py:124",
     "paged_decode_attention":
         "src/repro/kernels/flash_attention/decode.py:261",
+    "el2n": "src/repro/kernels/el2n/kernel.py:80",
 }
 SOURCES = {
     "quantize_int8": "src/repro_torch/csrc/quant.cu",
@@ -69,6 +88,7 @@ SOURCES = {
     "flash_attention_prefill": "src/repro_torch/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
     "paged_decode_attention": "src/repro_torch/csrc/paged_decode_attention.cu",
+    "el2n": "src/repro_torch/csrc/el2n.cu",
 }
 # the kernels each full-width path must launch
 PATHS = {
@@ -76,6 +96,8 @@ PATHS = {
               "decode_attention"),
     "paged": ("quantize_int8", "dequantize_int8", "flash_attention_prefill",
               "paged_decode_attention"),
+    "train": ("quantize_int8", "dequantize_int8", "flash_attention_prefill",
+              "el2n"),
 }
 
 
@@ -139,6 +161,40 @@ def check_quant(torch, gen, results):
                 fail(f"dequantize_int8 N={N} D={D} differs from plain")
     say(f"quant: kernel == plain at N in (1, 8, 132), D={D}, scalar and "
         f"random u")
+
+    # the training path's shapes (ViT-Base: 16 x 213 tokens of 768 in phase
+    # 2, 32 x 213 in evaluate) and the layouts autograd hands the backward
+    # crossing: broadcast gradients, straight to the kernel (row stride 0)
+    # and through the op's .contiguous() branch (column stride 0)
+    from repro_torch.kernels.quant.ops import quantize_int8
+    D = 768
+    for N in (16 * 213, 32 * 213):
+        dense = torch.randn((N, D), generator=gen, device="cuda") * 0.05
+        dense[0, :5] = 0.0
+        row = torch.randn((1, D), generator=gen, device="cuda").expand(N, D)
+        col = torch.randn((N, 1), generator=gen, device="cuda").expand(N, D)
+        full = torch.randn((), generator=gen, device="cuda").expand(N, D)
+        cases = (("dense", dense, quantize_fwd),
+                 ("strides (0, 1)", row, quantize_fwd),
+                 ("strides (0, 1), op", row, quantize_int8),
+                 ("strides (1, 0), op", col, quantize_int8),
+                 ("strides (0, 0), op", full, quantize_int8))
+        for u in (torch.full((), 0.5, device="cuda"),
+                  torch.rand((N, D), generator=gen, device="cuda")):
+            for name, x, fn in cases:
+                v, s = fn(x, u.expand(N, D))
+                rv, rs = ref.quantize(x, u)
+                if not (torch.equal(v, rv) and torch.equal(s, rs)):
+                    fail(f"quantize_int8 ({N}, {D}) {name} "
+                         f"u{tuple(u.shape)}: {int((v != rv).sum())} values, "
+                         f"{int((s != rs).sum())} scales differ from plain")
+                if not torch.equal(dequantize_fwd(v, s),
+                                   ref.dequantize(v, s)):
+                    fail(f"dequantize_int8 ({N}, {D}) {name} differs from "
+                         f"plain")
+    say(f"quant: kernel == plain at the training shapes N in (3408, 6816), "
+        f"D={D}, scalar and random u, dense and broadcast-gradient layouts "
+        f"(strides (0, 1), (1, 0), (0, 0))")
 
     # timing at the decode shape (8 slots x d_model, scalar u), the one the
     # main path launches most
@@ -221,7 +277,48 @@ def check_prefill(torch, F, gen, results):
     results["flash_attention_prefill"] = dict(
         max_abs_err=worst, ms=t_k, plain_ms=t_p, bound_ms=b[0],
         bound_by=b[1], library_ms=t_l,
-        shape=f"q ({B}, {S}, {Hq}, {Dh}), kv ({B}, {S}, {Hkv}, {Dh}), causal")
+        shape=f"q ({B}, {S}, {Hq}, {Dh}), kv ({B}, {S}, {Hkv}, {Dh}), causal",
+        vit_shape=check_prefill_vit(torch, F, gen))
+
+
+def check_prefill_vit(torch, F, gen):
+    """The training path's shape (ViT-Base scoring and evaluation passes):
+    non-causal, B 16, S 213 (196 patches + CLS + 16 prompt), 12 heads of
+    64. An extra shape of the prefill kernel, not a kernel record."""
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    B, S, H, Dh = 16, 213, 12, 64
+    scale = Dh ** -0.5
+
+    def inputs():
+        return tuple(torch.randn((B, S, H, Dh), generator=gen, device="cuda")
+                     for _ in range(3))
+
+    q, k, v = inputs()
+    got = flash_attention_fwd(q, k, v, causal=False, sliding_window=None,
+                              softcap=None, scale=scale, kv_len=S)
+    err = float((got - ref.attention(q, k, v, causal=False, scale=scale))
+                .abs().max())
+    if not (torch.isfinite(got).all() and err <= ATTN_TOL):
+        fail(f"prefill ViT shape: max|kernel - plain| = {err:.3g} > "
+             f"{ATTN_TOL}")
+    per = 4 * B * S * H * Dh * 4
+    sets = [inputs() for _ in range(n_copies(per))]
+    t_k = time_ms([lambda s=s: flash_attention_fwd(
+        *s, causal=False, sliding_window=None, softcap=None, scale=scale,
+        kv_len=S) for s in sets])
+    t_p = time_ms([lambda s=s: ref.attention(*s, causal=False, scale=scale)
+                   for s in sets])
+    lib = [tuple(t.transpose(1, 2).contiguous() for t in s) for s in sets]
+    t_l = time_ms([lambda s=s: F.scaled_dot_product_attention(
+        *s, scale=scale) for s in lib])
+    b = bound(per, B * H * S * S * 4 * Dh)
+    say(f"prefill ViT shape: q ({B}, {S}, {H}, {Dh}) non-causal: max abs err "
+        f"{err:.3g}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, SDPA "
+        f"{t_l:.4f} ms, bound {b[0]:.5f} ms ({b[1]})")
+    return dict(shape=f"q, k, v ({B}, {S}, {H}, {Dh}), non-causal",
+                max_abs_err=err, ms=t_k, plain_ms=t_p, library_ms=t_l,
+                bound_ms=b[0], bound_by=b[1])
 
 
 def decode_case(torch, gen, B, W, Hq, Hkv, Dh, lengths, wrap_slot=None):
@@ -403,6 +500,90 @@ def check_paged_decode(torch, F, gen, results):
         bound_by=b[1], library_ms=t_l, dense_kernel_same_data_ms=t_d,
         shape=f"q ({B}, 1, {Hq}, {Dh}), pool ({P}, {page}, {Hkv}, {Dh}), "
               f"tables ({B}, {nb}), {n_valid} valid entries")
+
+
+def el2n_case(torch, gen, N, V, aligned=True):
+    """Logits (N, V) read through a row stride of V + 3 (rows not 16-byte
+    aligned unless `aligned`), labels with the first row at column 0 and
+    the last at column V - 1."""
+    base = 3.0 * torch.randn((N, V + 3), generator=gen, device="cuda")
+    logits = base[:, :V] if aligned else base[:, 1:V + 1]
+    labels = torch.randint(0, V, (N,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    labels[0], labels[-1] = 0, V - 1
+    return logits, labels
+
+
+def _el2n_err(torch, got, want):
+    """max |got - want| and whether every element is within EL2N_TOL
+    (1 + |want|)."""
+    diff = (got - want).abs()
+    return float(diff.max()), bool((diff <= EL2N_TOL * (1 + want.abs()))
+                                   .all())
+
+
+def check_el2n(torch, F, gen, results):
+    from repro_torch.kernels.el2n import ref
+    from repro_torch.kernels.el2n.kernel import el2n_fwd
+    worst = 0.0
+    cases = [(16, 100, True), (7, 1, True), (5, 13, True), (3, 1031, False),
+             (64, 4099, False), (512, 152064, True)]
+    for N, V, aligned in cases:
+        logits, labels = el2n_case(torch, gen, N, V, aligned)
+        e, c = el2n_fwd(logits, labels)
+        we, wc = ref.fused_scores(logits, labels)
+        me, mc = ref.el2n_scores(logits, labels)
+        errs = [_el2n_err(torch, e, we), _el2n_err(torch, c, wc),
+                _el2n_err(torch, c, mc)]
+        # the materialized EL2N only where p_y is not near 1: there the
+        # one-pass identity cancels, up to about sqrt(1e-7)
+        py = torch.softmax(logits, -1).gather(1, labels.long()[:, None])[:, 0]
+        ok = py < 0.99
+        if ok.any():
+            errs.append(_el2n_err(torch, e[ok], me[ok]))
+        if not all(good for _, good in errs):
+            fail(f"el2n N={N} V={V} aligned={aligned}: max|kernel - plain| "
+                 f"{[round(x, 9) for x, _ in errs]} beyond {EL2N_TOL}")
+        worst = max(worst, *(x for x, _ in errs[:2]))
+        say(f"el2n: N={N} V={V} aligned={aligned}: max abs err "
+            f"{max(x for x, _ in errs[:2]):.3g} against the one-pass plain "
+            f"form, {int(ok.sum())} rows against the materialized form")
+    logits = torch.zeros((4, 50), device="cuda")
+    labels = torch.tensor([0, 7, 49, 20], dtype=torch.int32, device="cuda")
+    logits[torch.arange(4), labels.long()] = torch.tensor(
+        [30.0, 40.0, 25.0, 60.0], device="cuda")
+    e, c = el2n_fwd(logits, labels)
+    we, wc = ref.fused_scores(logits, labels)
+    if not ((e >= 0).all() and _el2n_err(torch, e, we)[1]
+            and _el2n_err(torch, c, wc)[1]):
+        fail(f"el2n near-certain rows: {e.tolist()} vs {we.tolist()}")
+
+    def timed(N, V):
+        per = N * V * 4
+        sets = [el2n_case(torch, gen, N, V) for _ in range(n_copies(per))]
+        longs = [(lg, lb.long()) for lg, lb in sets]
+        out = dict(
+            ms=time_ms([lambda s=s: el2n_fwd(*s) for s in sets]),
+            plain_ms=time_ms([lambda s=s: ref.el2n_scores(*s)
+                              for s in sets]),
+            one_pass_plain_ms=time_ms([lambda s=s: ref.fused_scores(*s)
+                                       for s in sets]),
+            cross_entropy_ms=time_ms([lambda s=s: F.cross_entropy(
+                *s, reduction="none") for s in longs]))
+        b = bound(per + N * 4 + 2 * N * 4, 5 * N * V)
+        out.update(bound_ms=b[0], bound_by=b[1],
+                   shape=f"logits ({N}, {V}) f32, labels ({N},)")
+        return out
+
+    path, lm = timed(16, 100), timed(512, 152064)
+    for name, r in (("path (16, 100)", path), ("LM vocab (512, 152064)", lm)):
+        say(f"el2n timing at {name}: kernel {r['ms']:.4f} ms, plain "
+            f"(materialized) {r['plain_ms']:.4f} ms, one-pass plain "
+            f"{r['one_pass_plain_ms']:.4f} ms, F.cross_entropy (CE only) "
+            f"{r['cross_entropy_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
+    results["el2n"] = dict(max_abs_err=worst, library_ms=None, lm_shape=lm,
+                           **path)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -646,7 +827,6 @@ def profile_replay(torch, engine, reqs):
     the engine's own step-level tracer: device busy share, device time by
     kernel, and host time in prefill vs decode spans. A separate run, so
     the measured run above carries no tracing cost."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.obs.trace import Tracer
     engine.reset_stats()
@@ -662,6 +842,16 @@ def profile_replay(torch, engine, reqs):
     for rec in engine.tracer.records():
         if rec.get("kind") == "span":
             spans[rec["name"]] = spans.get(rec["name"], 0) + rec["dur_ns"]
+    out = {"wall_s": wall, "tokens_out": stats["tokens_out"],
+           "host_span_s": {k: v * 1e-9 for k, v in spans.items()}}
+    out.update(device_summary(prof, wall))
+    return out
+
+
+def device_summary(prof, wall):
+    """Device busy share of `wall`, device time by kernel and by kind, from
+    a finished torch.profiler run."""
+    from torch.autograd import DeviceType
     # device work only: kernels and memcpy/memset. The profiler also lists
     # operator ranges (aten::mm, record_function annotations) on the device
     # timeline; they span the kernels they launch and would count them twice.
@@ -688,10 +878,8 @@ def profile_replay(torch, engine, reqs):
             reach = end
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     return {
-        "wall_s": wall, "tokens_out": stats["tokens_out"],
         "device_busy_share": busy_us * 1e-6 / wall,
         "device_kernel_s": sum(kernels.values()) * 1e-6,
-        "host_span_s": {k: v * 1e-9 for k, v in spans.items()},
         "device_kernels": len(kernels),
         "device_ms_by_kind": {k: us * 1e-3 for k, us in by_kind.items()},
         "top_device_ms": {name: us * 1e-3 for name, us in top},
@@ -700,7 +888,7 @@ def profile_replay(torch, engine, reqs):
 
 # device-side names of the port's own kernels (csrc/)
 PORT_KERNELS = ("decode_kernel", "paged_decode_kernel", "flash_fwd_kernel",
-                "quantize_kernel", "dequantize_kernel")
+                "quantize_kernel", "dequantize_kernel", "el2n_kernel")
 
 
 def _device_kind(name: str) -> str:
@@ -712,6 +900,237 @@ def _device_kind(name: str) -> str:
     if "memcpy" in name.lower() or "memset" in name.lower():
         return "memcpy/memset"
     return "other (elementwise, reductions, index)"
+
+
+# ---------------------------------------------------------------- phase 7
+def numpy_wire_noise(torch, device):
+    """Stochastic-rounding uniforms from numpy, seeded by (client, step,
+    boundary), so the card and the CPU round the int8 wire alike."""
+    import numpy as np
+
+    def noise(client, step, name, shape):
+        rng = np.random.default_rng(
+            [client, step, 0 if name == "head_body" else 1])
+        return tuple(torch.from_numpy(rng.random(shape, dtype=np.float32))
+                     .to(device) for _ in range(2))
+    return noise
+
+
+def training_parity(torch):
+    """One round of the reduced ViT on the card and on the CPU from the same
+    weights, data and wire noise, for the fp32 and the int8 wire."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ProtocolConfig, SFPromptTrainer,
+                                  SplitConfig, SplitModel)
+    from repro_torch.data import (DATASETS, iid_partition, select_clients,
+                                  stack_clients, synthetic_image_dataset)
+    from repro_torch.runtime import WireSpec
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config("vit-base").reduced(n_layers=3, d_model=64, d_ff=128)
+    split = SplitConfig(head_cycles=1, tail_cycles=1, prompt_len=4,
+                        prune_gamma=0.5, local_epochs=1)
+    pcfg = ProtocolConfig(clients_per_round=2, local_epochs=1, batch_size=8,
+                          lr_local=0.05, lr_split=0.05)
+    d = synthetic_image_dataset(DATASETS["cifar10-syn"], 8 * 24 + 64, seed=0,
+                                image_hw=32)
+    train = {k: v[:8 * 24] for k, v in d.items()}
+    test = {k: v[8 * 24:] for k, v in d.items()}
+    cohort = stack_clients(iid_partition(train, 8, seed=0),
+                           select_clients(8, 2, seed=0, round_idx=0))
+    report = {}
+    for wire in ("fp32", "int8"):
+        model = SplitModel(cfg, split, WireSpec.make(wire))
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            tr = SFPromptTrainer(model, pcfg, device=dev)
+            state, m = tr.round(
+                {"params": tree_map(lambda x: x.to(dev), params),
+                 "round": 0}, cohort, wire_noise=numpy_wire_noise(torch, dev))
+            ev = tr.evaluate(state["params"], test, batch_size=16)
+            runs[dev] = (state["params"], m, tr.last_scores.cpu(),
+                         tr.last_kept.cpu(), ev)
+        (pc, mc, sc, kc, evc), (pg, mg, sg, kg, evg) = runs["cpu"], \
+            runs["cuda"]
+        for key in mc:
+            if (key.startswith(("wire/", "cohort/")) or key == "kept_frac") \
+                    and mg[key] != mc[key]:
+                fail(f"training parity ({wire} wire): {key} {mg[key]} on the "
+                     f"card vs {mc[key]} on the CPU")
+        # this seed has no near-tie at the cut: any difference in the kept
+        # sets is a fault (were a new seed to put a score within the
+        # tolerance of the cut, the seed would change, not the check)
+        for k in range(kc.shape[0]):
+            cut = float(sc[k, kc[k, -1]])
+            differ = set(kc[k].tolist()) ^ set(kg[k].tolist())
+            if differ:
+                fail(f"training parity ({wire} wire): client {k} kept "
+                     f"samples {sorted(differ)} on one device only, scores "
+                     f"{[float(sc[k, i]) for i in sorted(differ)]} vs cut "
+                     f"{cut}")
+        param_diff = max(float((a.cpu() - b).abs().max())
+                         for a, b in zip(tree_leaves(pg), tree_leaves(pc)))
+        loss_diff = max(abs(mg[k] - mc[k])
+                        for k in ("local_loss", "split_loss", "el2n_mean"))
+        score_diff = float((sg - sc).abs().max())
+        # both wires: the int8 run gets the same noise on both devices
+        if max(param_diff, loss_diff) > PARITY_TOL:
+            fail(f"training parity ({wire} wire): params differ by "
+                 f"{param_diff:.3g}, losses by {loss_diff:.3g} > {PARITY_TOL}")
+        report[wire] = dict(param_max_diff=param_diff,
+                            loss_max_diff=loss_diff,
+                            score_max_diff=score_diff,
+                            eval_ce_diff=abs(evg["ce"] - evc["ce"]),
+                            wire_bytes={k: mc[k] for k in mc
+                                        if k.startswith("wire/")})
+        say(f"training parity ({cfg.name}, K=2, {wire} wire, "
+            f"numpy-seeded noise): bytes, kept_frac and kept sets ==, "
+            f"max param diff {param_diff:.3g}, loss diff {loss_diff:.3g} "
+            f"(<= {PARITY_TOL}), score diff {score_diff:.3g}")
+    return report
+
+
+# ---------------------------------------------------------------- phase 8
+def full_width_train(torch):
+    """ViT-Base at full width and depth through two SFPrompt rounds with the
+    int8 wire on both boundaries, then `evaluate`."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ProtocolConfig, SFPromptTrainer,
+                                  SplitConfig, SplitModel)
+    from repro_torch.core.comm import (measured_cost_inputs,
+                                       sfprompt_comm_breakdown)
+    from repro_torch.data import (DATASETS, iid_partition, select_clients,
+                                  stack_clients, synthetic_image_dataset)
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.runtime import WireSpec
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("vit-base")
+    image_hw = 224
+    split = SplitConfig(head_cycles=1, tail_cycles=1, prompt_len=16,
+                        prune_gamma=0.5, local_epochs=2)
+    model = SplitModel(cfg, split, WireSpec.make("int8"))
+    n_clients, n_local, K, n_test, bs = 8, 64, 4, 128, 16
+    pcfg = ProtocolConfig(clients_per_round=K, local_epochs=2,
+                          split_epochs=1, batch_size=bs, lr_local=0.03,
+                          lr_split=0.03, optimizer="sgd", momentum=0.9)
+    t0 = time.perf_counter()
+    # train and test are slices of ONE draw: class anchors depend on n
+    d = synthetic_image_dataset(DATASETS["cifar100-syn"],
+                                n_clients * n_local + n_test, seed=0,
+                                image_hw=image_hw)
+    train = {k: v[:n_clients * n_local] for k, v in d.items()}
+    test = {k: v[n_clients * n_local:] for k, v in d.items()}
+    clients = iid_partition(train, n_clients, seed=0)
+    cohorts = [stack_clients(clients, select_clients(n_clients, K, seed=0,
+                                                     round_idx=r))
+               for r in range(3)]
+    state0 = SFPromptTrainer(model, pcfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(state0["params"]))
+
+    # warm-up round on a throwaway trainer (cuBLAS handles, allocator)
+    t0 = time.perf_counter()
+    SFPromptTrainer(model, pcfg, device="cuda").round(state0, cohorts[2])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    trainer = SFPromptTrainer(model, pcfg, device="cuda",
+                              tracer=Tracer("step"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    state, rounds = state0, []
+    for r in range(2):
+        t0 = time.perf_counter()
+        state, m = trainer.round(state, cohorts[r])
+        torch.cuda.synchronize()
+        rounds.append({"wall_s": time.perf_counter() - t0, "metrics": m})
+    t0 = time.perf_counter()
+    ev = trainer.evaluate(state["params"], test, batch_size=32)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    phases, i = {}, 0
+    for rec in trainer.tracer.records():
+        if rec.get("kind") != "span":
+            continue
+        if rec["name"] == "round":
+            rounds[i]["phase_s"] = phases
+            phases, i = {}, i + 1
+        else:
+            phases[rec["name"]] = rec["dur_ns"] * 1e-9
+    bad = [k for r in rounds for k, v in r["metrics"].items()
+           if not np.isfinite(v)] + [k for k, v in ev.items()
+                                     if not np.isfinite(v)]
+    if bad:
+        fail(f"train full width: non-finite metrics {bad}")
+    analytical = sfprompt_comm_breakdown(measured_cost_inputs(
+        model, tokens_per_sample=(image_hw // 16) ** 2 + 1, n_local=n_local,
+        batch_size=bs,
+        K=K, U=pcfg.local_epochs, E=pcfg.split_epochs))
+    wire_err = {}
+    for r in rounds:
+        for name, want in analytical.items():
+            got = r["metrics"][f"wire/{name}_bytes"]
+            wire_err[name] = max(wire_err.get(name, 0.0),
+                                 abs(got - want) / want)
+            ok = (got == round(want) if name == "params"
+                  else abs(got - want) <= TRAIN_WIRE_TOL * want)
+            if not ok:
+                fail(f"train full width: {name} measured {got} B vs "
+                     f"analytical {want} B")
+    missing = [k for k in PATHS["train"] if launches[k] <= 0]
+    if missing:
+        fail(f"train full width: kernels of the path never launched: "
+             f"{missing}")
+    samples = K * n_local
+    summary = {
+        "config": f"{cfg.name}: {cfg.n_layers} layers (1 head / "
+                  f"{cfg.n_layers - 2} body / 1 tail), d_model {cfg.d_model}, "
+                  f"prompt 16, {image_hw}x{image_hw} "
+                  f"({(image_hw // 16) ** 2 + 17} tokens), cifar100-syn, "
+                  f"{n_clients} clients x {n_local}, "
+                  f"K {K}, U 2, E 1, batch {bs}, gamma 0.5 (keep 32), SGD lr "
+                  f"0.03 momentum 0.9, int8 wire, fp32",
+        "params": n_params, "setup_s": setup_s, "warmup_round_s": warm_s,
+        "rounds": rounds, "eval": ev, "eval_s": eval_s,
+        "samples_per_s": [samples / r["wall_s"] for r in rounds],
+        "max_memory_allocated_gb": peak_gb, "analytical_bytes": analytical,
+        "wire_rel_err": wire_err, "launches": launches}
+    say("train full width: " + json.dumps(summary, sort_keys=True))
+    summary["profile"] = profile_round(torch, model, pcfg, state, cohorts[2])
+    say("train profile: " + json.dumps(summary["profile"], sort_keys=True))
+    return launches, summary
+
+
+def profile_round(torch, model, pcfg, state, cohort):
+    """One more round under torch.profiler, with the phase spans of a
+    step-level tracer: device busy share, device time by kernel, host time
+    by phase. A separate run, so the measured rounds carry no profiler
+    cost."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import SFPromptTrainer
+    from repro_torch.obs.trace import Tracer
+    trainer = SFPromptTrainer(model, pcfg, device="cuda",
+                              tracer=Tracer("step"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.round(state, cohort)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = {"wall_s": wall, "phase_s": {
+        rec["name"]: rec["dur_ns"] * 1e-9 for rec in trainer.tracer.records()
+        if rec.get("kind") == "span"}}
+    out.update(device_summary(prof, wall))
+    return out
 
 
 # -------------------------------------------------------------------- main
@@ -758,6 +1177,7 @@ def main() -> None:
     check_prefill(torch, F, gen, results)
     check_decode(torch, F, gen, results)
     check_paged_decode(torch, F, gen, results)
+    check_el2n(torch, F, gen, results)
 
     # 4. engine parity card vs CPU, dense and paged
     engine_parity(torch)
@@ -767,8 +1187,16 @@ def main() -> None:
     by_path, summaries = {}, {}
     by_path["dense"], summaries["dense"] = full_width(torch, fw)
     by_path["paged"], summaries["paged"] = full_width_paged(torch, fw)
+    del fw
+    torch.cuda.empty_cache()
 
-    # 7. kernels line, device line
+    # 7. training parity card vs CPU
+    summaries["train_parity"] = training_parity(torch)
+
+    # 8. the training path at full width
+    by_path["train"], summaries["train"] = full_width_train(torch)
+
+    # 9. kernels line, device line
     kernels = []
     for name in REPLACES:
         per_path = {path: counts[name] for path, counts in by_path.items()

@@ -8,6 +8,7 @@ to "cuda"; asking for CUDA where there is none raises. A kernel op runs its
 plain PyTorch version on CPU tensors and its hand-written CUDA kernel
 (`csrc/`, built at first use) on CUDA tensors.
 
-Ported so far: dense split serving (`serve.ServeEngine`,
-`python -m repro_torch.launch.serve`).
+Ported so far: dense and paged split serving (`serve.ServeEngine`,
+`serve.PagedServeEngine`, `python -m repro_torch.launch.serve`) and the
+SFPrompt training round (`core.SFPromptTrainer`).
 """

@@ -1,3 +1,6 @@
-"""SFPrompt core, ported: the three-way split model and the serving cost
-model (`serve_comm_breakdown`)."""
+"""SFPrompt core, ported: the three-way split model, the training round
+(losses, EL2N pruning, local-loss update, FedAvg, the three-phase
+protocol) and the communication cost model."""
+from repro_torch.core.protocol import (ProtocolConfig,  # noqa: F401
+                                       SFPromptTrainer)
 from repro_torch.core.split import SplitConfig, SplitModel  # noqa: F401

@@ -1,11 +1,108 @@
-"""Analytical serving wire bytes — `repro/core/comm.py::serve_comm_breakdown`.
+"""Analytical cost model — SFPrompt Table 1 (Sec. 3.5), the port of the
+communication half of `repro/core/comm.py`.
 
-Only this function of the cost model is ported so far: the serving slice
-cross-checks its metered bytes against it.
+Symbols (paper's):
+  |W|   total parameters;  alpha = |W_h|/|W|;  tau = |W_b|/|W|
+  |D|   local samples per client;  gamma_keep = kept fraction after pruning
+  q     cut-layer size (floats per SAMPLE per direction)
+  p     prompt parameters;  U local epochs;  K selected clients
+
+Conventions, as in the JAX package:
+  * FL transmits the model twice per round per client: 2|W|K.
+  * SFL transmits smashed data + gradients for every sample of every local
+    epoch (4q|D|U), plus the client submodel twice: 2(1-tau)|W|K.
+  * SFPrompt transmits smashed traffic only for the pruned subset and only
+    for the split_epochs (E) phase-2 passes — local-loss epochs are free —
+    plus only (tail + prompt) twice: (4q*gamma_keep*|D|*E + 2((1-a-t)|W|+p))K.
+  * 2 cut points exist (head->body and body->tail), hence 4q per sample
+    per pass (2 activations forward + 2 gradients backward).
+
+`measured_cost_inputs` binds the model to what an actual round of a
+`SplitModel` runs (segment sizes from its init, the codec's real bytes per
+float), so `sfprompt_comm_breakdown` is the exact counterpart of the
+trainer's TrafficMeter. `serve_comm_breakdown` is the serving slice's.
+The compute and latency models and the secure and edge breakdowns wait for
+slices D and E.
 """
 from __future__ import annotations
 
-from typing import Dict
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+from repro_torch.core.split import SplitConfig, SplitModel
+from repro_torch.models.config import ModelConfig
+
+
+@dataclass
+class CostInputs:
+    W: float                  # total params
+    alpha: float              # head fraction
+    tau: float                # body fraction
+    q: float                  # cut width: floats per sample per direction
+    D: int                    # local samples per client
+    U: int = 10               # local epochs
+    E: int = 1                # split-training passes (SFPrompt phase 2)
+    K: int = 5                # clients per round
+    p: float = 0.0            # prompt params
+    gamma_keep: float = 1.0   # kept fraction after pruning
+    R: float = 100e6          # link bytes/s
+    P_C: float = 1e12         # client FLOP/s
+    P_S: float = 100e12       # server FLOP/s
+    beta: float = 1.0 / 3.0   # forward fraction of one training step
+    bytes_smashed: float = 4  # bytes/float for cut-layer traffic (1 = int8)
+    bytes_param: float = 4
+
+    @property
+    def Wc(self) -> float:     # client submodel (head + tail)
+        return (1 - self.tau) * self.W
+
+    @property
+    def Wt(self) -> float:     # tail only
+        return (1 - self.alpha - self.tau) * self.W
+
+
+# --------------------------------------------------------- communication
+def fl_comm(c: CostInputs) -> float:
+    """Bytes per global round."""
+    return 2 * c.W * c.K * c.bytes_param
+
+
+def sfl_comm(c: CostInputs) -> float:
+    smashed = 4 * c.q * c.D * c.U          # per client, all epochs interact
+    return (smashed * c.bytes_smashed + 2 * c.Wc * c.bytes_param) * c.K
+
+
+def sfprompt_comm(c: CostInputs) -> float:
+    smashed = 4 * c.q * c.gamma_keep * c.D * c.E
+    return (smashed * c.bytes_smashed
+            + 2 * (c.Wt + c.p) * c.bytes_param) * c.K
+
+
+def sfprompt_comm_breakdown(c: CostInputs) -> Dict[str, float]:
+    """sfprompt_comm split by physical link, keyed like the TrafficMeter:
+    each cut point carries q floats forward + q backward per sample per
+    phase-2 pass; (tail + prompt) travel up + down once per round."""
+    per_boundary = 2 * c.q * c.gamma_keep * c.D * c.E * c.bytes_smashed * c.K
+    return {"head_body": per_boundary, "body_tail": per_boundary,
+            "params": 2 * (c.Wt + c.p) * c.bytes_param * c.K}
+
+
+def sfprompt_comm_breakdown_partial(c: CostInputs, *, transmit_sum: float,
+                                    n_uploads: float,
+                                    k_down: Optional[float] = None,
+                                    ) -> Dict[str, float]:
+    """`sfprompt_comm_breakdown` corrected for a partially-participating
+    cohort: each boundary carries the per-client full traffic times the
+    sum of transmit fractions; (tail + prompt) go DOWN to all `k_down`
+    sampled clients but UP only from the `n_uploads` survivors. With
+    transmit_sum = n_uploads = k_down = K this is the synchronous
+    breakdown."""
+    per_boundary_client = 2 * c.q * c.gamma_keep * c.D * c.E * c.bytes_smashed
+    params_each = (c.Wt + c.p) * c.bytes_param
+    k_down = c.K if k_down is None else k_down
+    return {"head_body": per_boundary_client * transmit_sum,
+            "body_tail": per_boundary_client * transmit_sum,
+            "params": params_each * (k_down + n_uploads)}
 
 
 def serve_comm_breakdown(wire, *, d_model: int, soft_prompt_len: int,
@@ -32,3 +129,61 @@ def serve_comm_breakdown(wire, *, d_model: int, soft_prompt_len: int,
                 (1, 1, d_model))
         out[b.name] = float(total)
     return out
+
+
+def crosscheck(measured: Dict[str, float], c: CostInputs,
+               analytical: Optional[Dict[str, float]] = None,
+               ) -> Dict[str, Dict]:
+    """Measured TrafficMeter bytes vs the analytical model, per link.
+    Returns {link: {measured, analytical, err_pct}}. Pass `analytical`
+    explicitly (e.g. `sfprompt_comm_breakdown_partial`) to check a
+    partial-participation round; default is the synchronous breakdown."""
+    if analytical is None:
+        analytical = sfprompt_comm_breakdown(c)
+    out = {}
+    for name, ref in analytical.items():
+        if name not in measured:
+            continue
+        got = measured[name]
+        out[name] = {"measured": got, "analytical": ref,
+                     "err_pct": 100.0 * (got - ref) / max(ref, 1e-12)}
+    return out
+
+
+# --------------------------------------------------------- model binding
+def measured_cost_inputs(model: SplitModel, *, tokens_per_sample: int,
+                         n_local: int, batch_size: int, K: int,
+                         U: int = 1, E: int = 1) -> CostInputs:
+    """CostInputs matched to what an ACTUAL round of `model` runs:
+    segment sizes from the real init (counted on the `meta` device), the
+    protocol's pruning `keep` with its batch-multiple rounding, and
+    bytes_smashed from the wire codec's real payload."""
+    from repro_torch.core.pruning import pruned_keep_count
+    split, cfg = model.split, model.cfg
+    keep = pruned_keep_count(n_local, split.prune_gamma, batch_size)
+    h, b, t = (model._segment_params_count(s)
+               for s in ("head", "body", "tail"))
+    W = h + b + t
+    ci = CostInputs(W=W, alpha=h / W, tau=b / W,
+                    q=(tokens_per_sample + split.prompt_len) * cfg.d_model,
+                    D=n_local, U=U, E=E, K=K,
+                    p=split.prompt_len * cfg.d_model,
+                    gamma_keep=keep / n_local)
+    ci.bytes_smashed = model.wire.head_body.codec.bytes_per_float(
+        (batch_size, tokens_per_sample + split.prompt_len, cfg.d_model))
+    return ci
+
+
+def cost_inputs_from(cfg: ModelConfig, split: SplitConfig, *,
+                     tokens_per_sample: int, D: int, K: int = 5,
+                     U: int = 10, E: int = 1,
+                     model: Optional[SplitModel] = None,
+                     **kw) -> CostInputs:
+    """Derive (alpha, tau, q, p) from an actual split model instance."""
+    model = model or SplitModel(cfg, split)
+    alpha, tau = model.segment_fractions()
+    q = cfg.d_model * (tokens_per_sample + split.prompt_len)
+    return CostInputs(
+        W=cfg.param_count(), alpha=alpha, tau=tau, q=q, D=D, K=K, U=U, E=E,
+        p=split.prompt_len * cfg.d_model,
+        gamma_keep=1.0 - split.prune_gamma, **kw)

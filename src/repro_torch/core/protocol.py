@@ -1,0 +1,348 @@
+"""The SFPrompt three-phase protocol (Sec. 3, Fig. 3, Algorithms 1-2) — the
+port of `repro/core/protocol.py`.
+
+Per global round r:
+  Phase 1a — client self-update: U local-loss epochs on (W_t, p) with the
+             body skipped (zero server traffic);
+  Phase 1b — EL2N scoring of each client's data and pruning to the top
+             (1 - gamma) fraction;
+  Phase 2  — split training over the pruned subset: head (client, frozen)
+             -> body (server, frozen) -> tail (client, trainable), both cut
+             points crossing the metered wire; the prompt's gradient flows
+             back through the frozen body and both wire boundaries (with
+             int8, the backward gradients are quantized too);
+  Phase 3  — sample-count-weighted FedAvg of (W_t, p).
+
+A Python loop over the K cohort clients replaces the JAX package's cohort
+`vmap`; the frozen head and body are ONE shared copy (plain tensors that do
+not require grad), never K copies. Gradients come from
+`torch.autograd.grad` on the (tail, prompt) leaves alone.
+
+The differentiated passes (phases 1a and 2) run attention and the
+cross-entropy through their plain versions on every device, as the JAX
+round runs with `impl="ref"`; the forward-only passes (phase 1b scoring
+and `evaluate`) run under `torch.no_grad()` and launch the kernels on the
+card: prefill attention in every layer, the int8 wire, and EL2N. So on the
+card, scoring and evaluation are those of the JAX round with
+`ProtocolConfig(impl="auto")`, not of its default `impl="ref"`, which runs
+them plain on every backend (a deliberate difference, see `pruning.py`);
+on the CPU the port matches the default.
+
+Wire noise: with a stochastic codec (int8) every phase-2 crossing draws
+stochastic-rounding uniforms from a per-client `torch.Generator` seeded
+from WIRE_SEED, the round and the client, unless `round(wire_noise=...)`
+hands them in (tests feed the exact uniforms of the JAX key derivation).
+
+The mesh (slice H), DP-SGD (slice D) and the async `client_updates` (slice
+E) are not ported yet and raise.
+"""
+from __future__ import annotations
+
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import losses, pruning
+from repro_torch.core.aggregation import get_aggregator
+from repro_torch.core.local_update import (batches, local_epochs,
+                                           value_and_grad)
+from repro_torch.core.split import SplitModel, resolve_device
+from repro_torch.obs.trace import LEVEL_STEP, NOOP
+from repro_torch.optim import Optimizer, adamw, apply_updates, sgd
+from repro_torch.runtime.meter import TrafficMeter
+from repro_torch.tree import tree_leaves, tree_map
+
+Params = Dict[str, Any]
+# (client, step, boundary name, shape) -> (u_fwd, u_bwd)
+WireNoise = Callable[[int, int, str, Tuple[int, ...]],
+                     Tuple[torch.Tensor, torch.Tensor]]
+
+WIRE_SEED = 23   # base seed of the stochastic wire-rounding streams
+
+
+@dataclass(frozen=True)
+class ProtocolConfig:
+    clients_per_round: int = 5       # K
+    local_epochs: int = 10           # U (phase 1)
+    split_epochs: int = 1            # passes over pruned data (phase 2)
+    batch_size: int = 16
+    lr_local: float = 1e-2
+    lr_split: float = 1e-2
+    optimizer: str = "sgd"           # sgd | adamw
+    momentum: float = 0.9
+    use_pruning: bool = True
+    use_local_loss: bool = True      # False => the Fig-6 ablation arm
+    dp_clip: float = 0.0             # DP-SGD: not ported yet (slice D)
+    dp_noise_multiplier: float = 0.0
+
+
+def make_optimizer(pcfg: ProtocolConfig, lr: float) -> Optimizer:
+    if pcfg.optimizer == "adamw":
+        return adamw(lr)
+    return sgd(lr, momentum=pcfg.momentum)
+
+
+def wire_seed(round_idx: int, client: int) -> int:
+    """Seed of client `client`'s wire-noise generator in round
+    `round_idx`."""
+    return (WIRE_SEED * 1_000_003 + round_idx) * 1_000_003 + client
+
+
+class SFPromptTrainer:
+    supports_partial = True   # round() accepts a participation dict
+
+    def __init__(self, model: SplitModel, pcfg: ProtocolConfig,
+                 aggregator=None, *, mesh=None, tracer=None, device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "the mesh-sharded cohort is not ported yet (slice H)")
+        if pcfg.dp_clip > 0 or pcfg.dp_noise_multiplier > 0:
+            raise NotImplementedError(
+                "DP-SGD on the client update is not ported yet (slice D)")
+        self.model = model
+        self.pcfg = pcfg
+        self.device = resolve_device(device)
+        # flight recorder: the default NOOP records nothing. A tracer at
+        # level "step" also records one span per phase, closed after a
+        # device sync so it covers the phase's device work
+        self.tracer = tracer if tracer is not None else NOOP
+        self.opt_local = make_optimizer(pcfg, pcfg.lr_local)
+        self.opt_split = make_optimizer(pcfg, pcfg.lr_split)
+        self.aggregator = aggregator or get_aggregator()
+        self.meter = TrafficMeter()   # measured bytes across rounds
+        self.meter.attach_tracer(self.tracer)
+        # the last round's phase-1b EL2N scores (K, n_local) and the kept
+        # sample indices (K, keep), in rank order
+        self.last_scores = self.last_kept = None
+
+    # ------------------------------------------------------------- state
+    def init(self, generator: torch.Generator) -> Params:
+        return {"params": self.model.init(generator, device=self.device),
+                "round": 0}
+
+    def phase2_keep(self, n_local: int) -> int:
+        """Samples per client that train phase 2 — `n_local` shrunk by EL2N
+        pruning when it is active."""
+        if self.pcfg.use_pruning and self.model.split.prune_gamma > 0:
+            return pruning.pruned_keep_count(
+                n_local, self.model.split.prune_gamma, self.pcfg.batch_size)
+        return n_local
+
+    @contextmanager
+    def _phase(self, name: str):
+        with self.tracer.span(name, level=LEVEL_STEP) as sp:
+            yield sp
+            if self.tracer.level >= LEVEL_STEP and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+    def _generator_noise(self, round_idx: int) -> WireNoise:
+        """The default wire noise: each client's uniforms drawn in order
+        from its own generator (forward, then backward, per crossing)."""
+        gens = {}
+
+        def noise(client, step, name, shape):
+            if client not in gens:
+                gens[client] = torch.Generator(device=self.device)
+                gens[client].manual_seed(wire_seed(round_idx, client))
+            g = gens[client]
+            return (torch.rand(shape, generator=g, device=self.device),
+                    torch.rand(shape, generator=g, device=self.device))
+        return noise
+
+    # ------------------------------------------------------------- phase 2
+    def _split_loss(self, frozen, trainable, batch, noise):
+        """Phase-2 loss with the head->body and body->tail hops crossing the
+        real wire: codec'd forward activations, codec'd backward gradients
+        (the codec's autograd roundtrip), measured bytes in the aux.
+        `noise(name, shape)` gives a stochastic codec's uniforms."""
+        model = self.model
+        ho = model.head_fwd(frozen["head"], trainable["prompt"], batch,
+                            mode="train", differentiable=True)
+        hb, bt = model.wire.head_body, model.wire.body_tail
+        x = ho["smashed"]
+        x_hb, b_hb = hb.transmit(x, train=True, noise=(
+            noise(hb.name, tuple(x.shape)) if hb.codec.stochastic else None))
+        bo = model.body_fwd(frozen["body"], x_hb, ho)
+        x = bo["smashed"]
+        x_bt, b_bt = bt.transmit(x, train=True, noise=(
+            noise(bt.name, tuple(x.shape)) if bt.codec.stochastic else None))
+        to = model.tail_fwd(trainable["tail"], x_bt, ho, batch)
+        out = {"logits": to["logits"], "n_prefix": to.get("n_prefix", 0),
+               "aux": ho["aux"] + bo["aux"] + to["aux"]}
+        loss, _ = losses.task_loss(model.cfg, out, batch)
+        return loss, {"wire": {hb.name: b_hb, bt.name: b_bt}}
+
+    def _split_epochs(self, frozen, trainable, opt_state, data, noise,
+                      client: int):
+        """split_epochs passes over one client's pruned data. Returns
+        (trainable, opt_state, mean loss, {boundary: f32 bytes})."""
+        pcfg = self.pcfg
+        bs = batches(data, pcfg.batch_size)
+        wire = {b.name: np.float32(0.0) for b in self.model.wire.boundaries}
+        acc = torch.zeros((), dtype=torch.float32, device=self.device)
+        step = 0
+        for _ in range(pcfg.split_epochs):
+            for batch in bs:
+                loss, aux, grads = value_and_grad(
+                    lambda tr, b, s=step: self._split_loss(
+                        frozen, tr, b,
+                        lambda name, shape: noise(client, s, name, shape)),
+                    trainable, batch)
+                updates, opt_state = self.opt_split.update(grads, opt_state,
+                                                           trainable)
+                trainable = apply_updates(trainable, updates)
+                wire = {k: np.float32(wire[k] + aux["wire"][k]) for k in wire}
+                acc = acc + loss
+                step += 1
+        return (trainable, opt_state, acc / (pcfg.split_epochs * len(bs)),
+                wire)
+
+    # ------------------------------------------------------------- round
+    def _round(self, state: Params, client_data, participation, init_tails,
+               wire_noise: Optional[WireNoise]):
+        model, pcfg, dev = self.model, self.pcfg, self.device
+        params = state["params"]
+        client_data = tree_map(lambda x: torch.as_tensor(x, device=dev),
+                               client_data)
+        K, n_local = tree_leaves(client_data)[0].shape[:2]
+        data = [tree_map(lambda x: x[k], client_data) for k in range(K)]
+        trainable = [{"tail": params["tail"], "prompt": params["prompt"]}
+                     for _ in range(K)]
+        if init_tails is not None:
+            tails = tree_map(lambda x: torch.as_tensor(x, device=dev),
+                             init_tails)
+            for k in range(K):
+                trainable[k]["tail"] = tree_map(lambda x: x[k], tails)
+        head = params["head"]
+        frozen = {"head": head, "body": params["body"]}
+        metrics: Dict[str, Any] = {}
+
+        # ---- Phase 1a: local-loss self-update, client by client
+        if pcfg.use_local_loss and pcfg.local_epochs > 0:
+            with self._phase("phase1a"):
+                local = []
+                for k in range(K):
+                    trainable[k], _, loss = local_epochs(
+                        model, head, trainable[k], self.opt_local,
+                        self.opt_local.init(trainable[k]), data[k],
+                        batch_size=pcfg.batch_size,
+                        n_epochs=pcfg.local_epochs)
+                    local.append(loss)
+                metrics["local_loss"] = torch.stack(local).mean()
+
+        # ---- Phase 1b: EL2N scoring and pruning
+        keep = self.phase2_keep(n_local)
+        if pcfg.use_pruning and model.split.prune_gamma > 0:
+            with self._phase("phase1b"):
+                scores = torch.stack([pruning.score_client_data(
+                    model, head, trainable[k]["tail"], trainable[k]["prompt"],
+                    data[k], batch_size=pcfg.batch_size) for k in range(K)])
+                order = pruning.rank_descending(scores, dim=1)[:, :keep]
+                self.last_scores, self.last_kept = scores, order
+                pruned = [tree_map(lambda x: x[order[k]], data[k])
+                          for k in range(K)]
+                metrics["el2n_mean"] = scores.mean()
+                metrics["kept_frac"] = keep / n_local
+        else:
+            pruned = data
+
+        # ---- Phase 2: split training, client by client over the one
+        # shared frozen {head, body}
+        noise = wire_noise or self._generator_noise(int(state["round"]))
+        with self._phase("phase2"):
+            split_loss, wire = [], []
+            for k in range(K):
+                trainable[k], _, loss, w = self._split_epochs(
+                    frozen, trainable[k], self.opt_split.init(trainable[k]),
+                    pruned[k], noise, k)
+                split_loss.append(loss)
+                wire.append(w)
+            metrics["split_loss"] = torch.stack(split_loss).mean()
+        transmit = np.asarray(participation["transmit"], np.float32)
+        for b in model.wire.boundaries:
+            # a straggler only sent a fraction of its phase-2 traffic
+            per_client = np.array([w[b.name] for w in wire], np.float32)
+            metrics[f"wire/{b.name}_bytes"] = (per_client * transmit).sum(
+                dtype=np.float32)
+
+        # ---- Phase 3: participation-corrected weighted FedAvg of
+        # (tail, prompt) through the pluggable aggregator
+        with self._phase("phase3"):
+            aggregate = np.asarray(participation["aggregate"], np.float32)
+            weights = torch.from_numpy(np.float32(keep) * aggregate).to(dev)
+            stacked = tree_map(lambda *xs: torch.stack(xs), *trainable)
+            fallback = {"tail": params["tail"], "prompt": params["prompt"]}
+            agg, agg_wire = self.aggregator.aggregate(
+                stacked, weights, fallback, state["round"])
+        if agg_wire:
+            raise NotImplementedError(
+                "metered aggregators (secure, hierarchical) are not ported "
+                "yet (slices D and E)")
+        new_params = dict(params, tail=agg["tail"], prompt=agg["prompt"])
+        n_up = int((aggregate > 0).sum())
+        param_bytes = np.float32(sum(x.numel() * x.element_size()
+                                     for x in tree_leaves(fallback)))
+        # (tail, prompt) travel server->client for all K at round start and
+        # client->server only for the survivors
+        metrics["wire/params_bytes"] = np.float32(K + n_up) * param_bytes
+        metrics["cohort/active"] = n_up
+        metrics["cohort/transmit_sum"] = transmit.sum(dtype=np.float32)
+        return ({"params": new_params, "round": int(state["round"]) + 1},
+                metrics)
+
+    def round(self, state: Params, client_data,
+              participation: Optional[Dict[str, Any]] = None,
+              init_tails=None, *,
+              wire_noise: Optional[WireNoise] = None
+              ) -> Tuple[Params, Dict]:
+        """Run one global round on a sampled cohort: `client_data` has
+        leading (K, n_local, ...) axes (numpy arrays or tensors).
+        `participation` = {"transmit": (K,), "aggregate": (K,)}; None means
+        every client is on time. `init_tails` (K-stacked) starts each
+        client from its own tail. `wire_noise(client, step, boundary,
+        shape) -> (u_fwd, u_bwd)` replaces the default per-client
+        generators' stochastic-rounding noise."""
+        K = tree_leaves(client_data)[0].shape[0]
+        if participation is None:
+            ones = np.ones((K,), np.float32)
+            participation = {"transmit": ones, "aggregate": ones}
+        tracer = self.tracer
+        with tracer.span("round") as sp:
+            with tracer.annotate("sfprompt.round"):
+                state, metrics = self._round(
+                    state, client_data, participation, init_tails,
+                    wire_noise)
+            metrics = {k: float(np.float32(v.item() if torch.is_tensor(v)
+                                           else v))
+                       for k, v in metrics.items()}
+            wire = {k.removeprefix("wire/").removesuffix("_bytes"): v
+                    for k, v in metrics.items() if k.startswith("wire/")}
+            self.meter.absorb(wire, clients=metrics.get("cohort/active"))
+            if tracer.enabled:
+                sp.set(round=self.meter.rounds, cohort=K,
+                       active=metrics.get("cohort/active"), **wire)
+        return state, metrics
+
+    def client_updates(self, state: Params, client_data, transmit=None):
+        raise NotImplementedError(
+            "async dispatch (client_updates) is not ported yet (slice E)")
+
+    # ------------------------------------------------------------- eval
+    @torch.no_grad()
+    def evaluate(self, params: Params, data, *, batch_size: int = 32) -> Dict:
+        """Mean CE and accuracy over the full batches of `data`, through the
+        split route (round-to-nearest wire)."""
+        data = tree_map(lambda x: torch.as_tensor(x, device=self.device),
+                        data)
+        ce, acc = [], []
+        for batch in batches(data, batch_size):
+            out = self.model.forward(params, batch, route="split",
+                                     mode="train")
+            _, m = losses.task_loss(self.model.cfg, out, batch)
+            ce.append(m["ce"])
+            acc.append(m["acc"])
+        return {"ce": float(torch.stack(ce).mean()),
+                "acc": float(torch.stack(acc).mean())}

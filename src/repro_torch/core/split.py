@@ -10,10 +10,16 @@ The head->body and body->tail cut points are real wire boundaries: a
 reporting the measured bytes in `out["wire_bytes"]`.
 
 This is the port of `repro/core/split.py` for token models with attention
-layers: the serving path's subset (caches, slots, page pools, segments,
-forward with chunked-prefill continuation). Params and caches are nested
-dicts of tensors keyed as the JAX pytrees; caches and page pools are
+layers — the serving path's subset (caches, slots, page pools, segments,
+forward with chunked-prefill continuation) — and for the ViT classifier the
+training round splits (patch embedding, CLS token and soft prompt,
+non-causal attention, logits from the CLS row). Params and caches are
+nested dicts of tensors keyed as the JAX pytrees; caches and page pools are
 written in place.
+
+`head_fwd(differentiable=True)` marks a pass that autograd goes through;
+its attention then runs the plain version on every device
+(`models/layers.py`), as the JAX training round runs with `impl="ref"`.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import init_block, init_stack, run_stack, \
     stack_cache
 from repro_torch.runtime.boundary import WireSpec
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
 
@@ -73,11 +79,26 @@ class SplitModel:
 
     def _check_ported(self):
         cfg = self.cfg
-        if cfg.arch_type == "vit" or cfg.encoder is not None \
+        if cfg.arch_type in ("audio", "vlm") or cfg.encoder is not None \
                 or cfg.n_dense_layers or cfg.mtp:
             raise NotImplementedError(
-                f"{cfg.name}: only token models without encoder, dense "
-                f"prefix or MTP head are ported yet")
+                f"{cfg.name}: only ViT and token models without encoder, "
+                f"dense prefix or MTP head are ported yet")
+
+    # -------------------------------------------------------------- sizes
+    def segment_fractions(self):
+        """(alpha, tau) parameter fractions of |W| in head and body — feeds
+        the Table-1 cost model."""
+        total = self.cfg.param_count()
+        h = self._segment_params_count("head")
+        b = self._segment_params_count("body")
+        return h / total, b / total
+
+    def _segment_params_count(self, seg: str) -> int:
+        """Parameters of one segment, counted on an init on the `meta`
+        device (shapes only, nothing allocated)."""
+        params = self.init(torch.Generator(), device="meta")
+        return sum(x.numel() for x in tree_leaves(params[seg]))
 
     # -------------------------------------------------------------- init
     def init(self, generator: torch.Generator, *, device="cuda") -> Params:
@@ -86,8 +107,17 @@ class SplitModel:
         self._check_ported()
         device = resolve_device(device)
         cfg, g = self.cfg, generator
-        head: Params = {"embed": {"tok": 0.02 * torch.randn(
-            (cfg.vocab_size, cfg.d_model), generator=g, device=device)}}
+        if cfg.arch_type == "vit":
+            head: Params = {"embed": {
+                "patch": L.dense_init(g, 16 * 16 * 3, cfg.d_model,
+                                      device=device),
+                "cls": 0.02 * torch.randn((1, cfg.d_model), generator=g,
+                                          device=device),
+                "pos": 0.02 * torch.randn((cfg.max_seq_len, cfg.d_model),
+                                          generator=g, device=device)}}
+        else:
+            head = {"embed": {"tok": 0.02 * torch.randn(
+                (cfg.vocab_size, cfg.d_model), generator=g, device=device)}}
         head["stack"] = self._init_cycles(g, self.split.head_cycles, device)
         body: Params = {"stack": self._init_cycles(g, self.body_cycles,
                                                    device)}
@@ -288,6 +318,20 @@ class SplitModel:
     # -------------------------------------------------------------- embed
     def _embed(self, head_p, batch, mode, prompt, dtype, chunk_start=None):
         emb = head_p["embed"]
+        if self.cfg.arch_type == "vit":
+            # [CLS | soft prompt | patches] plus the first T position rows
+            patches = batch["patches"]
+            B = patches.shape[0]
+            x = L.dense(emb["patch"], patches.to(dtype))
+            cls = emb["cls"][None].expand(B, 1, self.cfg.d_model)
+            x = torch.cat([cls.to(x.dtype), x], dim=1)
+            if prompt is not None:
+                pr = prompt[None].expand((B,) + tuple(prompt.shape))
+                x = torch.cat([x[:, :1], pr.to(x.dtype), x[:, 1:]], dim=1)
+            x = x + emb["pos"][: x.shape[1]].to(x.dtype)
+            pos = torch.arange(x.shape[1], dtype=torch.int32,
+                               device=x.device)[None].expand(B, x.shape[1])
+            return x, pos, pos, 0
         toks = batch["tokens"]
         B, S = toks.shape
         x = emb["tok"].to(dtype)[toks.long()]
@@ -320,26 +364,31 @@ class SplitModel:
         return x, aux, cache
 
     def head_fwd(self, head_p, prompt, batch, *, mode="train", cache=None,
-                 dtype=torch.float32, chunk_start=None) -> Dict[str, Any]:
+                 dtype=torch.float32, chunk_start=None,
+                 differentiable: bool = False) -> Dict[str, Any]:
         """Client-side: embed (+prompts) -> head layers. Output `smashed` is
         the cut-layer activation sent to the server. `chunk_start` (B,)
         marks a chunked-prefill continuation: the batch's tokens extend a
         partially-filled prefill cache starting at those positions
         (attention then runs write-then-attend over the full cache, like
-        decode, instead of chunk-local causal)."""
+        decode, instead of chunk-local causal). `differentiable` marks a
+        pass autograd goes through; body_fwd and tail_fwd inherit it."""
         x, positions, seq_pos, n_prefix = self._embed(
             head_p, batch, mode, prompt, dtype, chunk_start)
-        ctx = L.Ctx(mode=mode, positions=positions, seq_pos=seq_pos,
-                    causal=True, has_context=chunk_start is not None)
-        x, aux, new_cache = self._seg_fwd(head_p, x, ctx, cache)
-        return {"smashed": x, "positions": positions, "seq_pos": seq_pos,
-                "n_prefix": n_prefix, "aux": aux, "cache": new_cache,
-                "mode": mode, "has_context": chunk_start is not None}
+        ho = {"positions": positions, "seq_pos": seq_pos, "mode": mode,
+              "has_context": chunk_start is not None,
+              "differentiable": differentiable}
+        x, aux, new_cache = self._seg_fwd(head_p, x, self._ctx_from(ho),
+                                          cache)
+        return dict(ho, smashed=x, n_prefix=n_prefix, aux=aux,
+                    cache=new_cache)
 
     def _ctx_from(self, head_out) -> L.Ctx:
         return L.Ctx(mode=head_out["mode"], positions=head_out["positions"],
-                     seq_pos=head_out["seq_pos"], causal=True,
-                     has_context=head_out.get("has_context", False))
+                     seq_pos=head_out["seq_pos"],
+                     causal=self.cfg.arch_type != "vit",
+                     has_context=head_out.get("has_context", False),
+                     differentiable=head_out.get("differentiable", False))
 
     def body_fwd(self, body_p, smashed, head_out, *, cache=None):
         """Server-side: frozen body over the smashed activations."""
@@ -358,6 +407,9 @@ class SplitModel:
         hidden = L.apply_norm(tail_p["final_norm"], x, cfg.norm)
         out: Dict[str, Any] = {"aux": aux, "cache": new_cache,
                                "hidden": hidden}
+        if cfg.arch_type == "vit":
+            out["logits"] = L.dense(tail_p["head"], hidden[:, 0])
+            return out
         if last_only:
             hidden = hidden[:, -1:, :]
         logits = hidden @ tail_p["head"]["w"].to(hidden.dtype)

@@ -1,0 +1,148 @@
+// Fused EL2N score + cross-entropy per row, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel repro/kernels/el2n/kernel.py::el2n_fwd. For each
+// row of logits l (length V) and its label y it computes, in ONE streaming
+// pass over the row and without materializing probabilities:
+//
+//   m  = max l,   Z = sum exp(l - m),   S2 = sum exp(2 (l - m))
+//   z  = max(Z, 1e-30)
+//   EL2N = sqrt(max(S2 / z^2 - 2 exp(l_y - m) / z + 1, 0))   = ||p - onehot||
+//   CE   = m + log z - l_y
+//
+// finalized exactly as the TPU kernel does (kernel.py:68-77). What differs
+// from it is the structure, not the function: the TPU grid walks vocab
+// tiles in order and carries (m, Z, S2, l_y) in VMEM scratch; here one
+// block owns one row, its threads stride over the row with 16-byte loads
+// and keep a private (m, Z, S2), and the triples are merged by warp
+// shuffles and then through shared memory with the rescale
+//   Z = Za e^(ma - m) + Zb e^(mb - m),  S2 = S2a e^(2(ma - m)) + S2b e^(2(mb - m)).
+// l_y is read directly at the label's column instead of max-reducing a hit
+// mask over every tile. The logits are read through a row stride (an LM
+// logits view needs no copy) and V needs no padding: a row whose pointer is
+// not 16-byte aligned takes up to three scalar loads first, then float4
+// loads, then a scalar tail of up to three.
+//
+// Bound: one read of N*V*4 bytes and a few flops per element, so at LM
+// vocabularies it is bound by device memory; at the ViT classifier's
+// (16, 100) it is bound by the launch. With few rows it under-fills the 132
+// SMs (one block a row); splitting V across blocks is later work.
+//
+// IEEE expf/logf (no fast math). A label outside [0, V) gives NaN in both
+// outputs rather than reading outside the row.
+
+#include <cmath>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+struct Stats {
+  float m, z, s2;
+};
+
+// Fold b into a. An empty side has m = -inf and z = s2 = 0.
+__device__ __forceinline__ Stats merge(Stats a, Stats b) {
+  const float m = fmaxf(a.m, b.m);
+  if (m == -INFINITY) return a;
+  const float ea = expf(a.m - m), eb = expf(b.m - m);
+  return {m, a.z * ea + b.z * eb, a.s2 * (ea * ea) + b.s2 * (eb * eb)};
+}
+
+// Fold one group of values whose max is gm into the running stats.
+__device__ __forceinline__ void rescale_to(Stats& s, float gm) {
+  if (gm > s.m) {
+    const float a = expf(s.m - gm);   // 0 while s is empty (s.m = -inf)
+    s.z *= a;
+    s.s2 *= a * a;
+    s.m = gm;
+  }
+}
+
+__device__ __forceinline__ void add(Stats& s, float x) {
+  const float e = expf(x - s.m);
+  s.z += e;
+  s.s2 += e * e;
+}
+
+__device__ __forceinline__ Stats warp_merge(Stats s) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    Stats o{__shfl_xor_sync(0xffffffffu, s.m, off),
+            __shfl_xor_sync(0xffffffffu, s.z, off),
+            __shfl_xor_sync(0xffffffffu, s.s2, off)};
+    s = merge(s, o);
+  }
+  return s;
+}
+
+__global__ void __launch_bounds__(kThreads)
+el2n_kernel(const float* __restrict__ logits, long long row_stride,
+            const int* __restrict__ labels, int v, float* __restrict__ el2n,
+            float* __restrict__ ce) {
+  __shared__ Stats warp_stats[kWarps];
+  const long long row = blockIdx.x;
+  const float* p = logits + row * row_stride;
+  Stats s{-INFINITY, 0.f, 0.f};
+
+  // scalar head up to the first 16-byte boundary, float4 body, scalar tail
+  int head = (int)(((16u - ((uintptr_t)p & 15u)) & 15u) >> 2);
+  if (head > v) head = v;
+  const int n4 = (v - head) >> 2;
+  const int tail = head + 4 * n4;
+  for (int j = threadIdx.x; j < head; j += kThreads) {
+    const float x = p[j];
+    rescale_to(s, x);
+    add(s, x);
+  }
+  const float4* p4 = reinterpret_cast<const float4*>(p + head);
+#pragma unroll 4
+  for (int j = threadIdx.x; j < n4; j += kThreads) {
+    const float4 x = __ldg(p4 + j);
+    rescale_to(s, fmaxf(fmaxf(x.x, x.y), fmaxf(x.z, x.w)));
+    add(s, x.x);
+    add(s, x.y);
+    add(s, x.z);
+    add(s, x.w);
+  }
+  for (int j = tail + threadIdx.x; j < v; j += kThreads) {
+    const float x = p[j];
+    rescale_to(s, x);
+    add(s, x);
+  }
+
+  s = warp_merge(s);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) warp_stats[warp] = s;
+  __syncthreads();
+  if (warp != 0) return;
+  s = lane < kWarps ? warp_stats[lane] : Stats{-INFINITY, 0.f, 0.f};
+  s = warp_merge(s);
+  if (lane != 0) return;
+
+  const int y = labels[row];
+  if (y < 0 || y >= v) {
+    el2n[row] = NAN;
+    ce[row] = NAN;
+    return;
+  }
+  const float ly = p[y];
+  const float z = fmaxf(s.z, 1e-30f);
+  const float py = expf(ly - s.m) / z;
+  const float sq = fmaxf(s.s2 / (z * z) - 2.f * py + 1.f, 0.f);
+  el2n[row] = sqrtf(sq);
+  ce[row] = s.m + logf(z) - ly;
+}
+
+}  // namespace
+
+extern "C" int sfp_el2n_fwd(const float* logits, long long row_stride,
+                            const int* labels, float* el2n, float* ce, int n,
+                            int v, void* stream) {
+  if (n > 0)
+    el2n_kernel<<<n, kThreads, 0, (cudaStream_t)stream>>>(
+        logits, row_stride, labels, v, el2n, ce);
+  return (int)cudaGetLastError();
+}

@@ -12,6 +12,13 @@ Kernels (csrc/, built by `build.py` into one shared library at first use):
   flash_attention  — causal GQA prefill attention          (flash_attention.cu)
                      slot-cache decode attention           (decode_attention.cu)
                      paged decode attention      (paged_decode_attention.cu)
+  el2n             — fused EL2N score + cross-entropy      (el2n.cu)
+
+No kernel has a backward, and a launch wrapper passes raw pointers, so its
+output carries no `grad_fn`: every wrapper refuses (`refuse_grad`) an input
+that requires grad while grad mode is on, instead of silently cutting the
+gradient path. Differentiated passes run the plain versions
+(`models.layers.Ctx.differentiable`, `core.losses`).
 """
 from __future__ import annotations
 
@@ -30,8 +37,19 @@ def on_cuda(x: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {x.device}")
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when a kernel would be launched on an input that requires grad
+    while grad mode is on: its output would have no `grad_fn`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the kernel has no backward "
+            f"and its output would cut the gradient path; run the plain "
+            f"version in differentiated passes, or call under torch.no_grad()")
+
+
 def wrappers() -> Dict[str, Callable]:
-    """The launch wrappers on the serving path, by kernel name."""
+    """The launch wrappers of every ported kernel, by kernel name."""
+    from repro_torch.kernels.el2n.kernel import el2n_fwd
     from repro_torch.kernels.flash_attention.decode import (
         decode_attention_fwd, paged_decode_attention_fwd)
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
@@ -39,7 +57,8 @@ def wrappers() -> Dict[str, Callable]:
     return {"quantize_int8": quantize_fwd, "dequantize_int8": dequantize_fwd,
             "flash_attention_prefill": flash_attention_fwd,
             "decode_attention": decode_attention_fwd,
-            "paged_decode_attention": paged_decode_attention_fwd}
+            "paged_decode_attention": paged_decode_attention_fwd,
+            "el2n": el2n_fwd}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -62,6 +62,10 @@ SIGNATURES = {
         #                                       tables (b, n); q_pos (b);
         #                                       kv_pos (p, o); out (b, h)
         + [_I, _F, _F, _P]),                  # window, softcap, scale, stream
+    "sfp_el2n_fwd": (
+        [_P, _L, _P, _P, _P]                  # logits, row stride, labels,
+        #                                       el2n, ce
+        + [_I, _I, _P]),                      # N, V, stream
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -41,7 +41,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import on_cuda
+from repro_torch.kernels import on_cuda, refuse_grad
 from repro_torch.kernels.build import check, current_stream, library
 from repro_torch.kernels.flash_attention.kernel import D_MAX
 
@@ -57,6 +57,7 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, 1, Hq, Dh), k (B, W, Hkv, Dh), v (B, W, Hkv, Dv) f32 CUDA with
     unit stride on head_dim; q_positions (B,) and kv_positions (B, W)
     int32 on the same device. Returns (B, 1, Hq, Dv) f32."""
+    refuse_grad("decode_attention_fwd", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.dtype != torch.float32 or t.dim() != 4:
             raise ValueError(f"decode_attention_fwd: {name} must be a 4-D f32"
@@ -169,6 +170,7 @@ def paged_decode_attention_fwd(q: torch.Tensor, k_pool: torch.Tensor,
     The table's page ids must lie in [0, P): the engine allocates them from
     the pool, and checking here would need a device sync. Returns
     (B, 1, Hq, Dv) f32."""
+    refuse_grad("paged_decode_attention_fwd", q, k_pool, v_pool)
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
         if not t.is_cuda or t.dtype != torch.float32 or t.dim() != 4:
             raise ValueError(f"paged_decode_attention_fwd: {name} must be a "

@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.build import check, current_stream, library
 
 D_MAX = 128   # csrc/attention_common.cuh: kDMax
@@ -25,6 +26,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, Sq, Hq, Dh), k (B, Skv, Hkv, Dh), v (B, Skv, Hkv, Dv): f32 CUDA
     tensors with unit stride on the last axis; keys at or past `kv_len`
     are absent. Returns (B, Sq, Hq, Dv) f32."""
+    refuse_grad("flash_attention_fwd", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.dtype != torch.float32 or t.dim() != 4:
             raise ValueError(f"flash_attention_fwd: {name} must be a 4-D f32 "

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.build import check, current_stream, library
 
 
@@ -21,6 +22,7 @@ def quantize_fwd(x: torch.Tensor, u: torch.Tensor):
     """x (N, D) f32 CUDA with unit column stride; u f32 on the same device,
     (N, D) through any strides — a broadcast scalar has both strides 0.
     Returns (values (N, D) int8, scales (N, 1) f32)."""
+    refuse_grad("quantize_fwd", x, u)
     if not x.is_cuda or x.dtype != torch.float32 or x.dim() != 2:
         raise ValueError(f"quantize_fwd takes a 2-D f32 CUDA tensor, got "
                          f"{x.dtype} {tuple(x.shape)} on {x.device}")
@@ -48,6 +50,7 @@ quantize_fwd.launches = 0
 def dequantize_fwd(values: torch.Tensor, scales: torch.Tensor):
     """values (N, D) int8 contiguous CUDA, scales (N, 1) f32 contiguous
     -> (N, D) f32."""
+    refuse_grad("dequantize_fwd", values, scales)
     if not values.is_cuda or values.dtype != torch.int8 or values.dim() != 2:
         raise ValueError(f"dequantize_fwd takes 2-D int8 CUDA values, got "
                          f"{values.dtype} {tuple(values.shape)} on "

@@ -21,6 +21,9 @@ def quantize_int8(x: torch.Tensor, u):
     """
     if not on_cuda(x):
         return ref.quantize(x, u)
+    if x.stride(-1) != 1:
+        # e.g. a gradient that autograd hands over as a broadcast view
+        x = x.contiguous()
     u = torch.as_tensor(u, dtype=torch.float32, device=x.device)
     return quantize_fwd(x, u.expand(x.shape))
 

@@ -1,4 +1,5 @@
-"""Layer library, the subset the dense and paged serving paths run.
+"""Layer library, the subset the serving paths and the ViT training round
+run.
 
 Functional style, as in `repro/models/layers.py`: each block kind has
 ``init_<kind>(generator, cfg, device) -> params`` and
@@ -11,6 +12,13 @@ the prefill ring fill and the chunked-prefill write assign into the cache
 tensors they are given (views of the stacked per-layer cache or page pool)
 and return the same dict. The JAX package returns fresh arrays instead; the
 values written are the same.
+
+Attention in a differentiated pass (`Ctx.differentiable`, set by the
+training round's two losses) runs the plain `ref.attention` on every
+device, so autograd flows through PyTorch ops: no kernel has a backward,
+and the JAX round likewise runs every pass with `impl="ref"`. Forward-only
+passes (EL2N scoring, evaluation, serving) keep the device dispatch and
+launch the kernels on the card.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import ref as attention_ref
 from repro_torch.kernels.flash_attention.decode import (
     decode_attention, paged_decode_attention)
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -95,6 +104,8 @@ class Ctx:
     causal: bool = True
     has_context: bool = False                   # prefill continuation (paged
     #                                             engine's chunked prefill)
+    differentiable: bool = False                # a pass autograd goes through:
+    #                                             attention runs plain
 
     @property
     def decoding(self) -> bool:
@@ -173,6 +184,11 @@ def _paged_cache_write(cache: Params, names: Tuple[str, ...], values,
 
 def _gqa_attend(q, k, v, ctx: Ctx, att: AttentionConfig, *, window, softcap,
                 kv_positions=None, q_offset=None, causal=True, scale=None):
+    if ctx.differentiable:
+        return attention_ref.attention(
+            q, k, v, causal=causal, q_offset=q_offset,
+            kv_positions=kv_positions, sliding_window=window,
+            softcap=softcap, scale=scale)
     return flash_attention(
         q, k, v, causal=causal, q_offset=q_offset, kv_positions=kv_positions,
         sliding_window=window, softcap=softcap, scale=scale)

@@ -34,26 +34,33 @@ class Boundary:
     name: str
     codec: WireCodec
 
-    def _noise(self, generator: Optional[torch.Generator], shape, device):
-        if generator is None or not self.codec.stochastic:
+    def _noise(self, generator: Optional[torch.Generator], shape, device,
+               noise=None):
+        if not self.codec.stochastic or (generator is None and noise is None):
             # round-to-nearest: deterministic — the eval/serving mode. The
             # noise stays a 0-dim scalar all the way into the kernel.
             half = torch.full((), 0.5, dtype=torch.float32, device=device)
             return half, half
+        if noise is not None:
+            return noise
         return (torch.rand(shape, generator=generator, device=device),
                 torch.rand(shape, generator=generator, device=device))
 
-    def transmit(self, x: torch.Tensor, *, generator=None, train: bool = True,
+    def transmit(self, x: torch.Tensor, *, generator=None, noise=None,
+                 train: bool = True,
                  rows=None) -> Tuple[torch.Tensor, np.float32]:
         """Push `x` across this boundary. Returns (received tensor, wire
         bytes as an f32 scalar). `train=True` counts the backward gradient
         crossing too (same shape, same codec, opposite direction).
+        Stochastic rounding noise comes from `generator` (two uniform draws
+        of x's shape: forward, then backward) or is handed in as `noise` =
+        (u_fwd, u_bwd); with neither, the codec rounds to nearest.
 
         `rows` (optional): number of leading-axis rows that actually cross
         the wire. A continuous-batching decode step runs all cache slots but
         only transmits the occupied ones — bytes then count
         `rows * payload_nbytes(one row)` instead of the full tensor."""
-        u_fwd, u_bwd = self._noise(generator, x.shape, x.device)
+        u_fwd, u_bwd = self._noise(generator, x.shape, x.device, noise)
         y = self.codec.roundtrip(x, u_fwd, u_bwd)
         direction = 2 if train else 1
         if rows is None:

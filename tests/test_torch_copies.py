@@ -12,6 +12,7 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 import repro.configs as jconfigs  # noqa: E402
+import repro.data as jdata  # noqa: E402
 import repro.models.config as jmc  # noqa: E402
 from repro.obs import trace as jtrace  # noqa: E402
 from repro.runtime import codec as jcodec  # noqa: E402
@@ -19,6 +20,7 @@ from repro.runtime import meter as jmeter  # noqa: E402
 from repro.serve import paging as jpaging  # noqa: E402
 from repro.serve import workload as jworkload  # noqa: E402
 import repro_torch.configs as tconfigs  # noqa: E402
+import repro_torch.data as tdata  # noqa: E402
 import repro_torch.models.config as tmc  # noqa: E402
 from repro_torch.obs import trace as ttrace  # noqa: E402
 from repro_torch.runtime import codec as tcodec  # noqa: E402
@@ -66,6 +68,49 @@ def test_synthetic_requests_identical(seed):
             (rb.rid, rb.tenant, rb.max_new, rb.arrival)
         np.testing.assert_array_equal(ra.tokens, rb.tokens)
         assert ra.tokens.dtype == rb.tokens.dtype
+
+
+def _assert_trees_equal(a, b):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _assert_trees_equal(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _assert_trees_equal(x, y)
+    else:
+        assert np.asarray(a).dtype == np.asarray(b).dtype
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_data_copies_identical(seed):
+    """The copied `data/` gives the same arrays as the original for the
+    same seed: datasets, IID and Dirichlet partitions, client selection and
+    stacking."""
+    assert {k: dataclasses.asdict(v) for k, v in jdata.DATASETS.items()} \
+        == {k: dataclasses.asdict(v) for k, v in tdata.DATASETS.items()}
+    for name in sorted(jdata.DATASETS):
+        _assert_trees_equal(
+            jdata.synthetic_image_dataset(jdata.DATASETS[name], 40,
+                                          seed=seed, image_hw=32),
+            tdata.synthetic_image_dataset(tdata.DATASETS[name], 40,
+                                          seed=seed, image_hw=32))
+    _assert_trees_equal(jdata.synthetic_lm_dataset(12, 20, 300, seed=seed),
+                        tdata.synthetic_lm_dataset(12, 20, 300, seed=seed))
+    base = jdata.synthetic_image_dataset(jdata.DATASETS["cifar10-syn"], 90,
+                                         seed=seed, image_hw=32)
+    for part in ("iid_partition", "dirichlet_partition"):
+        a = getattr(jdata, part)(base, 6, seed=seed)
+        b = getattr(tdata, part)(base, 6, seed=seed)
+        _assert_trees_equal(a, b)
+        for r in range(3):
+            ia = jdata.select_clients(6, 3, seed=seed, round_idx=r)
+            ib = tdata.select_clients(6, 3, seed=seed, round_idx=r)
+            np.testing.assert_array_equal(ia, ib)
+            _assert_trees_equal(jdata.stack_clients(a, ia),
+                                tdata.stack_clients(b, ib))
 
 
 def _drive_pool(mod, seed, n_ops=400):
@@ -181,7 +226,12 @@ def test_port_imports_no_jax_and_no_repro():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     names = {p.name for p in files}
-    assert {"paging.py", "paged_engine.py"} <= names
+    assert {"paging.py", "paged_engine.py", "protocol.py", "losses.py",
+            "pruning.py", "local_update.py", "aggregation.py",
+            "secure_agg.py", "optimizers.py", "schedules.py",
+            "synthetic.py", "federated.py"} <= names
+    assert (ROOT / "src" / "repro_torch" / "kernels" / "el2n"
+            / "kernel.py") in files
     offenders = {str(p.relative_to(ROOT)): _FORBIDDEN.findall(p.read_text())
                  for p in files}
     assert {k: v for k, v in offenders.items() if v} == {}

@@ -39,6 +39,28 @@ def test_quant_kernels_bit_equal(gen, shape):
         assert torch.equal(dequantize_int8(v, s), ref.dequantize(v, s))
 
 
+@pytest.mark.parametrize("layout", ["row", "col", "scalar", "transposed"])
+def test_quant_kernels_bit_equal_on_gradient_layouts(gen, layout):
+    """The layouts autograd hands the wire's backward crossing: broadcast
+    views with a zero stride and a transposed gradient."""
+    from repro_torch.kernels.quant import ref
+    from repro_torch.kernels.quant.ops import dequantize_int8, quantize_int8
+    N, D = 213, 768
+    x = {"row": lambda: torch.randn((1, D), generator=gen, device="cuda")
+         .expand(N, D),
+         "col": lambda: torch.randn((N, 1), generator=gen, device="cuda")
+         .expand(N, D),
+         "scalar": lambda: torch.randn((), generator=gen, device="cuda")
+         .expand(N, D),
+         "transposed": lambda: torch.randn((D, N), generator=gen,
+                                           device="cuda").t()}[layout]()
+    for u in (0.5, torch.rand((N, D), generator=gen, device="cuda")):
+        v, s = quantize_int8(x, u)
+        rv, rs = ref.quantize(x.contiguous(), u)
+        assert torch.equal(v, rv) and torch.equal(s, rs)
+        assert torch.equal(dequantize_int8(v, s), ref.dequantize(v, s))
+
+
 @pytest.mark.parametrize("case", [
     # (B, Sq, Hq, Hkv, Dh, causal, window, softcap, kv_len)
     (2, 5, 4, 4, 32, True, None, None, None),
@@ -247,3 +269,131 @@ def test_paged_engine_on_card_matches_cpu(gen):
         np.testing.assert_allclose(out["cuda"][0][rid].logits, f.logits,
                                    atol=1e-4, rtol=1e-4)
     assert out["cuda"][1:] == out["cpu"][1:]
+
+
+@pytest.mark.parametrize("N,V,aligned", [
+    (16, 100, True), (7, 1, True), (5, 13, True), (3, 1031, False),
+    (64, 4099, False), (2, 152064, True)])
+def test_el2n_kernel_matches_one_pass_plain(gen, N, V, aligned):
+    """Held to the one-pass plain form within 1e-5; labels in the first and
+    last column; rows read through a stride whose pointers are not 16-byte
+    aligned when `aligned` is False."""
+    from repro_torch.kernels.el2n import ref
+    from repro_torch.kernels.el2n.kernel import el2n_fwd
+    from repro_torch.kernels.el2n.ops import el2n_scores
+    base = 3.0 * torch.randn((N, V + 3), generator=gen, device="cuda")
+    logits = base[:, :V] if aligned else base[:, 1:V + 1]
+    labels = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    labels[0], labels[-1] = 0, V - 1
+    n = el2n_fwd.launches
+    e, c = el2n_scores(logits, labels)
+    torch.cuda.synchronize()
+    assert el2n_fwd.launches == n + 1
+    we, wc = ref.fused_scores(logits, labels)
+    torch.testing.assert_close(e, we, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(c, wc, atol=1e-5, rtol=1e-5)
+    me, mc = ref.el2n_scores(logits, labels)
+    torch.testing.assert_close(c, mc, atol=1e-5, rtol=1e-5)
+    # the materialized form only where p_y is not near 1 (there the
+    # one-pass identity cancels, up to about sqrt(1e-7) in EL2N)
+    py = torch.softmax(logits, -1).gather(1, labels.long()[:, None])[:, 0]
+    ok = py < 0.99
+    torch.testing.assert_close(e[ok], me[ok], atol=1e-5, rtol=1e-5)
+
+
+def test_el2n_kernel_near_certain_rows(gen):
+    from repro_torch.kernels.el2n import ref
+    from repro_torch.kernels.el2n.ops import el2n_scores
+    logits = torch.zeros((4, 50), device="cuda")
+    labels = torch.tensor([0, 7, 49, 20], device="cuda")
+    logits[torch.arange(4), labels] = torch.tensor([30.0, 40.0, 25.0, 60.0],
+                                                   device="cuda")
+    e, c = el2n_scores(logits, labels)
+    we, wc = ref.fused_scores(logits, labels)
+    assert (e >= 0).all()
+    torch.testing.assert_close(e, we, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(c, wc, atol=1e-5, rtol=1e-5)
+    bad = el2n_scores(logits, torch.tensor([0, 50, -1, 3], device="cuda"))
+    assert torch.isnan(bad[0][1:3]).all() and torch.isfinite(bad[0][0])
+
+
+def test_wrappers_refuse_inputs_that_require_grad(gen):
+    """A kernel has no backward: with grad mode on, an input that requires
+    grad raises instead of returning an output with no grad_fn. Under
+    no_grad, and inside the wire codec's autograd roundtrip, they launch."""
+    from repro_torch.kernels.el2n.kernel import el2n_fwd
+    from repro_torch.kernels.flash_attention.decode import (
+        decode_attention_fwd, paged_decode_attention_fwd)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.quant.kernel import dequantize_fwd, quantize_fwd
+    from repro_torch.runtime.codec import get_codec
+    x = torch.randn((4, 8), device="cuda", requires_grad=True)
+    u = torch.full((4, 8), 0.5, device="cuda")
+    q = torch.randn((1, 4, 2, 8), device="cuda", requires_grad=True)
+    qp = torch.zeros(1, dtype=torch.int32, device="cuda")
+    kvp = torch.zeros((1, 4), dtype=torch.int32, device="cuda")
+    tables = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    pool_pos = torch.zeros((1, 4), dtype=torch.int32, device="cuda")
+    labels = torch.zeros(4, dtype=torch.int32, device="cuda")
+    calls = [
+        lambda: quantize_fwd(x, u),
+        lambda: dequantize_fwd(torch.zeros((4, 8), dtype=torch.int8,
+                                           device="cuda"),
+                               torch.ones((4, 1), device="cuda",
+                                          requires_grad=True)),
+        lambda: flash_attention_fwd(q, q, q, causal=True,
+                                    sliding_window=None, softcap=None,
+                                    scale=1.0, kv_len=4),
+        lambda: decode_attention_fwd(q[:, :1], q, q, qp, kvp, scale=1.0,
+                                     sliding_window=None, softcap=None),
+        lambda: paged_decode_attention_fwd(q[:, :1], q, q, tables, qp,
+                                           pool_pos, scale=1.0,
+                                           sliding_window=None,
+                                           softcap=None),
+        lambda: el2n_fwd(x, labels),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call()
+        with torch.no_grad():
+            call()
+    y = get_codec("int8").roundtrip(x, u, u)
+    y.sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+
+
+def test_training_round_on_card_matches_cpu(gen):
+    """One SFPrompt round of the reduced ViT on the card and on the CPU from
+    the same weights and data, fp32 wire: bytes and kept_frac ==, params
+    within 1e-4; the card's scoring pass launched the EL2N kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ProtocolConfig, SFPromptTrainer,
+                                  SplitConfig, SplitModel)
+    from repro_torch.data import (DATASETS, iid_partition, stack_clients,
+                                  synthetic_image_dataset)
+    from repro_torch.kernels.el2n.kernel import el2n_fwd
+    from repro_torch.runtime import WireSpec
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config("vit-base").reduced(n_layers=3, d_model=64, d_ff=128)
+    model = SplitModel(cfg, SplitConfig(head_cycles=1, tail_cycles=1,
+                                        prompt_len=4, prune_gamma=0.5),
+                       WireSpec.make("fp32"))
+    pcfg = ProtocolConfig(clients_per_round=2, local_epochs=1, batch_size=8)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    data = synthetic_image_dataset(DATASETS["cifar10-syn"], 48, seed=0,
+                                   image_hw=32)
+    cohort = stack_clients(iid_partition(data, 2, seed=0), [0, 1])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tr = SFPromptTrainer(model, pcfg, device=dev)
+        n = el2n_fwd.launches
+        state, m = tr.round({"params": tree_map(lambda x: x.to(dev),
+                                                params), "round": 0}, cohort)
+        out[dev] = (state, m, el2n_fwd.launches - n)
+    (sc, mc, lc), (sg, mg, lg) = out["cpu"], out["cuda"]
+    assert lc == 0 and lg > 0
+    for key in mc:
+        if key.startswith(("wire/", "cohort/")) or key == "kept_frac":
+            assert mg[key] == mc[key], key
+    for a, b in zip(tree_leaves(sg["params"]), tree_leaves(sc["params"])):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)

@@ -13,6 +13,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
+from repro.kernels.el2n.ops import el2n_scores as jel2n  # noqa: E402
 from repro.kernels.flash_attention import ref as jref  # noqa: E402
 from repro.kernels.flash_attention.decode import \
     decode_attention as jdecode  # noqa: E402
@@ -22,6 +23,8 @@ from repro.kernels.quant.ops import dequantize_int8 as jdequantize  # noqa: E402
 from repro.kernels.quant.ops import quantize_int8 as jquantize  # noqa: E402
 from repro.runtime.codec import get_codec as jget_codec  # noqa: E402
 from repro_torch.kernels import launch_counts  # noqa: E402
+from repro_torch.kernels.el2n import ref as tel2n_ref  # noqa: E402
+from repro_torch.kernels.el2n.ops import el2n_scores  # noqa: E402
 from repro_torch.kernels.flash_attention.decode import (  # noqa: E402
     decode_attention, grouped_decode)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
@@ -199,6 +202,60 @@ def test_codec_roundtrip_backward_matches_jax_grad(name):
     np.testing.assert_array_equal(y.detach().numpy(), np.asarray(fwd))
 
 
+# ---------------------------------------------------------------- el2n
+EL2N_CASES = [
+    # (N, V, logit scale)
+    (16, 100, 3.0),      # the ViT classifier's phase-1b batch
+    (7, 1, 1.0),         # V = 1: p = onehot, EL2N = 0, CE = 0
+    (5, 13, 2.0),        # V not a multiple of 4
+    (9, 600, 1.0),       # spans the interpret kernel's vocab blocks
+]
+
+
+def _el2n_inputs(N, V, scale):
+    rng = np.random.default_rng(N * 1000 + V)
+    logits = (scale * rng.standard_normal((N, V))).astype(np.float32)
+    labels = rng.integers(0, V, N).astype(np.int32)
+    labels[0], labels[-1] = 0, V - 1          # first and last column
+    return logits, labels
+
+
+@pytest.mark.parametrize("case", EL2N_CASES)
+def test_el2n_plain_forms_match_jax(case):
+    """Both plain forms against the JAX op's materialized reference and its
+    Pallas kernel in interpret mode."""
+    logits, labels = _el2n_inputs(*case)
+    forms = {"materialized": tel2n_ref.el2n_scores,
+             "one-pass": tel2n_ref.fused_scores, "op": el2n_scores}
+    for impl in ("ref", "interpret"):
+        je, jc = jel2n(jnp.asarray(logits), jnp.asarray(labels), impl=impl,
+                       block_v=256)
+        for name, fn in forms.items():
+            e, c = fn(_t(logits), _t(labels))
+            assert e.dtype == c.dtype == torch.float32
+            np.testing.assert_allclose(e.numpy(), np.asarray(je), **TOL,
+                                       err_msg=f"{name} vs {impl}")
+            np.testing.assert_allclose(c.numpy(), np.asarray(jc), **TOL,
+                                       err_msg=f"{name} vs {impl}")
+
+
+def test_el2n_one_pass_cancels_near_certain_rows():
+    """At p_y -> 1 the one-pass identity cancels: it stays >= 0 and within
+    about sqrt(1e-7) of the materialized form, and equals the JAX one-pass
+    form (`impl="fused"`) to 1e-5."""
+    logits = np.zeros((4, 50), np.float32)
+    labels = np.array([0, 7, 49, 20], np.int32)
+    logits[np.arange(4), labels] = [30.0, 40.0, 25.0, 60.0]
+    e1, c1 = tel2n_ref.fused_scores(_t(logits), _t(labels))
+    em, cm = tel2n_ref.el2n_scores(_t(logits), _t(labels))
+    je, jc = jel2n(jnp.asarray(logits), jnp.asarray(labels), impl="fused")
+    assert (e1 >= 0).all()
+    np.testing.assert_allclose(e1.numpy(), np.asarray(je), **TOL)
+    np.testing.assert_allclose(c1.numpy(), np.asarray(jc), **TOL)
+    assert float((e1 - em).abs().max()) <= 1e-3
+    np.testing.assert_allclose(c1.numpy(), cm.numpy(), **TOL)
+
+
 def test_no_kernel_launches_on_cpu_tensors():
     before = launch_counts()
     x = torch.randn(6, 40)
@@ -209,4 +266,5 @@ def test_no_kernel_launches_on_cpu_tensors():
     prefill_attention(q, k, vv)
     decode_attention(q[:, :1], k, vv, q_positions=torch.tensor([8]),
                      kv_positions=torch.arange(9)[None])
+    el2n_scores(torch.randn(4, 10), torch.tensor([0, 3, 9, 2]))
     assert launch_counts() == before
