@@ -10,7 +10,9 @@ Phases, each of which fails the run with a nonzero exit:
   3. each kernel against its plain PyTorch version on the card, at the
      serving paths' shapes (Qwen2.5-14B widths) and the training path's
      (ViT-Base: int8 wire on activations and broadcast gradients, EL2N,
-     non-causal prefill), with its time, the plain
+     non-causal prefill, the secure masked encode of one client's
+     7,171,584-element upload and its recovery stream, compared as bit
+     patterns), with its time, the plain
      version's, one PyTorch library call's where one computes the same
      function, and the least time the card could take (bound);
   4. engine parity: the reduced Qwen2.5 family (with a GQA group of 5)
@@ -35,7 +37,9 @@ Phases, each of which fails the run with a nonzero exit:
      d_model 64) on the card and on the CPU from the same seeded weights,
      data and wire noise, with the fp32 wire and with the int8 wire —
      metered bytes, kept_frac and kept sets equal, params and losses
-     within 1e-4 on both wires;
+     within 1e-4 on both wires; then one secure + DP round (K = 3, one
+     client dropped, numpy-seeded wire and DP noise) — params and secure
+     bytes and dp/epsilon equal, params within roundtrip_tol(3) + 1e-4;
   8. the training path at full width: ViT-Base (12 layers, d_model 768,
      head 1 / body 10 / tail 1, prompt 16, 224x224 images, 213 tokens) on
      cifar100-syn, 8 clients of 64 samples, K = 4, U = 2, gamma 0.5, int8
@@ -45,7 +49,20 @@ Phases, each of which fails the run with a nonzero exit:
      bytes equal to it, and every kernel of the path was launched (launch
      counts zeroed just before the run), then a profiled replay of one
      round;
-  9. the `kernels` JSON line, then the device line last.
+  9. the private federated run at full width through its entry point,
+     `repro_torch.launch.train.main`: ViT-Base as in phase 8, 512 samples
+     over 8 clients, K = 4, 2 rounds, U = 2, int8 wire, secure aggregation,
+     DP-SGD at (8, 1e-5) with clip 1, dropout rate 0.2 and seed 8 (round 0
+     loses a client, round 1 keeps all four), a checkpoint every round;
+     every metric finite, params and secure bytes equal to
+     `secure_agg_breakdown` per round, boundary bytes within 0.1% of
+     `sfprompt_comm_breakdown_partial`, dp/epsilon equal to the ledger's
+     formula, each secure aggregate within roundtrip_tol(4) of
+     `fedavg_partial` of the same client trees, K masked-encode launches a
+     round plus one in the round with a dropout, the checkpoints and
+     final.npz written under chiprun_out/private (then deleted: too large
+     to bring back), every kernel of the path launched;
+ 10. the `kernels` JSON line, then the device line last.
 
 Needs a CUDA device and the repository's src/ beside this file; without
 either it exits nonzero and prints no result.
@@ -66,6 +83,11 @@ OUT = ROOT / "chiprun_out"
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
+# H100 SXM: 132 SMs, each issuing at most 4 warp instructions (128 thread
+# instructions) a clock; its INT32 ALU pipe (IADD3, LOP3, SHF, ISETP) is 64
+# lanes wide, and IMAD runs on the FMA pipe beside it
+SMS, ISSUE_LANES, INT32_LANES = 132, 128, 64
+ALU_OPS = ("IADD3", "LOP3", "SHF", "ISETP")
 ATTN_TOL = 2e-5
 EL2N_TOL = 1e-5               # |kernel - one-pass plain| <= tol (1 + |plain|)
 PARITY_TOL = 1e-4
@@ -81,6 +103,7 @@ REPLACES = {
     "paged_decode_attention":
         "src/repro/kernels/flash_attention/decode.py:261",
     "el2n": "src/repro/kernels/el2n/kernel.py:80",
+    "secure_masked_encode": "src/repro/kernels/secure_mask/kernel.py:52",
 }
 SOURCES = {
     "quantize_int8": "src/repro_torch/csrc/quant.cu",
@@ -89,6 +112,7 @@ SOURCES = {
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
     "paged_decode_attention": "src/repro_torch/csrc/paged_decode_attention.cu",
     "el2n": "src/repro_torch/csrc/el2n.cu",
+    "secure_masked_encode": "src/repro_torch/csrc/secure_mask.cu",
 }
 # the kernels each full-width path must launch
 PATHS = {
@@ -98,6 +122,8 @@ PATHS = {
               "paged_decode_attention"),
     "train": ("quantize_int8", "dequantize_int8", "flash_attention_prefill",
               "el2n"),
+    "private": ("quantize_int8", "dequantize_int8",
+                "flash_attention_prefill", "el2n", "secure_masked_encode"),
 }
 
 
@@ -134,8 +160,10 @@ def n_copies(bytes_per_set: int) -> int:
     return max(2, min(1024, math.ceil(128e6 / max(bytes_per_set, 1))))
 
 
-def bound(nbytes: float, flops: float):
-    t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def bound(nbytes: float, flops: float, rate: float = FP32_FLOPS):
+    """Least time in ms for `nbytes` of device memory traffic and `flops`
+    operations at `rate` per second, and which of the two bounds it."""
+    t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return (max(t_mem, t_ops) * 1e3,
             "bytes" if t_mem >= t_ops else "operations")
 
@@ -586,6 +614,153 @@ def check_el2n(torch, F, gen, results):
                            **path)
 
 
+def sm_clock_hz() -> float:
+    """The SM clock the card can run at (nvidia-smi clocks.max.sm, MHz)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi clocks.max.sm failed: {out.stderr.strip()}")
+    return float(out.stdout.split()[0]) * 1e6
+
+
+def threefry_sass_count():
+    """Instructions per threefry evaluation, counted in the SASS of the
+    built masked-encode kernel (cuobjdump): the pair loop is the innermost
+    backward branch whose body holds the funnel shifts (20 per evaluation,
+    four evaluations per iteration); its whole body (the loop's load,
+    compare and branch included) is divided by the evaluations. Returns
+    (instructions per evaluation, {opcode: count} of one iteration), or
+    (None, reason)."""
+    import re
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
+    dump = subprocess.run([str(cuobjdump), "-sass", str(build.library_path())],
+                          capture_output=True, text=True, timeout=120)
+    if dump.returncode != 0:
+        return None, f"cuobjdump failed: {dump.stderr.strip()[:200]}"
+    text = dump.stdout
+    start = text.find("masked_encode_kernel")
+    if start < 0:
+        return None, "masked_encode_kernel not in the SASS"
+    end = text.find("Function :", start + 1)
+    insts, at = [], {}       # (opcode, operands); address or label -> index
+    for line in text[start:end if end > 0 else len(text)].splitlines():
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            at[lab.group(1)] = len(insts)
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                     r"([A-Z][\w.]*)(.*)", line)
+        if m:
+            at[f"0x{int(m.group(1), 16):x}"] = len(insts)
+            insts.append((m.group(3), m.group(4)))
+    spans = []
+    for i, (op, rest) in enumerate(insts):
+        tgt = re.search(r"(\.L_x_\d+|0x[0-9a-f]+)", rest)
+        if not (op.startswith("BRA") and tgt):
+            continue
+        key = tgt.group(1)
+        key = key if key.startswith(".") else f"0x{int(key, 16):x}"
+        if at.get(key, i) < i:
+            body = [o for o, _ in insts[at[key]:i + 1]]
+            if sum(o.startswith("SHF.L.W") for o in body) >= 80:
+                spans.append(body)
+    if not spans:
+        return None, "no backward branch around the funnel shifts"
+    loop = min(spans, key=len)
+    counts = {}
+    for o in loop:
+        counts[o.split(".")[0]] = counts.get(o.split(".")[0], 0) + 1
+    n_eval = sum(o.startswith("SHF.L.W") for o in loop) / 20
+    return len(loop) / n_eval, counts
+
+
+def secure_case(torch, gen, n, J, *, edge=False, zero_signs=0):
+    """x (n,) on the card (edge: ties at half a unit of 2^-16, beyond
+    +-headroom, -0.0 at the front), J seeds (0 and 0xFFFFFFFF among them
+    when edge) and signs +-1 with `zero_signs` zeros."""
+    from repro_torch.privacy.fixed_point import headroom
+    x = torch.randn((n,), generator=gen, device="cuda") * 0.05
+    if edge:
+        u = 2.0 ** -16
+        vals = [0.5 * u, -0.5 * u, 1.5 * u, -1.5 * u, 2.5 * u, -0.0,
+                headroom() * 2, -headroom() * 2, headroom(), 1e30]
+        x[:len(vals)] = torch.tensor(vals, device="cuda")
+    seeds = torch.randint(0, 2 ** 32, (J,), generator=gen, device="cuda",
+                          dtype=torch.int64)
+    if edge:
+        seeds[0], seeds[-1] = 0, 0xFFFFFFFF
+    signs = torch.tensor([(-1) ** j for j in range(J)], dtype=torch.int32)
+    signs[:zero_signs] = 0
+    return x, seeds, signs.cuda()
+
+
+def check_secure_mask(torch, gen, results):
+    from repro_torch.kernels.secure_mask import ref
+    from repro_torch.kernels.secure_mask.kernel import masked_encode_fwd
+    from repro_torch.kernels.secure_mask.ops import (masked_encode,
+                                                     summed_mask)
+    n_full = 7_171_584      # ViT-Base (tail, prompt): 28,686,336 B, no pad
+    cases = [("full width, 3 pairs", n_full, 3, False, 0),
+             ("edge n=896, 4 pairs", 128 * 7, 4, True, 1)]
+    for name, n, J, edge, zeros in cases:
+        x, seeds, signs = secure_case(torch, gen, n, J, edge=edge,
+                                      zero_signs=zeros)
+        got = masked_encode(x, seeds, signs)
+        want = ref.masked_encode(x, seeds, signs)
+        if not torch.equal(got, want):
+            fail(f"secure_masked_encode {name}: {int((got != want).sum())} "
+                 f"of {n} words differ from plain")
+    # the recovery stream: x absent, K(K-1) = 12 pairs, one client dropped
+    # (3 nonzero signs)
+    _, seeds, signs = secure_case(torch, gen, 128, 12, zero_signs=9)
+    got = summed_mask(seeds, signs, n_full, device="cuda")
+    if not torch.equal(got, ref.summed_mask(seeds, signs, n_full,
+                                            device="cuda")):
+        fail("summed_mask (12 pairs, 3 nonzero) differs from plain")
+    say("secure_masked_encode: kernel == plain (bit patterns) at the full "
+        "width (n 7,171,584, 3 pairs), at n 896 with ties, saturation, -0.0 "
+        "and seeds 0 / 0xFFFFFFFF, and as summed_mask (x absent, 12 pairs, "
+        "3 nonzero)")
+
+    # timing at the main path's shape: one client's upload, 3 pairs
+    J = 3
+    sets = [secure_case(torch, gen, n_full, J)
+            for _ in range(n_copies(n_full * 8))]
+    dev_pairs = [(x, ref.to_ring(s & ref.MASK32), g) for x, s, g in sets]
+    ms = time_ms([lambda c=c: masked_encode_fwd(
+        c[0], c[1], c[2], n=n_full, frac_bits=16) for c in dev_pairs])
+    plain_ms = time_ms([lambda c=c: ref.masked_encode(*c) for c in sets],
+                       iters=8)
+    per_eval, detail = threefry_sass_count()
+    if per_eval is None:
+        fail(f"secure_masked_encode: no instruction count for the bound: "
+             f"{detail}")
+    clock = sm_clock_hz()
+    # operations: every instruction of the pair loop, at the SMs' issue
+    # rate (the least time); the ALU pipe alone, at 64 lanes, for comparison
+    b = bound(2 * n_full * 4, n_full * J * per_eval,
+              SMS * ISSUE_LANES * clock)
+    alu_per_eval = per_eval * sum(detail.get(o, 0) for o in ALU_OPS) / sum(
+        detail.values())
+    alu_ms = n_full * J * alu_per_eval / (SMS * INT32_LANES * clock) * 1e3
+    say(f"secure_masked_encode timing at (n {n_full}, 3 pairs): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b[0]:.4f} ms "
+        f"({b[1]}: {per_eval} instructions per threefry in the SASS loop "
+        f"{detail} at {SMS} SMs x {ISSUE_LANES} issue lanes x "
+        f"{clock / 1e6:.0f} MHz; bytes {2 * n_full * 4} B at 3.35 TB/s "
+        f"{2 * n_full * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms); the ALU pipe "
+        f"alone ({alu_per_eval:.2f} a threefry at {INT32_LANES} lanes) "
+        f"{alu_ms:.4f} ms")
+    results["secure_masked_encode"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+        bound_by=b[1], library_ms=None, sass_per_threefry=per_eval,
+        sass_loop_opcodes=detail, sm_clock_mhz=clock / 1e6,
+        alu_pipe_ms=alu_ms,
+        shape=f"x ({n_full},) f32, 3 pairs")
+
+
 # ---------------------------------------------------------------- phase 4
 def gqa_reduced():
     from repro_torch.configs import get_config
@@ -990,6 +1165,86 @@ def training_parity(torch):
     return report
 
 
+def numpy_dp_noise(torch, device):
+    """DP unit normals from numpy, seeded by (client, leaf path), so the
+    card and the CPU add the same noise."""
+    import zlib
+    import numpy as np
+
+    def noise(client, path, shape):
+        rng = np.random.default_rng(
+            [client, zlib.crc32("/".join(path).encode())])
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device)
+    return noise
+
+
+def private_parity(torch):
+    """One secure + DP round of the reduced ViT on the card and on the CPU
+    from the same weights, data, wire noise and DP noise, K = 3 with one
+    client dropped: metered params and secure bytes ==, dp/epsilon ==,
+    params within roundtrip_tol(K) + 1e-4."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ProtocolConfig, SFPromptTrainer,
+                                  SplitConfig, SplitModel)
+    from repro_torch.core.aggregation import get_aggregator
+    from repro_torch.data import (DATASETS, iid_partition, select_clients,
+                                  stack_clients, synthetic_image_dataset)
+    from repro_torch.kernels import launch_counts
+    from repro_torch.privacy.fixed_point import roundtrip_tol
+    from repro_torch.runtime import WireSpec
+    from repro_torch.tree import tree_flatten, tree_map
+    K = 3
+    cfg = get_config("vit-base").reduced(n_layers=3, d_model=64, d_ff=128)
+    model = SplitModel(cfg, SplitConfig(head_cycles=1, tail_cycles=1,
+                                        prompt_len=4, prune_gamma=0.5,
+                                        local_epochs=1),
+                       WireSpec.make("fp32"))
+    pcfg = ProtocolConfig(clients_per_round=K, local_epochs=1, batch_size=8,
+                          lr_local=0.05, lr_split=0.05, dp_clip=1.0,
+                          dp_noise_multiplier=0.8)
+    d = synthetic_image_dataset(DATASETS["cifar10-syn"], 8 * 24, seed=0,
+                                image_hw=32)
+    cohort = stack_clients(iid_partition(d, 8, seed=0),
+                           select_clients(8, K, seed=0, round_idx=0))
+    part = {"transmit": np.array([1.0, 0.5, 1.0], np.float32),
+            "aggregate": np.array([1.0, 0.0, 1.0], np.float32)}
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tr = SFPromptTrainer(model, pcfg, get_aggregator(secure=True, seed=3),
+                             device=dev)
+        before = launch_counts()["secure_masked_encode"]
+        state, m = tr.round({"params": tree_map(lambda x: x.to(dev), params),
+                             "round": 0}, cohort, part,
+                            wire_noise=numpy_wire_noise(torch, dev),
+                            dp_noise=numpy_dp_noise(torch, dev))
+        runs[dev] = (state["params"], m,
+                     launch_counts()["secure_masked_encode"] - before)
+    (pc, mc, lc), (pg, mg, lg) = runs["cpu"], runs["cuda"]
+    if (lc, lg) != (0, K + 1):
+        fail(f"private parity: masked-encode launches {lc} on the CPU, {lg} "
+             f"on the card (want 0 and K + 1 = {K + 1})")
+    for key in ("wire/params_bytes", "wire/secure_bytes", "dp/epsilon",
+                "cohort/active", "kept_frac"):
+        if mg[key] != mc[key]:
+            fail(f"private parity: {key} {mg[key]} on the card vs {mc[key]} "
+                 f"on the CPU")
+    tol = roundtrip_tol(K) + PARITY_TOL
+    diff = max(float((a.cpu() - b).abs().max()) for (_, a), (_, b) in
+               zip(tree_flatten(pg), tree_flatten(pc)))
+    if diff > tol:
+        fail(f"private parity: params differ by {diff:.3g} > {tol:.3g}")
+    say(f"private parity ({cfg.name}, K={K}, one dropped, secure + DP, "
+        f"numpy-seeded wire and DP noise): params and secure bytes, "
+        f"dp/epsilon == ({mc['dp/epsilon']:.6f}), max param diff "
+        f"{diff:.3g} (<= {tol:.3g}), {lg} kernel launches on the card")
+    return dict(param_max_diff=diff, tol=tol, launches=lg,
+                wire_bytes={k: mc[k] for k in mc if k.startswith("wire/")},
+                epsilon=mc["dp/epsilon"])
+
+
 # ---------------------------------------------------------------- phase 8
 def full_width_train(torch):
     """ViT-Base at full width and depth through two SFPrompt rounds with the
@@ -1133,6 +1388,162 @@ def profile_round(torch, model, pcfg, state, cohort):
     return out
 
 
+# ---------------------------------------------------------------- phase 9
+PRIVATE_ARGV = [
+    "--arch", "vit-base", "--dataset", "cifar100-syn", "--samples", "512",
+    "--clients", "8", "--k", "4", "--rounds", "2", "--local-epochs", "2",
+    "--batch-size", "16", "--gamma", "0.5", "--prompt-len", "16",
+    "--image-hw", "224", "--wire", "int8", "--secure-agg", "--dp-epsilon",
+    "8", "--dp-delta", "1e-5", "--dp-clip", "1.0", "--dropout-rate", "0.2",
+    "--seed", "8", "--ckpt-every", "1", "--device", "cuda"]
+
+
+def full_width_private(torch, kernel_ms):
+    """The private federated run at full width through the launcher:
+    ViT-Base, 8 clients, K = 4, 2 rounds, secure aggregation, DP-SGD at
+    (8, 1e-5), dropouts, int8 wire, a checkpoint every round. The seed
+    makes round 0 lose one client and round 1 keep all four."""
+    import numpy as np
+    from unittest import mock
+    from repro_torch.checkpoint import all_checkpoints, load_checkpoint
+    from repro_torch.core.aggregation import fedavg_partial
+    from repro_torch.core.comm import (measured_cost_inputs,
+                                       secure_agg_breakdown,
+                                       sfprompt_comm_breakdown_partial)
+    from repro_torch.fed import FederatedEngine
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch import train
+    from repro_torch.privacy.dp import (calibrate_noise, epsilon_from_rho,
+                                        rho_per_release)
+    from repro_torch.privacy.fixed_point import roundtrip_tol
+    from repro_torch.privacy.secure_agg import SecureAggregator
+    from repro_torch.tree import tree_flatten
+    out = OUT / "private"
+    if out.exists():
+        import shutil
+        shutil.rmtree(out)
+    K = 4
+    rounds, aggs = [], []
+    run_round, aggregate = FederatedEngine.run_round, SecureAggregator.aggregate
+
+    def timed_round(self, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan, m = run_round(self, **kw)
+        torch.cuda.synchronize()
+        rounds.append({"wall_s": time.perf_counter() - t0,
+                       "n_active": plan.n_active})
+        return plan, m
+
+    def checked_aggregate(self, client_trees, weights, fallback, round_idx):
+        torch.cuda.synchronize()
+        n0 = launch_counts()["secure_masked_encode"]
+        t0 = time.perf_counter()
+        agg, wire = aggregate(self, client_trees, weights, fallback,
+                              round_idx)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()["secure_masked_encode"] - n0
+        clear = fedavg_partial(client_trees, weights, fallback)
+        diff = max(float((a - b).abs().max()) for (_, a), (_, b) in
+                   zip(tree_flatten(agg), tree_flatten(clear)))
+        aggs.append({"phase3_s": wall, "launches": launches,
+                     "vs_fedavg_partial": diff,
+                     "n_trainable": sum(x[0].numel() for _, x in
+                                        tree_flatten(client_trees))})
+        return agg, wire
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(FederatedEngine, "run_round", timed_round), \
+            mock.patch.object(SecureAggregator, "aggregate",
+                              checked_aggregate):
+        engine = train.main(PRIVATE_ARGV + ["--out", str(out)])
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = launch_counts()
+    with open(out / "vit-base_sfprompt_cifar100-syn.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    if len(recs) != 2 or len(rounds) != 2 or len(aggs) != 2:
+        fail(f"private full width: {len(recs)} records, {len(rounds)} "
+             f"rounds, {len(aggs)} aggregations (want 2 each)")
+    bad = [k for r in recs for k, v in r.items()
+           if isinstance(v, float) and not np.isfinite(v)]
+    if bad:
+        fail(f"private full width: non-finite metrics {bad}")
+    if not any(0 < r["n_active"] < K for r in rounds):
+        fail(f"private full width: no round lost a client "
+             f"({[r['n_active'] for r in rounds]}); the recovery path did "
+             f"not run")
+    model = engine.trainer.model
+    ci = measured_cost_inputs(model, tokens_per_sample=(224 // 16) ** 2 + 1,
+                              n_local=64, batch_size=16, K=K, U=2)
+    n_trainable = aggs[0]["n_trainable"]
+    wire_err = 0.0
+    for r, rec in enumerate(recs):
+        n_up = rounds[r]["n_active"]
+        want = secure_agg_breakdown(n_trainable=n_trainable,
+                                    param_nbytes=4 * n_trainable, K=K,
+                                    n_uploads=n_up)
+        for key in ("params", "secure"):
+            if rec[f"wire/{key}_bytes"] != want[key]:
+                fail(f"private full width round {r}: {key} "
+                     f"{rec[f'wire/{key}_bytes']} B vs {want[key]} B")
+        part = sfprompt_comm_breakdown_partial(
+            ci, transmit_sum=rec["cohort/transmit_sum"], n_uploads=n_up)
+        for key in ("head_body", "body_tail"):
+            err = abs(rec[f"wire/{key}_bytes"] - part[key]) / part[key]
+            wire_err = max(wire_err, err)
+            if err > TRAIN_WIRE_TOL:
+                fail(f"private full width round {r}: {key} "
+                     f"{rec[f'wire/{key}_bytes']} B vs {part[key]} B")
+        want_launches = K + int(n_up < K)
+        if aggs[r]["launches"] != want_launches:
+            fail(f"private full width round {r}: {aggs[r]['launches']} "
+                 f"masked-encode launches, want {want_launches}")
+        if aggs[r]["vs_fedavg_partial"] > roundtrip_tol(K):
+            fail(f"private full width round {r}: secure aggregate differs "
+                 f"from fedavg_partial by {aggs[r]['vs_fedavg_partial']:.3g}"
+                 f" > roundtrip_tol({K}) = {roundtrip_tol(K):.3g}")
+    z = calibrate_noise(8.0, 1e-5, 2)
+    want_eps = epsilon_from_rho(2 * rho_per_release(z), 1e-5)
+    if recs[-1]["dp/epsilon"] != want_eps:
+        fail(f"private full width: dp/epsilon {recs[-1]['dp/epsilon']} vs "
+             f"{want_eps}")
+    missing = [k for k in PATHS["private"] if launches[k] <= 0]
+    if missing:
+        fail(f"private full width: kernels never launched: {missing}")
+    if launches["secure_masked_encode"] != sum(a["launches"] for a in aggs):
+        fail("private full width: masked-encode launches outside phase 3")
+    ckpts = [Path(p).name for p in all_checkpoints(str(out / "ckpt"))]
+    final = load_checkpoint(str(out / "final.npz"))
+    same = all(np.array_equal(a, b.cpu().numpy()) for (_, a), (_, b) in
+               zip(tree_flatten(final), tree_flatten(engine.params)))
+    if ckpts != ["ckpt_00000001.npz", "ckpt_00000002.npz"] or not same:
+        fail(f"private full width: checkpoints {ckpts}, final.npz equal to "
+             f"the engine's params: {same}")
+    ckpt_mb = sum(p.stat().st_size for p in out.rglob("*.npz")) / 2 ** 20
+    for p in out.rglob("*.npz"):    # too large to bring back
+        p.unlink()
+    for r, a in zip(rounds, aggs):
+        a["masked_encode_ms_est"] = a["launches"] * kernel_ms
+        a["masked_encode_share"] = a["masked_encode_ms_est"] / (
+            1e3 * a["phase3_s"])
+    summary = {
+        "argv": PRIVATE_ARGV, "total_s": total_s, "rounds": rounds,
+        "phase3": aggs, "records": recs, "launches": launches,
+        "wire_rel_err": wire_err, "epsilon": recs[-1]["dp/epsilon"],
+        "checkpoints": ckpts + ["final.npz"], "checkpoint_mb": ckpt_mb}
+    say("private full width: " + json.dumps(summary, sort_keys=True))
+    say(f"private full width: rounds {[round(r['wall_s'], 3) for r in rounds]}"
+        f" s (active {[r['n_active'] for r in rounds]}), phase 3 "
+        f"{[round(a['phase3_s'] * 1e3, 2) for a in aggs]} ms of which "
+        f"masked encode ~{[round(a['masked_encode_share'], 3) for a in aggs]}"
+        f" ({kernel_ms:.4f} ms a launch, phase 3 timing), epsilon "
+        f"{recs[-1]['dp/epsilon']:.6f}")
+    return launches, summary
+
+
 # -------------------------------------------------------------------- main
 def main() -> None:
     try:
@@ -1178,6 +1589,7 @@ def main() -> None:
     check_decode(torch, F, gen, results)
     check_paged_decode(torch, F, gen, results)
     check_el2n(torch, F, gen, results)
+    check_secure_mask(torch, gen, results)
 
     # 4. engine parity card vs CPU, dense and paged
     engine_parity(torch)
@@ -1190,13 +1602,19 @@ def main() -> None:
     del fw
     torch.cuda.empty_cache()
 
-    # 7. training parity card vs CPU
+    # 7. training parity card vs CPU, clear and private
     summaries["train_parity"] = training_parity(torch)
+    summaries["private_parity"] = private_parity(torch)
 
     # 8. the training path at full width
     by_path["train"], summaries["train"] = full_width_train(torch)
+    torch.cuda.empty_cache()
 
-    # 9. kernels line, device line
+    # 9. the private federated run at full width through the launcher
+    by_path["private"], summaries["private"] = full_width_private(
+        torch, results["secure_masked_encode"]["ms"])
+
+    # 10. kernels line, device line
     kernels = []
     for name in REPLACES:
         per_path = {path: counts[name] for path, counts in by_path.items()

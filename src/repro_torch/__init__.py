@@ -9,6 +9,8 @@ plain PyTorch version on CPU tensors and its hand-written CUDA kernel
 (`csrc/`, built at first use) on CUDA tensors.
 
 Ported so far: dense and paged split serving (`serve.ServeEngine`,
-`serve.PagedServeEngine`, `python -m repro_torch.launch.serve`) and the
-SFPrompt training round (`core.SFPromptTrainer`).
+`serve.PagedServeEngine`, `python -m repro_torch.launch.serve`), the
+SFPrompt training round (`core.SFPromptTrainer`) and the private
+synchronous federated run (`fed.FederatedEngine`, secure aggregation and
+DP-SGD in `privacy/`, `python -m repro_torch.launch.train`).
 """

@@ -4,8 +4,7 @@
 Sample-count-weighted FedAvg of the tail model and prompt parameters across
 the K selected clients. Client trees carry a leading client axis K on
 every leaf, as in the JAX package. Hierarchical (edge -> global)
-aggregation is slice E and secure aggregation slice D; asking for either
-raises.
+aggregation is slice E; asking for it raises.
 """
 from __future__ import annotations
 
@@ -65,17 +64,19 @@ def broadcast_to_clients(tree, k: int):
 
 def get_aggregator(secure: bool = False, *, n_edges: int = 0,
                    cohort_size: int = 0, **kw):
-    """The phase-3 aggregation path as a pluggable object. Only the clear
-    path is ported: secure aggregation waits for slice D, the hierarchical
-    edge topology for slice E."""
+    """The phase-3 aggregation path as a pluggable object: clear FedAvg, or
+    masked secure aggregation (`secure=True`, options such as `seed=` and
+    `frac_bits=` pass through). The hierarchical edge topology waits for
+    slice E."""
     if n_edges > 0:
         raise NotImplementedError(
             "hierarchical (edge -> global) aggregation is not ported yet "
             "(slice E)")
+    # lazy: the core layer touches the privacy subsystem only when asked
+    from repro_torch.privacy.secure_agg import (ClearAggregator,
+                                                SecureAggregator)
     if secure:
-        raise NotImplementedError(
-            "secure aggregation is not ported yet (slice D)")
+        return SecureAggregator(**kw)
     if kw:
         raise ValueError(f"clear aggregation takes no options, got {kw}")
-    from repro_torch.privacy.secure_agg import ClearAggregator
     return ClearAggregator()

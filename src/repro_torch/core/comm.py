@@ -20,9 +20,11 @@ Conventions, as in the JAX package:
 `measured_cost_inputs` binds the model to what an actual round of a
 `SplitModel` runs (segment sizes from its init, the codec's real bytes per
 float), so `sfprompt_comm_breakdown` is the exact counterpart of the
-trainer's TrafficMeter. `serve_comm_breakdown` is the serving slice's.
-The compute and latency models and the secure and edge breakdowns wait for
-slices D and E.
+trainer's TrafficMeter. `serve_comm_breakdown` is the serving slice's,
+`secure_agg_breakdown` the masked secure aggregation's, and
+`sfprompt_compute` the client compute the round scheduler's cost model
+needs. The other compute and latency models and the edge breakdowns wait
+for slices C and E.
 """
 from __future__ import annotations
 
@@ -105,6 +107,38 @@ def sfprompt_comm_breakdown_partial(c: CostInputs, *, transmit_sum: float,
             "params": params_each * (k_down + n_uploads)}
 
 
+def secure_agg_breakdown(*, n_trainable: int, param_nbytes: float, K: int,
+                         n_uploads: float,
+                         n_dropped: Optional[float] = None,
+                         ) -> Dict[str, float]:
+    """Analytical wire bytes of one masked-secure-aggregation round, keyed
+    like the TrafficMeter — the exact counterpart of what
+    `privacy.SecureAggregator` pushes through its runtime Boundaries.
+
+      params: the fp32 (tail + prompt) broadcast DOWN to all K sampled
+              clients, plus each SURVIVOR's uint32 ring upload — the
+              flattened trainable count padded to the mask kernel's lane
+              multiple (`ring_size`), 4 bytes per ring element.
+      secure: simulated-DH key agreement (K^2 * PK_BYTES total) plus
+              dropout recovery (each survivor reveals its escrowed pair
+              seed with each dropped client: n_up * n_drop seeds).
+
+    `n_trainable` is the UNPADDED flattened (tail + prompt) element count;
+    `param_nbytes` the fp32 byte size of that tree (the downlink payload).
+    """
+    from repro_torch.kernels.secure_mask.ops import ring_size
+    from repro_torch.privacy.fixed_point import RING_BYTES
+    from repro_torch.privacy.masking import PK_BYTES, SEED_BYTES
+    n_pad = ring_size(n_trainable)
+    if n_dropped is None:
+        n_dropped = K - n_uploads
+    return {
+        "params": K * param_nbytes + n_uploads * n_pad * RING_BYTES,
+        "secure": (K * K * PK_BYTES
+                   + n_uploads * n_dropped * SEED_BYTES),
+    }
+
+
 def serve_comm_breakdown(wire, *, d_model: int, soft_prompt_len: int,
                          requests) -> Dict[str, float]:
     """Analytical SERVING wire bytes per boundary for a request trace.
@@ -148,6 +182,16 @@ def crosscheck(measured: Dict[str, float], c: CostInputs,
         out[name] = {"measured": got, "analytical": ref,
                      "err_pct": 100.0 * (got - ref) / max(ref, 1e-12)}
     return out
+
+
+# --------------------------------------------------------- client compute
+def sfprompt_compute(c: CostInputs) -> float:
+    """FLOPs per client per round: U local-loss epochs over (head + tail),
+    E split passes over the pruned subset for the client share (head fwd +
+    tail fwd/bwd)."""
+    local = 6 * (1 - c.tau) * c.D * c.W * c.U
+    split = 6 * (1 - c.tau) * c.gamma_keep * c.D * c.W * c.E
+    return local + split
 
 
 # --------------------------------------------------------- model binding

@@ -14,14 +14,15 @@ through `torch.autograd.grad`.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 
 from repro_torch.core import losses
 from repro_torch.core.split import SplitModel
 from repro_torch.optim import Optimizer, apply_updates
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
+                              tree_map_with_path)
 
 
 def local_loss_fn(model: SplitModel, head_p, trainable, batch):
@@ -75,3 +76,33 @@ def local_epochs(model: SplitModel, head_p, trainable, opt: Optimizer,
             trainable = apply_updates(trainable, updates)
             acc = acc + loss
     return trainable, opt_state, acc / (n_epochs * len(bs))
+
+
+def dp_clip_and_noise(trainable, reference,
+                      noise: Callable[[Tuple[str, ...], Tuple[int, ...]],
+                                      torch.Tensor], *,
+                      l2_clip: float, noise_multiplier: float):
+    """DP-SGD on ONE client's round update (the protocol loops over the
+    cohort, like everything above).
+
+    The privatized quantity is the client's DELTA against the broadcast
+    pre-round globals. Scale the delta to global L2 norm <= l2_clip, add
+    N(0, (noise_multiplier * l2_clip)^2) per coordinate, and rebuild the
+    params the client uploads. `noise(leaf_path, shape)` gives the unit
+    normals of each leaf, called in `jax.tree` order (the protocol's
+    default draws them from a per-(round, client) generator; tests hand
+    in the JAX package's own draws). Returns (privatized trainable,
+    pre-clip delta norm for diagnostics)."""
+    # lazy like aggregation.get_aggregator: the core layer only touches
+    # the privacy subsystem when the DP path is actually taken
+    from repro_torch.privacy.dp import clip_tree
+    delta = tree_map(lambda a, b: a.float() - b.float(), trainable,
+                     reference)
+    delta, norm = clip_tree(delta, l2_clip)
+    stddev = noise_multiplier * l2_clip
+    deltas = dict(tree_flatten(delta))
+    draws = {path: stddev * noise(path, tuple(d.shape)).to(d.device)
+             for path, d in deltas.items()}
+    return tree_map_with_path(
+        lambda p, ref: (ref.float() + deltas[p] + draws[p]).to(ref.dtype),
+        reference), norm

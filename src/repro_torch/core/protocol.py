@@ -32,14 +32,23 @@ Wire noise: with a stochastic codec (int8) every phase-2 crossing draws
 stochastic-rounding uniforms from a per-client `torch.Generator` seeded
 from WIRE_SEED, the round and the client, unless `round(wire_noise=...)`
 hands them in (tests feed the exact uniforms of the JAX key derivation).
+DP noise likewise: with `dp_clip > 0` each client's delta is clipped and
+noised with unit normals from a per-(round, client) generator seeded from
+DP_SEED, unless `round(dp_noise=...)` hands them in.
 
-The mesh (slice H), DP-SGD (slice D) and the async `client_updates` (slice
-E) are not ported yet and raise.
+Phase 3 goes through the pluggable aggregator (clear FedAvg, or the masked
+secure aggregation of `privacy/secure_agg.py`, whose wire bytes the
+aggregator meters itself). The zCDP accountant spends one release per
+round when the noise multiplier is positive.
+
+The mesh (slice H) and the async `client_updates` (slice E) are not ported
+yet and raise.
 """
 from __future__ import annotations
 
 from contextlib import contextmanager
 from dataclasses import dataclass
+from fractions import Fraction
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -47,18 +56,21 @@ import torch
 
 from repro_torch.core import losses, pruning
 from repro_torch.core.aggregation import get_aggregator
-from repro_torch.core.local_update import (batches, local_epochs,
-                                           value_and_grad)
+from repro_torch.core.local_update import (batches, dp_clip_and_noise,
+                                           local_epochs, value_and_grad)
 from repro_torch.core.split import SplitModel, resolve_device
 from repro_torch.obs.trace import LEVEL_STEP, NOOP
 from repro_torch.optim import Optimizer, adamw, apply_updates, sgd
-from repro_torch.runtime.meter import TrafficMeter
+from repro_torch.privacy.dp import DP_SEED, PrivacyAccountant
+from repro_torch.runtime.meter import SECURE, TrafficMeter
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
 # (client, step, boundary name, shape) -> (u_fwd, u_bwd)
 WireNoise = Callable[[int, int, str, Tuple[int, ...]],
                      Tuple[torch.Tensor, torch.Tensor]]
+# (client, leaf path, shape) -> unit normals of that leaf's DP noise
+DPNoise = Callable[[int, Tuple[str, ...], Tuple[int, ...]], torch.Tensor]
 
 WIRE_SEED = 23   # base seed of the stochastic wire-rounding streams
 
@@ -75,8 +87,15 @@ class ProtocolConfig:
     momentum: float = 0.9
     use_pruning: bool = True
     use_local_loss: bool = True      # False => the Fig-6 ablation arm
-    dp_clip: float = 0.0             # DP-SGD: not ported yet (slice D)
-    dp_noise_multiplier: float = 0.0
+    return_client_trainable: bool = False
+    # ^ also keep each client's post-round (tail, prompt) BEFORE FedAvg
+    #   (`last_client_trainable`) — the fed engine stores these as
+    #   personalized tails in the Population
+    dp_clip: float = 0.0             # DP-SGD L2 clip on the client's round
+    #   delta (0 disables the DP path entirely)
+    dp_noise_multiplier: float = 0.0  # Gaussian noise as a multiple of the
+    #   clip; > 0 activates the zCDP accountant
+    dp_delta: float = 1e-5           # delta of the reported (eps, delta)
 
 
 def make_optimizer(pcfg: ProtocolConfig, lr: float) -> Optimizer:
@@ -91,6 +110,34 @@ def wire_seed(round_idx: int, client: int) -> int:
     return (WIRE_SEED * 1_000_003 + round_idx) * 1_000_003 + client
 
 
+def _fma32(a, b, c) -> np.float32:
+    """a * b + c in float32, rounded once (a fused multiply-add): exact
+    rational arithmetic, then round-to-odd to float64, which rounds to
+    float32 without a double-rounding error."""
+    exact = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    x = float(exact)
+    if Fraction(x) != exact and not np.float64(x).view(np.int64) & 1:
+        x = float(np.nextafter(x, np.inf if exact > x else -np.inf))
+    return np.float32(x)
+
+
+def cohort_sum(per_client, scale) -> np.float32:
+    """sum_k per_client[k] * scale[k] in float32 as the JAX round's jitted
+    reduction computes it on the CPU: one fused multiply-add per client in
+    cohort order (XLA's CPU code, measured equal for cohorts of up to 16).
+    A separate multiply and sum differ from it by an ulp once a
+    straggler's transmit fraction is not 1."""
+    acc = np.float32(0.0)
+    for a, b in zip(per_client, scale):
+        acc = _fma32(a, b, acc)
+    return acc
+
+
+def dp_seed(round_idx: int, client: int) -> int:
+    """Seed of client `client`'s DP-noise generator in round `round_idx`."""
+    return (DP_SEED * 1_000_003 + round_idx) * 1_000_003 + client
+
+
 class SFPromptTrainer:
     supports_partial = True   # round() accepts a participation dict
 
@@ -99,9 +146,10 @@ class SFPromptTrainer:
         if mesh is not None:
             raise NotImplementedError(
                 "the mesh-sharded cohort is not ported yet (slice H)")
-        if pcfg.dp_clip > 0 or pcfg.dp_noise_multiplier > 0:
-            raise NotImplementedError(
-                "DP-SGD on the client update is not ported yet (slice D)")
+        if pcfg.dp_noise_multiplier > 0 and pcfg.dp_clip <= 0:
+            raise ValueError(
+                "dp_noise_multiplier > 0 needs dp_clip > 0: the Gaussian "
+                "noise is calibrated to the clip (sensitivity)")
         self.model = model
         self.pcfg = pcfg
         self.device = resolve_device(device)
@@ -112,8 +160,17 @@ class SFPromptTrainer:
         self.opt_local = make_optimizer(pcfg, pcfg.lr_local)
         self.opt_split = make_optimizer(pcfg, pcfg.lr_split)
         self.aggregator = aggregator or get_aggregator()
+        # zCDP ledger across rounds — only a noised mechanism has a
+        # finite epsilon to account for
+        self.accountant = (
+            PrivacyAccountant(noise_multiplier=pcfg.dp_noise_multiplier,
+                              l2_clip=pcfg.dp_clip, delta=pcfg.dp_delta)
+            if pcfg.dp_noise_multiplier > 0 else None)
         self.meter = TrafficMeter()   # measured bytes across rounds
         self.meter.attach_tracer(self.tracer)
+        # per-client (tail, prompt) of the most recent round (K-stacked),
+        # kept iff pcfg.return_client_trainable
+        self.last_client_trainable = None
         # the last round's phase-1b EL2N scores (K, n_local) and the kept
         # sample indices (K, keep), in rank order
         self.last_scores = self.last_kept = None
@@ -150,6 +207,19 @@ class SFPromptTrainer:
             g = gens[client]
             return (torch.rand(shape, generator=g, device=self.device),
                     torch.rand(shape, generator=g, device=self.device))
+        return noise
+
+    def _generator_dp_noise(self, round_idx: int) -> DPNoise:
+        """The default DP noise: each client's unit normals drawn leaf by
+        leaf, in `jax.tree` order, from its own generator."""
+        gens = {}
+
+        def noise(client, path, shape):
+            if client not in gens:
+                gens[client] = torch.Generator(device=self.device)
+                gens[client].manual_seed(dp_seed(round_idx, client))
+            return torch.randn(shape, generator=gens[client],
+                               device=self.device)
         return noise
 
     # ------------------------------------------------------------- phase 2
@@ -202,7 +272,7 @@ class SFPromptTrainer:
 
     # ------------------------------------------------------------- round
     def _round(self, state: Params, client_data, participation, init_tails,
-               wire_noise: Optional[WireNoise]):
+               wire_noise: Optional[WireNoise], dp_noise: Optional[DPNoise]):
         model, pcfg, dev = self.model, self.pcfg, self.device
         params = state["params"]
         client_data = tree_map(lambda x: torch.as_tensor(x, device=dev),
@@ -265,8 +335,25 @@ class SFPromptTrainer:
         for b in model.wire.boundaries:
             # a straggler only sent a fraction of its phase-2 traffic
             per_client = np.array([w[b.name] for w in wire], np.float32)
-            metrics[f"wire/{b.name}_bytes"] = (per_client * transmit).sum(
-                dtype=np.float32)
+            metrics[f"wire/{b.name}_bytes"] = cohort_sum(per_client,
+                                                          transmit)
+
+        # ---- DP-SGD on the client update: clip the round delta against
+        # the broadcast globals, add calibrated Gaussian noise — BEFORE the
+        # server (or the masked aggregator) ever sees the upload
+        if pcfg.dp_clip > 0:
+            reference = {"tail": params["tail"], "prompt": params["prompt"]}
+            dp_noise = dp_noise or self._generator_dp_noise(
+                int(state["round"]))
+            norms = []
+            for k in range(K):
+                trainable[k], norm = dp_clip_and_noise(
+                    trainable[k], reference,
+                    lambda path, shape, k=k: dp_noise(k, path, shape),
+                    l2_clip=pcfg.dp_clip,
+                    noise_multiplier=pcfg.dp_noise_multiplier)
+                norms.append(norm)
+            metrics["dp/delta_norm"] = torch.stack(norms).mean()
 
         # ---- Phase 3: participation-corrected weighted FedAvg of
         # (tail, prompt) through the pluggable aggregator
@@ -277,26 +364,34 @@ class SFPromptTrainer:
             fallback = {"tail": params["tail"], "prompt": params["prompt"]}
             agg, agg_wire = self.aggregator.aggregate(
                 stacked, weights, fallback, state["round"])
-        if agg_wire:
-            raise NotImplementedError(
-                "metered aggregators (secure, hierarchical) are not ported "
-                "yet (slices D and E)")
+        self.last_client_trainable = (
+            stacked if pcfg.return_client_trainable else None)
         new_params = dict(params, tail=agg["tail"], prompt=agg["prompt"])
         n_up = int((aggregate > 0).sum())
         param_bytes = np.float32(sum(x.numel() * x.element_size()
                                      for x in tree_leaves(fallback)))
-        # (tail, prompt) travel server->client for all K at round start and
-        # client->server only for the survivors
-        metrics["wire/params_bytes"] = np.float32(K + n_up) * param_bytes
+        if agg_wire:
+            # metered aggregator: fp32 broadcast down to all K; the uplink
+            # is what the aggregator metered (the masked ring uploads);
+            # key agreement and escrow reveals ride their own stream
+            metrics["wire/params_bytes"] = (np.float32(K) * param_bytes
+                                            + agg_wire["params_up"])
+            metrics[f"wire/{SECURE}_bytes"] = agg_wire[SECURE]
+        else:
+            # clear path: (tail, prompt) travel server->client for all K
+            # at round start and client->server only for the survivors
+            metrics["wire/params_bytes"] = np.float32(K + n_up) * param_bytes
         metrics["cohort/active"] = n_up
-        metrics["cohort/transmit_sum"] = transmit.sum(dtype=np.float32)
+        metrics["cohort/transmit_sum"] = cohort_sum(transmit,
+                                                    np.ones_like(transmit))
         return ({"params": new_params, "round": int(state["round"]) + 1},
                 metrics)
 
     def round(self, state: Params, client_data,
               participation: Optional[Dict[str, Any]] = None,
               init_tails=None, *,
-              wire_noise: Optional[WireNoise] = None
+              wire_noise: Optional[WireNoise] = None,
+              dp_noise: Optional[DPNoise] = None
               ) -> Tuple[Params, Dict]:
         """Run one global round on a sampled cohort: `client_data` has
         leading (K, n_local, ...) axes (numpy arrays or tensors).
@@ -304,7 +399,8 @@ class SFPromptTrainer:
         every client is on time. `init_tails` (K-stacked) starts each
         client from its own tail. `wire_noise(client, step, boundary,
         shape) -> (u_fwd, u_bwd)` replaces the default per-client
-        generators' stochastic-rounding noise."""
+        generators' stochastic-rounding noise, and `dp_noise(client,
+        leaf_path, shape) -> unit normals` the DP noise's."""
         K = tree_leaves(client_data)[0].shape[0]
         if participation is None:
             ones = np.ones((K,), np.float32)
@@ -314,10 +410,15 @@ class SFPromptTrainer:
             with tracer.annotate("sfprompt.round"):
                 state, metrics = self._round(
                     state, client_data, participation, init_tails,
-                    wire_noise)
+                    wire_noise, dp_noise)
             metrics = {k: float(np.float32(v.item() if torch.is_tensor(v)
                                            else v))
                        for k, v in metrics.items()}
+            if self.accountant is not None:
+                # one Gaussian release of each sampled client's update per
+                # round — the per-client (local-model) view
+                self.accountant.spend()
+                metrics["dp/epsilon"] = self.accountant.epsilon()
             wire = {k.removeprefix("wire/").removesuffix("_bytes"): v
                     for k, v in metrics.items() if k.startswith("wire/")}
             self.meter.absorb(wire, clients=metrics.get("cohort/active"))

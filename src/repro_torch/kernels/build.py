@@ -66,6 +66,9 @@ SIGNATURES = {
         [_P, _L, _P, _P, _P]                  # logits, row stride, labels,
         #                                       el2n, ce
         + [_I, _I, _P]),                      # N, V, stream
+    "sfp_masked_encode": (
+        [_P, _P, _P, _I, _F, _P, _L, _P]),    # x (or null), seeds, signs,
+    #                                           J, scale, out, n, stream
 }
 
 _lib: Optional[ctypes.CDLL] = None

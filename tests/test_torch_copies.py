@@ -14,6 +14,8 @@ import pytest  # noqa: E402
 import repro.configs as jconfigs  # noqa: E402
 import repro.data as jdata  # noqa: E402
 import repro.models.config as jmc  # noqa: E402
+from repro.fed import sampler as jsampler  # noqa: E402
+from repro.fed import scheduler as jscheduler  # noqa: E402
 from repro.obs import trace as jtrace  # noqa: E402
 from repro.runtime import codec as jcodec  # noqa: E402
 from repro.runtime import meter as jmeter  # noqa: E402
@@ -22,6 +24,8 @@ from repro.serve import workload as jworkload  # noqa: E402
 import repro_torch.configs as tconfigs  # noqa: E402
 import repro_torch.data as tdata  # noqa: E402
 import repro_torch.models.config as tmc  # noqa: E402
+from repro_torch.fed import sampler as tsampler  # noqa: E402
+from repro_torch.fed import scheduler as tscheduler  # noqa: E402
 from repro_torch.obs import trace as ttrace  # noqa: E402
 from repro_torch.runtime import codec as tcodec  # noqa: E402
 from repro_torch.runtime import meter as tmeter  # noqa: E402
@@ -111,6 +115,57 @@ def test_data_copies_identical(seed):
             np.testing.assert_array_equal(ia, ib)
             _assert_trees_equal(jdata.stack_clients(a, ia),
                                 tdata.stack_clients(b, ib))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "weighted", "round_robin"])
+def test_sampler_copy_identical(kind):
+    """The copied `fed/sampler.py` draws the same cohorts as the original
+    for the same seed, and its state round-trips the same."""
+    assert jsampler.SAMPLER_KINDS == tsampler.SAMPLER_KINDS
+    weights = np.linspace(1.0, 3.0, 40) if kind == "weighted" else None
+    for seed in (0, 7, 2 ** 40 + 3):
+        a = jsampler.ClientSampler(40, 6, kind=kind, seed=seed,
+                                   weights=weights)
+        b = tsampler.ClientSampler(40, 6, kind=kind, seed=seed,
+                                   weights=weights)
+        for r in range(12):
+            np.testing.assert_array_equal(a.sample(r), b.sample(r))
+        assert {k: int(v) for k, v in a.state_dict().items()} == \
+            {k: int(v) for k, v in b.state_dict().items()}
+        b.load_state_dict(a.state_dict())
+    with pytest.raises(ValueError, match="sampler mismatch"):
+        tsampler.ClientSampler(41, 6, kind=kind, weights=(
+            np.ones(41) if kind == "weighted" else None)).load_state_dict(
+            a.state_dict())
+
+
+@pytest.mark.parametrize("late_mode", ["drop", "partial"])
+def test_scheduler_copy_identical(late_mode):
+    """The copied `fed/scheduler.py` gives the same plans as the original:
+    latencies, deadlines, dropouts, late clients, participation."""
+    assert jscheduler.LINK_REGIMES == tscheduler.LINK_REGIMES
+    assert jscheduler.LATE_MODES == tscheduler.LATE_MODES
+    for regime in sorted(jscheduler.LINK_REGIMES):
+        kw = dict(seed=5, round_bytes_per_client=3e7,
+                  round_flops_per_client=2e13)
+        cfg = dict(regime=regime, dropout_rate=0.3, late_mode=late_mode,
+                   deadline_factor=1.2)
+        a = jscheduler.RoundScheduler(jscheduler.StragglerConfig(**cfg), **kw)
+        b = tscheduler.RoundScheduler(tscheduler.StragglerConfig(**cfg), **kw)
+        for r in range(6):
+            cohort = np.arange(r, r + 8)
+            pa, pb = a.plan(cohort, r), b.plan(cohort, r)
+            for field in ("cohort", "latency_s", "transmit", "aggregate",
+                          "dropped", "late"):
+                np.testing.assert_array_equal(getattr(pa, field),
+                                              getattr(pb, field))
+            assert pa.deadline_s == pb.deadline_s
+            assert pa.n_active == pb.n_active
+        assert a.state_dict() == b.state_dict()
+        b.load_state_dict(a.state_dict())
+    full = [m.FullParticipationScheduler(seed=3).plan([4, 2, 9], 1)
+            for m in (jscheduler, tscheduler)]
+    np.testing.assert_array_equal(full[0].aggregate, full[1].aggregate)
 
 
 def _drive_pool(mod, seed, n_ops=400):
@@ -229,9 +284,12 @@ def test_port_imports_no_jax_and_no_repro():
     assert {"paging.py", "paged_engine.py", "protocol.py", "losses.py",
             "pruning.py", "local_update.py", "aggregation.py",
             "secure_agg.py", "optimizers.py", "schedules.py",
-            "synthetic.py", "federated.py"} <= names
-    assert (ROOT / "src" / "repro_torch" / "kernels" / "el2n"
-            / "kernel.py") in files
+            "synthetic.py", "federated.py", "sampler.py", "scheduler.py",
+            "population.py", "engine.py", "io.py", "train.py", "dp.py",
+            "masking.py", "fixed_point.py"} <= names
+    for kernel in ("el2n", "secure_mask"):
+        assert (ROOT / "src" / "repro_torch" / "kernels" / kernel
+                / "kernel.py") in files
     offenders = {str(p.relative_to(ROOT)): _FORBIDDEN.findall(p.read_text())
                  for p in files}
     assert {k: v for k, v in offenders.items() if v} == {}

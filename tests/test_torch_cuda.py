@@ -397,3 +397,72 @@ def test_training_round_on_card_matches_cpu(gen):
             assert mg[key] == mc[key], key
     for a, b in zip(tree_leaves(sg["params"]), tree_leaves(sc["params"])):
         torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+
+
+def _ring_case(n, seed):
+    """Values on the card with round-half-even ties, saturating values and
+    -0.0 at the front, and seeds including 0 and 0xFFFFFFFF."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n,), generator=g, device="cuda") * 3
+    u = 2.0 ** -16
+    edge = torch.tensor([0.5 * u, -0.5 * u, 1.5 * u, -1.5 * u, -0.0, 4e4,
+                         -4e4, 32767.99], device="cuda")
+    x[:edge.numel()] = edge
+    seeds = torch.tensor([0, 0xFFFFFFFF, 12345, 0xDEADBEEF])
+    signs = torch.tensor([1, -1, 0, 1], dtype=torch.int32)
+    return x, seeds, signs
+
+
+@pytest.mark.parametrize("n", [128, 128 * 7, 70016])
+def test_masked_encode_kernel_bit_equal(gen, n):
+    from repro_torch.kernels.secure_mask import ref
+    from repro_torch.kernels.secure_mask.kernel import masked_encode_fwd
+    from repro_torch.kernels.secure_mask.ops import masked_encode
+    x, seeds, signs = _ring_case(n, n)
+    before = masked_encode_fwd.launches
+    got = masked_encode(x, seeds, signs)
+    assert masked_encode_fwd.launches == before + 1
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got, ref.masked_encode(x, seeds, signs))
+    # the same bits on the CPU
+    assert torch.equal(got.cpu(), ref.masked_encode(x.cpu(), seeds, signs))
+
+
+def test_summed_mask_kernel_bit_equal(gen):
+    from repro_torch.kernels.secure_mask import ref
+    from repro_torch.kernels.secure_mask.ops import summed_mask
+    from repro_torch.privacy.masking import pair_seeds, recovery_pairs
+    k, n = 4, 128 * 33
+    seeds = pair_seeds((3, 5), k)
+    ri, rj = recovery_pairs(k)
+    alive = np.array([1, 0, 1, 1])
+    signs = np.sign(rj - ri) * alive[ri] * (1 - alive[rj])
+    got = summed_mask(seeds[ri, rj], signs, n, device="cuda")
+    assert torch.equal(got.cpu(), ref.summed_mask(seeds[ri, rj], signs, n))
+    with pytest.raises(ValueError):
+        summed_mask(seeds[ri, rj], signs, 130, device="cuda")
+
+
+@pytest.mark.parametrize("weights", [[3.0, 2.0, 7.0, 1.0],
+                                     [3.0, 0.0, 7.0, 1.0],
+                                     [0.0, 0.0, 0.0, 0.0]])
+def test_secure_aggregator_on_card_equals_cpu(gen, weights):
+    from repro_torch.kernels.secure_mask.kernel import masked_encode_fwd
+    from repro_torch.privacy.secure_agg import SecureAggregator
+    from repro_torch.tree import tree_flatten, tree_map
+    g = torch.Generator().manual_seed(1)
+    tree = {"tail": {"w": torch.randn((4, 33, 7), generator=g)},
+            "prompt": torch.randn((4, 5, 16), generator=g)}
+    fb = tree_map(lambda x: torch.full_like(x[0], 0.5), tree)
+    agg = SecureAggregator(seed=9)
+    w = torch.tensor(weights)
+    cpu, cpu_wire = agg.aggregate(tree, w, fb, 2)
+    before = masked_encode_fwd.launches
+    card, card_wire = agg.aggregate(tree_map(lambda x: x.cuda(), tree),
+                                    w.cuda(), tree_map(lambda x: x.cuda(),
+                                                       fb), 2)
+    dropped = any(x == 0 for x in weights)
+    assert masked_encode_fwd.launches == before + 4 + int(dropped)
+    assert card_wire == cpu_wire
+    for (pa, a), (pb, b) in zip(tree_flatten(card), tree_flatten(cpu)):
+        assert pa == pb and torch.equal(a.cpu(), b)

@@ -271,8 +271,11 @@ def test_fedavg_partial_matches_jax_and_falls_back():
         aggregation.fedavg(jax_to_torch(trees, "cpu"), torch.zeros(4))
     bc = aggregation.broadcast_to_clients(jax_to_torch(fb, "cpu"), 3)
     assert bc["t"].shape == (3, 3, 2)
-    with pytest.raises(NotImplementedError, match="slice D"):
-        aggregation.get_aggregator(secure=True)
+    # secure aggregation is ported (slice 3): the aggregator JAX builds
+    secure = aggregation.get_aggregator(secure=True, seed=4)
+    assert secure.name == "secure"
+    assert secure.describe() == jagg.get_aggregator(secure=True,
+                                                    seed=4).describe()
     with pytest.raises(NotImplementedError, match="slice E"):
         aggregation.get_aggregator(n_edges=2, cohort_size=4)
 
@@ -395,8 +398,13 @@ def test_trainer_defaults_to_cuda_and_refuses_unported_paths():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             SFPromptTrainer(tm, ProtocolConfig())
-    with pytest.raises(NotImplementedError, match="slice D"):
-        SFPromptTrainer(tm, ProtocolConfig(dp_clip=1.0), device="cpu")
+    # DP-SGD is ported (slice 3): a clip alone has no ledger, noise
+    # without a clip is refused as in the JAX package
+    assert SFPromptTrainer(tm, ProtocolConfig(dp_clip=1.0),
+                           device="cpu").accountant is None
+    with pytest.raises(ValueError, match="dp_clip"):
+        SFPromptTrainer(tm, ProtocolConfig(dp_noise_multiplier=1.0),
+                        device="cpu")
     with pytest.raises(NotImplementedError, match="slice H"):
         SFPromptTrainer(tm, ProtocolConfig(), mesh=object(), device="cpu")
     tr = SFPromptTrainer(tm, ProtocolConfig(), device="cpu")
