@@ -8,7 +8,12 @@ Phases, each of which fails the run with a nonzero exit:
   2. build the CUDA kernels from src/repro_torch/csrc (one nvcc per source,
      all at once, linked into one library);
   3. each kernel against its plain PyTorch version on the card, at the
-     serving paths' shapes (Qwen2.5-14B widths) and the training path's
+     serving paths' shapes (Qwen2.5-14B widths; zamba2's 32 attention
+     heads of 80 for the prefill and decode kernels; the Mamba-2 scan at
+     zamba2's (H 80, P 64, N 64, G 1) for prefill (B 1, T 132, zero and
+     random h0) and decode (B 8, T 1), and at small G 2 and 4 with odd T;
+     the RWKV-6 scan at rwkv6-3b's (H 40, K = V = 64) for prefill and
+     decode, and a strong decay w = -12) and the training path's
      (ViT-Base: int8 wire on activations and broadcast gradients, EL2N,
      non-causal prefill, the secure masked encode of one client's
      7,171,584-element upload and its recovery stream, compared as bit
@@ -19,7 +24,9 @@ Phases, each of which fails the run with a nonzero exit:
      served on the card and on the CPU from the same seeded weights, by the
      dense engine and by the paged engine (shared prefix, chunked prefill)
      — tokens equal, logits within 1e-4, wire bytes and page counters
-     equal;
+     equal; and the reduced zamba2 (18 layers, 3 cycles) and rwkv6 (3
+     layers) through the dense engine — tokens equal, logits within 1e-4,
+     wire bytes equal;
   5. the dense path at full width: Qwen2.5-14B widths cut to 6 layers, 4
      tenants, 8 slots, max_seq 512, int8 wire, decode_block 8, 16 synthetic
      requests through `ServeEngine.run`; every request finishes, metered
@@ -62,7 +69,19 @@ Phases, each of which fails the run with a nonzero exit:
      round plus one in the round with a dropout, the checkpoints and
      final.npz written under chiprun_out/private (then deleted: too large
      to bring back), every kernel of the path launched;
- 10. the `kernels` JSON line, then the device line last.
+ 10. the hybrid path at full width: zamba2-2.7b at published widths
+     (d_model 2560, 80 SSM heads of 64, d_state 64, 32 attention heads of
+     80, d_ff 10240, vocab 32000) cut to 24 layers (4 cycles: head 1 /
+     body 2 / tail 1), with phase 5's tenants, slots, wire and traffic
+     through `ServeEngine.run`; every request finishes, metered wire bytes
+     are within 5% of `serve_comm_breakdown`, and every kernel of the path
+     (the wire, both attention kernels and the Mamba-2 scan) was launched,
+     then a profiled replay;
+ 11. the rwkv path at full width: rwkv6-3b at published widths (d_model
+     2560, 40 heads of 64, decay LoRA 64, d_ff 8960, vocab 65536) cut to 8
+     layers (head 1 / body 6 / tail 1), checked as phase 10 (the wire and
+     the RWKV-6 scan), then a profiled replay;
+ 12. the `kernels` JSON line, then the device line last.
 
 Needs a CUDA device and the repository's src/ beside this file; without
 either it exits nonzero and prints no result.
@@ -72,6 +91,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -89,6 +109,8 @@ FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
 SMS, ISSUE_LANES, INT32_LANES = 132, 128, 64
 ALU_OPS = ("IADD3", "LOP3", "SHF", "ISETP")
 ATTN_TOL = 2e-5
+SCAN_TOL = 2e-5               # |kernel - plain| <= tol (1 + |plain|): the
+#                               kernels sum in another order than einsum
 EL2N_TOL = 1e-5               # |kernel - one-pass plain| <= tol (1 + |plain|)
 PARITY_TOL = 1e-4
 PAGED_WIRE_TOL = 1e-3
@@ -104,6 +126,8 @@ REPLACES = {
         "src/repro/kernels/flash_attention/decode.py:261",
     "el2n": "src/repro/kernels/el2n/kernel.py:80",
     "secure_masked_encode": "src/repro/kernels/secure_mask/kernel.py:52",
+    "mamba2_scan": "src/repro/kernels/mamba2_scan/kernel.py:83",
+    "rwkv6_scan": "src/repro/kernels/rwkv6_scan/kernel.py:69",
 }
 SOURCES = {
     "quantize_int8": "src/repro_torch/csrc/quant.cu",
@@ -113,6 +137,8 @@ SOURCES = {
     "paged_decode_attention": "src/repro_torch/csrc/paged_decode_attention.cu",
     "el2n": "src/repro_torch/csrc/el2n.cu",
     "secure_masked_encode": "src/repro_torch/csrc/secure_mask.cu",
+    "mamba2_scan": "src/repro_torch/csrc/mamba2_scan.cu",
+    "rwkv6_scan": "src/repro_torch/csrc/rwkv6_scan.cu",
 }
 # the kernels each full-width path must launch
 PATHS = {
@@ -124,6 +150,9 @@ PATHS = {
               "el2n"),
     "private": ("quantize_int8", "dequantize_int8",
                 "flash_attention_prefill", "el2n", "secure_masked_encode"),
+    "hybrid": ("quantize_int8", "dequantize_int8", "flash_attention_prefill",
+               "decode_attention", "mamba2_scan"),
+    "rwkv": ("quantize_int8", "dequantize_int8", "rwkv6_scan"),
 }
 
 
@@ -224,9 +253,9 @@ def check_quant(torch, gen, results):
         f"D={D}, scalar and random u, dense and broadcast-gradient layouts "
         f"(strides (0, 1), (1, 0), (0, 0))")
 
-    # timing at the decode shape (8 slots x d_model, scalar u), the one the
-    # main path launches most
-    N = 8
+    # timing at the decode shape (8 slots x Qwen2.5-14B's d_model, scalar
+    # u), the one the main path launches most
+    N, D = 8, 5120
     k = n_copies(N * D * 5)
     xs = [torch.randn((N, D), generator=gen, device="cuda") for _ in range(k)]
     half = torch.full((), 0.5, device="cuda").expand(N, D)
@@ -306,46 +335,59 @@ def check_prefill(torch, F, gen, results):
         max_abs_err=worst, ms=t_k, plain_ms=t_p, bound_ms=b[0],
         bound_by=b[1], library_ms=t_l,
         shape=f"q ({B}, {S}, {Hq}, {Dh}), kv ({B}, {S}, {Hkv}, {Dh}), causal",
-        vit_shape=check_prefill_vit(torch, F, gen))
+        vit_shape=prefill_shape(torch, F, gen, "ViT shape", 16, 12, 64,
+                                False, (213,)),
+        hd80_shape=prefill_shape(torch, F, gen, "head_dim 80", 1, 32, 80,
+                                 True, (37, 132)))
 
 
-def check_prefill_vit(torch, F, gen):
-    """The training path's shape (ViT-Base scoring and evaluation passes):
-    non-causal, B 16, S 213 (196 patches + CLS + 16 prompt), 12 heads of
-    64. An extra shape of the prefill kernel, not a kernel record."""
+def prefill_shape(torch, F, gen, label, B, H, Dh, causal, lengths):
+    """An extra shape of the prefill kernel, not a kernel record: held
+    against plain at each of `lengths` (MHA, kv_len = S), timed at the
+    last beside plain, SDPA and the bound. The training path's (ViT-Base
+    scoring and evaluation: non-causal, B 16, S 213 = 196 patches + CLS +
+    16 prompt, 12 heads of 64) and zamba2's shared attention block (causal,
+    32 heads of 80, at the hybrid path's longest prefill of 132 and an odd
+    length)."""
     from repro_torch.kernels.flash_attention import ref
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
-    B, S, H, Dh = 16, 213, 12, 64
     scale = Dh ** -0.5
 
-    def inputs():
+    def inputs(S):
         return tuple(torch.randn((B, S, H, Dh), generator=gen, device="cuda")
                      for _ in range(3))
 
-    q, k, v = inputs()
-    got = flash_attention_fwd(q, k, v, causal=False, sliding_window=None,
-                              softcap=None, scale=scale, kv_len=S)
-    err = float((got - ref.attention(q, k, v, causal=False, scale=scale))
-                .abs().max())
-    if not (torch.isfinite(got).all() and err <= ATTN_TOL):
-        fail(f"prefill ViT shape: max|kernel - plain| = {err:.3g} > "
-             f"{ATTN_TOL}")
+    worst = 0.0
+    for S in lengths:
+        q, k, v = inputs(S)
+        got = flash_attention_fwd(q, k, v, causal=causal,
+                                  sliding_window=None, softcap=None,
+                                  scale=scale, kv_len=S)
+        err = float((got - ref.attention(q, k, v, causal=causal,
+                                         scale=scale)).abs().max())
+        if not (torch.isfinite(got).all() and err <= ATTN_TOL):
+            fail(f"prefill {label} S={S}: max|kernel - plain| = {err:.3g} "
+                 f"> {ATTN_TOL}")
+        worst = max(worst, err)
+    S = lengths[-1]
     per = 4 * B * S * H * Dh * 4
-    sets = [inputs() for _ in range(n_copies(per))]
+    sets = [inputs(S) for _ in range(n_copies(per))]
     t_k = time_ms([lambda s=s: flash_attention_fwd(
-        *s, causal=False, sliding_window=None, softcap=None, scale=scale,
+        *s, causal=causal, sliding_window=None, softcap=None, scale=scale,
         kv_len=S) for s in sets])
-    t_p = time_ms([lambda s=s: ref.attention(*s, causal=False, scale=scale)
+    t_p = time_ms([lambda s=s: ref.attention(*s, causal=causal, scale=scale)
                    for s in sets])
     lib = [tuple(t.transpose(1, 2).contiguous() for t in s) for s in sets]
     t_l = time_ms([lambda s=s: F.scaled_dot_product_attention(
-        *s, scale=scale) for s in lib])
-    b = bound(per, B * H * S * S * 4 * Dh)
-    say(f"prefill ViT shape: q ({B}, {S}, {H}, {Dh}) non-causal: max abs err "
-        f"{err:.3g}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, SDPA "
+        *s, is_causal=causal, scale=scale) for s in lib])
+    pairs = _prefill_pairs(S, S, None) if causal else S * S
+    b = bound(per, B * H * pairs * 4 * Dh)
+    kind = "causal" if causal else "non-causal"
+    say(f"prefill {label}: q ({B}, {S}, {H}, {Dh}) {kind}: max abs err "
+        f"{worst:.3g}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, SDPA "
         f"{t_l:.4f} ms, bound {b[0]:.5f} ms ({b[1]})")
-    return dict(shape=f"q, k, v ({B}, {S}, {H}, {Dh}), non-causal",
-                max_abs_err=err, ms=t_k, plain_ms=t_p, library_ms=t_l,
+    return dict(shape=f"q, k, v ({B}, {S}, {H}, {Dh}), {kind}",
+                max_abs_err=worst, ms=t_k, plain_ms=t_p, library_ms=t_l,
                 bound_ms=b[0], bound_by=b[1])
 
 
@@ -370,9 +412,18 @@ def decode_case(torch, gen, B, W, Hq, Hkv, Dh, lengths, wrap_slot=None):
 
 
 def check_decode(torch, F, gen, results):
+    results["decode_attention"] = decode_record(torch, F, gen, 40, 8, 128)
+    results["decode_attention"]["hd80_shape"] = decode_record(
+        torch, F, gen, 32, 32, 80)
+
+
+def decode_record(torch, F, gen, Hq, Hkv, Dh):
+    """The decode kernel against plain at 8 slots of 512 (one wrapped ring,
+    two empty slots), with and without window and softcap, then timed:
+    Qwen2.5-14B's (40, 8, 128) and zamba2's shared block (32, 32, 80)."""
     from repro_torch.kernels.flash_attention.decode import (
         decode_attention_fwd, grouped_decode)
-    B, W, Hq, Hkv, Dh = 8, 512, 40, 8, 128
+    B, W = 8, 512
     scale = Dh ** -0.5
     lengths = [37, 0, 512, 200, 0, 1, 333, 100]
     worst = 0.0
@@ -385,10 +436,11 @@ def check_decode(torch, F, gen, results):
                               softcap=softcap)
         err = float((got - want).abs().max())
         if not (torch.isfinite(got).all() and err <= ATTN_TOL):
-            fail(f"decode window={window} softcap={softcap}: max|kernel - "
-                 f"plain| = {err:.3g} > {ATTN_TOL}")
+            fail(f"decode Hq={Hq} Hkv={Hkv} Dh={Dh} window={window} "
+                 f"softcap={softcap}: max|kernel - plain| = {err:.3g} > "
+                 f"{ATTN_TOL}")
         worst = max(worst, err)
-        say(f"decode: B={B} W={W} G={Hq // Hkv} lengths={lengths} "
+        say(f"decode: B={B} W={W} G={Hq // Hkv} Dh={Dh} lengths={lengths} "
             f"(slot 7 wrapped) window={window} softcap={softcap}: max abs "
             f"err {err:.3g}")
 
@@ -413,7 +465,10 @@ def check_decode(torch, F, gen, results):
     n_valid = int(((kvp >= 0) & (kvp <= qp[:, None])).sum())
     nbytes = (B * Hq * Dh * 2 + n_valid * Hkv * Dh * 2) * 4 + B * W * 4 + B * 4
     b = bound(nbytes, n_valid * (Hq // Hkv) * Hkv * 4 * Dh)
-    results["decode_attention"] = dict(
+    say(f"decode timed: q ({B}, 1, {Hq}, {Dh}), cache ({B}, {W}, {Hkv}, "
+        f"{Dh}): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, SDPA {t_l:.4f} ms, "
+        f"bound {b[0]:.5f} ms ({b[1]})")
+    return dict(
         max_abs_err=worst, ms=t_k, plain_ms=t_p, bound_ms=b[0],
         bound_by=b[1], library_ms=t_l,
         shape=f"q ({B}, 1, {Hq}, {Dh}), cache ({B}, {W}, {Hkv}, {Dh}), "
@@ -761,7 +816,159 @@ def check_secure_mask(torch, gen, results):
         shape=f"x ({n_full},) f32, 3 pairs")
 
 
+def _scan_err(torch, got, want):
+    """max |kernel - plain| / (1 + |plain|), inf where the kernel is not
+    finite."""
+    if not bool(torch.isfinite(got).all()):
+        return math.inf
+    return float(((got - want).abs() / (1.0 + want.abs())).max())
+
+
+def mamba2_case(torch, gen, B, T, H, P, N, G, h0):
+    """Inputs laid out as `apply_mamba2` hands them to the scan: x, B and C
+    are views into one conv output (B, T, H*P + 2*G*N), dt a softplus, A
+    the init's -linspace(1, 16)."""
+    F = torch.nn.functional
+    conv = torch.randn((B, T, H * P + 2 * G * N), generator=gen,
+                       device="cuda")
+    x = conv[..., :H * P].reshape(B, T, H, P)
+    Bm = conv[..., H * P:H * P + G * N].reshape(B, T, G, N)
+    Cm = conv[..., H * P + G * N:].reshape(B, T, G, N)
+    dt = F.softplus(torch.randn((B, T, H), generator=gen, device="cuda"))
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    state = (torch.randn((B, H, P, N), generator=gen, device="cuda")
+             if h0 else None)
+    return x, dt, A, Bm, Cm, state
+
+
+def time_scan(kernel, plain, make, per_bytes):
+    """Kernel and plain times over input copies that exceed the L2 (the
+    plain version, a Python loop over T, over fewer calls)."""
+    sets = [make() for _ in range(n_copies(per_bytes))]
+    return (time_ms([lambda s=s: kernel(*s) for s in sets]),
+            time_ms([lambda s=s: plain(*s) for s in sets], iters=10))
+
+
+def check_mamba2(torch, gen, results):
+    from repro_torch.kernels.mamba2_scan import ref
+    from repro_torch.kernels.mamba2_scan.kernel import mamba2_fwd
+    worst = 0.0
+    # zamba2's path shapes (prefill with zero and random h0, decode), then
+    # small shapes with G 2 and 4 and odd T
+    cases = [(1, 132, 80, 64, 64, 1, False), (1, 132, 80, 64, 64, 1, True),
+             (8, 1, 80, 64, 64, 1, True), (2, 37, 8, 64, 64, 2, True),
+             (3, 101, 8, 32, 16, 4, False)]
+    for B, T, H, P, N, G, h0 in cases:
+        args = mamba2_case(torch, gen, B, T, H, P, N, G, h0)
+        y, h = mamba2_fwd(*args)
+        ry, rh = ref.mamba2_scan(*args)
+        err = max(_scan_err(torch, y, ry), _scan_err(torch, h, rh))
+        if not err <= SCAN_TOL:
+            fail(f"mamba2_scan B={B} T={T} H={H} P={P} N={N} G={G} "
+                 f"h0={h0}: max|kernel - plain|/(1 + |plain|) = {err:.3g} "
+                 f"> {SCAN_TOL}")
+        worst = max(worst, err)
+        say(f"mamba2_scan: B={B} T={T} H={H} P={P} N={N} G={G} h0={h0}: "
+            f"max scaled err {err:.3g}")
+    # timed as the path calls it: the slot cache's state is always passed
+    timed = {}
+    for name, (B, T) in (("decode", (8, 1)), ("prefill", (1, 132))):
+        H, P, N, G = 80, 64, 64, 1
+        # x, dt, A, B, C and the state read once; y and the state written
+        # once; 5 flops per state entry per step (decay, input product,
+        # add; output product, sum), dt x per row, exp(dt A) per head
+        nbytes = 4 * (B * T * H * P + B * T * H + H + 2 * B * T * G * N
+                      + B * T * H * P + 2 * B * H * P * N)
+        b = bound(nbytes, B * T * H * (P * (5 * N + 1) + 2))
+        t_k, t_p = time_scan(
+            mamba2_fwd, ref.mamba2_scan,
+            lambda: mamba2_case(torch, gen, B, T, H, P, N, G, True), nbytes)
+        timed[name] = dict(
+            ms=t_k, plain_ms=t_p, bound_ms=b[0], bound_by=b[1],
+            shape=f"x ({B}, {T}, {H}, {P}), B/C ({B}, {T}, {G}, {N}), "
+                  f"state carried")
+        say(f"mamba2_scan {name}: {timed[name]['shape']}: kernel "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b[0]:.5f} ms "
+            f"({b[1]})")
+    results["mamba2_scan"] = dict(timed["decode"], max_abs_err=worst,
+                                  library_ms=None,
+                                  prefill_shape=timed["prefill"])
+
+
+def rwkv6_case(torch, gen, B, T, H, K, decay=None):
+    """Inputs as `apply_rwkv6` hands them to the scan: contiguous r, k, v,
+    the Finch decay w = -exp(.), the bonus u, and a carried state."""
+    r, k, v = (torch.randn((B, T, H, K), generator=gen, device="cuda")
+               for _ in range(3))
+    w = (torch.full((B, T, H, K), decay, device="cuda") if decay is not None
+         else -torch.exp(torch.randn((B, T, H, K), generator=gen,
+                                     device="cuda") - 1.0))
+    u = 0.5 * torch.randn((H, K), generator=gen, device="cuda")
+    state = torch.randn((B, H, K, K), generator=gen, device="cuda")
+    return r, k, v, w, u, state
+
+
+def check_rwkv6(torch, gen, results):
+    from repro_torch.kernels.rwkv6_scan import ref
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_fwd
+    worst = 0.0
+    cases = [(1, 132, 40, 64, None), (8, 1, 40, 64, None),
+             (2, 37, 4, 64, -12.0), (3, 65, 2, 16, None)]
+    for B, T, H, K, decay in cases:
+        args = rwkv6_case(torch, gen, B, T, H, K, decay)
+        y, S = rwkv6_fwd(*args)
+        ry, rS = ref.rwkv6_scan(*args)
+        err = max(_scan_err(torch, y, ry), _scan_err(torch, S, rS))
+        if not err <= SCAN_TOL:
+            fail(f"rwkv6_scan B={B} T={T} H={H} K={K} decay={decay}: "
+                 f"max|kernel - plain|/(1 + |plain|) = {err:.3g} > "
+                 f"{SCAN_TOL}")
+        worst = max(worst, err)
+        say(f"rwkv6_scan: B={B} T={T} H={H} K=V={K} decay={decay}: max "
+            f"scaled err {err:.3g}")
+    timed = {}
+    for name, (B, T) in (("decode", (8, 1)), ("prefill", (1, 132))):
+        H, K = 40, 64
+        # r, k, v, w, u and the state read once; y and the state written
+        # once; 5 flops per state entry per step (r S and its sum; exp(w) S,
+        # k v, add), the bonus r u k (3 per k) and its v term (2 per v)
+        nbytes = 4 * (4 * B * T * H * K + H * K + B * T * H * K
+                      + 2 * B * H * K * K)
+        b = bound(nbytes, B * T * H * (5 * K * K + 5 * K))
+        t_k, t_p = time_scan(
+            rwkv6_fwd, ref.rwkv6_scan,
+            lambda: rwkv6_case(torch, gen, B, T, H, K), nbytes)
+        timed[name] = dict(
+            ms=t_k, plain_ms=t_p, bound_ms=b[0], bound_by=b[1],
+            shape=f"r, k, v, w ({B}, {T}, {H}, {K}), state carried")
+        say(f"rwkv6_scan {name}: {timed[name]['shape']}: kernel {t_k:.4f} "
+            f"ms, plain {t_p:.4f} ms, bound {b[0]:.5f} ms ({b[1]})")
+    results["rwkv6_scan"] = dict(timed["decode"], max_abs_err=worst,
+                                 library_ms=None,
+                                 prefill_shape=timed["prefill"])
+
+
 # ---------------------------------------------------------------- phase 4
+def compare_runs(label, runs):
+    """`runs[dev]` = (finished requests by rid, counters) for "cpu" and
+    "cuda": fail unless every request's tokens are equal, its logits within
+    PARITY_TOL and the counters (wire bytes, page counters) equal; returns
+    the largest logit difference."""
+    worst = 0.0
+    for rid, f_cpu in runs["cpu"][0].items():
+        f_gpu = runs["cuda"][0][rid]
+        if not (f_cpu.tokens == f_gpu.tokens).all():
+            fail(f"{label} rid={rid}: tokens {f_gpu.tokens.tolist()} on the "
+                 f"card vs {f_cpu.tokens.tolist()} on the CPU")
+        worst = max(worst, float(abs(f_cpu.logits - f_gpu.logits).max()))
+    if worst > PARITY_TOL:
+        fail(f"{label}: max logit difference {worst:.3g} > {PARITY_TOL}")
+    if runs["cpu"][1] != runs["cuda"][1]:
+        fail(f"{label}: wire bytes or page counters differ between devices: "
+             f"{runs['cuda'][1]} vs {runs['cpu'][1]}")
+    return worst
+
+
 def gqa_reduced():
     from repro_torch.configs import get_config
     cfg = get_config("qwen2.5-14b").reduced(n_layers=3, d_model=160,
@@ -809,36 +1016,83 @@ def engine_parity(torch):
             st = make(p, b, dev).run(reqs)
             runs[dev] = ({f.req.rid: f for f in st["finished"]},
                          {k: st.get(k) for k in counters})
-        worst = 0.0
-        for rid, f_cpu in runs["cpu"][0].items():
-            f_gpu = runs["cuda"][0][rid]
-            if not (f_cpu.tokens == f_gpu.tokens).all():
-                fail(f"{kind} engine parity rid={rid}: tokens "
-                     f"{f_gpu.tokens.tolist()} on the card vs "
-                     f"{f_cpu.tokens.tolist()} on the CPU")
-            worst = max(worst, float(abs(f_cpu.logits - f_gpu.logits).max()))
-        if worst > PARITY_TOL:
-            fail(f"{kind} engine parity: max logit difference {worst:.3g} > "
-                 f"{PARITY_TOL}")
-        if runs["cpu"][1] != runs["cuda"][1]:
-            fail(f"{kind} engine parity: wire bytes or page counters differ "
-                 f"between devices: {runs['cuda'][1]} vs {runs['cpu'][1]}")
+        worst = compare_runs(f"{kind} engine parity", runs)
         say(f"{kind} engine parity ({cfg.name}, G=5, fp32 wire, 6 requests"
             f"{', page 8, shared prefix 8, chunks of 4' if kind == 'paged' else ''}"
             f"): tokens ==, max logit diff {worst:.3g}, wire bytes "
             f"{'and page counters ' if kind == 'paged' else ''}==")
 
 
-# ------------------------------------------------------------ phases 5-6
-def full_width_model(torch):
-    """Qwen2.5-14B widths cut to 6 layers (head 1 / body 4 / tail 1), soft
-    prompt 4, int8 wire, fp32, 4 tenants, seeded random weights: shared by
-    the dense and the paged full-width runs."""
+def recurrent_parity(torch):
+    """The reduced recurrent families (zamba2 at 18 layers: 3 cycles of 5
+    Mamba-2 layers and the shared attention block; rwkv6 at 3 layers) served
+    by the dense engine on the card and on the CPU from the same seeded
+    weights: tokens equal, logits within 1e-4, wire bytes equal.
+
+    The tenants' tails are the launcher's bank (jitter 0.05). The model's
+    own conditioning is printed beside the check: the CPU run again with
+    every tail weight scaled by (1 + 1e-7 n), n standard normal, which is
+    about the rounding that separates the card's sums from the CPU's. A
+    6-layer zamba2 tail jittered by 0.2 (ten times its init scale)
+    amplifies that to more than 1e-4."""
     from repro_torch.configs import get_config
     from repro_torch.core import SplitConfig, SplitModel
     from repro_torch.launch.serve import personalized_bank
     from repro_torch.runtime import WireSpec
-    cfg = dataclasses.replace(get_config("qwen2.5-14b"), n_layers=6)
+    from repro_torch.serve import (ServeConfig, ServeEngine, TenantBank,
+                                   WorkloadConfig, synthetic_requests)
+    from repro_torch.tree import tree_map
+    out = {}
+    for arch in ("zamba2-2.7b", "rwkv6-3b"):
+        base = get_config(arch)
+        cfg = base.reduced(n_layers=3 * len(base.layer_pattern))
+        model = SplitModel(cfg, SplitConfig(head_cycles=1, tail_cycles=1,
+                                            prompt_len=4),
+                           WireSpec.make("fp32"))
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        bank = personalized_bank(model, params, 3)
+        gen = torch.Generator().manual_seed(5)
+        nudged = TenantBank(
+            tree_map(lambda x: x * (1 + 1e-7 * torch.randn(
+                x.shape, generator=gen)), bank.tails), bank.prompts)
+        reqs = synthetic_requests(WorkloadConfig(
+            n_requests=6, prompt_choices=(6, 11), new_token_choices=(3, 6),
+            n_tenants=3, vocab_size=cfg.vocab_size, seed=3))
+        runs = {}
+        for dev, b in (("cpu", bank), ("cuda", bank), ("nudged", nudged)):
+            on = "cpu" if dev == "nudged" else dev
+            st = ServeEngine(
+                model, tree_map(lambda x: x.to(on), params),
+                TenantBank(tree_map(lambda x: x.to(on), b.tails),
+                           b.prompts.to(on)),
+                ServeConfig(n_slots=3, max_seq=48, decode_block=4),
+                collect_logits=True, device=on).run(reqs)
+            runs[dev] = ({f.req.rid: f for f in st["finished"]},
+                         st["wire_bytes"])
+        nudge = max(float(abs(f.logits - runs["nudged"][0][rid].logits)
+                          .max()) for rid, f in runs["cpu"][0].items())
+        worst = compare_runs(f"{arch} engine parity", runs)
+        say(f"{arch} engine parity ({cfg.name}, {cfg.n_layers} layers, fp32 "
+            f"wire, 6 requests): tokens ==, max logit diff {worst:.3g}, "
+            f"wire bytes ==; the CPU's own logit change under a 1e-7 "
+            f"relative nudge of the tails {nudge:.3g}")
+        out[arch] = {"max_logit_diff": worst, "layers": cfg.n_layers,
+                     "cpu_nudge_logit_diff": nudge}
+    return out
+
+
+# ------------------------------------------------ phases 5-6 and 10-11
+def full_width_model(torch, arch="qwen2.5-14b", n_layers=6):
+    """A model at `arch`'s published widths cut to `n_layers` (one cycle
+    of the layer pattern in the head and in the tail, the rest in the
+    body), soft prompt 4, int8 wire, fp32, 4 tenants, seeded random
+    weights. Qwen2.5-14B at 6 layers is shared by the dense and the paged
+    full-width runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import SplitConfig, SplitModel
+    from repro_torch.launch.serve import personalized_bank
+    from repro_torch.runtime import WireSpec
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     split = SplitConfig(head_cycles=1, tail_cycles=1, prompt_len=4)
     model = SplitModel(cfg, split, WireSpec.make("int8"))
     t0 = time.perf_counter()
@@ -847,8 +1101,13 @@ def full_width_model(torch):
     bank = personalized_bank(model, params, 4)
     del params["tail"]
     torch.cuda.synchronize()
+    cyc = len(cfg.layer_pattern)
+    desc = (f"{cfg.name} widths, {cfg.n_layers} layers (1 head / "
+            f"{model.body_cycles * cyc} body / 1 tail)" if cyc == 1 else
+            f"{cfg.name} widths, {cfg.n_layers} layers ({cfg.n_cycles} "
+            f"cycles of {cyc}: 1 head / {model.body_cycles} body / 1 tail)")
     return dict(cfg=cfg, split=split, model=model, params=params, bank=bank,
-                setup_s=time.perf_counter() - t0)
+                desc=desc, setup_s=time.perf_counter() - t0)
 
 
 def run_path(torch, path, engine, reqs, warm):
@@ -900,7 +1159,10 @@ WORKLOAD = dict(mean_interarrival=1.0, prompt_choices=(32, 64, 96, 128),
                 new_token_choices=(16, 24, 32), n_tenants=4)
 
 
-def full_width(torch, fw):
+def full_width(torch, fw, path="dense"):
+    """One model through the dense engine at full width with phase 5's
+    traffic: 4 tenants, 8 slots, max_seq 512, int8 wire, decode_block 8,
+    16 synthetic requests of 32-128 prompt and 16-32 new tokens."""
     from repro_torch.core.comm import serve_comm_breakdown
     from repro_torch.serve import (ServeConfig, ServeEngine, WorkloadConfig,
                                    synthetic_requests)
@@ -911,7 +1173,7 @@ def full_width(torch, fw):
     wl = dict(WORKLOAD, vocab_size=cfg.vocab_size)
     reqs = synthetic_requests(WorkloadConfig(n_requests=16, seed=0, **wl))
     stats, launches = run_path(
-        torch, "dense", engine, reqs,
+        torch, path, engine, reqs,
         synthetic_requests(WorkloadConfig(n_requests=2, seed=1, **wl)))
     analytical = serve_comm_breakdown(
         model.wire, d_model=cfg.d_model, soft_prompt_len=split.prompt_len,
@@ -921,16 +1183,15 @@ def full_width(torch, fw):
         got = stats["wire_bytes"][name]
         wire_err[name] = abs(got - want) / want
         if wire_err[name] > 0.05:
-            fail(f"dense full width: {name} measured {got} B vs analytical "
+            fail(f"{path} full width: {name} measured {got} B vs analytical "
                  f"{want} B")
     summary = _summary(torch, stats, fw, {
-        "config": f"{cfg.name} widths, {cfg.n_layers} layers (1 head / 4 "
-                  f"body / 1 tail), 4 tenants, 8 slots, max_seq 512, int8 "
+        "config": f"{fw['desc']}, 4 tenants, 8 slots, max_seq 512, int8 "
                   f"wire, decode_block 8, fp32",
         "wire_rel_err": wire_err, "launches": launches})
-    say("dense full width: " + json.dumps(summary, sort_keys=True))
+    say(f"{path} full width: " + json.dumps(summary, sort_keys=True))
     summary["profile"] = profile_replay(torch, engine, reqs)
-    say("dense profile: " + json.dumps(summary["profile"], sort_keys=True))
+    say(f"{path} profile: " + json.dumps(summary["profile"], sort_keys=True))
     del engine
     return launches, summary
 
@@ -980,8 +1241,7 @@ def full_width_paged(torch, fw):
             fail(f"paged full width: {b.name} measured {got} B vs exact "
                  f"{want} B")
     summary = _summary(torch, stats, fw, {
-        "config": f"{cfg.name} widths, {cfg.n_layers} layers (1 head / 4 "
-                  f"body / 1 tail), 4 tenants, 16 slots, max_seq 512, "
+        "config": f"{fw['desc']}, 4 tenants, 16 slots, max_seq 512, "
                   f"page 16, 130 pages (128 usable), shared prefix "
                   f"{len(prefix)}, prefill_chunk 64, int8 wire, "
                   f"decode_block 8, fp32",
@@ -1032,7 +1292,7 @@ def device_summary(prof, wall):
     # timeline; they span the kernels they launch and would count them twice.
     # Kernels are keyed by the first 60 characters of their names, so the
     # template instances of one cuBLAS kernel add up under one key.
-    kernels, by_kind, spans_us = {}, {}, []
+    kernels, by_kind, spans_us, port_n = {}, {}, [], {}
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA \
                 or getattr(evt, "is_user_annotation", False) \
@@ -1042,6 +1302,11 @@ def device_summary(prof, wall):
         kernels[evt.name[:60]] = kernels.get(evt.name[:60], 0) + us
         kind = _device_kind(evt.name)
         by_kind[kind] = by_kind.get(kind, 0) + us
+        port = next((k for k in PORT_KERNELS
+                     if re.search(rf"(^|[^A-Za-z_]){k}\b", evt.name)), None)
+        if port is not None:
+            port_n[port] = port_n.get(port, (0, 0))
+            port_n[port] = (port_n[port][0] + 1, port_n[port][1] + us)
         spans_us.append((evt.time_range.start, evt.time_range.end))
     busy_us, reach = 0, None   # union of the device intervals
     for start, end in sorted(spans_us):
@@ -1058,12 +1323,19 @@ def device_summary(prof, wall):
         "device_kernels": len(kernels),
         "device_ms_by_kind": {k: us * 1e-3 for k, us in by_kind.items()},
         "top_device_ms": {name: us * 1e-3 for name, us in top},
+        # device time a launch of each of the port's kernels, averaged over
+        # the replay's shapes: unlike phase 3's event timing of single
+        # wrapper calls, no host time between launches is in it
+        "port_kernel_us_per_launch": {k: us / n
+                                      for k, (n, us) in port_n.items()},
     }
 
 
 # device-side names of the port's own kernels (csrc/)
 PORT_KERNELS = ("decode_kernel", "paged_decode_kernel", "flash_fwd_kernel",
-                "quantize_kernel", "dequantize_kernel", "el2n_kernel")
+                "quantize_kernel", "dequantize_kernel", "el2n_kernel",
+                "masked_encode_kernel", "mamba2_scan_kernel",
+                "rwkv6_scan_kernel")
 
 
 def _device_kind(name: str) -> str:
@@ -1590,9 +1862,12 @@ def main() -> None:
     check_paged_decode(torch, F, gen, results)
     check_el2n(torch, F, gen, results)
     check_secure_mask(torch, gen, results)
+    check_mamba2(torch, gen, results)
+    check_rwkv6(torch, gen, results)
 
-    # 4. engine parity card vs CPU, dense and paged
+    # 4. engine parity card vs CPU, dense and paged; the recurrent families
     engine_parity(torch)
+    recurrent = recurrent_parity(torch)
 
     # 5-6. the dense and the paged path at full width
     fw = full_width_model(torch)
@@ -1613,8 +1888,18 @@ def main() -> None:
     # 9. the private federated run at full width through the launcher
     by_path["private"], summaries["private"] = full_width_private(
         torch, results["secure_masked_encode"]["ms"])
+    summaries["recurrent_parity"] = recurrent
 
-    # 10. kernels line, device line
+    # 10-11. the recurrent families at full width through the dense engine,
+    # each model freed before the next loads
+    for path, arch, n_layers in (("hybrid", "zamba2-2.7b", 24),
+                                 ("rwkv", "rwkv6-3b", 8)):
+        torch.cuda.empty_cache()
+        fw = full_width_model(torch, arch, n_layers)
+        by_path[path], summaries[path] = full_width(torch, fw, path)
+        del fw
+
+    # 12. kernels line, device line
     kernels = []
     for name in REPLACES:
         per_path = {path: counts[name] for path, counts in by_path.items()

@@ -9,16 +9,17 @@ The head->body and body->tail cut points are real wire boundaries: a
 `forward(route="split")` pushes every smashed activation through it,
 reporting the measured bytes in `out["wire_bytes"]`.
 
-This is the port of `repro/core/split.py` for token models with attention
-layers — the serving path's subset (caches, slots, page pools, segments,
-forward with chunked-prefill continuation) — and for the ViT classifier the
-training round splits (patch embedding, CLS token and soft prompt,
-non-causal attention, logits from the CLS row). Params and caches are
-nested dicts of tensors keyed as the JAX pytrees; caches and page pools are
-written in place.
+This is the port of `repro/core/split.py` for token models with attention,
+Mamba-2 and RWKV-6 layers (zamba2's shared attention block is copied into
+each segment, as in the JAX package) — the serving path's subset (caches,
+slots, page pools, segments, forward with chunked-prefill continuation) —
+and for the ViT classifier the training round splits (patch embedding, CLS
+token and soft prompt, non-causal attention, logits from the CLS row).
+Params and caches are nested dicts of tensors keyed as the JAX pytrees;
+caches and page pools are written in place.
 
 `head_fwd(differentiable=True)` marks a pass that autograd goes through;
-its attention then runs the plain version on every device
+its attention and scans then run the plain versions on every device
 (`models/layers.py`), as the JAX training round runs with `impl="ref"`.
 """
 from __future__ import annotations
@@ -167,7 +168,10 @@ class SplitModel:
     # ------------------------------------------------- slotted allocation
     # A serving engine's shared KV cache is `init_cache(n_slots, ...)`:
     # every batch row is a SLOT that one in-flight request owns. Every cache
-    # leaf carries the slot axis at 1, after the stacked-layer axis.
+    # leaf carries the slot axis at 1, after the stacked-layer axis: the
+    # attention k/v/positions and the recurrent conv (n, B, d_conv-1, C),
+    # ssm (n, B, H, P, N), shift_t/shift_c (n, B, D) and state
+    # (n, B, H, K, V) alike.
 
     def blank_slot_cache(self, seq_len: int, dtype=torch.float32,
                          window=None, *, device="cuda") -> Params:

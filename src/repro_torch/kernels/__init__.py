@@ -14,6 +14,8 @@ Kernels (csrc/, built by `build.py` into one shared library at first use):
                      paged decode attention      (paged_decode_attention.cu)
   el2n             — fused EL2N score + cross-entropy      (el2n.cu)
   secure_mask      — fixed-point encode + pairwise masks   (secure_mask.cu)
+  mamba2_scan      — Mamba-2 SSD recurrence                (mamba2_scan.cu)
+  rwkv6_scan       — RWKV-6 time-mix recurrence            (rwkv6_scan.cu)
 
 No kernel has a backward, and a launch wrapper passes raw pointers, so its
 output carries no `grad_fn`: every wrapper refuses (`refuse_grad`) an input
@@ -54,13 +56,16 @@ def wrappers() -> Dict[str, Callable]:
     from repro_torch.kernels.flash_attention.decode import (
         decode_attention_fwd, paged_decode_attention_fwd)
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.mamba2_scan.kernel import mamba2_fwd
     from repro_torch.kernels.quant.kernel import dequantize_fwd, quantize_fwd
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_fwd
     from repro_torch.kernels.secure_mask.kernel import masked_encode_fwd
     return {"quantize_int8": quantize_fwd, "dequantize_int8": dequantize_fwd,
             "flash_attention_prefill": flash_attention_fwd,
             "decode_attention": decode_attention_fwd,
             "paged_decode_attention": paged_decode_attention_fwd,
-            "el2n": el2n_fwd, "secure_masked_encode": masked_encode_fwd}
+            "el2n": el2n_fwd, "secure_masked_encode": masked_encode_fwd,
+            "mamba2_scan": mamba2_fwd, "rwkv6_scan": rwkv6_fwd}
 
 
 def launch_counts() -> Dict[str, int]:

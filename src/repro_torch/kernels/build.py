@@ -69,6 +69,19 @@ SIGNATURES = {
     "sfp_masked_encode": (
         [_P, _P, _P, _I, _F, _P, _L, _P]),    # x (or null), seeds, signs,
     #                                           J, scale, out, n, stream
+    "sfp_mamba2_scan_fwd": (
+        [_P] * 8                              # x, dt, A, Bm, Cm, h0 (or
+        #                                       null), y, h_out
+        + [_I] * 7                            # B, T, H, G, P, N, tpp
+        + [_L] * 12                           # (b, t, h|g) strides of x, dt,
+        #                                       Bm, Cm
+        + [_P]),                              # stream
+    "sfp_rwkv6_scan_fwd": (
+        [_P] * 8                              # r, k, v, w, u, s0 (or null),
+        #                                       y, s_out
+        + [_I] * 5                            # B, T, H, K, V
+        + [_L] * 12                           # (b, t, h) strides of r, k, v, w
+        + [_P]),                              # stream
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,0 +1,40 @@
+"""Public Mamba-2 SSD scan op, dispatched by device — the port of
+`repro/kernels/mamba2_scan/ops.py`.
+
+A tensor on the CPU runs the plain sequential recurrence (`ref.py`); a
+CUDA tensor launches the kernel (`kernel.py`) or raises — there is no
+third path and no `impl` switch. The JAX op's `"chunked"` and
+`"analysis"` impls are XLA-side alternatives for dry-run cost accounting
+and are not ported. Differentiated passes call `ref.mamba2_scan` directly
+(`models/layers.py`), as the JAX package runs them with `impl="ref"`.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import on_cuda
+from repro_torch.kernels.mamba2_scan import ref
+from repro_torch.kernels.mamba2_scan.kernel import mamba2_fwd
+
+
+def _unit_last(t: torch.Tensor) -> torch.Tensor:
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def mamba2_scan(
+    x: torch.Tensor,     # (B, T, H, P)
+    dt: torch.Tensor,    # (B, T, H)
+    A: torch.Tensor,     # (H,)
+    Bm: torch.Tensor,    # (B, T, G, N)
+    Cm: torch.Tensor,    # (B, T, G, N)
+    state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (y (B, T, H, P) in x.dtype, final state (B, H, P, N) f32)."""
+    if not on_cuda(x):
+        return ref.mamba2_scan(x, dt, A, Bm, Cm, state)
+    f = lambda t: _unit_last(t.float())  # noqa: E731
+    y, h = mamba2_fwd(f(x), dt.float(), A.float().contiguous(), f(Bm), f(Cm),
+                      None if state is None else state.float().contiguous())
+    return y.to(x.dtype), h

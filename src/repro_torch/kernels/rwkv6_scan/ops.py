@@ -1,0 +1,40 @@
+"""Public RWKV-6 scan op, dispatched by device — the port of
+`repro/kernels/rwkv6_scan/ops.py`.
+
+A tensor on the CPU runs the plain sequential recurrence (`ref.py`); a
+CUDA tensor launches the kernel (`kernel.py`) or raises — there is no
+third path and no `impl` switch. The JAX op's `"chunked"` and
+`"analysis"` impls are XLA-side alternatives for dry-run cost accounting
+and are not ported. Differentiated passes call `ref.rwkv6_scan` directly
+(`models/layers.py`), as the JAX package runs them with `impl="ref"`.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import on_cuda
+from repro_torch.kernels.rwkv6_scan import ref
+from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_fwd
+
+
+def _unit_last(t: torch.Tensor) -> torch.Tensor:
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def rwkv6_scan(
+    r: torch.Tensor,      # (B, T, H, K)
+    k: torch.Tensor,
+    v: torch.Tensor,      # (B, T, H, V)
+    w: torch.Tensor,      # (B, T, H, K) log-decay (negative)
+    u: torch.Tensor,      # (H, K)
+    state: Optional[torch.Tensor] = None,  # (B, H, K, V)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (y (B, T, H, V) in r.dtype, final state (B, H, K, V) f32)."""
+    if not on_cuda(r):
+        return ref.rwkv6_scan(r, k, v, w, u, state)
+    f = lambda t: _unit_last(t.float())  # noqa: E731
+    y, S = rwkv6_fwd(f(r), f(k), f(v), f(w), u.float().contiguous(),
+                     None if state is None else state.float().contiguous())
+    return y.to(r.dtype), S

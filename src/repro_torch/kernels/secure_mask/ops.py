@@ -52,10 +52,11 @@ def masked_encode(x: torch.Tensor, seeds, signs, *,
                              n=x.shape[0], frac_bits=frac_bits)
 
 
-def summed_mask(seeds, signs, n: int, *, device="cpu",
+def summed_mask(seeds, signs, n: int, *, device,
                 frac_bits: int = FRAC_BITS) -> torch.Tensor:
     """The pure mask stream (encode of zero) — the server's dropout-recovery
-    reconstruction, on `device`."""
+    reconstruction, on `device` (required: no op of the port picks a device
+    for its caller)."""
     device = torch.device(device)
     if device.type == "cpu":
         return ref.summed_mask(seeds, signs, n)

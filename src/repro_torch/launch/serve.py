@@ -23,6 +23,12 @@ Runs on the GPU unless asked for the CPU (--device cpu):
       --requests 16 --slots 8 --tenants 4 --wire int8
   PYTHONPATH=src python -m repro_torch.launch.serve --page-size 16 \\
       --shared-prefix 24 --prefill-chunk 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
+
+`--arch zamba2-2.7b` (Mamba-2 + one shared attention block) and
+`--arch rwkv6-3b` serve recurrent-state families through the dense
+engine; the paged engine refuses them (recurrent state has no pages).
 
 Tensor-parallel serving (--mesh-model > 1), checkpoint loading (--params)
 and the trace exporters (--trace-out, --metrics-every) belong to later

@@ -1,5 +1,5 @@
 """Layer library, the subset the serving paths and the ViT training round
-run.
+run: attention, MLP, Mamba-2 and RWKV-6 blocks.
 
 Functional style, as in `repro/models/layers.py`: each block kind has
 ``init_<kind>(generator, cfg, device) -> params`` and
@@ -10,11 +10,12 @@ nested dicts of tensors keyed exactly as the JAX pytrees; dense weights are
 Caches are updated IN PLACE: the decode ring write, the paged pool write,
 the prefill ring fill and the chunked-prefill write assign into the cache
 tensors they are given (views of the stacked per-layer cache or page pool)
-and return the same dict. The JAX package returns fresh arrays instead; the
-values written are the same.
+and return the same dict; the recurrent blocks `copy_` their new conv,
+SSM, token-shift and RWKV states into their cache views. The JAX package
+returns fresh arrays instead; the values written are the same.
 
-Attention in a differentiated pass (`Ctx.differentiable`, set by the
-training round's two losses) runs the plain `ref.attention` on every
+Attention and the two scans in a differentiated pass (`Ctx.differentiable`,
+set by the training round's two losses) run their plain versions on every
 device, so autograd flows through PyTorch ops: no kernel has a backward,
 and the JAX round likewise runs every pass with `impl="ref"`. Forward-only
 passes (EL2N scoring, evaluation, serving) keep the device dispatch and
@@ -32,6 +33,10 @@ from repro_torch.kernels.flash_attention import ref as attention_ref
 from repro_torch.kernels.flash_attention.decode import (
     decode_attention, paged_decode_attention)
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.mamba2_scan import ref as mamba2_ref
+from repro_torch.kernels.mamba2_scan.ops import mamba2_scan
+from repro_torch.kernels.rwkv6_scan import ref as rwkv6_ref
+from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
 from repro_torch.models.config import AttentionConfig, ModelConfig
 
 Params = Dict[str, Any]
@@ -293,3 +298,195 @@ def apply_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         h = _act(dense(p["up"], h), cfg.mlp_activation)
     return dense(p["down"], h)
+
+
+# ---------------------------------------------------------------- Mamba-2
+def init_mamba2(gen, cfg: ModelConfig, *, device="cuda") -> Params:
+    m = cfg.mamba2
+    D = cfg.d_model
+    di = m.d_inner(D)
+    H = m.n_heads(D)
+    G = 1
+    conv_dim = di + 2 * G * m.d_state
+    return {
+        "ln": norm_init(D, cfg.norm, device),
+        "in_proj": dense_init(gen, D, 2 * di + 2 * G * m.d_state + H,
+                              device=device),
+        "conv_w": 0.02 * torch.randn((m.d_conv, conv_dim), generator=gen,
+                                     device=device),
+        "conv_b": torch.zeros((conv_dim,), device=device),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, device=device)),
+        "D": torch.ones((H,), device=device),
+        "dt_bias": torch.log(torch.expm1(0.01 * torch.ones((H,),
+                                                           device=device))),
+        "norm": norm_init(di, "rmsnorm", device),
+        "out_proj": dense_init(gen, di, D, device=device),
+    }
+
+
+def init_mamba2_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                      device="cuda") -> Params:
+    m = cfg.mamba2
+    di = m.d_inner(cfg.d_model)
+    H = m.n_heads(cfg.d_model)
+    conv_dim = di + 2 * m.d_state
+    return {
+        "conv": torch.zeros((batch, m.d_conv - 1, conv_dim), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((batch, H, m.head_dim, m.d_state),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def _causal_conv1d(x, w, b, prev=None):
+    """x (B, T, C); w (K, C) depthwise; prev (B, K-1, C) carried state.
+    Returns (out, new_prev), new_prev a view of the padded input."""
+    K = w.shape[0]
+    B, T, C = x.shape
+    if prev is None:
+        prev = x.new_zeros((B, K - 1, C))
+    xp = torch.cat([prev, x], dim=1)
+    out = sum(xp[:, i:i + T] * w[i].to(x.dtype) for i in range(K))
+    return out + b.to(x.dtype), xp[:, T:]
+
+
+def apply_mamba2(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
+                 cache: Optional[Params]):
+    """Mamba-2 block (pre-norm): in_proj -> causal depthwise conv + SiLU ->
+    SSD scan -> D skip, SiLU(z) gate, RMSNorm -> out_proj. Returns
+    (residual_delta, cache). `F.softplus` returns x above 20 where
+    `jax.nn.softplus` is logaddexp(x, 0); the two agree to f32 rounding
+    there."""
+    m = cfg.mamba2
+    B, S, D = x.shape
+    di = m.d_inner(D)
+    H = m.n_heads(D)
+    G, N = 1, m.d_state
+    h = apply_norm(p["ln"], x, cfg.norm)
+    zxbcdt = dense(p["in_proj"], h)
+    z, xin, BC, dt = torch.split(zxbcdt, [di, di, 2 * G * N, H], dim=-1)
+    conv_in = torch.cat([xin, BC], dim=-1)
+    prev = cache["conv"] if cache is not None else None
+    conv_out, new_prev = _causal_conv1d(conv_in, p["conv_w"], p["conv_b"],
+                                        prev)
+    conv_out = F.silu(conv_out)
+    xin, Bm, Cm = torch.split(conv_out, [di, G * N, G * N], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])                  # (B, S, H)
+    A = -torch.exp(p["A_log"])
+
+    xh = xin.reshape(B, S, H, m.head_dim)
+    scan = mamba2_ref.mamba2_scan if ctx.differentiable else mamba2_scan
+    y, new_ssm = scan(xh, dt, A, Bm.reshape(B, S, G, N),
+                      Cm.reshape(B, S, G, N),
+                      cache["ssm"] if cache is not None else None)
+    y = y + p["D"].to(y.dtype)[None, None, :, None] * xh
+    y = y.reshape(B, S, di) * F.silu(z)
+    y = apply_norm(p["norm"], y, "rmsnorm")
+    if cache is not None:
+        cache["conv"].copy_(new_prev)
+        cache["ssm"].copy_(new_ssm)
+    return dense(p["out_proj"], y), cache
+
+
+# ---------------------------------------------------------------- RWKV-6
+def init_rwkv6(gen, cfg: ModelConfig, *, device="cuda") -> Params:
+    r6 = cfg.rwkv6
+    D = cfg.d_model
+    H = D // r6.head_size
+
+    def normal(*shape):
+        return 0.02 * torch.randn(shape, generator=gen, device=device)
+
+    return {
+        "ln_t": norm_init(D, "layernorm", device),
+        "mu": normal(5, D),                      # r, k, v, w, g lerps
+        "w_lora_a": normal(D, r6.decay_lora_rank),
+        "w_lora_b": normal(r6.decay_lora_rank, D),
+        "w0": torch.zeros((D,), device=device),
+        "r": dense_init(gen, D, D, device=device),
+        "k": dense_init(gen, D, D, device=device),
+        "v": dense_init(gen, D, D, device=device),
+        "g": dense_init(gen, D, D, device=device),
+        "u": normal(H, r6.head_size),
+        "gn": {"scale": torch.ones((D,), device=device),
+               "bias": torch.zeros((D,), device=device)},
+        "o": dense_init(gen, D, D, device=device),
+        # channel mix
+        "ln_c": norm_init(D, "layernorm", device),
+        "mu_c": normal(2, D),
+        "ck": dense_init(gen, D, cfg.d_ff, device=device),
+        "cv": dense_init(gen, cfg.d_ff, D, device=device),
+        "cr": dense_init(gen, D, D, device=device),
+    }
+
+
+def init_rwkv6_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                     device="cuda") -> Params:
+    r6 = cfg.rwkv6
+    D = cfg.d_model
+    H = D // r6.head_size
+    return {
+        "shift_t": torch.zeros((batch, D), dtype=dtype, device=device),
+        "shift_c": torch.zeros((batch, D), dtype=dtype, device=device),
+        "state": torch.zeros((batch, H, r6.head_size, r6.head_size),
+                             dtype=torch.float32, device=device),
+    }
+
+
+def _token_shift(x, prev):
+    """xx_t = x_{t-1}; the first position takes the carried `prev` (B, D)
+    or zeros."""
+    if prev is None:
+        prev = x.new_zeros((x.shape[0], x.shape[2]))
+    return torch.cat([prev[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
+
+
+def apply_rwkv6(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
+                cache: Optional[Params]):
+    """RWKV-6 block = time-mix (data-dependent decay recurrence) +
+    channel-mix, each with token-shift [arXiv:2404.05892]. Returns
+    (tdelta + cdelta, cache): the caller adds it to the residual stream,
+    and the channel mix reads x + tdelta. The per-head group norm takes eps
+    1e-5, as the JAX block does (not `apply_norm`'s 1e-6)."""
+    r6 = cfg.rwkv6
+    B, S, D = x.shape
+    H, K = D // r6.head_size, r6.head_size
+
+    # ---- time mix
+    h = apply_norm(p["ln_t"], x, "layernorm")
+    xx = _token_shift(h, cache["shift_t"] if cache is not None else None)
+    mr, mk, mv, mw, mg = (h + (xx - h) * p["mu"][i].to(h.dtype)
+                          for i in range(5))
+    r = dense(p["r"], mr).reshape(B, S, H, K)
+    k = dense(p["k"], mk).reshape(B, S, H, K)
+    v = dense(p["v"], mv).reshape(B, S, H, K)
+    g = F.silu(dense(p["g"], mg))
+    # data-dependent decay (Finch): w = w0 + tanh(mw A) B, log-decay -exp(w)
+    wdd = p["w0"] + torch.tanh(mw.float() @ p["w_lora_a"]) @ p["w_lora_b"]
+    w = -torch.exp(wdd).reshape(B, S, H, K)
+
+    scan = rwkv6_ref.rwkv6_scan if ctx.differentiable else rwkv6_scan
+    y, new_state = scan(r, k, v, w, p["u"],
+                        cache["state"] if cache is not None else None)
+    # per-head group norm
+    yg = y.reshape(B, S, H, K).float()
+    mu = yg.mean(-1, keepdim=True)
+    var = ((yg - mu) ** 2).mean(-1, keepdim=True)
+    yg = ((yg - mu) * torch.rsqrt(var + 1e-5)).reshape(B, S, D)
+    y = (yg * p["gn"]["scale"] + p["gn"]["bias"]).to(x.dtype) * g
+    tdelta = dense(p["o"], y)
+    x = x + tdelta
+
+    # ---- channel mix
+    hc = apply_norm(p["ln_c"], x, "layernorm")
+    xxc = _token_shift(hc, cache["shift_c"] if cache is not None else None)
+    mkc = hc + (xxc - hc) * p["mu_c"][0].to(hc.dtype)
+    mrc = hc + (xxc - hc) * p["mu_c"][1].to(hc.dtype)
+    kk = F.relu(dense(p["ck"], mkc))
+    cdelta = torch.sigmoid(dense(p["cr"], mrc)) * dense(p["cv"], kk * kk)
+
+    if cache is not None:
+        cache["shift_t"].copy_(h[:, -1])
+        cache["shift_c"].copy_(hc[:, -1])
+        cache["state"].copy_(new_state)
+    return tdelta + cdelta, cache

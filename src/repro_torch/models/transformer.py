@@ -1,11 +1,13 @@
-"""Transformer stacks, the attention kinds only.
+"""Transformer stacks: the self-attention kinds, Mamba-2 and RWKV-6.
 
 The layer stack is grouped by the config's layer-pattern cycle. Each cycle
 position holds its n layers' params STACKED on a leading layer axis, keyed
 as the JAX pytree, and a Python loop over that axis takes the place of the
 JAX package's `lax.scan` (`repro/models/transformer.py:101-126`). Decode
 caches are stacked the same way; each layer sees views of its cache rows,
-so in-place cache writes land in the stacked tensors.
+so in-place cache writes land in the stacked tensors. A `shared_attn`
+position runs the segment's one shared block (zamba2) at every cycle, each
+with its own cache site.
 
 Modes:
   train   — full-sequence forward, no cache
@@ -25,11 +27,16 @@ from repro_torch.tree import tree_map
 Params = Dict[str, Any]
 
 _SELF_ATTN_KINDS = ("attn", "attn_local", "attn_global", "shared_attn")
+# block kinds of later slices (ROADMAP slice G)
+_LATER = {"moe": "slice G item 1 (MoE)",
+          "cross_attn": "slice G item 5 (cross-attention and Whisper)"}
 
 
 def _unported(kind: str):
-    return NotImplementedError(
-        f"block kind {kind!r} is not ported yet (attention kinds only)")
+    if kind in _LATER:
+        return NotImplementedError(f"block kind {kind!r} is not ported yet: "
+                                   f"it comes with {_LATER[kind]}")
+    return ValueError(kind)
 
 
 # ------------------------------------------------------------------ blocks
@@ -37,25 +44,40 @@ def init_block(gen, cfg: ModelConfig, kind: str, *, device="cuda") -> Params:
     if kind in _SELF_ATTN_KINDS:
         return {"attn": L.init_attention(gen, cfg, device=device),
                 "mlp": L.init_mlp(gen, cfg, device=device)}
+    if kind == "mamba2":
+        return {"mamba": L.init_mamba2(gen, cfg, device=device)}
+    if kind == "rwkv6":
+        return {"rwkv": L.init_rwkv6(gen, cfg, device=device)}
     raise _unported(kind)
 
 
 def apply_block(params: Params, cfg: ModelConfig, kind: str, x, ctx: L.Ctx,
                 cache):
     """-> (x, new_cache, aux_loss)"""
-    if kind not in _SELF_ATTN_KINDS:
-        raise _unported(kind)
-    delta, new_cache = L.apply_attention(params["attn"], cfg, x, ctx, cache,
-                                         kind=kind)
-    x = x + delta
-    x = x + L.apply_mlp(params["mlp"], cfg, x)
-    return x, new_cache, 0.0
+    if kind in _SELF_ATTN_KINDS:
+        delta, new_cache = L.apply_attention(params["attn"], cfg, x, ctx,
+                                             cache, kind=kind)
+        x = x + delta
+        x = x + L.apply_mlp(params["mlp"], cfg, x)
+        return x, new_cache, 0.0
+    if kind == "mamba2":
+        delta, new_cache = L.apply_mamba2(params["mamba"], cfg, x, ctx, cache)
+        return x + delta, new_cache, 0.0
+    if kind == "rwkv6":
+        delta, new_cache = L.apply_rwkv6(params["rwkv"], cfg, x, ctx, cache)
+        return x + delta, new_cache, 0.0
+    raise _unported(kind)
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
                      dtype=torch.float32, window=None, *, device="cuda"):
     """window: optional ring-buffer cap; local-attention layers additionally
-    cap at their sliding window — their cache never needs to be larger."""
+    cap at their sliding window — their cache never needs to be larger.
+    Recurrent kinds keep a fixed-size state whatever seq_len is."""
+    if kind == "mamba2":
+        return L.init_mamba2_cache(cfg, batch, dtype, device=device)
+    if kind == "rwkv6":
+        return L.init_rwkv6_cache(cfg, batch, dtype, device=device)
     if kind not in ATTN_KINDS or kind == "cross_attn":
         raise _unported(kind)
     att = cfg.attention

@@ -13,7 +13,9 @@ boundaries:
   present tenant's tail runs once on its rows. No per-slot copy of a tail
   is ever gathered (at Qwen2.5-14B width one tail with its LM head is
   4.2 GB of fp32). Idle or retired rows skip the tail; their logits are 0
-  and the engine discards them.
+  and the engine discards them. Recurrent state (Mamba-2, RWKV-6) rides
+  the same row gather and scatter; idle rows advance it with garbage in
+  the head and body, and admission overwrites the whole slot.
 * `make_multi_decode_step` — `n_steps` tokens for every slot in a Python
   loop over the same per-token body (the JAX package's `lax.scan`). Slot
   retirement is deferred to loop exit; a slot's wire bytes stop counting

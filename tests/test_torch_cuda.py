@@ -69,6 +69,7 @@ def test_quant_kernels_bit_equal_on_gradient_layouts(gen, layout):
     (1, 33, 6, 3, 128, True, None, 30.0, 20),
     (1, 64, 10, 2, 64, True, 16, 20.0, 17),
     (2, 21, 4, 2, 16, False, None, None, None),
+    (1, 37, 8, 8, 80, True, None, None, None),     # zamba2's head_dim 80
 ])
 def test_prefill_kernel_matches_plain(gen, case):
     from repro_torch.kernels.flash_attention import ref
@@ -91,7 +92,7 @@ def test_prefill_kernel_matches_plain(gen, case):
 
 @pytest.mark.parametrize("G,Dh,window,softcap", [
     (1, 32, None, None), (5, 128, None, None), (8, 16, 7, None),
-    (3, 64, None, 25.0), (5, 128, 64, 50.0)])
+    (3, 64, None, 25.0), (5, 128, 64, 50.0), (1, 80, None, None)])
 def test_decode_kernel_matches_plain(gen, G, Dh, window, softcap):
     from repro_torch.kernels.flash_attention.decode import (decode_attention,
                                                             grouped_decode)
@@ -466,3 +467,132 @@ def test_secure_aggregator_on_card_equals_cpu(gen, weights):
     assert card_wire == cpu_wire
     for (pa, a), (pb, b) in zip(tree_flatten(card), tree_flatten(cpu)):
         assert pa == pb and torch.equal(a.cpu(), b)
+
+
+# ------------------------------------------------------------ recurrent scans
+SCAN_TOL = 2e-5   # |kernel - plain| <= SCAN_TOL (1 + |plain|): other sum order
+
+
+def _scan_close(got, want):
+    err = (got - want).abs() / (1.0 + want.abs())
+    return bool(torch.isfinite(got).all()) and float(err.max()) <= SCAN_TOL
+
+
+@pytest.mark.parametrize("B,T,H,P,N,G,h0,strided", [
+    (2, 1, 4, 16, 8, 1, False, False),
+    (2, 37, 8, 16, 8, 2, True, False),
+    (1, 65, 8, 32, 16, 4, True, True),
+    (3, 100, 4, 64, 64, 1, True, True),
+    (1, 33, 2, 8, 100, 2, False, False),     # N not a power of two
+])
+def test_mamba2_kernel_matches_plain(gen, B, T, H, P, N, G, h0, strided):
+    from repro_torch.kernels.mamba2_scan import ref
+    from repro_torch.kernels.mamba2_scan.ops import mamba2_scan
+    x = torch.randn((B, T, H * P + 3), generator=gen, device="cuda")
+    x = x[..., 3:].reshape(B, T, H, P) if strided \
+        else x[..., :H * P].contiguous().reshape(B, T, H, P)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, T, H), generator=gen, device="cuda"))
+    A = -torch.exp(torch.randn((H,), generator=gen, device="cuda"))
+    bc = torch.randn((B, T, 2, G, N), generator=gen, device="cuda")
+    Bm, Cm = bc[:, :, 0], bc[:, :, 1]                 # strided views
+    state = (torch.randn((B, H, P, N), generator=gen, device="cuda")
+             if h0 else None)
+    y, h = mamba2_scan(x, dt, A, Bm, Cm, state)
+    ry, rh = ref.mamba2_scan(x, dt, A, Bm, Cm, state)
+    assert y.shape == (B, T, H, P) and h.shape == (B, H, P, N)
+    assert _scan_close(y, ry) and _scan_close(h, rh)
+
+
+@pytest.mark.parametrize("B,T,H,K,V,s0,decay", [
+    (2, 1, 2, 16, 16, True, None),
+    (2, 37, 3, 16, 16, False, None),
+    (1, 100, 2, 64, 64, True, None),
+    (2, 65, 2, 40, 48, True, None),          # K not a multiple of 32
+    (1, 96, 1, 8, 8, False, -12.0),          # strong decay stays finite
+])
+def test_rwkv6_kernel_matches_plain(gen, B, T, H, K, V, s0, decay):
+    from repro_torch.kernels.rwkv6_scan import ref
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+    r, k = (torch.randn((B, T, H, K), generator=gen, device="cuda")
+            for _ in range(2))
+    v = torch.randn((B, T, H, V), generator=gen, device="cuda")
+    w = (torch.full((B, T, H, K), decay, device="cuda") if decay is not None
+         else -torch.exp(torch.randn((B, T, H, K), generator=gen,
+                                     device="cuda")))
+    u = torch.randn((H, K), generator=gen, device="cuda")
+    state = (torch.randn((B, H, K, V), generator=gen, device="cuda")
+             if s0 else None)
+    y, S = rwkv6_scan(r, k, v, w, u, state)
+    ry, rS = ref.rwkv6_scan(r, k, v, w, u, state)
+    assert y.shape == (B, T, H, V) and S.shape == (B, H, K, V)
+    assert _scan_close(y, ry) and _scan_close(S, rS)
+
+
+def test_scan_wrappers_refuse_grad_and_bad_inputs(gen):
+    from repro_torch.kernels.mamba2_scan.kernel import mamba2_fwd
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_fwd
+    x = torch.randn((1, 3, 2, 4), device="cuda", requires_grad=True)
+    dt = torch.ones((1, 3, 2), device="cuda")
+    A = -torch.ones((2,), device="cuda")
+    bm = torch.randn((1, 3, 1, 4), device="cuda")
+    r = torch.randn((1, 3, 2, 4), device="cuda", requires_grad=True)
+    u = torch.zeros((2, 4), device="cuda")
+    calls = [lambda: mamba2_fwd(x, dt, A, bm, bm),
+             lambda: rwkv6_fwd(r, r, r, -r.detach().exp(), u)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call()
+        with torch.no_grad():
+            call()
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="G must divide H"):
+            mamba2_fwd(x, dt, A, torch.zeros((1, 3, 3, 4), device="cuda"),
+                       torch.zeros((1, 3, 3, 4), device="cuda"))
+        with pytest.raises(ValueError, match="K <= 64"):
+            big = torch.zeros((1, 2, 1, 65), device="cuda")
+            rwkv6_fwd(big, big, big, big, torch.zeros((1, 65), device="cuda"))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-3b"])
+def test_recurrent_engine_on_card_matches_cpu(gen, arch):
+    """The reduced family served by the dense engine on the card and on the
+    CPU from the same weights: tokens equal, logits within 1e-4, and the
+    scan kernel launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import SplitConfig, SplitModel
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.serve import personalized_bank
+    from repro_torch.runtime import WireSpec
+    from repro_torch.serve import (ServeConfig, ServeEngine, TenantBank,
+                                   WorkloadConfig, synthetic_requests)
+    from repro_torch.tree import tree_map
+    cfg = get_config(arch).reduced(n_layers=3 * (6 if "zamba" in arch
+                                                 else 1),
+                                   d_model=64, d_ff=128, vocab_size=128)
+    model = SplitModel(cfg, SplitConfig(head_cycles=1, tail_cycles=1,
+                                        prompt_len=4), WireSpec.make("fp32"))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    bank = personalized_bank(model, params, 2, jitter=0.2)
+    reqs = synthetic_requests(WorkloadConfig(
+        n_requests=5, prompt_choices=(5, 12), new_token_choices=(3, 6),
+        n_tenants=2, vocab_size=cfg.vocab_size, seed=2))
+    runs = {}
+    reset_launches()
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(
+            model, tree_map(lambda x: x.to(dev), params),
+            TenantBank(tree_map(lambda x: x.to(dev), bank.tails),
+                       bank.prompts.to(dev)),
+            ServeConfig(n_slots=2, max_seq=32, decode_block=3),
+            collect_logits=True, device=dev)
+        st = eng.run(reqs)
+        runs[dev] = ({f.req.rid: f for f in st["finished"]},
+                     st["wire_bytes"])
+    scan = "mamba2_scan" if "zamba" in arch else "rwkv6_scan"
+    assert launch_counts()[scan] > 0
+    assert runs["cpu"][1] == runs["cuda"][1]
+    for rid, f in runs["cpu"][0].items():
+        g = runs["cuda"][0][rid]
+        assert (f.tokens == g.tokens).all()
+        assert float(abs(f.logits - g.logits).max()) <= 1e-4

@@ -118,7 +118,7 @@ def test_mask_streams_and_masked_encode_bit_equal(n):
     got_enc = ops.masked_encode(torch.from_numpy(x),
                                 torch.from_numpy(seeds.astype(np.int64)),
                                 torch.from_numpy(signs))
-    got_sum = ops.summed_mask(seeds.astype(np.int64), signs, n)
+    got_sum = ops.summed_mask(seeds.astype(np.int64), signs, n, device="cpu")
     assert launch_counts() == before          # no kernel on CPU tensors
     np.testing.assert_array_equal(_u32(got_enc), want_enc)
     np.testing.assert_array_equal(_u32(got_sum), want_sum)

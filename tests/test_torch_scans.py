@@ -1,0 +1,201 @@
+"""The port's plain Mamba-2 and RWKV-6 scans and the two recurrent blocks
+against the JAX package on the same numpy inputs: the scans against JAX's
+`impl="ref"` (the same sequential recurrence) and `impl="interpret"` (the
+Pallas kernel on the CPU, chunked), streaming, strong decays, and
+`apply_mamba2` / `apply_rwkv6` on bridged weights with and without a
+cache."""
+import torch
+
+torch.set_num_threads(2)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.kernels.mamba2_scan import mamba2_scan as jmamba2  # noqa: E402
+from repro.kernels.rwkv6_scan import rwkv6_scan as jrwkv6  # noqa: E402
+from repro.models import layers as JL  # noqa: E402
+from repro_torch.bridge import jax_to_torch  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.mamba2_scan import ref as mamba2_ref  # noqa: E402
+from repro_torch.kernels.mamba2_scan.ops import mamba2_scan  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ref as rwkv6_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+# the Pallas kernel runs the chunked SSD / chunked stepping in another sum
+# order: the JAX package's own tests hold it to these (tests/test_kernels.py)
+INTERPRET_Y = dict(atol=2e-3, rtol=2e-3)
+INTERPRET_STATE = dict(atol=1e-3, rtol=1e-3)
+
+
+def mamba2_inputs(seed, B, T, H, P, G, N, h0=True):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    dt = np.log1p(np.exp(f(B, T, H))).astype(np.float32)       # softplus
+    A = -np.exp(f(H)).astype(np.float32)
+    return (f(B, T, H, P), dt, A, f(B, T, G, N), f(B, T, G, N),
+            f(B, H, P, N) if h0 else None)
+
+
+def rwkv6_inputs(seed, B, T, H, K, V, s0=True, decay=None):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    w = (np.full((B, T, H, K), decay, np.float32) if decay is not None
+         else -np.exp(f(B, T, H, K)).astype(np.float32))
+    return (f(B, T, H, K), f(B, T, H, K), f(B, T, H, V), w, f(H, K),
+            f(B, H, K, V) if s0 else None)
+
+
+def _torch(args):
+    return [None if a is None else torch.from_numpy(a) for a in args]
+
+
+def _jax(args):
+    return [None if a is None else jnp.asarray(a) for a in args]
+
+
+# ------------------------------------------------------------------ scans
+@pytest.mark.parametrize("T,G,chunk", [(64, 1, 16), (100, 2, 32),
+                                       (128, 4, 64)])
+def test_mamba2_plain_matches_jax(T, G, chunk):
+    """The JAX tests' shapes (B 2, H 4, P 16, N 8, with h0): within 1e-5 of
+    `impl="ref"`, and within the JAX tests' own tolerances of the Pallas
+    kernel run in interpret mode."""
+    args = mamba2_inputs(T + G, 2, T, 4, 16, G, 8)
+    y, h = mamba2_scan(*_torch(args))
+    jy, jh = jmamba2(*_jax(args), impl="ref")
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), **TOL)
+    py, ph = jmamba2(*_jax(args), impl="interpret", chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), np.asarray(py), **INTERPRET_Y)
+    np.testing.assert_allclose(h.numpy(), np.asarray(ph), **INTERPRET_STATE)
+
+
+@pytest.mark.parametrize("T,chunk", [(64, 16), (100, 32), (128, 128)])
+def test_rwkv6_plain_matches_jax(T, chunk):
+    """The JAX tests' shapes (B 2, H 2, K = V = 16, with s0)."""
+    args = rwkv6_inputs(T, 2, T, 2, 16, 16)
+    y, S = rwkv6_scan(*_torch(args))
+    jy, jS = jrwkv6(*_jax(args), impl="ref")
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(S.numpy(), np.asarray(jS), **TOL)
+    py, pS = jrwkv6(*_jax(args), impl="interpret", chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), np.asarray(py), **INTERPRET_Y)
+    np.testing.assert_allclose(S.numpy(), np.asarray(pS), **INTERPRET_STATE)
+
+
+@pytest.mark.parametrize("scan", ["mamba2", "rwkv6"])
+def test_streaming_in_two_halves_equals_one_pass(scan):
+    if scan == "mamba2":
+        x, dt, A, Bm, Cm, _ = _torch(mamba2_inputs(5, 1, 64, 2, 8, 1, 8,
+                                                   h0=False))
+        y, h = mamba2_scan(x, dt, A, Bm, Cm)
+        y1, h1 = mamba2_scan(x[:, :32], dt[:, :32], A, Bm[:, :32],
+                             Cm[:, :32])
+        y2, h2 = mamba2_scan(x[:, 32:], dt[:, 32:], A, Bm[:, 32:],
+                             Cm[:, 32:], h1)
+    else:
+        r, k, v, w, u, _ = _torch(rwkv6_inputs(5, 1, 64, 2, 8, 8, s0=False))
+        y, h = rwkv6_scan(r, k, v, w, u)
+        y1, h1 = rwkv6_scan(r[:, :32], k[:, :32], v[:, :32], w[:, :32], u)
+        y2, h2 = rwkv6_scan(r[:, 32:], k[:, 32:], v[:, 32:], w[:, 32:], u,
+                            h1)
+    np.testing.assert_allclose(torch.cat([y1, y2], 1).numpy(), y.numpy(),
+                               **TOL)
+    np.testing.assert_allclose(h2.numpy(), h.numpy(), **TOL)
+
+
+def test_rwkv6_strong_decay_stays_finite():
+    """w = -12 a step (decay ~ e^-12): the sequential form has no
+    exp(-cumsum) factor to overflow."""
+    args = rwkv6_inputs(9, 1, 96, 1, 8, 8, s0=False, decay=-12.0)
+    y, S = rwkv6_scan(*_torch(args))
+    assert torch.isfinite(y).all() and torch.isfinite(S).all()
+    jy, jS = jrwkv6(*_jax(args), impl="ref")
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(S.numpy(), np.asarray(jS), **TOL)
+
+
+def test_ops_on_cpu_are_the_plain_versions():
+    margs = _torch(mamba2_inputs(3, 1, 7, 2, 4, 1, 4))
+    rargs = _torch(rwkv6_inputs(3, 1, 7, 2, 4, 4))
+    for got, want in ((mamba2_scan(*margs), mamba2_ref.mamba2_scan(*margs)),
+                      (rwkv6_scan(*rargs), rwkv6_ref.rwkv6_scan(*rargs))):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# ------------------------------------------------------------------ blocks
+def _block_cfgs(arch):
+    kw = dict(n_layers=6 if arch == "zamba2-2.7b" else 1, d_model=64,
+              d_ff=128, vocab_size=128)
+    return jget_config(arch).reduced(**kw), get_config(arch).reduced(**kw)
+
+
+BLOCKS = {
+    "mamba2": ("zamba2-2.7b", JL.init_mamba2, JL.apply_mamba2,
+               JL.init_mamba2_cache, L.apply_mamba2, L.init_mamba2_cache),
+    "rwkv6": ("rwkv6-3b", JL.init_rwkv6, JL.apply_rwkv6, JL.init_rwkv6_cache,
+              L.apply_rwkv6, L.init_rwkv6_cache),
+}
+
+
+def _ctxs(mode, B, S, start=0):
+    pos = np.broadcast_to(np.arange(start, start + S, dtype=np.int32),
+                          (B, S)).copy()
+    return (JL.Ctx(mode=mode, positions=jnp.asarray(pos), impl="ref"),
+            L.Ctx(mode=mode, positions=torch.from_numpy(pos)))
+
+
+@pytest.mark.parametrize("block", ["mamba2", "rwkv6"])
+def test_block_with_cache_matches_jax(block):
+    """Prefill of 9 tokens, then 4 decode steps: the block's output and
+    every cache leaf within 1e-5 of JAX's; the port writes its cache in
+    place, JAX returns a new one."""
+    arch, jinit, japply, jcache_init, tapply, tcache_init = BLOCKS[block]
+    jcfg, tcfg = _block_cfgs(arch)
+    p = jinit(jax.random.PRNGKey(1), jcfg)
+    tp = jax_to_torch(p, "cpu")
+    rng = np.random.default_rng(4)
+    B, S = 2, 9
+    jcache = jcache_init(jcfg, B)
+    tcache = tcache_init(tcfg, B, device="cpu")
+    x = rng.standard_normal((B, S, 64)).astype(np.float32)
+    jctx, tctx = _ctxs("prefill", B, S)
+    for step in range(5):
+        jy, jcache = japply(p, jcfg, jnp.asarray(x), jctx, jcache)
+        ty, same = tapply(tp, tcfg, torch.from_numpy(x), tctx, tcache)
+        assert same is tcache
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
+        assert set(tcache) == set(jcache)
+        for name, leaf in jcache.items():
+            np.testing.assert_allclose(tcache[name].numpy(),
+                                       np.asarray(leaf), **TOL)
+        x = rng.standard_normal((B, 1, 64)).astype(np.float32)
+        jctx, tctx = _ctxs("decode", B, 1, S + step)
+
+
+@pytest.mark.parametrize("block", ["mamba2", "rwkv6"])
+def test_block_without_cache_matches_jax(block):
+    """A full-sequence (train-mode) pass with no cache, and the same pass
+    marked differentiable (the plain scan, gradients flowing)."""
+    arch, jinit, japply, _, tapply, _ = BLOCKS[block]
+    jcfg, tcfg = _block_cfgs(arch)
+    p = jinit(jax.random.PRNGKey(2), jcfg)
+    tp = jax_to_torch(p, "cpu")
+    x = np.random.default_rng(6).standard_normal((3, 11, 64)).astype(
+        np.float32)
+    jctx, tctx = _ctxs("train", 3, 11)
+    jy, jc = japply(p, jcfg, jnp.asarray(x), jctx, None)
+    ty, tc = tapply(tp, tcfg, torch.from_numpy(x), tctx, None)
+    assert jc is None and tc is None
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
+    tctx.differentiable = True
+    xt = torch.from_numpy(x).requires_grad_(True)
+    ty, _ = tapply(tp, tcfg, xt, tctx, None)
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy), **TOL)
+    ty.sum().backward()
+    assert torch.isfinite(xt.grad).all() and xt.grad.abs().sum() > 0
