@@ -1,33 +1,80 @@
-// Causal GQA prefill attention (fp32) for Hopper (sm_90a).
+// GQA prefill attention (fp32 in, fp32 accuracy) for Hopper (sm_90a), on
+// the tensor cores through 3xTF32 mma.sync.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py::
-// flash_attention_fwd. At the serving path's prefill shapes (one request,
-// S up to a few hundred tokens, 40 query heads, head_dim 128) the work is
-// about S^2 * Hq * Dh * 2 flops against S * (Hq + 2 Hkv) * Dh * 4 bytes, so
-// it is bound by arithmetic: by the fp32 pipes, since this first version
-// uses no tensor cores (TF32 would not hold the 2e-5 tolerance).
+// flash_attention_fwd: causal or not, GQA, sliding window, softcap and a
+// kv_len past which keys are absent, over q (B, Sq, Hq, Dh) and k, v
+// (B, Skv, Hkv, Dh / Dv) read in place through their strides.
 //
-// Design: grid (ceil(Sq / 16), Hq, B); a block of four warps owns 16 query
-// rows of one head, four per warp. It reads q, k and v in the model's own
-// (B, S, H, Dh) layout through strides — no transpose, reshape or pad copy
-// — and maps query head h to kv head h / (Hq / Hkv). The block loops over
-// 32-key tiles from the first key any of its rows can see (sliding window)
-// to the last (causal limit, kv_len), staging each tile in shared memory;
-// dead tiles are never loaded. Causal, window, softcap and kv_len masks are
-// applied per element with the finite mask -2^30.
+// Bounds on an H100 SXM (3.35 TB/s; 495 TFLOP/s dense TF32, so 165 TFLOP/s
+// for fp32-accurate products in three TF32 passes):
+//   Qwen2.5-14B (1, 132, 40 / 8 x 128), causal: 0.180 GFLOP, 6.49 MB
+//     -> 0.00194 ms, bytes;
+//   ViT-Base (16, 213, 12 x 64), non-causal:    2.230 GFLOP, 41.9 MB
+//     -> 0.0135 ms, operations;
+//   zamba2 (1, 132, 32 x 80), causal:           0.090 GFLOP, 5.41 MB
+//     -> 0.00161 ms, bytes.
+// The 495 TFLOP/s is wgmma's; the mma.sync this kernel issues is slower
+// on the card (csrc/mma_probe.cu, timed by chip_smoke.py phase 3), so its
+// own ceiling is a third of that probe's rate.
 //
-// A row that every key masks (a sliding window that ends before kv_len)
-// gets the plain version's answer, the mean of v over all kv_len keys: a
-// block holding such a row visits every tile.
+// What the design does about the four limits of the SIMT kernel it
+// replaced:
+//  1. No tensor cores -> QK^T and PV run on mma.sync.m16n8k8 TF32 with the
+//     3xTF32 split (mma_tf32.cuh), so fp32 accuracy is kept: against the
+//     plain version the output moves by a few 1e-6 at the serving shapes,
+//     inside the 2e-5 tolerance of the tests.
+//  2. Shared-memory and shuffle issue -> every operand is split into TF32
+//     halves once: Q when it lands, each K and V tile by the whole block
+//     when it lands (big halves in place, small halves beside them), P in
+//     registers. Fragments are 16-byte loads: QK^T takes the head dims of a
+//     16-column pair in a permuted k order, and PV permutes V's columns, so
+//     one load serves two k-steps or four n8 tiles; rows are XOR-swizzled
+//     or padded so no load conflicts. The online softmax runs on the
+//     accumulator fragments with two quad shuffles a row and tile; row sums
+//     are reduced once, at the end. P never leaves registers: QK^T leaves
+//     thread (g, t) holding keys 2t and 2t + 1 of rows g and g + 8, and PV
+//     reads them as its A fragment by taking k = t as key 2t and k = t + 4
+//     as key 2t + 1, the same permutation applied to V's rows, which leaves
+//     the sum over keys unchanged.
+//  3. Synchronous loads -> K/V tiles of 32 keys are double-buffered in
+//     shared memory with cp.async: tile j + 1 is in flight while tile j
+//     computes. 16-byte copies when every base pointer and stride is a
+//     multiple of 4 floats, else 4-byte copies (the entry point chooses).
+//  4. 16 query rows a block -> 64 rows, so K and V are read 4x less often.
+//     A block is 8 warps: each m16 row tile has two, one for each 16-key
+//     half of every tile, and the halves' softmax states are merged at the
+//     end. That doubles the warps an SM holds at the batch-1 serving
+//     shapes (120 and 96 blocks, under one wave) and halves the longest
+//     warp's chain of tiles. Grid (ceil(Sq / 64), Hq, B); in a causal call
+//     the query blocks run last-first, the longest first.
+//
+// Head widths up to 128 in four instantiations of ND = 8-column steps
+// (4, 8, 10, 16); tiles are zero-padded (cp.async zero-fill) to a multiple
+// of 16 columns for QK^T and of 32 (16 at ND 10) for PV, as are the tile
+// rows past the tile's keys, so no stale shared value reaches an mma.
+// Dynamic shared memory: Q's two halves (2 x 64 rows), K and V (two
+// buffers and one small-half tile each), 165,376 bytes at ND 16.
+//
+// Masks use the finite -2^30 of the plain version. A masked key (causal,
+// window) scores -2^30 and takes part in the max; an absent key (at or
+// past kv_len, or past the tile's end) gets p = 0 and stays out of it.
+// Tiles that straddle no edge skip the mask work. Dead tiles are never
+// visited, except that a block holding a row every key masks (a sliding
+// window that ends before kv_len) visits every tile: that row gets the
+// plain version's answer, the mean of v over all kv_len keys.
 
 #include "attention_common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
 using namespace sfp;
 
-constexpr int kRowsPerWarp = 4;
-constexpr int kBQ = kWarps * kRowsPerWarp;
+// A block is 8 warps over 64 query rows: each m16 row tile has two warps,
+// one for each 16-key half of every 32-key tile (see the kernel).
+constexpr int kBQ = 64;
+constexpr int kThr = 256;
 
 struct FaParams {
   const float* q;
@@ -42,20 +89,99 @@ struct FaParams {
   int kv_len;
 };
 
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FaParams p) {
-  __shared__ float qs[kBQ * kDMax];
-  __shared__ float ks[kBK * (kDMax + 1)];
-  __shared__ float vs[kBK * kDMax];
+// Copy `rows` rows of `width` floats (a multiple of 4) from src (row
+// stride ss) into dst (row stride LD) asynchronously: rows at or past
+// n_rows and columns at or past d are zero-filled. kSwz stores the 16-byte
+// chunk c of an odd row at c ^ 4 (see the kernel). A thread keeps one
+// column and steps down the rows, so the division and the column's byte
+// count are worked out once a call.
+template <int LD, bool kSwz, bool kVec16>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long ss, int n_rows, int rows,
+                                          int d, int width, int tid) {
+  constexpr int kUnit = kVec16 ? 4 : 1;  // floats a copy
+  const int per_row = width / kUnit, step = kThr / per_row;  // rows a pass
+  const int r0 = tid / per_row, col = (tid - r0 * per_row) * kUnit;
+  if (r0 >= step) return;
+  const int bytes = 4 * max(0, min(kUnit, d - col));
+  const float* s = src + r0 * ss + col;
+  for (int r = r0; r < rows; r += step, s += step * ss) {
+    const int n = r < n_rows ? bytes : 0;
+    const int pcol = kSwz ? col ^ ((r & 1) << 4) : col;  // chunk c ^ 4
+    if constexpr (kVec16)
+      cp_async16(dst + r * LD + pcol, n ? s : src, n);
+    else
+      cp_async4(dst + r * LD + pcol, n ? s : src, n);
+  }
+}
+
+// e^x of a score's difference from its row max (x <= 0, or -inf)
+__device__ __forceinline__ float ex(float x) {
+  return exp2f(x * 1.4426950408889634f);
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Split the four floats of v into TF32 halves.
+__device__ __forceinline__ void split4(const float4& v, uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+  split_tf32(v.x, big[0], small[0]);
+  split_tf32(v.y, big[1], small[1]);
+  split_tf32(v.z, big[2], small[2]);
+  split_tf32(v.w, big[3], small[3]);
+}
+
+// Split n4 float4s of buf into TF32 halves: big halves in place, small
+// halves to `small` (same layout).
+__device__ __forceinline__ void split_rows(float* buf, float* small, int n4,
+                                           int tid) {
+  for (int idx = tid; idx < n4; idx += kThr) {
+    uint32_t big[4], sm[4];
+    split4(lds4(buf + 4 * idx), big, sm);
+    *reinterpret_cast<uint4*>(buf + 4 * idx) =
+        make_uint4(big[0], big[1], big[2], big[3]);
+    *reinterpret_cast<uint4*>(small + 4 * idx) =
+        make_uint4(sm[0], sm[1], sm[2], sm[3]);
+  }
+}
+
+// Up to head width 64 two blocks share an SM (ptxas caps registers at 128
+// for that); wider, the shared memory (or, at 80, the registers without
+// spilling) holds one.
+template <int ND, bool kVec16>
+__global__ void __launch_bounds__(kThr, ND <= 8 ? 2 : 1)
+    flash_fwd_kernel(FaParams p) {
+  // Q and K rows hold 8 ND floats, their 16-byte chunks XOR-swizzled on odd
+  // rows where a row is a multiple of 32 banks (ND % 4 == 0; at ND 10 a row
+  // is 20 chunks and odd rows already start 4 chunks over); V rows are
+  // padded to 8 ND + 4.
+  constexpr int LDK = 8 * ND, LDV = 8 * ND + 4;
+  constexpr bool kSwz = ND % 4 == 0;
+  constexpr int NP = ND / 2;           // 16-column pairs of k-steps in QK^T
+  constexpr int NG = ND / 4;           // 32-column groups of V (4 n8 tiles)
+  constexpr bool kHalf = ND % 4 != 0;  // and a last 16-column group (2 tiles)
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                 // kBQ x LDK: Q's big halves (as bits)
+  float* qsm = qs + kBQ * LDK;      // kBQ x LDK: Q's small halves
+  float* ks = qsm + kBQ * LDK;      // 2 buffers x kBK x LDK (big halves)
+  float* vs = ks + 2 * kBK * LDK;   // 2 buffers x kBK x LDV (big halves)
+  float* ksm = vs + 2 * kBK * LDV;  // kBK x LDK: small halves of K's tile
+  float* vsm = ksm + kBK * LDK;     // kBK x LDV: small halves of V's tile
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
+  const int g = lane >> 2, t = lane & 3;
+  // Warp w runs on scheduler w % 4. The two halves of a row tile go to
+  // two schedulers, and each scheduler holds row tiles 0 and 3 or 1 and 2,
+  // which a causal block's diagonal loads about evenly.
+  const int rg = warp < 4 ? warp >> 1 : 5 - (warp >> 1);
+  const int k0 = 16 * (warp & 1);  // first key of this warp's half
+  const int qblk = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = qblk * kBQ;
   const int hk = h / (p.Hq / p.Hkv);
-
-  const float* qb = p.q + b * p.q_sb + h * p.q_sh;
-  for (int idx = tid; idx < kBQ * p.Dh; idx += kThreads) {
-    const int r = idx / p.Dh, d = idx - r * p.Dh;
-    qs[r * kDMax + d] = q0 + r < p.Sq ? qb[(q0 + r) * p.q_ss + d] : 0.f;
-  }
+  const int dh16 = (p.Dh + 15) >> 4;
+  const int v_width = min(8 * ND, (p.Dv + 31) & ~31);
 
   const int q_last = min(q0 + kBQ, p.Sq) - 1;
   int kv_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
@@ -64,52 +190,305 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FaParams p) {
     kv_begin = 0;  // some row is fully masked: it averages every key
     kv_end = p.kv_len;
   }
+  const int n_tiles = (kv_end - kv_begin + kBK - 1) / kBK;
 
   const float* kb = p.k + b * p.k_sb + hk * p.k_sh;
   const float* vb = p.v + b * p.v_sb + hk * p.v_sh;
-  const int row0 = q0 + warp * kRowsPerWarp;
-  RowState<kRowsPerWarp> st;
-  st.init();
+  auto load_kv = [&](int it) {
+    const int kt = kv_begin + it * kBK, n_keys = min(kBK, kv_end - kt);
+    load_rows<LDK, kSwz, kVec16>(ks + (it & 1) * kBK * LDK, kb + kt * p.k_ss,
+                                 p.k_ss, n_keys, kBK, p.Dh, 16 * dh16, tid);
+    load_rows<LDV, false, kVec16>(vs + (it & 1) * kBK * LDV, vb + kt * p.v_ss,
+                                  p.v_ss, n_keys, kBK, p.Dv, v_width, tid);
+  };
+  load_rows<LDK, kSwz, kVec16>(
+      qs, p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_ss, p.q_ss, p.Sq - q0,
+      kBQ, p.Dh, 16 * dh16, tid);
+  if (n_tiles > 0) load_kv(0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  split_rows(qs, qsm, kBQ * LDK / 4, tid);  // Q serves every tile
 
-  for (int kt = kv_begin; kt < kv_end; kt += kBK) {
-    const int n_keys = min(kBK, kv_end - kt);
-    __syncthreads();
-    for (int idx = tid; idx < n_keys * p.Dh; idx += kThreads) {
-      const int j = idx / p.Dh, d = idx - j * p.Dh;
-      ks[j * (kDMax + 1) + d] = kb[(kt + j) * p.k_ss + d];
-    }
-    for (int idx = tid; idx < n_keys * p.Dv; idx += kThreads) {
-      const int j = idx / p.Dv, d = idx - j * p.Dv;
-      vs[j * kDMax + d] = vb[(kt + j) * p.v_ss + d];
-    }
-    __syncthreads();
-
-    const bool present = lane < n_keys;
-    const int key = kt + lane;
-    float s[kRowsPerWarp];
-    tile_dots<kRowsPerWarp>(s, qs + warp * kRowsPerWarp * kDMax, ks,
-                            present ? p.Dh : 0, lane);
+  // This thread's rows of the warp's m16 tile: g (C c0/c1) and g + 8
+  // (c2/c3). QK^T takes the head dims of a 16-column pair p as two k-steps
+  // with k = t <-> dims 4t and 4t + 2 and k = t + 4 <-> 4t + 1 and 4t + 3
+  // (A and B alike), so each fragment is one 16-byte load of chunk 4p + t;
+  // q rows 16 rg + g (+ 8) and key rows k0 + 8n + g all have g's parity,
+  // so one swizzle offset serves them all.
+  const int w_lo = q0 + 16 * rg, w_hi = w_lo + 15;
+  const int row_a = w_lo + g, row_b = row_a + 8;
+  const bool active = w_lo < p.Sq;  // a warp of padding rows only loads
+  const int swz = kSwz ? 16 * (g & 1) : 0;
+  const int off_even = 4 * t + swz, off_odd = 4 * t - swz;  // chunk 4p + t
+  const float* qa = qs + (16 * rg + g) * LDK;
+  const float* qm = qsm + (16 * rg + g) * LDK;
+  float o[ND][4];
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int row = row0 + i;
-      const bool valid = (!p.causal || key <= row) &&
-                         (p.window <= 0 || key > row - p.window);
-      s[i] = valid ? cap(s[i] * p.scale, p.softcap) : kMask;
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_a = kMask, m_b = kMask, l_a = 0.f, l_b = 0.f;  // l: this lane's
+  //                                                        share of the sum
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it > 0) cp_async_wait<0>();
+    __syncthreads();  // tile `it` has landed; every warp is done with it - 1
+    if (it + 1 < n_tiles) {
+      load_kv(it + 1);  // into the buffer tile it - 1 used
+      cp_async_commit();
     }
-    st.update(s, present, vs, n_keys, p.Dv, lane);
+    // each K and V value is split into TF32 halves once, by one thread
+    split_rows(ks + (it & 1) * kBK * LDK, ksm, kBK * LDK / 4, tid);
+    split_rows(vs + (it & 1) * kBK * LDV, vsm, kBK * LDV / 4, tid);
+    __syncthreads();
+    const int kt = kv_begin + it * kBK, n_keys = min(kBK, kv_end - kt);
+    // Keys k0 .. k0 + 15 of the tile are this warp's. A half with no
+    // present key adds nothing; a causal half past the warp's last row
+    // holds only masked keys, which add exactly 0 once a row has seen a
+    // key of its own (a tile before this one).
+    if (!active || k0 >= n_keys || (p.causal && kt + k0 > w_hi)) continue;
+    const float* kt_s = ks + (it & 1) * kBK * LDK + k0 * LDK;
+    const float* kt_m = ksm + k0 * LDK;
+    const float* vt_s = vs + (it & 1) * kBK * LDV + k0 * LDV;
+    const float* vt_m = vsm + k0 * LDV;
+
+    // S = Q K^T: 16 rows x 16 keys, two n8 tiles
+    float s[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int pp = 0; pp < NP; ++pp) {
+      if (pp < dh16) {
+        const int off = 16 * pp + (pp & 1 ? off_odd : off_even);
+        const uint4 qb0 = *reinterpret_cast<const uint4*>(qa + off);
+        const uint4 qb8 = *reinterpret_cast<const uint4*>(qa + 8 * LDK + off);
+        const uint4 qs0 = *reinterpret_cast<const uint4*>(qm + off);
+        const uint4 qs8 = *reinterpret_cast<const uint4*>(qm + 8 * LDK + off);
+        uint4 kbig[2], ksmall[2];
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          kbig[n] = *reinterpret_cast<const uint4*>(kt_s + (8 * n + g) * LDK +
+                                                    off);
+          ksmall[n] = *reinterpret_cast<const uint4*>(
+              kt_m + (8 * n + g) * LDK + off);
+        }
+#pragma unroll
+        for (int st = 0; st < 2; ++st) {
+          const uint32_t ab[4] = {st ? qb0.z : qb0.x, st ? qb8.z : qb8.x,
+                                  st ? qb0.w : qb0.y, st ? qb8.w : qb8.y};
+          const uint32_t as[4] = {st ? qs0.z : qs0.x, st ? qs8.z : qs8.x,
+                                  st ? qs0.w : qs0.y, st ? qs8.w : qs8.y};
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            const uint32_t bb[2] = {st ? kbig[n].z : kbig[n].x,
+                                    st ? kbig[n].w : kbig[n].y};
+            const uint32_t bs[2] = {st ? ksmall[n].z : ksmall[n].x,
+                                    st ? ksmall[n].w : ksmall[n].y};
+            mma_tf32(s[n], as, bb);
+            mma_tf32(s[n], ab, bs);
+            mma_tf32(s[n], ab, bb);
+          }
+        }
+      }
+    }
+
+    // scale, softcap and (on edge tiles only) masks; the tile's row max
+    const bool edge = k0 + 16 > n_keys || (p.causal && kt + k0 + 15 > w_lo) ||
+                      (p.window > 0 && kt + k0 <= w_hi - p.window);
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = cap(s[n][e] * p.scale, p.softcap);
+        if (edge) {
+          const int j = k0 + 8 * n + 2 * t + (e & 1), key = kt + j;
+          const int row = e < 2 ? row_a : row_b;
+          if (j >= n_keys)
+            x = -INFINITY;  // absent
+          else if ((p.causal && key > row) ||
+                   (p.window > 0 && key <= row - p.window))
+            x = kMask;      // masked
+        }
+        s[n][e] = x;
+        if (e < 2) mx_a = fmaxf(mx_a, x); else mx_b = fmaxf(mx_b, x);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+
+    // online softmax on the fragments
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float alpha_a = ex(m_a - mn_a), alpha_b = ex(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      s[n][0] = ex(s[n][0] - m_a);
+      s[n][1] = ex(s[n][1] - m_a);
+      s[n][2] = ex(s[n][2] - m_b);
+      s[n][3] = ex(s[n][3] - m_b);
+      sum_a += s[n][0] + s[n][1];
+      sum_b += s[n][2] + s[n][3];
+    }
+    l_a = alpha_a * l_a + sum_a;
+    l_b = alpha_b * l_b + sum_b;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      o[n][0] *= alpha_a;
+      o[n][1] *= alpha_a;
+      o[n][2] *= alpha_b;
+      o[n][3] *= alpha_b;
+    }
+
+    // O += P V. P's A fragment is S's C fragment read with k = t as key 2t
+    // and k = t + 4 as key 2t + 1; V's B fragment reads its rows in that
+    // order. n8 tile 4m + i of a 32-column group m takes V column
+    // 32m + 4j + i as its column j, so a thread's B fragments of the four
+    // tiles are one 16-byte load from each of rows 2t and 2t + 1, and its
+    // C fragments hold columns 32m + 8t + i (c0, c2) and 32m + 8t + 4 + i
+    // (c1, c3). A last 16-column group (ND 10) does the same with 2 tiles.
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      if (k0 + 8 * kk < n_keys) {
+        uint32_t ab[4], as[4];
+        split_tf32(s[kk][0], ab[0], as[0]);
+        split_tf32(s[kk][2], ab[1], as[1]);
+        split_tf32(s[kk][1], ab[2], as[2]);
+        split_tf32(s[kk][3], ab[3], as[3]);
+        const float* vr = vt_s + (8 * kk + 2 * t) * LDV;
+        const float* vm = vt_m + (8 * kk + 2 * t) * LDV;
+#pragma unroll
+        for (int m = 0; m < NG; ++m) {
+          if (32 * m < p.Dv) {
+            const int c = 32 * m + 4 * g;
+            const uint4 xb = *reinterpret_cast<const uint4*>(vr + c);
+            const uint4 yb = *reinterpret_cast<const uint4*>(vr + LDV + c);
+            const uint4 xs = *reinterpret_cast<const uint4*>(vm + c);
+            const uint4 ys = *reinterpret_cast<const uint4*>(vm + LDV + c);
+            const uint32_t bb[4][2] = {
+                {xb.x, yb.x}, {xb.y, yb.y}, {xb.z, yb.z}, {xb.w, yb.w}};
+            const uint32_t bs[4][2] = {
+                {xs.x, ys.x}, {xs.y, ys.y}, {xs.z, ys.z}, {xs.w, ys.w}};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) mma_tf32(o[4 * m + i], as, bb[i]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) mma_tf32(o[4 * m + i], ab, bs[i]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) mma_tf32(o[4 * m + i], ab, bb[i]);
+          }
+        }
+        if constexpr (kHalf) {
+          if (32 * NG < p.Dv) {
+            const int c = 32 * NG + 2 * g;
+            const uint2 xb = *reinterpret_cast<const uint2*>(vr + c);
+            const uint2 yb = *reinterpret_cast<const uint2*>(vr + LDV + c);
+            const uint2 xs = *reinterpret_cast<const uint2*>(vm + c);
+            const uint2 ys = *reinterpret_cast<const uint2*>(vm + LDV + c);
+            const uint32_t bb[2][2] = {{xb.x, yb.x}, {xb.y, yb.y}};
+            const uint32_t bs[2][2] = {{xs.x, ys.x}, {xs.y, ys.y}};
+#pragma unroll
+            for (int i = 0; i < 2; ++i) mma_tf32(o[4 * NG + i], as, bb[i]);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) mma_tf32(o[4 * NG + i], ab, bs[i]);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) mma_tf32(o[4 * NG + i], ab, bb[i]);
+          }
+        }
+      }
+    }
   }
 
+  // The two key halves of a row tile meet in the spent K buffers: the
+  // second half's (m, l, O) fragments go to shared memory, laid out by
+  // lane, and the first half folds them into its own.
+  __syncthreads();
+  float4* mo = reinterpret_cast<float4*>(ks);   // [rg][n][lane]: 512 ND
+  float4* ml = reinterpret_cast<float4*>(ksm);  // [rg][lane]: m, m, l, l
+  if (active && k0) {
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      mo[(rg * ND + n) * 32 + lane] =
+          make_float4(o[n][0], o[n][1], o[n][2], o[n][3]);
+    ml[rg * 32 + lane] = make_float4(m_a, m_b, l_a, l_b);
+  }
+  __syncthreads();
+  if (!active || k0) return;
+  const float4 other = ml[rg * 32 + lane];
+  const float mn_a = fmaxf(m_a, other.x), mn_b = fmaxf(m_b, other.y);
+  const float fa = ex(m_a - mn_a), fb = ex(m_b - mn_b);
+  const float ga = ex(other.x - mn_a), gb = ex(other.y - mn_b);
+  l_a = fa * l_a + ga * other.z;
+  l_b = fb * l_b + gb * other.w;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const float4 x = mo[(rg * ND + n) * 32 + lane];
+    o[n][0] = fa * o[n][0] + ga * x.x;
+    o[n][1] = fa * o[n][1] + ga * x.y;
+    o[n][2] = fb * o[n][2] + gb * x.z;
+    o[n][3] = fb * o[n][3] + gb * x.w;
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
   float* ob = p.o + b * p.o_sb + h * p.o_sh;
+  auto put = [&](int col, int n, int c) {
+    if (col >= p.Dv) return;
+    if (row_a < p.Sq) ob[row_a * p.o_ss + col] = o[n][c] * inv_a;
+    if (row_b < p.Sq) ob[row_b * p.o_ss + col] = o[n][c + 2] * inv_b;
+  };
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int row = row0 + i;
-    if (row >= p.Sq) continue;
+  for (int m = 0; m < NG; ++m) {
 #pragma unroll
-    for (int c = 0; c < kDPerLane; ++c) {
-      const int d = lane + 32 * c;
-      if (d < p.Dv) ob[row * p.o_ss + d] = st.out(i, c);
+    for (int i = 0; i < 4; ++i) {
+      put(32 * m + 8 * t + i, 4 * m + i, 0);
+      put(32 * m + 8 * t + 4 + i, 4 * m + i, 1);
     }
   }
+  if constexpr (kHalf) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      put(32 * NG + 4 * t + i, 4 * NG + i, 0);
+      put(32 * NG + 4 * t + 2 + i, 4 * NG + i, 1);
+    }
+  }
+}
+
+template <int ND, bool kVec16>
+cudaError_t launch(const FaParams& p, cudaStream_t stream) {
+  constexpr int LDK = 8 * ND, LDV = 8 * ND + 4;
+  constexpr int bytes =
+      (2 * kBQ * LDK + 3 * kBK * (LDK + LDV)) * sizeof(float);
+  auto* kernel = flash_fwd_kernel<ND, kVec16>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  // all of the SM's 228 KB as shared memory, so several blocks fit
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + kBQ - 1) / kBQ, p.Hq, p.B);
+  kernel<<<grid, kThr, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <bool kVec16>
+cudaError_t launch_width(const FaParams& p, cudaStream_t stream) {
+  const int d8 = (max(p.Dh, p.Dv) + 7) / 8;
+  if (d8 <= 4) return launch<4, kVec16>(p, stream);
+  if (d8 <= 8) return launch<8, kVec16>(p, stream);
+  if (d8 <= 10) return launch<10, kVec16>(p, stream);  // zamba2's 80
+  return launch<16, kVec16>(p, stream);
 }
 
 }  // namespace
@@ -125,9 +504,16 @@ extern "C" int sfp_flash_attention_fwd(
              Dh,   Dv,   q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
              v_ss, v_sh, o_sb, o_ss, o_sh, causal, window, softcap,
              scale, kv_len};
-  if (B > 0 && Sq > 0) {
-    dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
-    flash_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(p);
-  }
-  return (int)cudaGetLastError();
+  if (Dh > kDMax || Dv > kDMax) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || Sq <= 0) return (int)cudaGetLastError();
+  // 16-byte copies need every row of q, k and v to start 16-byte aligned
+  const unsigned long long addr = reinterpret_cast<unsigned long long>(q) |
+                                  reinterpret_cast<unsigned long long>(k) |
+                                  reinterpret_cast<unsigned long long>(v);
+  const long long strides = q_sb | q_ss | q_sh | k_sb | k_ss | k_sh | v_sb |
+                            v_ss | v_sh;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(addr % 16 == 0 && strides % 4 == 0
+                   ? launch_width<true>(p, st)
+                   : launch_width<false>(p, st));
 }

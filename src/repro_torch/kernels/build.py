@@ -82,6 +82,8 @@ SIGNATURES = {
         + [_I] * 5                            # B, T, H, K, V
         + [_L] * 12                           # (b, t, h) strides of r, k, v, w
         + [_P]),                              # stream
+    "sfp_mma_probe": [_P, _I, _I, _I, _P],    # out, blocks, warps a block,
+    #                                           iterations, stream
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,11 +1,13 @@
 """Launch wrapper of the causal GQA prefill attention CUDA kernel.
 
 Replaces the TPU kernel `repro/kernels/flash_attention/kernel.py::
-flash_attention_fwd` with `csrc/flash_attention.cu`. That kernel is bound by
-arithmetic (fp32, no tensor cores yet); it reads q, k and v in the model's
-(B, S, H, Dh) layout through strides, so none of the TPU wrapper's
-transpose, reshape and pad copies exist, and it masks the ragged Sq/Skv
-edge itself. See the note in the source for the tiling.
+flash_attention_fwd` with `csrc/flash_attention.cu`: QK^T and PV on the
+tensor cores at fp32 accuracy (3xTF32 mma.sync), K/V tiles double-buffered
+with cp.async. It reads q, k and v in the model's (B, S, H, Dh) layout
+through strides, so none of the TPU wrapper's transpose, reshape and pad
+copies exist, and it masks the ragged Sq/Skv edge itself; it picks 16-byte
+or 4-byte copies from the pointers and strides. See the note in the source
+for the tiling.
 """
 from __future__ import annotations
 

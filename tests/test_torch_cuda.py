@@ -62,23 +62,42 @@ def test_quant_kernels_bit_equal_on_gradient_layouts(gen, layout):
 
 
 @pytest.mark.parametrize("case", [
-    # (B, Sq, Hq, Hkv, Dh, causal, window, softcap, kv_len)
-    (2, 5, 4, 4, 32, True, None, None, None),
-    (1, 45, 10, 2, 16, True, None, None, None),
-    (2, 70, 8, 1, 96, True, 9, None, None),
-    (1, 33, 6, 3, 128, True, None, 30.0, 20),
-    (1, 64, 10, 2, 64, True, 16, 20.0, 17),
-    (2, 21, 4, 2, 16, False, None, None, None),
-    (1, 37, 8, 8, 80, True, None, None, None),     # zamba2's head_dim 80
+    # (B, Sq, Hq, Hkv, Dh, causal, window, softcap, kv_len, offset)
+    (2, 5, 4, 4, 32, True, None, None, None, 0),
+    (1, 45, 10, 2, 16, True, None, None, None, 0),
+    (2, 70, 8, 1, 96, True, 9, None, None, 0),
+    (1, 33, 6, 3, 128, True, None, 30.0, 20, 0),
+    (1, 64, 10, 2, 64, True, 16, 20.0, 17, 0),
+    (2, 21, 4, 2, 16, False, None, None, None, 0),
+    (1, 37, 8, 8, 80, True, None, None, None, 0),     # zamba2's head_dim 80
+    (16, 213, 12, 12, 64, False, None, None, None, 0),  # ViT-Base scoring
+    (1, 1, 4, 2, 64, True, None, None, None, 0),     # Sq ragged over the
+    (1, 65, 8, 2, 64, True, 20, None, None, 0),      # 64-row query block
+    (2, 129, 4, 1, 32, True, None, 30.0, 100, 0),
+    (2, 77, 6, 3, 20, False, None, None, None, 0),   # widths not a multiple
+    (1, 200, 4, 4, 40, True, 16, None, 60, 0),       # of 8 (zero-padded)
+    (2, 50, 6, 2, 64, True, None, None, None, 1),    # one float off 16-byte
+    (1, 90, 4, 4, 40, False, 24, 10.0, None, 1),     # alignment: 4-byte copies
+    (1, 100, 10, 2, 128, True, None, None, 70, 0),   # GQA 5, kv_len < Sq
+    (8, 100, 40, 8, 128, True, 32, 30.0, 90, 0),     # batched, with every
+    (4, 129, 24, 8, 40, True, None, None, 100, 1),   # option at once
 ])
 def test_prefill_kernel_matches_plain(gen, case):
     from repro_torch.kernels.flash_attention import ref
     from repro_torch.kernels.flash_attention.ops import prefill_attention
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
-    B, S, Hq, Hkv, Dh, causal, window, softcap, kv_len = case
-    q = torch.randn((B, S, Hq, Dh), generator=gen, device="cuda")
-    kv = torch.randn((B, S, 2 * Hkv, Dh), generator=gen, device="cuda")
+    B, S, Hq, Hkv, Dh, causal, window, softcap, kv_len, offset = case
+
+    def randn(shape):               # a view `offset` floats into its storage
+        if not offset:
+            return torch.randn(shape, generator=gen, device="cuda")
+        return torch.randn(int(np.prod(shape)) + offset, generator=gen,
+                           device="cuda")[offset:].view(shape)
+
+    q = randn((B, S, Hq, Dh))
+    kv = randn((B, S, 2 * Hkv, Dh))
     k, v = kv[:, :, :Hkv], kv[:, :, Hkv:]          # strided views
+    assert offset == 0 or q.data_ptr() % 16 and kv.data_ptr() % 16
     n = flash_attention_fwd.launches
     got = prefill_attention(q, k, v, causal=causal, sliding_window=window,
                             softcap=softcap, kv_len=kv_len)
