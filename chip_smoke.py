@@ -26,6 +26,10 @@ Phases, each of which fails the run with a nonzero exit:
      SDPA kernel that served the yardstick (and whether it is
      EFFICIENT_ATTENTION's), and each instantiation's TF32 HMMA count in
      its SASS, registers and spills (fails on no HMMA or any spill);
+     the paged decode kernel also with a fully masked row (it must return
+     the mean of every value of its table), its split count and valid
+     tiles printed, and device time (profiler) beside event time for it,
+     the dense decode kernel on the same data gathered, and SDPA;
   4. engine parity: the reduced Qwen2.5 family (with a GQA group of 5)
      served on the card and on the CPU from the same seeded weights, by the
      dense engine and by the paged engine (shared prefix, chunked prefill)
@@ -700,16 +704,19 @@ def paged_case(torch, gen, lengths, page, nb, P, Hq=40, Hkv=8, Dh=128):
     ceil(lengths[b] / page) shuffled, non-contiguous pages holding
     positions 0..lengths[b]-1, NULL (page 0) table entries past them and
     stale positions past its length on its last page; a slot of length 0
-    is idle, every block at SCRATCH (page 1)."""
+    is idle, every block at SCRATCH (page 1); a slot of length None is
+    fully masked, every block at NULL (positions -1), query position 0."""
     import numpy as np
     B = len(lengths)
-    rng = np.random.default_rng(sum(lengths) + page)
+    rng = np.random.default_rng(sum(n or 0 for n in lengths) + page)
     perm = rng.permutation(np.arange(2, P))
     kvp = np.full((P, page), -1, np.int32)
     kvp[1] = rng.integers(0, 4, page)            # scratch: garbage
     tables = np.zeros((B, nb), np.int32)
     used = 0
     for b, n in enumerate(lengths):
+        if n is None:
+            continue
         if n == 0:
             tables[b] = 1
             continue
@@ -725,43 +732,69 @@ def paged_case(torch, gen, lengths, page, nb, P, Hq=40, Hkv=8, Dh=128):
     q = torch.randn((B, 1, Hq, Dh), generator=gen, device="cuda")
     k = torch.randn((P, page, Hkv, Dh), generator=gen, device="cuda")
     v = torch.randn((P, page, Hkv, Dh), generator=gen, device="cuda")
-    qp = torch.tensor([max(n - 1, 0) for n in lengths], dtype=torch.int32)
+    qp = torch.tensor([max((n or 0) - 1, 0) for n in lengths],
+                      dtype=torch.int32)
     return (q, k, v, torch.from_numpy(tables).cuda(), qp.cuda(),
             torch.from_numpy(kvp).cuda())
+
+
+def valid_tiles(torch, tables, qp, kvp, window=None):
+    """32-key tiles of the slots' tables that hold a valid key: the tiles
+    the paged kernel visits (it walks every tile of a row with none)."""
+    B, nb = tables.shape
+    pos = kvp[tables.long()].reshape(B, -1)
+    valid = (pos >= 0) & (pos <= qp[:, None])
+    if window is not None:
+        valid &= pos > qp[:, None] - window
+    pad = -pos.shape[1] % 32
+    valid = torch.nn.functional.pad(valid, (0, pad)).reshape(B, -1, 32)
+    return int(valid.any(-1).sum())
 
 
 def check_paged_decode(torch, F, gen, results):
     from repro_torch.kernels.flash_attention.decode import (
         decode_attention_fwd, paged_decode_attention_fwd,
-        paged_gather_decode)
+        paged_gather_decode, paged_splits, sm_count)
     Hq, Hkv, Dh = 40, 8, 128
+    G = Hq // Hkv
     scale = Dh ** -0.5
     # 16 slots, ragged 1..512 tokens, slot 4 idle: 119 of the 128 usable
     # pages of 16 tokens
     lengths = [1, 512, 37, 200, 0, 129, 16, 17, 300, 64, 5, 96, 250, 33, 128,
                9]
-    cases = [(16, 32, 130, None, None), (8, 64, 2 + 240, 64, 50.0)]
+    # the same with slot 10 fully masked (all NULL): the mean of every value
+    masked = lengths[:10] + [None] + lengths[11:]
+    cases = [(lengths, 16, 32, 130, None, None),
+             (lengths, 8, 64, 2 + 240, 64, 50.0),
+             (masked, 16, 32, 130, None, None)]
     worst = 0.0
-    for page, nb, P, window, softcap in cases:
-        args = paged_case(torch, gen, lengths, page, nb, P)
+    for lens, page, nb, P, window, softcap in cases:
+        args = paged_case(torch, gen, lens, page, nb, P)
         got = paged_decode_attention_fwd(*args, scale=scale,
                                          sliding_window=window,
                                          softcap=softcap)
         want = paged_gather_decode(*args, scale=scale, sliding_window=window,
                                    softcap=softcap)
         err = float((got - want).abs().max())
+        for b in (b for b, n in enumerate(lens) if n is None):
+            mean = args[2][0].mean(0).repeat_interleave(G, 0)
+            err = max(err, float((got[b, 0] - mean).abs().max()))
         if not (torch.isfinite(got).all() and err <= ATTN_TOL):
             fail(f"paged decode page={page} window={window} "
-                 f"softcap={softcap}: max|kernel - plain| = {err:.3g} > "
-                 f"{ATTN_TOL}")
+                 f"softcap={softcap} lengths={lens}: max|kernel - plain| = "
+                 f"{err:.3g} > {ATTN_TOL}")
         worst = max(worst, err)
         say(f"paged decode: 16 slots, page {page}, nb {nb}, pool {P} pages, "
-            f"G={Hq // Hkv}, lengths 1..512 + an idle scratch row, "
-            f"window={window} softcap={softcap}: max abs err {err:.3g}")
+            f"G={G}, lengths 1..512 + an idle scratch row"
+            f"{' + a fully masked row' if None in lens else ''}, "
+            f"window={window} softcap={softcap}, "
+            f"{valid_tiles(torch, *args[3:], window)} valid tiles of "
+            f"{16 * -(-nb * page // 32)}: max abs err {err:.3g}")
 
     page, nb, P = 16, 32, 130
     B, W = len(lengths), nb * page
     n_valid = sum(lengths)
+    splits = paged_splits(B, Hkv, W, sm_count(torch.cuda.current_device()))
     # bytes the kernel must move: q, out, the valid entries' K/V and
     # positions, the tables and query positions
     nbytes = ((B * Hq * Dh * 2 + n_valid * Hkv * Dh * 2) * 4 + n_valid * 4
@@ -791,16 +824,54 @@ def check_paged_decode(torch, F, gen, results):
                     .contiguous(),
                     vg.repeat_interleave(Hq // Hkv, 2).transpose(1, 2)
                     .contiguous(), mask))
-    t_l = time_ms([lambda s=s: F.scaled_dot_product_attention(
-        s[0], s[1], s[2], attn_mask=s[3], scale=scale) for s in lib])
-    del lib, dense
-    say(f"paged decode timing: kernel {t_k:.4f} ms, dense decode kernel on "
-        f"the same data gathered {t_d:.4f} ms, plain {t_p:.4f} ms, SDPA "
-        f"{t_l:.4f} ms")
+    sdpa = [lambda s=s: F.scaled_dot_product_attention(
+        s[0], s[1], s[2], attn_mask=s[3], scale=scale) for s in lib]
+    t_l = time_ms(sdpa)
+    # device time (kernel + combine) beside the event time, which at this
+    # size is the wrapper's host time
+    d_k = device_ms([lambda s=s: paged_decode_attention_fwd(
+        *s, scale=scale, sliding_window=None, softcap=None) for s in sets])
+    d_d = device_ms([lambda s=s: decode_attention_fwd(
+        *s, scale=scale, sliding_window=None, softcap=None) for s in dense])
+    d_l = device_ms(sdpa)
+    del lib, dense, sdpa
+    tiles = valid_tiles(torch, *sets[0][3:])
+    # the split count against device time: paged_splits asks for the
+    # smallest S that gives every SM the three blocks it holds; each S is
+    # forced by standing in for it, and checked against plain
+    from repro_torch.kernels.flash_attention import decode
+    sweep = {}
+    try:
+        for S in (1, 2, 3, 4, 6, 8):
+            decode.paged_splits = lambda *shape, S=S: S
+            got = paged_decode_attention_fwd(*sets[0], scale=scale,
+                                             sliding_window=None,
+                                             softcap=None)
+            err = float((got - paged_gather_decode(
+                *sets[0], scale=scale, sliding_window=None,
+                softcap=None)).abs().max())
+            if not (torch.isfinite(got).all() and err <= ATTN_TOL):
+                fail(f"paged decode at {S} splits: max|kernel - plain| = "
+                     f"{err:.3g} > {ATTN_TOL}")
+            sweep[S] = device_ms([lambda s=s: paged_decode_attention_fwd(
+                *s, scale=scale, sliding_window=None, softcap=None)
+                for s in sets])
+    finally:
+        decode.paged_splits = paged_splits
+    say("paged decode device ms by splits: " + ", ".join(
+        f"S {S} {ms:.4f}" for S, ms in sweep.items()))
+    say(f"paged decode timing: {splits} splits a row, {tiles} valid tiles "
+        f"of {B * -(-W // 32)} (x {Hkv} kv heads): kernel {t_k:.4f} ms "
+        f"({d_k:.4f} on the device), dense decode kernel on the same data "
+        f"gathered {t_d:.4f} ms ({d_d:.4f}), plain {t_p:.4f} ms, SDPA "
+        f"{t_l:.4f} ms ({d_l:.4f})")
     b = bound(nbytes, n_valid * Hq * 4 * Dh)
     results["paged_decode_attention"] = dict(
         max_abs_err=worst, ms=t_k, plain_ms=t_p, bound_ms=b[0],
         bound_by=b[1], library_ms=t_l, dense_kernel_same_data_ms=t_d,
+        device_ms=d_k, library_device_ms=d_l,
+        dense_kernel_same_data_device_ms=d_d, splits=splits,
+        valid_tiles=tiles, device_ms_by_splits=sweep,
         shape=f"q ({B}, 1, {Hq}, {Dh}), pool ({P}, {page}, {Hkv}, {Dh}), "
               f"tables ({B}, {nb}), {n_valid} valid entries")
 
@@ -1576,7 +1647,8 @@ def device_summary(prof, wall):
 
 
 # device-side names of the port's own kernels (csrc/)
-PORT_KERNELS = ("decode_kernel", "paged_decode_kernel", "flash_fwd_kernel",
+PORT_KERNELS = ("decode_kernel", "paged_decode_kernel",
+                "paged_decode_combine_kernel", "flash_fwd_kernel",
                 "quantize_kernel", "dequantize_kernel", "el2n_kernel",
                 "masked_encode_kernel", "mamba2_scan_kernel",
                 "rwkv6_scan_kernel")

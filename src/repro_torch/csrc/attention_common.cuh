@@ -1,6 +1,6 @@
 // Shared pieces of the attention kernels. The row state and tile dots
-// below are the decode kernels' (dense and paged); the prefill kernel
-// (flash_attention.cu) takes only the constants, the mask and cap().
+// below are the dense decode kernel's; the prefill and paged decode
+// kernels take the constants, the mask, the warp reductions and cap().
 //
 // A block is four warps. Each warp owns a few query rows; the block stages
 // one tile of kBK keys and values in shared memory, every lane scores one

@@ -55,9 +55,11 @@ SIGNATURES = {
         #                                       q_pos (b); kv_pos (b, w); out (b, h)
         + [_I, _F, _F, _P]),                  # window, softcap, scale, stream
     "sfp_paged_decode_attention_fwd": (
-        [_P] * 7                              # q, k_pool, v_pool, tables,
-        #                                       q_pos, kv_pos, out
-        + [_I] * 7                            # B, nb, page, Hq, Hkv, Dh, Dv
+        [_P] * 8                              # q, k_pool, v_pool, tables,
+        #                                       q_pos, kv_pos, out, workspace
+        #                                       (B, Hq, S, Dv + 2) or null
+        + [_I] * 8                            # B, nb, page, Hq, Hkv, Dh, Dv,
+        #                                       S (splits of each row)
         + [_L] * 15                           # q (b, h); k, v pools (p, o, h);
         #                                       tables (b, n); q_pos (b);
         #                                       kv_pos (p, o); out (b, h)

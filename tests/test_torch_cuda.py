@@ -205,7 +205,8 @@ def test_engine_on_card_matches_cpu(gen):
 def _paged_case(gen, B, nb, page, Hq, Hkv, Dh, lens):
     """Shuffled pool pages, NULL entries past each slot's length, stale
     positions past it on its last page, an all-SCRATCH idle row for a
-    slot of length 0."""
+    slot of length 0, an all-NULL fully masked row (query position 0) for
+    a length of None."""
     P = 2 + B * nb + 3
     q = torch.randn((B, 1, Hq, Dh), generator=gen, device="cuda")
     k = torch.randn((P, page, Hkv, Dh), generator=gen, device="cuda")
@@ -215,6 +216,8 @@ def _paged_case(gen, B, nb, page, Hq, Hkv, Dh, lens):
     kvp[1] = 0                                   # scratch: garbage
     tables = np.zeros((B, nb), np.int32)
     for b, n in enumerate(lens):
+        if n is None:
+            continue
         if n == 0:
             tables[b] = 1
             continue
@@ -224,23 +227,62 @@ def _paged_case(gen, B, nb, page, Hq, Hkv, Dh, lens):
             m = min(page, n - j * page)
             kvp[pid, :m] = j * page + np.arange(m)
             kvp[pid, m:] = 10 ** 6
-    qp = torch.tensor([max(n - 1, 0) for n in lens], dtype=torch.int32)
+    qp = torch.tensor([max((n or 0) - 1, 0) for n in lens],
+                      dtype=torch.int32)
     return (q, k, v, torch.from_numpy(tables).cuda(), qp.cuda(),
             torch.from_numpy(kvp).cuda())
 
 
-@pytest.mark.parametrize("page,G,Dh,window,softcap", [
-    (8, 5, 128, None, None), (16, 5, 128, None, None), (5, 1, 32, None, None),
-    (16, 8, 64, None, 25.0), (8, 5, 128, 64, 50.0)])
+def _unaligned(x):
+    """The same values in a view whose base and strides are not multiples
+    of 4 floats, so the kernel takes its 4-byte copies."""
+    P, page, H, D = x.shape
+    out = torch.empty((P, page, H, D + 1), device=x.device)[..., 1:]
+    out.copy_(x)
+    return out
+
+
+def _paged_lens(kind, nb, page):
+    if kind == "masked":           # the all-NULL row 1 has no valid key
+        return [0, None, 40, nb * page, 2 * page + 3]
+    return [0, 1, 40, nb * page, 2 * page + 3]
+
+
+@pytest.mark.parametrize("page,G,Dh,window,softcap,B,nb,Hkv,kind", [
+    pytest.param(8, 5, 128, None, None, 5, 9, 2, "", id="8-5-128-None-None"),
+    pytest.param(16, 5, 128, None, None, 5, 9, 2, "",
+                 id="16-5-128-None-None"),
+    pytest.param(5, 1, 32, None, None, 5, 9, 2, "", id="5-1-32-None-None"),
+    pytest.param(16, 8, 64, None, 25.0, 5, 9, 2, "", id="16-8-64-None-25.0"),
+    pytest.param(8, 5, 128, 64, 50.0, 5, 9, 2, "", id="8-5-128-64-50.0"),
+    pytest.param(8, 5, 128, None, None, 5, 9, 2, "masked",
+                 id="fully-masked-row"),
+    # the window leaves slot 3 (144 keys) valid keys in its last tile only
+    pytest.param(16, 5, 128, 8, None, 5, 9, 2, "", id="last-tile-window"),
+    pytest.param(64, 5, 128, None, None, 5, 9, 2, "", id="page-64"),
+    pytest.param(16, 5, 128, None, None, 50, 3, 8, "", id="one-split"),
+    pytest.param(8, 5, 128, 64, 50.0, 5, 9, 2, "unaligned",
+                 id="unaligned-pool"),
+])
 def test_paged_decode_kernel_matches_plain(gen, page, G, Dh, window,
-                                           softcap):
+                                           softcap, B, nb, Hkv, kind):
     from repro_torch.kernels.flash_attention.decode import (
         paged_decode_attention, paged_decode_attention_fwd,
-        paged_gather_decode)
-    B, nb, Hkv = 5, 9, 2
-    lens = [0, 1, 40, nb * page, 2 * page + 3]
+        paged_gather_decode, paged_splits, sm_count)
+    lens = _paged_lens(kind, nb, page)
+    lens = (lens * (-(-B // len(lens))))[:B]
     q, k, v, tables, qp, kvp = _paged_case(gen, B, nb, page, G * Hkv, Hkv,
                                            Dh, lens)
+    if kind == "unaligned":
+        k, v = _unaligned(k), _unaligned(v)
+        assert k.data_ptr() % 16 and k.stride(2) % 4
+    S = paged_splits(B, Hkv, nb * page, sm_count(q.device.index))
+    if B == 50:
+        assert S == 1     # 400 blocks put three on every SM
+    elif page == 8:
+        # 10 blocks, capped at the row's 3 tiles: slots 1 (1 key) and 2
+        # (40 keys) hold fewer valid tiles than S
+        assert S == 3
     n = paged_decode_attention_fwd.launches
     got = paged_decode_attention(q, k, v, block_tables=tables,
                                  q_positions=qp, kv_positions=kvp,
@@ -251,6 +293,9 @@ def test_paged_decode_kernel_matches_plain(gen, page, G, Dh, window,
                                sliding_window=window, softcap=softcap)
     assert torch.isfinite(got).all()            # the idle row included
     assert float((got - want).abs().max()) <= ATTN_TOL
+    for b in (b for b, n in enumerate(lens) if n is None):
+        mean = v[0].mean(0).repeat_interleave(G, 0)    # every key: NULL
+        assert float((got[b, 0] - mean).abs().max()) <= ATTN_TOL
 
 
 def test_paged_engine_on_card_matches_cpu(gen):

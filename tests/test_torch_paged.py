@@ -31,7 +31,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import SplitConfig, SplitModel  # noqa: E402
 from repro_torch.kernels import launch_counts  # noqa: E402
 from repro_torch.kernels.flash_attention.decode import (  # noqa: E402
-    grouped_decode, paged_decode_attention)
+    BLOCKS_PER_SM, MAX_SPLITS, grouped_decode, paged_decode_attention,
+    paged_splits)
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models.layers import _paged_cache_write  # noqa: E402
 from repro_torch.runtime import WireSpec  # noqa: E402
@@ -126,8 +127,9 @@ REQS_HIT = REQS + [
 # ------------------------------------------------------------ paged op
 def _paged_inputs(seed, B, nb, page, Hq, Hkv, Dh, lens):
     """A shuffled, non-contiguous pool: the reserved pages, each slot's
-    pages, spares; NULL entries past each slot's length, and an idle row
-    of all SCRATCH for a slot of length 0."""
+    pages, spares; NULL entries past each slot's length, an idle row of
+    all SCRATCH for a slot of length 0, and a fully masked row of all NULL
+    (every position -1, query position 0) for a length of None."""
     rng = np.random.default_rng(seed)
     P = 2 + B * nb + 3
     q = rng.standard_normal((B, 1, Hq, Dh)).astype(np.float32)
@@ -138,6 +140,8 @@ def _paged_inputs(seed, B, nb, page, Hq, Hkv, Dh, lens):
     kv_pos[1] = rng.integers(0, 5, page)            # scratch: garbage
     tables = np.zeros((B, nb), np.int32)             # NULL page
     for b, n in enumerate(lens):
+        if n is None:
+            continue
         if n == 0:
             tables[b] = PagePool.SCRATCH_PAGE
             continue
@@ -148,7 +152,7 @@ def _paged_inputs(seed, B, nb, page, Hq, Hkv, Dh, lens):
             kv_pos[pid, :m] = j * page + np.arange(m)
             # stale positions past the slot's length on its last page
             kv_pos[pid, m:] = -1 if j % 2 else 10 ** 6
-    q_pos = np.asarray([max(n - 1, 0) for n in lens], np.int32)
+    q_pos = np.asarray([max((n or 0) - 1, 0) for n in lens], np.int32)
     return q, k_pool, v_pool, tables, q_pos, kv_pos
 
 
@@ -158,6 +162,8 @@ PAGED_CASES = [
     (4, 4, 8, 10, 2, 16, [1, 0, 32, 13], None, None),
     (3, 5, 5, 10, 2, 16, [25, 11, 3], 6, 15.0),
     (2, 3, 16, 8, 8, 32, [33, 48], None, 30.0),
+    # row 1 is fully masked: no valid key anywhere in its table
+    (3, 4, 8, 10, 2, 16, [13, None, 32], 6, 15.0),
 ]
 
 
@@ -166,10 +172,11 @@ def test_paged_plain_matches_jax_paged_op(case):
     """The port's plain paged decode against the JAX op on the same
     inputs: within 1e-5 of its XLA path, within 2e-5 of its Pallas kernel
     on the interpreter, and == the port's own grouped decode over the
-    gathered caches."""
+    gathered caches. A fully masked row gets the mean of every value of
+    its table in both packages; the CUDA kernel keeps that answer."""
     B, nb, page, Hq, Hkv, Dh, lens, window, softcap = case
     q, kp, vp, tables, qpos, kvpos = _paged_inputs(
-        sum(lens), B, nb, page, Hq, Hkv, Dh, lens)
+        sum(n or 0 for n in lens), B, nb, page, Hq, Hkv, Dh, lens)
     got = paged_decode_attention(
         _t(q), _t(kp), _t(vp), block_tables=_t(tables), q_positions=_t(qpos),
         kv_positions=_t(kvpos), sliding_window=window,
@@ -192,6 +199,34 @@ def test_paged_plain_matches_jax_paged_op(case):
         _t(kvpos[tables].reshape(B, W)), scale=Dh ** -0.5,
         sliding_window=window, softcap=softcap).numpy()
     np.testing.assert_array_equal(got, dense)
+    for b in (b for b, n in enumerate(lens) if n is None):
+        mean = vp[tables[b]].reshape(W, Hkv, Dh).mean(0)     # (Hkv, Dh)
+        np.testing.assert_allclose(
+            got[b, 0], np.repeat(mean, Hq // Hkv, axis=0), **TOL)
+
+
+@pytest.mark.parametrize("B,Hkv,width,sms,want", [
+    (16, 8, 512, 132, 4),    # the serving paths' 16 slots x 8 kv heads
+    (1, 8, 4096, 132, 8),    # capped at MAX_SPLITS
+    (1, 2, 70, 132, 3),      # capped at the row's 3 tiles of 32 keys
+    (50, 8, 512, 132, 1),    # 400 blocks already put 3 on each of 132 SMs
+    (5, 2, 16, 132, 1),      # a table narrower than one tile
+])
+def test_paged_splits(B, Hkv, width, sms, want):
+    """The paged kernel's split count, a function of shapes alone."""
+    assert paged_splits(B, Hkv, width, sms) == want
+
+
+def test_paged_splits_is_the_smallest_that_fills_the_card():
+    for B in (1, 2, 3, 8, 16, 17, 64):
+        for Hkv in (1, 2, 8):
+            for width in (1, 31, 32, 33, 100, 512, 5000):
+                tiles = -(-width // 32)
+                S = paged_splits(B, Hkv, width, 132)
+                assert 1 <= S <= min(MAX_SPLITS, tiles)
+                if S < min(MAX_SPLITS, tiles):
+                    assert B * Hkv * S >= BLOCKS_PER_SM * 132
+                assert S == 1 or B * Hkv * (S - 1) < BLOCKS_PER_SM * 132
 
 
 # ------------------------------------------------------------ pool ops
