@@ -26,6 +26,11 @@ Phases, each of which fails the run with a nonzero exit:
      SDPA kernel that served the yardstick (and whether it is
      EFFICIENT_ATTENTION's), and each instantiation's TF32 HMMA count in
      its SASS, registers and spills (fails on no HMMA or any spill);
+     the dense decode kernel also with a window across a wrapped ring's
+     seam, its split count, valid tiles and idle slots printed, device
+     time (profiler) beside event time for it and SDPA, device time at
+     every split count 1-8 (each checked against plain), and the ptxas
+     registers and spills of both decode kernels and their combine;
      the paged decode kernel also with a fully masked row (it must return
      the mean of every value of its table), its split count and valid
      tiles printed, and device time (profiler) beside event time for it,
@@ -208,14 +213,25 @@ def device_ms(fns, iters: int = 40) -> float:
     for fn in fns[:3]:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fns[i % len(fns)]()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and not e.name.startswith("aten::")) * 1e-3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and not e.name.startswith("aten::")]
+        # every call does the same device work, so a whole trace holds a
+        # whole multiple of `iters` events; the profiler has returned a
+        # trace with some or all of a run's events missing (0 ms), and
+        # such a trace is taken again
+        if us and len(us) % iters == 0:
+            return sum(us) * 1e-3 / iters
+        say(f"device_ms: a trace of {iters} calls held {len(us)} device "
+            f"events; taking it again")
+    fail(f"the profiler's trace of {iters} calls held {len(us)} device "
+         f"events three times over, not a whole multiple of the calls")
 
 
 def n_copies(bytes_per_set: int) -> int:
@@ -398,6 +414,28 @@ def sdpa_backends(torch, F, args, is_causal, scale):
     return names(default), names(efficient)
 
 
+def ptxas_report():
+    """Registers and spill bytes of every kernel function of the build,
+    by mangled name, from the ptxas report (-Xptxas=-v) in build.log."""
+    from repro_torch.kernels import build
+    out, current = {}, None
+    for line in build.build_log().splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = out.setdefault(m.group(1), {})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+            current = None
+    return out
+
+
 def prefill_build_report():
     """Per instantiation of the prefill kernel (flash_fwd_kernel<ND, vec16>):
     HMMA instructions with .TF32 in its SASS (cuobjdump of the built
@@ -409,22 +447,8 @@ def prefill_build_report():
     def key(name):
         m = pat.search(name)
         return m and f"ND {m.group(1)}, {'16' if m.group(2) == '1' else '4'}-byte copies"
-    out, current = {}, None
-    for line in build.build_log().splitlines():
-        m = re.search(r"Function properties for (\S+)", line)
-        if m:
-            current = key(m.group(1))
-            continue
-        if current is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m:
-            out.setdefault(current, {})["spill_bytes"] = \
-                int(m.group(1)) + int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out.setdefault(current, {})["registers"] = int(m.group(1))
-            current = None
+    out = {key(name): dict(r) for name, r in ptxas_report().items()
+           if key(name)}
     cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
     dump = subprocess.run([str(cuobjdump), "-sass", str(build.library_path())],
                           capture_output=True, text=True, timeout=120)
@@ -639,21 +663,62 @@ def check_decode(torch, F, gen, results):
     results["decode_attention"] = decode_record(torch, F, gen, 40, 8, 128)
     results["decode_attention"]["hd80_shape"] = decode_record(
         torch, F, gen, 32, 32, 80)
+    results["decode_attention"]["ptxas"] = decode_build_report()
+
+
+def decode_build_report():
+    """Registers and spill bytes of each instantiation of the two decode
+    kernels and of their shared combine, from the ptxas report."""
+    pat = re.compile(r"\d+(paged_decode_kernel|decode_combine_kernel|"
+                     r"decode_kernel)(ILb(\d))?")
+    out = {}
+    for name, r in ptxas_report().items():
+        m = pat.search(name)
+        if m:
+            copies = {"1": ", 16-byte copies", "0": ", 4-byte copies"}
+            out[m.group(1) + copies.get(m.group(3), "")] = r
+    for name, r in sorted(out.items()):
+        say(f"decode ptxas: {name}: {r.get('registers')} registers, "
+            f"{r.get('spill_bytes')} bytes spilled")
+    if len(out) != 5:
+        fail(f"expected 5 decode kernel functions in the build, found "
+             f"{sorted(out)}")
+    return out
+
+
+def slot_tiles(torch, qp, kvp, window=None):
+    """(slot, 32-key tile) pairs of ring caches that hold a valid key (the
+    tiles the dense decode kernel scores), and the slots with none (whose
+    rows it folds from V alone)."""
+    valid = (kvp >= 0) & (kvp <= qp[:, None])
+    if window is not None:
+        valid &= kvp > qp[:, None] - window
+    pad = -valid.shape[1] % 32
+    tiles = torch.nn.functional.pad(valid, (0, pad)).reshape(
+        valid.shape[0], -1, 32).any(-1)
+    return int(tiles.sum()), int((~valid.any(-1)).sum())
 
 
 def decode_record(torch, F, gen, Hq, Hkv, Dh):
     """The decode kernel against plain at 8 slots of 512 (one wrapped ring,
-    two empty slots), with and without window and softcap, then timed:
-    Qwen2.5-14B's (40, 8, 128) and zamba2's shared block (32, 32, 80)."""
+    two empty slots), with and without window and softcap, and with a
+    window across the seam of a ring wrapped 8 past W; then timed, by
+    events and on the device beside SDPA, and on the device at every
+    split count (each checked against plain): Qwen2.5-14B's (40, 8, 128)
+    and zamba2's shared block (32, 32, 80)."""
+    from repro_torch.kernels.flash_attention import decode
     from repro_torch.kernels.flash_attention.decode import (
-        decode_attention_fwd, grouped_decode)
+        decode_attention_fwd, decode_splits, grouped_decode, sm_count)
     B, W = 8, 512
+    G = Hq // Hkv
     scale = Dh ** -0.5
     lengths = [37, 0, 512, 200, 0, 1, 333, 100]
+    # slot 7 wrapped 8 past W: a window of 16 keeps keys 504..511 and 0..7
+    seam = lengths[:7] + [8]
     worst = 0.0
-    for window, softcap in ((None, None), (64, 50.0)):
-        args = decode_case(torch, gen, B, W, Hq, Hkv, Dh, lengths,
-                           wrap_slot=7)
+    for window, softcap, lens in ((None, None, lengths),
+                                  (64, 50.0, lengths), (16, None, seam)):
+        args = decode_case(torch, gen, B, W, Hq, Hkv, Dh, lens, wrap_slot=7)
         got = decode_attention_fwd(*args, scale=scale,
                                    sliding_window=window, softcap=softcap)
         want = grouped_decode(*args, scale=scale, sliding_window=window,
@@ -661,42 +726,82 @@ def decode_record(torch, F, gen, Hq, Hkv, Dh):
         err = float((got - want).abs().max())
         if not (torch.isfinite(got).all() and err <= ATTN_TOL):
             fail(f"decode Hq={Hq} Hkv={Hkv} Dh={Dh} window={window} "
-                 f"softcap={softcap}: max|kernel - plain| = {err:.3g} > "
-                 f"{ATTN_TOL}")
+                 f"softcap={softcap} lengths={lens}: max|kernel - plain| = "
+                 f"{err:.3g} > {ATTN_TOL}")
         worst = max(worst, err)
-        say(f"decode: B={B} W={W} G={Hq // Hkv} Dh={Dh} lengths={lengths} "
-            f"(slot 7 wrapped) window={window} softcap={softcap}: max abs "
-            f"err {err:.3g}")
+        tiles, idle = slot_tiles(torch, *args[3:], window)
+        say(f"decode: B={B} W={W} G={G} Dh={Dh} lengths={lens} (slot 7 "
+            f"wrapped) window={window} softcap={softcap}: {tiles} valid "
+            f"tiles of {B * W // 32}, {idle} idle slots; max abs err "
+            f"{err:.3g}")
 
+    q, k, v, qp, kvp = decode_case(torch, gen, B, W, Hq, Hkv, Dh, lengths,
+                                   wrap_slot=7)
+    n_valid = int(((kvp >= 0) & (kvp <= qp[:, None])).sum())
+    tiles, idle = slot_tiles(torch, qp, kvp)
+    del q, k, v, qp, kvp
+    # bytes the function must move: q, out, the valid entries' K/V, every
+    # value of an idle slot (its answer is their mean), the positions
+    nbytes = ((B * Hq * Dh * 2 + n_valid * Hkv * Dh * 2 + idle * W * Hkv * Dh)
+              * 4 + B * W * 4 + B * 4)
+    flops = n_valid * Hq * 4 * Dh + idle * W * Hq * Dh
+    b = bound(nbytes, flops)
     per = (B * W * Hkv * Dh * 2 + B * Hq * Dh * 2) * 4 + B * W * 4
     sets = [decode_case(torch, gen, B, W, Hq, Hkv, Dh, lengths, wrap_slot=7)
             for _ in range(n_copies(per))]
-    t_k = time_ms([lambda s=s: decode_attention_fwd(
-        *s, scale=scale, sliding_window=None, softcap=None) for s in sets])
+    kernel = [lambda s=s: decode_attention_fwd(
+        *s, scale=scale, sliding_window=None, softcap=None) for s in sets]
+    t_k = time_ms(kernel)
     t_p = time_ms([lambda s=s: grouped_decode(
         *s, scale=scale, sliding_window=None, softcap=None) for s in sets])
     lib = []
     for q, k, v, qp, kvp in sets:
         mask = ((kvp >= 0) & (kvp <= qp[:, None]))[:, None, None, :]
         lib.append((q.transpose(1, 2).contiguous(),
-                    k.repeat_interleave(Hq // Hkv, 2).transpose(1, 2)
-                    .contiguous(),
-                    v.repeat_interleave(Hq // Hkv, 2).transpose(1, 2)
-                    .contiguous(), mask))
-    t_l = time_ms([lambda s=s: F.scaled_dot_product_attention(
-        s[0], s[1], s[2], attn_mask=s[3], scale=scale) for s in lib])
-    q, k, v, qp, kvp = sets[0]
-    n_valid = int(((kvp >= 0) & (kvp <= qp[:, None])).sum())
-    nbytes = (B * Hq * Dh * 2 + n_valid * Hkv * Dh * 2) * 4 + B * W * 4 + B * 4
-    b = bound(nbytes, n_valid * (Hq // Hkv) * Hkv * 4 * Dh)
+                    k.repeat_interleave(G, 2).transpose(1, 2).contiguous(),
+                    v.repeat_interleave(G, 2).transpose(1, 2).contiguous(),
+                    mask))
+    sdpa = [lambda s=s: F.scaled_dot_product_attention(
+        s[0], s[1], s[2], attn_mask=s[3], scale=scale) for s in lib]
+    t_l = time_ms(sdpa)
+    # device time (kernel + combine) beside the event time, which at this
+    # size is mostly the wrapper's host time
+    d_k = device_ms(kernel)
+    d_l = device_ms(sdpa)
+    del lib, sdpa
+    splits = decode_splits(B, Hkv, W, sm_count(torch.cuda.current_device()))
+    # device time at every split count, each forced by standing in for
+    # decode_splits and checked against plain
+    sweep = {}
+    try:
+        for S in range(1, 9):
+            decode.decode_splits = lambda *shape, S=S: S
+            got = decode_attention_fwd(*sets[0], scale=scale,
+                                       sliding_window=None, softcap=None)
+            err = float((got - grouped_decode(
+                *sets[0], scale=scale, sliding_window=None,
+                softcap=None)).abs().max())
+            if not (torch.isfinite(got).all() and err <= ATTN_TOL):
+                fail(f"decode Dh={Dh} at {S} splits: max|kernel - plain| = "
+                     f"{err:.3g} > {ATTN_TOL}")
+            worst = max(worst, err)
+            sweep[S] = device_ms(kernel)
+    finally:
+        decode.decode_splits = decode_splits
+    say(f"decode (G {G}, Dh {Dh}) device ms by splits: " + ", ".join(
+        f"S {S} {ms:.4f}" for S, ms in sweep.items()))
     say(f"decode timed: q ({B}, 1, {Hq}, {Dh}), cache ({B}, {W}, {Hkv}, "
-        f"{Dh}): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, SDPA {t_l:.4f} ms, "
-        f"bound {b[0]:.5f} ms ({b[1]})")
+        f"{Dh}), {splits} splits a row, {tiles} valid tiles of "
+        f"{B * W // 32} and {idle} idle slots (x {Hkv} kv heads): kernel "
+        f"{t_k:.4f} ms ({d_k:.4f} on the device), plain {t_p:.4f} ms, SDPA "
+        f"{t_l:.4f} ms ({d_l:.4f}), bound {b[0]:.5f} ms ({b[1]})")
     return dict(
         max_abs_err=worst, ms=t_k, plain_ms=t_p, bound_ms=b[0],
-        bound_by=b[1], library_ms=t_l,
+        bound_by=b[1], library_ms=t_l, device_ms=d_k,
+        library_device_ms=d_l, splits=splits, valid_tiles=tiles,
+        idle_slots=idle, device_ms_by_splits=sweep,
         shape=f"q ({B}, 1, {Hq}, {Dh}), cache ({B}, {W}, {Hkv}, {Dh}), "
-              f"{n_valid} valid entries")
+              f"{n_valid} valid entries, {idle} idle slots")
 
 
 def paged_case(torch, gen, lengths, page, nb, P, Hq=40, Hkv=8, Dh=128):
@@ -741,20 +846,14 @@ def paged_case(torch, gen, lengths, page, nb, P, Hq=40, Hkv=8, Dh=128):
 def valid_tiles(torch, tables, qp, kvp, window=None):
     """32-key tiles of the slots' tables that hold a valid key: the tiles
     the paged kernel visits (it walks every tile of a row with none)."""
-    B, nb = tables.shape
-    pos = kvp[tables.long()].reshape(B, -1)
-    valid = (pos >= 0) & (pos <= qp[:, None])
-    if window is not None:
-        valid &= pos > qp[:, None] - window
-    pad = -pos.shape[1] % 32
-    valid = torch.nn.functional.pad(valid, (0, pad)).reshape(B, -1, 32)
-    return int(valid.any(-1).sum())
+    pos = kvp[tables.long()].reshape(tables.shape[0], -1)
+    return slot_tiles(torch, qp, pos, window)[0]
 
 
 def check_paged_decode(torch, F, gen, results):
     from repro_torch.kernels.flash_attention.decode import (
         decode_attention_fwd, paged_decode_attention_fwd,
-        paged_gather_decode, paged_splits, sm_count)
+        decode_splits, paged_gather_decode, sm_count)
     Hq, Hkv, Dh = 40, 8, 128
     G = Hq // Hkv
     scale = Dh ** -0.5
@@ -794,7 +893,7 @@ def check_paged_decode(torch, F, gen, results):
     page, nb, P = 16, 32, 130
     B, W = len(lengths), nb * page
     n_valid = sum(lengths)
-    splits = paged_splits(B, Hkv, W, sm_count(torch.cuda.current_device()))
+    splits = decode_splits(B, Hkv, W, sm_count(torch.cuda.current_device()))
     # bytes the kernel must move: q, out, the valid entries' K/V and
     # positions, the tables and query positions
     nbytes = ((B * Hq * Dh * 2 + n_valid * Hkv * Dh * 2) * 4 + n_valid * 4
@@ -836,14 +935,14 @@ def check_paged_decode(torch, F, gen, results):
     d_l = device_ms(sdpa)
     del lib, dense, sdpa
     tiles = valid_tiles(torch, *sets[0][3:])
-    # the split count against device time: paged_splits asks for the
+    # the split count against device time: decode_splits asks for the
     # smallest S that gives every SM the three blocks it holds; each S is
     # forced by standing in for it, and checked against plain
     from repro_torch.kernels.flash_attention import decode
     sweep = {}
     try:
         for S in (1, 2, 3, 4, 6, 8):
-            decode.paged_splits = lambda *shape, S=S: S
+            decode.decode_splits = lambda *shape, S=S: S
             got = paged_decode_attention_fwd(*sets[0], scale=scale,
                                              sliding_window=None,
                                              softcap=None)
@@ -857,7 +956,7 @@ def check_paged_decode(torch, F, gen, results):
                 *s, scale=scale, sliding_window=None, softcap=None)
                 for s in sets])
     finally:
-        decode.paged_splits = paged_splits
+        decode.decode_splits = decode_splits
     say("paged decode device ms by splits: " + ", ".join(
         f"S {S} {ms:.4f}" for S, ms in sweep.items()))
     say(f"paged decode timing: {splits} splits a row, {tiles} valid tiles "
@@ -1648,7 +1747,7 @@ def device_summary(prof, wall):
 
 # device-side names of the port's own kernels (csrc/)
 PORT_KERNELS = ("decode_kernel", "paged_decode_kernel",
-                "paged_decode_combine_kernel", "flash_fwd_kernel",
+                "decode_combine_kernel", "flash_fwd_kernel",
                 "quantize_kernel", "dequantize_kernel", "el2n_kernel",
                 "masked_encode_kernel", "mamba2_scan_kernel",
                 "rwkv6_scan_kernel")

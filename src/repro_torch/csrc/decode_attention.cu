@@ -2,32 +2,67 @@
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/decode.py::
 // decode_attention_fwd. One query token per slot attends to that slot's
-// ring-buffer cache: per (slot, kv head) the kernel reads W keys and values
-// once and does about 4 * G * W * Dh flops, so it is bound by device memory
-// (the KV cache) by a wide margin.
+// ring-buffer cache of W entries: key w of slot b and kv head hk is read
+// at k + b * k_sb + w * k_sw + hk * k_sh, in the model's (B, W, Hkv, Dh)
+// layout through strides (no moveaxis, no pad copy).
 //
-// Design: grid (Hkv, B), one block per (slot, kv head). The block serves
-// all G query heads of its group (G = Hq / Hkv, 5 for Qwen2.5 — not a power
-// of two; up to 8 here, two rows per warp), so each kv head's tile is read
-// from device memory once for the whole group. It reads the cache in the
-// model's (B, W, Hkv, Dh) layout through strides — no moveaxis, no pad —
-// and streams W in 32-key tiles through shared memory with an online
-// softmax. Validity is pure data, as in the plain version: a cache entry
-// counts when its position is >= 0 (empty slots are all -1), at or before
-// the slot's query position (ring wraparound needs nothing else), and
-// inside the sliding window; softcap applies before the mask.
+// What bounds it: per (slot, kv head) the work is about 4 * G * Dh flops a
+// key against 2 * Dh * 4 bytes of K and V, so it is bound by the bytes of
+// the keys that count (Qwen2.5-14B at 8 slots of 512, the lengths of
+// chip_smoke.py: 53 of 128 (slot, tile) pairs valid, 13.9 MB, 4.1 us at
+// 3.35 TB/s) and, with so little work, by the latency of the longest
+// row's chain of tiles. The design is the paged kernel's (the parts both
+// share are in decode_common.cuh), without a page table:
 //
-// B * Hkv blocks is 64 at 8 slots and 8 kv heads, under half of the card's
-// 132 SMs; splitting W across blocks (split-K) is later work.
+// 1. Tiles with no valid key are skipped, decided by data. A key is valid
+//    when its position kp satisfies kp >= 0, kp <= q_pos and, with a
+//    window, kp > q_pos - window. A block first reads its slot's W
+//    positions straight from kv_pos[b, :], one key a lane; a
+//    __ballot_sync gives each 32-key tile its valid-key mask in shared
+//    memory, and warp 0 lists the tiles whose mask is not 0, in ring order.
+//    Nothing is assumed about where valid keys lie: a wrapped ring, or a
+//    window across the ring's seam, flags whichever tiles hold them.
+//    Skipping is exact: a masked score is the finite -2^30 of the plain
+//    version, and once a row's max is a real score exp(-2^30 - m) is 0 in
+//    fp32, so a tile whose keys are all masked adds nothing (inside a
+//    visited tile, masked keys still take -2^30, as in plain).
+// 2. A row with NO valid key (a slot unused since the cache was made, its
+//    positions all -1): there every score is -2^30, the plain version's
+//    max is -2^30 itself and every key gets weight exp(0) = 1, so its
+//    answer is the mean of the slot's W values, whatever K holds. Such a
+//    row takes all W / 32 tiles, balanced over the splits like any other
+//    row, and copies and folds V only: no score is computed and no K is
+//    read, which halves its bytes and keeps it off the launch's longest
+//    chain. Each split returns m = -2^30 and the count of its keys as l,
+//    and the combine's weights exp(m_s - max m) are all 1, so the merged
+//    answer is that mean to fp32 rounding.
+// 3. Balanced split-K. Grid (Hkv, B, S): block (hk, b, s) takes the s-th
+//    contiguous share, in rank order, of row b's listed tiles. S is a
+//    function of shapes only (the wrapper's `decode_splits`: the smallest S
+//    giving every SM the three blocks its shared memory holds, at most
+//    kMaxSplits and the tile count; 7 at 8 slots x 8 kv heads, 2 at 8 x
+//    32), so no device sync is needed. With S > 1 a block writes its
+//    unnormalized (m, l, acc[Dv]) per query row to the wrapper's workspace
+//    (B, Hq, S, Dv + 2) and decode_combine_kernel, launched next on the
+//    same stream, merges the splits; a split with no tiles writes l = 0
+//    and is ignored. With S = 1 the block writes the output itself.
+// 4. cp.async double-buffered K/V tiles: while a tile is folded, the next
+//    listed tile's rows are in flight, warp w copying keys w, w + 4, ...,
+//    one 16-byte chunk a lane. The query rows arrive the same way during
+//    the flag pass. A cache whose base or strides are not multiples of 4
+//    floats takes a 4-byte-copy instantiation; the entry point picks, and
+//    the host never falls back.
+//
+// Inside a tile one lane scores one key against its warp's query rows on
+// the fp32 SIMT pipe (four warps of two rows, G = Hq / Hkv <= 8, so each
+// tile is read once per GQA group). Softcap applies before the mask. Keys
+// past W are ABSENT: p = 0 and out of the max.
 
-#include "attention_common.cuh"
+#include "decode_common.cuh"
 
 namespace {
 
 using namespace sfp;
-
-constexpr int kRowsPerWarp = 2;
-constexpr int kMaxGroup = kWarps * kRowsPerWarp;
 
 struct DecParams {
   const float* q;
@@ -35,95 +70,109 @@ struct DecParams {
   const float* v;
   const int* q_pos;
   const int* kv_pos;
-  float* o;
-  int B, W, Hq, Hkv, Dh, Dv;
+  DecodeOut out;
+  int W, Hkv, Dh, n_tiles;
   long long q_sb, q_sh, k_sb, k_sw, k_sh, v_sb, v_sw, v_sh;
-  long long qp_sb, kvp_sb, kvp_sw, o_sb, o_sh;
+  long long qp_sb, kvp_sb, kvp_sw;
   int window;
   float softcap, scale;
 };
 
+template <bool kVec16>
 __global__ void __launch_bounds__(kThreads) decode_kernel(DecParams p) {
-  __shared__ float qs[kMaxGroup * kDMax];
-  __shared__ float ks[kBK * (kDMax + 1)];
-  __shared__ float vs[kBK * kDMax];
-  __shared__ int kvps[kBK];
+  extern __shared__ __align__(16) float smem[];
+  const DecodeSmem sm(smem, p.n_tiles);
+  __shared__ int n_valid_tiles;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int hk = blockIdx.x, b = blockIdx.y;
-  const int G = p.Hq / p.Hkv;
-
-  const float* qb = p.q + b * p.q_sb + hk * G * p.q_sh;
-  for (int idx = tid; idx < kMaxGroup * p.Dh; idx += kThreads) {
-    const int g = idx / p.Dh, d = idx - g * p.Dh;
-    qs[g * kDMax + d] = g < G ? qb[g * p.q_sh + d] : 0.f;
-  }
+  const int hk = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int G = p.out.Hq / p.Hkv;
   const int qp = p.q_pos[b * p.qp_sb];
 
+  // the group's query rows arrive during the flag pass
+  load_queries(sm.qs, p.q + b * p.q_sb + hk * G * p.q_sh, p.q_sh, G, p.Dh,
+               tid);
+
+  // 1. flag every tile that holds a valid key, one key a lane, and list
+  // them
+  const int* pb = p.kv_pos + b * p.kvp_sb;
+#pragma unroll 4
+  for (int t = warp; t < p.n_tiles; t += kWarps) {
+    const int w = t * kBK + lane;
+    const bool valid =
+        w < p.W && key_valid(__ldg(pb + w * p.kvp_sw), qp, p.window);
+    const unsigned bits = __ballot_sync(0xffffffffu, valid);
+    if (lane == 0) sm.vmask[t] = bits;
+  }
+  __syncthreads();
+  list_valid_tiles(sm, p.n_tiles, &n_valid_tiles, warp, lane);
+  __syncthreads();
+
+  // 2. this split's share of the listed tiles; a row with none takes every
+  // tile, V only
+  const bool idle = n_valid_tiles == 0;
+  const int n = idle ? p.n_tiles : n_valid_tiles;
+  const int lo = n * split / p.out.S, hi = n * (split + 1) / p.out.S;
+
+  // 3. the copy of the r-th tile of the walk into `stage`: warp w takes
+  // keys w, w + 4, ..., one 16-byte chunk a lane
   const float* kb = p.k + b * p.k_sb + hk * p.k_sh;
   const float* vb = p.v + b * p.v_sb + hk * p.v_sh;
-  const int* pb = p.kv_pos + b * p.kvp_sb;
-  const int g0 = warp * kRowsPerWarp;
-  RowState<kRowsPerWarp> st;
-  st.init();
-
-  for (int kt = 0; kt < p.W; kt += kBK) {
-    const int n_keys = min(kBK, p.W - kt);
-    __syncthreads();
-    for (int idx = tid; idx < n_keys * p.Dh; idx += kThreads) {
-      const int j = idx / p.Dh, d = idx - j * p.Dh;
-      ks[j * (kDMax + 1) + d] = kb[(kt + j) * p.k_sw + d];
-    }
-    for (int idx = tid; idx < n_keys * p.Dv; idx += kThreads) {
-      const int j = idx / p.Dv, d = idx - j * p.Dv;
-      vs[j * kDMax + d] = vb[(kt + j) * p.v_sw + d];
-    }
-    if (tid < n_keys) kvps[tid] = pb[(kt + tid) * p.kvp_sw];
-    __syncthreads();
-    if (g0 >= G) continue;  // a warp with no query head of this group
-
-    const bool present = lane < n_keys;
-    const int kp = present ? kvps[lane] : -1;
-    const bool valid = kp >= 0 && kp <= qp &&
-                       (p.window <= 0 || kp > qp - p.window);
-    float s[kRowsPerWarp];
-    tile_dots<kRowsPerWarp>(s, qs + g0 * kDMax, ks, present ? p.Dh : 0,
-                            lane);
+  const int dh4 = (p.Dh + 3) / 4, dv4 = (p.out.Dv + 3) / 4;
+  auto issue = [&](int r, int stage) {
+    const int t = idle ? r : sm.tl[r];
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i)
-      s[i] = valid ? cap(s[i] * p.scale, p.softcap) : kMask;
-    st.update(s, present, vs, n_keys, p.Dv, lane);
-  }
-
-  float* ob = p.o + b * p.o_sb + hk * G * p.o_sh;
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int g = g0 + i;
-    if (g >= G) continue;
-#pragma unroll
-    for (int c = 0; c < kDPerLane; ++c) {
-      const int d = lane + 32 * c;
-      if (d < p.Dv) ob[g * p.o_sh + d] = st.out(i, c);
+    for (int i = 0; i < kBK / kWarps; ++i) {
+      const int j = warp + kWarps * i, w = t * kBK + j;
+      const bool present = w < p.W;
+      const long long o = present ? w : 0;
+      if (!idle)
+        copy_row<kVec16>(sm.ks + stage * kStage + j * kLD, kb + o * p.k_sw,
+                         present ? p.Dh : 0, dh4, lane);
+      copy_row<kVec16>(sm.vs + stage * kStage + j * kLD, vb + o * p.v_sw,
+                       present ? p.out.Dv : 0, dv4, lane);
     }
-  }
+  };
+
+  DecodeRows rows;
+  const bool active = warp * kRowsPerWarp < G;  // a warp with a query head
+  walk_tiles(lo, hi, issue, [&](int r, int stage) {
+    if (!active) return;
+    const int t = idle ? r : sm.tl[r];
+    rows.fold(sm.qs, sm.ks + stage * kStage, sm.vs + stage * kStage, sm.ps,
+              sm.vmask[t], t * kBK + lane < p.W, dh4, dv4, p.scale,
+              p.softcap, warp, lane);
+  });
+  if (active) rows.store(p.out, b, hk, G, split, warp, lane);
 }
 
 }  // namespace
 
 extern "C" int sfp_decode_attention_fwd(
     const float* q, const float* k, const float* v, const int* q_pos,
-    const int* kv_pos, float* o, int B, int W, int Hq, int Hkv, int Dh,
-    int Dv, long long q_sb, long long q_sh, long long k_sb, long long k_sw,
-    long long k_sh, long long v_sb, long long v_sw, long long v_sh,
-    long long qp_sb, long long kvp_sb, long long kvp_sw, long long o_sb,
-    long long o_sh, int window, float softcap, float scale, void* stream) {
-  DecParams p{q,    k,    v,    q_pos, kv_pos, o,    B,      W,      Hq,
-              Hkv,  Dh,   Dv,   q_sb,  q_sh,   k_sb, k_sw,   k_sh,   v_sb,
-              v_sw, v_sh, qp_sb, kvp_sb, kvp_sw, o_sb, o_sh, window,
-              softcap, scale};
-  if (B > 0 && W > 0) {
-    dim3 grid(Hkv, B);
-    decode_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(p);
-  }
-  return (int)cudaGetLastError();
+    const int* kv_pos, float* o, float* ws, int B, int W, int Hq, int Hkv,
+    int Dh, int Dv, int S, long long q_sb, long long q_sh, long long k_sb,
+    long long k_sw, long long k_sh, long long v_sb, long long v_sw,
+    long long v_sh, long long qp_sb, long long kvp_sb, long long kvp_sw,
+    long long o_sb, long long o_sh, int window, float softcap, float scale,
+    void* stream) {
+  if (Dh > kDMax || Dv > kDMax || Hkv <= 0 || Hq % Hkv ||
+      Hq / Hkv > kMaxGroup || S < 1 || S > kMaxSplits ||
+      (S > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0 || W <= 0) return (int)cudaGetLastError();
+  const int n_tiles = (W + kBK - 1) / kBK;
+  const DecodeOut out{o, ws, B, Hq, S, Dv, o_sb, o_sh};
+  DecParams p{q,    k,    v,    q_pos, kv_pos, out,  W,      Hkv,
+              Dh,   n_tiles,    q_sb,  q_sh,   k_sb, k_sw,   k_sh,
+              v_sb, v_sw, v_sh, qp_sb, kvp_sb, kvp_sw, window, softcap,
+              scale};
+  // 16-byte copies need every K and V row to start 16-byte aligned
+  const unsigned long long addr = reinterpret_cast<unsigned long long>(k) |
+                                  reinterpret_cast<unsigned long long>(v);
+  const long long strides = k_sb | k_sw | k_sh | v_sb | v_sw | v_sh;
+  auto* kernel = addr % 16 == 0 && strides % 4 == 0 ? decode_kernel<true>
+                                                    : decode_kernel<false>;
+  return (int)launch_decode(kernel, p, Hkv, n_tiles, out,
+                            (cudaStream_t)stream);
 }

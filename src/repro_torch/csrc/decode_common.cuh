@@ -1,0 +1,340 @@
+// What the two decode attention kernels share: the slot-cache kernel
+// (decode_attention.cu) and the page-pool kernel (paged_decode_attention.cu)
+// differ only in where key w of a slot lives and in how each treats a row
+// with no valid key. Both:
+//
+// - flag the 32-key tiles that hold a valid key (one key a lane, a
+//   __ballot_sync a tile, the masks kept in shared memory) and list them in
+//   order (list_valid_tiles);
+// - split each (slot, kv head) row S ways over its listed tiles, so a block
+//   takes a contiguous share in rank order; a split writes its unnormalized
+//   (m, l, acc) rows to a (B, Hq, S, Dv + 2) workspace and
+//   decode_combine_kernel merges them (with S = 1 the block writes the
+//   output itself);
+// - stream the tiles through two shared-memory stages with cp.async, the
+//   next tile's rows in flight while the current one is folded (walk_tiles);
+// - fold a tile as four warps of two query rows (G = Hq / Hkv <= 8), one
+//   lane scoring one key on the fp32 SIMT pipe in four partial sums a row,
+//   the weights through shared memory, each lane owning four output columns
+//   (DecodeRows).
+//
+// Shared rows have stride kDMax + 4 floats: copies stay 16-byte aligned and
+// each lane's float4 read of its own key row hits distinct banks in every
+// quarter warp. Two stages of K and V are 67.6 KB (72.7 KB a block with the
+// query rows and weights), so shared memory is dynamic and three blocks
+// stay resident on an SM.
+#pragma once
+
+#include "attention_common.cuh"
+#include "mma_tf32.cuh"  // the cp.async helpers
+
+namespace sfp {
+
+constexpr int kRowsPerWarp = 2;
+constexpr int kMaxGroup = kWarps * kRowsPerWarp;
+constexpr int kMaxSplits = 8;
+constexpr int kLD = kDMax + 4;  // shared row stride of a K or V tile
+constexpr int kStage = kBK * kLD;
+constexpr int kStages = 2;      // K/V tiles in shared memory
+constexpr size_t kFixedSmem =
+    (kMaxGroup * (kDMax + kBK) + 2 * kStages * kStage) * sizeof(float);
+
+// Dynamic shared memory of a decode block over n_tiles tiles of keys.
+inline size_t decode_smem_bytes(int n_tiles) {
+  return kFixedSmem + n_tiles * 2 * sizeof(int);
+}
+
+// The carving of a decode block's dynamic shared memory.
+struct DecodeSmem {
+  float* qs;        // kMaxGroup query rows of kDMax
+  float* ks;        // kStages tiles of kBK rows of kLD
+  float* vs;
+  float* ps;        // a tile's weights, by warp row
+  unsigned* vmask;  // per tile: its valid-key mask (bit j: key j)
+  int* tl;          // the tiles holding a valid key, in order
+
+  __device__ DecodeSmem(float* smem, int n_tiles)
+      : qs(smem),
+        ks(qs + kMaxGroup * kDMax),
+        vs(ks + kStages * kStage),
+        ps(vs + kStages * kStage),
+        vmask(reinterpret_cast<unsigned*>(ps + kMaxGroup * kBK)),
+        tl(reinterpret_cast<int*>(vmask + n_tiles)) {}
+};
+
+// The plain version's mask: position kp counts for a query at qp.
+__device__ __forceinline__ bool key_valid(int kp, int qp, int window) {
+  return kp >= 0 && kp <= qp && (window <= 0 || kp > qp - window);
+}
+
+// Copy one row of n floats to shared memory as `chunks` (<= 32) 16-byte
+// chunks, one a lane, zero-filling past n. No loop: a loop here, inlined
+// for every key of every tile copy, swelled the kernel's code several
+// times over and slowed it.
+template <bool kVec16>
+__device__ __forceinline__ void copy_row(float* dst, const float* src, int n,
+                                         int chunks, int lane) {
+  if (lane >= chunks) return;
+  const int c = 4 * lane;
+  if (kVec16) {
+    const int left = min(max(n - c, 0), 4);
+    cp_async16(dst + c, left ? src + c : src, 4 * left);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      cp_async4(dst + c + e, c + e < n ? src + c + e : src,
+                c + e < n ? 4 : 0);
+  }
+}
+
+// Start the copy of the group's G query rows (row stride q_sh) into qs,
+// zero past G and Dh so dots read whole float4s; it is committed as its
+// own cp.async group and lands with the first tile.
+__device__ __forceinline__ void load_queries(float* qs, const float* qb,
+                                             long long q_sh, int G, int Dh,
+                                             int tid) {
+  for (int idx = tid; idx < kMaxGroup * kDMax; idx += kThreads) {
+    const int g = idx / kDMax, d = idx % kDMax;
+    const bool in = g < G && d < Dh;
+    cp_async4(qs + idx, in ? qb + g * q_sh + d : qb, in ? 4 : 0);
+  }
+  cp_async_commit();
+}
+
+// Warp 0 lists the tiles whose valid-key mask is not 0, in order, and
+// stores their count in *count.
+__device__ __forceinline__ void list_valid_tiles(const DecodeSmem& sm,
+                                                 int n_tiles, int* count,
+                                                 int warp, int lane) {
+  if (warp != 0) return;
+  int n = 0;
+  for (int base = 0; base < n_tiles; base += 32) {
+    const int t = base + lane;
+    const bool f = t < n_tiles && sm.vmask[t] != 0u;
+    const unsigned m = __ballot_sync(0xffffffffu, f);
+    if (f) sm.tl[n + __popc(m & ((1u << lane) - 1u))] = t;
+    n += __popc(m);
+  }
+  if (lane == 0) *count = n;
+}
+
+// Walk tiles [lo, hi) of a row: issue(r, stage) starts the copy of the
+// r-th tile into `stage`, fold(r, stage) folds it in once it has landed for
+// every thread. kStages - 1 tiles are in flight ahead of the one folded.
+template <class Issue, class Fold>
+__device__ __forceinline__ void walk_tiles(int lo, int hi, Issue issue,
+                                           Fold fold) {
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (lo + i < hi) issue(lo + i, i);
+    cp_async_commit();
+  }
+  for (int r = lo; r < hi; ++r) {
+    const int stage = (r - lo) % kStages;
+    if (r + kStages - 1 < hi)
+      issue(r + kStages - 1, (r - lo + kStages - 1) % kStages);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // tile r has landed for this thread ...
+    __syncthreads();               // ... and for every thread
+    fold(r, stage);
+    __syncthreads();  // the stage is read before the next copy lands in it
+  }
+  cp_async_wait<0>();
+}
+
+// Where a decode launch writes: the output (B, Hq, Dv) through its (b, h)
+// strides, or with S > 1 the splits' workspace (B, Hq, S, Dv + 2).
+struct DecodeOut {
+  float* o;
+  float* ws;
+  int B, Hq, S, Dv;
+  long long o_sb, o_sh;
+};
+
+// The online-softmax state of a warp's kRowsPerWarp query rows g0, g0 + 1:
+// m and l are the row's, acc this lane's four output columns 4 * lane + e.
+struct DecodeRows {
+  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][4];
+
+  __device__ __forceinline__ DecodeRows() {
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      m[i] = kMask;
+      l[i] = 0.f;  // this lane's share of the row sum, reduced in store()
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+    }
+  }
+
+  // Fold one tile in: kt and vt its K and V rows (stride kLD), `bits` its
+  // valid-key mask, `present` whether this lane's key lies inside the
+  // row's width. With no valid key in the tile every present key scores
+  // kMask whatever K holds, so the dots are skipped and K is not read.
+  __device__ __forceinline__ void fold(const float* qs, const float* kt,
+                                       const float* vt, float* ps,
+                                       unsigned bits, bool present, int dh4,
+                                       int dv4, float scale, float softcap,
+                                       int warp, int lane) {
+    const int g0 = warp * kRowsPerWarp;
+    const bool valid = (bits >> lane) & 1u;
+    // this lane's key against the warp's rows, four partial sums a row
+    float s[kRowsPerWarp][4] = {};
+    if (bits != 0u) {
+      const float* kr = kt + lane * kLD;
+      for (int c = 0; c < dh4; ++c) {
+        const float4 kv = *reinterpret_cast<const float4*>(kr + 4 * c);
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(qs + (g0 + i) * kDMax + 4 * c);
+          s[i][0] = fmaf(qv.x, kv.x, s[i][0]);
+          s[i][1] = fmaf(qv.y, kv.y, s[i][1]);
+          s[i][2] = fmaf(qv.z, kv.z, s[i][2]);
+          s[i][3] = fmaf(qv.w, kv.w, s[i][3]);
+        }
+      }
+    }
+    float sc[kRowsPerWarp], mx[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const float dot = (s[i][0] + s[i][1]) + (s[i][2] + s[i][3]);
+      sc[i] = valid ? cap(dot * scale, softcap) : kMask;
+      mx[i] = present ? sc[i] : -INFINITY;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i)
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], o));
+    float* pw = ps + warp * kRowsPerWarp * kBK;
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const float m_new = fmaxf(m[i], mx[i]);
+      const float alpha = expf(m[i] - m_new);
+      const float pr = present ? expf(sc[i] - m_new) : 0.f;
+      l[i] = alpha * l[i] + pr;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] *= alpha;
+      m[i] = m_new;
+      pw[i * kBK + lane] = pr;
+    }
+    __syncwarp();
+    // the values: each lane owns four columns, the weights are read four
+    // keys at a time from shared memory
+    if (lane < dv4) {
+      const float* vc = vt + 4 * lane;
+#pragma unroll
+      for (int j = 0; j < kBK; j += 4) {
+        float4 pj[kRowsPerWarp];
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i)
+          pj[i] = *reinterpret_cast<const float4*>(pw + i * kBK + j);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float4 vv =
+              *reinterpret_cast<const float4*>(vc + (j + u) * kLD);
+#pragma unroll
+          for (int i = 0; i < kRowsPerWarp; ++i) {
+            const float pu = u == 0   ? pj[i].x
+                             : u == 1 ? pj[i].y
+                             : u == 2 ? pj[i].z
+                                      : pj[i].w;
+            acc[i][0] = fmaf(pu, vv.x, acc[i][0]);
+            acc[i][1] = fmaf(pu, vv.y, acc[i][1]);
+            acc[i][2] = fmaf(pu, vv.z, acc[i][2]);
+            acc[i][3] = fmaf(pu, vv.w, acc[i][3]);
+          }
+        }
+      }
+    }
+  }
+
+  // Write rows hk * G + g0 + i of slot b: normalized into the output with
+  // S = 1, else unnormalized into split `split` of the workspace.
+  __device__ __forceinline__ void store(const DecodeOut& out, int b, int hk,
+                                        int G, int split, int warp,
+                                        int lane) const {
+    const int g0 = warp * kRowsPerWarp;
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int g = g0 + i;
+      const float li = warp_sum(l[i]);
+      if (g >= G) continue;
+      const int h = hk * G + g;
+      if (out.S == 1) {
+        float* ob = out.o + b * out.o_sb + h * out.o_sh;
+        const float inv = 1.f / fmaxf(li, 1e-30f);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int d = 4 * lane + e;
+          if (d < out.Dv) ob[d] = acc[i][e] * inv;
+        }
+      } else {
+        float* wb = out.ws + ((static_cast<long long>(b) * out.Hq + h) *
+                                  out.S + split) * (out.Dv + 2);
+        if (lane == 0) {
+          wb[0] = m[i];
+          wb[1] = li;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int d = 4 * lane + e;
+          if (d < out.Dv) wb[2 + d] = acc[i][e];
+        }
+      }
+    }
+  }
+};
+
+// Merge the S splits of each (slot, query head) row: one warp a row, lanes
+// over the value columns. A split with l = 0 visited no tile. Static: each
+// kernel's object has its own copy.
+static __global__ void __launch_bounds__(kThreads)
+    decode_combine_kernel(DecodeOut p) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + warp;
+  if (row >= p.B * p.Hq) return;
+  const int b = row / p.Hq, h = row - b * p.Hq;
+  const float* wb = p.ws + static_cast<long long>(row) * p.S * (p.Dv + 2);
+  float mx = -INFINITY;
+  for (int s = 0; s < p.S; ++s)
+    if (wb[s * (p.Dv + 2) + 1] > 0.f) mx = fmaxf(mx, wb[s * (p.Dv + 2)]);
+  float f[kMaxSplits];
+  float l = 0.f;
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s) {
+    const float ls = s < p.S ? wb[s * (p.Dv + 2) + 1] : 0.f;
+    f[s] = ls > 0.f ? expf(wb[s * (p.Dv + 2)] - mx) : 0.f;
+    l += f[s] * ls;
+  }
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+  float* ob = p.o + b * p.o_sb + h * p.o_sh;
+  for (int d = lane; d < p.Dv; d += 32) {
+    float a = 0.f;
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s)
+      if (f[s] > 0.f) a = fmaf(f[s], wb[s * (p.Dv + 2) + 2 + d], a);
+    ob[d] = a * inv;
+  }
+}
+
+// Launch a decode kernel on grid (Hkv, B, S) over n_tiles tiles, then,
+// with S > 1, the combine on the same stream.
+template <class Params>
+cudaError_t launch_decode(void (*kernel)(Params), const Params& p, int Hkv,
+                          int n_tiles, const DecodeOut& out,
+                          cudaStream_t stream) {
+  const size_t bytes = decode_smem_bytes(n_tiles);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(Hkv, out.B, out.S), kThreads, bytes, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || out.S == 1) return err;
+  decode_combine_kernel<<<(out.B * out.Hq + kWarps - 1) / kWarps, kThreads,
+                          0, stream>>>(out);
+  return cudaGetLastError();
+}
+
+}  // namespace sfp

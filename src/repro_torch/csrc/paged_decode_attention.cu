@@ -35,11 +35,11 @@
 //    contiguous share, in rank order, of row b's VALID tiles (not of its
 //    width: the engine's rows are short in a wide table, so equal width
 //    ranges would leave one split with all the work). S is a function of
-//    shapes only (the wrapper's `paged_splits`: the smallest S giving every
+//    shapes only (the wrapper's `decode_splits`: the smallest S giving every
 //    SM the three blocks its shared memory holds, at most kMaxSplits and
 //    the tile count), so no device sync is needed. A block writes its
 //    unnormalized (m, l, acc[Dv]) per query row to the wrapper's workspace
-//    (B, Hq, S, Dv + 2), and paged_decode_combine_kernel, launched next on
+//    (B, Hq, S, Dv + 2), and decode_combine_kernel, launched next on
 //    the same stream from the same entry point, merges the splits; a split
 //    with no tiles writes l = 0 and is ignored. With S = 1 the block writes
 //    the output itself and no combine is launched.
@@ -69,25 +69,17 @@
 // warps a block and a producer warp issuing every copy measured no faster,
 // so the long rows' chains are cut by splitting instead (PERF.md).
 //
+// The parts both decode kernels share are in decode_common.cuh.
+//
 // The table's values index the pool and are not range-checked here (that
 // would need a device sync in the wrapper): the paged engine only ever
 // writes page ids it allocated from a pool of P pages.
 
-#include "attention_common.cuh"
-#include "mma_tf32.cuh"  // the cp.async helpers
+#include "decode_common.cuh"
 
 namespace {
 
 using namespace sfp;
-
-constexpr int kRowsPerWarp = 2;
-constexpr int kMaxGroup = kWarps * kRowsPerWarp;
-constexpr int kMaxSplits = 8;
-constexpr int kLD = kDMax + 4;  // shared row stride of a K or V tile
-constexpr int kStage = kBK * kLD;
-constexpr int kStages = 2;      // K/V tiles in shared memory
-constexpr size_t kFixedSmem =
-    (kMaxGroup * (kDMax + kBK) + 2 * kStages * kStage) * sizeof(float);
 
 struct PagedParams {
   const float* q;
@@ -96,72 +88,35 @@ struct PagedParams {
   const int* tables;
   const int* q_pos;
   const int* kv_pos;
-  float* o;
-  float* ws;
-  int B, nb, page, Hq, Hkv, Dh, Dv, S, n_tiles;
+  DecodeOut out;
+  int nb, page, Hkv, Dh, n_tiles;
   long long q_sb, q_sh;
   long long k_sp, k_so, k_sh, v_sp, v_so, v_sh;
-  long long bt_sb, bt_sn, qp_sb, kvp_sp, kvp_so, o_sb, o_sh;
+  long long bt_sb, bt_sn, qp_sb, kvp_sp, kvp_so;
   int window;
   float softcap, scale;
 };
-
-__device__ __forceinline__ bool key_valid(int kp, int qp, int window) {
-  return kp >= 0 && kp <= qp && (window <= 0 || kp > qp - window);
-}
-
-// Copy one row of n floats to shared memory as `chunks` (<= 32) 16-byte
-// chunks, one a lane, zero-filling past n. No loop: a loop here, inlined
-// for every key of every tile copy, swelled the kernel's code several
-// times over and slowed it.
-template <bool kVec16>
-__device__ __forceinline__ void copy_row(float* dst, const float* src, int n,
-                                         int chunks, int lane) {
-  if (lane >= chunks) return;
-  const int c = 4 * lane;
-  if (kVec16) {
-    const int left = min(max(n - c, 0), 4);
-    cp_async16(dst + c, left ? src + c : src, 4 * left);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      cp_async4(dst + c + e, c + e < n ? src + c + e : src,
-                c + e < n ? 4 : 0);
-  }
-}
 
 template <bool kVec16>
 __global__ void __launch_bounds__(kThreads)
     paged_decode_kernel(PagedParams p) {
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                    // kMaxGroup rows of kDMax
-  float* ks = qs + kMaxGroup * kDMax;  // kStages tiles of kBK rows of kLD
-  float* vs = ks + kStages * kStage;
-  float* ps = vs + kStages * kStage;   // a tile's weights, by warp row
-  // per tile of the table: the valid-key mask (bit j: key j), and the
-  // list of tiles holding a valid key
-  unsigned* vmask = reinterpret_cast<unsigned*>(ps + kMaxGroup * kBK);
-  int* tl = reinterpret_cast<int*>(vmask + p.n_tiles);
+  const DecodeSmem sm(smem, p.n_tiles);
   __shared__ int n_valid_tiles;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int hk = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
-  const int G = p.Hq / p.Hkv;
+  const int G = p.out.Hq / p.Hkv;
   const int width = p.nb * p.page;
   const int* bt = p.tables + b * p.bt_sb;
   const int qp = p.q_pos[b * p.qp_sb];
 
-  // the group's query rows, zero past Dh so dots read whole float4s; the
-  // copy is in flight during the flag pass and lands with the first tile
-  const float* qb = p.q + b * p.q_sb + hk * G * p.q_sh;
-  for (int idx = tid; idx < kMaxGroup * kDMax; idx += kThreads) {
-    const int g = idx / kDMax, d = idx % kDMax;
-    const bool in = g < G && d < p.Dh;
-    cp_async4(qs + idx, in ? qb + g * p.q_sh + d : qb, in ? 4 : 0);
-  }
-  cp_async_commit();
+  // the group's query rows arrive during the flag pass
+  load_queries(sm.qs, p.q + b * p.q_sb + hk * G * p.q_sh, p.q_sh, G, p.Dh,
+               tid);
 
-  // 1. flag every tile that holds a valid key, one key a lane
+  // 1. flag every tile that holds a valid key, one key a lane, and list
+  // them
 #pragma unroll 4
   for (int t = warp; t < p.n_tiles; t += kWarps) {
     const int w = t * kBK + lane;
@@ -173,37 +128,26 @@ __global__ void __launch_bounds__(kThreads)
                         qp, p.window);
     }
     const unsigned bits = __ballot_sync(0xffffffffu, valid);
-    if (lane == 0) vmask[t] = bits;
+    if (lane == 0) sm.vmask[t] = bits;
   }
   __syncthreads();
-  // ... and list the tiles that hold one, in order
-  if (warp == 0) {
-    int count = 0;
-    for (int base = 0; base < p.n_tiles; base += 32) {
-      const int t = base + lane;
-      const bool f = t < p.n_tiles && vmask[t] != 0u;
-      const unsigned m = __ballot_sync(0xffffffffu, f);
-      if (f) tl[count + __popc(m & ((1u << lane) - 1u))] = t;
-      count += __popc(m);
-    }
-    if (lane == 0) n_valid_tiles = count;
-  }
+  list_valid_tiles(sm, p.n_tiles, &n_valid_tiles, warp, lane);
   __syncthreads();
 
   // 2. this split's share of the valid tiles; a row with none walks every
   // tile in split 0, as the plain version does
   const bool walk_all = n_valid_tiles == 0;
   const int n = walk_all ? p.n_tiles : n_valid_tiles;
-  const int lo = walk_all ? 0 : n * split / p.S;
-  const int hi = walk_all ? (split == 0 ? n : 0) : n * (split + 1) / p.S;
+  const int lo = walk_all ? 0 : n * split / p.out.S;
+  const int hi = walk_all ? (split == 0 ? n : 0) : n * (split + 1) / p.out.S;
 
   // 3. the copy of the r-th tile of the walk into `stage`: warp w takes
   // keys w, w + 4, ...; its lane i resolves the page of the i-th of them,
   // and the warp copies each key's rows, one 16-byte chunk a lane
-  const int dh4 = (p.Dh + 3) / 4, dv4 = (p.Dv + 3) / 4;
+  const int dh4 = (p.Dh + 3) / 4, dv4 = (p.out.Dv + 3) / 4;
   auto issue = [&](int r, int stage) {
     constexpr int kKeys = kBK / kWarps;
-    const int t = walk_all ? r : tl[r];
+    const int t = walk_all ? r : sm.tl[r];
     int pid = 0, off = -1;  // off -1: the key lies past the table's width
     if (lane < kKeys) {
       const int w = t * kBK + warp + kWarps * lane;
@@ -220,193 +164,25 @@ __global__ void __launch_bounds__(kThreads)
       const int ok = __shfl_sync(0xffffffffu, off, i);
       const bool present = ok >= 0;
       const long long o = present ? ok : 0;
-      copy_row<kVec16>(ks + stage * kStage + j * kLD,
+      copy_row<kVec16>(sm.ks + stage * kStage + j * kLD,
                        p.k + pk * p.k_sp + o * p.k_so + hk * p.k_sh,
                        present ? p.Dh : 0, dh4, lane);
-      copy_row<kVec16>(vs + stage * kStage + j * kLD,
+      copy_row<kVec16>(sm.vs + stage * kStage + j * kLD,
                        p.v + pk * p.v_sp + o * p.v_so + hk * p.v_sh,
-                       present ? p.Dv : 0, dv4, lane);
+                       present ? p.out.Dv : 0, dv4, lane);
     }
   };
 
-  const int g0 = warp * kRowsPerWarp;
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][4];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    m[i] = kMask;
-    l[i] = 0.f;  // this lane's share of the row sum, reduced at the end
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  }
-
-  // kStages - 1 tiles in flight ahead of the one being folded in
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (lo + i < hi) issue(lo + i, i);
-    cp_async_commit();
-  }
-  for (int r = lo; r < hi; ++r) {
-    const int stage = (r - lo) % kStages;
-    if (r + kStages - 1 < hi)
-      issue(r + kStages - 1, (r - lo + kStages - 1) % kStages);
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();  // tile r has landed for this thread ...
-    __syncthreads();               // ... and for every thread
-    if (g0 < G) {
-      const int t = walk_all ? r : tl[r];
-      const float* kt = ks + stage * kStage;
-      const float* vt = vs + stage * kStage;
-      const bool present = t * kBK + lane < width;
-      const bool valid = (vmask[t] >> lane) & 1u;
-      // this lane's key against the warp's rows, four partial sums a row
-      float s[kRowsPerWarp][4] = {};
-      const float* kr = kt + lane * kLD;
-      for (int c = 0; c < dh4; ++c) {
-        const float4 kv = *reinterpret_cast<const float4*>(kr + 4 * c);
-#pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i) {
-          const float4 qv =
-              *reinterpret_cast<const float4*>(qs + (g0 + i) * kDMax + 4 * c);
-          s[i][0] = fmaf(qv.x, kv.x, s[i][0]);
-          s[i][1] = fmaf(qv.y, kv.y, s[i][1]);
-          s[i][2] = fmaf(qv.z, kv.z, s[i][2]);
-          s[i][3] = fmaf(qv.w, kv.w, s[i][3]);
-        }
-      }
-      float sc[kRowsPerWarp], mx[kRowsPerWarp];
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float dot = (s[i][0] + s[i][1]) + (s[i][2] + s[i][3]);
-        sc[i] = valid ? cap(dot * p.scale, p.softcap) : kMask;
-        mx[i] = present ? sc[i] : -INFINITY;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i)
-          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], o));
-      float* pw = ps + warp * kRowsPerWarp * kBK;
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float m_new = fmaxf(m[i], mx[i]);
-        const float alpha = expf(m[i] - m_new);
-        const float pr = present ? expf(sc[i] - m_new) : 0.f;
-        l[i] = alpha * l[i] + pr;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] *= alpha;
-        m[i] = m_new;
-        pw[i * kBK + lane] = pr;
-      }
-      __syncwarp();
-      // the values: each lane owns four columns, the weights are read
-      // four keys at a time from shared memory
-      if (lane < dv4) {
-        const float* vc = vt + 4 * lane;
-#pragma unroll
-        for (int j = 0; j < kBK; j += 4) {
-          float4 pj[kRowsPerWarp];
-#pragma unroll
-          for (int i = 0; i < kRowsPerWarp; ++i)
-            pj[i] = *reinterpret_cast<const float4*>(pw + i * kBK + j);
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const float4 vv =
-                *reinterpret_cast<const float4*>(vc + (j + u) * kLD);
-#pragma unroll
-            for (int i = 0; i < kRowsPerWarp; ++i) {
-              const float pu = u == 0   ? pj[i].x
-                               : u == 1 ? pj[i].y
-                               : u == 2 ? pj[i].z
-                                        : pj[i].w;
-              acc[i][0] = fmaf(pu, vv.x, acc[i][0]);
-              acc[i][1] = fmaf(pu, vv.y, acc[i][1]);
-              acc[i][2] = fmaf(pu, vv.z, acc[i][2]);
-              acc[i][3] = fmaf(pu, vv.w, acc[i][3]);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();  // the stage is read before the next copy lands in it
-  }
-  cp_async_wait<0>();
-
-  if (g0 >= G) return;  // a warp with no query head of this group
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int g = g0 + i;
-    const float li = warp_sum(l[i]);
-    if (g >= G) continue;
-    const int h = hk * G + g;
-    if (p.S == 1) {
-      float* ob = p.o + b * p.o_sb + h * p.o_sh;
-      const float inv = 1.f / fmaxf(li, 1e-30f);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = 4 * lane + e;
-        if (d < p.Dv) ob[d] = acc[i][e] * inv;
-      }
-    } else {
-      float* wb = p.ws + ((static_cast<long long>(b) * p.Hq + h) * p.S +
-                          split) * (p.Dv + 2);
-      if (lane == 0) {
-        wb[0] = m[i];
-        wb[1] = li;
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = 4 * lane + e;
-        if (d < p.Dv) wb[2 + d] = acc[i][e];
-      }
-    }
-  }
-}
-
-// Merge the S splits of each (slot, query head) row: one warp a row, lanes
-// over the value columns. A split with l = 0 visited no tile.
-__global__ void __launch_bounds__(kThreads)
-    paged_decode_combine_kernel(PagedParams p) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + warp;
-  if (row >= p.B * p.Hq) return;
-  const int b = row / p.Hq, h = row - b * p.Hq;
-  const float* wb = p.ws + static_cast<long long>(row) * p.S * (p.Dv + 2);
-  float mx = -INFINITY;
-  for (int s = 0; s < p.S; ++s)
-    if (wb[s * (p.Dv + 2) + 1] > 0.f) mx = fmaxf(mx, wb[s * (p.Dv + 2)]);
-  float f[kMaxSplits];
-  float l = 0.f;
-#pragma unroll
-  for (int s = 0; s < kMaxSplits; ++s) {
-    const float ls = s < p.S ? wb[s * (p.Dv + 2) + 1] : 0.f;
-    f[s] = ls > 0.f ? expf(wb[s * (p.Dv + 2)] - mx) : 0.f;
-    l += f[s] * ls;
-  }
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-  float* ob = p.o + b * p.o_sb + h * p.o_sh;
-  for (int d = lane; d < p.Dv; d += 32) {
-    float a = 0.f;
-#pragma unroll
-    for (int s = 0; s < kMaxSplits; ++s)
-      if (f[s] > 0.f) a = fmaf(f[s], wb[s * (p.Dv + 2) + 2 + d], a);
-    ob[d] = a * inv;
-  }
-}
-
-template <bool kVec16>
-cudaError_t launch(const PagedParams& p, cudaStream_t stream) {
-  const size_t bytes = kFixedSmem + p.n_tiles * 2 * sizeof(int);
-  auto* kernel = paged_decode_kernel<kVec16>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(p.Hkv, p.B, p.S), kThreads, bytes, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || p.S == 1) return err;
-  paged_decode_combine_kernel<<<(p.B * p.Hq + kWarps - 1) / kWarps, kThreads,
-                                0, stream>>>(p);
-  return cudaGetLastError();
+  DecodeRows rows;
+  const bool active = warp * kRowsPerWarp < G;  // a warp with a query head
+  walk_tiles(lo, hi, issue, [&](int r, int stage) {
+    if (!active) return;
+    const int t = walk_all ? r : sm.tl[r];
+    rows.fold(sm.qs, sm.ks + stage * kStage, sm.vs + stage * kStage, sm.ps,
+              sm.vmask[t], t * kBK + lane < width, dh4, dv4, p.scale,
+              p.softcap, warp, lane);
+  });
+  if (active) rows.store(p.out, b, hk, G, split, warp, lane);
 }
 
 }  // namespace
@@ -426,16 +202,18 @@ extern "C" int sfp_paged_decode_attention_fwd(
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || nb <= 0 || page <= 0) return (int)cudaGetLastError();
   const int n_tiles = (nb * page + kBK - 1) / kBK;
-  PagedParams p{q,      k,      v,      tables, q_pos,  kv_pos, o,
-                ws,     B,      nb,     page,   Hq,     Hkv,    Dh,
-                Dv,     S,      n_tiles, q_sb,  q_sh,   k_sp,   k_so,
-                k_sh,   v_sp,   v_so,   v_sh,   bt_sb,  bt_sn,  qp_sb,
-                kvp_sp, kvp_so, o_sb,   o_sh,   window, softcap, scale};
+  const DecodeOut out{o, ws, B, Hq, S, Dv, o_sb, o_sh};
+  PagedParams p{q,    k,    v,      tables, q_pos,  kv_pos, out,
+                nb,   page, Hkv,    Dh,     n_tiles, q_sb,  q_sh,
+                k_sp, k_so, k_sh,   v_sp,   v_so,   v_sh,   bt_sb,
+                bt_sn, qp_sb, kvp_sp, kvp_so, window, softcap, scale};
   // 16-byte copies need every K and V row to start 16-byte aligned
   const unsigned long long addr = reinterpret_cast<unsigned long long>(k) |
                                   reinterpret_cast<unsigned long long>(v);
   const long long strides = k_sp | k_so | k_sh | v_sp | v_so | v_sh;
-  const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(addr % 16 == 0 && strides % 4 == 0 ? launch<true>(p, st)
-                                                  : launch<false>(p, st));
+  auto* kernel = addr % 16 == 0 && strides % 4 == 0
+                     ? paged_decode_kernel<true>
+                     : paged_decode_kernel<false>;
+  return (int)launch_decode(kernel, p, Hkv, n_tiles, out,
+                            (cudaStream_t)stream);
 }

@@ -49,8 +49,10 @@ SIGNATURES = {
         + [_I, _I, _F, _F, _I, _P]),          # causal, window, softcap, scale,
     #                                           kv_len, stream
     "sfp_decode_attention_fwd": (
-        [_P, _P, _P, _P, _P, _P]              # q, k, v, q_pos, kv_pos, out
-        + [_I] * 6                            # B, W, Hq, Hkv, Dh, Dv
+        [_P] * 7                              # q, k, v, q_pos, kv_pos, out,
+        #                                       workspace (B, Hq, S, Dv + 2)
+        #                                       or null
+        + [_I] * 7                            # B, W, Hq, Hkv, Dh, Dv, S
         + [_L] * 13                           # q (b, h); k, v (b, w, h);
         #                                       q_pos (b); kv_pos (b, w); out (b, h)
         + [_I, _F, _F, _P]),                  # window, softcap, scale, stream

@@ -6,10 +6,18 @@ slot to that slot's ring-buffer cache. Two versions of the same function:
   `decode_attention_fwd` — the launch wrapper of `csrc/decode_attention.cu`,
       the Hopper kernel that replaces the TPU kernel
       `repro/kernels/flash_attention/decode.py::decode_attention_fwd`. It is
-      bound by reading the cache; one block per (slot, kv head) reads that
-      head's tiles once for the whole GQA group, straight from the model's
-      (B, W, Hkv, Dh) layout — no moveaxis or pad copy of the cache per
-      call. See the note in the source.
+      bound by the bytes of the keys that count, so it reads only those:
+      each block flags the 32-key tiles of its slot that hold a valid key
+      (one `__ballot_sync` a tile over the positions) and visits those
+      alone, which is exact because a masked score's exp is 0 once the row
+      max is real. A row with no valid key (a slot never used) gets the
+      plain version's answer, the mean of its W values, from V alone: all
+      its tiles, no K read. Each (slot, kv head) is split `decode_splits`
+      ways over its tiles (balanced in rank order), the splits' partial
+      softmax states go to a workspace and a second small kernel merges
+      them; K/V tiles are double-buffered with `cp.async` straight from
+      the model's (B, W, Hkv, Dh) layout through strides, and each tile is
+      read once for the whole GQA group. See the note in the source.
   `grouped_decode` — the plain version (the counterpart of `_xla_decode`):
       the (B, W, Hkv) cache contracted against (B, Hkv, G) query rows with
       no materialized head repeat.
@@ -27,12 +35,12 @@ its block table instead of a per-slot cache:
       exact because a masked score's exp is 0 once the row max is real. A
       row with no valid key at all walks every tile, as the plain version
       does, and gets its mean of every value. Each (slot, kv head) is split
-      `paged_splits` ways over its VALID tiles (balanced in rank order, not
-      by width; enough splits to give every SM three blocks), the splits'
-      partial softmax states go to a workspace and a second small kernel
-      merges them; K/V tiles are double-buffered with `cp.async` straight
-      from the pool's (P, page, Hkv, Dh) layout through strides, with no
-      gathered copy.
+      `decode_splits` ways over its VALID tiles (balanced in rank order, not
+      by width; enough splits to give every SM three blocks), and the
+      splits are merged as in the slot-cache kernel (the two share
+      `csrc/decode_common.cuh`); K/V tiles are double-buffered with
+      `cp.async` straight from the pool's (P, page, Hkv, Dh) layout
+      through strides, with no gathered copy.
   `paged_gather_decode` — the plain version (the JAX package's XLA path,
       `decode.py:356-366`): gather `pool[block_tables]` into the dense
       per-slot view, then `grouped_decode`. With nb * page == W it is
@@ -57,13 +65,29 @@ from repro_torch.kernels.build import check, current_stream, library
 from repro_torch.kernels.flash_attention.kernel import D_MAX
 
 MASK_VALUE = -2.0 ** 30
-MAX_GROUP = 8    # csrc/decode_attention.cu: kMaxGroup
-MAX_SPLITS = 8   # csrc/paged_decode_attention.cu: kMaxSplits
+MAX_GROUP = 8    # csrc/decode_common.cuh: kMaxGroup
+MAX_SPLITS = 8   # csrc/decode_common.cuh: kMaxSplits
 TILE_KEYS = 32   # keys a tile, one a lane (csrc/attention_common.cuh: kBK)
-# blocks of the paged kernel an SM should get: its shared memory (72 KB a
+# blocks of a decode kernel an SM should get: its shared memory (72.7 KB a
 # block) lets three stay resident, and filling all three measured faster
 # than two (chip_smoke.py phase 3 times each split count; PERF.md)
 BLOCKS_PER_SM = 3
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device, read once a device."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def decode_splits(B: int, Hkv: int, width: int, sms: int) -> int:
+    """Splits S of each (slot, kv head) row of `width` keys in the two
+    decode kernels: the smallest S that puts BLOCKS_PER_SM blocks on every
+    SM (B * Hkv * S >= BLOCKS_PER_SM * sms), at most MAX_SPLITS and at most
+    the row's tile count. A function of shapes alone, so choosing it needs
+    no device sync."""
+    cap = max(1, min(MAX_SPLITS, -(-width // TILE_KEYS)))
+    return max(1, min(cap, -(-BLOCKS_PER_SM * sms // max(B * Hkv, 1))))
 
 
 def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -106,9 +130,14 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
     out = torch.empty((B, 1, Hq, Dv), dtype=torch.float32, device=q.device)
+    S = decode_splits(B, Hkv, W, sm_count(q.device.index))
+    # the splits' unnormalized (m, l, acc) rows; S = 1 writes `out` directly
+    ws = (torch.empty((B, Hq, S, Dv + 2), dtype=torch.float32,
+                      device=q.device) if S > 1 else None)
     check(library().sfp_decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
-        kv_positions.data_ptr(), out.data_ptr(), B, W, Hq, Hkv, Dh, Dv,
+        kv_positions.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), B, W, Hq, Hkv, Dh, Dv, S,
         q.stride(0), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), q_positions.stride(0),
         kv_positions.stride(0), kv_positions.stride(1), out.stride(0),
@@ -174,22 +203,6 @@ def decode_attention(
 
 
 # ----------------------------------------------------------- paged variant
-@functools.lru_cache(maxsize=None)
-def sm_count(device_index: int) -> int:
-    """Streaming multiprocessors of a CUDA device, read once a device."""
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-def paged_splits(B: int, Hkv: int, width: int, sms: int) -> int:
-    """Splits S of each (slot, kv head) row of the paged kernel: the
-    smallest S that puts BLOCKS_PER_SM blocks on every SM (B * Hkv * S >=
-    BLOCKS_PER_SM * sms), at most MAX_SPLITS and at most the row's tile
-    count. A function of shapes alone, so choosing it needs no device
-    sync."""
-    cap = max(1, min(MAX_SPLITS, -(-width // TILE_KEYS)))
-    return max(1, min(cap, -(-BLOCKS_PER_SM * sms // max(B * Hkv, 1))))
-
-
 def paged_decode_attention_fwd(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor,
                                block_tables: torch.Tensor,
@@ -242,7 +255,7 @@ def paged_decode_attention_fwd(q: torch.Tensor, k_pool: torch.Tensor,
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
     out = torch.empty((B, 1, Hq, Dv), dtype=torch.float32, device=q.device)
-    S = paged_splits(B, Hkv, nb * page, sm_count(q.device.index))
+    S = decode_splits(B, Hkv, nb * page, sm_count(q.device.index))
     # the splits' unnormalized (m, l, acc) rows; S = 1 writes `out` directly
     ws = (torch.empty((B, Hq, S, Dv + 2), dtype=torch.float32,
                       device=q.device) if S > 1 else None)

@@ -109,19 +109,47 @@ def test_prefill_kernel_matches_plain(gen, case):
     assert float((got - want).abs().max()) <= ATTN_TOL
 
 
-@pytest.mark.parametrize("G,Dh,window,softcap", [
-    (1, 32, None, None), (5, 128, None, None), (8, 16, 7, None),
-    (3, 64, None, 25.0), (5, 128, 64, 50.0), (1, 80, None, None)])
-def test_decode_kernel_matches_plain(gen, G, Dh, window, softcap):
-    from repro_torch.kernels.flash_attention.decode import (decode_attention,
-                                                            grouped_decode)
+def _decode_lens(kind, W):
+    if kind == "empty":            # no slot has held a request
+        return [0] * 5
+    if kind == "seam":             # slot 4's ring wrapped 8 past W
+        return [0, 1, 40, W, 8]
+    return [0, 1, 40, W, 30]
+
+
+@pytest.mark.parametrize("G,Dh,window,softcap,kind", [
+    pytest.param(1, 32, None, None, "", id="1-32-None-None"),
+    pytest.param(5, 128, None, None, "", id="5-128-None-None"),
+    pytest.param(8, 16, 7, None, "", id="8-16-7-None"),
+    pytest.param(3, 64, None, 25.0, "", id="3-64-None-25.0"),
+    pytest.param(5, 128, 64, 50.0, "", id="5-128-64-50.0"),
+    pytest.param(1, 80, None, None, "", id="1-80-None-None"),
+    pytest.param(5, 128, None, None, "empty", id="all-slots-empty"),
+    # a window of 16 keeps slot 4's keys 69..76 and 0..7: both ends of the
+    # ring, across its seam
+    pytest.param(5, 128, 16, None, "seam", id="window-across-the-seam"),
+    pytest.param(1, 80, 16, None, "seam", id="window-across-the-seam-hd80"),
+    pytest.param(5, 128, 64, 50.0, "unaligned", id="unaligned-cache"),
+])
+def test_decode_kernel_matches_plain(gen, monkeypatch, G, Dh, window,
+                                     softcap, kind):
+    """At W = 77 (not a multiple of 32), with the wrapper's split count and
+    with every split count 1-8 forced: within ATTN_TOL of plain, one
+    launch a call."""
+    from repro_torch.kernels.flash_attention import decode
+    from repro_torch.kernels.flash_attention.decode import (
+        decode_attention, decode_attention_fwd, decode_splits,
+        grouped_decode, sm_count)
     B, W, Hkv = 5, 77, 2
     q = torch.randn((B, 1, G * Hkv, Dh), generator=gen, device="cuda")
     k = torch.randn((B, W, Hkv, Dh), generator=gen, device="cuda")
     v = torch.randn((B, W, Hkv, Dh), generator=gen, device="cuda")
+    if kind == "unaligned":
+        k, v = _unaligned(k), _unaligned(v)
+        assert k.data_ptr() % 16 and k.stride(2) % 4
     kvp = torch.full((B, W), -1, dtype=torch.int32)
     qp = torch.zeros((B,), dtype=torch.int32)
-    for b, n in enumerate([0, 1, 40, W, 30]):
+    for b, n in enumerate(_decode_lens(kind, W)):
         if b == 4:                                  # wrapped ring
             pos = torch.arange(n, n + W, dtype=torch.int32)
             kvp[b, pos % W] = pos
@@ -130,12 +158,20 @@ def test_decode_kernel_matches_plain(gen, G, Dh, window, softcap):
             kvp[b, :n] = torch.arange(n, dtype=torch.int32)
             qp[b] = n - 1
     qp, kvp = qp.cuda(), kvp.cuda()
-    got = decode_attention(q, k, v, q_positions=qp, kv_positions=kvp,
-                           sliding_window=window, softcap=softcap)
     want = grouped_decode(q, k, v, qp, kvp, scale=Dh ** -0.5,
                           sliding_window=window, softcap=softcap)
-    assert torch.isfinite(got).all()
-    assert float((got - want).abs().max()) <= ATTN_TOL
+    assert decode_splits(B, Hkv, W, sm_count(q.device.index)) == 3
+    for S in (None, 1, 2, 3, 4, 5, 6, 7, 8):
+        if S is not None:
+            monkeypatch.setattr(decode, "decode_splits",
+                                lambda *shape, S=S: S)
+        n = decode_attention_fwd.launches
+        got = decode_attention(q, k, v, q_positions=qp, kv_positions=kvp,
+                               sliding_window=window, softcap=softcap)
+        torch.cuda.synchronize()
+        assert decode_attention_fwd.launches == n + 1
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= ATTN_TOL, S
 
 
 def test_wrappers_raise_instead_of_falling_back(gen):
@@ -268,7 +304,7 @@ def test_paged_decode_kernel_matches_plain(gen, page, G, Dh, window,
                                            softcap, B, nb, Hkv, kind):
     from repro_torch.kernels.flash_attention.decode import (
         paged_decode_attention, paged_decode_attention_fwd,
-        paged_gather_decode, paged_splits, sm_count)
+        decode_splits, paged_gather_decode, sm_count)
     lens = _paged_lens(kind, nb, page)
     lens = (lens * (-(-B // len(lens))))[:B]
     q, k, v, tables, qp, kvp = _paged_case(gen, B, nb, page, G * Hkv, Hkv,
@@ -276,7 +312,7 @@ def test_paged_decode_kernel_matches_plain(gen, page, G, Dh, window,
     if kind == "unaligned":
         k, v = _unaligned(k), _unaligned(v)
         assert k.data_ptr() % 16 and k.stride(2) % 4
-    S = paged_splits(B, Hkv, nb * page, sm_count(q.device.index))
+    S = decode_splits(B, Hkv, nb * page, sm_count(q.device.index))
     if B == 50:
         assert S == 1     # 400 blocks put three on every SM
     elif page == 8:

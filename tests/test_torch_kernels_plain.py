@@ -146,6 +146,9 @@ DECODE_CASES = [
     (4, 64, 10, 2, 16, [60, 3, 64, 20], (2,), 16, None),   # window
     (2, 64, 4, 2, 32, [33, 64], (), None, 25.0),           # softcap
     (4, 64, 10, 2, 16, [9, 0, 50, 64], (3,), 12, 15.0),    # everything
+    # a window across the seam of a ring wrapped 8 past W: slot 0's valid
+    # keys sit at indices 56-63 and 0-7, in both of its 32-key tiles
+    (2, 64, 10, 2, 16, [8, 40], (0,), 16, None),
 ]
 
 

@@ -31,8 +31,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import SplitConfig, SplitModel  # noqa: E402
 from repro_torch.kernels import launch_counts  # noqa: E402
 from repro_torch.kernels.flash_attention.decode import (  # noqa: E402
-    BLOCKS_PER_SM, MAX_SPLITS, grouped_decode, paged_decode_attention,
-    paged_splits)
+    BLOCKS_PER_SM, MAX_SPLITS, decode_splits, grouped_decode,
+    paged_decode_attention)
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models.layers import _paged_cache_write  # noqa: E402
 from repro_torch.runtime import WireSpec  # noqa: E402
@@ -214,7 +214,18 @@ def test_paged_plain_matches_jax_paged_op(case):
 ])
 def test_paged_splits(B, Hkv, width, sms, want):
     """The paged kernel's split count, a function of shapes alone."""
-    assert paged_splits(B, Hkv, width, sms) == want
+    assert decode_splits(B, Hkv, width, sms) == want
+
+
+@pytest.mark.parametrize("B,Hkv,width,sms,want", [
+    (8, 8, 512, 132, 7),     # Qwen2.5-14B's 8 slots x 8 kv heads
+    (8, 32, 512, 132, 2),    # zamba2's shared block, 32 kv heads
+    (5, 2, 77, 132, 3),      # capped at the row's 3 tiles of 32 keys
+])
+def test_decode_splits_at_the_dense_shapes(B, Hkv, width, sms, want):
+    """The slot-cache kernel's split count: the same function of shapes
+    as the paged kernel's, over the cache's W keys."""
+    assert decode_splits(B, Hkv, width, sms) == want
 
 
 def test_paged_splits_is_the_smallest_that_fills_the_card():
@@ -222,7 +233,7 @@ def test_paged_splits_is_the_smallest_that_fills_the_card():
         for Hkv in (1, 2, 8):
             for width in (1, 31, 32, 33, 100, 512, 5000):
                 tiles = -(-width // 32)
-                S = paged_splits(B, Hkv, width, 132)
+                S = decode_splits(B, Hkv, width, 132)
                 assert 1 <= S <= min(MAX_SPLITS, tiles)
                 if S < min(MAX_SPLITS, tiles):
                     assert B * Hkv * S >= BLOCKS_PER_SM * 132
