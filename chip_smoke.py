@@ -34,7 +34,14 @@ Phases, each of which fails the run with a nonzero exit:
      the paged decode kernel also with a fully masked row (it must return
      the mean of every value of its table), its split count and valid
      tiles printed, and device time (profiler) beside event time for it,
-     the dense decode kernel on the same data gathered, and SDPA;
+     the dense decode kernel on the same data gathered, and SDPA; then
+     all nine kernels again with bf16 inputs (quant and masked encode
+     bit-equal, EL2N within 1e-5, bf16 outputs within 2e-2 (1 + |plain|)
+     of plain fed the same bf16 tensors, with the error in bf16 ulps;
+     decode and paged decode with a bf16 query over f32 and over bf16
+     K/V; the scans with their layer's dtype mix), timed beside plain and,
+     for all-bf16 prefill and decode, bf16 SDPA, bounds at 2 B a bf16
+     value;
   4. engine parity: the reduced Qwen2.5 family (with a GQA group of 5)
      served on the card and on the CPU from the same seeded weights, by the
      dense engine and by the paged engine (shared prefix, chunked prefill)
@@ -42,7 +49,12 @@ Phases, each of which fails the run with a nonzero exit:
      equal; and the reduced zamba2 (18 layers, 3 cycles) and rwkv6 (3
      layers) through the dense engine — tokens equal, logits within 1e-4,
      wire bytes equal (zamba2 with its tails jittered by 0.2 as well,
-     printed, not checked);
+     printed, not checked); and the GQA-5 model on the int8 wire through
+     both engines at bf16 activations, card against CPU — wire bytes and
+     counters equal, every logit finite, and the gap rule: teacher-forced
+     on the CPU's tokens, the card's mean logit gap to the CPU at bf16 is
+     at most the CPU's own bf16-vs-f32 gap (the paged engine compared
+     while its tokens agree);
   5. the dense path at full width: Qwen2.5-14B widths cut to 6 layers, 4
      tenants, 8 slots, max_seq 512, int8 wire, decode_block 8, 16 synthetic
      requests through `ServeEngine.run`; every request finishes, metered
@@ -97,7 +109,15 @@ Phases, each of which fails the run with a nonzero exit:
      2560, 40 heads of 64, decay LoRA 64, d_ff 8960, vocab 65536) cut to 8
      layers (head 1 / body 6 / tail 1), checked as phase 10 (the wire and
      the RWKV-6 scan), then a profiled replay;
- 12. the `kernels` JSON line, then the device line last.
+ 12. the dense path at bf16 (run right after phase 6, on its weights):
+     phase 5 with `ServeConfig(dtype=torch.bfloat16)`, checked as phase 5,
+     the first-token logit gap to f32 printed, then a profiled replay
+     whose device time splits into cuBLAS, copies and casts (the per-call
+     weight casts), and the port's kernels;
+ 13. the paged path at bf16: phase 6 at bf16, checked as phase 6, then a
+     profiled replay;
+ then the `kernels` JSON line (each kernel once, with the dtypes it was
+ held at and its bf16 numbers), then the device line last.
 
 Needs a CUDA device and the repository's src/ beside this file; without
 either it exits nonzero and prints no result.
@@ -130,6 +150,9 @@ ATTN_TOL = 2e-5
 SCAN_TOL = 2e-5               # |kernel - plain| <= tol (1 + |plain|): the
 #                               kernels sum in another order than einsum
 EL2N_TOL = 1e-5               # |kernel - one-pass plain| <= tol (1 + |plain|)
+BF16_TOL = 2e-2               # bf16 outputs: |kernel - plain| <= tol (1 +
+#                               |plain|), the JAX kernel tests' bf16 rtol/atol
+BF16_FLOPS = 989e12           # H100 SXM dense bf16 on the tensor cores
 PARITY_TOL = 1e-4
 PAGED_WIRE_TOL = 1e-3
 TRAIN_WIRE_TOL = 1e-3
@@ -171,6 +194,10 @@ PATHS = {
     "hybrid": ("quantize_int8", "dequantize_int8", "flash_attention_prefill",
                "decode_attention", "mamba2_scan"),
     "rwkv": ("quantize_int8", "dequantize_int8", "rwkv6_scan"),
+    "dense_bf16": ("quantize_int8", "dequantize_int8",
+                   "flash_attention_prefill", "decode_attention"),
+    "paged_bf16": ("quantize_int8", "dequantize_int8",
+                   "flash_attention_prefill", "paged_decode_attention"),
 }
 
 
@@ -204,9 +231,13 @@ def time_ms(fns, iters: int = 40) -> float:
 
 def device_ms(fns, iters: int = 40) -> float:
     """Device time of one call in ms: the kernels' time under
-    torch.profiler over `iters` calls cycling through `fns`, divided by
-    `iters`. Unlike time_ms it leaves out the host time between launches,
-    which at batch-1 shapes can exceed a kernel's own."""
+    torch.profiler over `iters` calls cycling through `fns`. Unlike
+    time_ms it leaves out the host time between launches, which at
+    batch-1 shapes can exceed a kernel's own. Each kernel name's mean time
+    an event, times its events a call (its count over `iters`, rounded),
+    summed over the names: the profiler has returned traces with some of
+    a run's events missing (39 of 40, or 11), and a mean over the events
+    it kept is not skewed by the ones it lost."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -218,20 +249,24 @@ def device_ms(fns, iters: int = 40) -> float:
             for i in range(iters):
                 fns[i % len(fns)]()
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)
-              and not e.name.startswith("aten::")]
-        # every call does the same device work, so a whole trace holds a
-        # whole multiple of `iters` events; the profiler has returned a
-        # trace with some or all of a run's events missing (0 ms), and
-        # such a trace is taken again
-        if us and len(us) % iters == 0:
-            return sum(us) * 1e-3 / iters
-        say(f"device_ms: a trace of {iters} calls held {len(us)} device "
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA \
+                    and not getattr(e, "is_user_annotation", False) \
+                    and not e.name.startswith("aten::"):
+                n, us = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        kept = sum(n for n, _ in by_name.values())
+        if kept >= iters // 2:
+            if kept % iters:
+                say(f"device_ms: a trace of {iters} calls held {kept} "
+                    f"device events; each name's mean an event is used")
+            return sum(us / n * max(1, round(n / iters))
+                       for n, us in by_name.values()) * 1e-3
+        say(f"device_ms: a trace of {iters} calls held {kept} device "
             f"events; taking it again")
-    fail(f"the profiler's trace of {iters} calls held {len(us)} device "
-         f"events three times over, not a whole multiple of the calls")
+    fail(f"the profiler's trace of {iters} calls held {kept} device "
+         f"events three times over, fewer than half the calls")
 
 
 def n_copies(bytes_per_set: int) -> int:
@@ -437,16 +472,18 @@ def ptxas_report():
 
 
 def prefill_build_report():
-    """Per instantiation of the prefill kernel (flash_fwd_kernel<ND, vec16>):
-    HMMA instructions with .TF32 in its SASS (cuobjdump of the built
+    """Per instantiation of the prefill kernel (flash_fwd_kernel<ND, vec16,
+    T>): HMMA instructions with .TF32 in its SASS (cuobjdump of the built
     library), and registers and spill bytes from the ptxas report. Fails
     if one has no TF32 HMMA or spills."""
     from repro_torch.kernels import build
-    pat = re.compile(r"flash_fwd_kernelILi(\d+)ELb(\d)")
+    pat = re.compile(r"flash_fwd_kernelILi(\d+)ELb(\d)E(f|13__nv_bfloat16)")
 
     def key(name):
         m = pat.search(name)
-        return m and f"ND {m.group(1)}, {'16' if m.group(2) == '1' else '4'}-byte copies"
+        return m and (f"ND {m.group(1)}, "
+                      f"{'vector' if m.group(2) == '1' else 'single'} "
+                      f"loads, {'f32' if m.group(3) == 'f' else 'bf16'}")
     out = {key(name): dict(r) for name, r in ptxas_report().items()
            if key(name)}
     cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
@@ -459,8 +496,9 @@ def prefill_build_report():
         if name:
             out.setdefault(name, {})["hmma_tf32"] = sum(
                 "HMMA" in ln and ".TF32" in ln for ln in part.splitlines())
-    if len(out) != 8:
-        fail(f"expected 8 prefill kernel instantiations, found {sorted(out)}")
+    if len(out) != 16:
+        fail(f"expected 16 prefill kernel instantiations, found "
+             f"{sorted(out)}")
     for name, r in sorted(out.items()):
         say(f"prefill kernel {name}: {r.get('hmma_tf32')} HMMA .TF32 in its "
             f"SASS, {r.get('registers')} registers, {r.get('spill_bytes')} "
@@ -670,18 +708,23 @@ def decode_build_report():
     """Registers and spill bytes of each instantiation of the two decode
     kernels and of their shared combine, from the ptxas report."""
     pat = re.compile(r"\d+(paged_decode_kernel|decode_combine_kernel|"
-                     r"decode_kernel)(ILb(\d))?")
+                     r"decode_kernel)(ILb(\d)E(f|13__nv_bfloat16))?")
     out = {}
     for name, r in ptxas_report().items():
         m = pat.search(name)
         if m:
-            copies = {"1": ", 16-byte copies", "0": ", 4-byte copies"}
-            out[m.group(1) + copies.get(m.group(3), "")] = r
+            copies = {"1": ", vector copies", "0": ", single copies"}
+            kv = {"f": ", f32 K/V", "13__nv_bfloat16": ", bf16 K/V"}
+            out[m.group(1) + copies.get(m.group(3), "")
+                + kv.get(m.group(4), "")] = r
     for name, r in sorted(out.items()):
         say(f"decode ptxas: {name}: {r.get('registers')} registers, "
             f"{r.get('spill_bytes')} bytes spilled")
-    if len(out) != 5:
-        fail(f"expected 5 decode kernel functions in the build, found "
+        if r.get("spill_bytes") != 0:
+            fail(f"decode kernel {name}: {r.get('spill_bytes')} bytes of "
+                 f"register spills")
+    if len(out) != 9:
+        fail(f"expected 9 decode kernel functions in the build, found "
              f"{sorted(out)}")
     return out
 
@@ -1214,13 +1257,14 @@ def _scan_err(torch, got, want):
     return float(((got - want).abs() / (1.0 + want.abs())).max())
 
 
-def mamba2_case(torch, gen, B, T, H, P, N, G, h0):
+def mamba2_case(torch, gen, B, T, H, P, N, G, h0, dtype=None):
     """Inputs laid out as `apply_mamba2` hands them to the scan: x, B and C
-    are views into one conv output (B, T, H*P + 2*G*N), dt a softplus, A
-    the init's -linspace(1, 16)."""
+    are views into one conv output (B, T, H*P + 2*G*N), of the activation
+    dtype (f32 unless `dtype`), dt a softplus and A the init's
+    -linspace(1, 16), both f32."""
     F = torch.nn.functional
     conv = torch.randn((B, T, H * P + 2 * G * N), generator=gen,
-                       device="cuda")
+                       device="cuda").to(dtype or torch.float32)
     x = conv[..., :H * P].reshape(B, T, H, P)
     Bm = conv[..., H * P:H * P + G * N].reshape(B, T, G, N)
     Cm = conv[..., H * P + G * N:].reshape(B, T, G, N)
@@ -1285,11 +1329,12 @@ def check_mamba2(torch, gen, results):
                                   prefill_shape=timed["prefill"])
 
 
-def rwkv6_case(torch, gen, B, T, H, K, decay=None):
-    """Inputs as `apply_rwkv6` hands them to the scan: contiguous r, k, v,
-    the Finch decay w = -exp(.), the bonus u, and a carried state."""
+def rwkv6_case(torch, gen, B, T, H, K, decay=None, dtype=None):
+    """Inputs as `apply_rwkv6` hands them to the scan: contiguous r, k, v
+    of the activation dtype (f32 unless `dtype`), the Finch decay
+    w = -exp(.), the bonus u, and a carried state, all three f32."""
     r, k, v = (torch.randn((B, T, H, K), generator=gen, device="cuda")
-               for _ in range(3))
+               .to(dtype or torch.float32) for _ in range(3))
     w = (torch.full((B, T, H, K), decay, device="cuda") if decay is not None
          else -torch.exp(torch.randn((B, T, H, K), generator=gen,
                                      device="cuda") - 1.0))
@@ -1336,6 +1381,417 @@ def check_rwkv6(torch, gen, results):
     results["rwkv6_scan"] = dict(timed["decode"], max_abs_err=worst,
                                  library_ms=None,
                                  prefill_shape=timed["prefill"])
+
+
+# ----------------------------------------------------------- phase 3, bf16
+def bf16_err(torch, label, got, want):
+    """Fail unless the kernel's and plain's outputs are both bf16 and the
+    kernel's is finite and within BF16_TOL (1 + |plain|); returns the
+    largest error, in absolute terms and in bf16 ulps of plain (the two
+    round the same f32 value, computed in different orders), and the share
+    of elements that differ."""
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+        fail(f"{label}: the kernel gave {got.dtype} and plain {want.dtype}, "
+             f"not bfloat16")
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    if not bool(torch.isfinite(g).all()) \
+            or bool((d > BF16_TOL * (1 + w.abs())).any()):
+        fail(f"{label}: max|kernel - plain| = {float(d.max()):.3g} beyond "
+             f"{BF16_TOL} (1 + |plain|)")
+    _, e = torch.frexp(w.abs().clamp_min(2.0 ** -126))
+    ulp = torch.ldexp(torch.ones_like(w), e - 8)
+    return dict(max_abs_err=float(d.max()), max_ulps=float((d / ulp).max()),
+                differ_share=float((d > 0).float().mean()))
+
+
+def worst_err(errs):
+    return {k: max(e[k] for e in errs) for k in errs[0]}
+
+
+def bf16_quant(torch, gen, results):
+    """bf16 x quantized and payloads dequantized to bf16, bit-equal to
+    plain at the decode and prefill row counts; timed at the decode
+    shape."""
+    from repro_torch.kernels.quant import ref
+    from repro_torch.kernels.quant.kernel import dequantize_fwd, quantize_fwd
+    bf16 = torch.bfloat16
+    D = 5120
+    for N in (1, 8, 132):
+        x = (torch.randn((N, D), generator=gen, device="cuda") * 3.0).to(bf16)
+        x[0, :7] = 0.0
+        for u in (torch.full((), 0.5, device="cuda"),
+                  torch.rand((N, D), generator=gen, device="cuda")):
+            v, s = quantize_fwd(x, u.expand(N, D))
+            rv, rs = ref.quantize(x, u)
+            if not (torch.equal(v, rv) and torch.equal(s, rs)):
+                fail(f"quantize_int8 bf16 N={N}: {int((v != rv).sum())} "
+                     f"values, {int((s != rs).sum())} scales differ")
+            if not torch.equal(dequantize_fwd(v, s, bf16),
+                               ref.dequantize(v, s, bf16)):
+                fail(f"dequantize_int8 to bf16 N={N} differs from plain")
+    N = 8
+    xs = [torch.randn((N, D), generator=gen, device="cuda").to(bf16)
+          for _ in range(n_copies(N * D * 3))]
+    half = torch.full((), 0.5, device="cuda").expand(N, D)
+    payloads = [quantize_fwd(x, half) for x in xs]
+    quant = [lambda x=x: quantize_fwd(x, half) for x in xs]
+    dequant = [lambda p=p: dequantize_fwd(*p, bf16) for p in payloads]
+    t_q, d_q = time_ms(quant), device_ms(quant)
+    t_qp = time_ms([lambda x=x: ref.quantize(x, 0.5) for x in xs])
+    t_d, d_d = time_ms(dequant), device_ms(dequant)
+    t_dp = time_ms([lambda p=p: ref.dequantize(*p, bf16) for p in payloads])
+    bq = bound(N * D * 2 + 4 + N * D + N * 4, 4 * N * D)
+    bd = bound(N * D + N * 4 + N * D * 2, N * D)
+    results["quantize_int8"]["bf16"] = {"x bf16": dict(
+        max_abs_err=0.0, ms=t_q, device_ms=d_q, plain_ms=t_qp,
+        bound_ms=bq[0], bound_by=bq[1], library_ms=None,
+        shape=f"x ({N}, {D}) bf16")}
+    results["dequantize_int8"]["bf16"] = {"out bf16": dict(
+        max_abs_err=0.0, ms=t_d, device_ms=d_d, plain_ms=t_dp,
+        bound_ms=bd[0], bound_by=bd[1], library_ms=None,
+        shape=f"v ({N}, {D}) -> bf16")}
+    say(f"quant bf16: kernel == plain (values, scales; dequantized bf16) at "
+        f"N in (1, 8, 132), D={D}; at ({N}, {D}) quantize {t_q:.4f} ms "
+        f"({d_q:.4f} on the device; plain {t_qp:.4f}, bound {bq[0]:.6f}), "
+        f"dequantize {t_d:.4f} ms ({d_d:.4f}; plain {t_dp:.4f}, bound "
+        f"{bd[0]:.6f})")
+
+
+def bf16_prefill(torch, F, gen, results):
+    """All-bf16 q, k, v at Qwen2.5-14B's (40 / 8 heads of 128) and zamba2's
+    (32 heads of 80) causal prefill, checked at S 37 and 132, timed at 132
+    beside plain and SDPA on the same bf16 values."""
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    out = {}
+    for label, B, Hq, Hkv, Dh in (("Qwen2.5-14B", 1, 40, 8, 128),
+                                  ("zamba2", 1, 32, 32, 80)):
+        scale = Dh ** -0.5
+
+        def inputs(S):
+            return tuple(torch.randn((B, S, h, Dh), generator=gen,
+                                     device="cuda").to(torch.bfloat16)
+                         for h in (Hq, Hkv, Hkv))
+        errs = []
+        for S in (37, 132):
+            q, k, v = inputs(S)
+            got = flash_attention_fwd(q, k, v, causal=True,
+                                      sliding_window=None, softcap=None,
+                                      scale=scale, kv_len=S)
+            errs.append(bf16_err(torch, f"prefill bf16 {label} S={S}", got,
+                                 ref.attention(q, k, v, causal=True,
+                                               scale=scale)))
+        S = 132
+        per = (B * S * (Hq + 2 * Hkv) * Dh + B * S * Hq * Dh) * 2
+        sets = [inputs(S) for _ in range(n_copies(per))]
+        kernel = [lambda s=s: flash_attention_fwd(
+            *s, causal=True, sliding_window=None, softcap=None, scale=scale,
+            kv_len=S) for s in sets]
+        t_k, d_k = time_ms(kernel), device_ms(kernel)
+        t_p = time_ms([lambda s=s: ref.attention(*s, causal=True,
+                                                 scale=scale) for s in sets])
+        G = Hq // Hkv
+        lib = [(q.transpose(1, 2).contiguous(),
+                k.repeat_interleave(G, 2).transpose(1, 2).contiguous(),
+                v.repeat_interleave(G, 2).transpose(1, 2).contiguous())
+               for q, k, v in sets]
+        sdpa = [lambda s=s: F.scaled_dot_product_attention(
+            *s, is_causal=True, scale=scale) for s in lib]
+        t_l, d_l = time_ms(sdpa), device_ms(sdpa)
+        del lib, sdpa, sets
+        b = bound(per, _prefill_pairs(S, S, None) * B * Hq * 4 * Dh,
+                  BF16_FLOPS)
+        out[label] = dict(
+            worst_err(errs), ms=t_k, device_ms=d_k, plain_ms=t_p,
+            library_ms=t_l, library_device_ms=d_l, bound_ms=b[0],
+            bound_by=b[1],
+            shape=f"q ({B}, {S}, {Hq}, {Dh}), kv {Hkv} heads, causal, bf16")
+        say(f"prefill bf16 {label}: {out[label]['shape']}: max abs err "
+            f"{out[label]['max_abs_err']:.3g} ({out[label]['max_ulps']:.3g} "
+            f"ulps, {out[label]['differ_share']:.3g} of elements differ); "
+            f"kernel {t_k:.4f} ms ({d_k:.4f} on the device), plain "
+            f"{t_p:.4f} ms, SDPA bf16 {t_l:.4f} ms ({d_l:.4f}), bound "
+            f"{b[0]:.5f} ms ({b[1]})")
+    results["flash_attention_prefill"]["bf16"] = out
+
+
+def bf16_decode(torch, F, gen, results):
+    """The dense decode kernel with a bf16 query over an f32 cache (the
+    engines' case) and over a bf16 cache, at phase 3's 8 slots of 512 for
+    Qwen2.5-14B (40 / 8 heads of 128) and zamba2 (32 / 32 of 80); SDPA is
+    timed on the all-bf16 data only (no one call takes mixed dtypes)."""
+    from repro_torch.kernels.flash_attention.decode import (
+        decode_attention_fwd, grouped_decode)
+    B, W = 8, 512
+    lengths = [37, 0, 512, 200, 0, 1, 333, 100]
+    out = {}
+    for label, Hq, Hkv, Dh in (("Qwen2.5-14B", 40, 8, 128),
+                               ("zamba2", 32, 32, 80)):
+        G, scale = Hq // Hkv, Dh ** -0.5
+        for variant, kv_dt in (("q bf16, K/V f32", torch.float32),
+                               ("all bf16", torch.bfloat16)):
+            def case():
+                q, k, v, qp, kvp = decode_case(torch, gen, B, W, Hq, Hkv, Dh,
+                                               lengths, wrap_slot=7)
+                return q.to(torch.bfloat16), k.to(kv_dt), v.to(kv_dt), qp, \
+                    kvp
+            name = f"{label}, {variant}"
+            s0 = case()
+            err = bf16_err(torch, f"decode {name}", decode_attention_fwd(
+                *s0, scale=scale, sliding_window=None, softcap=None),
+                grouped_decode(*s0, scale=scale, sliding_window=None,
+                               softcap=None))
+            n_valid = int(((s0[4] >= 0) & (s0[4] <= s0[3][:, None])).sum())
+            tiles, idle = slot_tiles(torch, s0[3], s0[4])
+            kvb = 2 if kv_dt == torch.bfloat16 else 4
+            nbytes = (B * Hq * Dh * 2 * 2 + (n_valid * Hkv * Dh * 2
+                      + idle * W * Hkv * Dh) * kvb + B * W * 4 + B * 4)
+            b = bound(nbytes, n_valid * Hq * 4 * Dh + idle * W * Hq * Dh,
+                      BF16_FLOPS if kvb == 2 else FP32_FLOPS)
+            per = B * W * Hkv * Dh * 2 * kvb + B * Hq * Dh * 4 + B * W * 4
+            sets = [case() for _ in range(n_copies(per))]
+            kernel = [lambda s=s: decode_attention_fwd(
+                *s, scale=scale, sliding_window=None, softcap=None)
+                for s in sets]
+            t_k, d_k = time_ms(kernel), device_ms(kernel)
+            t_p = time_ms([lambda s=s: grouped_decode(
+                *s, scale=scale, sliding_window=None, softcap=None)
+                for s in sets])
+            t_l = d_l = None
+            if kvb == 2:
+                lib = []
+                for q, k, v, qp, kvp in sets:
+                    mask = ((kvp >= 0) & (kvp <= qp[:, None]))[:, None,
+                                                               None, :]
+                    lib.append((q.transpose(1, 2).contiguous(),
+                                k.repeat_interleave(G, 2).transpose(1, 2)
+                                .contiguous(),
+                                v.repeat_interleave(G, 2).transpose(1, 2)
+                                .contiguous(), mask))
+                sdpa = [lambda s=s: F.scaled_dot_product_attention(
+                    s[0], s[1], s[2], attn_mask=s[3], scale=scale)
+                    for s in lib]
+                t_l, d_l = time_ms(sdpa), device_ms(sdpa)
+                del lib, sdpa
+            del sets
+            out[name] = dict(
+                err, ms=t_k, device_ms=d_k, plain_ms=t_p, library_ms=t_l,
+                library_device_ms=d_l, bound_ms=b[0], bound_by=b[1],
+                shape=f"q ({B}, 1, {Hq}, {Dh}) bf16, cache ({B}, {W}, "
+                      f"{Hkv}, {Dh}) {str(kv_dt)[6:]}, {tiles} valid tiles, "
+                      f"{idle} idle slots")
+            say(f"decode bf16 {name}: max abs err {err['max_abs_err']:.3g} "
+                f"({err['max_ulps']:.3g} ulps, {err['differ_share']:.3g} of "
+                f"elements differ); kernel {t_k:.4f} ms ({d_k:.4f} on the "
+                f"device), plain {t_p:.4f} ms, SDPA bf16 "
+                f"{'-' if t_l is None else f'{t_l:.4f} ms ({d_l:.4f})'}, "
+                f"bound {b[0]:.5f} ms ({b[1]})")
+    results["decode_attention"]["bf16"] = out
+
+
+def bf16_paged(torch, gen, results):
+    """The paged decode kernel with a bf16 query over an f32 pool (the
+    engine's case) and over a bf16 pool, at phase 3's 16 slots of page 16
+    (and with a fully masked row)."""
+    from repro_torch.kernels.flash_attention.decode import (
+        paged_decode_attention_fwd, paged_gather_decode)
+    Hq, Hkv, Dh = 40, 8, 128
+    G, scale = Hq // Hkv, Dh ** -0.5
+    lengths = [1, 512, 37, 200, 0, 129, 16, 17, 300, 64, 5, 96, 250, 33, 128,
+               9]
+    masked = lengths[:10] + [None] + lengths[11:]
+    page, nb, P = 16, 32, 130
+    B, n_valid = len(lengths), sum(lengths)
+    out = {}
+    for variant, kv_dt in (("q bf16, pool f32", torch.float32),
+                           ("all bf16", torch.bfloat16)):
+        def case(lens):
+            q, k, v, tables, qp, kvp = paged_case(torch, gen, lens, page, nb,
+                                                  P)
+            return (q.to(torch.bfloat16), k.to(kv_dt), v.to(kv_dt), tables,
+                    qp, kvp)
+        errs = []
+        for lens in (lengths, masked):
+            args = case(lens)
+            got = paged_decode_attention_fwd(*args, scale=scale,
+                                             sliding_window=None,
+                                             softcap=None)
+            errs.append(bf16_err(torch, f"paged decode {variant}", got,
+                                 paged_gather_decode(
+                                     *args, scale=scale, sliding_window=None,
+                                     softcap=None)))
+        kvb = 2 if kv_dt == torch.bfloat16 else 4
+        nbytes = (B * Hq * Dh * 2 * 2 + n_valid * Hkv * Dh * 2 * kvb
+                  + n_valid * 4 + B * nb * 4 + B * 4)
+        b = bound(nbytes, n_valid * Hq * 4 * Dh,
+                  BF16_FLOPS if kvb == 2 else FP32_FLOPS)
+        sets = [case(lengths) for _ in range(n_copies(nbytes))]
+        kernel = [lambda s=s: paged_decode_attention_fwd(
+            *s, scale=scale, sliding_window=None, softcap=None)
+            for s in sets]
+        t_k, d_k = time_ms(kernel), device_ms(kernel)
+        t_p = time_ms([lambda s=s: paged_gather_decode(
+            *s, scale=scale, sliding_window=None, softcap=None)
+            for s in sets])
+        del sets
+        out[variant] = dict(
+            worst_err(errs), ms=t_k, device_ms=d_k, plain_ms=t_p,
+            library_ms=None, bound_ms=b[0], bound_by=b[1],
+            shape=f"q ({B}, 1, {Hq}, {Dh}) bf16, pool ({P}, {page}, {Hkv}, "
+                  f"{Dh}) {str(kv_dt)[6:]}, {n_valid} valid entries")
+        r = out[variant]
+        say(f"paged decode bf16 {variant}: max abs err "
+            f"{r['max_abs_err']:.3g} ({r['max_ulps']:.3g} ulps); kernel "
+            f"{t_k:.4f} ms ({d_k:.4f} on the device), plain {t_p:.4f} ms, "
+            f"bound {b[0]:.5f} ms ({b[1]})")
+    results["paged_decode_attention"]["bf16"] = out
+
+
+def bf16_el2n(torch, gen, results):
+    """bf16 logits read by the kernel itself, within EL2N_TOL of the
+    one-pass plain form of the same logits (f32 outputs after an exact
+    widening), at the path's (16, 100) and an LM vocabulary's
+    (512, 152064)."""
+    from repro_torch.kernels.el2n import ref
+    from repro_torch.kernels.el2n.kernel import el2n_fwd
+    out = {}
+    for N, V, aligned in ((16, 100, True), (3, 1031, False),
+                          (512, 152064, True)):
+        logits, labels = el2n_case(torch, gen, N, V, aligned)
+        logits = logits.to(torch.bfloat16)
+        e, c = el2n_fwd(logits, labels)
+        we, wc = ref.fused_scores(logits, labels)
+        errs = [_el2n_err(torch, e, we), _el2n_err(torch, c, wc)]
+        if not all(good for _, good in errs) or e.dtype != torch.float32:
+            fail(f"el2n bf16 N={N} V={V}: max|kernel - plain| "
+                 f"{[x for x, _ in errs]} beyond {EL2N_TOL}, or {e.dtype}")
+        if not aligned:
+            continue
+        per = N * V * 2
+        sets = [(lg.to(torch.bfloat16), lb) for lg, lb in (
+            el2n_case(torch, gen, N, V) for _ in range(n_copies(per)))]
+        b = bound(per + N * 4 + 2 * N * 4, 5 * N * V)
+        kernel = [lambda s=s: el2n_fwd(*s) for s in sets]
+        out[f"({N}, {V})"] = dict(
+            max_abs_err=max(x for x, _ in errs), ms=time_ms(kernel),
+            device_ms=device_ms(kernel),
+            plain_ms=time_ms([lambda s=s: ref.el2n_scores(*s)
+                              for s in sets]),
+            bound_ms=b[0], bound_by=b[1], library_ms=None,
+            shape=f"logits ({N}, {V}) bf16, labels ({N},)")
+        r = out[f"({N}, {V})"]
+        say(f"el2n bf16 ({N}, {V}): max abs err {r['max_abs_err']:.3g}; "
+            f"kernel {r['ms']:.4f} ms ({r['device_ms']:.4f} on the device), "
+            f"plain {r['plain_ms']:.4f} ms, bound {b[0]:.5f} ms ({b[1]})")
+    results["el2n"]["bf16"] = out
+
+
+def bf16_secure(torch, gen, results):
+    """A bf16 upload masked-encoded bit-equal to plain at the full width
+    (and at n 896 with ties and saturation), timed at the full width."""
+    from repro_torch.kernels.secure_mask import ref
+    from repro_torch.kernels.secure_mask.kernel import masked_encode_fwd
+    from repro_torch.kernels.secure_mask.ops import masked_encode
+    n_full, J = 7_171_584, 3
+    for n, J_, edge in ((n_full, J, False), (128 * 7, 4, True)):
+        x, seeds, signs = secure_case(torch, gen, n, J_, edge=edge)
+        x = x.to(torch.bfloat16)
+        got = masked_encode(x, seeds, signs)
+        if not torch.equal(got, ref.masked_encode(x, seeds, signs)):
+            fail(f"secure_masked_encode bf16 n={n}: differs from plain")
+    sets = [(x.to(torch.bfloat16), s, g) for x, s, g in (
+        secure_case(torch, gen, n_full, J)
+        for _ in range(n_copies(n_full * 6)))]
+    dev_pairs = [(x, ref.to_ring(s & ref.MASK32), g) for x, s, g in sets]
+    kernel = [lambda c=c: masked_encode_fwd(
+        c[0], c[1], c[2], n=n_full, frac_bits=16) for c in dev_pairs]
+    ms, dev = time_ms(kernel), device_ms(kernel)
+    plain_ms = time_ms([lambda c=c: ref.masked_encode(*c) for c in sets],
+                       iters=8)
+    f32 = results["secure_masked_encode"]
+    b = bound(n_full * 6, n_full * J * f32["sass_per_threefry"],
+              SMS * ISSUE_LANES * f32["sm_clock_mhz"] * 1e6)
+    results["secure_masked_encode"]["bf16"] = {"x bf16": dict(
+        max_abs_err=0.0, ms=ms, device_ms=dev, plain_ms=plain_ms,
+        bound_ms=b[0], bound_by=b[1], library_ms=None,
+        shape=f"x ({n_full},) bf16, 3 pairs")}
+    say(f"secure_masked_encode bf16: kernel == plain at n {n_full} and 896; "
+        f"kernel {ms:.4f} ms ({dev:.4f} on the device), plain "
+        f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+
+
+def bf16_scans(torch, gen, results):
+    """Both scans with the layer's dtype mix (Mamba-2: x, B, C bf16, dt, A
+    and the state f32; RWKV-6: r, k, v bf16, w, u and the state f32), y
+    (bf16) within BF16_TOL and the f32 state within SCAN_TOL of plain, at
+    phase 3's prefill and decode shapes."""
+    from repro_torch.kernels.mamba2_scan import ref as mref
+    from repro_torch.kernels.mamba2_scan.kernel import mamba2_fwd
+    from repro_torch.kernels.rwkv6_scan import ref as rref
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_fwd
+    bf16 = torch.bfloat16
+    H, P, N, G = 80, 64, 64, 1      # zamba2's Mamba-2 heads
+    Hr, K = 40, 64                  # rwkv6-3b's heads
+    scans = {
+        "mamba2_scan": (
+            mamba2_fwd, mref.mamba2_scan,
+            lambda B, T, h0=True: mamba2_case(torch, gen, B, T, H, P, N, G,
+                                              h0, dtype=bf16),
+            lambda B, T: (2 * (2 * B * T * H * P + 2 * B * T * G * N)
+                          + 4 * (B * T * H + H + 2 * B * H * P * N)),
+            lambda B, T: B * T * H * (P * (5 * N + 1) + 2),
+            f"x ({{}}, {{}}, {H}, {P}) bf16, B/C bf16, dt, A, state f32"),
+        "rwkv6_scan": (
+            rwkv6_fwd, rref.rwkv6_scan,
+            lambda B, T, h0=True: rwkv6_case(torch, gen, B, T, Hr, K,
+                                             dtype=bf16),
+            lambda B, T: (2 * (3 * B * T * Hr * K + B * T * Hr * K)
+                          + 4 * (B * T * Hr * K + Hr * K
+                                 + 2 * B * Hr * K * K)),
+            lambda B, T: B * T * Hr * (5 * K * K + 5 * K),
+            f"r, k, v ({{}}, {{}}, {Hr}, {K}) bf16, w, u, state f32"),
+    }
+    for name, (kernel, plain, make, nbytes, flops, shape) in scans.items():
+        out, errs = {}, []
+        for B, T, h0 in ((1, 132, False), (1, 132, True), (8, 1, True)):
+            args = make(B, T, h0)
+            y, h = kernel(*args)
+            ry, rh = plain(*args)
+            errs.append(bf16_err(torch, f"{name} bf16 B={B} T={T}", y, ry))
+            err = _scan_err(torch, h, rh)
+            if h.dtype != torch.float32 or not err <= SCAN_TOL:
+                fail(f"{name} bf16 B={B} T={T}: state {h.dtype}, scaled err "
+                     f"{err:.3g} > {SCAN_TOL}")
+        for label, (B, T) in (("decode", (8, 1)), ("prefill", (1, 132))):
+            b = bound(nbytes(B, T), flops(B, T))
+            sets = [make(B, T) for _ in range(n_copies(nbytes(B, T)))]
+            calls = [lambda s=s: kernel(*s) for s in sets]
+            t_k, d_k = time_ms(calls), device_ms(calls)
+            t_p = time_ms([lambda s=s: plain(*s) for s in sets], iters=10)
+            out[label] = dict(worst_err(errs), ms=t_k, device_ms=d_k,
+                              plain_ms=t_p, bound_ms=b[0], bound_by=b[1],
+                              library_ms=None, shape=shape.format(B, T))
+            say(f"{name} bf16 {label}: {out[label]['shape']}: y max abs err "
+                f"{out[label]['max_abs_err']:.3g} "
+                f"({out[label]['max_ulps']:.3g} ulps); kernel {t_k:.4f} ms "
+                f"({d_k:.4f} on the device), plain {t_p:.4f} ms, bound "
+                f"{b[0]:.5f} ms ({b[1]})")
+        results[name]["bf16"] = out
+
+
+def check_bf16(torch, F, gen, results):
+    """Every kernel again with bf16 inputs, at the shapes phase 3 times:
+    each held against its plain version fed the same bf16 tensors (quant
+    and masked encode bit-equal, EL2N within EL2N_TOL, bf16 outputs within
+    BF16_TOL), timed beside plain, with a bound at 2 B a bf16 element."""
+    bf16_quant(torch, gen, results)
+    bf16_prefill(torch, F, gen, results)
+    bf16_decode(torch, F, gen, results)
+    bf16_paged(torch, gen, results)
+    bf16_el2n(torch, gen, results)
+    bf16_secure(torch, gen, results)
+    bf16_scans(torch, gen, results)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1411,6 +1867,120 @@ def engine_parity(torch):
             f"{', page 8, shared prefix 8, chunks of 4' if kind == 'paged' else ''}"
             f"): tokens ==, max logit diff {worst:.3g}, wire bytes "
             f"{'and page counters ' if kind == 'paged' else ''}==")
+
+
+def gap_rule(label, gaps, ref_gaps):
+    """The bf16 gap rule over every logit of every request: the mean of
+    |port_bf16 - reference_bf16| may not exceed the mean of
+    |reference_bf16 - reference_f32| on the same requests. Fails on a
+    non-finite logit; returns both means and both maxima."""
+    import numpy as np
+    gap, ref = np.concatenate(gaps), np.concatenate(ref_gaps)
+    if not np.isfinite(gap).all():
+        fail(f"{label}: a logit is not finite")
+    out = dict(gap_mean=float(gap.mean()), bf16_f32_mean=float(ref.mean()),
+               gap_max=float(gap.max()), bf16_f32_max=float(ref.max()))
+    if out["gap_mean"] > out["bf16_f32_mean"]:
+        fail(f"{label}: mean logit gap {out['gap_mean']:.4g} exceeds the "
+             f"bf16-vs-f32 gap {out['bf16_f32_mean']:.4g}")
+    return out
+
+
+def engine_parity_bf16(torch):
+    """Phase 4 at bf16: the reduced Qwen2.5 (GQA 5) on the int8 wire through
+    the dense and the paged engine with ServeConfig(dtype=bfloat16), card
+    against CPU. Wire bytes and page counters equal; every logit finite;
+    the gap rule with the card in the port's place and the CPU in the
+    reference's: teacher-forced through the step functions on the CPU's
+    tokens, the card's mean logit gap to the CPU at bf16 is no more than
+    the CPU's own bf16-vs-f32 gap. The paged engine's logits are compared
+    where its card and CPU tokens still agree (every step up to the first
+    that differs; free-running tokens are printed, not required equal)."""
+    import numpy as np
+    from repro_torch.core import SplitConfig, SplitModel
+    from repro_torch.launch.serve import personalized_bank, \
+        shared_prefix_tokens
+    from repro_torch.runtime import WireSpec
+    from repro_torch.serve import (PagedServeConfig, PagedServeEngine,
+                                   ServeConfig, ServeEngine, TenantBank,
+                                   WorkloadConfig, synthetic_requests)
+    from repro_torch.serve.steps import forced_logits
+    from repro_torch.tree import tree_map
+    bf16 = torch.bfloat16
+    cfg = gqa_reduced()
+    model = SplitModel(cfg, SplitConfig(head_cycles=1, tail_cycles=1,
+                                        prompt_len=4), WireSpec.make("int8"))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    bank = personalized_bank(model, params, 3, jitter=0.2)
+    reqs = synthetic_requests(WorkloadConfig(
+        n_requests=6, prompt_choices=(6, 11), new_token_choices=(3, 6),
+        n_tenants=3, vocab_size=cfg.vocab_size, seed=3))
+    on = {dev: (tree_map(lambda x: x.to(dev), params),
+                TenantBank(tree_map(lambda x: x.to(dev), bank.tails),
+                           bank.prompts.to(dev)))
+          for dev in ("cpu", "cuda")}
+    engines = {
+        "dense": lambda p, b, dev: ServeEngine(
+            model, p, b, ServeConfig(n_slots=3, max_seq=48, decode_block=4,
+                                     dtype=bf16),
+            collect_logits=True, device=dev),
+        "paged": lambda p, b, dev: PagedServeEngine(
+            model, p, b, PagedServeConfig(
+                n_slots=3, max_seq=48, decode_block=4, page_size=8,
+                shared_prefix=shared_prefix_tokens(8, cfg.vocab_size),
+                prefill_chunk=4, dtype=bf16),
+            collect_logits=True, device=dev),
+    }
+    counters = ("wire_bytes", "tokens_out", "decode_steps", "prefills",
+                "page_copies", "prefix_hits", "prefix_misses",
+                "prefill_chunks", "peak_pages", "pages_in_use")
+    runs = {}
+    for kind, make in engines.items():
+        runs[kind] = {dev: make(*on[dev], dev).run(reqs)
+                      for dev in ("cpu", "cuda")}
+        got = {k: runs[kind]["cuda"].get(k) for k in counters}
+        want = {k: runs[kind]["cpu"].get(k) for k in counters}
+        if got != want:
+            fail(f"{kind} engine bf16: wire bytes or counters differ between "
+                 f"devices: {got} vs {want}")
+    # the reference gap: the CPU at bf16 against the CPU at f32, both
+    # teacher-forced on the CPU's bf16 dense tokens
+    forced = {}
+    for f in runs["dense"]["cpu"]["finished"]:
+        toks = f.tokens.tolist()
+        forced[f.req.rid] = {
+            (dev, str(dt)): forced_logits(
+                model, {"head": on[dev][0]["head"],
+                        "body": on[dev][0]["body"]}, on[dev][1], f.req, toks,
+                dtype=dt, max_seq=48, device=dev)
+            for dev, dt in (("cpu", bf16), ("cuda", bf16),
+                            ("cpu", torch.float32))}
+    ref_gaps = [np.abs(r[("cpu", str(bf16))] - r[("cpu", "torch.float32")])
+                .ravel() for r in forced.values()]
+    out = {"dense": gap_rule("dense engine bf16", [
+        np.abs(r[("cuda", str(bf16))] - r[("cpu", str(bf16))]).ravel()
+        for r in forced.values()], ref_gaps)}
+    cpu = {f.req.rid: f for f in runs["paged"]["cpu"]["finished"]}
+    gaps, same = [], 0
+    for f in runs["paged"]["cuda"]["finished"]:
+        c = cpu[f.req.rid]
+        agree = int(np.cumprod(f.tokens == c.tokens).sum())
+        same += agree == len(f.tokens)
+        n = min(agree + 1, len(f.tokens))   # the step that parts included
+        gaps.append(np.abs(f.logits[:n] - c.logits[:n]).ravel())
+    out["paged"] = gap_rule("paged engine bf16", gaps, ref_gaps)
+    dense_same = sum((f.tokens == g.tokens).all() for f, g in zip(
+        runs["dense"]["cpu"]["finished"], runs["dense"]["cuda"]["finished"]))
+    for kind, r in out.items():
+        r["free_running_tokens_equal"] = int(
+            same if kind == "paged" else dense_same)
+        say(f"{kind} engine parity at bf16 ({cfg.name}, G=5, int8 wire, "
+            f"{len(reqs)} requests): wire bytes and counters ==; mean logit "
+            f"gap card vs CPU {r['gap_mean']:.4g} <= the CPU's bf16-vs-f32 "
+            f"{r['bf16_f32_mean']:.4g} (max {r['gap_max']:.4g} vs "
+            f"{r['bf16_f32_max']:.4g}); free-running tokens equal in "
+            f"{r['free_running_tokens_equal']} of {len(reqs)} requests")
+    return out
 
 
 def recurrent_parity(torch):
@@ -1573,16 +2143,20 @@ WORKLOAD = dict(mean_interarrival=1.0, prompt_choices=(32, 64, 96, 128),
                 new_token_choices=(16, 24, 32), n_tenants=4)
 
 
-def full_width(torch, fw, path="dense"):
+def full_width(torch, fw, path="dense", dtype=None):
     """One model through the dense engine at full width with phase 5's
     traffic: 4 tenants, 8 slots, max_seq 512, int8 wire, decode_block 8,
-    16 synthetic requests of 32-128 prompt and 16-32 new tokens."""
+    16 synthetic requests of 32-128 prompt and 16-32 new tokens; at f32
+    activations, or at `dtype` (phase 12: bf16, with the first-token
+    logit gap to f32 printed)."""
     from repro_torch.core.comm import serve_comm_breakdown
     from repro_torch.serve import (ServeConfig, ServeEngine, WorkloadConfig,
                                    synthetic_requests)
     cfg, split, model = fw["cfg"], fw["split"], fw["model"]
+    dtype = dtype or torch.float32
     engine = ServeEngine(model, fw["params"], fw["bank"],
-                         ServeConfig(n_slots=8, max_seq=512, decode_block=8),
+                         ServeConfig(n_slots=8, max_seq=512, decode_block=8,
+                                     dtype=dtype),
                          device="cuda")
     wl = dict(WORKLOAD, vocab_size=cfg.vocab_size)
     reqs = synthetic_requests(WorkloadConfig(n_requests=16, seed=0, **wl))
@@ -1601,8 +2175,11 @@ def full_width(torch, fw, path="dense"):
                  f"{want} B")
     summary = _summary(torch, stats, fw, {
         "config": f"{fw['desc']}, 4 tenants, 8 slots, max_seq 512, int8 "
-                  f"wire, decode_block 8, fp32",
+                  f"wire, decode_block 8, {str(dtype)[6:]}",
         "wire_rel_err": wire_err, "launches": launches})
+    if dtype != torch.float32:
+        summary["first_token_gap_to_f32"] = first_token_gap(torch, fw, reqs,
+                                                            dtype)
     say(f"{path} full width: " + json.dumps(summary, sort_keys=True))
     summary["profile"] = profile_replay(torch, engine, reqs)
     say(f"{path} profile: " + json.dumps(summary["profile"], sort_keys=True))
@@ -1610,30 +2187,31 @@ def full_width(torch, fw, path="dense"):
     return launches, summary
 
 
-def full_width_paged(torch, fw):
+def full_width_paged(torch, fw, path="paged", dtype=None):
     """The paged path at full width: 16 slots over a pool of 128 usable
     pages of 16 tokens — the KV memory of 4 dense 512-token slots (786,432
     B a page over 6 layers) — with a 32-token shared prefix and prefill
-    chunks of 64."""
+    chunks of 64; at f32 activations, or at `dtype` (phase 13: bf16)."""
     from repro_torch.launch.serve import shared_prefix_tokens
     from repro_torch.serve import (PagedServeConfig, PagedServeEngine,
                                    WorkloadConfig, synthetic_requests)
     cfg, split, model = fw["cfg"], fw["split"], fw["model"]
     prefix = shared_prefix_tokens(32, cfg.vocab_size)
+    dtype = dtype or torch.float32
     pcfg = PagedServeConfig(n_slots=16, max_seq=512, decode_block=8,
                             page_size=16, n_pages=130, shared_prefix=prefix,
-                            prefill_chunk=64)
+                            prefill_chunk=64, dtype=dtype)
     engine = PagedServeEngine(model, fw["params"], fw["bank"], pcfg,
                               device="cuda")
     wl = dict(WORKLOAD, vocab_size=cfg.vocab_size)
     reqs = synthetic_requests(WorkloadConfig(n_requests=24, seed=0, **wl))
     stats, launches = run_path(
-        torch, "paged", engine, reqs,
+        torch, path, engine, reqs,
         synthetic_requests(WorkloadConfig(n_requests=2, seed=1, **wl)))
     joins = stats["prefix_hits"] + stats["prefix_misses"]
     if stats["pages_in_use"] != 0 or joins != len(reqs) \
             or stats["page_copies"] != len(reqs):
-        fail(f"paged full width: pages_in_use {stats['pages_in_use']}, "
+        fail(f"{path} full width: pages_in_use {stats['pages_in_use']}, "
              f"prefix joins {joins}, page copies {stats['page_copies']} "
              f"(want 0, {len(reqs)}, {len(reqs)}: the {len(prefix)}-token "
              f"prefix + soft prompt is not page-aligned)")
@@ -1652,23 +2230,40 @@ def full_width_paged(torch, fw):
         got = stats["wire_bytes"][b.name]
         wire_err[b.name] = abs(got - want) / want
         if wire_err[b.name] > PAGED_WIRE_TOL:
-            fail(f"paged full width: {b.name} measured {got} B vs exact "
+            fail(f"{path} full width: {b.name} measured {got} B vs exact "
                  f"{want} B")
     summary = _summary(torch, stats, fw, {
         "config": f"{fw['desc']}, 4 tenants, 16 slots, max_seq 512, "
                   f"page 16, 130 pages (128 usable), shared prefix "
                   f"{len(prefix)}, prefill_chunk 64, int8 wire, "
-                  f"decode_block 8, fp32",
+                  f"decode_block 8, {str(dtype)[6:]}",
         "peak_pages": stats["peak_pages"],
         "prefix_hit_ratio": stats["prefix_hit_ratio"],
         "prefix_misses": stats["prefix_misses"],
         "page_copies": stats["page_copies"],
         "prefill_chunks": stats["prefill_chunks"],
         "wire_rel_err": wire_err, "launches": launches})
-    say("paged full width: " + json.dumps(summary, sort_keys=True))
+    say(f"{path} full width: " + json.dumps(summary, sort_keys=True))
     summary["profile"] = profile_replay(torch, engine, reqs)
-    say("paged profile: " + json.dumps(summary["profile"], sort_keys=True))
+    say(f"{path} profile: " + json.dumps(summary["profile"], sort_keys=True))
     return launches, summary
+
+
+def first_token_gap(torch, fw, reqs, dtype):
+    """Printed, not checked: each request's prefill logits at `dtype`
+    against f32 (the same weights, through the engine's prefill step), the
+    largest and the mean absolute gap over every request and logit."""
+    import numpy as np
+    from repro_torch.serve.steps import forced_logits
+    shared = {"head": fw["params"]["head"], "body": fw["params"]["body"]}
+    gaps = []
+    for r in reqs:
+        one = [forced_logits(fw["model"], shared, fw["bank"], r, [0],
+                             dtype=dt, max_seq=512, device="cuda")
+               for dt in (dtype, torch.float32)]
+        gaps.append(np.abs(one[0] - one[1]).ravel())
+    gaps = np.concatenate(gaps)
+    return dict(max=float(gaps.max()), mean=float(gaps.mean()))
 
 
 def profile_replay(torch, engine, reqs):
@@ -1704,8 +2299,10 @@ def device_summary(prof, wall):
     # device work only: kernels and memcpy/memset. The profiler also lists
     # operator ranges (aten::mm, record_function annotations) on the device
     # timeline; they span the kernels they launch and would count them twice.
-    # Kernels are keyed by the first 60 characters of their names, so the
-    # template instances of one cuBLAS kernel add up under one key.
+    # Kernels are keyed by the first 60 characters of their names (after a
+    # leading "void at::native::", so PyTorch's elementwise kernels keep
+    # the name of their functor), and the template instances of one cuBLAS
+    # kernel add up under one key.
     kernels, by_kind, spans_us, port_n = {}, {}, [], {}
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA \
@@ -1713,7 +2310,8 @@ def device_summary(prof, wall):
                 or evt.name.startswith("aten::"):
             continue
         us = evt.time_range.elapsed_us()
-        kernels[evt.name[:60]] = kernels.get(evt.name[:60], 0) + us
+        key = evt.name.removeprefix("void at::native::")[:60]
+        kernels[key] = kernels.get(key, 0) + us
         kind = _device_kind(evt.name)
         by_kind[kind] = by_kind.get(kind, 0) + us
         port = next((k for k in PORT_KERNELS
@@ -1754,11 +2352,18 @@ PORT_KERNELS = ("decode_kernel", "paged_decode_kernel",
 
 
 def _device_kind(name: str) -> str:
-    """Coarse class of a device event, for the time breakdown in PERF.md."""
+    """Coarse class of a device event, for the time breakdown in PERF.md.
+    cuBLAS's bf16 products on Hopper are its `nvjet` kernels. Copies are
+    PyTorch's copy kernels (`direct_copy_kernel_cuda`, and
+    `bfloat16_copy_kernel_cuda` for f32 -> bf16): the per-call weight
+    casts of a bf16 run land there."""
     if any(k in name for k in PORT_KERNELS):
         return "port kernels"
-    if "gemm" in name.lower() or "gemv" in name.lower():
+    if "gemm" in name.lower() or "gemv" in name.lower() \
+            or name.startswith("nvjet"):
         return "cuBLAS gemm/gemv"
+    if "copy_kernel" in name:
+        return "copies and casts (copy_ / to)"
     if "memcpy" in name.lower() or "memset" in name.lower():
         return "memcpy/memset"
     return "other (elementwise, reductions, index)"
@@ -2279,16 +2884,24 @@ def main() -> None:
     check_secure_mask(torch, gen, results)
     check_mamba2(torch, gen, results)
     check_rwkv6(torch, gen, results)
+    check_bf16(torch, F, gen, results)
 
-    # 4. engine parity card vs CPU, dense and paged; the recurrent families
+    # 4. engine parity card vs CPU, dense and paged, at f32 and bf16; the
+    # recurrent families
     engine_parity(torch)
+    bf16_parity = engine_parity_bf16(torch)
     recurrent = recurrent_parity(torch)
 
-    # 5-6. the dense and the paged path at full width
+    # 5-6. the dense and the paged path at full width; 12-13. the same at
+    # bf16 activations, on the same weights
     fw = full_width_model(torch)
-    by_path, summaries = {}, {}
+    by_path, summaries = {}, {"bf16_parity": bf16_parity}
     by_path["dense"], summaries["dense"] = full_width(torch, fw)
     by_path["paged"], summaries["paged"] = full_width_paged(torch, fw)
+    by_path["dense_bf16"], summaries["dense_bf16"] = full_width(
+        torch, fw, "dense_bf16", torch.bfloat16)
+    by_path["paged_bf16"], summaries["paged_bf16"] = full_width_paged(
+        torch, fw, "paged_bf16", torch.bfloat16)
     del fw
     torch.cuda.empty_cache()
 
@@ -2314,7 +2927,8 @@ def main() -> None:
         by_path[path], summaries[path] = full_width(torch, fw, path)
         del fw
 
-    # 12. kernels line, device line
+    # the kernels line (f32 numbers under the contract's keys, bf16 ones
+    # under "bf16", by case), then the device line
     kernels = []
     for name in REPLACES:
         per_path = {path: counts[name] for path, counts in by_path.items()
@@ -2322,7 +2936,11 @@ def main() -> None:
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=sum(per_path.values()),
-            launches_by_path=per_path,
+            launches_by_path=per_path, dtypes=["float32", "bfloat16"],
+            bf16={case: {k: r.get(k) for k in (
+                "max_abs_err", "max_ulps", "ms", "device_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")}
+                for case, r in results[name]["bf16"].items()},
             **{k: results[name][k] for k in
                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}))

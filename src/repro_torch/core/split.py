@@ -338,7 +338,9 @@ class SplitModel:
             return x, pos, pos, 0
         toks = batch["tokens"]
         B, S = toks.shape
-        x = emb["tok"].to(dtype)[toks.long()]
+        # gather the rows, then cast them: the same values as casting the
+        # whole table first, without a copy of the table at `dtype`
+        x = emb["tok"][toks.long()].to(dtype)
         n_prefix = 0
         if prompt is not None and mode != "decode" and chunk_start is None:
             pr = prompt[None].expand((B,) + tuple(prompt.shape))

@@ -1,4 +1,5 @@
-// Slot-cache decode attention (fp32) for Hopper (sm_90a).
+// Slot-cache decode attention (f32 or bf16 in, fp32 math) for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/decode.py::
 // decode_attention_fwd. One query token per slot attends to that slot's
@@ -53,6 +54,10 @@
 //    floats takes a 4-byte-copy instantiation; the entry point picks, and
 //    the host never falls back.
 //
+// q (and the output) and the cache may each be f32 or bf16 (see
+// decode_common.cuh): the kernel is instantiated per cache dtype, the
+// query load and the output store branch on q's.
+//
 // Inside a tile one lane scores one key against its warp's query rows on
 // the fp32 SIMT pipe (four warps of two rows, G = Hq / Hkv <= 8, so each
 // tile is read once per GQA group). Softcap applies before the mask. Keys
@@ -65,9 +70,9 @@ namespace {
 using namespace sfp;
 
 struct DecParams {
-  const float* q;
-  const float* k;
-  const float* v;
+  const void* q;     // of dtype q_dtype, as the output (out.o_dtype)
+  const void* k;     // of the kernel's cache type
+  const void* v;
   const int* q_pos;
   const int* kv_pos;
   DecodeOut out;
@@ -78,7 +83,7 @@ struct DecParams {
   float softcap, scale;
 };
 
-template <bool kVec16>
+template <bool kVec16, class TKV>
 __global__ void __launch_bounds__(kThreads) decode_kernel(DecParams p) {
   extern __shared__ __align__(16) float smem[];
   const DecodeSmem sm(smem, p.n_tiles);
@@ -90,8 +95,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecParams p) {
   const int qp = p.q_pos[b * p.qp_sb];
 
   // the group's query rows arrive during the flag pass
-  load_queries(sm.qs, p.q + b * p.q_sb + hk * G * p.q_sh, p.q_sh, G, p.Dh,
-               tid);
+  load_queries(sm.qs, p.q, p.out.o_dtype, b * p.q_sb + hk * G * p.q_sh,
+               p.q_sh, G, p.Dh, tid);
 
   // 1. flag every tile that holds a valid key, one key a lane, and list
   // them
@@ -116,8 +121,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecParams p) {
 
   // 3. the copy of the r-th tile of the walk into `stage`: warp w takes
   // keys w, w + 4, ..., one 16-byte chunk a lane
-  const float* kb = p.k + b * p.k_sb + hk * p.k_sh;
-  const float* vb = p.v + b * p.v_sb + hk * p.v_sh;
+  const TKV* kb = static_cast<const TKV*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const TKV* vb = static_cast<const TKV*>(p.v) + b * p.v_sb + hk * p.v_sh;
   const int dh4 = (p.Dh + 3) / 4, dv4 = (p.out.Dv + 3) / 4;
   auto issue = [&](int r, int stage) {
     const int t = idle ? r : sm.tl[r];
@@ -148,10 +153,13 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecParams p) {
 
 }  // namespace
 
+// q and o of dtype q_dtype, k and v of dtype kv_dtype (kF32 or kBF16);
+// strides in elements of each tensor's own dtype.
 extern "C" int sfp_decode_attention_fwd(
-    const float* q, const float* k, const float* v, const int* q_pos,
-    const int* kv_pos, float* o, float* ws, int B, int W, int Hq, int Hkv,
-    int Dh, int Dv, int S, long long q_sb, long long q_sh, long long k_sb,
+    const void* q, int q_dtype, const void* k, const void* v, int kv_dtype,
+    const int* q_pos, const int* kv_pos, void* o, float* ws, int B, int W,
+    int Hq, int Hkv, int Dh, int Dv, int S, long long q_sb, long long q_sh,
+    long long k_sb,
     long long k_sw, long long k_sh, long long v_sb, long long v_sw,
     long long v_sh, long long qp_sb, long long kvp_sb, long long kvp_sw,
     long long o_sb, long long o_sh, int window, float softcap, float scale,
@@ -162,17 +170,22 @@ extern "C" int sfp_decode_attention_fwd(
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || W <= 0) return (int)cudaGetLastError();
   const int n_tiles = (W + kBK - 1) / kBK;
-  const DecodeOut out{o, ws, B, Hq, S, Dv, o_sb, o_sh};
+  const DecodeOut out{o, ws, B, Hq, S, Dv, o_sb, o_sh, q_dtype};
   DecParams p{q,    k,    v,    q_pos, kv_pos, out,  W,      Hkv,
               Dh,   n_tiles,    q_sb,  q_sh,   k_sb, k_sw,   k_sh,
               v_sb, v_sw, v_sh, qp_sb, kvp_sb, kvp_sw, window, softcap,
               scale};
-  // 16-byte copies need every K and V row to start 16-byte aligned
+  // Vector copies need every K and V row aligned to one: 16 bytes (4 f32)
+  // or 8 bytes (4 bf16), the bases and the strides in units of 4 values
   const unsigned long long addr = reinterpret_cast<unsigned long long>(k) |
                                   reinterpret_cast<unsigned long long>(v);
   const long long strides = k_sb | k_sw | k_sh | v_sb | v_sw | v_sh;
-  auto* kernel = addr % 16 == 0 && strides % 4 == 0 ? decode_kernel<true>
-                                                    : decode_kernel<false>;
+  const bool bf = kv_dtype == kBF16;
+  const bool vec = addr % (bf ? 8 : 16) == 0 && strides % 4 == 0;
+  auto* kernel = bf ? (vec ? decode_kernel<true, bf16>
+                           : decode_kernel<false, bf16>)
+                    : (vec ? decode_kernel<true, float>
+                           : decode_kernel<false, float>);
   return (int)launch_decode(kernel, p, Hkv, n_tiles, out,
                             (cudaStream_t)stream);
 }

@@ -18,6 +18,15 @@
 //   the weights through shared memory, each lane owning four output columns
 //   (DecodeRows).
 //
+// q and the output share one dtype, f32 or bf16 (the TPU kernels write
+// q's dtype); K and V share another, independently: the serving engines
+// hold f32 caches under bf16 activations. bf16 values are widened to f32
+// on load — exact — so the tiles, the fold and the combine are the f32
+// kernel's. f32 K/V tiles stream through cp.async; bf16 tiles are read
+// with synchronous 8-byte loads (4 values a lane) into the same f32
+// stages, and bf16 query rows likewise. Only the last writer (the block
+// at S = 1, else the combine) rounds the output, once, to nearest even.
+//
 // Shared rows have stride kDMax + 4 floats: copies stay 16-byte aligned and
 // each lane's float4 read of its own key row hits distinct banks in every
 // quarter warp. Two stages of K and V are 67.6 KB (72.7 KB a block with the
@@ -26,6 +35,7 @@
 #pragma once
 
 #include "attention_common.cuh"
+#include "dtype.cuh"
 #include "mma_tf32.cuh"  // the cp.async helpers
 
 namespace sfp {
@@ -87,16 +97,50 @@ __device__ __forceinline__ void copy_row(float* dst, const float* src, int n,
   }
 }
 
-// Start the copy of the group's G query rows (row stride q_sh) into qs,
-// zero past G and Dh so dots read whole float4s; it is committed as its
-// own cp.async group and lands with the first tile.
-__device__ __forceinline__ void load_queries(float* qs, const float* qb,
+// The same copy from a bf16 row, widened to f32 on the way: one 8-byte
+// load of 4 values a lane (kVec: src aligned to 8 bytes) or 4 single
+// loads, then one 16-byte shared store. Synchronous: the stage is visible
+// to the block after the walk's next __syncthreads, as a cp.async stage
+// is after its wait.
+template <bool kVec>
+__device__ __forceinline__ void copy_row(float* dst, const bf16* src, int n,
+                                         int chunks, int lane) {
+  if (lane >= chunks) return;
+  const int c = 4 * lane;
+  float4 f;
+  if (kVec && n - c >= 4) {
+    f = load4(src + c);
+  } else {
+    f.x = c < n ? to_f32(src[c]) : 0.f;
+    f.y = c + 1 < n ? to_f32(src[c + 1]) : 0.f;
+    f.z = c + 2 < n ? to_f32(src[c + 2]) : 0.f;
+    f.w = c + 3 < n ? to_f32(src[c + 3]) : 0.f;
+  }
+  *reinterpret_cast<float4*>(dst + c) = f;
+}
+
+// Start the copy of the group's G query rows (element qo of q, of dtype
+// q_dtype; row stride q_sh) into qs, zero past G and Dh so dots read whole
+// float4s. f32 rows go by cp.async, committed as their own group, landing
+// with the first tile; bf16 rows are widened by plain loads and stores.
+// Either way the rows are visible after the flag pass's __syncthreads.
+__device__ __forceinline__ void load_queries(float* qs, const void* q,
+                                             int q_dtype, long long qo,
                                              long long q_sh, int G, int Dh,
                                              int tid) {
-  for (int idx = tid; idx < kMaxGroup * kDMax; idx += kThreads) {
-    const int g = idx / kDMax, d = idx % kDMax;
-    const bool in = g < G && d < Dh;
-    cp_async4(qs + idx, in ? qb + g * q_sh + d : qb, in ? 4 : 0);
+  if (q_dtype == kBF16) {
+    const bf16* qb = static_cast<const bf16*>(q) + qo;
+    for (int idx = tid; idx < kMaxGroup * kDMax; idx += kThreads) {
+      const int g = idx / kDMax, d = idx % kDMax;
+      qs[idx] = g < G && d < Dh ? to_f32(qb[g * q_sh + d]) : 0.f;
+    }
+  } else {
+    const float* qb = static_cast<const float*>(q) + qo;
+    for (int idx = tid; idx < kMaxGroup * kDMax; idx += kThreads) {
+      const int g = idx / kDMax, d = idx % kDMax;
+      const bool in = g < G && d < Dh;
+      cp_async4(qs + idx, in ? qb + g * q_sh + d : qb, in ? 4 : 0);
+    }
   }
   cp_async_commit();
 }
@@ -142,13 +186,15 @@ __device__ __forceinline__ void walk_tiles(int lo, int hi, Issue issue,
   cp_async_wait<0>();
 }
 
-// Where a decode launch writes: the output (B, Hq, Dv) through its (b, h)
-// strides, or with S > 1 the splits' workspace (B, Hq, S, Dv + 2).
+// Where a decode launch writes: the output (B, Hq, Dv) of dtype o_dtype
+// through its (b, h) strides, or with S > 1 the splits' f32 workspace
+// (B, Hq, S, Dv + 2).
 struct DecodeOut {
-  float* o;
+  void* o;
   float* ws;
   int B, Hq, S, Dv;
   long long o_sb, o_sh;
+  int o_dtype;
 };
 
 // The online-softmax state of a warp's kRowsPerWarp query rows g0, g0 + 1:
@@ -262,12 +308,13 @@ struct DecodeRows {
       if (g >= G) continue;
       const int h = hk * G + g;
       if (out.S == 1) {
-        float* ob = out.o + b * out.o_sb + h * out.o_sh;
+        const long long ob = b * out.o_sb + h * out.o_sh;
         const float inv = 1.f / fmaxf(li, 1e-30f);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int d = 4 * lane + e;
-          if (d < out.Dv) ob[d] = acc[i][e] * inv;
+          if (d < out.Dv)
+            store_f32(out.o, out.o_dtype, ob + d, acc[i][e] * inv);
         }
       } else {
         float* wb = out.ws + ((static_cast<long long>(b) * out.Hq + h) *
@@ -308,13 +355,13 @@ static __global__ void __launch_bounds__(kThreads)
     l += f[s] * ls;
   }
   const float inv = 1.f / fmaxf(l, 1e-30f);
-  float* ob = p.o + b * p.o_sb + h * p.o_sh;
+  const long long ob = b * p.o_sb + h * p.o_sh;
   for (int d = lane; d < p.Dv; d += 32) {
     float a = 0.f;
 #pragma unroll
     for (int s = 0; s < kMaxSplits; ++s)
       if (f[s] > 0.f) a = fmaf(f[s], wb[s * (p.Dv + 2) + 2 + d], a);
-    ob[d] = a * inv;
+    store_f32(p.o, p.o_dtype, ob + d, a * inv);
   }
 }
 

@@ -19,13 +19,16 @@
 // l_y is read directly at the label's column instead of max-reducing a hit
 // mask over every tile. The logits are read through a row stride (an LM
 // logits view needs no copy) and V needs no padding: a row whose pointer is
-// not 16-byte aligned takes up to three scalar loads first, then float4
-// loads, then a scalar tail of up to three.
+// not 16-byte aligned takes scalar loads up to the first 16-byte boundary,
+// then 16-byte loads (4 f32 or 8 bf16), then a scalar tail. bf16 logits
+// are widened on load, exactly, as the TPU kernel's astype(f32): no
+// separate widening pass; the outputs are f32 at either dtype.
 //
-// Bound: one read of N*V*4 bytes and a few flops per element, so at LM
-// vocabularies it is bound by device memory; at the ViT classifier's
-// (16, 100) it is bound by the launch. With few rows it under-fills the 132
-// SMs (one block a row); splitting V across blocks is later work.
+// Bound: one read of N*V*4 bytes (N*V*2 at bf16) and a few flops per
+// element, so at LM vocabularies it is bound by device memory; at the ViT
+// classifier's (16, 100) it is bound by the launch. With few rows it
+// under-fills the 132 SMs (one block a row); splitting V across blocks is
+// later work.
 //
 // IEEE expf/logf (no fast math). A label outside [0, V) gives NaN in both
 // outputs rather than reading outside the row.
@@ -34,7 +37,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
+
 namespace {
+
+using namespace sfp;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -78,37 +85,40 @@ __device__ __forceinline__ Stats warp_merge(Stats s) {
   return s;
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-el2n_kernel(const float* __restrict__ logits, long long row_stride,
+el2n_kernel(const T* __restrict__ logits, long long row_stride,
             const int* __restrict__ labels, int v, float* __restrict__ el2n,
             float* __restrict__ ce) {
   __shared__ Stats warp_stats[kWarps];
+  constexpr int kVec = kPer16<T>;  // values a 16-byte load
   const long long row = blockIdx.x;
-  const float* p = logits + row * row_stride;
+  const T* p = logits + row * row_stride;
   Stats s{-INFINITY, 0.f, 0.f};
 
-  // scalar head up to the first 16-byte boundary, float4 body, scalar tail
-  int head = (int)(((16u - ((uintptr_t)p & 15u)) & 15u) >> 2);
+  // scalar head up to the first 16-byte boundary, 16-byte body, scalar tail
+  int head = (int)(((16u - ((uintptr_t)p & 15u)) & 15u) / sizeof(T));
   if (head > v) head = v;
-  const int n4 = (v - head) >> 2;
-  const int tail = head + 4 * n4;
+  const int nv = (v - head) / kVec;
+  const int tail = head + kVec * nv;
   for (int j = threadIdx.x; j < head; j += kThreads) {
-    const float x = p[j];
+    const float x = to_f32(p[j]);
     rescale_to(s, x);
     add(s, x);
   }
-  const float4* p4 = reinterpret_cast<const float4*>(p + head);
 #pragma unroll 4
-  for (int j = threadIdx.x; j < n4; j += kThreads) {
-    const float4 x = __ldg(p4 + j);
-    rescale_to(s, fmaxf(fmaxf(x.x, x.y), fmaxf(x.z, x.w)));
-    add(s, x.x);
-    add(s, x.y);
-    add(s, x.z);
-    add(s, x.w);
+  for (int j = threadIdx.x; j < nv; j += kThreads) {
+    float x[kVec];
+    load16(p + head + kVec * j, x);
+    float gm = x[0];
+#pragma unroll
+    for (int e = 1; e < kVec; ++e) gm = fmaxf(gm, x[e]);
+    rescale_to(s, gm);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) add(s, x[e]);
   }
   for (int j = tail + threadIdx.x; j < v; j += kThreads) {
-    const float x = p[j];
+    const float x = to_f32(p[j]);
     rescale_to(s, x);
     add(s, x);
   }
@@ -128,7 +138,7 @@ el2n_kernel(const float* __restrict__ logits, long long row_stride,
     ce[row] = NAN;
     return;
   }
-  const float ly = p[y];
+  const float ly = to_f32(p[y]);
   const float z = fmaxf(s.z, 1e-30f);
   const float py = expf(ly - s.m) / z;
   const float sq = fmaxf(s.s2 / (z * z) - 2.f * py + 1.f, 0.f);
@@ -138,11 +148,19 @@ el2n_kernel(const float* __restrict__ logits, long long row_stride,
 
 }  // namespace
 
-extern "C" int sfp_el2n_fwd(const float* logits, long long row_stride,
-                            const int* labels, float* el2n, float* ce, int n,
-                            int v, void* stream) {
-  if (n > 0)
-    el2n_kernel<<<n, kThreads, 0, (cudaStream_t)stream>>>(
-        logits, row_stride, labels, v, el2n, ce);
+// logits of dtype logits_dtype (kF32 or kBF16); el2n, ce f32.
+extern "C" int sfp_el2n_fwd(const void* logits, int logits_dtype,
+                            long long row_stride, const int* labels,
+                            float* el2n, float* ce, int n, int v,
+                            void* stream) {
+  if (n > 0) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (logits_dtype == kBF16)
+      el2n_kernel<<<n, kThreads, 0, st>>>(static_cast<const bf16*>(logits),
+                                          row_stride, labels, v, el2n, ce);
+    else
+      el2n_kernel<<<n, kThreads, 0, st>>>(static_cast<const float*>(logits),
+                                          row_stride, labels, v, el2n, ce);
+  }
   return (int)cudaGetLastError();
 }

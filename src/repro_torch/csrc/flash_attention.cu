@@ -1,5 +1,5 @@
-// GQA prefill attention (fp32 in, fp32 accuracy) for Hopper (sm_90a), on
-// the tensor cores through 3xTF32 mma.sync.
+// GQA prefill attention (f32 or bf16 in, fp32 accuracy) for Hopper
+// (sm_90a), on the tensor cores through 3xTF32 mma.sync.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py::
 // flash_attention_fwd: causal or not, GQA, sliding window, softcap and a
@@ -56,6 +56,17 @@
 // Dynamic shared memory: Q's two halves (2 x 64 rows), K and V (two
 // buffers and one small-half tile each), 165,376 bytes at ND 16.
 //
+// q, k and v are all f32 or all bf16, and the output is in their dtype
+// (the TPU kernel reads them with astype(f32) and writes q's dtype). bf16
+// tiles are read with plain 16-byte loads (8 values; single values where
+// a base or stride is not a multiple of 8), widened exactly and stored as
+// f32 into the same shared layout, so everything after the load is the
+// f32 kernel's: the bf16 loads are synchronous, and only f32 tiles keep
+// the cp.async overlap. bf16 values are exact in TF32, so the 3xTF32
+// split's small halves are 0 for Q, K and V at bf16; skipping their
+// products, and a bf16 m16n8k16 mma.sync, are later work. The output is
+// rounded to bf16 once, to nearest even.
+//
 // Masks use the finite -2^30 of the plain version. A masked key (causal,
 // window) scores -2^30 and takes part in the max; an absent key (at or
 // past kv_len, or past the tile's end) gets p = 0 and stays out of it.
@@ -65,6 +76,7 @@
 // plain version's answer, the mean of v over all kv_len keys.
 
 #include "attention_common.cuh"
+#include "dtype.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -76,11 +88,12 @@ using namespace sfp;
 constexpr int kBQ = 64;
 constexpr int kThr = 256;
 
+// q, k, v and o of one dtype, float or bf16 (the kernel's T)
 struct FaParams {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* o;
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
   int B, Sq, Skv, Hq, Hkv, Dh, Dv;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
@@ -112,6 +125,42 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
       cp_async16(dst + r * LD + pcol, n ? s : src, n);
     else
       cp_async4(dst + r * LD + pcol, n ? s : src, n);
+  }
+}
+
+// The same copy from bf16 rows (`width` a multiple of 8), widened to f32
+// on the way: synchronous loads of 8 values (kVec16: src and ss aligned to
+// 16 bytes), each stored as two 16-byte chunks, or of one value. Visible
+// to the block after its next __syncthreads, as the cp.async copies are
+// after their wait.
+template <int LD, bool kSwz, bool kVec16>
+__device__ __forceinline__ void load_rows(float* dst, const bf16* src,
+                                          long long ss, int n_rows, int rows,
+                                          int d, int width, int tid) {
+  constexpr int kUnit = kVec16 ? 8 : 1;  // values a load
+  const int per_row = width / kUnit, step = kThr / per_row;  // rows a pass
+  const int r0 = tid / per_row, col = (tid - r0 * per_row) * kUnit;
+  if (r0 >= step) return;
+  const int n = max(0, min(kUnit, d - col));  // of the load's columns, < d
+  const bf16* s = src + r0 * ss + col;
+  for (int r = r0; r < rows; r += step, s += step * ss) {
+    const int pcol = kSwz ? col ^ ((r & 1) << 4) : col;  // chunk c ^ 4
+    float* out = dst + r * LD + pcol;
+    if constexpr (kVec16) {
+      float f[8];
+      if (r < n_rows && n == 8) {
+        load16(s, f);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          f[e] = r < n_rows && e < n ? to_f32(s[e]) : 0.f;
+      }
+      *reinterpret_cast<float4*>(out) = make_float4(f[0], f[1], f[2], f[3]);
+      *reinterpret_cast<float4*>(out + 4) =
+          make_float4(f[4], f[5], f[6], f[7]);
+    } else {
+      *out = r < n_rows && n ? to_f32(*s) : 0.f;
+    }
   }
 }
 
@@ -150,7 +199,7 @@ __device__ __forceinline__ void split_rows(float* buf, float* small, int n4,
 // Up to head width 64 two blocks share an SM (ptxas caps registers at 128
 // for that); wider, the shared memory (or, at 80, the registers without
 // spilling) holds one.
-template <int ND, bool kVec16>
+template <int ND, bool kVec16, class T>
 __global__ void __launch_bounds__(kThr, ND <= 8 ? 2 : 1)
     flash_fwd_kernel(FaParams p) {
   // Q and K rows hold 8 ND floats, their 16-byte chunks XOR-swizzled on odd
@@ -192,8 +241,8 @@ __global__ void __launch_bounds__(kThr, ND <= 8 ? 2 : 1)
   }
   const int n_tiles = (kv_end - kv_begin + kBK - 1) / kBK;
 
-  const float* kb = p.k + b * p.k_sb + hk * p.k_sh;
-  const float* vb = p.v + b * p.v_sb + hk * p.v_sh;
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
   auto load_kv = [&](int it) {
     const int kt = kv_begin + it * kBK, n_keys = min(kBK, kv_end - kt);
     load_rows<LDK, kSwz, kVec16>(ks + (it & 1) * kBK * LDK, kb + kt * p.k_ss,
@@ -202,8 +251,8 @@ __global__ void __launch_bounds__(kThr, ND <= 8 ? 2 : 1)
                                   p.v_ss, n_keys, kBK, p.Dv, v_width, tid);
   };
   load_rows<LDK, kSwz, kVec16>(
-      qs, p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_ss, p.q_ss, p.Sq - q0,
-      kBQ, p.Dh, 16 * dh16, tid);
+      qs, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_ss,
+      p.q_ss, p.Sq - q0, kBQ, p.Dh, 16 * dh16, tid);
   if (n_tiles > 0) load_kv(0);
   cp_async_commit();
   cp_async_wait<0>();
@@ -440,35 +489,35 @@ __global__ void __launch_bounds__(kThr, ND <= 8 ? 2 : 1)
   }
   const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
-  float* ob = p.o + b * p.o_sb + h * p.o_sh;
-  auto put = [&](int col, int n, int c) {
+  T* ob = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  auto put_out = [&](int col, int n, int c) {
     if (col >= p.Dv) return;
-    if (row_a < p.Sq) ob[row_a * p.o_ss + col] = o[n][c] * inv_a;
-    if (row_b < p.Sq) ob[row_b * p.o_ss + col] = o[n][c + 2] * inv_b;
+    if (row_a < p.Sq) put(ob + row_a * p.o_ss + col, o[n][c] * inv_a);
+    if (row_b < p.Sq) put(ob + row_b * p.o_ss + col, o[n][c + 2] * inv_b);
   };
 #pragma unroll
   for (int m = 0; m < NG; ++m) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      put(32 * m + 8 * t + i, 4 * m + i, 0);
-      put(32 * m + 8 * t + 4 + i, 4 * m + i, 1);
+      put_out(32 * m + 8 * t + i, 4 * m + i, 0);
+      put_out(32 * m + 8 * t + 4 + i, 4 * m + i, 1);
     }
   }
   if constexpr (kHalf) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      put(32 * NG + 4 * t + i, 4 * NG + i, 0);
-      put(32 * NG + 4 * t + 2 + i, 4 * NG + i, 1);
+      put_out(32 * NG + 4 * t + i, 4 * NG + i, 0);
+      put_out(32 * NG + 4 * t + 2 + i, 4 * NG + i, 1);
     }
   }
 }
 
-template <int ND, bool kVec16>
+template <int ND, bool kVec16, class T>
 cudaError_t launch(const FaParams& p, cudaStream_t stream) {
   constexpr int LDK = 8 * ND, LDV = 8 * ND + 4;
   constexpr int bytes =
       (2 * kBQ * LDK + 3 * kBK * (LDK + LDV)) * sizeof(float);
-  auto* kernel = flash_fwd_kernel<ND, kVec16>;
+  auto* kernel = flash_fwd_kernel<ND, kVec16, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   // all of the SM's 228 KB as shared memory, so several blocks fit
@@ -482,20 +531,22 @@ cudaError_t launch(const FaParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool kVec16>
+template <bool kVec16, class T>
 cudaError_t launch_width(const FaParams& p, cudaStream_t stream) {
   const int d8 = (max(p.Dh, p.Dv) + 7) / 8;
-  if (d8 <= 4) return launch<4, kVec16>(p, stream);
-  if (d8 <= 8) return launch<8, kVec16>(p, stream);
-  if (d8 <= 10) return launch<10, kVec16>(p, stream);  // zamba2's 80
-  return launch<16, kVec16>(p, stream);
+  if (d8 <= 4) return launch<4, kVec16, T>(p, stream);
+  if (d8 <= 8) return launch<8, kVec16, T>(p, stream);
+  if (d8 <= 10) return launch<10, kVec16, T>(p, stream);  // zamba2's 80
+  return launch<16, kVec16, T>(p, stream);
 }
 
 }  // namespace
 
+// q, k, v and o all of dtype `dtype` (kF32 or kBF16); strides in elements.
 extern "C" int sfp_flash_attention_fwd(
-    const float* q, const float* k, const float* v, float* o, int B, int Sq,
-    int Skv, int Hq, int Hkv, int Dh, int Dv, long long q_sb, long long q_ss,
+    const void* q, const void* k, const void* v, void* o, int dtype, int B,
+    int Sq, int Skv, int Hq, int Hkv, int Dh, int Dv, long long q_sb,
+    long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, int causal, int window, float softcap,
@@ -506,14 +557,19 @@ extern "C" int sfp_flash_attention_fwd(
              scale, kv_len};
   if (Dh > kDMax || Dv > kDMax) return (int)cudaErrorInvalidValue;
   if (B <= 0 || Sq <= 0) return (int)cudaGetLastError();
-  // 16-byte copies need every row of q, k and v to start 16-byte aligned
+  // 16-byte copies need every row of q, k and v to start 16-byte aligned:
+  // the bases, and the strides in 16-byte units (4 f32 or 8 bf16)
   const unsigned long long addr = reinterpret_cast<unsigned long long>(q) |
                                   reinterpret_cast<unsigned long long>(k) |
                                   reinterpret_cast<unsigned long long>(v);
   const long long strides = q_sb | q_ss | q_sh | k_sb | k_ss | k_sh | v_sb |
                             v_ss | v_sh;
+  const bool bf = dtype == kBF16;
+  const bool vec = addr % 16 == 0 && strides % (bf ? 8 : 4) == 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(addr % 16 == 0 && strides % 4 == 0
-                   ? launch_width<true>(p, st)
-                   : launch_width<false>(p, st));
+  if (bf)
+    return (int)(vec ? launch_width<true, bf16>(p, st)
+                     : launch_width<false, bf16>(p, st));
+  return (int)(vec ? launch_width<true, float>(p, st)
+                   : launch_width<false, float>(p, st));
 }

@@ -35,26 +35,38 @@
 // chunked form on tensor cores, split-state blocks and writing the state in
 // place of the cache are later work (ROADMAP).
 //
+// Each of x, dt, A, B, C and h0 may be f32 or bf16 (the TPU kernel reads
+// each with astype(f32); the layer passes x, B and C in the activation
+// dtype and dt in f32): a dtype code per input, uniform over the launch,
+// picks the load, which widens exactly. The staging writes f32 to shared
+// memory, so the step loop is the same at every dtype. y is written in x's
+// dtype (one round to nearest even), the final state in f32.
+//
 // IEEE expf (no fast math). Sums run in another order than the plain
 // version's einsum, so the two agree to f32 rounding, not bit for bit.
 
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
+
 namespace {
+
+using namespace sfp;
 
 constexpr int kPer = 16;                      // state columns a thread holds
 constexpr int kTile = 32;                     // most steps staged at a time
 constexpr int kSmemFloats = 48 * 1024 / 4;    // static-launch shared limit
 
 struct Params {
-  const float* x;
-  const float* dt;
-  const float* A;
-  const float* Bm;
-  const float* Cm;
-  const float* h0;   // null: zero initial state
-  float* y;
+  const void* x;
+  const void* dt;
+  const void* A;
+  const void* Bm;
+  const void* Cm;
+  const void* h0;    // null: zero initial state
+  void* y;           // in x's dtype
   float* h_out;
+  int x_dt, dt_dt, a_dt, b_dt, c_dt, h0_dt;  // dtype codes
   int B, T, H, G, P, N, tpp, tile;
   long long x_sb, x_st, x_sh, dt_sb, dt_st, dt_sh;
   long long b_sb, b_st, b_sg, c_sb, c_st, c_sg;
@@ -73,7 +85,7 @@ __global__ void mamba2_scan_kernel(Params p) {
   const int row = tid / p.tpp;
   const int j = tid - row * p.tpp;
   const bool live = row < p.P;
-  const float A = p.A[h];
+  const float A = load_f32(p.A, p.a_dt, h);
 
   const long long sbase = ((long long)b * p.H + h) * p.P * p.N
                           + (long long)row * p.N;
@@ -81,29 +93,32 @@ __global__ void mamba2_scan_kernel(Params p) {
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int n = j + p.tpp * i;
-    st[i] = (live && n < p.N && p.h0 != nullptr) ? p.h0[sbase + n] : 0.f;
+    st[i] = (live && n < p.N && p.h0 != nullptr)
+                ? load_f32(p.h0, p.h0_dt, sbase + n) : 0.f;
   }
 
-  const float* xb = p.x + b * p.x_sb + h * p.x_sh;
-  const float* dtb = p.dt + b * p.dt_sb + h * p.dt_sh;
-  const float* bb = p.Bm + b * p.b_sb + g * p.b_sg;
-  const float* cb = p.Cm + b * p.c_sb + g * p.c_sg;
-  float* yb = p.y + ((long long)b * p.T * p.H + h) * p.P + row;
+  // element offsets of this (b, h) in each input and in y
+  const long long xo = b * p.x_sb + h * p.x_sh;
+  const long long dto = b * p.dt_sb + h * p.dt_sh;
+  const long long bo = b * p.b_sb + g * p.b_sg;
+  const long long co = b * p.c_sb + g * p.c_sg;
+  const long long yo = ((long long)b * p.T * p.H + h) * p.P + row;
   const long long y_st = (long long)p.H * p.P;
 
   for (int t0 = 0; t0 < p.T; t0 += p.tile) {
     const int nt = min(p.tile, p.T - t0);
     __syncthreads();   // every thread is done with the previous tile
     for (int s = tid; s < nt; s += blockDim.x)
-      a_s[s] = expf(dtb[(t0 + s) * p.dt_st] * A);
+      a_s[s] = expf(load_f32(p.dt, p.dt_dt, dto + (t0 + s) * p.dt_st) * A);
     for (int idx = tid; idx < nt * p.P; idx += blockDim.x) {
       const int s = idx / p.P, q = idx - s * p.P;
-      dtx_s[idx] = dtb[(t0 + s) * p.dt_st] * xb[(t0 + s) * p.x_st + q];
+      dtx_s[idx] = load_f32(p.dt, p.dt_dt, dto + (t0 + s) * p.dt_st) *
+                   load_f32(p.x, p.x_dt, xo + (t0 + s) * p.x_st + q);
     }
     for (int idx = tid; idx < nt * p.N; idx += blockDim.x) {
       const int s = idx / p.N, n = idx - s * p.N;
-      b_s[idx] = bb[(t0 + s) * p.b_st + n];
-      c_s[idx] = cb[(t0 + s) * p.c_st + n];
+      b_s[idx] = load_f32(p.Bm, p.b_dt, bo + (t0 + s) * p.b_st + n);
+      c_s[idx] = load_f32(p.Cm, p.c_dt, co + (t0 + s) * p.c_st + n);
     }
     __syncthreads();
 
@@ -128,7 +143,8 @@ __global__ void mamba2_scan_kernel(Params p) {
       // the tpp threads of a row are consecutive lanes of one warp
       for (int off = p.tpp >> 1; off > 0; off >>= 1)
         acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (live && j == 0) yb[(t0 + s) * y_st] = acc;
+      if (live && j == 0)
+        store_f32(p.y, p.x_dt, yo + (t0 + s) * y_st, acc);
     }
   }
 
@@ -143,9 +159,12 @@ __global__ void mamba2_scan_kernel(Params p) {
 
 }  // namespace
 
+// Each input with its dtype code (kF32 or kBF16); h0 may be null. y is
+// written in x's dtype, h_out in f32.
 extern "C" int sfp_mamba2_scan_fwd(
-    const float* x, const float* dt, const float* A, const float* Bm,
-    const float* Cm, const float* h0, float* y, float* h_out, int B, int T,
+    const void* x, int x_dt, const void* dt, int dt_dt, const void* A,
+    int a_dt, const void* Bm, int b_dt, const void* Cm, int c_dt,
+    const void* h0, int h0_dt, void* y, float* h_out, int B, int T,
     int H, int G, int P, int N, int tpp, long long x_sb, long long x_st,
     long long x_sh, long long dt_sb, long long dt_st, long long dt_sh,
     long long b_sb, long long b_st, long long b_sg, long long c_sb,
@@ -157,10 +176,11 @@ extern "C" int sfp_mamba2_scan_fwd(
   if (tile < 1 || tpp < 1 || tpp > 32 || (tpp & (tpp - 1)) ||
       tpp * kPer < N || threads > 1024 || G < 1 || H % G)
     return (int)cudaErrorInvalidValue;
-  Params p{x,    dt,   A,     Bm,    Cm,    h0,    y,     h_out,
-           B,    T,    H,     G,     P,     N,     tpp,   tile,
-           x_sb, x_st, x_sh,  dt_sb, dt_st, dt_sh, b_sb,  b_st,
-           b_sg, c_sb, c_st,  c_sg};
+  Params p{x,    dt,    A,    Bm,   Cm,    h0,    y,     h_out,
+           x_dt, dt_dt, a_dt, b_dt, c_dt,  h0_dt, B,     T,
+           H,    G,     P,    N,    tpp,   tile,  x_sb,  x_st,
+           x_sh, dt_sb, dt_st, dt_sh, b_sb, b_st, b_sg,  c_sb,
+           c_st, c_sg};
   if (B > 0 && H > 0) {
     dim3 grid(H, B);
     mamba2_scan_kernel<<<grid, threads, tile * per_step * sizeof(float),

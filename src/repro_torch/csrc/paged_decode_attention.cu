@@ -1,4 +1,4 @@
-// Paged decode attention (fp32) for Hopper (sm_90a).
+// Paged decode attention (f32 or bf16 in, fp32 math) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/decode.py::
 // paged_decode_attention_fwd. One query token per slot attends to that
@@ -56,6 +56,11 @@
 //    not multiples of 4 floats takes a 4-byte-copy instantiation instead;
 //    the entry point picks, and the host never falls back.
 //
+// q (and the output) and the pool may each be f32 or bf16 (see
+// decode_common.cuh): the kernel is instantiated per pool dtype, the query
+// load and the output store branch on q's. Each tensor's strides are in
+// its own elements: the engines pair a bf16 q with an f32 pool.
+//
 // Inside a tile one lane scores one key against its warp's query rows (a
 // block is four warps of two rows each, G = Hq / Hkv <= 8, so each tile is
 // read once per GQA group) on the fp32 SIMT pipe, in four partial sums a
@@ -82,9 +87,9 @@ namespace {
 using namespace sfp;
 
 struct PagedParams {
-  const float* q;
-  const float* k;
-  const float* v;
+  const void* q;     // of dtype out.o_dtype, as the output
+  const void* k;     // of the kernel's pool type
+  const void* v;
   const int* tables;
   const int* q_pos;
   const int* kv_pos;
@@ -97,7 +102,7 @@ struct PagedParams {
   float softcap, scale;
 };
 
-template <bool kVec16>
+template <bool kVec16, class TKV>
 __global__ void __launch_bounds__(kThreads)
     paged_decode_kernel(PagedParams p) {
   extern __shared__ __align__(16) float smem[];
@@ -112,8 +117,8 @@ __global__ void __launch_bounds__(kThreads)
   const int qp = p.q_pos[b * p.qp_sb];
 
   // the group's query rows arrive during the flag pass
-  load_queries(sm.qs, p.q + b * p.q_sb + hk * G * p.q_sh, p.q_sh, G, p.Dh,
-               tid);
+  load_queries(sm.qs, p.q, p.out.o_dtype, b * p.q_sb + hk * G * p.q_sh,
+               p.q_sh, G, p.Dh, tid);
 
   // 1. flag every tile that holds a valid key, one key a lane, and list
   // them
@@ -145,6 +150,8 @@ __global__ void __launch_bounds__(kThreads)
   // keys w, w + 4, ...; its lane i resolves the page of the i-th of them,
   // and the warp copies each key's rows, one 16-byte chunk a lane
   const int dh4 = (p.Dh + 3) / 4, dv4 = (p.out.Dv + 3) / 4;
+  const TKV* kp = static_cast<const TKV*>(p.k);
+  const TKV* vp = static_cast<const TKV*>(p.v);
   auto issue = [&](int r, int stage) {
     constexpr int kKeys = kBK / kWarps;
     const int t = walk_all ? r : sm.tl[r];
@@ -165,10 +172,10 @@ __global__ void __launch_bounds__(kThreads)
       const bool present = ok >= 0;
       const long long o = present ? ok : 0;
       copy_row<kVec16>(sm.ks + stage * kStage + j * kLD,
-                       p.k + pk * p.k_sp + o * p.k_so + hk * p.k_sh,
+                       kp + pk * p.k_sp + o * p.k_so + hk * p.k_sh,
                        present ? p.Dh : 0, dh4, lane);
       copy_row<kVec16>(sm.vs + stage * kStage + j * kLD,
-                       p.v + pk * p.v_sp + o * p.v_so + hk * p.v_sh,
+                       vp + pk * p.v_sp + o * p.v_so + hk * p.v_sh,
                        present ? p.out.Dv : 0, dv4, lane);
     }
   };
@@ -187,12 +194,14 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+// q and o of dtype q_dtype, the pools of dtype kv_dtype (kF32 or kBF16);
+// strides in elements of each tensor's own dtype.
 extern "C" int sfp_paged_decode_attention_fwd(
-    const float* q, const float* k, const float* v, const int* tables,
-    const int* q_pos, const int* kv_pos, float* o, float* ws, int B, int nb,
-    int page, int Hq, int Hkv, int Dh, int Dv, int S, long long q_sb,
-    long long q_sh, long long k_sp, long long k_so, long long k_sh,
-    long long v_sp, long long v_so, long long v_sh, long long bt_sb,
+    const void* q, int q_dtype, const void* k, const void* v, int kv_dtype,
+    const int* tables, const int* q_pos, const int* kv_pos, void* o,
+    float* ws, int B, int nb, int page, int Hq, int Hkv, int Dh, int Dv,
+    int S, long long q_sb, long long q_sh, long long k_sp, long long k_so,
+    long long k_sh, long long v_sp, long long v_so, long long v_sh, long long bt_sb,
     long long bt_sn, long long qp_sb, long long kvp_sp, long long kvp_so,
     long long o_sb, long long o_sh, int window, float softcap, float scale,
     void* stream) {
@@ -202,18 +211,22 @@ extern "C" int sfp_paged_decode_attention_fwd(
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || nb <= 0 || page <= 0) return (int)cudaGetLastError();
   const int n_tiles = (nb * page + kBK - 1) / kBK;
-  const DecodeOut out{o, ws, B, Hq, S, Dv, o_sb, o_sh};
+  const DecodeOut out{o, ws, B, Hq, S, Dv, o_sb, o_sh, q_dtype};
   PagedParams p{q,    k,    v,      tables, q_pos,  kv_pos, out,
                 nb,   page, Hkv,    Dh,     n_tiles, q_sb,  q_sh,
                 k_sp, k_so, k_sh,   v_sp,   v_so,   v_sh,   bt_sb,
                 bt_sn, qp_sb, kvp_sp, kvp_so, window, softcap, scale};
-  // 16-byte copies need every K and V row to start 16-byte aligned
+  // Vector copies need every K and V row aligned to one: 16 bytes (4 f32)
+  // or 8 bytes (4 bf16), the bases and the strides in units of 4 values
   const unsigned long long addr = reinterpret_cast<unsigned long long>(k) |
                                   reinterpret_cast<unsigned long long>(v);
   const long long strides = k_sp | k_so | k_sh | v_sp | v_so | v_sh;
-  auto* kernel = addr % 16 == 0 && strides % 4 == 0
-                     ? paged_decode_kernel<true>
-                     : paged_decode_kernel<false>;
+  const bool bf = kv_dtype == kBF16;
+  const bool vec = addr % (bf ? 8 : 16) == 0 && strides % 4 == 0;
+  auto* kernel = bf ? (vec ? paged_decode_kernel<true, bf16>
+                           : paged_decode_kernel<false, bf16>)
+                    : (vec ? paged_decode_kernel<true, float>
+                           : paged_decode_kernel<false, float>);
   return (int)launch_decode(kernel, p, Hkv, n_tiles, out,
                             (cudaStream_t)stream);
 }

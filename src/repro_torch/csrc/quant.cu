@@ -2,8 +2,12 @@
 //
 // Replaces the TPU kernels repro/kernels/quant/kernel.py::quantize_fwd and
 // ::dequantize_fwd. Both are bound by device memory: per element they do a
-// handful of flops against 4 bytes read (x) and 1 written (the payload), so
-// the design goal is one coalesced pass each way and nothing else.
+// handful of flops against 4 bytes read (x; 2 at bf16) and 1 written (the
+// payload), so the design goal is one coalesced pass each way and nothing
+// else. x may be f32 or bf16 (widened on load, exactly, as the TPU kernel's
+// astype(f32)); the dequantized output is f32 or bf16 (one round to nearest
+// even of the f32 product, as astype(dtype)), so both stay bit-equal to the
+// plain version at either dtype.
 //
 // quantize: one block per row (a token of the smashed tensor). The block
 //   reduces max|x| across its threads, then rewrites the row; the second
@@ -20,7 +24,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
+
 namespace {
+
+using namespace sfp;
 
 constexpr int kQuantThreads = 256;
 
@@ -31,19 +39,20 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+template <class T>
 __global__ void __launch_bounds__(kQuantThreads)
-quantize_kernel(const float* __restrict__ x, long long x_rs,
+quantize_kernel(const T* __restrict__ x, long long x_rs,
                 const float* __restrict__ u, long long u_rs, long long u_cs,
                 int8_t* __restrict__ values, float* __restrict__ scales,
                 int d) {
   __shared__ float warp_amax[kQuantThreads / 32];
   const long long row = blockIdx.x;
-  const float* xr = x + row * x_rs;
+  const T* xr = x + row * x_rs;
   const float* ur = u + row * u_rs;
 
   float amax = 0.f;
   for (int j = threadIdx.x; j < d; j += kQuantThreads)
-    amax = fmaxf(amax, fabsf(xr[j]));
+    amax = fmaxf(amax, fabsf(to_f32(xr[j])));
   amax = warp_max(amax);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (lane == 0) warp_amax[warp] = amax;
@@ -54,43 +63,60 @@ quantize_kernel(const float* __restrict__ x, long long x_rs,
   const float scale = fmaxf(amax * (1.f / 127.f), 1e-8f);
   int8_t* vr = values + row * d;
   for (int j = threadIdx.x; j < d; j += kQuantThreads) {
-    float q = floorf(xr[j] / scale + ur[j * u_cs]);
+    float q = floorf(to_f32(xr[j]) / scale + ur[j * u_cs]);
     q = fminf(fmaxf(q, -127.f), 127.f);
     vr[j] = static_cast<int8_t>(q);
   }
   if (threadIdx.x == 0) scales[row] = scale;
 }
 
+template <class T>
 __global__ void dequantize_kernel(const int8_t* __restrict__ values,
                                   const float* __restrict__ scales,
-                                  float* __restrict__ out, long long total,
+                                  T* __restrict__ out, long long total,
                                   int d) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < total; i += (long long)gridDim.x * blockDim.x)
-    out[i] = static_cast<float>(values[i]) * scales[i / d];
+    put(out + i, static_cast<float>(values[i]) * scales[i / d]);
 }
 
 }  // namespace
 
-extern "C" int sfp_quantize_int8(const float* x, long long x_rs,
+// x of dtype x_dtype (kF32 or kBF16); u, scales f32.
+extern "C" int sfp_quantize_int8(const void* x, int x_dtype, long long x_rs,
                                  const float* u, long long u_rs,
                                  long long u_cs, int8_t* values,
                                  float* scales, int n, int d, void* stream) {
-  if (n > 0)
-    quantize_kernel<<<n, kQuantThreads, 0, (cudaStream_t)stream>>>(
-        x, x_rs, u, u_rs, u_cs, values, scales, d);
+  if (n > 0) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (x_dtype == kBF16)
+      quantize_kernel<<<n, kQuantThreads, 0, st>>>(
+          static_cast<const bf16*>(x), x_rs, u, u_rs, u_cs, values, scales,
+          d);
+    else
+      quantize_kernel<<<n, kQuantThreads, 0, st>>>(
+          static_cast<const float*>(x), x_rs, u, u_rs, u_cs, values, scales,
+          d);
+  }
   return (int)cudaGetLastError();
 }
 
+// out of dtype out_dtype (kF32 or kBF16).
 extern "C" int sfp_dequantize_int8(const int8_t* values, const float* scales,
-                                   float* out, int n, int d, void* stream) {
+                                   void* out, int out_dtype, int n, int d,
+                                   void* stream) {
   const long long total = (long long)n * d;
   if (total > 0) {
     const int threads = 256;
     long long blocks = (total + threads - 1) / threads;
     if (blocks > 132 * 32) blocks = 132 * 32;
-    dequantize_kernel<<<(int)blocks, threads, 0, (cudaStream_t)stream>>>(
-        values, scales, out, total, d);
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (out_dtype == kBF16)
+      dequantize_kernel<<<(int)blocks, threads, 0, st>>>(
+          values, scales, static_cast<bf16*>(out), total, d);
+    else
+      dequantize_kernel<<<(int)blocks, threads, 0, st>>>(
+          values, scales, static_cast<float*>(out), total, d);
   }
   return (int)cudaGetLastError();
 }

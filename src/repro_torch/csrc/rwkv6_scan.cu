@@ -37,26 +37,37 @@
 // (b, h) and writing the state in place of the cache are later work
 // (ROADMAP).
 //
+// Each of r, k, v, w, u and s0 may be f32 or bf16 (the TPU kernel reads
+// each with astype(f32)): a dtype code per input, uniform over the launch,
+// picks the load, which widens exactly. The staging writes f32 to shared
+// memory, so the step loop is the same at every dtype. y is written in r's
+// dtype (one round to nearest even), the final state in f32.
+//
 // IEEE expf (no fast math). Sums run in another order than the plain
 // version's einsum, so the two agree to f32 rounding, not bit for bit.
 
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
+
 namespace {
+
+using namespace sfp;
 
 constexpr int kMaxK = 64;                     // state rows a thread holds
 constexpr int kTile = 32;                     // most steps staged at a time
 constexpr int kSmemFloats = 48 * 1024 / 4;    // static-launch shared limit
 
 struct Params {
-  const float* r;
-  const float* k;
-  const float* v;
-  const float* w;
-  const float* u;
-  const float* s0;   // null: zero initial state
-  float* y;
+  const void* r;
+  const void* k;
+  const void* v;
+  const void* w;
+  const void* u;
+  const void* s0;    // null: zero initial state
+  void* y;           // in r's dtype
   float* s_out;
+  int r_dt, k_dt, v_dt, w_dt, u_dt, s0_dt;  // dtype codes
   int B, T, H, K, V, tile;
   long long r_sb, r_st, r_sh, k_sb, k_st, k_sh;
   long long v_sb, v_st, v_sh, w_sb, w_st, w_sh;
@@ -87,14 +98,16 @@ __global__ void rwkv6_scan_kernel(Params p) {
 #pragma unroll
   for (int i = 0; i < kMaxK; ++i)
     S[i] = (live && i < p.K && p.s0 != nullptr)
-               ? p.s0[sbase + (long long)i * p.V] : 0.f;
+               ? load_f32(p.s0, p.s0_dt, sbase + (long long)i * p.V)
+               : 0.f;
 
-  const float* rb = p.r + b * p.r_sb + h * p.r_sh;
-  const float* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const float* vb = p.v + b * p.v_sb + h * p.v_sh;
-  const float* wb = p.w + b * p.w_sb + h * p.w_sh;
-  const float* ub = p.u + (long long)h * p.K;
-  float* yb = p.y + ((long long)b * p.T * p.H + h) * p.V + tid;
+  // element offsets of this (b, h) in each input and in y
+  const long long ro = b * p.r_sb + h * p.r_sh;
+  const long long ko = b * p.k_sb + h * p.k_sh;
+  const long long vo = b * p.v_sb + h * p.v_sh;
+  const long long wo = b * p.w_sb + h * p.w_sh;
+  const long long uo = (long long)h * p.K;
+  const long long yo = ((long long)b * p.T * p.H + h) * p.V + tid;
   const long long y_st = (long long)p.H * p.V;
 
   for (int t0 = 0; t0 < p.T; t0 += p.tile) {
@@ -102,19 +115,20 @@ __global__ void rwkv6_scan_kernel(Params p) {
     __syncthreads();   // every thread is done with the previous tile
     for (int idx = tid; idx < nt * p.K; idx += blockDim.x) {
       const int s = idx / p.K, i = idx - s * p.K;
-      r_s[idx] = rb[(t0 + s) * p.r_st + i];
-      k_s[idx] = kb[(t0 + s) * p.k_st + i];
-      e_s[idx] = expf(wb[(t0 + s) * p.w_st + i]);
+      r_s[idx] = load_f32(p.r, p.r_dt, ro + (t0 + s) * p.r_st + i);
+      k_s[idx] = load_f32(p.k, p.k_dt, ko + (t0 + s) * p.k_st + i);
+      e_s[idx] = expf(load_f32(p.w, p.w_dt, wo + (t0 + s) * p.w_st + i));
     }
     for (int idx = tid; idx < nt * p.V; idx += blockDim.x) {
       const int s = idx / p.V, c = idx - s * p.V;
-      v_s[idx] = vb[(t0 + s) * p.v_st + c];
+      v_s[idx] = load_f32(p.v, p.v_dt, vo + (t0 + s) * p.v_st + c);
     }
     __syncthreads();
     for (int s = warp; s < nt; s += n_warps) {
       float acc = 0.f;
       for (int i = lane; i < p.K; i += 32)
-        acc += r_s[s * p.K + i] * ub[i] * k_s[s * p.K + i];
+        acc += r_s[s * p.K + i] * load_f32(p.u, p.u_dt, uo + i) *
+               k_s[s * p.K + i];
       acc = warp_sum(acc);
       if (lane == 0) bonus_s[s] = acc;
     }
@@ -134,8 +148,8 @@ __global__ void rwkv6_scan_kernel(Params p) {
         }
       }
       if (live)
-        yb[(t0 + s) * y_st] =
-            ((y4[0] + y4[1]) + (y4[2] + y4[3])) + bonus_s[s] * vv;
+        store_f32(p.y, p.r_dt, yo + (t0 + s) * y_st,
+                  ((y4[0] + y4[1]) + (y4[2] + y4[3])) + bonus_s[s] * vv);
     }
   }
 
@@ -147,9 +161,12 @@ __global__ void rwkv6_scan_kernel(Params p) {
 
 }  // namespace
 
+// Each input with its dtype code (kF32 or kBF16); s0 may be null. y is
+// written in r's dtype, s_out in f32.
 extern "C" int sfp_rwkv6_scan_fwd(
-    const float* r, const float* k, const float* v, const float* w,
-    const float* u, const float* s0, float* y, float* s_out, int B, int T,
+    const void* r, int r_dt, const void* k, int k_dt, const void* v,
+    int v_dt, const void* w, int w_dt, const void* u, int u_dt,
+    const void* s0, int s0_dt, void* y, float* s_out, int B, int T,
     int H, int K, int V, long long r_sb, long long r_st, long long r_sh,
     long long k_sb, long long k_st, long long k_sh, long long v_sb,
     long long v_st, long long v_sh, long long w_sb, long long w_st,
@@ -160,9 +177,10 @@ extern "C" int sfp_rwkv6_scan_fwd(
   const int threads = (V + 31) / 32 * 32;
   if (tile < 1 || K < 1 || K > kMaxK || V < 1 || threads > 1024)
     return (int)cudaErrorInvalidValue;
-  Params p{r,    k,    v,    w,    u,    s0,   y,    s_out, B,    T,
-           H,    K,    V,    tile, r_sb, r_st, r_sh, k_sb,  k_st, k_sh,
-           v_sb, v_st, v_sh, w_sb, w_st, w_sh};
+  Params p{r,    k,    v,    w,    u,     s0,    y,    s_out,
+           r_dt, k_dt, v_dt, w_dt, u_dt,  s0_dt, B,    T,
+           H,    K,    V,    tile, r_sb,  r_st,  r_sh, k_sb,
+           k_st, k_sh, v_sb, v_st, v_sh,  w_sb,  w_st, w_sh};
   if (B > 0 && H > 0) {
     dim3 grid(H, B);
     rwkv6_scan_kernel<<<grid, threads, tile * per_step * sizeof(float),

@@ -31,12 +31,20 @@
 // client's pairs across blocks, fuse the K uploads of a round into one
 // launch.
 //
+// x may be f32 or bf16 (the TPU kernel's astype(f32)): a thread's four
+// values are one 16-byte load of f32 or one 8-byte load of bf16, widened
+// exactly, so a bf16 upload encodes the same words as its f32 widening.
+//
 // rintf rounds half to even, as jnp.round; no fast math.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
+
 namespace {
+
+using namespace sfp;
 
 constexpr int kThreads = 256;
 constexpr uint32_t kParity = 0x1BD11BDAu;
@@ -79,8 +87,9 @@ __device__ __forceinline__ uint32_t encode(float v, float scale) {
   return (uint32_t)(int32_t)q;
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-masked_encode_kernel(const float4* __restrict__ x,
+masked_encode_kernel(const T* __restrict__ x,
                      const uint32_t* __restrict__ seeds,
                      const int* __restrict__ signs, int n_pairs, float scale,
                      uint4* __restrict__ out, long long n4) {
@@ -89,7 +98,7 @@ masked_encode_kernel(const float4* __restrict__ x,
        t += stride) {
     uint4 acc = make_uint4(0u, 0u, 0u, 0u);
     if (x != nullptr) {
-      const float4 v = __ldg(x + t);
+      const float4 v = load4(x + 4 * t);
       acc = make_uint4(encode(v.x, scale), encode(v.y, scale),
                        encode(v.z, scale), encode(v.w, scale));
     }
@@ -120,20 +129,26 @@ masked_encode_kernel(const float4* __restrict__ x,
 
 }  // namespace
 
-// x: (n,) f32 or null (encode zero); seeds (n_pairs,) uint32; signs
-// (n_pairs,) int32 in {-1, 0, 1}; out (n,) uint32. n % 4 == 0 and x, out
-// 16-byte aligned (the wrapper checks both).
-extern "C" int sfp_masked_encode(const float* x, const uint32_t* seeds,
-                                 const int* signs, int n_pairs, float scale,
-                                 uint32_t* out, long long n, void* stream) {
+// x: (n,) of dtype x_dtype (kF32 or kBF16), or null (encode zero); seeds
+// (n_pairs,) uint32; signs (n_pairs,) int32 in {-1, 0, 1}; out (n,)
+// uint32. n % 4 == 0, out 16-byte aligned and x aligned to four of its
+// values (the wrapper checks both).
+extern "C" int sfp_masked_encode(const void* x, int x_dtype,
+                                 const uint32_t* seeds, const int* signs,
+                                 int n_pairs, float scale, uint32_t* out,
+                                 long long n, void* stream) {
   const long long n4 = n / 4;
   if (n4 > 0) {
     long long blocks = (n4 + kThreads - 1) / kThreads;
     if (blocks > 132LL * 64) blocks = 132LL * 64;   // grid-stride beyond
-    masked_encode_kernel<<<(unsigned)blocks, kThreads, 0,
-                           (cudaStream_t)stream>>>(
-        reinterpret_cast<const float4*>(x), seeds, signs, n_pairs, scale,
-        reinterpret_cast<uint4*>(out), n4);
+    const cudaStream_t st = (cudaStream_t)stream;
+    uint4* o = reinterpret_cast<uint4*>(out);
+    if (x_dtype == kBF16)
+      masked_encode_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
+          static_cast<const bf16*>(x), seeds, signs, n_pairs, scale, o, n4);
+    else
+      masked_encode_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
+          static_cast<const float*>(x), seeds, signs, n_pairs, scale, o, n4);
   }
   return (int)cudaGetLastError();
 }

@@ -17,6 +17,12 @@ Kernels (csrc/, built by `build.py` into one shared library at first use):
   mamba2_scan      — Mamba-2 SSD recurrence                (mamba2_scan.cu)
   rwkv6_scan       — RWKV-6 time-mix recurrence            (rwkv6_scan.cu)
 
+Every kernel reads f32 and bf16 itself (widening bf16 to f32 on load, as
+each JAX kernel reads its inputs with `.astype(f32)`), computes in f32 and
+writes its output in the dtype the JAX kernel writes; a wrapper passes
+each floating tensor's `dtype_code` beside its pointer and refuses every
+other dtype. No wrapper converts an input or an output.
+
 No kernel has a backward, and a launch wrapper passes raw pointers, so its
 output carries no `grad_fn`: every wrapper refuses (`refuse_grad`) an input
 that requires grad while grad mode is on, instead of silently cutting the
@@ -38,6 +44,16 @@ def on_cuda(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {x.device}")
+
+
+def dtype_code(name: str, dtype: torch.dtype) -> int:
+    """The C entry points' code of a tensor's dtype (csrc/dtype.cuh: kF32
+    0, kBF16 1); any other dtype raises, naming the input."""
+    if dtype == torch.float32:
+        return 0
+    if dtype == torch.bfloat16:
+        return 1
+    raise ValueError(f"{name} must be float32 or bfloat16, got {dtype}")
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:

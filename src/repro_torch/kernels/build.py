@@ -39,27 +39,35 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 
 # C entry points: name -> argtypes. Every function returns cudaGetLastError().
+# A floating tensor's pointer is followed (or, for attention, preceded) by
+# its dtype code (`kernels.dtype_code`: 0 f32, 1 bf16).
 SIGNATURES = {
-    "sfp_quantize_int8": [_P, _L, _P, _L, _L, _P, _P, _I, _I, _P],
-    "sfp_dequantize_int8": [_P, _P, _P, _I, _I, _P],
+    "sfp_quantize_int8": [_P, _I, _L, _P, _L, _L, _P, _P, _I, _I, _P],
+    #                     x, x dtype, x row stride, u, u strides, values,
+    #                     scales, N, D, stream
+    "sfp_dequantize_int8": [_P, _P, _P, _I, _I, _I, _P],
+    #                       values, scales, out, out dtype, N, D, stream
     "sfp_flash_attention_fwd": (
-        [_P, _P, _P, _P]                      # q, k, v, out
+        [_P, _P, _P, _P, _I]                  # q, k, v, out, their dtype
         + [_I] * 7                            # B, Sq, Skv, Hq, Hkv, Dh, Dv
         + [_L] * 12                           # (b, s, h) strides of q, k, v, out
         + [_I, _I, _F, _F, _I, _P]),          # causal, window, softcap, scale,
     #                                           kv_len, stream
     "sfp_decode_attention_fwd": (
-        [_P] * 7                              # q, k, v, q_pos, kv_pos, out,
-        #                                       workspace (B, Hq, S, Dv + 2)
-        #                                       or null
+        [_P, _I, _P, _P, _I]                  # q, its dtype (the output's);
+        #                                       k, v, their dtype
+        + [_P] * 4                            # q_pos, kv_pos, out, workspace
+        #                                       (B, Hq, S, Dv + 2) or null
         + [_I] * 7                            # B, W, Hq, Hkv, Dh, Dv, S
         + [_L] * 13                           # q (b, h); k, v (b, w, h);
         #                                       q_pos (b); kv_pos (b, w); out (b, h)
         + [_I, _F, _F, _P]),                  # window, softcap, scale, stream
     "sfp_paged_decode_attention_fwd": (
-        [_P] * 8                              # q, k_pool, v_pool, tables,
-        #                                       q_pos, kv_pos, out, workspace
-        #                                       (B, Hq, S, Dv + 2) or null
+        [_P, _I, _P, _P, _I]                  # q, its dtype (the output's);
+        #                                       k_pool, v_pool, their dtype
+        + [_P] * 5                            # tables, q_pos, kv_pos, out,
+        #                                       workspace (B, Hq, S, Dv + 2)
+        #                                       or null
         + [_I] * 8                            # B, nb, page, Hq, Hkv, Dh, Dv,
         #                                       S (splits of each row)
         + [_L] * 15                           # q (b, h); k, v pools (p, o, h);
@@ -67,22 +75,25 @@ SIGNATURES = {
         #                                       kv_pos (p, o); out (b, h)
         + [_I, _F, _F, _P]),                  # window, softcap, scale, stream
     "sfp_el2n_fwd": (
-        [_P, _L, _P, _P, _P]                  # logits, row stride, labels,
-        #                                       el2n, ce
+        [_P, _I, _L, _P, _P, _P]              # logits, dtype, row stride,
+        #                                       labels, el2n, ce
         + [_I, _I, _P]),                      # N, V, stream
     "sfp_masked_encode": (
-        [_P, _P, _P, _I, _F, _P, _L, _P]),    # x (or null), seeds, signs,
-    #                                           J, scale, out, n, stream
+        [_P, _I, _P, _P, _I, _F, _P, _L, _P]),  # x (or null), x dtype,
+    #                                           seeds, signs, J, scale, out,
+    #                                           n, stream
     "sfp_mamba2_scan_fwd": (
-        [_P] * 8                              # x, dt, A, Bm, Cm, h0 (or
-        #                                       null), y, h_out
+        [_P, _I] * 6                          # x, dt, A, Bm, Cm, h0 (or
+        #                                       null), each with its dtype
+        + [_P, _P]                            # y (x's dtype), h_out
         + [_I] * 7                            # B, T, H, G, P, N, tpp
         + [_L] * 12                           # (b, t, h|g) strides of x, dt,
         #                                       Bm, Cm
         + [_P]),                              # stream
     "sfp_rwkv6_scan_fwd": (
-        [_P] * 8                              # r, k, v, w, u, s0 (or null),
-        #                                       y, s_out
+        [_P, _I] * 6                          # r, k, v, w, u, s0 (or null),
+        #                                       each with its dtype
+        + [_P, _P]                            # y (r's dtype), s_out
         + [_I] * 5                            # B, T, H, K, V
         + [_L] * 12                           # (b, t, h) strides of r, k, v, w
         + [_P]),                              # stream

@@ -6,24 +6,26 @@ where the row pointer allows them) and merges per-thread online-softmax
 statistics, so no (N, V) probability tensor is ever written. The TPU
 wrapper's padding of V to `block_v` and its LANES-wide outputs are TPU
 layout only: this takes (N, V) logits through their row stride and gives
-(N,) outputs. See the note in the source.
+(N,) outputs. It reads f32 or bf16 logits itself (bf16 widened on load,
+as the TPU kernel's astype(f32)); the outputs are f32. See the note in the
+source.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import dtype_code, refuse_grad
 from repro_torch.kernels.build import check, current_stream, library
 
 
 def el2n_fwd(logits: torch.Tensor, labels: torch.Tensor):
-    """logits (N, V) f32 CUDA with unit column stride (any row stride);
-    labels (N,) int32 contiguous on the same device. Returns
+    """logits (N, V) f32 or bf16 CUDA with unit column stride (any row
+    stride); labels (N,) int32 contiguous on the same device. Returns
     (el2n (N,), ce (N,)) f32; a label outside [0, V) gives NaN."""
     refuse_grad("el2n_fwd", logits)
-    if not logits.is_cuda or logits.dtype != torch.float32 \
-            or logits.dim() != 2:
-        raise ValueError(f"el2n_fwd takes 2-D f32 CUDA logits, got "
+    code = dtype_code("el2n_fwd: logits", logits.dtype)
+    if not logits.is_cuda or logits.dim() != 2:
+        raise ValueError(f"el2n_fwd takes 2-D CUDA logits, got "
                          f"{logits.dtype} {tuple(logits.shape)} on "
                          f"{logits.device}")
     N, V = logits.shape
@@ -39,7 +41,7 @@ def el2n_fwd(logits: torch.Tensor, labels: torch.Tensor):
     el2n = torch.empty((N,), dtype=torch.float32, device=logits.device)
     ce = torch.empty((N,), dtype=torch.float32, device=logits.device)
     check(library().sfp_el2n_fwd(
-        logits.data_ptr(), logits.stride(0), labels.data_ptr(),
+        logits.data_ptr(), code, logits.stride(0), labels.data_ptr(),
         el2n.data_ptr(), ce.data_ptr(), N, V, current_stream()),
         "sfp_el2n_fwd")
     el2n_fwd.launches += 1

@@ -20,4 +20,4 @@ def el2n_scores(logits: torch.Tensor, labels: torch.Tensor):
     int. Returns (el2n (N,), ce (N,)) in float32."""
     if not on_cuda(logits):
         return ref.el2n_scores(logits, labels)
-    return el2n_fwd(logits.float(), labels.to(torch.int32).contiguous())
+    return el2n_fwd(logits, labels.to(torch.int32).contiguous())

@@ -47,6 +47,11 @@ its block table instead of a per-slot cache:
       `decode_attention` on the gathered caches, which makes the paged
       engine provably equal to the dense one.
 
+Both kernels read q in f32 or bf16 and the cache or pool in f32 or bf16,
+independently (the engines hold f32 caches under bf16 activations), and
+write the output in q's dtype, as the TPU kernels do; each tensor's
+strides are in its own elements.
+
 `decode_attention` and `paged_decode_attention` pick by device: the plain
 version for CPU tensors, the kernel for CUDA tensors. Masking is wholly
 data-driven (kv validity + position vs the slot's query position), so
@@ -60,7 +65,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import on_cuda, refuse_grad
+from repro_torch.kernels import dtype_code, on_cuda, refuse_grad
 from repro_torch.kernels.build import check, current_stream, library
 from repro_torch.kernels.flash_attention.kernel import D_MAX
 
@@ -95,14 +100,17 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_positions: torch.Tensor, *, scale: float,
                          sliding_window: Optional[int],
                          softcap: Optional[float]) -> torch.Tensor:
-    """q (B, 1, Hq, Dh), k (B, W, Hkv, Dh), v (B, W, Hkv, Dv) f32 CUDA with
-    unit stride on head_dim; q_positions (B,) and kv_positions (B, W)
-    int32 on the same device. Returns (B, 1, Hq, Dv) f32."""
+    """q (B, 1, Hq, Dh), k (B, W, Hkv, Dh), v (B, W, Hkv, Dv) CUDA with
+    unit stride on head_dim, q f32 or bf16, k and v one dtype, f32 or
+    bf16; q_positions (B,) and kv_positions (B, W) int32 on the same
+    device. Returns (B, 1, Hq, Dv) in q's dtype."""
     refuse_grad("decode_attention_fwd", q, k, v)
+    q_code = dtype_code("decode_attention_fwd: q", q.dtype)
+    kv_code = dtype_code("decode_attention_fwd: k", k.dtype)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.dtype != torch.float32 or t.dim() != 4:
-            raise ValueError(f"decode_attention_fwd: {name} must be a 4-D f32"
-                             f" CUDA tensor, got {t.dtype} {tuple(t.shape)} "
+        if not t.is_cuda or t.dim() != 4:
+            raise ValueError(f"decode_attention_fwd: {name} must be a 4-D "
+                             f"CUDA tensor, got {t.dtype} {tuple(t.shape)} "
                              f"on {t.device}")
         if t.stride(3) != 1:
             raise ValueError(f"decode_attention_fwd: {name} needs unit "
@@ -112,6 +120,9 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Sq != 1 or k.shape != (B, W, Hkv, Dh) or v.shape[:3] != (B, W, Hkv):
         raise ValueError(f"decode_attention_fwd: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)} disagree")
+    if v.dtype != k.dtype:
+        raise ValueError(f"decode_attention_fwd: k is {k.dtype} but v is "
+                         f"{v.dtype}")
     if Hq % Hkv or Hq // Hkv > MAX_GROUP or Dh > D_MAX or Dv > D_MAX:
         raise ValueError(f"decode_attention_fwd takes a GQA group <= "
                          f"{MAX_GROUP} and head_dim <= {D_MAX}, got Hq={Hq} "
@@ -129,14 +140,14 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"sliding_window must be >= 1, got {sliding_window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
-    out = torch.empty((B, 1, Hq, Dv), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, 1, Hq, Dv), dtype=q.dtype, device=q.device)
     S = decode_splits(B, Hkv, W, sm_count(q.device.index))
     # the splits' unnormalized (m, l, acc) rows; S = 1 writes `out` directly
     ws = (torch.empty((B, Hq, S, Dv + 2), dtype=torch.float32,
                       device=q.device) if S > 1 else None)
     check(library().sfp_decode_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
-        kv_positions.data_ptr(), out.data_ptr(),
+        q.data_ptr(), q_code, k.data_ptr(), v.data_ptr(), kv_code,
+        q_positions.data_ptr(), kv_positions.data_ptr(), out.data_ptr(),
         None if ws is None else ws.data_ptr(), B, W, Hq, Hkv, Dh, Dv, S,
         q.stride(0), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), q_positions.stride(0),
@@ -211,16 +222,19 @@ def paged_decode_attention_fwd(q: torch.Tensor, k_pool: torch.Tensor,
                                sliding_window: Optional[int],
                                softcap: Optional[float]) -> torch.Tensor:
     """q (B, 1, Hq, Dh), k_pool (P, page, Hkv, Dh), v_pool (P, page, Hkv,
-    Dv) f32 CUDA with unit stride on head_dim; block_tables (B, nb),
-    q_positions (B,) and kv_positions (P, page) int32 on the same device.
-    The table's page ids must lie in [0, P): the engine allocates them from
-    the pool, and checking here would need a device sync. Returns
-    (B, 1, Hq, Dv) f32."""
+    Dv) CUDA with unit stride on head_dim, q f32 or bf16, the pools one
+    dtype, f32 or bf16; block_tables (B, nb), q_positions (B,) and
+    kv_positions (P, page) int32 on the same device. The table's page ids
+    must lie in [0, P): the engine allocates them from the pool, and
+    checking here would need a device sync. Returns (B, 1, Hq, Dv) in q's
+    dtype."""
     refuse_grad("paged_decode_attention_fwd", q, k_pool, v_pool)
+    q_code = dtype_code("paged_decode_attention_fwd: q", q.dtype)
+    kv_code = dtype_code("paged_decode_attention_fwd: k_pool", k_pool.dtype)
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
-        if not t.is_cuda or t.dtype != torch.float32 or t.dim() != 4:
+        if not t.is_cuda or t.dim() != 4:
             raise ValueError(f"paged_decode_attention_fwd: {name} must be a "
-                             f"4-D f32 CUDA tensor, got {t.dtype} "
+                             f"4-D CUDA tensor, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
         if t.stride(3) != 1:
             raise ValueError(f"paged_decode_attention_fwd: {name} needs unit "
@@ -231,6 +245,9 @@ def paged_decode_attention_fwd(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"paged_decode_attention_fwd: shapes q "
                          f"{tuple(q.shape)} k_pool {tuple(k_pool.shape)} "
                          f"v_pool {tuple(v_pool.shape)} disagree")
+    if v_pool.dtype != k_pool.dtype:
+        raise ValueError(f"paged_decode_attention_fwd: k_pool is "
+                         f"{k_pool.dtype} but v_pool is {v_pool.dtype}")
     if Hq % Hkv or Hq // Hkv > MAX_GROUP or Dh > D_MAX or Dv > D_MAX:
         raise ValueError(f"paged_decode_attention_fwd takes a GQA group <= "
                          f"{MAX_GROUP} and head_dim <= {D_MAX}, got Hq={Hq} "
@@ -254,13 +271,13 @@ def paged_decode_attention_fwd(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"sliding_window must be >= 1, got {sliding_window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
-    out = torch.empty((B, 1, Hq, Dv), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, 1, Hq, Dv), dtype=q.dtype, device=q.device)
     S = decode_splits(B, Hkv, nb * page, sm_count(q.device.index))
     # the splits' unnormalized (m, l, acc) rows; S = 1 writes `out` directly
     ws = (torch.empty((B, Hq, S, Dv + 2), dtype=torch.float32,
                       device=q.device) if S > 1 else None)
     check(library().sfp_paged_decode_attention_fwd(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        q.data_ptr(), q_code, k_pool.data_ptr(), v_pool.data_ptr(), kv_code,
         block_tables.data_ptr(), q_positions.data_ptr(),
         kv_positions.data_ptr(), out.data_ptr(),
         None if ws is None else ws.data_ptr(), B, nb, page, Hq, Hkv, Dh,

@@ -5,8 +5,10 @@ with `csrc/mamba2_scan.cu`: one block per (batch, head) holds the (P, N)
 state in registers and steps the recurrence over T in order. It reads x,
 dt, B and C in the op's (B, T, H|G, ·) layout through strides, so the TPU
 wrapper's moveaxis to (BH, T, ·), its padding of T to a multiple of the
-chunk and its per-chunk grid axis do not exist here. See the note in the
-source for the bound.
+chunk and its per-chunk grid axis do not exist here. Each of x, dt, A, B,
+C and the state is read in f32 or bf16 by the kernel itself (as the TPU
+kernel's astype(f32)); y comes out in x's dtype, the final state in f32.
+See the note in the source for the bound.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import dtype_code, refuse_grad
 from repro_torch.kernels.build import check, current_stream, library
 
 PER_THREAD = 16      # csrc/mamba2_scan.cu: kPer, state values a thread
@@ -34,19 +36,20 @@ def mamba2_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                Bm: torch.Tensor, Cm: torch.Tensor,
                state: Optional[torch.Tensor] = None):
     """x (B, T, H, P), dt (B, T, H), A (H,), Bm/Cm (B, T, G, N), state
-    (B, H, P, N) or None (zeros): f32 CUDA tensors, x/Bm/Cm with unit stride
-    on the last axis, state contiguous. Returns (y (B, T, H, P), final state
-    (B, H, P, N)), both f32 and contiguous."""
+    (B, H, P, N) or None (zeros): CUDA tensors, each f32 or bf16, x/Bm/Cm
+    with unit stride on the last axis, state contiguous. Returns (y (B, T,
+    H, P) in x's dtype, final state (B, H, P, N) f32), both contiguous."""
     tensors = [("x", x, 4), ("dt", dt, 3), ("A", A, 1), ("Bm", Bm, 4),
                ("Cm", Cm, 4)]
     if state is not None:
         tensors.append(("state", state, 4))
     refuse_grad("mamba2_fwd", *(t for _, t, _ in tensors))
+    codes = {name: dtype_code(f"mamba2_fwd: {name}", t.dtype)
+             for name, t, _ in tensors}
     for name, t, dim in tensors:
-        if not t.is_cuda or t.dtype != torch.float32 or t.dim() != dim \
-                or t.device != x.device:
-            raise ValueError(f"mamba2_fwd: {name} must be a {dim}-D f32 "
-                             f"tensor on {x.device}, got {t.dtype} "
+        if not t.is_cuda or t.dim() != dim or t.device != x.device:
+            raise ValueError(f"mamba2_fwd: {name} must be a {dim}-D CUDA "
+                             f"tensor on x's device, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
     B, T, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -69,14 +72,15 @@ def mamba2_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"mamba2_fwd takes N <= {32 * PER_THREAD} and "
                          f"P * threads_per_row(N) <= {MAX_THREADS}, got "
                          f"P={P} N={N}")
-    y = torch.empty((B, T, H, P), dtype=torch.float32, device=x.device)
+    y = torch.empty((B, T, H, P), dtype=x.dtype, device=x.device)
     h_out = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     strides = [s for t in (x, dt, Bm, Cm) for s in t.stride()[:3]]
+    inputs = [a for name, t, _ in tensors for a in (t.data_ptr(), codes[name])]
+    if state is None:
+        inputs += [0, 0]
     check(library().sfp_mamba2_scan_fwd(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), 0 if state is None else state.data_ptr(),
-        y.data_ptr(), h_out.data_ptr(), B, T, H, G, P, N, tpp, *strides,
-        current_stream()), "sfp_mamba2_scan_fwd")
+        *inputs, y.data_ptr(), h_out.data_ptr(), B, T, H, G, P, N, tpp,
+        *strides, current_stream()), "sfp_mamba2_scan_fwd")
     mamba2_fwd.launches += 1
     return y, h_out
 

@@ -34,7 +34,6 @@ def mamba2_scan(
     """-> (y (B, T, H, P) in x.dtype, final state (B, H, P, N) f32)."""
     if not on_cuda(x):
         return ref.mamba2_scan(x, dt, A, Bm, Cm, state)
-    f = lambda t: _unit_last(t.float())  # noqa: E731
-    y, h = mamba2_fwd(f(x), dt.float(), A.float().contiguous(), f(Bm), f(Cm),
-                      None if state is None else state.float().contiguous())
-    return y.to(x.dtype), h
+    return mamba2_fwd(_unit_last(x), dt, A.contiguous(), _unit_last(Bm),
+                      _unit_last(Cm),
+                      None if state is None else state.contiguous())

@@ -5,7 +5,8 @@ Replaces the TPU kernels `repro/kernels/quant/kernel.py::quantize_fwd` and
 by device memory, one coalesced pass each way). The 128-lane padding of D
 and the 128-wide scale output of the TPU version are TPU layout only; these
 take and give the op contract directly: (N, D) int8 values and (N, 1) f32
-scales.
+scales. x is read in f32 or bf16 and dequantized values are written in f32
+or bf16, by the kernels themselves, as the TPU kernels take them.
 
 Each wrapper checks what the kernel takes, allocates its outputs, launches
 on the current stream and counts the launch in its `launches` attribute.
@@ -14,17 +15,18 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import dtype_code, refuse_grad
 from repro_torch.kernels.build import check, current_stream, library
 
 
 def quantize_fwd(x: torch.Tensor, u: torch.Tensor):
-    """x (N, D) f32 CUDA with unit column stride; u f32 on the same device,
-    (N, D) through any strides — a broadcast scalar has both strides 0.
-    Returns (values (N, D) int8, scales (N, 1) f32)."""
+    """x (N, D) f32 or bf16 CUDA with unit column stride; u f32 on the
+    same device, (N, D) through any strides — a broadcast scalar has both
+    strides 0. Returns (values (N, D) int8, scales (N, 1) f32)."""
     refuse_grad("quantize_fwd", x, u)
-    if not x.is_cuda or x.dtype != torch.float32 or x.dim() != 2:
-        raise ValueError(f"quantize_fwd takes a 2-D f32 CUDA tensor, got "
+    x_dtype = dtype_code("quantize_fwd: x", x.dtype)
+    if not x.is_cuda or x.dim() != 2:
+        raise ValueError(f"quantize_fwd takes a 2-D CUDA tensor, got "
                          f"{x.dtype} {tuple(x.shape)} on {x.device}")
     if x.stride(1) != 1 and x.shape[1] > 1:
         raise ValueError("quantize_fwd needs x rows contiguous (stride 1)")
@@ -37,9 +39,9 @@ def quantize_fwd(x: torch.Tensor, u: torch.Tensor):
     values = torch.empty((N, D), dtype=torch.int8, device=x.device)
     scales = torch.empty((N, 1), dtype=torch.float32, device=x.device)
     check(library().sfp_quantize_int8(
-        x.data_ptr(), x.stride(0), u.data_ptr(), u.stride(0), u.stride(1),
-        values.data_ptr(), scales.data_ptr(), N, D, current_stream()),
-        "sfp_quantize_int8")
+        x.data_ptr(), x_dtype, x.stride(0), u.data_ptr(), u.stride(0),
+        u.stride(1), values.data_ptr(), scales.data_ptr(), N, D,
+        current_stream()), "sfp_quantize_int8")
     quantize_fwd.launches += 1
     return values, scales
 
@@ -47,10 +49,12 @@ def quantize_fwd(x: torch.Tensor, u: torch.Tensor):
 quantize_fwd.launches = 0
 
 
-def dequantize_fwd(values: torch.Tensor, scales: torch.Tensor):
+def dequantize_fwd(values: torch.Tensor, scales: torch.Tensor,
+                   dtype=torch.float32):
     """values (N, D) int8 contiguous CUDA, scales (N, 1) f32 contiguous
-    -> (N, D) f32."""
+    -> (N, D) `dtype` (f32 or bf16: the f32 product rounded once)."""
     refuse_grad("dequantize_fwd", values, scales)
+    out_dtype = dtype_code("dequantize_fwd: dtype", dtype)
     if not values.is_cuda or values.dtype != torch.int8 or values.dim() != 2:
         raise ValueError(f"dequantize_fwd takes 2-D int8 CUDA values, got "
                          f"{values.dtype} {tuple(values.shape)} on "
@@ -62,10 +66,10 @@ def dequantize_fwd(values: torch.Tensor, scales: torch.Tensor):
                          f"{values.device}")
     if not (values.is_contiguous() and scales.is_contiguous()):
         raise ValueError("dequantize_fwd needs contiguous values and scales")
-    out = torch.empty((N, D), dtype=torch.float32, device=values.device)
+    out = torch.empty((N, D), dtype=dtype, device=values.device)
     check(library().sfp_dequantize_int8(
-        values.data_ptr(), scales.data_ptr(), out.data_ptr(), N, D,
-        current_stream()), "sfp_dequantize_int8")
+        values.data_ptr(), scales.data_ptr(), out.data_ptr(), out_dtype, N,
+        D, current_stream()), "sfp_dequantize_int8")
     dequantize_fwd.launches += 1
     return out
 

@@ -6,7 +6,9 @@ state column holding its K values in registers, stepping the recurrence
 exactly over T. It reads r, k, v and w in the op's (B, T, H, ·) layout
 through strides, so the TPU wrapper's moveaxis to (BH, T, ·), its padding
 of T to a multiple of the chunk and its per-chunk grid axis do not exist
-here. See the note in the source for the bound.
+here. Each of r, k, v, w, u and the state is read in f32 or bf16 by the
+kernel itself (as the TPU kernel's astype(f32)); y comes out in r's dtype,
+the final state in f32. See the note in the source for the bound.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import dtype_code, refuse_grad
 from repro_torch.kernels.build import check, current_stream, library
 
 K_MAX = 64           # csrc/rwkv6_scan.cu: kMaxK, state rows a thread holds
@@ -25,19 +27,20 @@ def rwkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor,
               state: Optional[torch.Tensor] = None):
     """r, k, w (B, T, H, K), v (B, T, H, V), u (H, K), state (B, H, K, V) or
-    None (zeros): f32 CUDA tensors, r/k/v/w with unit stride on the last
-    axis, u and state contiguous. Returns (y (B, T, H, V), final state
-    (B, H, K, V)), both f32 and contiguous."""
+    None (zeros): CUDA tensors, each f32 or bf16, r/k/v/w with unit stride
+    on the last axis, u and state contiguous. Returns (y (B, T, H, V) in
+    r's dtype, final state (B, H, K, V) f32), both contiguous."""
     tensors = [("r", r, 4), ("k", k, 4), ("v", v, 4), ("w", w, 4),
                ("u", u, 2)]
     if state is not None:
         tensors.append(("state", state, 4))
     refuse_grad("rwkv6_fwd", *(t for _, t, _ in tensors))
+    codes = {name: dtype_code(f"rwkv6_fwd: {name}", t.dtype)
+             for name, t, _ in tensors}
     for name, t, dim in tensors:
-        if not t.is_cuda or t.dtype != torch.float32 or t.dim() != dim \
-                or t.device != r.device:
-            raise ValueError(f"rwkv6_fwd: {name} must be a {dim}-D f32 "
-                             f"tensor on {r.device}, got {t.dtype} "
+        if not t.is_cuda or t.dim() != dim or t.device != r.device:
+            raise ValueError(f"rwkv6_fwd: {name} must be a {dim}-D CUDA "
+                             f"tensor on r's device, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
     B, T, H, K = r.shape
     V = v.shape[-1]
@@ -56,13 +59,14 @@ def rwkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (1 <= K <= K_MAX and 1 <= V <= V_MAX):
         raise ValueError(f"rwkv6_fwd takes K <= {K_MAX} and V <= {V_MAX}, "
                          f"got K={K} V={V}")
-    y = torch.empty((B, T, H, V), dtype=torch.float32, device=r.device)
+    y = torch.empty((B, T, H, V), dtype=r.dtype, device=r.device)
     s_out = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
     strides = [s for t in (r, k, v, w) for s in t.stride()[:3]]
+    inputs = [a for name, t, _ in tensors for a in (t.data_ptr(), codes[name])]
+    if state is None:
+        inputs += [0, 0]
     check(library().sfp_rwkv6_scan_fwd(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-        u.data_ptr(), 0 if state is None else state.data_ptr(),
-        y.data_ptr(), s_out.data_ptr(), B, T, H, K, V, *strides,
+        *inputs, y.data_ptr(), s_out.data_ptr(), B, T, H, K, V, *strides,
         current_stream()), "sfp_rwkv6_scan_fwd")
     rwkv6_fwd.launches += 1
     return y, s_out

@@ -34,7 +34,6 @@ def rwkv6_scan(
     """-> (y (B, T, H, V) in r.dtype, final state (B, H, K, V) f32)."""
     if not on_cuda(r):
         return ref.rwkv6_scan(r, k, v, w, u, state)
-    f = lambda t: _unit_last(t.float())  # noqa: E731
-    y, S = rwkv6_fwd(f(r), f(k), f(v), f(w), u.float().contiguous(),
-                     None if state is None else state.float().contiguous())
-    return y.to(r.dtype), S
+    return rwkv6_fwd(_unit_last(r), _unit_last(k), _unit_last(v),
+                     _unit_last(w), u.contiguous(),
+                     None if state is None else state.contiguous())

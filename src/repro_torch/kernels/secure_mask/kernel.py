@@ -6,7 +6,8 @@ consecutive elements into the uint32 ring and folds in every pairwise mask
 stream, generated in registers as the JAX reference's threefry stream of
 the element index (so no launch geometry enters the bits). The TPU
 wrapper's (N, 128) row blocks are TPU layout only: this takes the flat
-(n,) upload. See the note in the source.
+(n,) upload. x is f32 or bf16, read by the kernel itself (bf16 widened
+on load, as the TPU kernel's astype(f32)). See the note in the source.
 """
 from __future__ import annotations
 
@@ -14,25 +15,28 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import dtype_code, refuse_grad
 from repro_torch.kernels.build import check, current_stream, library
 
 
 def masked_encode_fwd(x: Optional[torch.Tensor], seeds: torch.Tensor,
                       signs: torch.Tensor, *, n: int,
                       frac_bits: int) -> torch.Tensor:
-    """x (n,) f32 contiguous CUDA, or None to encode zero (the recovery
-    stream); seeds (J,) int32 holding the uint32 seeds and signs (J,) int32
-    in {-1, 0, 1}, contiguous on the same device. n % 4 == 0. Returns the
+    """x (n,) f32 or bf16 contiguous CUDA, aligned to four of its values
+    (16 bytes f32, 8 bf16), or None to encode zero (the recovery stream);
+    seeds (J,) int32 holding the uint32 seeds and signs (J,) int32 in
+    {-1, 0, 1}, contiguous on the same device. n % 4 == 0. Returns the
     (n,) int32 ring tensor (uint32 bit patterns)."""
     device = seeds.device
+    code = 0
     if x is not None:
         refuse_grad("masked_encode_fwd", x)
-        if not x.is_cuda or x.dtype != torch.float32 \
-                or tuple(x.shape) != (n,) or not x.is_contiguous() \
-                or x.data_ptr() % 16:
-            raise ValueError(f"masked_encode_fwd takes a contiguous, 16-byte "
-                             f"aligned ({n},) f32 CUDA x, got {x.dtype} "
+        code = dtype_code("masked_encode_fwd: x", x.dtype)
+        if not x.is_cuda or tuple(x.shape) != (n,) \
+                or not x.is_contiguous() \
+                or x.data_ptr() % (4 * x.element_size()):
+            raise ValueError(f"masked_encode_fwd takes a contiguous ({n},) "
+                             f"CUDA x aligned to four values, got {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
         device = x.device
     if n % 4:
@@ -46,8 +50,9 @@ def masked_encode_fwd(x: Optional[torch.Tensor], seeds: torch.Tensor,
                              f"{tuple(t.shape)} on {t.device}")
     out = torch.empty((n,), dtype=torch.int32, device=device)
     check(library().sfp_masked_encode(
-        0 if x is None else x.data_ptr(), seeds.data_ptr(), signs.data_ptr(),
-        J, float(2.0 ** frac_bits), out.data_ptr(), n, current_stream()),
+        0 if x is None else x.data_ptr(), code, seeds.data_ptr(),
+        signs.data_ptr(), J, float(2.0 ** frac_bits), out.data_ptr(), n,
+        current_stream()),
         "sfp_masked_encode")
     masked_encode_fwd.launches += 1
     return out

@@ -40,14 +40,14 @@ def masked_encode(x: torch.Tensor, seeds, signs, *,
                   frac_bits: int = FRAC_BITS) -> torch.Tensor:
     """One client's secure upload: encode(x) + sum_j sign_j * PRG(seed_j).
 
-    x: (n,) f32 with n % LANES == 0 (see ring_size); seeds (J,) uint32
+    x: (n,) f32 or bf16 with n % LANES == 0 (see ring_size); seeds (J,) uint32
     values, signs (J,) in {-1, 0, +1}. Returns (n,) int32 ring."""
     if not on_cuda(x):
         return ref.masked_encode(x, seeds, signs, frac_bits)
     seeds, signs = _pairs(seeds, signs, x.device)
-    x = x.float().contiguous()
-    if x.data_ptr() % 16:
-        x = x.clone()   # a view at an odd offset: the kernel loads float4s
+    x = x.contiguous()
+    if x.data_ptr() % (4 * x.element_size()):
+        x = x.clone()   # a view at an odd offset: the kernel loads 4 values
     return masked_encode_fwd(x, seeds, signs,
                              n=x.shape[0], frac_bits=frac_bits)
 

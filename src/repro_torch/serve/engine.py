@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.split import SplitModel, resolve_device
+from repro_torch.models.config import SSM_KINDS
 from repro_torch.obs.trace import NOOP
 from repro_torch.runtime.boundary import BOUNDARY_NAMES
 from repro_torch.runtime.meter import TrafficMeter
@@ -89,6 +90,17 @@ class ServeEngine:
                 f"{model.cfg.name}: the serving engine decodes token "
                 f"streams; arch_type {model.cfg.arch_type!r} has no "
                 f"token decode loop")
+        recurrent = sorted(set(model.cfg.layer_pattern) & set(SSM_KINDS))
+        if recurrent and cfg.dtype != torch.float32:
+            # mirrors the JAX engine, whose recurrent blocks fail to trace
+            # under a non-f32 activation dtype: jax.lax.scan raises
+            # "TypeError: scan body function carry input and carry output
+            # must have equal types" (the f32 state meets the activations)
+            raise ValueError(
+                f"{model.cfg.name}: {'/'.join(recurrent)} blocks serve at "
+                f"float32 only, not {cfg.dtype}: the JAX engine fails on "
+                f"them with the scan-carry TypeError (carry input and "
+                f"carry output must have equal types)")
         self.device = resolve_device(device)
         self.shared = {"head": shared_params["head"],
                        "body": shared_params["body"]}

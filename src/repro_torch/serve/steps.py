@@ -30,6 +30,9 @@ boundaries:
   row is the same.
 * `make_chunk_continue_step` — a chunked-prefill continuation: the chunk's
   tokens extend a partially filled batch=1 cache at absolute positions.
+* `forced_logits` — one request teacher-forced through the prefill and
+  decode steps on given tokens, so that two runs whose greedy tokens part
+  (bf16 against f32, one device against another) compare step by step.
 
 Wire accounting: prefill transmits exactly the request's smashed tensor;
 decode transmits per OCCUPIED row (`Boundary.transmit(rows=n_active)`).
@@ -239,3 +242,31 @@ def make_chunk_continue_step(model: SplitModel, *, dtype=torch.float32):
         next_tok = logits.argmax(-1).to(torch.int32)
         return next_tok, logits, out["cache"], out["wire_bytes"]
     return chunk_step
+
+
+@torch.no_grad()
+def forced_logits(model: SplitModel, shared, bank, req, tokens, *,
+                  dtype=torch.float32, max_seq: int, device) -> np.ndarray:
+    """Serve `req` alone, teacher-forced: its prefill, then a decode step
+    fed each of tokens[:-1] in turn (the tokens of a reference run), at
+    batch 1 through the engine's step functions. Returns the (len(tokens),
+    V) f32 logits of the prefill's last position and of every step."""
+    prefill = make_tenant_prefill_step(model, dtype=dtype)
+    decode = make_batched_decode_step(model, dtype=dtype)
+    prompt = torch.as_tensor(np.asarray(req.tokens, np.int32)[None],
+                             device=device)
+    _, logits, cache, _ = prefill(
+        shared, bank.tail(req.tenant), bank.prompt(req.tenant),
+        {"tokens": prompt}, model.blank_slot_cache(max_seq, device=device))
+    rows = [logits[0]]
+    pos = len(req.tokens) + model.split.prompt_len
+    tenant, active = np.array([req.tenant]), np.array([True])
+    for tok in tokens[:-1]:
+        _, logits, cache, _ = decode(
+            shared, bank, tenant,
+            torch.tensor([tok], dtype=torch.int32, device=device),
+            torch.tensor([pos], dtype=torch.int32, device=device), active,
+            cache)
+        rows.append(logits[0])
+        pos += 1
+    return torch.stack(rows).cpu().numpy()

@@ -201,7 +201,7 @@ def test_wrappers_raise_instead_of_falling_back(gen):
     with pytest.raises(ValueError):
         dequantize_int8(torch.zeros((2, 3), dtype=torch.int8, device="cuda"),
                         torch.ones((2, 1), device="cuda"),
-                        dtype=torch.bfloat16)
+                        dtype=torch.float16)
     with pytest.raises(ValueError):
         flash_attention(q.double(), q.double(), q.double())
 
@@ -696,3 +696,312 @@ def test_recurrent_engine_on_card_matches_cpu(gen, arch):
         g = runs["cuda"][0][rid]
         assert (f.tokens == g.tokens).all()
         assert float(abs(f.logits - g.logits).max()) <= 1e-4
+
+
+# ------------------------------------------------------------------- bf16
+BF16_TOL = dict(atol=2e-2, rtol=2e-2)   # the JAX kernel tests' bf16 tolerance
+
+
+def _close_bf16(got, want):
+    """Both bf16, finite, within BF16_TOL: the kernel and plain round the
+    same f32 value, computed in different orders."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+def _bf16(shape, gen, offset=0, scale=1.0):
+    """bf16 normals; `offset` values into their storage (2-byte steps)."""
+    n = int(np.prod(shape))
+    x = (scale * torch.randn(n + offset, generator=gen, device="cuda")
+         ).bfloat16()
+    return x[offset:].view(shape)
+
+
+@pytest.mark.parametrize("shape", [(3, 7), (37, 160), (130, 5120)])
+def test_quant_kernels_bit_equal_bf16(gen, shape):
+    """bf16 x quantizes to the plain version's payload and scales, and the
+    payload dequantizes to bf16 bit for bit."""
+    from repro_torch.kernels.quant import ref
+    from repro_torch.kernels.quant.kernel import dequantize_fwd, quantize_fwd
+    from repro_torch.kernels.quant.ops import dequantize_int8, quantize_int8
+    x = _bf16(shape, gen, scale=4.0)
+    for u in (0.5, torch.rand(shape, generator=gen, device="cuda")):
+        nq, nd = quantize_fwd.launches, dequantize_fwd.launches
+        v, s = quantize_int8(x, u)
+        d = dequantize_int8(v, s, dtype=torch.bfloat16)
+        assert (quantize_fwd.launches, dequantize_fwd.launches) == \
+            (nq + 1, nd + 1)
+        rv, rs = ref.quantize(x, u)
+        assert torch.equal(v, rv) and torch.equal(s, rs)
+        assert d.dtype == torch.bfloat16
+        assert torch.equal(d, ref.dequantize(v, s, torch.bfloat16))
+
+
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Hq, Hkv, Dh, causal, window, softcap, kv_len, offset)
+    (2, 5, 4, 4, 32, True, None, None, None, 0),
+    (1, 37, 8, 8, 80, True, None, None, None, 0),     # zamba2's head_dim 80
+    (1, 33, 6, 3, 128, True, None, 30.0, 20, 0),
+    (2, 77, 6, 3, 20, False, None, None, None, 0),    # 20: single loads
+    (16, 213, 12, 12, 64, False, None, None, None, 0),  # ViT-Base scoring
+    (2, 50, 6, 2, 64, True, None, None, None, 1),     # one value off 16 B
+    (8, 100, 40, 8, 128, True, 32, 30.0, 90, 0),      # every option
+])
+def test_prefill_kernel_matches_plain_bf16(gen, case):
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ops import prefill_attention
+    B, S, Hq, Hkv, Dh, causal, window, softcap, kv_len, offset = case
+    q = _bf16((B, S, Hq, Dh), gen, offset)
+    kv = _bf16((B, S, 2 * Hkv, Dh), gen, offset)
+    k, v = kv[:, :, :Hkv], kv[:, :, Hkv:]           # strided views
+    n = flash_attention_fwd.launches
+    got = prefill_attention(q, k, v, causal=causal, sliding_window=window,
+                            softcap=softcap, kv_len=kv_len)
+    assert flash_attention_fwd.launches == n + 1
+    L = kv_len or S
+    _close_bf16(got, ref.attention(q, k[:, :L], v[:, :L], causal=causal,
+                                   sliding_window=window, softcap=softcap))
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Dh,window,kind", [
+    (5, 128, None, ""), (1, 80, None, ""), (5, 128, 16, "seam"),
+    (5, 128, None, "empty"), (3, 64, None, "unaligned")])
+def test_decode_kernel_matches_plain_bf16(gen, monkeypatch, kv_dtype, G,
+                                          Dh, window, kind):
+    """q bf16 over an f32 cache (the engines' case) and over a bf16 one,
+    at the wrapper's split count and at 1 and 8."""
+    from repro_torch.kernels.flash_attention import decode
+    from repro_torch.kernels.flash_attention.decode import (
+        decode_attention, decode_attention_fwd, grouped_decode)
+    B, W, Hkv = 5, 77, 2
+    q = _bf16((B, 1, G * Hkv, Dh), gen)
+    k = torch.randn((B, W, Hkv, Dh), generator=gen, device="cuda")
+    v = torch.randn((B, W, Hkv, Dh), generator=gen, device="cuda")
+    k, v = k.to(kv_dtype), v.to(kv_dtype)
+    if kind == "unaligned":       # a view one value into its storage
+        k = torch.empty((B, W, Hkv, Dh + 1), dtype=kv_dtype,
+                        device="cuda")[..., 1:].copy_(k)
+        v = torch.empty((B, W, Hkv, Dh + 1), dtype=kv_dtype,
+                        device="cuda")[..., 1:].copy_(v)
+        assert k.data_ptr() % 8 and k.stride(2) % 4
+    kvp = torch.full((B, W), -1, dtype=torch.int32)
+    qp = torch.zeros((B,), dtype=torch.int32)
+    for b, n in enumerate(_decode_lens(kind, W)):
+        if b == 4:                                  # wrapped ring
+            pos = torch.arange(n, n + W, dtype=torch.int32)
+            kvp[b, pos % W] = pos
+            qp[b] = n + W - 1
+        elif n:
+            kvp[b, :n] = torch.arange(n, dtype=torch.int32)
+            qp[b] = n - 1
+    qp, kvp = qp.cuda(), kvp.cuda()
+    want = grouped_decode(q, k, v, qp, kvp, scale=Dh ** -0.5,
+                          sliding_window=window, softcap=None)
+    for S in (None, 1, 8):
+        if S is not None:
+            monkeypatch.setattr(decode, "decode_splits",
+                                lambda *shape, S=S: S)
+        n = decode_attention_fwd.launches
+        got = decode_attention(q, k, v, q_positions=qp, kv_positions=kvp,
+                               sliding_window=window)
+        torch.cuda.synchronize()
+        assert decode_attention_fwd.launches == n + 1
+        _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page,kind", [(8, ""), (16, "masked"),
+                                       (8, "unaligned")])
+def test_paged_decode_kernel_matches_plain_bf16(gen, kv_dtype, page, kind):
+    from repro_torch.kernels.flash_attention.decode import (
+        paged_decode_attention, paged_decode_attention_fwd,
+        paged_gather_decode)
+    B, nb, G, Hkv, Dh = 5, 9, 5, 2, 128
+    lens = _paged_lens(kind, nb, page)
+    q, k, v, tables, qp, kvp = _paged_case(gen, B, nb, page, G * Hkv, Hkv,
+                                           Dh, lens)
+    q, k, v = q.bfloat16(), k.to(kv_dtype), v.to(kv_dtype)
+    if kind == "unaligned":
+        P = k.shape[0]
+        k = torch.empty((P, page, Hkv, Dh + 1), dtype=kv_dtype,
+                        device="cuda")[..., 1:].copy_(k)
+        v = torch.empty((P, page, Hkv, Dh + 1), dtype=kv_dtype,
+                        device="cuda")[..., 1:].copy_(v)
+    n = paged_decode_attention_fwd.launches
+    got = paged_decode_attention(q, k, v, block_tables=tables,
+                                 q_positions=qp, kv_positions=kvp)
+    torch.cuda.synchronize()
+    assert paged_decode_attention_fwd.launches == n + 1
+    _close_bf16(got, paged_gather_decode(q, k, v, tables, qp, kvp,
+                                         scale=Dh ** -0.5,
+                                         sliding_window=None, softcap=None))
+
+
+@pytest.mark.parametrize("N,V,aligned", [(16, 100, True), (3, 1031, False),
+                                         (2, 152064, True)])
+def test_el2n_kernel_matches_one_pass_plain_bf16(gen, N, V, aligned):
+    """bf16 logits, read by the kernel itself: within 1e-5 of the one-pass
+    plain form of the same bf16 logits (f32 after an exact widening)."""
+    from repro_torch.kernels.el2n import ref
+    from repro_torch.kernels.el2n.kernel import el2n_fwd
+    from repro_torch.kernels.el2n.ops import el2n_scores
+    base = _bf16((N, V + 3), gen, scale=3.0)
+    logits = base[:, :V] if aligned else base[:, 1:V + 1]
+    labels = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    n = el2n_fwd.launches
+    e, c = el2n_scores(logits, labels)
+    assert el2n_fwd.launches == n + 1
+    assert e.dtype == c.dtype == torch.float32
+    we, wc = ref.fused_scores(logits, labels)
+    torch.testing.assert_close(e, we, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(c, wc, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", [128, 70016])
+def test_masked_encode_kernel_bit_equal_bf16(gen, n):
+    from repro_torch.kernels.secure_mask import ref
+    from repro_torch.kernels.secure_mask.ops import masked_encode
+    x, seeds, signs = _ring_case(n, n)
+    x = x.bfloat16()
+    got = masked_encode(x, seeds, signs)
+    assert torch.equal(got, ref.masked_encode(x, seeds, signs))
+    # a view one value off an 8-byte boundary is copied, not refused
+    y = torch.cat([x[:1], x])[1:]
+    assert torch.equal(masked_encode(y, seeds, signs), got)
+
+
+def test_mamba2_kernel_matches_plain_bf16(gen):
+    """The layer's dtype mix: x, B and C bf16, dt, A and h0 f32."""
+    from repro_torch.kernels.mamba2_scan import ref
+    from repro_torch.kernels.mamba2_scan.ops import mamba2_scan
+    B, T, H, P, N, G = 2, 37, 8, 16, 16, 2
+    x = _bf16((B, T, H, P), gen)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, T, H), generator=gen, device="cuda"))
+    A = -torch.exp(torch.randn((H,), generator=gen, device="cuda"))
+    Bm, Cm = _bf16((B, T, G, N), gen), _bf16((B, T, G, N), gen)
+    state = torch.randn((B, H, P, N), generator=gen, device="cuda")
+    y, h = mamba2_scan(x, dt, A, Bm, Cm, state)
+    ry, rh = ref.mamba2_scan(x, dt, A, Bm, Cm, state)
+    _close_bf16(y, ry)
+    assert h.dtype == torch.float32 and _scan_close(h, rh)
+
+
+def test_rwkv6_kernel_matches_plain_bf16(gen):
+    """Every input bf16 but the f32 state, as tests/test_kernels.py runs
+    the JAX kernel."""
+    from repro_torch.kernels.rwkv6_scan import ref
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+    B, T, H, K, V = 2, 40, 2, 16, 16
+    r, k, v = (_bf16((B, T, H, K), gen) for _ in range(3))
+    w = (-torch.exp(torch.randn((B, T, H, K), generator=gen,
+                                device="cuda"))).bfloat16()
+    u = _bf16((H, K), gen)
+    state = torch.randn((B, H, K, V), generator=gen, device="cuda")
+    y, S = rwkv6_scan(r, k, v, w, u, state)
+    ry, rS = ref.rwkv6_scan(r, k, v, w, u, state)
+    _close_bf16(y, ry)
+    assert S.dtype == torch.float32 and _scan_close(S, rS)
+
+
+def test_wrappers_refuse_f16_and_f64(gen):
+    """bf16 is taken; float16 and float64 still raise, naming the input."""
+    from repro_torch.kernels.el2n.kernel import el2n_fwd
+    from repro_torch.kernels.flash_attention.decode import \
+        decode_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.mamba2_scan.kernel import mamba2_fwd
+    from repro_torch.kernels.quant.kernel import quantize_fwd
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_fwd
+    from repro_torch.kernels.secure_mask.kernel import masked_encode_fwd
+    for dt in (torch.float16, torch.float64):
+        x = torch.zeros((2, 8), dtype=dt, device="cuda")
+        q = torch.zeros((1, 1, 2, 8), dtype=dt, device="cuda")
+        pos = torch.zeros((1,), dtype=torch.int32, device="cuda")
+        calls = [
+            lambda: quantize_fwd(x, torch.full((2, 8), 0.5, device="cuda")),
+            lambda: flash_attention_fwd(q, q, q, causal=True,
+                                        sliding_window=None, softcap=None,
+                                        scale=1.0, kv_len=1),
+            lambda: decode_attention_fwd(
+                q, q.float(), q.float(), pos, pos[:, None], scale=1.0,
+                sliding_window=None, softcap=None),
+            lambda: el2n_fwd(x, torch.zeros((2,), dtype=torch.int32,
+                                            device="cuda")),
+            lambda: masked_encode_fwd(
+                x.view(-1), torch.zeros((1,), dtype=torch.int32,
+                                        device="cuda"),
+                torch.ones((1,), dtype=torch.int32, device="cuda"), n=16,
+                frac_bits=16),
+            lambda: mamba2_fwd(q, torch.ones((1, 1, 2), device="cuda"),
+                               -torch.ones((2,), device="cuda"),
+                               torch.zeros((1, 1, 1, 8), device="cuda"),
+                               torch.zeros((1, 1, 1, 8), device="cuda")),
+            lambda: rwkv6_fwd(q, q, q, q, x),
+        ]
+        for call in calls:
+            with pytest.raises(ValueError, match="float32 or bfloat16"):
+                call()
+
+
+def test_bf16_engine_on_card_matches_cpu(gen):
+    """A bf16 dense engine on the int8 wire, card against CPU from the same
+    weights: wire bytes and counters equal, and the gap rule with the card
+    in the port's place: teacher-forced on the CPU run's tokens, the mean
+    |card_bf16 - cpu_bf16| over every logit is no more than the mean
+    |cpu_bf16 - cpu_f32|."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import SplitConfig, SplitModel
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.serve import personalized_bank
+    from repro_torch.runtime import WireSpec
+    from repro_torch.serve import (ServeConfig, ServeEngine, TenantBank,
+                                   WorkloadConfig, synthetic_requests)
+    from repro_torch.serve.steps import forced_logits
+    from repro_torch.tree import tree_map
+    cfg = get_config("qwen2.5-14b").reduced(n_layers=3, d_model=64, d_ff=128,
+                                            vocab_size=128)
+    model = SplitModel(cfg, SplitConfig(head_cycles=1, tail_cycles=1,
+                                        prompt_len=4), WireSpec.make("int8"))
+    params = model.init(torch.Generator().manual_seed(1), device="cpu")
+    bank = personalized_bank(model, params, 2, jitter=0.2)
+    reqs = synthetic_requests(WorkloadConfig(
+        n_requests=5, prompt_choices=(6, 10), new_token_choices=(3, 5),
+        n_tenants=2, vocab_size=128, seed=4))
+    on = {}
+    for dev in ("cpu", "cuda"):
+        on[dev] = (tree_map(lambda x: x.to(dev), params),
+                   TenantBank(tree_map(lambda x: x.to(dev), bank.tails),
+                              bank.prompts.to(dev)))
+    runs = {}
+    reset_launches()
+    for dev in ("cpu", "cuda"):
+        st = ServeEngine(model, *on[dev], ServeConfig(
+            n_slots=2, max_seq=32, decode_block=2, dtype=torch.bfloat16),
+            collect_logits=True, device=dev).run(reqs)
+        runs[dev] = st
+        assert st["n_finished"] == len(reqs)
+    counts = launch_counts()
+    for name in ("quantize_int8", "dequantize_int8",
+                 "flash_attention_prefill", "decode_attention"):
+        assert counts[name] > 0, name
+    for key in ("wire_bytes", "tokens_out", "decode_steps", "prefills"):
+        assert runs["cpu"][key] == runs["cuda"][key], key
+    gap, ref_gap = [], []
+    for f in runs["cpu"]["finished"]:
+        toks = f.tokens.tolist()
+
+        def forced(dev, dtype):
+            p, b = on[dev]
+            return forced_logits(model, {"head": p["head"], "body": p["body"]},
+                                 b, f.req, toks, dtype=dtype, max_seq=32,
+                                 device=dev)
+        cpu = forced("cpu", torch.bfloat16)
+        gap.append(np.abs(forced("cuda", torch.bfloat16) - cpu).ravel())
+        ref_gap.append(np.abs(cpu - forced("cpu", torch.float32)).ravel())
+    gap, ref_gap = np.concatenate(gap), np.concatenate(ref_gap)
+    assert np.isfinite(gap).all()
+    assert gap.mean() <= ref_gap.mean(), (gap.mean(), ref_gap.mean())
