@@ -116,8 +116,40 @@ Phases, each of which fails the run with a nonzero exit:
      weight casts), and the port's kernels;
  13. the paged path at bf16: phase 6 at bf16, checked as phase 6, then a
      profiled replay;
- then the `kernels` JSON line (each kernel once, with the dtypes it was
- held at and its bf16 numbers), then the device line last.
+ 14. gemma2-9b at published widths (d_model 3584, 16 / 8 heads of 256,
+     attention softcap 50, 4096-window local layers, final softcap 30,
+     d_ff 14336, vocab 256000, tied embeddings) cut to 6 layers (3 cycles
+     of local / global: head 1 / body 1 / tail 1) through the dense engine
+     with phase 5's tenants, slots, wire and traffic, checked as phase 5
+     (paging refuses its local layers, as the JAX engine does), then a
+     profiled replay;
+ 15. stablelm-12b at published widths (d_model 5120, 32 / 8 heads of 160,
+     layernorm, d_ff 13824, vocab 100352) cut to 6 layers through the
+     paged engine with phase 6's pool, prefix and chunks, checked as phase
+     6, then a profiled replay;
+ then the `kernels` JSON line (each kernel once, with the dtypes, head
+ dims and groups it was held at, its bf16 numbers and its wide-shape
+ numbers), then the seconds each phase took and the total, then the device
+ line last.
+
+ The wide attention shapes (head dims 160, 192 and 256; GQA groups up to
+ 16) run in phase 3 as well: the prefill kernel at gemma2-9b's (1, 132,
+ 16 / 8 x 256, softcap 50), stablelm-12b's (32 / 8 x 160) and
+ nemotron-4-340b's (96 / 8 x 192, G 12) causal prefill, and with values
+ narrower than the keys (192 / 128); the dense decode kernel at the same
+ three shapes over 8 slots of 512 (a window across a wrapped ring's seam,
+ softcap; device time by split count at gemma2's); the paged decode
+ kernel at the three shapes over 16 slots of page 16 (with a fully masked
+ row); each timed beside plain and SDPA, on the device and by events,
+ with its bound, and each at bf16 too. Phase 3 also prints the
+ Qwen2.5-14B, zamba2 and ViT shapes' device times beside the baseline
+ PERF.md records for them from before the wide shapes, so drift in the
+ instantiations those paths use shows. Phase 4 also serves
+ reduced gemma2, stablelm and nemotron models (published head dims and
+ groups, narrow elsewhere) card against CPU: tokens equal, logits within
+ 1e-4, wire bytes (and page counters) equal. nemotron-4-340b has no full-width
+ phase: one of its layers is 13.6 GB in f32 and its 256000-row head 18.9
+ GB a tenant, so 80 GB holds no useful cut.
 
 Needs a CUDA device and the repository's src/ beside this file; without
 either it exits nonzero and prints no result.
@@ -198,7 +230,38 @@ PATHS = {
                    "flash_attention_prefill", "decode_attention"),
     "paged_bf16": ("quantize_int8", "dequantize_int8",
                    "flash_attention_prefill", "paged_decode_attention"),
+    "gemma2": ("quantize_int8", "dequantize_int8", "flash_attention_prefill",
+               "decode_attention"),
+    "stablelm": ("quantize_int8", "dequantize_int8",
+                 "flash_attention_prefill", "paged_decode_attention"),
 }
+# the wide attention shapes of phase 3: (label, Hq, Hkv, Dh)
+WIDE_SHAPES = (("gemma2-9b", 16, 8, 256), ("stablelm-12b", 32, 8, 160),
+               ("nemotron-4-340b", 96, 8, 192))
+# the baseline device ms of the shapes whose instantiations serve the
+# earlier paths, from the last chip_smoke.py run before the wide shapes
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md), printed beside this run's
+RECORDED_DEVICE_MS = {
+    "prefill Qwen2.5-14B": 0.0269, "prefill ViT-Base": 0.1063,
+    "prefill zamba2": 0.0199, "decode Qwen2.5-14B": 0.0225,
+    "decode zamba2": 0.0363, "paged decode Qwen2.5-14B": 0.0247,
+}
+
+
+# the head dims and GQA groups each attention kernel is held at in phase 3
+HEADS = {
+    "flash_attention_prefill": ([20, 32, 40, 64, 80, 128, 160, 176, 192,
+                                 256], [1, 2, 3, 4, 5, 12]),
+    "decode_attention": ([80, 128, 160, 192, 256], [1, 2, 4, 5, 12]),
+    "paged_decode_attention": ([128, 160, 192, 256], [2, 4, 5, 12]),
+}
+T0 = time.perf_counter()
+PHASE_S = {}   # seconds each phase took, by phase
+
+
+def lap(phase: str) -> None:
+    """Record the seconds since the last lap (or the start) as `phase`'s."""
+    PHASE_S[phase] = time.perf_counter() - T0 - sum(PHASE_S.values())
 
 
 def fail(msg: str) -> None:
@@ -385,6 +448,10 @@ PREFILL_CASES = [
     (1, 100, 10, 2, 128, True, None, None, 70, 0),
     (8, 100, 40, 8, 128, True, 32, 30.0, 90, 0),
     (4, 129, 24, 8, 40, True, None, None, 100, 1),
+    (1, 70, 16, 8, 256, True, 20, 50.0, None, 0),
+    (1, 100, 24, 2, 192, True, None, None, 80, 1),
+    (2, 133, 32, 8, 160, True, 40, None, None, 0),
+    (1, 200, 8, 4, 176, False, 16, None, 60, 0),
 ]
 
 
@@ -416,8 +483,8 @@ def check_prefill_cases(torch, gen):
                  f": max|kernel - plain| = {err:.3g} > {ATTN_TOL}")
         worst = max(worst, err)
     say(f"prefill: {len(PREFILL_CASES)} cases (ragged Sq 1/65/129, widths "
-        f"20/40, 4-byte copies, GQA 5 with kv_len < Sq, windows, softcaps): "
-        f"max abs err {worst:.3g}")
+        f"20/40/176, 4-byte copies, GQA 5 and 12 with kv_len < Sq, windows, "
+        f"softcaps, head dims 160/192/256): max abs err {worst:.3g}")
     return worst
 
 
@@ -477,13 +544,14 @@ def prefill_build_report():
     library), and registers and spill bytes from the ptxas report. Fails
     if one has no TF32 HMMA or spills."""
     from repro_torch.kernels import build
-    pat = re.compile(r"flash_fwd_kernelILi(\d+)ELb(\d)E(f|13__nv_bfloat16)")
+    pat = re.compile(r"flash_fwd_(wide_)?kernelILi(\d+)ELb(\d)E"
+                     r"(f|13__nv_bfloat16)")
 
     def key(name):
         m = pat.search(name)
-        return m and (f"ND {m.group(1)}, "
-                      f"{'vector' if m.group(2) == '1' else 'single'} "
-                      f"loads, {'f32' if m.group(3) == 'f' else 'bf16'}")
+        return m and (f"ND {m.group(2)}{' (wide)' if m.group(1) else ''}, "
+                      f"{'vector' if m.group(3) == '1' else 'single'} "
+                      f"loads, {'f32' if m.group(4) == 'f' else 'bf16'}")
     out = {key(name): dict(r) for name, r in ptxas_report().items()
            if key(name)}
     cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
@@ -496,9 +564,9 @@ def prefill_build_report():
         if name:
             out.setdefault(name, {})["hmma_tf32"] = sum(
                 "HMMA" in ln and ".TF32" in ln for ln in part.splitlines())
-    if len(out) != 16:
-        fail(f"expected 16 prefill kernel instantiations, found "
-             f"{sorted(out)}")
+    if len(out) != 28:
+        fail(f"expected 28 prefill kernel instantiations (ND 4, 8, 10, 16, "
+             f"20, 24, 32 x copies x dtypes), found {sorted(out)}")
     for name, r in sorted(out.items()):
         say(f"prefill kernel {name}: {r.get('hmma_tf32')} HMMA .TF32 in its "
             f"SASS, {r.get('registers')} registers, {r.get('spill_bytes')} "
@@ -616,65 +684,104 @@ def check_prefill(torch, F, gen, results):
                                  True, (37, 132)))
 
 
-def prefill_shape(torch, F, gen, label, B, H, Dh, causal, lengths):
+def prefill_shape(torch, F, gen, label, B, H, Dh, causal, lengths,
+                  Hkv=None, softcap=None):
     """An extra shape of the prefill kernel, not a kernel record: held
-    against plain at each of `lengths` (MHA, kv_len = S), timed at the
-    last beside plain, SDPA and the bound. The training path's (ViT-Base
+    against plain at each of `lengths` (kv_len = S), timed at the last
+    beside plain, SDPA and the bound. The training path's (ViT-Base
     scoring and evaluation: non-causal, B 16, S 213 = 196 patches + CLS +
-    16 prompt, 12 heads of 64) and zamba2's shared attention block (causal,
+    16 prompt, 12 heads of 64), zamba2's shared attention block (causal,
     32 heads of 80, at the hybrid path's longest prefill of 132 and an odd
-    length)."""
+    length), and the wide families' (H query heads over Hkv kv heads, with
+    gemma2's softcap: SDPA, which has none, is timed without it)."""
     from repro_torch.kernels.flash_attention import ref
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
     scale = Dh ** -0.5
+    Hkv = Hkv or H
 
     def inputs(S):
-        return tuple(torch.randn((B, S, H, Dh), generator=gen, device="cuda")
-                     for _ in range(3))
+        return tuple(torch.randn((B, S, h, Dh), generator=gen, device="cuda")
+                     for h in (H, Hkv, Hkv))
 
     worst = 0.0
     for S in lengths:
         q, k, v = inputs(S)
         got = flash_attention_fwd(q, k, v, causal=causal,
-                                  sliding_window=None, softcap=None,
+                                  sliding_window=None, softcap=softcap,
                                   scale=scale, kv_len=S)
         err = float((got - ref.attention(q, k, v, causal=causal,
-                                         scale=scale)).abs().max())
+                                         softcap=softcap, scale=scale))
+                    .abs().max())
         if not (torch.isfinite(got).all() and err <= ATTN_TOL):
             fail(f"prefill {label} S={S}: max|kernel - plain| = {err:.3g} "
                  f"> {ATTN_TOL}")
         worst = max(worst, err)
     S = lengths[-1]
-    per = 4 * B * S * H * Dh * 4
+    per = (2 * B * S * H * Dh + 2 * B * S * Hkv * Dh) * 4
     sets = [inputs(S) for _ in range(n_copies(per))]
-    t_k = time_ms([lambda s=s: flash_attention_fwd(
-        *s, causal=causal, sliding_window=None, softcap=None, scale=scale,
-        kv_len=S) for s in sets])
-    t_p = time_ms([lambda s=s: ref.attention(*s, causal=causal, scale=scale)
+    kernel = [lambda s=s: flash_attention_fwd(
+        *s, causal=causal, sliding_window=None, softcap=softcap, scale=scale,
+        kv_len=S) for s in sets]
+    t_k = time_ms(kernel)
+    t_p = time_ms([lambda s=s: ref.attention(*s, causal=causal,
+                                             softcap=softcap, scale=scale)
                    for s in sets])
-    lib = [tuple(t.transpose(1, 2).contiguous() for t in s) for s in sets]
+    lib = [(q.transpose(1, 2).contiguous(),
+            k.repeat_interleave(H // Hkv, 2).transpose(1, 2).contiguous(),
+            v.repeat_interleave(H // Hkv, 2).transpose(1, 2).contiguous())
+           for q, k, v in sets]
     sdpa = [lambda s=s: F.scaled_dot_product_attention(
         *s, is_causal=causal, scale=scale) for s in lib]
     t_l = time_ms(sdpa)
-    d_k = device_ms([lambda s=s: flash_attention_fwd(
-        *s, causal=causal, sliding_window=None, softcap=None, scale=scale,
-        kv_len=S) for s in sets])
+    d_k = device_ms(kernel)
     d_l = device_ms(sdpa)
     pairs = _prefill_pairs(S, S, None) if causal else S * S
     b, b32 = prefill_bounds(per, B * H * pairs * 4 * Dh)
     kind = "causal" if causal else "non-causal"
     picked, efficient = sdpa_backends(torch, F, lib[0], causal, scale)
-    say(f"prefill {label}: q ({B}, {S}, {H}, {Dh}) {kind}: max abs err "
-        f"{worst:.3g}; kernel {t_k:.4f} ms ({d_k:.4f} on the device), plain "
-        f"{t_p:.4f} ms, SDPA {t_l:.4f} ms ({d_l:.4f}), bound {b[0]:.5f} ms "
-        f"({b[1]}, 3xTF32), fp32-pipe bound {b32[0]:.5f} ms; SDPA ran "
-        f"{picked} ({'matches' if picked == efficient else 'differs from'} "
-        f"EFFICIENT_ATTENTION)")
-    return dict(shape=f"q, k, v ({B}, {S}, {H}, {Dh}), {kind}",
+    heads = f"{H}" if Hkv == H else f"{H} / {Hkv}"
+    cap = f", softcap {softcap} (SDPA without)" if softcap else ""
+    same = "matches" if picked == efficient else "differs from"
+    say(f"prefill {label}: q ({B}, {S}, {heads}, {Dh}) {kind}{cap}: max "
+        f"abs err {worst:.3g}; kernel {t_k:.4f} ms ({d_k:.4f} on the "
+        f"device), plain {t_p:.4f} ms, SDPA {t_l:.4f} ms ({d_l:.4f}), bound "
+        f"{b[0]:.5f} ms ({b[1]}, 3xTF32), fp32-pipe bound {b32[0]:.5f} ms; "
+        f"SDPA ran {picked} ({same} EFFICIENT_ATTENTION)")
+    del lib, sdpa, sets
+    return dict(shape=f"q ({B}, {S}, {H}, {Dh}), k, v ({B}, {S}, {Hkv}, "
+                      f"{Dh}), {kind}{cap}",
                 max_abs_err=worst, ms=t_k, plain_ms=t_p, library_ms=t_l,
                 device_ms=d_k, library_device_ms=d_l,
                 bound_ms=b[0], bound_by=b[1], bound_fp32_ms=b32[0],
                 sdpa_kernels=picked, sdpa_is_efficient=picked == efficient)
+
+
+def check_prefill_wide(torch, F, gen, results):
+    """The wide instantiations at the wide families' batch-1 causal prefill
+    (S 37 and 132: the paths' longest prompt of 128 + 4), and values
+    narrower than the keys (Dh 192, Dv 128: MLA's widths) against plain."""
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    rec = results["flash_attention_prefill"]
+    rec["wide"] = {label: prefill_shape(
+        torch, F, gen, label, 1, Hq, Dh, True, (37, 132), Hkv=Hkv,
+        softcap=50.0 if label == "gemma2-9b" else None)
+        for label, Hq, Hkv, Dh in WIDE_SHAPES}
+    q = torch.randn((2, 77, 24, 192), generator=gen, device="cuda")
+    k = torch.randn((2, 77, 2, 192), generator=gen, device="cuda")
+    v = torch.randn((2, 77, 2, 128), generator=gen, device="cuda")
+    got = flash_attention_fwd(q, k, v, causal=True, sliding_window=16,
+                              softcap=50.0, scale=192 ** -0.5, kv_len=77)
+    err = float((got - ref.attention(q, k, v, sliding_window=16,
+                                     softcap=50.0)).abs().max())
+    if not (torch.isfinite(got).all() and err <= ATTN_TOL):
+        fail(f"prefill Dh 192, Dv 128: max|kernel - plain| = {err:.3g} > "
+             f"{ATTN_TOL}")
+    say(f"prefill Dh 192 / Dv 128 (2, 77, 24 / 2 heads, window 16, softcap "
+        f"50): max abs err {err:.3g}")
+    rec["wide"]["Dh 192, Dv 128"] = dict(max_abs_err=err)
+    rec["max_abs_err"] = max(rec["max_abs_err"], err, *(
+        r["max_abs_err"] for r in rec["wide"].values()))
 
 
 def decode_case(torch, gen, B, W, Hq, Hkv, Dh, lengths, wrap_slot=None):
@@ -701,30 +808,40 @@ def check_decode(torch, F, gen, results):
     results["decode_attention"] = decode_record(torch, F, gen, 40, 8, 128)
     results["decode_attention"]["hd80_shape"] = decode_record(
         torch, F, gen, 32, 32, 80)
+    # the split sweep at gemma2's shape tells whether filling the SMs' one
+    # resident block a wave (S 3) beats fewer, longer splits there
+    results["decode_attention"]["wide"] = {
+        label: decode_record(torch, F, gen, Hq, Hkv, Dh,
+                             sweep=label == "gemma2-9b")
+        for label, Hq, Hkv, Dh in WIDE_SHAPES}
     results["decode_attention"]["ptxas"] = decode_build_report()
 
 
 def decode_build_report():
     """Registers and spill bytes of each instantiation of the two decode
-    kernels and of their shared combine, from the ptxas report."""
+    kernels (shape (kD, kR), copies, K/V dtype) and of their shared
+    combine, from the ptxas report."""
     pat = re.compile(r"\d+(paged_decode_kernel|decode_combine_kernel|"
-                     r"decode_kernel)(ILb(\d)E(f|13__nv_bfloat16))?")
+                     r"decode_kernel)(ILi(\d+)ELi(\d+)ELb(\d)E"
+                     r"(f|13__nv_bfloat16))?")
     out = {}
     for name, r in ptxas_report().items():
         m = pat.search(name)
         if m:
+            shape = f" ({m.group(3)}, {m.group(4)})" if m.group(3) else ""
             copies = {"1": ", vector copies", "0": ", single copies"}
             kv = {"f": ", f32 K/V", "13__nv_bfloat16": ", bf16 K/V"}
-            out[m.group(1) + copies.get(m.group(3), "")
-                + kv.get(m.group(4), "")] = r
+            out[m.group(1) + shape + copies.get(m.group(5), "")
+                + kv.get(m.group(6), "")] = r
     for name, r in sorted(out.items()):
         say(f"decode ptxas: {name}: {r.get('registers')} registers, "
             f"{r.get('spill_bytes')} bytes spilled")
         if r.get("spill_bytes") != 0:
             fail(f"decode kernel {name}: {r.get('spill_bytes')} bytes of "
                  f"register spills")
-    if len(out) != 9:
-        fail(f"expected 9 decode kernel functions in the build, found "
+    if len(out) != 33:
+        fail(f"expected 33 decode kernel functions in the build (2 kernels "
+             f"x 4 shapes x copies x dtypes, and the combine), found "
              f"{sorted(out)}")
     return out
 
@@ -742,16 +859,17 @@ def slot_tiles(torch, qp, kvp, window=None):
     return int(tiles.sum()), int((~valid.any(-1)).sum())
 
 
-def decode_record(torch, F, gen, Hq, Hkv, Dh):
+def decode_record(torch, F, gen, Hq, Hkv, Dh, sweep=True):
     """The decode kernel against plain at 8 slots of 512 (one wrapped ring,
     two empty slots), with and without window and softcap, and with a
     window across the seam of a ring wrapped 8 past W; then timed, by
-    events and on the device beside SDPA, and on the device at every
-    split count (each checked against plain): Qwen2.5-14B's (40, 8, 128)
-    and zamba2's shared block (32, 32, 80)."""
+    events and on the device beside SDPA, and (`sweep`) on the device at
+    every split count (each checked against plain): Qwen2.5-14B's (40, 8,
+    128), zamba2's shared block (32, 32, 80) and the wide shapes."""
     from repro_torch.kernels.flash_attention import decode
     from repro_torch.kernels.flash_attention.decode import (
-        decode_attention_fwd, decode_splits, grouped_decode, sm_count)
+        decode_attention_fwd, decode_blocks_per_sm, decode_splits,
+        grouped_decode, sm_count)
     B, W = 8, 512
     G = Hq // Hkv
     scale = Dh ** -0.5
@@ -812,12 +930,13 @@ def decode_record(torch, F, gen, Hq, Hkv, Dh):
     d_k = device_ms(kernel)
     d_l = device_ms(sdpa)
     del lib, sdpa
-    splits = decode_splits(B, Hkv, W, sm_count(torch.cuda.current_device()))
+    splits = decode_splits(B, Hkv, W, sm_count(torch.cuda.current_device()),
+                           decode_blocks_per_sm(Dh, Dh, G))
     # device time at every split count, each forced by standing in for
     # decode_splits and checked against plain
-    sweep = {}
+    by_splits = {}
     try:
-        for S in range(1, 9):
+        for S in range(1, 9) if sweep else ():
             decode.decode_splits = lambda *shape, S=S: S
             got = decode_attention_fwd(*sets[0], scale=scale,
                                        sliding_window=None, softcap=None)
@@ -828,11 +947,12 @@ def decode_record(torch, F, gen, Hq, Hkv, Dh):
                 fail(f"decode Dh={Dh} at {S} splits: max|kernel - plain| = "
                      f"{err:.3g} > {ATTN_TOL}")
             worst = max(worst, err)
-            sweep[S] = device_ms(kernel)
+            by_splits[S] = device_ms(kernel)
     finally:
         decode.decode_splits = decode_splits
-    say(f"decode (G {G}, Dh {Dh}) device ms by splits: " + ", ".join(
-        f"S {S} {ms:.4f}" for S, ms in sweep.items()))
+    if sweep:
+        say(f"decode (G {G}, Dh {Dh}) device ms by splits: " + ", ".join(
+            f"S {S} {ms:.4f}" for S, ms in by_splits.items()))
     say(f"decode timed: q ({B}, 1, {Hq}, {Dh}), cache ({B}, {W}, {Hkv}, "
         f"{Dh}), {splits} splits a row, {tiles} valid tiles of "
         f"{B * W // 32} and {idle} idle slots (x {Hkv} kv heads): kernel "
@@ -842,7 +962,7 @@ def decode_record(torch, F, gen, Hq, Hkv, Dh):
         max_abs_err=worst, ms=t_k, plain_ms=t_p, bound_ms=b[0],
         bound_by=b[1], library_ms=t_l, device_ms=d_k,
         library_device_ms=d_l, splits=splits, valid_tiles=tiles,
-        idle_slots=idle, device_ms_by_splits=sweep,
+        idle_slots=idle, device_ms_by_splits=by_splits,
         shape=f"q ({B}, 1, {Hq}, {Dh}), cache ({B}, {W}, {Hkv}, {Dh}), "
               f"{n_valid} valid entries, {idle} idle slots")
 
@@ -894,10 +1014,23 @@ def valid_tiles(torch, tables, qp, kvp, window=None):
 
 
 def check_paged_decode(torch, F, gen, results):
+    results["paged_decode_attention"] = paged_record(torch, F, gen, 40, 8,
+                                                     128)
+    results["paged_decode_attention"]["wide"] = {
+        label: paged_record(torch, F, gen, Hq, Hkv, Dh, sweep=False)
+        for label, Hq, Hkv, Dh in WIDE_SHAPES}
+
+
+def paged_record(torch, F, gen, Hq, Hkv, Dh, sweep=True):
+    """The paged decode kernel against plain at 16 slots of page 16 (and
+    of page 8 with window and softcap, and with a fully masked row), then
+    timed by events and on the device beside plain, the dense decode
+    kernel on the same data gathered and SDPA, and (`sweep`) on the device
+    at split counts 1-8: Qwen2.5-14B's (40, 8, 128) and the wide
+    shapes."""
     from repro_torch.kernels.flash_attention.decode import (
-        decode_attention_fwd, paged_decode_attention_fwd,
+        decode_attention_fwd, decode_blocks_per_sm, paged_decode_attention_fwd,
         decode_splits, paged_gather_decode, sm_count)
-    Hq, Hkv, Dh = 40, 8, 128
     G = Hq // Hkv
     scale = Dh ** -0.5
     # 16 slots, ragged 1..512 tokens, slot 4 idle: 119 of the 128 usable
@@ -911,7 +1044,7 @@ def check_paged_decode(torch, F, gen, results):
              (masked, 16, 32, 130, None, None)]
     worst = 0.0
     for lens, page, nb, P, window, softcap in cases:
-        args = paged_case(torch, gen, lens, page, nb, P)
+        args = paged_case(torch, gen, lens, page, nb, P, Hq, Hkv, Dh)
         got = paged_decode_attention_fwd(*args, scale=scale,
                                          sliding_window=window,
                                          softcap=softcap)
@@ -927,7 +1060,7 @@ def check_paged_decode(torch, F, gen, results):
                  f"{err:.3g} > {ATTN_TOL}")
         worst = max(worst, err)
         say(f"paged decode: 16 slots, page {page}, nb {nb}, pool {P} pages, "
-            f"G={G}, lengths 1..512 + an idle scratch row"
+            f"G={G}, Dh={Dh}, lengths 1..512 + an idle scratch row"
             f"{' + a fully masked row' if None in lens else ''}, "
             f"window={window} softcap={softcap}, "
             f"{valid_tiles(torch, *args[3:], window)} valid tiles of "
@@ -936,12 +1069,13 @@ def check_paged_decode(torch, F, gen, results):
     page, nb, P = 16, 32, 130
     B, W = len(lengths), nb * page
     n_valid = sum(lengths)
-    splits = decode_splits(B, Hkv, W, sm_count(torch.cuda.current_device()))
+    splits = decode_splits(B, Hkv, W, sm_count(torch.cuda.current_device()),
+                           decode_blocks_per_sm(Dh, Dh, G))
     # bytes the kernel must move: q, out, the valid entries' K/V and
     # positions, the tables and query positions
     nbytes = ((B * Hq * Dh * 2 + n_valid * Hkv * Dh * 2) * 4 + n_valid * 4
               + B * nb * 4 + B * 4)
-    sets = [paged_case(torch, gen, lengths, page, nb, P)
+    sets = [paged_case(torch, gen, lengths, page, nb, P, Hq, Hkv, Dh)
             for _ in range(n_copies(nbytes))]
     t_k = time_ms([lambda s=s: paged_decode_attention_fwd(
         *s, scale=scale, sliding_window=None, softcap=None) for s in sets])
@@ -982,9 +1116,9 @@ def check_paged_decode(torch, F, gen, results):
     # smallest S that gives every SM the three blocks it holds; each S is
     # forced by standing in for it, and checked against plain
     from repro_torch.kernels.flash_attention import decode
-    sweep = {}
+    by_splits = {}
     try:
-        for S in (1, 2, 3, 4, 6, 8):
+        for S in (1, 2, 3, 4, 6, 8) if sweep else ():
             decode.decode_splits = lambda *shape, S=S: S
             got = paged_decode_attention_fwd(*sets[0], scale=scale,
                                              sliding_window=None,
@@ -995,25 +1129,28 @@ def check_paged_decode(torch, F, gen, results):
             if not (torch.isfinite(got).all() and err <= ATTN_TOL):
                 fail(f"paged decode at {S} splits: max|kernel - plain| = "
                      f"{err:.3g} > {ATTN_TOL}")
-            sweep[S] = device_ms([lambda s=s: paged_decode_attention_fwd(
-                *s, scale=scale, sliding_window=None, softcap=None)
+            by_splits[S] = device_ms([
+                lambda s=s: paged_decode_attention_fwd(
+                    *s, scale=scale, sliding_window=None, softcap=None)
                 for s in sets])
     finally:
         decode.decode_splits = decode_splits
-    say("paged decode device ms by splits: " + ", ".join(
-        f"S {S} {ms:.4f}" for S, ms in sweep.items()))
-    say(f"paged decode timing: {splits} splits a row, {tiles} valid tiles "
+    if sweep:
+        say("paged decode device ms by splits: " + ", ".join(
+            f"S {S} {ms:.4f}" for S, ms in by_splits.items()))
+    say(f"paged decode timing (G {G}, Dh {Dh}): {splits} splits a row, "
+        f"{tiles} valid tiles "
         f"of {B * -(-W // 32)} (x {Hkv} kv heads): kernel {t_k:.4f} ms "
         f"({d_k:.4f} on the device), dense decode kernel on the same data "
         f"gathered {t_d:.4f} ms ({d_d:.4f}), plain {t_p:.4f} ms, SDPA "
         f"{t_l:.4f} ms ({d_l:.4f})")
     b = bound(nbytes, n_valid * Hq * 4 * Dh)
-    results["paged_decode_attention"] = dict(
+    return dict(
         max_abs_err=worst, ms=t_k, plain_ms=t_p, bound_ms=b[0],
         bound_by=b[1], library_ms=t_l, dense_kernel_same_data_ms=t_d,
         device_ms=d_k, library_device_ms=d_l,
         dense_kernel_same_data_device_ms=d_d, splits=splits,
-        valid_tiles=tiles, device_ms_by_splits=sweep,
+        valid_tiles=tiles, device_ms_by_splits=by_splits,
         shape=f"q ({B}, 1, {Hq}, {Dh}), pool ({P}, {page}, {Hkv}, {Dh}), "
               f"tables ({B}, {nb}), {n_valid} valid entries")
 
@@ -1459,14 +1596,15 @@ def bf16_quant(torch, gen, results):
 
 
 def bf16_prefill(torch, F, gen, results):
-    """All-bf16 q, k, v at Qwen2.5-14B's (40 / 8 heads of 128) and zamba2's
-    (32 heads of 80) causal prefill, checked at S 37 and 132, timed at 132
-    beside plain and SDPA on the same bf16 values."""
+    """All-bf16 q, k, v at Qwen2.5-14B's (40 / 8 heads of 128), zamba2's
+    (32 heads of 80) and the wide shapes' causal prefill, checked at S 37
+    and 132, timed at 132 beside plain and SDPA on the same bf16 values."""
     from repro_torch.kernels.flash_attention import ref
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
     out = {}
     for label, B, Hq, Hkv, Dh in (("Qwen2.5-14B", 1, 40, 8, 128),
-                                  ("zamba2", 1, 32, 32, 80)):
+                                  ("zamba2", 1, 32, 32, 80)) + tuple(
+            (label, 1, Hq, Hkv, Dh) for label, Hq, Hkv, Dh in WIDE_SHAPES):
         scale = Dh ** -0.5
 
         def inputs(S):
@@ -1519,15 +1657,16 @@ def bf16_prefill(torch, F, gen, results):
 def bf16_decode(torch, F, gen, results):
     """The dense decode kernel with a bf16 query over an f32 cache (the
     engines' case) and over a bf16 cache, at phase 3's 8 slots of 512 for
-    Qwen2.5-14B (40 / 8 heads of 128) and zamba2 (32 / 32 of 80); SDPA is
-    timed on the all-bf16 data only (no one call takes mixed dtypes)."""
+    Qwen2.5-14B (40 / 8 heads of 128), zamba2 (32 / 32 of 80) and the wide
+    shapes; SDPA is timed on the all-bf16 data only (no one call takes
+    mixed dtypes)."""
     from repro_torch.kernels.flash_attention.decode import (
         decode_attention_fwd, grouped_decode)
     B, W = 8, 512
     lengths = [37, 0, 512, 200, 0, 1, 333, 100]
     out = {}
     for label, Hq, Hkv, Dh in (("Qwen2.5-14B", 40, 8, 128),
-                               ("zamba2", 32, 32, 80)):
+                               ("zamba2", 32, 32, 80)) + WIDE_SHAPES:
         G, scale = Hq // Hkv, Dh ** -0.5
         for variant, kv_dt in (("q bf16, K/V f32", torch.float32),
                                ("all bf16", torch.bfloat16)):
@@ -1593,22 +1732,28 @@ def bf16_decode(torch, F, gen, results):
 def bf16_paged(torch, gen, results):
     """The paged decode kernel with a bf16 query over an f32 pool (the
     engine's case) and over a bf16 pool, at phase 3's 16 slots of page 16
-    (and with a fully masked row)."""
+    (and with a fully masked row), at Qwen2.5-14B's (40 / 8 heads of 128;
+    keyed by the variant alone) and the wide shapes."""
+    out = {}
+    for label, Hq, Hkv, Dh in (("Qwen2.5-14B", 40, 8, 128),) + WIDE_SHAPES:
+        bf16_paged_shape(torch, gen, out, label, Hq, Hkv, Dh)
+    results["paged_decode_attention"]["bf16"] = out
+
+
+def bf16_paged_shape(torch, gen, out, label, Hq, Hkv, Dh):
     from repro_torch.kernels.flash_attention.decode import (
         paged_decode_attention_fwd, paged_gather_decode)
-    Hq, Hkv, Dh = 40, 8, 128
-    G, scale = Hq // Hkv, Dh ** -0.5
+    scale = Dh ** -0.5
     lengths = [1, 512, 37, 200, 0, 129, 16, 17, 300, 64, 5, 96, 250, 33, 128,
                9]
     masked = lengths[:10] + [None] + lengths[11:]
     page, nb, P = 16, 32, 130
     B, n_valid = len(lengths), sum(lengths)
-    out = {}
     for variant, kv_dt in (("q bf16, pool f32", torch.float32),
                            ("all bf16", torch.bfloat16)):
         def case(lens):
             q, k, v, tables, qp, kvp = paged_case(torch, gen, lens, page, nb,
-                                                  P)
+                                                  P, Hq, Hkv, Dh)
             return (q.to(torch.bfloat16), k.to(kv_dt), v.to(kv_dt), tables,
                     qp, kvp)
         errs = []
@@ -1635,17 +1780,16 @@ def bf16_paged(torch, gen, results):
             *s, scale=scale, sliding_window=None, softcap=None)
             for s in sets])
         del sets
-        out[variant] = dict(
+        name = variant if label == "Qwen2.5-14B" else f"{label}, {variant}"
+        out[name] = r = dict(
             worst_err(errs), ms=t_k, device_ms=d_k, plain_ms=t_p,
             library_ms=None, bound_ms=b[0], bound_by=b[1],
             shape=f"q ({B}, 1, {Hq}, {Dh}) bf16, pool ({P}, {page}, {Hkv}, "
                   f"{Dh}) {str(kv_dt)[6:]}, {n_valid} valid entries")
-        r = out[variant]
-        say(f"paged decode bf16 {variant}: max abs err "
+        say(f"paged decode bf16 {label}, {variant}: max abs err "
             f"{r['max_abs_err']:.3g} ({r['max_ulps']:.3g} ulps); kernel "
             f"{t_k:.4f} ms ({d_k:.4f} on the device), plain {t_p:.4f} ms, "
             f"bound {b[0]:.5f} ms ({b[1]})")
-    results["paged_decode_attention"]["bf16"] = out
 
 
 def bf16_el2n(torch, gen, results):
@@ -1794,7 +1938,102 @@ def check_bf16(torch, F, gen, results):
     bf16_scans(torch, gen, results)
 
 
+def report_drift(results):
+    """The device ms of the shapes the earlier paths' instantiations serve,
+    beside their baseline (printed, not checked)."""
+    pre, dec = results["flash_attention_prefill"], results["decode_attention"]
+    now = {"prefill Qwen2.5-14B": pre["device_ms"],
+           "prefill ViT-Base": pre["vit_shape"]["device_ms"],
+           "prefill zamba2": pre["hd80_shape"]["device_ms"],
+           "decode Qwen2.5-14B": dec["device_ms"],
+           "decode zamba2": dec["hd80_shape"]["device_ms"],
+           "paged decode Qwen2.5-14B":
+               results["paged_decode_attention"]["device_ms"]}
+    out = {}
+    for name, ms in now.items():
+        was = RECORDED_DEVICE_MS[name]
+        out[name] = dict(device_ms=ms, baseline_device_ms=was)
+        say(f"drift: {name} {ms:.4f} ms on the device, baseline "
+            f"{was:.4f}, ratio {ms / was:.3f}")
+    return out
+
+
 # ---------------------------------------------------------------- phase 4
+def wide_reduced(arch):
+    """A reduced model of `arch` (three cycles of its layer pattern,
+    d_model 64, vocab 128) at its published head dim and GQA group:
+    gemma2-9b 4 / 2 heads of 256 with both softcaps and a window of 8 (so
+    the local layers mask at these lengths), stablelm-12b 8 / 2 of 160,
+    nemotron-4-340b 24 / 2 of 192."""
+    from repro_torch.configs import get_config
+    heads, kv, dh = {"gemma2-9b": (4, 2, 256), "stablelm-12b": (8, 2, 160),
+                     "nemotron-4-340b": (24, 2, 192)}[arch]
+    base = get_config(arch)
+    cfg = base.reduced(n_layers=3 * len(base.layer_pattern), d_model=64,
+                       d_ff=128, vocab_size=128)
+    return dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, n_heads=heads, n_kv_heads=kv, head_dim=dh,
+        sliding_window=8 if cfg.attention.sliding_window else None))
+
+
+def wide_parity(torch):
+    """The wide families reduced (wide_reduced) and served on the card and
+    on the CPU from the same seeded weights: gemma2 and nemotron through
+    the dense engine, stablelm through the dense and the paged engine
+    (shared prefix, chunked prefill); tokens equal, logits within 1e-4,
+    wire bytes and page counters equal."""
+    from repro_torch.core import SplitConfig, SplitModel
+    from repro_torch.launch.serve import personalized_bank, \
+        shared_prefix_tokens
+    from repro_torch.runtime import WireSpec
+    from repro_torch.serve import (PagedServeConfig, PagedServeEngine,
+                                   ServeConfig, ServeEngine, TenantBank,
+                                   WorkloadConfig, synthetic_requests)
+    from repro_torch.tree import tree_map
+    counters = ("wire_bytes", "page_copies", "prefix_hits", "prefix_misses",
+                "prefill_chunks", "peak_pages", "pages_in_use")
+    out = {}
+    for arch, kinds in (("gemma2-9b", ("dense",)),
+                        ("stablelm-12b", ("dense", "paged")),
+                        ("nemotron-4-340b", ("dense",))):
+        cfg = wide_reduced(arch)
+        model = SplitModel(cfg, SplitConfig(head_cycles=1, tail_cycles=1,
+                                            prompt_len=4),
+                           WireSpec.make("fp32"))
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        bank = personalized_bank(model, params, 3, jitter=0.2)
+        reqs = synthetic_requests(WorkloadConfig(
+            n_requests=6, prompt_choices=(6, 11), new_token_choices=(3, 6),
+            n_tenants=3, vocab_size=cfg.vocab_size, seed=3))
+        for kind in kinds:
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                p = tree_map(lambda x: x.to(dev), params)
+                b = TenantBank(tree_map(lambda x: x.to(dev), bank.tails),
+                               bank.prompts.to(dev))
+                if kind == "paged":
+                    eng = PagedServeEngine(model, p, b, PagedServeConfig(
+                        n_slots=3, max_seq=48, decode_block=4, page_size=8,
+                        shared_prefix=shared_prefix_tokens(8, 128),
+                        prefill_chunk=4), collect_logits=True, device=dev)
+                else:
+                    eng = ServeEngine(model, p, b, ServeConfig(
+                        n_slots=3, max_seq=48, decode_block=4),
+                        collect_logits=True, device=dev)
+                st = eng.run(reqs)
+                runs[dev] = ({f.req.rid: f for f in st["finished"]},
+                             {k: st.get(k) for k in counters})
+            att = cfg.attention
+            label = f"{arch} {kind} engine parity"
+            worst = compare_runs(label, runs)
+            say(f"{label} ({att.n_heads} / {att.n_kv_heads} heads of "
+                f"{att.head_dim}, {cfg.n_layers} layers, fp32 wire, 6 "
+                f"requests): tokens ==, max logit diff {worst:.3g}, wire "
+                f"bytes{' and page counters' if kind == 'paged' else ''} ==")
+            out[f"{arch} {kind}"] = worst
+    return out
+
+
 def compare_runs(label, runs):
     """`runs[dev]` = (finished requests by rid, counters) for "cpu" and
     "cuda": fail unless every request's tokens are equal, its logits within
@@ -2346,9 +2585,9 @@ def device_summary(prof, wall):
 # device-side names of the port's own kernels (csrc/)
 PORT_KERNELS = ("decode_kernel", "paged_decode_kernel",
                 "decode_combine_kernel", "flash_fwd_kernel",
-                "quantize_kernel", "dequantize_kernel", "el2n_kernel",
-                "masked_encode_kernel", "mamba2_scan_kernel",
-                "rwkv6_scan_kernel")
+                "flash_fwd_wide_kernel", "quantize_kernel",
+                "dequantize_kernel", "el2n_kernel", "masked_encode_kernel",
+                "mamba2_scan_kernel", "rwkv6_scan_kernel")
 
 
 def _device_kind(name: str) -> str:
@@ -2864,6 +3103,8 @@ def main() -> None:
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
+    lap("1")
+
     # 2. build
     from repro_torch.kernels import build
     seconds = build.timed_build()
@@ -2872,12 +3113,14 @@ def main() -> None:
     for line in build.build_log().splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             say("  ptxas " + line.strip())
+    lap("2")
 
     # 3. kernels against plain
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     check_quant(torch, gen, results)
     check_prefill(torch, F, gen, results)
+    check_prefill_wide(torch, F, gen, results)
     check_decode(torch, F, gen, results)
     check_paged_decode(torch, F, gen, results)
     check_el2n(torch, F, gen, results)
@@ -2885,70 +3128,95 @@ def main() -> None:
     check_mamba2(torch, gen, results)
     check_rwkv6(torch, gen, results)
     check_bf16(torch, F, gen, results)
+    drift = report_drift(results)
+    lap("3")
 
     # 4. engine parity card vs CPU, dense and paged, at f32 and bf16; the
-    # recurrent families
+    # recurrent families; the wide-head families
     engine_parity(torch)
     bf16_parity = engine_parity_bf16(torch)
     recurrent = recurrent_parity(torch)
+    wide = wide_parity(torch)
+    lap("4")
 
     # 5-6. the dense and the paged path at full width; 12-13. the same at
     # bf16 activations, on the same weights
     fw = full_width_model(torch)
-    by_path, summaries = {}, {"bf16_parity": bf16_parity}
+    by_path, summaries = {}, {"bf16_parity": bf16_parity,
+                              "wide_parity": wide, "drift": drift}
     by_path["dense"], summaries["dense"] = full_width(torch, fw)
     by_path["paged"], summaries["paged"] = full_width_paged(torch, fw)
+    lap("5-6")
     by_path["dense_bf16"], summaries["dense_bf16"] = full_width(
         torch, fw, "dense_bf16", torch.bfloat16)
     by_path["paged_bf16"], summaries["paged_bf16"] = full_width_paged(
         torch, fw, "paged_bf16", torch.bfloat16)
+    lap("12-13")
     del fw
     torch.cuda.empty_cache()
 
     # 7. training parity card vs CPU, clear and private
     summaries["train_parity"] = training_parity(torch)
     summaries["private_parity"] = private_parity(torch)
+    lap("7")
 
     # 8. the training path at full width
     by_path["train"], summaries["train"] = full_width_train(torch)
     torch.cuda.empty_cache()
+    lap("8")
 
     # 9. the private federated run at full width through the launcher
     by_path["private"], summaries["private"] = full_width_private(
         torch, results["secure_masked_encode"]["ms"])
     summaries["recurrent_parity"] = recurrent
+    lap("9")
 
-    # 10-11. the recurrent families at full width through the dense engine,
-    # each model freed before the next loads
-    for path, arch, n_layers in (("hybrid", "zamba2-2.7b", 24),
-                                 ("rwkv", "rwkv6-3b", 8)):
+    # 10-11. the recurrent families at full width through the dense engine;
+    # 14. gemma2-9b through the dense engine; 15. stablelm-12b through the
+    # paged engine; each model freed before the next loads
+    for phase, path, arch, n_layers, run in (
+            ("10", "hybrid", "zamba2-2.7b", 24, full_width),
+            ("11", "rwkv", "rwkv6-3b", 8, full_width),
+            ("14", "gemma2", "gemma2-9b", 6, full_width),
+            ("15", "stablelm", "stablelm-12b", 6, full_width_paged)):
         torch.cuda.empty_cache()
         fw = full_width_model(torch, arch, n_layers)
-        by_path[path], summaries[path] = full_width(torch, fw, path)
+        by_path[path], summaries[path] = run(torch, fw, path)
         del fw
+        lap(phase)
 
     # the kernels line (f32 numbers under the contract's keys, bf16 ones
-    # under "bf16", by case), then the device line
+    # under "bf16" and the wide shapes' under "wide", by case), the phase
+    # times, then the device line
+    keys = ("max_abs_err", "max_ulps", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name in REPLACES:
         per_path = {path: counts[name] for path, counts in by_path.items()
                     if name in PATHS[path]}
-        kernels.append(dict(
+        rec = dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=sum(per_path.values()),
             launches_by_path=per_path, dtypes=["float32", "bfloat16"],
-            bf16={case: {k: r.get(k) for k in (
-                "max_abs_err", "max_ulps", "ms", "device_ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms")}
-                for case, r in results[name]["bf16"].items()},
+            bf16={case: {k: r.get(k) for k in keys}
+                  for case, r in results[name]["bf16"].items()},
             **{k: results[name][k] for k in
                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")}))
+                "library_ms")})
+        if name in HEADS:
+            rec["head_dims"], rec["groups"] = HEADS[name]
+            rec["wide"] = {case: {k: r.get(k) for k in keys}
+                           for case, r in results[name]["wide"].items()}
+        kernels.append(rec)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "phase3": results,
-         "full_width": summaries}, indent=1, sort_keys=True))
+         "full_width": summaries, "phase_s": PHASE_S}, indent=1,
+        sort_keys=True))
     say(json.dumps({"kernels": kernels}))
+    say("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in PHASE_S.items())
+        + f"; total {time.perf_counter() - T0:.1f} s")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,7 +21,7 @@ namespace sfp {
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBK = 32;                 // keys per tile: one per lane
-constexpr int kDMax = 128;              // largest head_dim the kernels take
+constexpr int kDMax = 256;              // largest head_dim the kernels take
 constexpr float kMask = -1073741824.f;  // -2^30
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -40,16 +40,18 @@
 // 3. Balanced split-K. Grid (Hkv, B, S): block (hk, b, s) takes the s-th
 //    contiguous share, in rank order, of row b's listed tiles. S is a
 //    function of shapes only (the wrapper's `decode_splits`: the smallest S
-//    giving every SM the three blocks its shared memory holds, at most
-//    kMaxSplits and the tile count; 7 at 8 slots x 8 kv heads, 2 at 8 x
-//    32), so no device sync is needed. With S > 1 a block writes its
+//    giving every SM the blocks its shared memory holds, three at head dims
+//    up to 128 and groups up to 8, at most kMaxSplits and the tile count;
+//    7 at 8 slots x 8 kv heads, 2 at 8 x 32), so no device sync is
+//    needed. With S > 1 a block writes its
 //    unnormalized (m, l, acc[Dv]) per query row to the wrapper's workspace
 //    (B, Hq, S, Dv + 2) and decode_combine_kernel, launched next on the
 //    same stream, merges the splits; a split with no tiles writes l = 0
 //    and is ignored. With S = 1 the block writes the output itself.
 // 4. cp.async double-buffered K/V tiles: while a tile is folded, the next
 //    listed tile's rows are in flight, warp w copying keys w, w + 4, ...,
-//    one 16-byte chunk a lane. The query rows arrive the same way during
+//    one 16-byte chunk a lane (two at head dims above 128). The query
+//    rows arrive the same way during
 //    the flag pass. A cache whose base or strides are not multiples of 4
 //    floats takes a 4-byte-copy instantiation; the entry point picks, and
 //    the host never falls back.
@@ -59,9 +61,10 @@
 // query load and the output store branch on q's.
 //
 // Inside a tile one lane scores one key against its warp's query rows on
-// the fp32 SIMT pipe (four warps of two rows, G = Hq / Hkv <= 8, so each
-// tile is read once per GQA group). Softcap applies before the mask. Keys
-// past W are ABSENT: p = 0 and out of the max.
+// the fp32 SIMT pipe (four warps of two rows for G = Hq / Hkv <= 8, of
+// four for G <= 16, so each tile is read once per GQA group). Head dims up
+// to 256: the shapes of decode_common.cuh. Softcap applies before the
+// mask. Keys past W are ABSENT: p = 0 and out of the max.
 
 #include "decode_common.cuh"
 
@@ -83,10 +86,11 @@ struct DecParams {
   float softcap, scale;
 };
 
-template <bool kVec16, class TKV>
+template <int kD, int kR, bool kVec16, class TKV>
 __global__ void __launch_bounds__(kThreads) decode_kernel(DecParams p) {
+  using Sh = DecodeShape<kD, kR>;
   extern __shared__ __align__(16) float smem[];
-  const DecodeSmem sm(smem, p.n_tiles);
+  const DecodeSmem<kD, kR> sm(smem, p.n_tiles);
   __shared__ int n_valid_tiles;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -95,8 +99,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecParams p) {
   const int qp = p.q_pos[b * p.qp_sb];
 
   // the group's query rows arrive during the flag pass
-  load_queries(sm.qs, p.q, p.out.o_dtype, b * p.q_sb + hk * G * p.q_sh,
-               p.q_sh, G, p.Dh, tid);
+  load_queries<kD, kR>(sm.qs, p.q, p.out.o_dtype,
+                       b * p.q_sb + hk * G * p.q_sh, p.q_sh, G, p.Dh, tid);
 
   // 1. flag every tile that holds a valid key, one key a lane, and list
   // them
@@ -110,7 +114,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecParams p) {
     if (lane == 0) sm.vmask[t] = bits;
   }
   __syncthreads();
-  list_valid_tiles(sm, p.n_tiles, &n_valid_tiles, warp, lane);
+  list_valid_tiles(sm.vmask, sm.tl, p.n_tiles, &n_valid_tiles, warp, lane);
   __syncthreads();
 
   // 2. this split's share of the listed tiles; a row with none takes every
@@ -120,7 +124,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecParams p) {
   const int lo = n * split / p.out.S, hi = n * (split + 1) / p.out.S;
 
   // 3. the copy of the r-th tile of the walk into `stage`: warp w takes
-  // keys w, w + 4, ..., one 16-byte chunk a lane
+  // keys w, w + 4, ..., one 16-byte chunk a lane of every 128 columns
   const TKV* kb = static_cast<const TKV*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const TKV* vb = static_cast<const TKV*>(p.v) + b * p.v_sb + hk * p.v_sh;
   const int dh4 = (p.Dh + 3) / 4, dv4 = (p.out.Dv + 3) / 4;
@@ -132,24 +136,32 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecParams p) {
       const bool present = w < p.W;
       const long long o = present ? w : 0;
       if (!idle)
-        copy_row<kVec16>(sm.ks + stage * kStage + j * kLD, kb + o * p.k_sw,
-                         present ? p.Dh : 0, dh4, lane);
-      copy_row<kVec16>(sm.vs + stage * kStage + j * kLD, vb + o * p.v_sw,
-                       present ? p.out.Dv : 0, dv4, lane);
+        copy_row<kVec16, Sh::kChunks>(sm.ks + stage * Sh::kStage +
+                                          j * Sh::kLD,
+                                      kb + o * p.k_sw, present ? p.Dh : 0,
+                                      dh4, lane);
+      copy_row<kVec16, Sh::kChunks>(sm.vs + stage * Sh::kStage + j * Sh::kLD,
+                                    vb + o * p.v_sw, present ? p.out.Dv : 0,
+                                    dv4, lane);
     }
   };
 
-  DecodeRows rows;
-  const bool active = warp * kRowsPerWarp < G;  // a warp with a query head
+  DecodeRows<kD, kR> rows;
+  const bool active = warp * kR < G;  // a warp with a query head
   walk_tiles(lo, hi, issue, [&](int r, int stage) {
     if (!active) return;
     const int t = idle ? r : sm.tl[r];
-    rows.fold(sm.qs, sm.ks + stage * kStage, sm.vs + stage * kStage, sm.ps,
-              sm.vmask[t], t * kBK + lane < p.W, dh4, dv4, p.scale,
+    rows.fold(sm.qs, sm.ks + stage * Sh::kStage, sm.vs + stage * Sh::kStage,
+              sm.ps, sm.vmask[t], t * kBK + lane < p.W, dh4, dv4, p.scale,
               p.softcap, warp, lane);
   });
   if (active) rows.store(p.out, b, hk, G, split, warp, lane);
 }
+
+template <int kD, int kR, bool kVec16, class TKV>
+struct DecodeKernel {
+  static auto fn() { return decode_kernel<kD, kR, kVec16, TKV>; }
+};
 
 }  // namespace
 
@@ -165,7 +177,7 @@ extern "C" int sfp_decode_attention_fwd(
     long long o_sb, long long o_sh, int window, float softcap, float scale,
     void* stream) {
   if (Dh > kDMax || Dv > kDMax || Hkv <= 0 || Hq % Hkv ||
-      Hq / Hkv > kMaxGroup || S < 1 || S > kMaxSplits ||
+      Hq / Hkv > kDecodeMaxGroup || S < 1 || S > kMaxSplits ||
       (S > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || W <= 0) return (int)cudaGetLastError();
@@ -182,10 +194,6 @@ extern "C" int sfp_decode_attention_fwd(
   const long long strides = k_sb | k_sw | k_sh | v_sb | v_sw | v_sh;
   const bool bf = kv_dtype == kBF16;
   const bool vec = addr % (bf ? 8 : 16) == 0 && strides % 4 == 0;
-  auto* kernel = bf ? (vec ? decode_kernel<true, bf16>
-                           : decode_kernel<false, bf16>)
-                    : (vec ? decode_kernel<true, float>
-                           : decode_kernel<false, float>);
-  return (int)launch_decode(kernel, p, Hkv, n_tiles, out,
-                            (cudaStream_t)stream);
+  return (int)launch_decode_shape<DecodeKernel>(
+      p, Dh, Dv, Hq / Hkv, vec, bf, Hkv, n_tiles, out, (cudaStream_t)stream);
 }

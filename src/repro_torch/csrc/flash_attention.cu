@@ -13,7 +13,13 @@
 //   ViT-Base (16, 213, 12 x 64), non-causal:    2.230 GFLOP, 41.9 MB
 //     -> 0.0135 ms, operations;
 //   zamba2 (1, 132, 32 x 80), causal:           0.090 GFLOP, 5.41 MB
-//     -> 0.00161 ms, bytes.
+//     -> 0.00161 ms, bytes;
+//   gemma2-9b (1, 132, 16 / 8 x 256), causal:  0.144 GFLOP, 6.49 MB
+//     -> 0.00194 ms, bytes;
+//   stablelm-12b (1, 132, 32 / 8 x 160):       0.180 GFLOP, 6.76 MB
+//     -> 0.00202 ms, bytes;
+//   nemotron-4-340b (1, 132, 96 / 8 x 192):    0.647 GFLOP, 21.1 MB
+//     -> 0.00629 ms, bytes.
 // The 495 TFLOP/s is wgmma's; the mma.sync this kernel issues is slower
 // on the card (csrc/mma_probe.cu, timed by chip_smoke.py phase 3), so its
 // own ceiling is a third of that probe's rate.
@@ -49,12 +55,29 @@
 //     warp's chain of tiles. Grid (ceil(Sq / 64), Hq, B); in a causal call
 //     the query blocks run last-first, the longest first.
 //
-// Head widths up to 128 in four instantiations of ND = 8-column steps
-// (4, 8, 10, 16); tiles are zero-padded (cp.async zero-fill) to a multiple
-// of 16 columns for QK^T and of 32 (16 at ND 10) for PV, as are the tile
-// rows past the tile's keys, so no stale shared value reaches an mma.
-// Dynamic shared memory: Q's two halves (2 x 64 rows), K and V (two
-// buffers and one small-half tile each), 165,376 bytes at ND 16.
+// Head widths up to 256 in seven instantiations of ND = 8-column steps
+// (4, 8, 10, 16 and 20 in the layout above; 24 and 32 in the wide layout
+// below); tiles are zero-padded (cp.async zero-fill) to a multiple of 16
+// columns for QK^T and of 32 (16 at ND 10) for PV, as are the tile rows
+// past the tile's keys, so no stale shared value reaches an mma. Dynamic
+// shared memory: Q's two halves (2 x 64 rows), K and V (two buffers and
+// one small-half tile each), 165,376 bytes at ND 16 and 206,336 at ND 20
+// (stablelm-12b's head_dim 160), one block an SM.
+//
+// The wide layout (flash_fwd_wide_kernel: ND 24 for head_dim 192, ND 32
+// for 256, gemma2-9b's). The layout above does not fit there: 247,296 and
+// 329,216 bytes, over the 232,448 a block may have, and a warp's o[ND][4]
+// alone would be 128 registers at ND 32. So the wide kernel keeps Q, K and
+// V in shared memory as plain f32 values (Q, and two cp.async buffers each
+// of K and V: 148,480 bytes at ND 24, 197,632 at ND 32) and splits every
+// fragment into its TF32 halves in registers as it loads it, and it gives
+// both warps of a row tile all 32 keys of every tile: each computes the
+// tile's 16 x 32 scores and the same online softmax, and each owns half of
+// the value columns (32-column groups 2i and 2i + 1), so o is ND / 2 n8
+// tiles a thread and the two warps' states need no merge. QK^T is computed
+// twice a row tile: 1.5x the narrow layout's products at Dh = Dv, on
+// shapes (serving prefill) that the bytes bound. Dh and Dv may differ (a
+// 192-wide QK^T with 128-wide values takes ND 24).
 //
 // q, k and v are all f32 or all bf16, and the output is in their dtype
 // (the TPU kernel reads them with astype(f32) and writes q's dtype). bf16
@@ -512,12 +535,258 @@ __global__ void __launch_bounds__(kThr, ND <= 8 ? 2 : 1)
   }
 }
 
+// The wide layout (see the note at the top): one block an SM, Q, K and V
+// as f32 values in shared memory, TF32 halves split in registers at each
+// fragment load, both warps of a row tile over all 32 keys of a tile, each
+// owning the 32-column groups of V of its parity.
+template <int ND, bool kVec16, class T>
+__global__ void __launch_bounds__(kThr, 1)
+    flash_fwd_wide_kernel(FaParams p) {
+  static_assert(ND % 4 == 0, "V is taken in whole 32-column groups");
+  constexpr int LDK = 8 * ND, LDV = 8 * ND + 4;
+  constexpr int NP = ND / 2;         // 16-column pairs of k-steps in QK^T
+  constexpr int NG = ND / 4;         // 32-column groups of V
+  constexpr int NGW = (NG + 1) / 2;  // of which a warp owns every other
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                // kBQ x LDK (swizzled as K)
+  float* ks = qs + kBQ * LDK;      // 2 buffers x kBK x LDK
+  float* vs = ks + 2 * kBK * LDK;  // 2 buffers x kBK x LDV
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp < 4 ? warp >> 1 : 5 - (warp >> 1);
+  const int half = warp & 1;  // this warp's groups of V: 2i + half
+  const int qblk = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = qblk * kBQ;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int dh16 = (p.Dh + 15) >> 4;
+  const int v_width = min(8 * ND, (p.Dv + 31) & ~31);
+
+  const int q_last = min(q0 + kBQ, p.Sq) - 1;
+  int kv_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  int kv_end = p.causal ? min(p.kv_len, q_last + 1) : p.kv_len;
+  if (p.window > 0 && q_last >= p.kv_len + p.window - 1) {
+    kv_begin = 0;  // some row is fully masked: it averages every key
+    kv_end = p.kv_len;
+  }
+  const int n_tiles = (kv_end - kv_begin + kBK - 1) / kBK;
+
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  auto load_kv = [&](int it) {
+    const int kt = kv_begin + it * kBK, n_keys = min(kBK, kv_end - kt);
+    load_rows<LDK, true, kVec16>(ks + (it & 1) * kBK * LDK, kb + kt * p.k_ss,
+                                 p.k_ss, n_keys, kBK, p.Dh, 16 * dh16, tid);
+    load_rows<LDV, false, kVec16>(vs + (it & 1) * kBK * LDV, vb + kt * p.v_ss,
+                                  p.v_ss, n_keys, kBK, p.Dv, v_width, tid);
+  };
+  load_rows<LDK, true, kVec16>(
+      qs, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_ss,
+      p.q_ss, p.Sq - q0, kBQ, p.Dh, 16 * dh16, tid);
+  if (n_tiles > 0) load_kv(0);
+  cp_async_commit();  // Q lands with the first tile
+
+  // rows g and g + 8 of the warp's m16 tile; fragments as in the narrow
+  // kernel (chunk 4p + t of a 16-column pair, one swizzle offset)
+  const int w_lo = q0 + 16 * rg, w_hi = w_lo + 15;
+  const int row_a = w_lo + g, row_b = row_a + 8;
+  const bool active = w_lo < p.Sq;
+  const int swz = 16 * (g & 1);
+  const int off_even = 4 * t + swz, off_odd = 4 * t - swz;
+  const float* qa = qs + (16 * rg + g) * LDK;
+  float o[4 * NGW][4];
+#pragma unroll
+  for (int n = 0; n < 4 * NGW; ++n)
+    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_a = kMask, m_b = kMask, l_a = 0.f, l_b = 0.f;  // l: this lane's
+  //                                                        share of the sum
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile `it` has landed; every warp is done with it - 1
+    if (it + 1 < n_tiles) {
+      load_kv(it + 1);  // into the buffer tile it - 1 used
+      cp_async_commit();
+    }
+    const int kt = kv_begin + it * kBK, n_keys = min(kBK, kv_end - kt);
+    // a causal tile past the warp's last row holds only masked keys, which
+    // add exactly 0 once a row has seen a key of its own
+    if (!active || (p.causal && kt > w_hi)) continue;
+    const float* kt_s = ks + (it & 1) * kBK * LDK;
+    const float* vt_s = vs + (it & 1) * kBK * LDV;
+
+    // S = Q K^T: 16 rows x 32 keys, four n8 tiles
+    float s[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int pp = 0; pp < NP; ++pp) {
+      if (pp < dh16) {
+        const int off = 16 * pp + (pp & 1 ? off_odd : off_even);
+        uint32_t qb0[4], qs0[4], qb8[4], qs8[4];
+        split4(lds4(qa + off), qb0, qs0);
+        split4(lds4(qa + 8 * LDK + off), qb8, qs8);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          uint32_t kbig[4], ksmall[4];
+          split4(lds4(kt_s + (8 * n + g) * LDK + off), kbig, ksmall);
+#pragma unroll
+          for (int st = 0; st < 2; ++st) {
+            const uint32_t ab[4] = {qb0[2 * st], qb8[2 * st], qb0[2 * st + 1],
+                                    qb8[2 * st + 1]};
+            const uint32_t as[4] = {qs0[2 * st], qs8[2 * st], qs0[2 * st + 1],
+                                    qs8[2 * st + 1]};
+            const uint32_t bb[2] = {kbig[2 * st], kbig[2 * st + 1]};
+            const uint32_t bs[2] = {ksmall[2 * st], ksmall[2 * st + 1]};
+            mma_tf32(s[n], as, bb);
+            mma_tf32(s[n], ab, bs);
+            mma_tf32(s[n], ab, bb);
+          }
+        }
+      }
+    }
+
+    // scale, softcap and (on edge tiles only) masks; the tile's row max
+    const bool edge = n_keys < kBK || (p.causal && kt + kBK - 1 > w_lo) ||
+                      (p.window > 0 && kt <= w_hi - p.window);
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = cap(s[n][e] * p.scale, p.softcap);
+        if (edge) {
+          const int j = 8 * n + 2 * t + (e & 1), key = kt + j;
+          const int row = e < 2 ? row_a : row_b;
+          if (j >= n_keys)
+            x = -INFINITY;  // absent
+          else if ((p.causal && key > row) ||
+                   (p.window > 0 && key <= row - p.window))
+            x = kMask;      // masked
+        }
+        s[n][e] = x;
+        if (e < 2) mx_a = fmaxf(mx_a, x); else mx_b = fmaxf(mx_b, x);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+
+    // online softmax on the fragments
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float alpha_a = ex(m_a - mn_a), alpha_b = ex(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      s[n][0] = ex(s[n][0] - m_a);
+      s[n][1] = ex(s[n][1] - m_a);
+      s[n][2] = ex(s[n][2] - m_b);
+      s[n][3] = ex(s[n][3] - m_b);
+      sum_a += s[n][0] + s[n][1];
+      sum_b += s[n][2] + s[n][3];
+    }
+    l_a = alpha_a * l_a + sum_a;
+    l_b = alpha_b * l_b + sum_b;
+#pragma unroll
+    for (int n = 0; n < 4 * NGW; ++n) {
+      o[n][0] *= alpha_a;
+      o[n][1] *= alpha_a;
+      o[n][2] *= alpha_b;
+      o[n][3] *= alpha_b;
+    }
+
+    // O += P V over this warp's groups of V, each k8 step of keys as in
+    // the narrow kernel (P's A fragment from S's C fragment, V's rows 2t
+    // and 2t + 1, n8 tile 4i + j of group m = 2i + half taking V column
+    // 32m + 4c + j as its column c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (8 * kk < n_keys) {
+        uint32_t ab[4], as[4];
+        split_tf32(s[kk][0], ab[0], as[0]);
+        split_tf32(s[kk][2], ab[1], as[1]);
+        split_tf32(s[kk][1], ab[2], as[2]);
+        split_tf32(s[kk][3], ab[3], as[3]);
+        const float* vr = vt_s + (8 * kk + 2 * t) * LDV;
+#pragma unroll
+        for (int i = 0; i < NGW; ++i) {
+          const int m = 2 * i + half;
+          if (m < NG && 32 * m < p.Dv) {
+            const int c = 32 * m + 4 * g;
+            uint32_t xb[4], xs[4], yb[4], ys[4];
+            split4(lds4(vr + c), xb, xs);
+            split4(lds4(vr + LDV + c), yb, ys);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const uint32_t bb[2] = {xb[j], yb[j]};
+              mma_tf32(o[4 * i + j], as, bb);
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const uint32_t bs[2] = {xs[j], ys[j]};
+              mma_tf32(o[4 * i + j], ab, bs);
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const uint32_t bb[2] = {xb[j], yb[j]};
+              mma_tf32(o[4 * i + j], ab, bb);
+            }
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  T* ob = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  auto put_out = [&](int col, int n, int c) {
+    if (col >= p.Dv) return;
+    if (row_a < p.Sq) put(ob + row_a * p.o_ss + col, o[n][c] * inv_a);
+    if (row_b < p.Sq) put(ob + row_b * p.o_ss + col, o[n][c + 2] * inv_b);
+  };
+#pragma unroll
+  for (int i = 0; i < NGW; ++i) {
+    const int m = 2 * i + half;
+    if (m < NG) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        put_out(32 * m + 8 * t + j, 4 * i + j, 0);
+        put_out(32 * m + 8 * t + 4 + j, 4 * i + j, 1);
+      }
+    }
+  }
+}
+
+// Widths from this ND up take the wide layout.
+constexpr int kWideND = 24;
+
 template <int ND, bool kVec16, class T>
 cudaError_t launch(const FaParams& p, cudaStream_t stream) {
+  constexpr bool kWide = ND >= kWideND;
   constexpr int LDK = 8 * ND, LDV = 8 * ND + 4;
   constexpr int bytes =
-      (2 * kBQ * LDK + 3 * kBK * (LDK + LDV)) * sizeof(float);
-  auto* kernel = flash_fwd_kernel<ND, kVec16, T>;
+      (kWide ? kBQ * LDK + 2 * kBK * (LDK + LDV)
+             : 2 * kBQ * LDK + 3 * kBK * (LDK + LDV)) * sizeof(float);
+  static_assert(bytes <= 232448, "over the shared memory a block may have");
+  void (*kernel)(FaParams);
+  if constexpr (kWide)
+    kernel = flash_fwd_wide_kernel<ND, kVec16, T>;
+  else
+    kernel = flash_fwd_kernel<ND, kVec16, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   // all of the SM's 228 KB as shared memory, so several blocks fit
@@ -537,7 +806,10 @@ cudaError_t launch_width(const FaParams& p, cudaStream_t stream) {
   if (d8 <= 4) return launch<4, kVec16, T>(p, stream);
   if (d8 <= 8) return launch<8, kVec16, T>(p, stream);
   if (d8 <= 10) return launch<10, kVec16, T>(p, stream);  // zamba2's 80
-  return launch<16, kVec16, T>(p, stream);
+  if (d8 <= 16) return launch<16, kVec16, T>(p, stream);
+  if (d8 <= 20) return launch<20, kVec16, T>(p, stream);  // stablelm's 160
+  if (d8 <= 24) return launch<24, kVec16, T>(p, stream);  // nemotron's 192
+  return launch<32, kVec16, T>(p, stream);                // gemma2's 256
 }
 
 }  // namespace

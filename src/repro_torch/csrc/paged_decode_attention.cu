@@ -36,8 +36,9 @@
 //    width: the engine's rows are short in a wide table, so equal width
 //    ranges would leave one split with all the work). S is a function of
 //    shapes only (the wrapper's `decode_splits`: the smallest S giving every
-//    SM the three blocks its shared memory holds, at most kMaxSplits and
-//    the tile count), so no device sync is needed. A block writes its
+//    SM the blocks its shared memory holds, three at head dims up to 128
+//    and groups up to 8, at most kMaxSplits and the tile count), so no
+//    device sync is needed. A block writes its
 //    unnormalized (m, l, acc[Dv]) per query row to the wrapper's workspace
 //    (B, Hq, S, Dv + 2), and decode_combine_kernel, launched next on
 //    the same stream from the same entry point, merges the splits; a split
@@ -47,12 +48,14 @@
 //    are folded in, the next valid tile's K and V rows are already in
 //    flight: warp w copies keys w, w + 4, ..., its lane i resolving the
 //    page of the i-th of them from the table (__ldg) and the warp sharing
-//    it by shuffles, then issuing each row as one 16-byte cp.async a lane.
-//    The query rows arrive the same way, during the flag pass. Shared rows
-//    have stride kDMax + 4 floats: copies stay 16-byte aligned and each
-//    lane's float4 read of its own key row hits distinct banks in every
-//    quarter warp. Two stages of K and V are 67.6 KB (72.7 KB a block in
-//    all), so shared memory is dynamic. A pool whose base or strides are
+//    it by shuffles, then issuing each row as one 16-byte cp.async a lane
+//    (two at head dims above 128). The query rows arrive the same way,
+//    during the flag pass. Shared rows have stride kD + 4 floats: copies
+//    stay 16-byte aligned and each lane's float4 read of its own key row
+//    hits distinct banks in every quarter warp. Two stages of K and V are
+//    67.6 KB at kD 128 (72.7 KB a block in all), so shared memory is
+//    dynamic (decode_common.cuh has every shape's). A pool whose base or
+//    strides are
 //    not multiples of 4 floats takes a 4-byte-copy instantiation instead;
 //    the entry point picks, and the host never falls back.
 //
@@ -62,10 +65,11 @@
 // its own elements: the engines pair a bf16 q with an f32 pool.
 //
 // Inside a tile one lane scores one key against its warp's query rows (a
-// block is four warps of two rows each, G = Hq / Hkv <= 8, so each tile is
-// read once per GQA group) on the fp32 SIMT pipe, in four partial sums a
-// row; the weights go through shared memory, and each lane owns four
-// output columns of the value sum. Softcap applies before the mask. Keys
+// block is four warps of two rows each for G = Hq / Hkv <= 8, of four for
+// G <= 16, so each tile is read once per GQA group) on the fp32 SIMT pipe,
+// in four partial sums a row; the weights go through shared memory, and
+// each lane owns four output columns of every 128 of the value sum (head
+// dims up to 256: the shapes of decode_common.cuh). Softcap applies before the mask. Keys
 // past the table's width are ABSENT: p = 0 and out of the max.
 //
 // On the H100 a block's time is a fixed cost (launch, the flag pass's two
@@ -102,11 +106,12 @@ struct PagedParams {
   float softcap, scale;
 };
 
-template <bool kVec16, class TKV>
+template <int kD, int kR, bool kVec16, class TKV>
 __global__ void __launch_bounds__(kThreads)
     paged_decode_kernel(PagedParams p) {
+  using Sh = DecodeShape<kD, kR>;
   extern __shared__ __align__(16) float smem[];
-  const DecodeSmem sm(smem, p.n_tiles);
+  const DecodeSmem<kD, kR> sm(smem, p.n_tiles);
   __shared__ int n_valid_tiles;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -117,8 +122,8 @@ __global__ void __launch_bounds__(kThreads)
   const int qp = p.q_pos[b * p.qp_sb];
 
   // the group's query rows arrive during the flag pass
-  load_queries(sm.qs, p.q, p.out.o_dtype, b * p.q_sb + hk * G * p.q_sh,
-               p.q_sh, G, p.Dh, tid);
+  load_queries<kD, kR>(sm.qs, p.q, p.out.o_dtype,
+                       b * p.q_sb + hk * G * p.q_sh, p.q_sh, G, p.Dh, tid);
 
   // 1. flag every tile that holds a valid key, one key a lane, and list
   // them
@@ -136,7 +141,7 @@ __global__ void __launch_bounds__(kThreads)
     if (lane == 0) sm.vmask[t] = bits;
   }
   __syncthreads();
-  list_valid_tiles(sm, p.n_tiles, &n_valid_tiles, warp, lane);
+  list_valid_tiles(sm.vmask, sm.tl, p.n_tiles, &n_valid_tiles, warp, lane);
   __syncthreads();
 
   // 2. this split's share of the valid tiles; a row with none walks every
@@ -148,7 +153,8 @@ __global__ void __launch_bounds__(kThreads)
 
   // 3. the copy of the r-th tile of the walk into `stage`: warp w takes
   // keys w, w + 4, ...; its lane i resolves the page of the i-th of them,
-  // and the warp copies each key's rows, one 16-byte chunk a lane
+  // and the warp copies each key's rows, one 16-byte chunk a lane of
+  // every 128 columns
   const int dh4 = (p.Dh + 3) / 4, dv4 = (p.out.Dv + 3) / 4;
   const TKV* kp = static_cast<const TKV*>(p.k);
   const TKV* vp = static_cast<const TKV*>(p.v);
@@ -171,26 +177,33 @@ __global__ void __launch_bounds__(kThreads)
       const int ok = __shfl_sync(0xffffffffu, off, i);
       const bool present = ok >= 0;
       const long long o = present ? ok : 0;
-      copy_row<kVec16>(sm.ks + stage * kStage + j * kLD,
-                       kp + pk * p.k_sp + o * p.k_so + hk * p.k_sh,
-                       present ? p.Dh : 0, dh4, lane);
-      copy_row<kVec16>(sm.vs + stage * kStage + j * kLD,
-                       vp + pk * p.v_sp + o * p.v_so + hk * p.v_sh,
-                       present ? p.out.Dv : 0, dv4, lane);
+      copy_row<kVec16, Sh::kChunks>(
+          sm.ks + stage * Sh::kStage + j * Sh::kLD,
+          kp + pk * p.k_sp + o * p.k_so + hk * p.k_sh, present ? p.Dh : 0,
+          dh4, lane);
+      copy_row<kVec16, Sh::kChunks>(
+          sm.vs + stage * Sh::kStage + j * Sh::kLD,
+          vp + pk * p.v_sp + o * p.v_so + hk * p.v_sh,
+          present ? p.out.Dv : 0, dv4, lane);
     }
   };
 
-  DecodeRows rows;
-  const bool active = warp * kRowsPerWarp < G;  // a warp with a query head
+  DecodeRows<kD, kR> rows;
+  const bool active = warp * kR < G;  // a warp with a query head
   walk_tiles(lo, hi, issue, [&](int r, int stage) {
     if (!active) return;
     const int t = walk_all ? r : sm.tl[r];
-    rows.fold(sm.qs, sm.ks + stage * kStage, sm.vs + stage * kStage, sm.ps,
-              sm.vmask[t], t * kBK + lane < width, dh4, dv4, p.scale,
+    rows.fold(sm.qs, sm.ks + stage * Sh::kStage, sm.vs + stage * Sh::kStage,
+              sm.ps, sm.vmask[t], t * kBK + lane < width, dh4, dv4, p.scale,
               p.softcap, warp, lane);
   });
   if (active) rows.store(p.out, b, hk, G, split, warp, lane);
 }
+
+template <int kD, int kR, bool kVec16, class TKV>
+struct PagedKernel {
+  static auto fn() { return paged_decode_kernel<kD, kR, kVec16, TKV>; }
+};
 
 }  // namespace
 
@@ -206,7 +219,7 @@ extern "C" int sfp_paged_decode_attention_fwd(
     long long o_sb, long long o_sh, int window, float softcap, float scale,
     void* stream) {
   if (Dh > kDMax || Dv > kDMax || Hkv <= 0 || Hq % Hkv ||
-      Hq / Hkv > kMaxGroup || S < 1 || S > kMaxSplits ||
+      Hq / Hkv > kDecodeMaxGroup || S < 1 || S > kMaxSplits ||
       (S > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || nb <= 0 || page <= 0) return (int)cudaGetLastError();
@@ -223,10 +236,6 @@ extern "C" int sfp_paged_decode_attention_fwd(
   const long long strides = k_sp | k_so | k_sh | v_sp | v_so | v_sh;
   const bool bf = kv_dtype == kBF16;
   const bool vec = addr % (bf ? 8 : 16) == 0 && strides % 4 == 0;
-  auto* kernel = bf ? (vec ? paged_decode_kernel<true, bf16>
-                           : paged_decode_kernel<false, bf16>)
-                    : (vec ? paged_decode_kernel<true, float>
-                           : paged_decode_kernel<false, float>);
-  return (int)launch_decode(kernel, p, Hkv, n_tiles, out,
-                            (cudaStream_t)stream);
+  return (int)launch_decode_shape<PagedKernel>(
+      p, Dh, Dv, Hq / Hkv, vec, bf, Hkv, n_tiles, out, (cudaStream_t)stream);
 }

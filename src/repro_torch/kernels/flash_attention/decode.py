@@ -36,9 +36,10 @@ its block table instead of a per-slot cache:
       row with no valid key at all walks every tile, as the plain version
       does, and gets its mean of every value. Each (slot, kv head) is split
       `decode_splits` ways over its VALID tiles (balanced in rank order, not
-      by width; enough splits to give every SM three blocks), and the
-      splits are merged as in the slot-cache kernel (the two share
-      `csrc/decode_common.cuh`); K/V tiles are double-buffered with
+      by width; enough splits to fill every SM with the blocks its shared
+      memory holds: `decode_blocks_per_sm`), and the splits are merged as
+      in the slot-cache kernel (the two share `csrc/decode_common.cuh`);
+      K/V tiles are double-buffered with
       `cp.async` straight from the pool's (P, page, Hkv, Dh) layout
       through strides, with no gathered copy.
   `paged_gather_decode` — the plain version (the JAX package's XLA path,
@@ -47,10 +48,11 @@ its block table instead of a per-slot cache:
       `decode_attention` on the gathered caches, which makes the paged
       engine provably equal to the dense one.
 
-Both kernels read q in f32 or bf16 and the cache or pool in f32 or bf16,
-independently (the engines hold f32 caches under bf16 activations), and
-write the output in q's dtype, as the TPU kernels do; each tensor's
-strides are in its own elements.
+Both kernels take head dims up to 256 and GQA groups up to 16 (one
+instantiation a shape: `decode_shape`). Both read q in f32 or bf16 and
+the cache or pool in f32 or bf16, independently (the engines hold f32
+caches under bf16 activations), and write the output in q's dtype, as the
+TPU kernels do; each tensor's strides are in its own elements.
 
 `decode_attention` and `paged_decode_attention` pick by device: the plain
 version for CPU tensors, the kernel for CUDA tensors. Masking is wholly
@@ -70,13 +72,40 @@ from repro_torch.kernels.build import check, current_stream, library
 from repro_torch.kernels.flash_attention.kernel import D_MAX
 
 MASK_VALUE = -2.0 ** 30
-MAX_GROUP = 8    # csrc/decode_common.cuh: kMaxGroup
+MAX_GROUP = 16   # csrc/decode_common.cuh: kDecodeMaxGroup
 MAX_SPLITS = 8   # csrc/decode_common.cuh: kMaxSplits
 TILE_KEYS = 32   # keys a tile, one a lane (csrc/attention_common.cuh: kBK)
-# blocks of a decode kernel an SM should get: its shared memory (72.7 KB a
-# block) lets three stay resident, and filling all three measured faster
-# than two (chip_smoke.py phase 3 times each split count; PERF.md)
+# blocks of a decode kernel an SM should get at most: at head dims up to
+# 128 and groups up to 8 its shared memory (72.7 KB a block) lets three
+# stay resident, and filling all three measured faster than two
+# (chip_smoke.py phase 3 times each split count; PERF.md)
 BLOCKS_PER_SM = 3
+SM_SHARED_BYTES = 233_472    # shared memory of an H100 SM (228 KB)
+BLOCK_RESERVED_BYTES = 1024  # the runtime's own shared memory a block
+
+
+def decode_shape(Dh: int, Dv: int, G: int):
+    """The instantiation (kD, kR) of csrc/decode_common.cuh's DecodeShape
+    that the decode kernels launch for these widths and this GQA group:
+    kD 128 up to 128, else 256; kR 2 query rows a warp up to G 8, else 4."""
+    return (128 if max(Dh, Dv) <= 128 else 256), (2 if G <= 8 else 4)
+
+
+def decode_block_bytes(Dh: int, Dv: int, G: int) -> int:
+    """Dynamic shared memory of a decode block of that instantiation, past
+    its per-tile lists (DecodeShape::kFixedSmem: 4 kR query rows and
+    weight rows of kD + 32 floats, two stages of K and of V tiles of 32
+    rows of kD + 4)."""
+    kd, kr = decode_shape(Dh, Dv, G)
+    return (4 * kr * (kd + TILE_KEYS) + 4 * TILE_KEYS * (kd + 4)) * 4
+
+
+def decode_blocks_per_sm(Dh: int, Dv: int, G: int) -> int:
+    """Blocks of the decode kernels' instantiation for (Dh, Dv, G) that
+    stay resident on an SM by its shared memory, at most BLOCKS_PER_SM: 3
+    at (128, 2), 2 at (128, 4), 1 at (256, 2) and (256, 4)."""
+    per = decode_block_bytes(Dh, Dv, G) + BLOCK_RESERVED_BYTES
+    return max(1, min(BLOCKS_PER_SM, SM_SHARED_BYTES // per))
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,14 +114,16 @@ def sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def decode_splits(B: int, Hkv: int, width: int, sms: int) -> int:
+def decode_splits(B: int, Hkv: int, width: int, sms: int,
+                  blocks_per_sm: int = BLOCKS_PER_SM) -> int:
     """Splits S of each (slot, kv head) row of `width` keys in the two
-    decode kernels: the smallest S that puts BLOCKS_PER_SM blocks on every
-    SM (B * Hkv * S >= BLOCKS_PER_SM * sms), at most MAX_SPLITS and at most
+    decode kernels: the smallest S that puts `blocks_per_sm` blocks (the
+    launched instantiation's, `decode_blocks_per_sm`) on every SM
+    (B * Hkv * S >= blocks_per_sm * sms), at most MAX_SPLITS and at most
     the row's tile count. A function of shapes alone, so choosing it needs
     no device sync."""
     cap = max(1, min(MAX_SPLITS, -(-width // TILE_KEYS)))
-    return max(1, min(cap, -(-BLOCKS_PER_SM * sms // max(B * Hkv, 1))))
+    return max(1, min(cap, -(-blocks_per_sm * sms // max(B * Hkv, 1))))
 
 
 def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -125,8 +156,8 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{v.dtype}")
     if Hq % Hkv or Hq // Hkv > MAX_GROUP or Dh > D_MAX or Dv > D_MAX:
         raise ValueError(f"decode_attention_fwd takes a GQA group <= "
-                         f"{MAX_GROUP} and head_dim <= {D_MAX}, got Hq={Hq} "
-                         f"Hkv={Hkv} Dh={Dh} Dv={Dv}")
+                         f"{MAX_GROUP} and head dims <= {D_MAX}, got "
+                         f"Hq={Hq} Hkv={Hkv} Dh={Dh} Dv={Dv}")
     for name, t, shape in (("q_positions", q_positions, (B,)),
                            ("kv_positions", kv_positions, (B, W))):
         if t.dtype != torch.int32 or t.device != q.device \
@@ -141,7 +172,8 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
     out = torch.empty((B, 1, Hq, Dv), dtype=q.dtype, device=q.device)
-    S = decode_splits(B, Hkv, W, sm_count(q.device.index))
+    S = decode_splits(B, Hkv, W, sm_count(q.device.index),
+                      decode_blocks_per_sm(Dh, Dv, Hq // Hkv))
     # the splits' unnormalized (m, l, acc) rows; S = 1 writes `out` directly
     ws = (torch.empty((B, Hq, S, Dv + 2), dtype=torch.float32,
                       device=q.device) if S > 1 else None)
@@ -250,8 +282,8 @@ def paged_decode_attention_fwd(q: torch.Tensor, k_pool: torch.Tensor,
                          f"{k_pool.dtype} but v_pool is {v_pool.dtype}")
     if Hq % Hkv or Hq // Hkv > MAX_GROUP or Dh > D_MAX or Dv > D_MAX:
         raise ValueError(f"paged_decode_attention_fwd takes a GQA group <= "
-                         f"{MAX_GROUP} and head_dim <= {D_MAX}, got Hq={Hq} "
-                         f"Hkv={Hkv} Dh={Dh} Dv={Dv}")
+                         f"{MAX_GROUP} and head dims <= {D_MAX}, got "
+                         f"Hq={Hq} Hkv={Hkv} Dh={Dh} Dv={Dv}")
     if block_tables.dim() != 2 or block_tables.shape[0] != B:
         raise ValueError(f"paged_decode_attention_fwd: block_tables must be "
                          f"(B={B}, nb), got {tuple(block_tables.shape)}")
@@ -272,7 +304,8 @@ def paged_decode_attention_fwd(q: torch.Tensor, k_pool: torch.Tensor,
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
     out = torch.empty((B, 1, Hq, Dv), dtype=q.dtype, device=q.device)
-    S = decode_splits(B, Hkv, nb * page, sm_count(q.device.index))
+    S = decode_splits(B, Hkv, nb * page, sm_count(q.device.index),
+                      decode_blocks_per_sm(Dh, Dv, Hq // Hkv))
     # the splits' unnormalized (m, l, acc) rows; S = 1 writes `out` directly
     ws = (torch.empty((B, Hq, S, Dv + 2), dtype=torch.float32,
                       device=q.device) if S > 1 else None)

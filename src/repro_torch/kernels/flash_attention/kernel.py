@@ -8,7 +8,10 @@ through strides, so none of the TPU wrapper's transpose, reshape and pad
 copies exist, and it masks the ragged Sq/Skv edge itself; it picks 16-byte
 or 4-byte copies from the pointers and strides. q, k and v are f32 or
 bf16 (one dtype, read by the kernel itself) and the output is in their
-dtype, as the TPU kernel's. See the note in the source for the tiling.
+dtype, as the TPU kernel's. Head dims up to D_MAX: up to 160 in one
+layout, 192 and 256 in a wide one (Q, K and V split into TF32 halves in
+registers, each warp of a pair owning half of the value columns). See the
+note in the source for the tiling.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch
 from repro_torch.kernels import dtype_code, refuse_grad
 from repro_torch.kernels.build import check, current_stream, library
 
-D_MAX = 128   # csrc/attention_common.cuh: kDMax
+D_MAX = 256   # csrc/attention_common.cuh: kDMax
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -48,7 +51,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"k {tuple(k.shape)} v {tuple(v.shape)} disagree")
     if Hq % Hkv or Dh > D_MAX or Dv > D_MAX:
         raise ValueError(f"flash_attention_fwd takes Hq % Hkv == 0 and "
-                         f"head_dim <= {D_MAX}, got Hq={Hq} Hkv={Hkv} "
+                         f"head dims <= {D_MAX}, got Hq={Hq} Hkv={Hkv} "
                          f"Dh={Dh} Dv={Dv}")
     if not 1 <= kv_len <= Skv:
         raise ValueError(f"flash_attention_fwd: kv_len {kv_len} outside "

@@ -81,6 +81,15 @@ def test_quant_kernels_bit_equal_on_gradient_layouts(gen, layout):
     (1, 100, 10, 2, 128, True, None, None, 70, 0),   # GQA 5, kv_len < Sq
     (8, 100, 40, 8, 128, True, 32, 30.0, 90, 0),     # batched, with every
     (4, 129, 24, 8, 40, True, None, None, 100, 1),   # option at once
+    # the wide head dims: gemma2's 256 (G 2, window, softcap 50),
+    # stablelm's 160 (G 4), nemotron's 192 (G 12), 176 (an odd number of
+    # 16-column pairs), 4-byte copies and a non-causal call at 256
+    (1, 70, 16, 8, 256, True, 20, 50.0, None, 0),
+    (2, 133, 32, 8, 160, True, None, None, None, 0),
+    (1, 100, 24, 2, 192, True, None, None, 80, 0),
+    (1, 200, 8, 4, 176, True, 16, None, 60, 0),
+    (2, 65, 4, 2, 256, False, None, None, None, 1),
+    (1, 90, 12, 1, 192, True, 24, 10.0, None, 1),
 ])
 def test_prefill_kernel_matches_plain(gen, case):
     from repro_torch.kernels.flash_attention import ref
@@ -130,6 +139,14 @@ def _decode_lens(kind, W):
     pytest.param(5, 128, 16, None, "seam", id="window-across-the-seam"),
     pytest.param(1, 80, 16, None, "seam", id="window-across-the-seam-hd80"),
     pytest.param(5, 128, 64, 50.0, "unaligned", id="unaligned-cache"),
+    # the wide shapes: head dims 160-256 and groups up to 16
+    pytest.param(2, 256, 16, 50.0, "seam", id="gemma2-256-seam-softcap"),
+    pytest.param(4, 160, None, None, "", id="stablelm-160"),
+    pytest.param(12, 192, None, None, "", id="nemotron-192-G12"),
+    pytest.param(12, 192, 16, 50.0, "seam", id="192-G12-seam-softcap"),
+    pytest.param(16, 64, None, None, "", id="G16-64"),
+    pytest.param(12, 192, 64, 50.0, "unaligned", id="192-G12-unaligned"),
+    pytest.param(2, 256, None, None, "empty", id="256-all-slots-empty"),
 ])
 def test_decode_kernel_matches_plain(gen, monkeypatch, G, Dh, window,
                                      softcap, kind):
@@ -299,6 +316,15 @@ def _paged_lens(kind, nb, page):
     pytest.param(16, 5, 128, None, None, 50, 3, 8, "", id="one-split"),
     pytest.param(8, 5, 128, 64, 50.0, 5, 9, 2, "unaligned",
                  id="unaligned-pool"),
+    # the wide shapes: head dims 160-256 and groups up to 16
+    pytest.param(16, 4, 160, None, None, 5, 9, 2, "", id="stablelm-160"),
+    pytest.param(16, 12, 192, 64, 50.0, 5, 9, 2, "", id="192-G12-softcap"),
+    pytest.param(8, 2, 256, 8, 50.0, 5, 9, 2, "masked",
+                 id="256-fully-masked-row"),
+    pytest.param(16, 12, 192, None, None, 5, 9, 2, "unaligned",
+                 id="192-G12-unaligned"),
+    pytest.param(16, 16, 256, None, None, 50, 3, 8, "",
+                 id="256-G16-one-split"),
 ])
 def test_paged_decode_kernel_matches_plain(gen, page, G, Dh, window,
                                            softcap, B, nb, Hkv, kind):
@@ -747,6 +773,9 @@ def test_quant_kernels_bit_equal_bf16(gen, shape):
     (16, 213, 12, 12, 64, False, None, None, None, 0),  # ViT-Base scoring
     (2, 50, 6, 2, 64, True, None, None, None, 1),     # one value off 16 B
     (8, 100, 40, 8, 128, True, 32, 30.0, 90, 0),      # every option
+    (1, 70, 16, 8, 256, True, 20, 50.0, None, 0),     # gemma2's widths
+    (2, 133, 32, 8, 160, True, None, None, None, 0),  # stablelm's
+    (1, 100, 24, 2, 192, True, None, None, 80, 1),    # nemotron's, single
 ])
 def test_prefill_kernel_matches_plain_bf16(gen, case):
     from repro_torch.kernels.flash_attention import ref
@@ -768,7 +797,8 @@ def test_prefill_kernel_matches_plain_bf16(gen, case):
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G,Dh,window,kind", [
     (5, 128, None, ""), (1, 80, None, ""), (5, 128, 16, "seam"),
-    (5, 128, None, "empty"), (3, 64, None, "unaligned")])
+    (5, 128, None, "empty"), (3, 64, None, "unaligned"),
+    (12, 192, None, ""), (2, 256, 16, "seam"), (4, 160, None, "unaligned")])
 def test_decode_kernel_matches_plain_bf16(gen, monkeypatch, kv_dtype, G,
                                           Dh, window, kind):
     """q bf16 over an f32 cache (the engines' case) and over a bf16 one,
@@ -1005,3 +1035,176 @@ def test_bf16_engine_on_card_matches_cpu(gen):
     gap, ref_gap = np.concatenate(gap), np.concatenate(ref_gap)
     assert np.isfinite(gap).all()
     assert gap.mean() <= ref_gap.mean(), (gap.mean(), ref_gap.mean())
+
+
+# ------------------------------------------------- wide heads, big groups
+def wide_reduced(arch, get_config=None):
+    """A reduced model of `arch` (three cycles of its layer pattern,
+    d_model 64) at its published head dim and GQA group: gemma2-9b 4 / 2
+    heads of 256 with both softcaps and a window of 8 (so the local layers
+    mask at the tests' lengths), stablelm-12b 8 / 2 of 160,
+    nemotron-4-340b 24 / 2 of 192. `get_config` is the port's by default;
+    tests/test_torch_wide_heads.py passes the JAX package's."""
+    import dataclasses
+    if get_config is None:
+        from repro_torch.configs import get_config
+    heads, kv, dh = {"gemma2-9b": (4, 2, 256), "stablelm-12b": (8, 2, 160),
+                     "nemotron-4-340b": (24, 2, 192)}[arch]
+    base = get_config(arch)
+    cfg = base.reduced(n_layers=3 * len(base.layer_pattern), d_model=64,
+                       d_ff=128, vocab_size=128)
+    att = dataclasses.replace(
+        cfg.attention, n_heads=heads, n_kv_heads=kv, head_dim=dh,
+        sliding_window=8 if cfg.attention.sliding_window else None)
+    return dataclasses.replace(cfg, attention=att)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Dh,kind", [(4, 160, ""), (12, 192, "masked"),
+                                       (2, 256, "")])
+def test_paged_decode_kernel_matches_plain_bf16_wide(gen, kv_dtype, G, Dh,
+                                                     kind):
+    """A bf16 query over an f32 and a bf16 pool at the wide shapes."""
+    from repro_torch.kernels.flash_attention.decode import (
+        paged_decode_attention, paged_decode_attention_fwd,
+        paged_gather_decode)
+    B, nb, page, Hkv = 5, 9, 16, 2
+    q, k, v, tables, qp, kvp = _paged_case(
+        gen, B, nb, page, G * Hkv, Hkv, Dh, _paged_lens(kind, nb, page))
+    q, k, v = q.bfloat16(), k.to(kv_dtype), v.to(kv_dtype)
+    n = paged_decode_attention_fwd.launches
+    got = paged_decode_attention(q, k, v, block_tables=tables,
+                                 q_positions=qp, kv_positions=kvp,
+                                 softcap=50.0)
+    torch.cuda.synchronize()
+    assert paged_decode_attention_fwd.launches == n + 1
+    _close_bf16(got, paged_gather_decode(q, k, v, tables, qp, kvp,
+                                         scale=Dh ** -0.5,
+                                         sliding_window=None, softcap=50.0))
+
+
+@pytest.mark.parametrize("Dh,Dv,G", [(192, 128, 12), (256, 160, 2),
+                                     (128, 64, 16)])
+def test_attention_kernels_take_dv_other_than_dh(gen, Dh, Dv, G):
+    """Values narrower than the keys (an MLA-shaped 192 / 128) through the
+    prefill, dense decode and paged decode kernels, within ATTN_TOL of
+    plain."""
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.kernels.flash_attention.decode import (
+        grouped_decode, paged_decode_attention, paged_gather_decode,
+        decode_attention)
+    from repro_torch.kernels.flash_attention.ops import prefill_attention
+    Hkv, S = 2, 77
+    q = torch.randn((2, S, G * Hkv, Dh), generator=gen, device="cuda")
+    k = torch.randn((2, S, Hkv, Dh), generator=gen, device="cuda")
+    v = torch.randn((2, S, Hkv, Dv), generator=gen, device="cuda")
+    got = prefill_attention(q, k, v, sliding_window=16, softcap=50.0)
+    want = ref.attention(q, k, v, sliding_window=16, softcap=50.0)
+    assert got.shape == (2, S, G * Hkv, Dv)
+    assert float((got - want).abs().max()) <= ATTN_TOL
+    qp = torch.tensor([40, S - 1], dtype=torch.int32, device="cuda")
+    kvp = torch.arange(S, dtype=torch.int32, device="cuda")[None].repeat(2, 1)
+    kvp[0, 41:] = -1
+    got = decode_attention(q[:, :1], k, v, q_positions=qp, kv_positions=kvp,
+                           softcap=50.0)
+    want = grouped_decode(q[:, :1], k, v, qp, kvp, scale=Dh ** -0.5,
+                          sliding_window=None, softcap=50.0)
+    assert float((got - want).abs().max()) <= ATTN_TOL
+    qd, kp, _, tables, qpp, kvpp = _paged_case(
+        gen, 5, 9, 8, G * Hkv, Hkv, Dh, _paged_lens("", 9, 8))
+    vp = torch.randn(kp.shape[:3] + (Dv,), generator=gen, device="cuda")
+    got = paged_decode_attention(qd, kp, vp, block_tables=tables,
+                                 q_positions=qpp, kv_positions=kvpp)
+    want = paged_gather_decode(qd, kp, vp, tables, qpp, kvpp,
+                               scale=Dh ** -0.5, sliding_window=None,
+                               softcap=None)
+    assert float((got - want).abs().max()) <= ATTN_TOL
+
+
+def test_attention_wrappers_refuse_past_the_wide_limits(gen):
+    """Head dims up to 256 and groups up to 16 launch; one past either
+    raises a ValueError naming the limit, on CUDA tensors, with no launch."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention.decode import (
+        decode_attention_fwd, paged_decode_attention_fwd)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    pos = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    tables = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    kvp = torch.zeros((1, 8), dtype=torch.int32, device="cuda")
+
+    def calls(G, Dh):
+        q = torch.randn((1, 1, G, Dh), generator=gen, device="cuda")
+        kv = torch.randn((1, 8, 1, Dh), generator=gen, device="cuda")
+        return [
+            lambda: flash_attention_fwd(q, kv, kv, causal=True,
+                                        sliding_window=None, softcap=None,
+                                        scale=1.0, kv_len=1),
+            lambda: decode_attention_fwd(q, kv, kv, pos, kvp, scale=1.0,
+                                         sliding_window=None, softcap=None),
+            lambda: paged_decode_attention_fwd(
+                q, kv, kv, tables, pos, kvp, scale=1.0, sliding_window=None,
+                softcap=None)]
+    for call in calls(16, 256):
+        assert torch.isfinite(call()).all()
+    torch.cuda.synchronize()
+    before = launch_counts()
+    for G, Dh, match in ((1, 264, "head dims <= 256"),
+                         (17, 64, "GQA group <= 16")):
+        for i, call in enumerate(calls(G, Dh)):
+            if i == 0 and G > 16:
+                continue             # prefill takes any group
+            with pytest.raises(ValueError, match=match):
+                call()
+    assert launch_counts() == before
+
+
+@pytest.mark.parametrize("arch,paged", [("gemma2-9b", False),
+                                        ("stablelm-12b", True),
+                                        ("nemotron-4-340b", False)])
+def test_wide_head_engine_on_card_matches_cpu(gen, arch, paged):
+    """Reduced models at the wide families' head dims and groups, served on
+    the card and on the CPU from the same weights: tokens equal, logits
+    within 1e-4, wire bytes equal, every attention kernel of the path
+    launched."""
+    from repro_torch.core import SplitConfig, SplitModel
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.serve import personalized_bank
+    from repro_torch.runtime import WireSpec
+    from repro_torch.serve import (PagedServeConfig, PagedServeEngine,
+                                   ServeConfig, ServeEngine, TenantBank,
+                                   WorkloadConfig, synthetic_requests)
+    from repro_torch.tree import tree_map
+    cfg = wide_reduced(arch)
+    model = SplitModel(cfg, SplitConfig(head_cycles=1, tail_cycles=1,
+                                        prompt_len=4), WireSpec.make("fp32"))
+    params = model.init(torch.Generator().manual_seed(1), device="cpu")
+    bank = personalized_bank(model, params, 2, jitter=0.2)
+    reqs = synthetic_requests(WorkloadConfig(
+        n_requests=5, prompt_choices=(6, 14), new_token_choices=(3, 6),
+        n_tenants=2, vocab_size=128, seed=4))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda x: x.to(dev), params)
+        b = TenantBank(tree_map(lambda x: x.to(dev), bank.tails),
+                       bank.prompts.to(dev))
+        reset_launches()
+        if paged:
+            eng = PagedServeEngine(model, p, b, PagedServeConfig(
+                n_slots=2, max_seq=32, decode_block=2, page_size=8,
+                shared_prefix=(5, 6, 7), prefill_chunk=4),
+                collect_logits=True, device=dev)
+        else:
+            eng = ServeEngine(model, p, b, ServeConfig(
+                n_slots=2, max_seq=32, decode_block=2),
+                collect_logits=True, device=dev)
+        st = eng.run(reqs)
+        out[dev] = ({f.req.rid: f for f in st["finished"]}, st["wire_bytes"])
+    counts = launch_counts()
+    for name in ("flash_attention_prefill", "paged_decode_attention"
+                 if paged else "decode_attention"):
+        assert counts[name] > 0, name
+    for rid, f in out["cpu"][0].items():
+        np.testing.assert_array_equal(out["cuda"][0][rid].tokens, f.tokens)
+        np.testing.assert_allclose(out["cuda"][0][rid].logits, f.logits,
+                                   atol=1e-4, rtol=1e-4)
+    assert out["cuda"][1] == out["cpu"][1]
