@@ -9,9 +9,15 @@ Phases, each of which fails the run with a nonzero exit:
      all at once, linked into one library);
   3. each kernel against its plain PyTorch version on the card, at the
      serving paths' shapes (Qwen2.5-14B widths; zamba2's 32 attention
-     heads of 80 for the prefill and decode kernels; the Mamba-2 scan at
-     zamba2's (H 80, P 64, N 64, G 1) for prefill (B 1, T 132, zero and
-     random h0) and decode (B 8, T 1), and at small G 2 and 4 with odd T;
+     heads of 80 for the prefill and decode kernels; the Mamba-2 scan's
+     two kernels, the step kernel (decode) and the chunked one (prefill),
+     at zamba2's (H 80, P 64, N 64, G 1) for prefill (B 1, T 132, zero and
+     random h0) and decode (B 8, T 1), at T 2-65 across the crossover and
+     the chunk edges, at G 2 and 4, P 8 with N 100 and N 200, each with a
+     fresh final state and written over the input state, with the
+     crossover sweep's device times over T 1-16 and prefill and decode
+     timed beside the chunked plain version (printed only), and the
+     ptxas registers and spills of every Mamba-2 instantiation;
      the RWKV-6 scan at rwkv6-3b's (H 40, K = V = 64) for prefill and
      decode, and a strong decay w = -12) and the training path's
      (ViT-Base: int8 wire on activations and broadcast gradients, EL2N,
@@ -41,7 +47,10 @@ Phases, each of which fails the run with a nonzero exit:
      decode and paged decode with a bf16 query over f32 and over bf16
      K/V; the scans with their layer's dtype mix), timed beside plain and,
      for all-bf16 prefill and decode, bf16 SDPA, bounds at 2 B a bf16
-     value;
+     value; then every kernel once more at f16, at its path shape (quant,
+     dequant and masked encode bit-equal, EL2N within 1e-5, f16 outputs
+     within 2e-3 (1 + |plain|), the error in f16 ulps, one device time
+     each beside a bound at 2 B an f16 value);
   4. engine parity: the reduced Qwen2.5 family (with a GQA group of 5)
      served on the card and on the CPU from the same seeded weights, by the
      dense engine and by the paged engine (shared prefix, chunked prefill)
@@ -104,7 +113,9 @@ Phases, each of which fails the run with a nonzero exit:
      through `ServeEngine.run`; every request finishes, metered wire bytes
      are within 5% of `serve_comm_breakdown`, and every kernel of the path
      (the wire, both attention kernels and the Mamba-2 scan) was launched,
-     then a profiled replay;
+     then a profiled replay, which must run both Mamba-2 kernels and
+     prints each one's launches and device us a launch beside the
+     replay's copy time;
  11. the rwkv path at full width: rwkv6-3b at published widths (d_model
      2560, 40 heads of 64, decay LoRA 64, d_ff 8960, vocab 65536) cut to 8
      layers (head 1 / body 6 / tail 1), checked as phase 10 (the wire and
@@ -184,7 +195,11 @@ SCAN_TOL = 2e-5               # |kernel - plain| <= tol (1 + |plain|): the
 EL2N_TOL = 1e-5               # |kernel - one-pass plain| <= tol (1 + |plain|)
 BF16_TOL = 2e-2               # bf16 outputs: |kernel - plain| <= tol (1 +
 #                               |plain|), the JAX kernel tests' bf16 rtol/atol
-BF16_FLOPS = 989e12           # H100 SXM dense bf16 on the tensor cores
+BF16_FLOPS = 989e12           # H100 SXM dense bf16 (and f16) on the tensor
+#                               cores
+F16_TOL = 2e-3                # f16 outputs: |kernel - plain| <= tol (1 +
+#                               |plain|): f16 keeps 11 significant bits and
+#                               both round the same f32 value once
 PARITY_TOL = 1e-4
 PAGED_WIRE_TOL = 1e-3
 TRAIN_WIRE_TOL = 1e-3
@@ -545,13 +560,14 @@ def prefill_build_report():
     if one has no TF32 HMMA or spills."""
     from repro_torch.kernels import build
     pat = re.compile(r"flash_fwd_(wide_)?kernelILi(\d+)ELb(\d)E"
-                     r"(f|13__nv_bfloat16)")
+                     r"(f|13__nv_bfloat16|6__half)")
+    dtypes = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
 
     def key(name):
         m = pat.search(name)
         return m and (f"ND {m.group(2)}{' (wide)' if m.group(1) else ''}, "
                       f"{'vector' if m.group(3) == '1' else 'single'} "
-                      f"loads, {'f32' if m.group(4) == 'f' else 'bf16'}")
+                      f"loads, {dtypes[m.group(4)]}")
     out = {key(name): dict(r) for name, r in ptxas_report().items()
            if key(name)}
     cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
@@ -564,9 +580,9 @@ def prefill_build_report():
         if name:
             out.setdefault(name, {})["hmma_tf32"] = sum(
                 "HMMA" in ln and ".TF32" in ln for ln in part.splitlines())
-    if len(out) != 28:
-        fail(f"expected 28 prefill kernel instantiations (ND 4, 8, 10, 16, "
-             f"20, 24, 32 x copies x dtypes), found {sorted(out)}")
+    if len(out) != 42:
+        fail(f"expected 42 prefill kernel instantiations (ND 4, 8, 10, 16, "
+             f"20, 24, 32 x copies x 3 dtypes), found {sorted(out)}")
     for name, r in sorted(out.items()):
         say(f"prefill kernel {name}: {r.get('hmma_tf32')} HMMA .TF32 in its "
             f"SASS, {r.get('registers')} registers, {r.get('spill_bytes')} "
@@ -823,14 +839,15 @@ def decode_build_report():
     combine, from the ptxas report."""
     pat = re.compile(r"\d+(paged_decode_kernel|decode_combine_kernel|"
                      r"decode_kernel)(ILi(\d+)ELi(\d+)ELb(\d)E"
-                     r"(f|13__nv_bfloat16))?")
+                     r"(f|13__nv_bfloat16|6__half))?")
     out = {}
     for name, r in ptxas_report().items():
         m = pat.search(name)
         if m:
             shape = f" ({m.group(3)}, {m.group(4)})" if m.group(3) else ""
             copies = {"1": ", vector copies", "0": ", single copies"}
-            kv = {"f": ", f32 K/V", "13__nv_bfloat16": ", bf16 K/V"}
+            kv = {"f": ", f32 K/V", "13__nv_bfloat16": ", bf16 K/V",
+                  "6__half": ", f16 K/V"}
             out[m.group(1) + shape + copies.get(m.group(5), "")
                 + kv.get(m.group(6), "")] = r
     for name, r in sorted(out.items()):
@@ -839,9 +856,9 @@ def decode_build_report():
         if r.get("spill_bytes") != 0:
             fail(f"decode kernel {name}: {r.get('spill_bytes')} bytes of "
                  f"register spills")
-    if len(out) != 33:
-        fail(f"expected 33 decode kernel functions in the build (2 kernels "
-             f"x 4 shapes x copies x dtypes, and the combine), found "
+    if len(out) != 49:
+        fail(f"expected 49 decode kernel functions in the build (2 kernels "
+             f"x 4 shapes x copies x 3 K/V dtypes, and the combine), found "
              f"{sorted(out)}")
     return out
 
@@ -1420,50 +1437,135 @@ def time_scan(kernel, plain, make, per_bytes):
             time_ms([lambda s=s: plain(*s) for s in sets], iters=10))
 
 
+def mamba2_build_report():
+    """Registers and spill bytes of each Mamba-2 kernel instantiation (the
+    chunked and the step kernel per element type of x and y, each typed
+    and coded), from the ptxas report; fails on a spill."""
+    out = {name: r for name, r in ptxas_report().items()
+           if "mamba2_chunk_kernel" in name or "mamba2_step_kernel" in name}
+    for name, r in sorted(out.items()):
+        say(f"mamba2 ptxas: {name}: {r.get('registers')} registers, "
+            f"{r.get('spill_bytes')} bytes spilled")
+        if r.get("spill_bytes") != 0:
+            fail(f"mamba2 kernel {name}: {r.get('spill_bytes')} bytes of "
+                 f"register spills")
+    if len(out) != 12:
+        fail(f"expected 12 Mamba-2 kernel functions (chunked and step: 3 "
+             f"dtypes x typed and coded), found {sorted(out)}")
+    return {name: dict(r) for name, r in out.items()}
+
+
+def mamba2_bound(B, T, H, P, N, G, xb=4):
+    """Least device time of one scan call: x, dt, A, B, C and the state
+    read once, y and the state written once (x, B, C and y at `xb` bytes
+    a value), against 5 flops a state entry a step (decay, input product,
+    add; output product, sum), dt x a row and exp(dt A) a head, at the
+    fp32 pipe's rate."""
+    nbytes = (xb * (2 * B * T * H * P + 2 * B * T * G * N)
+              + 4 * (B * T * H + H + 2 * B * H * P * N))
+    return nbytes, bound(nbytes, B * T * H * (P * (5 * N + 1) + 2))
+
+
 def check_mamba2(torch, gen, results):
+    """Both Mamba-2 kernels (the step kernel up to the wrapper's
+    STEP_MAX_T, the chunked one above it) against the sequential plain
+    version at SCAN_TOL, with a fresh final state and written over the
+    input state; the crossover sweep over T 1-16; prefill and decode
+    timed beside the bound, plain, and the chunked plain version (the
+    chunked kernel's algorithm: printed only)."""
+    from repro_torch.kernels.mamba2_scan import kernel as K
     from repro_torch.kernels.mamba2_scan import ref
     from repro_torch.kernels.mamba2_scan.kernel import mamba2_fwd
+    results["mamba2_build"] = mamba2_build_report()
     worst = 0.0
-    # zamba2's path shapes (prefill with zero and random h0, decode), then
-    # small shapes with G 2 and 4 and odd T
+    # zamba2's path shapes (prefill with zero and random h0, decode), the
+    # chunk edges at T 2-132, then G 2 and 4, P 8 with N 100, N 200 (the
+    # chunked kernel at T 1), and N 400 and 512 (one stage of inputs)
     cases = [(1, 132, 80, 64, 64, 1, False), (1, 132, 80, 64, 64, 1, True),
-             (8, 1, 80, 64, 64, 1, True), (2, 37, 8, 64, 64, 2, True),
-             (3, 101, 8, 32, 16, 4, False)]
+             (8, 1, 80, 64, 64, 1, True), (8, 2, 80, 64, 64, 1, True),
+             (2, 16, 80, 64, 64, 1, True), (1, 63, 8, 64, 64, 1, True),
+             (1, 64, 8, 64, 64, 1, True), (1, 65, 8, 64, 64, 1, True),
+             (2, 37, 8, 64, 64, 2, True), (3, 101, 8, 32, 16, 4, False),
+             (1, 33, 2, 8, 100, 2, True), (2, 1, 2, 8, 100, 2, True),
+             (2, 1, 4, 32, 200, 2, True), (1, 70, 4, 32, 400, 1, True),
+             (2, 1, 2, 16, 512, 2, True)]
     for B, T, H, P, N, G, h0 in cases:
         args = mamba2_case(torch, gen, B, T, H, P, N, G, h0)
-        y, h = mamba2_fwd(*args)
         ry, rh = ref.mamba2_scan(*args)
-        err = max(_scan_err(torch, y, ry), _scan_err(torch, h, rh))
+        y, h = mamba2_fwd(*args)
+        state = args[5] if h0 else torch.full_like(rh, math.nan)
+        y2, h2 = mamba2_fwd(*args[:5], args[5], state_out=state)
+        if h2 is not state:
+            fail("mamba2_scan: state_out was not the tensor returned")
+        err = max(_scan_err(torch, y, ry), _scan_err(torch, h, rh),
+                  _scan_err(torch, y2, ry), _scan_err(torch, h2, rh))
+        form = "step" if K.uses_step_kernel(T, N) else "chunked"
         if not err <= SCAN_TOL:
-            fail(f"mamba2_scan B={B} T={T} H={H} P={P} N={N} G={G} "
+            fail(f"mamba2_scan ({form}) B={B} T={T} H={H} P={P} N={N} G={G} "
                  f"h0={h0}: max|kernel - plain|/(1 + |plain|) = {err:.3g} "
                  f"> {SCAN_TOL}")
         worst = max(worst, err)
-        say(f"mamba2_scan: B={B} T={T} H={H} P={P} N={N} G={G} h0={h0}: "
-            f"max scaled err {err:.3g}")
-    # timed as the path calls it: the slot cache's state is always passed
+        say(f"mamba2_scan ({form}): B={B} T={T} H={H} P={P} N={N} G={G} "
+            f"h0={h0}: max scaled err {err:.3g} (fresh state and in place)")
+
+    def calls(B, T, in_place=True, n=None):
+        """Kernel calls over input copies past the L2, each writing its
+        final state over its input state as the serving path does."""
+        per = mamba2_bound(B, T, 80, 64, 64, 1)[0]
+        sets = [mamba2_case(torch, gen, B, T, 80, 64, 64, 1, True)
+                for _ in range(n or n_copies(per))]
+        return sets, [lambda s=s: mamba2_fwd(*s, state_out=s[5])
+                      for s in sets]
+
+    # the crossover: each kernel's device time at zamba2's heads over T
+    sweep, keep = {}, K.STEP_MAX_T
+    try:
+        for B in (8, 1):
+            for T in (1, 2, 4, 8, 16):
+                _, fns = calls(B, T)
+                for form, limit in (("step", 1 << 30), ("chunked", 0)):
+                    K.STEP_MAX_T = limit
+                    sweep[f"B {B} T {T} {form}"] = device_ms(fns)
+                del fns
+    finally:
+        K.STEP_MAX_T = keep
+    say("mamba2_scan crossover (device ms, zamba2's heads): " + "; ".join(
+        f"{k} {v:.4f}" for k, v in sweep.items())
+        + f"; the wrapper takes the step kernel up to T {K.STEP_MAX_T}")
+
     timed = {}
     for name, (B, T) in (("decode", (8, 1)), ("prefill", (1, 132))):
         H, P, N, G = 80, 64, 64, 1
-        # x, dt, A, B, C and the state read once; y and the state written
-        # once; 5 flops per state entry per step (decay, input product,
-        # add; output product, sum), dt x per row, exp(dt A) per head
-        nbytes = 4 * (B * T * H * P + B * T * H + H + 2 * B * T * G * N
-                      + B * T * H * P + 2 * B * H * P * N)
-        b = bound(nbytes, B * T * H * (P * (5 * N + 1) + 2))
-        t_k, t_p = time_scan(
-            mamba2_fwd, ref.mamba2_scan,
-            lambda: mamba2_case(torch, gen, B, T, H, P, N, G, True), nbytes)
+        nbytes, b = mamba2_bound(B, T, H, P, N, G)
+        sets, fns = calls(B, T)
+        t_k, d_k = time_ms(fns), device_ms(fns)
+        t_p = time_ms([lambda s=s: ref.mamba2_scan(*s) for s in sets],
+                      iters=10)
+        t_c = time_ms([lambda s=s: ref.mamba2_chunked(*s, chunk=K.CHUNK)
+                       for s in sets], iters=10)
+        # the kernel's gap to the chunked plain version (the TPU kernel's
+        # algorithm, whose exp arguments are differences of cumsums)
+        args = mamba2_case(torch, gen, B, T, H, P, N, G, True)
+        cy, ch = ref.mamba2_chunked(*args, chunk=K.CHUNK)
+        ky, kh = mamba2_fwd(*args)
+        gap = max(_scan_err(torch, ky, cy), _scan_err(torch, kh, ch))
+        del sets, fns
         timed[name] = dict(
-            ms=t_k, plain_ms=t_p, bound_ms=b[0], bound_by=b[1],
+            ms=t_k, device_ms=d_k, plain_ms=t_p, chunked_plain_ms=t_c,
+            gap_to_chunked_plain=gap,
+            bound_ms=b[0], bound_by=b[1],
+            kernel="step" if K.uses_step_kernel(T, N) else "chunked",
             shape=f"x ({B}, {T}, {H}, {P}), B/C ({B}, {T}, {G}, {N}), "
-                  f"state carried")
-        say(f"mamba2_scan {name}: {timed[name]['shape']}: kernel "
-            f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b[0]:.5f} ms "
-            f"({b[1]})")
-    results["mamba2_scan"] = dict(timed["decode"], max_abs_err=worst,
-                                  library_ms=None,
-                                  prefill_shape=timed["prefill"])
+                  f"state carried and written in place")
+        say(f"mamba2_scan {name} ({timed[name]['kernel']} kernel): "
+            f"{timed[name]['shape']}: kernel {t_k:.4f} ms ({d_k:.4f} on the "
+            f"device), plain {t_p:.4f} ms, chunked plain {t_c:.4f} ms "
+            f"(scaled gap to it {gap:.3g}, not checked), bound "
+            f"{b[0]:.5f} ms ({b[1]}); device / bound {d_k / b[0]:.2f}")
+    results["mamba2_scan"] = dict(
+        timed["decode"], max_abs_err=worst, library_ms=None,
+        prefill_shape=timed["prefill"], crossover_device_ms=sweep,
+        step_max_t=K.STEP_MAX_T, chunk=K.CHUNK)
 
 
 def rwkv6_case(torch, gen, B, T, H, K, decay=None, dtype=None):
@@ -1521,23 +1623,27 @@ def check_rwkv6(torch, gen, results):
 
 
 # ----------------------------------------------------------- phase 3, bf16
-def bf16_err(torch, label, got, want):
-    """Fail unless the kernel's and plain's outputs are both bf16 and the
-    kernel's is finite and within BF16_TOL (1 + |plain|); returns the
-    largest error, in absolute terms and in bf16 ulps of plain (the two
-    round the same f32 value, computed in different orders), and the share
-    of elements that differ."""
-    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+def half_err(torch, label, got, want, dtype=None):
+    """Fail unless the kernel's and plain's outputs are both of `dtype`
+    (bf16 unless given; or f16) and the kernel's is finite and within
+    BF16_TOL (F16_TOL) (1 + |plain|); returns the largest error, in
+    absolute terms and in ulps of plain's dtype (the two round the same
+    f32 value, computed in different orders), and the share of elements
+    that differ."""
+    dtype = dtype or torch.bfloat16
+    tol, bits, tiny = ((BF16_TOL, 8, 2.0 ** -126) if dtype == torch.bfloat16
+                       else (F16_TOL, 11, 2.0 ** -14))
+    if got.dtype != dtype or want.dtype != dtype:
         fail(f"{label}: the kernel gave {got.dtype} and plain {want.dtype}, "
-             f"not bfloat16")
+             f"not {dtype}")
     g, w = got.float(), want.float()
     d = (g - w).abs()
     if not bool(torch.isfinite(g).all()) \
-            or bool((d > BF16_TOL * (1 + w.abs())).any()):
+            or bool((d > tol * (1 + w.abs())).any()):
         fail(f"{label}: max|kernel - plain| = {float(d.max()):.3g} beyond "
-             f"{BF16_TOL} (1 + |plain|)")
-    _, e = torch.frexp(w.abs().clamp_min(2.0 ** -126))
-    ulp = torch.ldexp(torch.ones_like(w), e - 8)
+             f"{tol} (1 + |plain|)")
+    _, e = torch.frexp(w.abs().clamp_min(tiny))
+    ulp = torch.ldexp(torch.ones_like(w), e - bits)
     return dict(max_abs_err=float(d.max()), max_ulps=float((d / ulp).max()),
                 differ_share=float((d > 0).float().mean()))
 
@@ -1617,7 +1723,7 @@ def bf16_prefill(torch, F, gen, results):
             got = flash_attention_fwd(q, k, v, causal=True,
                                       sliding_window=None, softcap=None,
                                       scale=scale, kv_len=S)
-            errs.append(bf16_err(torch, f"prefill bf16 {label} S={S}", got,
+            errs.append(half_err(torch, f"prefill bf16 {label} S={S}", got,
                                  ref.attention(q, k, v, causal=True,
                                                scale=scale)))
         S = 132
@@ -1677,7 +1783,7 @@ def bf16_decode(torch, F, gen, results):
                     kvp
             name = f"{label}, {variant}"
             s0 = case()
-            err = bf16_err(torch, f"decode {name}", decode_attention_fwd(
+            err = half_err(torch, f"decode {name}", decode_attention_fwd(
                 *s0, scale=scale, sliding_window=None, softcap=None),
                 grouped_decode(*s0, scale=scale, sliding_window=None,
                                softcap=None))
@@ -1762,7 +1868,7 @@ def bf16_paged_shape(torch, gen, out, label, Hq, Hkv, Dh):
             got = paged_decode_attention_fwd(*args, scale=scale,
                                              sliding_window=None,
                                              softcap=None)
-            errs.append(bf16_err(torch, f"paged decode {variant}", got,
+            errs.append(half_err(torch, f"paged decode {variant}", got,
                                  paged_gather_decode(
                                      *args, scale=scale, sliding_window=None,
                                      softcap=None)))
@@ -1902,7 +2008,7 @@ def bf16_scans(torch, gen, results):
             args = make(B, T, h0)
             y, h = kernel(*args)
             ry, rh = plain(*args)
-            errs.append(bf16_err(torch, f"{name} bf16 B={B} T={T}", y, ry))
+            errs.append(half_err(torch, f"{name} bf16 B={B} T={T}", y, ry))
             err = _scan_err(torch, h, rh)
             if h.dtype != torch.float32 or not err <= SCAN_TOL:
                 fail(f"{name} bf16 B={B} T={T}: state {h.dtype}, scaled err "
@@ -1936,6 +2042,248 @@ def check_bf16(torch, F, gen, results):
     bf16_el2n(torch, gen, results)
     bf16_secure(torch, gen, results)
     bf16_scans(torch, gen, results)
+
+
+def check_f16(torch, F, gen, results):
+    """Every kernel once more with f16 inputs, at its path shape: held
+    against its plain version fed the same f16 tensors (quant, dequant and
+    masked encode bit-equal, EL2N within EL2N_TOL, f16 outputs within
+    F16_TOL, the scans' f32 state within SCAN_TOL), the largest error in
+    f16 ulps of plain, and one device time each beside a bound at 2 B an
+    f16 value; the all-f16 prefill and dense decode also beside one SDPA
+    call on the same f16 values (K/V repeated over the group). No
+    sweeps."""
+    from repro_torch.kernels.el2n import ref as eref
+    from repro_torch.kernels.el2n.kernel import el2n_fwd
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.flash_attention.decode import (
+        decode_attention_fwd, grouped_decode, paged_decode_attention_fwd,
+        paged_gather_decode)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.mamba2_scan import ref as mref
+    from repro_torch.kernels.mamba2_scan.kernel import mamba2_fwd
+    from repro_torch.kernels.quant import ref as qref
+    from repro_torch.kernels.quant.kernel import dequantize_fwd, quantize_fwd
+    from repro_torch.kernels.rwkv6_scan import ref as rref
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_fwd
+    from repro_torch.kernels.secure_mask import ref as sref
+    from repro_torch.kernels.secure_mask.kernel import masked_encode_fwd
+    from repro_torch.kernels.secure_mask.ops import masked_encode
+    f16 = torch.float16
+
+    def record(name, case, make, kernel, check, nbytes, flops,
+               rate=BF16_FLOPS, library=None):
+        """Check `kernel` on one input set (check(args, out) -> error
+        dict), then its time and device time over copies past the L2, and
+        those of `library(args)` (a closure over copies it prepares: one
+        PyTorch call of the same function) where there is one."""
+        err = check(make(), kernel)
+        sets = [make() for _ in range(n_copies(nbytes))]
+        calls = [lambda s=s: kernel(s) for s in sets]
+        t_k, d_k = time_ms(calls), device_ms(calls)
+        t_l = d_l = None
+        if library is not None:
+            lib = [library(s) for s in sets]
+            t_l, d_l = time_ms(lib), device_ms(lib)
+            del lib
+        del sets, calls
+        b = bound(nbytes, flops, rate)
+        r = dict(err, ms=t_k, device_ms=d_k, bound_ms=b[0], bound_by=b[1],
+                 library_ms=t_l, library_device_ms=d_l, shape=case)
+        results.setdefault(name, {}).setdefault("f16", {})[case] = r
+        lib_s = "" if t_l is None else \
+            f", SDPA f16 {t_l:.4f} ms ({d_l:.4f} on the device)"
+        say(f"{name} f16 {case}: max abs err {r['max_abs_err']:.3g} "
+            f"({r.get('max_ulps', 0.0):.3g} ulps); kernel {t_k:.4f} ms "
+            f"({d_k:.4f} on the device){lib_s}, bound {b[0]:.5f} ms "
+            f"({b[1]})")
+
+    def grouped(q, k, v):
+        """(B, S, H, D) q, k, v as SDPA takes them: heads first, K/V
+        repeated over the group."""
+        G = q.shape[2] // k.shape[2]
+        return (q.transpose(1, 2).contiguous(),
+                k.repeat_interleave(G, 2).transpose(1, 2).contiguous(),
+                v.repeat_interleave(G, 2).transpose(1, 2).contiguous())
+
+    def sdpa_prefill(a, scale):
+        s = grouped(*a)
+        return lambda: F.scaled_dot_product_attention(*s, is_causal=True,
+                                                      scale=scale)
+
+    def sdpa_decode(a, scale):
+        q, k, v, qp, kvp = a
+        s = grouped(q, k, v)
+        mask = ((kvp >= 0) & (kvp <= qp[:, None]))[:, None, None, :]
+        return lambda: F.scaled_dot_product_attention(*s, attn_mask=mask,
+                                                      scale=scale)
+
+    def equal(label, got, want):
+        if not torch.equal(got, want):
+            fail(f"{label} f16: kernel differs from plain")
+        return dict(max_abs_err=0.0, max_ulps=0.0)
+
+    # quantize and dequantize, (8, 5120) and (132, 5120)
+    D = 5120
+    for N in (8, 132):
+        def qx(N=N):
+            x = (torch.randn((N, D), generator=gen, device="cuda") * 3.0
+                 ).to(f16)
+            return x, torch.rand((N, D), generator=gen, device="cuda")
+        def qcheck(a, k, N=N):
+            (v, sc), (rv, rs) = k(a), qref.quantize(*a)
+            equal(f"quantize ({N}, {D}) scales", sc, rs)
+            return equal(f"quantize ({N}, {D}) values", v, rv)
+        record("quantize_int8", f"x ({N}, {D}) f16", qx,
+               lambda a: quantize_fwd(*a), qcheck,
+               N * D * 2 + N * D * 4 + N * D + N * 4, 4 * N * D)
+
+        def qv(N=N):
+            x = torch.randn((N, D), generator=gen, device="cuda") * 3.0
+            return quantize_fwd(x, torch.full((N, D), 0.5, device="cuda"))
+        record("dequantize_int8", f"v ({N}, {D}) -> f16", qv,
+               lambda a: dequantize_fwd(*a, f16),
+               lambda a, k: equal("dequantize", k(a),
+                                  qref.dequantize(*a, f16)),
+               N * D + N * 4 + N * D * 2, N * D)
+
+    # prefill, causal, S 132: Qwen2.5-14B and zamba2
+    for label, Hq, Hkv, Dh in (("Qwen2.5-14B", 40, 8, 128),
+                               ("zamba2", 32, 32, 80)):
+        scale, S = Dh ** -0.5, 132
+
+        def pq(Hq=Hq, Hkv=Hkv, Dh=Dh):
+            return tuple(torch.randn((1, S, h, Dh), generator=gen,
+                                     device="cuda").to(f16)
+                         for h in (Hq, Hkv, Hkv))
+        record("flash_attention_prefill",
+               f"{label} q (1, {S}, {Hq}, {Dh}), kv {Hkv} heads, causal",
+               pq, lambda a, scale=scale: flash_attention_fwd(
+                   *a, causal=True, sliding_window=None, softcap=None,
+                   scale=scale, kv_len=S),
+               lambda a, k, scale=scale, label=label: half_err(
+                   torch, f"prefill f16 {label}", k(a),
+                   fref.attention(*a, causal=True, scale=scale), f16),
+               S * (2 * Hq + 2 * Hkv) * Dh * 2,
+               _prefill_pairs(S, S, None) * Hq * 4 * Dh,
+               library=lambda a, scale=scale: sdpa_prefill(a, scale))
+
+    # dense decode, 8 slots of 512, Qwen2.5-14B: q f16 over f32 and f16 K/V
+    B, W, Hq, Hkv, Dh = 8, 512, 40, 8, 128
+    lengths = [37, 0, 512, 200, 0, 1, 333, 100]
+    for kv_dt in (torch.float32, f16):
+        def dc(kv_dt=kv_dt):
+            q, k, v, qp, kvp = decode_case(torch, gen, B, W, Hq, Hkv, Dh,
+                                           lengths, wrap_slot=7)
+            return q.to(f16), k.to(kv_dt), v.to(kv_dt), qp, kvp
+        kvb = 2 if kv_dt == f16 else 4
+        record("decode_attention",
+               f"Qwen2.5-14B q f16, K/V {str(kv_dt)[6:]}", dc,
+               lambda a: decode_attention_fwd(
+                   *a, scale=Dh ** -0.5, sliding_window=None, softcap=None),
+               lambda a, k: half_err(torch, "decode f16", k(a),
+                                     grouped_decode(
+                                         *a, scale=Dh ** -0.5,
+                                         sliding_window=None, softcap=None),
+                                     f16),
+               B * Hq * Dh * 4 + B * W * Hkv * Dh * 2 * kvb + B * W * 4,
+               B * W * Hq * 4 * Dh, BF16_FLOPS if kvb == 2 else FP32_FLOPS,
+               library=(lambda a: sdpa_decode(a, Dh ** -0.5))
+               if kv_dt == f16 else None)
+
+    # paged decode, 16 slots of page 16, Qwen2.5-14B
+    plens = [1, 512, 37, 200, 0, 129, 16, 17, 300, 64, 5, 96, 250, 33, 128,
+             9]
+    for kv_dt in (torch.float32, f16):
+        def pc(kv_dt=kv_dt):
+            q, k, v, tables, qp, kvp = paged_case(torch, gen, plens, 16, 32,
+                                                  130, 40, 8, 128)
+            return q.to(f16), k.to(kv_dt), v.to(kv_dt), tables, qp, kvp
+        kvb = 2 if kv_dt == f16 else 4
+        n_valid = sum(plens)
+        record("paged_decode_attention",
+               f"Qwen2.5-14B q f16, pool {str(kv_dt)[6:]}", pc,
+               lambda a: paged_decode_attention_fwd(
+                   *a, scale=128 ** -0.5, sliding_window=None, softcap=None),
+               lambda a, k: half_err(torch, "paged decode f16", k(a),
+                                     paged_gather_decode(
+                                         *a, scale=128 ** -0.5,
+                                         sliding_window=None, softcap=None),
+                                     f16),
+               16 * 40 * 128 * 4 + n_valid * 8 * 128 * 2 * kvb
+               + n_valid * 4 + 16 * 32 * 4, n_valid * 40 * 4 * 128,
+               BF16_FLOPS if kvb == 2 else FP32_FLOPS)
+
+    # EL2N at the path's (16, 100) and an LM vocabulary
+    for N, V in ((16, 100), (512, 152064)):
+        def ec(N=N, V=V):
+            logits, labels = el2n_case(torch, gen, N, V)
+            return logits.to(f16), labels
+
+        def echeck(a, k, N=N, V=V):
+            e, c = k(a)
+            we, wc = eref.fused_scores(*a)
+            errs = [_el2n_err(torch, e, we), _el2n_err(torch, c, wc)]
+            if not all(good for _, good in errs) or e.dtype != torch.float32:
+                fail(f"el2n f16 ({N}, {V}): {[x for x, _ in errs]} beyond "
+                     f"{EL2N_TOL}, or {e.dtype}")
+            return dict(max_abs_err=max(x for x, _ in errs))
+        record("el2n", f"logits ({N}, {V}) f16", ec, lambda a: el2n_fwd(*a),
+               echeck, N * V * 2 + 3 * N * 4, 5 * N * V)
+
+    # masked encode at the full width
+    n_full, J = 7_171_584, 3
+
+    def mc():
+        x, seeds, signs = secure_case(torch, gen, n_full, J)
+        return x.to(f16), sref.to_ring(seeds & sref.MASK32), signs, seeds
+    f32 = results["secure_masked_encode"]
+    record("secure_masked_encode", f"x ({n_full},) f16, {J} pairs", mc,
+           lambda a: masked_encode_fwd(a[0], a[1], a[2], n=n_full,
+                                       frac_bits=16),
+           lambda a, k: equal("masked encode", masked_encode(a[0], a[3],
+                                                             a[2]),
+                              sref.masked_encode(a[0], a[3], a[2])),
+           n_full * 6, n_full * J * f32["sass_per_threefry"],
+           SMS * ISSUE_LANES * f32["sm_clock_mhz"] * 1e6)
+
+    # the scans, with the layers' dtype mix at f16, decode and prefill
+    for B, T in ((8, 1), (1, 132)):
+        def m2(B=B, T=T):
+            return mamba2_case(torch, gen, B, T, 80, 64, 64, 1, True,
+                               dtype=f16)
+
+        def m2check(a, k, B=B, T=T):
+            ry, rh = mref.mamba2_scan(*a)    # before k overwrites a[5]
+            y, h = k(a)
+            err = half_err(torch, f"mamba2_scan f16 B={B} T={T}", y, ry, f16)
+            if h.dtype != torch.float32 or not \
+                    _scan_err(torch, h, rh) <= SCAN_TOL:
+                fail(f"mamba2_scan f16 B={B} T={T}: state {h.dtype} beyond "
+                     f"{SCAN_TOL}")
+            return err
+        nbytes = mamba2_bound(B, T, 80, 64, 64, 1, xb=2)[0]
+        record("mamba2_scan", f"x ({B}, {T}, 80, 64) f16, B/C f16, state "
+               f"f32", m2, lambda a: mamba2_fwd(*a, state_out=a[5]),
+               m2check, nbytes, B * T * 80 * (64 * (5 * 64 + 1) + 2),
+               FP32_FLOPS)
+
+        def r6(B=B, T=T):
+            return rwkv6_case(torch, gen, B, T, 40, 64, dtype=f16)
+
+        def r6check(a, k, B=B, T=T):
+            (y, S), (ry, rS) = k(a), rref.rwkv6_scan(*a)
+            err = half_err(torch, f"rwkv6_scan f16 B={B} T={T}", y, ry, f16)
+            if S.dtype != torch.float32 or not \
+                    _scan_err(torch, S, rS) <= SCAN_TOL:
+                fail(f"rwkv6_scan f16 B={B} T={T}: state beyond {SCAN_TOL}")
+            return err
+        K = 64
+        record("rwkv6_scan", f"r, k, v ({B}, {T}, 40, 64) f16, w, u, state "
+               f"f32", r6, lambda a: rwkv6_fwd(*a), r6check,
+               2 * 4 * B * T * 40 * K + 4 * (B * T * 40 * K + 40 * K
+                                             + 2 * B * 40 * K * K),
+               B * T * 40 * (5 * K * K + 5 * K), FP32_FLOPS)
 
 
 def report_drift(results):
@@ -2422,8 +2770,27 @@ def full_width(torch, fw, path="dense", dtype=None):
     say(f"{path} full width: " + json.dumps(summary, sort_keys=True))
     summary["profile"] = profile_replay(torch, engine, reqs)
     say(f"{path} profile: " + json.dumps(summary["profile"], sort_keys=True))
+    if path == "hybrid":
+        mamba2_replay(summary["profile"])
     del engine
     return launches, summary
+
+
+def mamba2_replay(prof):
+    """The hybrid replay's Mamba-2 launches and device us a launch, the
+    chunked (prefill) and the step kernel (decode) apart, beside the
+    replay's copy time; fails unless both kernels ran."""
+    us, n = prof["port_kernel_us_per_launch"], prof["port_kernel_launches"]
+    missing = [k for k in ("mamba2_chunk_kernel", "mamba2_step_kernel")
+               if not n.get(k)]
+    if missing:
+        fail(f"hybrid replay: Mamba-2 kernels never launched: {missing}")
+    copies = prof["device_ms_by_kind"].get("copies and casts (copy_ / to)",
+                                           0.0)
+    say("hybrid replay Mamba-2: " + "; ".join(
+        f"{k} {n[k]} launches x {us[k]:.2f} us = {n[k] * us[k] * 1e-3:.2f} "
+        f"ms" for k in ("mamba2_chunk_kernel", "mamba2_step_kernel"))
+        + f"; copies and casts {copies:.2f} ms")
 
 
 def full_width_paged(torch, fw, path="paged", dtype=None):
@@ -2579,6 +2946,7 @@ def device_summary(prof, wall):
         # wrapper calls, no host time between launches is in it
         "port_kernel_us_per_launch": {k: us / n
                                       for k, (n, us) in port_n.items()},
+        "port_kernel_launches": {k: n for k, (n, _) in port_n.items()},
     }
 
 
@@ -2587,7 +2955,8 @@ PORT_KERNELS = ("decode_kernel", "paged_decode_kernel",
                 "decode_combine_kernel", "flash_fwd_kernel",
                 "flash_fwd_wide_kernel", "quantize_kernel",
                 "dequantize_kernel", "el2n_kernel", "masked_encode_kernel",
-                "mamba2_scan_kernel", "rwkv6_scan_kernel")
+                "mamba2_chunk_kernel", "mamba2_step_kernel",
+                "rwkv6_scan_kernel")
 
 
 def _device_kind(name: str) -> str:
@@ -3128,6 +3497,7 @@ def main() -> None:
     check_mamba2(torch, gen, results)
     check_rwkv6(torch, gen, results)
     check_bf16(torch, F, gen, results)
+    check_f16(torch, F, gen, results)
     drift = report_drift(results)
     lap("3")
 
@@ -3189,7 +3559,7 @@ def main() -> None:
     # under "bf16" and the wide shapes' under "wide", by case), the phase
     # times, then the device line
     keys = ("max_abs_err", "max_ulps", "ms", "device_ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+            "bound_ms", "bound_by", "library_ms", "library_device_ms")
     kernels = []
     for name in REPLACES:
         per_path = {path: counts[name] for path, counts in by_path.items()
@@ -3197,9 +3567,12 @@ def main() -> None:
         rec = dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=sum(per_path.values()),
-            launches_by_path=per_path, dtypes=["float32", "bfloat16"],
+            launches_by_path=per_path,
+            dtypes=["float32", "bfloat16", "float16"],
             bf16={case: {k: r.get(k) for k in keys}
                   for case, r in results[name]["bf16"].items()},
+            f16={case: {k: r.get(k) for k in keys}
+                 for case, r in results[name]["f16"].items()},
             **{k: results[name][k] for k in
                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")})

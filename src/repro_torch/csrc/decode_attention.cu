@@ -1,4 +1,4 @@
-// Slot-cache decode attention (f32 or bf16 in, fp32 math) for Hopper
+// Slot-cache decode attention (f32, bf16 or f16 in, fp32 math) for Hopper
 // (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/decode.py::
@@ -56,7 +56,7 @@
 //    floats takes a 4-byte-copy instantiation; the entry point picks, and
 //    the host never falls back.
 //
-// q (and the output) and the cache may each be f32 or bf16 (see
+// q (and the output) and the cache may each be f32, bf16 or f16 (see
 // decode_common.cuh): the kernel is instantiated per cache dtype, the
 // query load and the output store branch on q's.
 //
@@ -165,7 +165,8 @@ struct DecodeKernel {
 
 }  // namespace
 
-// q and o of dtype q_dtype, k and v of dtype kv_dtype (kF32 or kBF16);
+// q and o of dtype q_dtype, k and v of dtype kv_dtype (kF32, kBF16
+// or kF16);
 // strides in elements of each tensor's own dtype.
 extern "C" int sfp_decode_attention_fwd(
     const void* q, int q_dtype, const void* k, const void* v, int kv_dtype,
@@ -188,12 +189,14 @@ extern "C" int sfp_decode_attention_fwd(
               v_sb, v_sw, v_sh, qp_sb, kvp_sb, kvp_sw, window, softcap,
               scale};
   // Vector copies need every K and V row aligned to one: 16 bytes (4 f32)
-  // or 8 bytes (4 bf16), the bases and the strides in units of 4 values
+  // or 8 bytes (4 bf16 or f16), the bases and the strides in units of 4
+  // values
   const unsigned long long addr = reinterpret_cast<unsigned long long>(k) |
                                   reinterpret_cast<unsigned long long>(v);
   const long long strides = k_sb | k_sw | k_sh | v_sb | v_sw | v_sh;
-  const bool bf = kv_dtype == kBF16;
-  const bool vec = addr % (bf ? 8 : 16) == 0 && strides % 4 == 0;
+  const bool vec =
+      addr % (kv_dtype == kF32 ? 16 : 8) == 0 && strides % 4 == 0;
   return (int)launch_decode_shape<DecodeKernel>(
-      p, Dh, Dv, Hq / Hkv, vec, bf, Hkv, n_tiles, out, (cudaStream_t)stream);
+      p, Dh, Dv, Hq / Hkv, vec, kv_dtype, Hkv, n_tiles, out,
+      (cudaStream_t)stream);
 }

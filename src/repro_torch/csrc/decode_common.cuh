@@ -18,14 +18,15 @@
 //   the weights through shared memory, each lane owning four output columns
 //   of every 128 (DecodeRows).
 //
-// q and the output share one dtype, f32 or bf16 (the TPU kernels write
-// q's dtype); K and V share another, independently: the serving engines
-// hold f32 caches under bf16 activations. bf16 values are widened to f32
-// on load — exact — so the tiles, the fold and the combine are the f32
-// kernel's. f32 K/V tiles stream through cp.async; bf16 tiles are read
-// with synchronous 8-byte loads (4 values a lane) into the same f32
-// stages, and bf16 query rows likewise. Only the last writer (the block
-// at S = 1, else the combine) rounds the output, once, to nearest even.
+// q and the output share one dtype, f32, bf16 or f16 (the TPU kernels
+// write q's dtype); K and V share another, independently: the serving
+// engines hold f32 caches under 16-bit activations. bf16 and f16 values
+// are widened to f32 on load — exact — so the tiles, the fold and the
+// combine are the f32 kernel's. f32 K/V tiles stream through cp.async;
+// 16-bit tiles are read with synchronous 8-byte loads (4 values a lane)
+// into the same f32 stages, and 16-bit query rows likewise. Only the last
+// writer (the block at S = 1, else the combine) rounds the output, once,
+// to nearest even.
 //
 // Each kernel is instantiated per shape (DecodeShape): the widest head dim
 // it takes, kD = 128 or 256, and the query rows a warp, kR = 2 (G <= 8) or
@@ -121,14 +122,16 @@ __device__ __forceinline__ void copy_row(float* dst, const float* src, int n,
   }
 }
 
-// The same copy from a bf16 row, widened to f32 on the way: one 8-byte
-// load of 4 values a chunk (kVec: src aligned to 8 bytes) or 4 single
-// loads, then one 16-byte shared store. Synchronous: the stage is visible
-// to the block after the walk's next __syncthreads, as a cp.async stage
-// is after its wait.
-template <bool kVec, int kC = 1>
-__device__ __forceinline__ void copy_row(float* dst, const bf16* src, int n,
+// The same copy from a bf16 or f16 row, widened to f32 on the way: one
+// 8-byte load of 4 values a chunk (kVec: src aligned to 8 bytes) or 4
+// single loads, then one 16-byte shared store. Synchronous: the stage is
+// visible to the block after the walk's next __syncthreads, as a cp.async
+// stage is after its wait. (For a float row the overload above, the more
+// specialised template, is the one called.)
+template <bool kVec, int kC = 1, class T16>
+__device__ __forceinline__ void copy_row(float* dst, const T16* src, int n,
                                          int chunks, int lane) {
+  static_assert(sizeof(T16) == 2, "16-bit rows only");
 #pragma unroll
   for (int i = 0; i < kC; ++i) {
     const int ch = lane + 32 * i;
@@ -150,9 +153,20 @@ __device__ __forceinline__ void copy_row(float* dst, const bf16* src, int n,
 // Start the copy of the group's G query rows (element qo of q, of dtype
 // q_dtype; row stride q_sh) into qs (rows of kD), zero past G and Dh so
 // dots read whole float4s. f32 rows go by cp.async, committed as their own
-// group, landing with the first tile; bf16 rows are widened by plain loads
-// and stores. Either way the rows are visible after the flag pass's
-// __syncthreads.
+// group, landing with the first tile; bf16 and f16 rows are widened by
+// plain loads and stores. Either way the rows are visible after the flag
+// pass's __syncthreads.
+template <int kD, int kR, class T16>
+__device__ __forceinline__ void widen_queries(float* qs, const T16* qb,
+                                              long long q_sh, int G, int Dh,
+                                              int tid) {
+  constexpr int kMaxGroup = DecodeShape<kD, kR>::kMaxGroup;
+  for (int idx = tid; idx < kMaxGroup * kD; idx += kThreads) {
+    const int g = idx / kD, d = idx % kD;
+    qs[idx] = g < G && d < Dh ? to_f32(qb[g * q_sh + d]) : 0.f;
+  }
+}
+
 template <int kD, int kR>
 __device__ __forceinline__ void load_queries(float* qs, const void* q,
                                              int q_dtype, long long qo,
@@ -160,11 +174,11 @@ __device__ __forceinline__ void load_queries(float* qs, const void* q,
                                              int tid) {
   constexpr int kMaxGroup = DecodeShape<kD, kR>::kMaxGroup;
   if (q_dtype == kBF16) {
-    const bf16* qb = static_cast<const bf16*>(q) + qo;
-    for (int idx = tid; idx < kMaxGroup * kD; idx += kThreads) {
-      const int g = idx / kD, d = idx % kD;
-      qs[idx] = g < G && d < Dh ? to_f32(qb[g * q_sh + d]) : 0.f;
-    }
+    widen_queries<kD, kR>(qs, static_cast<const bf16*>(q) + qo, q_sh, G, Dh,
+                          tid);
+  } else if (q_dtype == kF16) {
+    widen_queries<kD, kR>(qs, static_cast<const f16*>(q) + qo, q_sh, G, Dh,
+                          tid);
   } else {
     const float* qb = static_cast<const float*>(q) + qo;
     for (int idx = tid; idx < kMaxGroup * kD; idx += kThreads) {
@@ -436,18 +450,19 @@ cudaError_t launch_decode(void (*kernel)(Params), const Params& p, int Hkv,
 // TKV>::fn() is its function: a class template stands for the kernel
 // template) that takes Dh and Dv
 // (kD 128 up to 128, else 256) and G (kR 2 up to 8, else 4), with vector
-// or single copies and f32 or bf16 K/V.
+// or single copies and f32, bf16 or f16 K/V (kv_dtype).
 template <template <int, int, bool, class> class Kernel, class Params>
 cudaError_t launch_decode_shape(const Params& p, int Dh, int Dv, int G,
-                                bool vec, bool bf, int Hkv, int n_tiles,
+                                bool vec, int kv_dtype, int Hkv, int n_tiles,
                                 const DecodeOut& out, cudaStream_t stream) {
   auto go = [&](auto d, auto r) {
     constexpr int kD = decltype(d)::value, kR = decltype(r)::value;
-    auto* kernel = bf ? (vec ? Kernel<kD, kR, true, bf16>::fn()
-                             : Kernel<kD, kR, false, bf16>::fn())
-                      : (vec ? Kernel<kD, kR, true, float>::fn()
-                             : Kernel<kD, kR, false, float>::fn());
-    return launch_decode<kD, kR>(kernel, p, Hkv, n_tiles, out, stream);
+    return with_dtype(kv_dtype, [&](auto as) {
+      using TKV = typename decltype(as)::type;
+      auto* kernel = vec ? Kernel<kD, kR, true, TKV>::fn()
+                         : Kernel<kD, kR, false, TKV>::fn();
+      return launch_decode<kD, kR>(kernel, p, Hkv, n_tiles, out, stream);
+    });
   };
   using D128 = std::integral_constant<int, 128>;
   using D256 = std::integral_constant<int, 256>;

@@ -20,11 +20,12 @@
 // mask over every tile. The logits are read through a row stride (an LM
 // logits view needs no copy) and V needs no padding: a row whose pointer is
 // not 16-byte aligned takes scalar loads up to the first 16-byte boundary,
-// then 16-byte loads (4 f32 or 8 bf16), then a scalar tail. bf16 logits
-// are widened on load, exactly, as the TPU kernel's astype(f32): no
-// separate widening pass; the outputs are f32 at either dtype.
+// then 16-byte loads (4 f32 or 8 bf16 or f16), then a scalar tail. bf16
+// and f16 logits are widened on load, exactly, as the TPU kernel's
+// astype(f32): no separate widening pass; the outputs are f32 at every
+// dtype.
 //
-// Bound: one read of N*V*4 bytes (N*V*2 at bf16) and a few flops per
+// Bound: one read of N*V*4 bytes (N*V*2 at bf16 and f16) and a few flops per
 // element, so at LM vocabularies it is bound by device memory; at the ViT
 // classifier's (16, 100) it is bound by the launch. With few rows it
 // under-fills the 132 SMs (one block a row); splitting V across blocks is
@@ -148,19 +149,18 @@ el2n_kernel(const T* __restrict__ logits, long long row_stride,
 
 }  // namespace
 
-// logits of dtype logits_dtype (kF32 or kBF16); el2n, ce f32.
+// logits of dtype logits_dtype (kF32, kBF16 or kF16); el2n, ce f32.
 extern "C" int sfp_el2n_fwd(const void* logits, int logits_dtype,
                             long long row_stride, const int* labels,
                             float* el2n, float* ce, int n, int v,
                             void* stream) {
   if (n > 0) {
     const cudaStream_t st = (cudaStream_t)stream;
-    if (logits_dtype == kBF16)
-      el2n_kernel<<<n, kThreads, 0, st>>>(static_cast<const bf16*>(logits),
+    with_dtype(logits_dtype, [&](auto as) {
+      using T = typename decltype(as)::type;
+      el2n_kernel<<<n, kThreads, 0, st>>>(static_cast<const T*>(logits),
                                           row_stride, labels, v, el2n, ce);
-    else
-      el2n_kernel<<<n, kThreads, 0, st>>>(static_cast<const float*>(logits),
-                                          row_stride, labels, v, el2n, ce);
+    });
   }
   return (int)cudaGetLastError();
 }

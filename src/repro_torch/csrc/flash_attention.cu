@@ -1,4 +1,4 @@
-// GQA prefill attention (f32 or bf16 in, fp32 accuracy) for Hopper
+// GQA prefill attention (f32, bf16 or f16 in, fp32 accuracy) for Hopper
 // (sm_90a), on the tensor cores through 3xTF32 mma.sync.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py::
@@ -79,16 +79,17 @@
 // shapes (serving prefill) that the bytes bound. Dh and Dv may differ (a
 // 192-wide QK^T with 128-wide values takes ND 24).
 //
-// q, k and v are all f32 or all bf16, and the output is in their dtype
-// (the TPU kernel reads them with astype(f32) and writes q's dtype). bf16
-// tiles are read with plain 16-byte loads (8 values; single values where
-// a base or stride is not a multiple of 8), widened exactly and stored as
-// f32 into the same shared layout, so everything after the load is the
-// f32 kernel's: the bf16 loads are synchronous, and only f32 tiles keep
-// the cp.async overlap. bf16 values are exact in TF32, so the 3xTF32
-// split's small halves are 0 for Q, K and V at bf16; skipping their
-// products, and a bf16 m16n8k16 mma.sync, are later work. The output is
-// rounded to bf16 once, to nearest even.
+// q, k and v are all f32, all bf16 or all f16, and the output is in their
+// dtype (the TPU kernel reads them with astype(f32) and writes q's dtype).
+// 16-bit tiles are read with plain 16-byte loads (8 values; single values
+// where a base or stride is not a multiple of 8), widened exactly and
+// stored as f32 into the same shared layout, so everything after the load
+// is the f32 kernel's: the 16-bit loads are synchronous, and only f32
+// tiles keep the cp.async overlap. bf16 and f16 values are exact in TF32
+// (f16's 11 significant bits are TF32's), so the 3xTF32 split's small
+// halves are 0 for Q, K and V at 16 bits; skipping their products, and a
+// 16-bit m16n8k16 mma.sync, are later work. The output is rounded to bf16
+// or f16 once, to nearest even.
 //
 // Masks use the finite -2^30 of the plain version. A masked key (causal,
 // window) scores -2^30 and takes part in the max; an absent key (at or
@@ -111,7 +112,7 @@ using namespace sfp;
 constexpr int kBQ = 64;
 constexpr int kThr = 256;
 
-// q, k, v and o of one dtype, float or bf16 (the kernel's T)
+// q, k, v and o of one dtype, float, bf16 or f16 (the kernel's T)
 struct FaParams {
   const void* q;
   const void* k;
@@ -151,27 +152,41 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
   }
 }
 
-// The same copy from bf16 rows (`width` a multiple of 8), widened to f32
-// on the way: synchronous loads of 8 values (kVec16: src and ss aligned to
-// 16 bytes), each stored as two 16-byte chunks, or of one value. Visible
-// to the block after its next __syncthreads, as the cp.async copies are
-// after their wait.
-template <int LD, bool kSwz, bool kVec16>
-__device__ __forceinline__ void load_rows(float* dst, const bf16* src,
+// The same copy from bf16 or f16 rows (`width` a multiple of 8), widened
+// to f32 on the way: synchronous loads of 8 values (kVec16: src and ss
+// aligned to 16 bytes), each stored as two 16-byte chunks, or of one
+// value. Visible to the block after its next __syncthreads, as the
+// cp.async copies are after their wait. (For float rows the overload
+// above, the more specialised template, is the one called.)
+template <int LD, bool kSwz, bool kVec16, class T16>
+__device__ __forceinline__ void load_rows(float* dst, const T16* src,
                                           long long ss, int n_rows, int rows,
                                           int d, int width, int tid) {
+  static_assert(sizeof(T16) == 2, "16-bit rows only");
   constexpr int kUnit = kVec16 ? 8 : 1;  // values a load
   const int per_row = width / kUnit, step = kThr / per_row;  // rows a pass
   const int r0 = tid / per_row, col = (tid - r0 * per_row) * kUnit;
   if (r0 >= step) return;
-  const int n = max(0, min(kUnit, d - col));  // of the load's columns, < d
-  const bf16* s = src + r0 * ss + col;
+  // Of the load's columns, those < d, written as comparisons, and the
+  // full load taken on left >= 8. An earlier form, the count as
+  // max(0, min(kUnit, d - col)) and the full load on count == 8, means
+  // the same in C++, yet the kernel nvcc 12.9 (V12.9.86, sm_90a) built
+  // from it loaded the group at col == d (past Dh at head dims 8 mod 16)
+  // where it must zero it. Reduced: one block running the loader on 64
+  // bf16 rows at Dh 40 (width 48) into shared memory, against the f32
+  // loader on the same values, differed in 512 of 4096 values (the group
+  // at columns 40-47) with that form, in none with either change alone.
+  // The card tests hold the prefill kernel at Dh 24, 40, 72, 136 and 152
+  // at bf16 and f16; built from that form, it fails each of them.
+  const int left = d - col;
+  const int n = left >= kUnit ? kUnit : (left > 0 ? left : 0);
+  const T16* s = src + r0 * ss + col;
   for (int r = r0; r < rows; r += step, s += step * ss) {
     const int pcol = kSwz ? col ^ ((r & 1) << 4) : col;  // chunk c ^ 4
     float* out = dst + r * LD + pcol;
     if constexpr (kVec16) {
       float f[8];
-      if (r < n_rows && n == 8) {
+      if (r < n_rows && left >= 8) {
         load16(s, f);
       } else {
 #pragma unroll
@@ -814,7 +829,8 @@ cudaError_t launch_width(const FaParams& p, cudaStream_t stream) {
 
 }  // namespace
 
-// q, k, v and o all of dtype `dtype` (kF32 or kBF16); strides in elements.
+// q, k, v and o all of dtype `dtype` (kF32, kBF16 or kF16); strides in
+// elements.
 extern "C" int sfp_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Sq, int Skv, int Hq, int Hkv, int Dh, int Dv, long long q_sb,
@@ -830,18 +846,17 @@ extern "C" int sfp_flash_attention_fwd(
   if (Dh > kDMax || Dv > kDMax) return (int)cudaErrorInvalidValue;
   if (B <= 0 || Sq <= 0) return (int)cudaGetLastError();
   // 16-byte copies need every row of q, k and v to start 16-byte aligned:
-  // the bases, and the strides in 16-byte units (4 f32 or 8 bf16)
+  // the bases, and the strides in 16-byte units (4 f32, or 8 bf16 or f16)
   const unsigned long long addr = reinterpret_cast<unsigned long long>(q) |
                                   reinterpret_cast<unsigned long long>(k) |
                                   reinterpret_cast<unsigned long long>(v);
   const long long strides = q_sb | q_ss | q_sh | k_sb | k_ss | k_sh | v_sb |
                             v_ss | v_sh;
-  const bool bf = dtype == kBF16;
-  const bool vec = addr % 16 == 0 && strides % (bf ? 8 : 4) == 0;
+  const bool vec =
+      addr % 16 == 0 && strides % (dtype == kF32 ? 4 : 8) == 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (bf)
-    return (int)(vec ? launch_width<true, bf16>(p, st)
-                     : launch_width<false, bf16>(p, st));
-  return (int)(vec ? launch_width<true, float>(p, st)
-                   : launch_width<false, float>(p, st));
+  return (int)with_dtype(dtype, [&](auto as) {
+    using T = typename decltype(as)::type;
+    return vec ? launch_width<true, T>(p, st) : launch_width<false, T>(p, st);
+  });
 }

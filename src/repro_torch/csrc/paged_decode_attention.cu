@@ -1,4 +1,4 @@
-// Paged decode attention (f32 or bf16 in, fp32 math) for Hopper (sm_90a).
+// Paged decode attention (f32, bf16 or f16 in, fp32 math) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/decode.py::
 // paged_decode_attention_fwd. One query token per slot attends to that
@@ -59,7 +59,7 @@
 //    not multiples of 4 floats takes a 4-byte-copy instantiation instead;
 //    the entry point picks, and the host never falls back.
 //
-// q (and the output) and the pool may each be f32 or bf16 (see
+// q (and the output) and the pool may each be f32, bf16 or f16 (see
 // decode_common.cuh): the kernel is instantiated per pool dtype, the query
 // load and the output store branch on q's. Each tensor's strides are in
 // its own elements: the engines pair a bf16 q with an f32 pool.
@@ -207,7 +207,8 @@ struct PagedKernel {
 
 }  // namespace
 
-// q and o of dtype q_dtype, the pools of dtype kv_dtype (kF32 or kBF16);
+// q and o of dtype q_dtype, the pools of dtype kv_dtype (kF32, kBF16
+// or kF16);
 // strides in elements of each tensor's own dtype.
 extern "C" int sfp_paged_decode_attention_fwd(
     const void* q, int q_dtype, const void* k, const void* v, int kv_dtype,
@@ -230,12 +231,14 @@ extern "C" int sfp_paged_decode_attention_fwd(
                 k_sp, k_so, k_sh,   v_sp,   v_so,   v_sh,   bt_sb,
                 bt_sn, qp_sb, kvp_sp, kvp_so, window, softcap, scale};
   // Vector copies need every K and V row aligned to one: 16 bytes (4 f32)
-  // or 8 bytes (4 bf16), the bases and the strides in units of 4 values
+  // or 8 bytes (4 bf16 or f16), the bases and the strides in units of 4
+  // values
   const unsigned long long addr = reinterpret_cast<unsigned long long>(k) |
                                   reinterpret_cast<unsigned long long>(v);
   const long long strides = k_sp | k_so | k_sh | v_sp | v_so | v_sh;
-  const bool bf = kv_dtype == kBF16;
-  const bool vec = addr % (bf ? 8 : 16) == 0 && strides % 4 == 0;
+  const bool vec =
+      addr % (kv_dtype == kF32 ? 16 : 8) == 0 && strides % 4 == 0;
   return (int)launch_decode_shape<PagedKernel>(
-      p, Dh, Dv, Hq / Hkv, vec, bf, Hkv, n_tiles, out, (cudaStream_t)stream);
+      p, Dh, Dv, Hq / Hkv, vec, kv_dtype, Hkv, n_tiles, out,
+      (cudaStream_t)stream);
 }

@@ -2,12 +2,12 @@
 //
 // Replaces the TPU kernels repro/kernels/quant/kernel.py::quantize_fwd and
 // ::dequantize_fwd. Both are bound by device memory: per element they do a
-// handful of flops against 4 bytes read (x; 2 at bf16) and 1 written (the
-// payload), so the design goal is one coalesced pass each way and nothing
-// else. x may be f32 or bf16 (widened on load, exactly, as the TPU kernel's
-// astype(f32)); the dequantized output is f32 or bf16 (one round to nearest
-// even of the f32 product, as astype(dtype)), so both stay bit-equal to the
-// plain version at either dtype.
+// handful of flops against 4 bytes read (x; 2 at bf16 and f16) and 1
+// written (the payload), so the design goal is one coalesced pass each way
+// and nothing else. x may be f32, bf16 or f16 (widened on load, exactly, as
+// the TPU kernel's astype(f32)); the dequantized output is f32, bf16 or f16
+// (one round to nearest even of the f32 product, as astype(dtype)), so both
+// stay bit-equal to the plain version at every dtype.
 //
 // quantize: one block per row (a token of the smashed tensor). The block
 //   reduces max|x| across its threads, then rewrites the row; the second
@@ -82,26 +82,23 @@ __global__ void dequantize_kernel(const int8_t* __restrict__ values,
 
 }  // namespace
 
-// x of dtype x_dtype (kF32 or kBF16); u, scales f32.
+// x of dtype x_dtype (kF32, kBF16 or kF16); u, scales f32.
 extern "C" int sfp_quantize_int8(const void* x, int x_dtype, long long x_rs,
                                  const float* u, long long u_rs,
                                  long long u_cs, int8_t* values,
                                  float* scales, int n, int d, void* stream) {
   if (n > 0) {
     const cudaStream_t st = (cudaStream_t)stream;
-    if (x_dtype == kBF16)
+    with_dtype(x_dtype, [&](auto as) {
+      using T = typename decltype(as)::type;
       quantize_kernel<<<n, kQuantThreads, 0, st>>>(
-          static_cast<const bf16*>(x), x_rs, u, u_rs, u_cs, values, scales,
-          d);
-    else
-      quantize_kernel<<<n, kQuantThreads, 0, st>>>(
-          static_cast<const float*>(x), x_rs, u, u_rs, u_cs, values, scales,
-          d);
+          static_cast<const T*>(x), x_rs, u, u_rs, u_cs, values, scales, d);
+    });
   }
   return (int)cudaGetLastError();
 }
 
-// out of dtype out_dtype (kF32 or kBF16).
+// out of dtype out_dtype (kF32, kBF16 or kF16).
 extern "C" int sfp_dequantize_int8(const int8_t* values, const float* scales,
                                    void* out, int out_dtype, int n, int d,
                                    void* stream) {
@@ -111,12 +108,11 @@ extern "C" int sfp_dequantize_int8(const int8_t* values, const float* scales,
     long long blocks = (total + threads - 1) / threads;
     if (blocks > 132 * 32) blocks = 132 * 32;
     const cudaStream_t st = (cudaStream_t)stream;
-    if (out_dtype == kBF16)
+    with_dtype(out_dtype, [&](auto as) {
+      using T = typename decltype(as)::type;
       dequantize_kernel<<<(int)blocks, threads, 0, st>>>(
-          values, scales, static_cast<bf16*>(out), total, d);
-    else
-      dequantize_kernel<<<(int)blocks, threads, 0, st>>>(
-          values, scales, static_cast<float*>(out), total, d);
+          values, scales, static_cast<T*>(out), total, d);
+    });
   }
   return (int)cudaGetLastError();
 }

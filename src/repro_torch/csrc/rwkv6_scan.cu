@@ -37,11 +37,11 @@
 // (b, h) and writing the state in place of the cache are later work
 // (ROADMAP).
 //
-// Each of r, k, v, w, u and s0 may be f32 or bf16 (the TPU kernel reads
-// each with astype(f32)): a dtype code per input, uniform over the launch,
-// picks the load, which widens exactly. The staging writes f32 to shared
-// memory, so the step loop is the same at every dtype. y is written in r's
-// dtype (one round to nearest even), the final state in f32.
+// Each of r, k, v, w, u and s0 may be f32, bf16 or f16 (the TPU kernel
+// reads each with astype(f32)): a dtype code per input, uniform over the
+// launch, picks the load, which widens exactly. The staging writes f32 to
+// shared memory, so the step loop is the same at every dtype. y is written
+// in r's dtype (one round to nearest even), the final state in f32.
 //
 // IEEE expf (no fast math). Sums run in another order than the plain
 // version's einsum, so the two agree to f32 rounding, not bit for bit.
@@ -161,8 +161,8 @@ __global__ void rwkv6_scan_kernel(Params p) {
 
 }  // namespace
 
-// Each input with its dtype code (kF32 or kBF16); s0 may be null. y is
-// written in r's dtype, s_out in f32.
+// Each input with its dtype code (kF32, kBF16 or kF16); s0 may be null.
+// y is written in r's dtype, s_out in f32.
 extern "C" int sfp_rwkv6_scan_fwd(
     const void* r, int r_dt, const void* k, int k_dt, const void* v,
     int v_dt, const void* w, int w_dt, const void* u, int u_dt,

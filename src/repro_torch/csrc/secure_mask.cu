@@ -31,9 +31,10 @@
 // client's pairs across blocks, fuse the K uploads of a round into one
 // launch.
 //
-// x may be f32 or bf16 (the TPU kernel's astype(f32)): a thread's four
-// values are one 16-byte load of f32 or one 8-byte load of bf16, widened
-// exactly, so a bf16 upload encodes the same words as its f32 widening.
+// x may be f32, bf16 or f16 (the TPU kernel's astype(f32)): a thread's
+// four values are one 16-byte load of f32 or one 8-byte load of bf16 or
+// f16, widened exactly, so a 16-bit upload encodes the same words as its
+// f32 widening.
 //
 // rintf rounds half to even, as jnp.round; no fast math.
 
@@ -129,7 +130,7 @@ masked_encode_kernel(const T* __restrict__ x,
 
 }  // namespace
 
-// x: (n,) of dtype x_dtype (kF32 or kBF16), or null (encode zero); seeds
+// x: (n,) of dtype x_dtype (kF32, kBF16 or kF16), or null (encode zero); seeds
 // (n_pairs,) uint32; signs (n_pairs,) int32 in {-1, 0, 1}; out (n,)
 // uint32. n % 4 == 0, out 16-byte aligned and x aligned to four of its
 // values (the wrapper checks both).
@@ -143,12 +144,11 @@ extern "C" int sfp_masked_encode(const void* x, int x_dtype,
     if (blocks > 132LL * 64) blocks = 132LL * 64;   // grid-stride beyond
     const cudaStream_t st = (cudaStream_t)stream;
     uint4* o = reinterpret_cast<uint4*>(out);
-    if (x_dtype == kBF16)
+    with_dtype(x_dtype, [&](auto as) {
+      using T = typename decltype(as)::type;
       masked_encode_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
-          static_cast<const bf16*>(x), seeds, signs, n_pairs, scale, o, n4);
-    else
-      masked_encode_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
-          static_cast<const float*>(x), seeds, signs, n_pairs, scale, o, n4);
+          static_cast<const T*>(x), seeds, signs, n_pairs, scale, o, n4);
+    });
   }
   return (int)cudaGetLastError();
 }

@@ -17,11 +17,12 @@ Kernels (csrc/, built by `build.py` into one shared library at first use):
   mamba2_scan      — Mamba-2 SSD recurrence                (mamba2_scan.cu)
   rwkv6_scan       — RWKV-6 time-mix recurrence            (rwkv6_scan.cu)
 
-Every kernel reads f32 and bf16 itself (widening bf16 to f32 on load, as
-each JAX kernel reads its inputs with `.astype(f32)`), computes in f32 and
-writes its output in the dtype the JAX kernel writes; a wrapper passes
-each floating tensor's `dtype_code` beside its pointer and refuses every
-other dtype. No wrapper converts an input or an output.
+Every kernel reads f32, bf16 and f16 itself (widening a 16-bit value to
+f32 on load, exactly, as each JAX kernel reads its inputs with
+`.astype(f32)`), computes in f32 and writes its output in the dtype the
+JAX kernel writes; a wrapper passes each floating tensor's `dtype_code`
+beside its pointer and refuses every other dtype (f64 too: JAX without
+x64 never holds it). No wrapper converts an input or an output.
 
 No kernel has a backward, and a launch wrapper passes raw pointers, so its
 output carries no `grad_fn`: every wrapper refuses (`refuse_grad`) an input
@@ -46,14 +47,16 @@ def on_cuda(x: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {x.device}")
 
 
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
 def dtype_code(name: str, dtype: torch.dtype) -> int:
     """The C entry points' code of a tensor's dtype (csrc/dtype.cuh: kF32
-    0, kBF16 1); any other dtype raises, naming the input."""
-    if dtype == torch.float32:
-        return 0
-    if dtype == torch.bfloat16:
-        return 1
-    raise ValueError(f"{name} must be float32 or bfloat16, got {dtype}")
+    0, kBF16 1, kF16 2); any other dtype raises, naming the input."""
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"{name} must be float32, bfloat16 or float16, "
+                         f"got {dtype}")
+    return DTYPE_CODES[dtype]
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:

@@ -40,7 +40,7 @@ _F = ctypes.c_float
 
 # C entry points: name -> argtypes. Every function returns cudaGetLastError().
 # A floating tensor's pointer is followed (or, for attention, preceded) by
-# its dtype code (`kernels.dtype_code`: 0 f32, 1 bf16).
+# its dtype code (`kernels.dtype_code`: 0 f32, 1 bf16, 2 f16).
 SIGNATURES = {
     "sfp_quantize_int8": [_P, _I, _L, _P, _L, _L, _P, _P, _I, _I, _P],
     #                     x, x dtype, x row stride, u, u strides, values,
@@ -83,10 +83,12 @@ SIGNATURES = {
     #                                           seeds, signs, J, scale, out,
     #                                           n, stream
     "sfp_mamba2_scan_fwd": (
-        [_P, _I] * 6                          # x, dt, A, Bm, Cm, h0 (or
+        [_P, _I] * 6                          # x, Bm, Cm, dt, A, h0 (or
         #                                       null), each with its dtype
-        + [_P, _P]                            # y (x's dtype), h_out
-        + [_I] * 7                            # B, T, H, G, P, N, tpp
+        + [_P, _P]                            # y (x's dtype), h_out (f32,
+        #                                       may be h0)
+        + [_I] * 7                            # B, T, H, G, P, N, step (the
+        #                                       step kernel, else chunked)
         + [_L] * 12                           # (b, t, h|g) strides of x, dt,
         #                                       Bm, Cm
         + [_P]),                              # stream

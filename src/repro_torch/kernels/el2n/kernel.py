@@ -6,9 +6,9 @@ where the row pointer allows them) and merges per-thread online-softmax
 statistics, so no (N, V) probability tensor is ever written. The TPU
 wrapper's padding of V to `block_v` and its LANES-wide outputs are TPU
 layout only: this takes (N, V) logits through their row stride and gives
-(N,) outputs. It reads f32 or bf16 logits itself (bf16 widened on load,
-as the TPU kernel's astype(f32)); the outputs are f32. See the note in the
-source.
+(N,) outputs. It reads f32, bf16 or f16 logits itself (a 16-bit value
+widened on load, as the TPU kernel's astype(f32)); the outputs are f32.
+See the note in the source.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from repro_torch.kernels.build import check, current_stream, library
 
 
 def el2n_fwd(logits: torch.Tensor, labels: torch.Tensor):
-    """logits (N, V) f32 or bf16 CUDA with unit column stride (any row
+    """logits (N, V) f32, bf16 or f16 CUDA with unit column stride (any row
     stride); labels (N,) int32 contiguous on the same device. Returns
     (el2n (N,), ce (N,)) f32; a label outside [0, V) gives NaN."""
     refuse_grad("el2n_fwd", logits)

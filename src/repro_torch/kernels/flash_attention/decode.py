@@ -49,8 +49,8 @@ its block table instead of a per-slot cache:
       engine provably equal to the dense one.
 
 Both kernels take head dims up to 256 and GQA groups up to 16 (one
-instantiation a shape: `decode_shape`). Both read q in f32 or bf16 and
-the cache or pool in f32 or bf16, independently (the engines hold f32
+instantiation a shape: `decode_shape`). Both read q in f32, bf16 or f16 and
+the cache or pool in f32, bf16 or f16, independently (the engines hold f32
 caches under bf16 activations), and write the output in q's dtype, as the
 TPU kernels do; each tensor's strides are in its own elements.
 
@@ -132,7 +132,7 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          sliding_window: Optional[int],
                          softcap: Optional[float]) -> torch.Tensor:
     """q (B, 1, Hq, Dh), k (B, W, Hkv, Dh), v (B, W, Hkv, Dv) CUDA with
-    unit stride on head_dim, q f32 or bf16, k and v one dtype, f32 or
+    unit stride on head_dim, q f32, bf16 or f16, k and v one dtype, f32 or
     bf16; q_positions (B,) and kv_positions (B, W) int32 on the same
     device. Returns (B, 1, Hq, Dv) in q's dtype."""
     refuse_grad("decode_attention_fwd", q, k, v)
@@ -254,8 +254,8 @@ def paged_decode_attention_fwd(q: torch.Tensor, k_pool: torch.Tensor,
                                sliding_window: Optional[int],
                                softcap: Optional[float]) -> torch.Tensor:
     """q (B, 1, Hq, Dh), k_pool (P, page, Hkv, Dh), v_pool (P, page, Hkv,
-    Dv) CUDA with unit stride on head_dim, q f32 or bf16, the pools one
-    dtype, f32 or bf16; block_tables (B, nb), q_positions (B,) and
+    Dv) CUDA with unit stride on head_dim, q f32, bf16 or f16, the pools one
+    dtype, f32, bf16 or f16; block_tables (B, nb), q_positions (B,) and
     kv_positions (P, page) int32 on the same device. The table's page ids
     must lie in [0, P): the engine allocates them from the pool, and
     checking here would need a device sync. Returns (B, 1, Hq, Dv) in q's

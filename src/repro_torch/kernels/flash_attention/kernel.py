@@ -30,7 +30,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         softcap: Optional[float], scale: float,
                         kv_len: int) -> torch.Tensor:
     """q (B, Sq, Hq, Dh), k (B, Skv, Hkv, Dh), v (B, Skv, Hkv, Dv): CUDA
-    tensors of one dtype, f32 or bf16, with unit stride on the last axis;
+    tensors of one dtype, f32, bf16 or f16, with unit stride on the last axis;
     keys at or past `kv_len` are absent. Returns (B, Sq, Hq, Dv) in q's
     dtype."""
     refuse_grad("flash_attention_fwd", q, k, v)

@@ -5,7 +5,7 @@ Replaces the TPU kernels `repro/kernels/quant/kernel.py::quantize_fwd` and
 by device memory, one coalesced pass each way). The 128-lane padding of D
 and the 128-wide scale output of the TPU version are TPU layout only; these
 take and give the op contract directly: (N, D) int8 values and (N, 1) f32
-scales. x is read in f32 or bf16 and dequantized values are written in f32
+scales. x is read in f32, bf16 or f16 and dequantized values are written in f32
 or bf16, by the kernels themselves, as the TPU kernels take them.
 
 Each wrapper checks what the kernel takes, allocates its outputs, launches
@@ -20,7 +20,7 @@ from repro_torch.kernels.build import check, current_stream, library
 
 
 def quantize_fwd(x: torch.Tensor, u: torch.Tensor):
-    """x (N, D) f32 or bf16 CUDA with unit column stride; u f32 on the
+    """x (N, D) f32, bf16 or f16 CUDA with unit column stride; u f32 on the
     same device, (N, D) through any strides — a broadcast scalar has both
     strides 0. Returns (values (N, D) int8, scales (N, 1) f32)."""
     refuse_grad("quantize_fwd", x, u)
@@ -52,7 +52,7 @@ quantize_fwd.launches = 0
 def dequantize_fwd(values: torch.Tensor, scales: torch.Tensor,
                    dtype=torch.float32):
     """values (N, D) int8 contiguous CUDA, scales (N, 1) f32 contiguous
-    -> (N, D) `dtype` (f32 or bf16: the f32 product rounded once)."""
+    -> (N, D) `dtype` (f32, bf16 or f16: the f32 product rounded once)."""
     refuse_grad("dequantize_fwd", values, scales)
     out_dtype = dtype_code("dequantize_fwd: dtype", dtype)
     if not values.is_cuda or values.dtype != torch.int8 or values.dim() != 2:

@@ -31,7 +31,7 @@ def quantize_int8(x: torch.Tensor, u):
 def dequantize_int8(values: torch.Tensor, scales: torch.Tensor, *,
                     dtype=torch.float32):
     """values (N, D) int8, scales (N, 1) f32 -> (N, D) dtype (the kernel
-    writes f32 or bf16)."""
+    writes f32, bf16 or f16)."""
     if not on_cuda(values):
         return ref.dequantize(values, scales, dtype)
     return dequantize_fwd(values, scales, dtype)

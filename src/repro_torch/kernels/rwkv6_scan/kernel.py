@@ -6,7 +6,7 @@ state column holding its K values in registers, stepping the recurrence
 exactly over T. It reads r, k, v and w in the op's (B, T, H, ·) layout
 through strides, so the TPU wrapper's moveaxis to (BH, T, ·), its padding
 of T to a multiple of the chunk and its per-chunk grid axis do not exist
-here. Each of r, k, v, w, u and the state is read in f32 or bf16 by the
+here. Each of r, k, v, w, u and the state is read in f32, bf16 or f16 by the
 kernel itself (as the TPU kernel's astype(f32)); y comes out in r's dtype,
 the final state in f32. See the note in the source for the bound.
 """
@@ -27,7 +27,7 @@ def rwkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor,
               state: Optional[torch.Tensor] = None):
     """r, k, w (B, T, H, K), v (B, T, H, V), u (H, K), state (B, H, K, V) or
-    None (zeros): CUDA tensors, each f32 or bf16, r/k/v/w with unit stride
+    None (zeros): CUDA tensors, each f32, bf16 or f16, r/k/v/w with unit stride
     on the last axis, u and state contiguous. Returns (y (B, T, H, V) in
     r's dtype, final state (B, H, K, V) f32), both contiguous."""
     tensors = [("r", r, 4), ("k", k, 4), ("v", v, 4), ("w", w, 4),

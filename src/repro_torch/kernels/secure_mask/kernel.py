@@ -6,8 +6,9 @@ consecutive elements into the uint32 ring and folds in every pairwise mask
 stream, generated in registers as the JAX reference's threefry stream of
 the element index (so no launch geometry enters the bits). The TPU
 wrapper's (N, 128) row blocks are TPU layout only: this takes the flat
-(n,) upload. x is f32 or bf16, read by the kernel itself (bf16 widened
-on load, as the TPU kernel's astype(f32)). See the note in the source.
+(n,) upload. x is f32, bf16 or f16, read by the kernel itself (a 16-bit
+value widened on load, as the TPU kernel's astype(f32)). See the note in
+the source.
 """
 from __future__ import annotations
 
@@ -22,11 +23,11 @@ from repro_torch.kernels.build import check, current_stream, library
 def masked_encode_fwd(x: Optional[torch.Tensor], seeds: torch.Tensor,
                       signs: torch.Tensor, *, n: int,
                       frac_bits: int) -> torch.Tensor:
-    """x (n,) f32 or bf16 contiguous CUDA, aligned to four of its values
-    (16 bytes f32, 8 bf16), or None to encode zero (the recovery stream);
-    seeds (J,) int32 holding the uint32 seeds and signs (J,) int32 in
-    {-1, 0, 1}, contiguous on the same device. n % 4 == 0. Returns the
-    (n,) int32 ring tensor (uint32 bit patterns)."""
+    """x (n,) f32, bf16 or f16 contiguous CUDA, aligned to four of its
+    values (16 bytes f32, 8 bf16 or f16), or None to encode zero (the
+    recovery stream); seeds (J,) int32 holding the uint32 seeds and signs
+    (J,) int32 in {-1, 0, 1}, contiguous on the same device. n % 4 == 0.
+    Returns the (n,) int32 ring tensor (uint32 bit patterns)."""
     device = seeds.device
     code = 0
     if x is not None:

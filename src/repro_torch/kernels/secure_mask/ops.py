@@ -40,8 +40,9 @@ def masked_encode(x: torch.Tensor, seeds, signs, *,
                   frac_bits: int = FRAC_BITS) -> torch.Tensor:
     """One client's secure upload: encode(x) + sum_j sign_j * PRG(seed_j).
 
-    x: (n,) f32 or bf16 with n % LANES == 0 (see ring_size); seeds (J,) uint32
-    values, signs (J,) in {-1, 0, +1}. Returns (n,) int32 ring."""
+    x: (n,) f32, bf16 or f16 with n % LANES == 0 (see ring_size); seeds
+    (J,) uint32 values, signs (J,) in {-1, 0, +1}. Returns (n,) int32
+    ring."""
     if not on_cuda(x):
         return ref.masked_encode(x, seeds, signs, frac_bits)
     seeds, signs = _pairs(seeds, signs, x.device)

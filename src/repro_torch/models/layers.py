@@ -375,16 +375,22 @@ def apply_mamba2(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
     A = -torch.exp(p["A_log"])
 
     xh = xin.reshape(B, S, H, m.head_dim)
-    scan = mamba2_ref.mamba2_scan if ctx.differentiable else mamba2_scan
-    y, new_ssm = scan(xh, dt, A, Bm.reshape(B, S, G, N),
-                      Cm.reshape(B, S, G, N),
-                      cache["ssm"] if cache is not None else None)
+    # the scan writes the final state into the cache in place (the
+    # differentiated plain version returns it and the cache takes a copy)
+    ssm = cache["ssm"] if cache is not None else None
+    scan_in = (xh, dt, A, Bm.reshape(B, S, G, N), Cm.reshape(B, S, G, N),
+               ssm)
+    if ctx.differentiable:
+        y, new_ssm = mamba2_ref.mamba2_scan(*scan_in)
+        if ssm is not None:
+            ssm.copy_(new_ssm)
+    else:
+        y, _ = mamba2_scan(*scan_in, state_out=ssm)
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(B, S, di) * F.silu(z)
     y = apply_norm(p["norm"], y, "rmsnorm")
     if cache is not None:
         cache["conv"].copy_(new_prev)
-        cache["ssm"].copy_(new_ssm)
     return dense(p["out_proj"], y), cache
 
 

@@ -252,12 +252,13 @@ def test_rwkv6_bf16_matches_jax_kernel():
 
 # ------------------------------------------------------------- dispatch
 def test_dtype_codes_and_wrappers_dispatch():
-    """The wrappers take f32 and bf16 and refuse f16 and f64, naming the
-    input; on the CPU a bf16 input passes the dtype check and is refused
-    only for its device (the kernels run on the card: the card cases are
-    in tests/test_torch_cuda.py), and no kernel launches."""
+    """The wrappers take f32, bf16 and f16 and refuse f64, naming the
+    input; on the CPU a bf16 or f16 input passes the dtype check and is
+    refused only for its device (the kernels run on the card: the card
+    cases are in tests/test_torch_cuda.py), and no kernel launches."""
     assert dtype_code("x", torch.float32) == 0
     assert dtype_code("x", torch.bfloat16) == 1
+    assert dtype_code("x", torch.float16) == 2
     q16 = torch.zeros((1, 1, 2, 8))
     pos = torch.zeros((1,), dtype=torch.int32)
 
@@ -285,13 +286,14 @@ def test_dtype_codes_and_wrappers_dispatch():
             lambda: rwkv6_fwd(q, q, q, q, x),
         ]
     before = launch_counts()
-    for dt in (torch.float16, torch.float64):
-        for call in calls(dt):
-            with pytest.raises(ValueError, match="float32 or bfloat16"):
-                call()
-    for call in calls(torch.bfloat16):
-        with pytest.raises(ValueError, match="CUDA"):
+    for call in calls(torch.float64):
+        with pytest.raises(ValueError,
+                           match="float32, bfloat16 or float16"):
             call()
+    for dt in (torch.bfloat16, torch.float16):
+        for call in calls(dt):
+            with pytest.raises(ValueError, match="CUDA"):
+                call()
     assert launch_counts() == before
 
 

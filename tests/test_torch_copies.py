@@ -290,6 +290,9 @@ def test_port_imports_no_jax_and_no_repro():
     for kernel in ("el2n", "secure_mask"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / kernel
                 / "kernel.py") in files
+    # the chunked plain version of the Mamba-2 scan (tests and chip_smoke)
+    assert (ROOT / "src" / "repro_torch" / "kernels" / "mamba2_scan"
+            / "ref.py") in files
     offenders = {str(p.relative_to(ROOT)): _FORBIDDEN.findall(p.read_text())
                  for p in files}
     assert {k: v for k, v in offenders.items() if v} == {}

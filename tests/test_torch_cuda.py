@@ -218,7 +218,7 @@ def test_wrappers_raise_instead_of_falling_back(gen):
     with pytest.raises(ValueError):
         dequantize_int8(torch.zeros((2, 3), dtype=torch.int8, device="cuda"),
                         torch.ones((2, 1), device="cuda"),
-                        dtype=torch.float16)
+                        dtype=torch.float64)
     with pytest.raises(ValueError):
         flash_attention(q.double(), q.double(), q.double())
 
@@ -610,8 +610,30 @@ def _scan_close(got, want):
     (1, 65, 8, 32, 16, 4, True, True),
     (3, 100, 4, 64, 64, 1, True, True),
     (1, 33, 2, 8, 100, 2, False, False),     # N not a power of two
+    # both sides of the step / chunked crossover and the chunk edges, at
+    # zamba2's heads (P = N = 64) and with P 8, N 100 and N 200 (the
+    # chunked kernel at T 1: the step kernel takes N <= 128)
+    (8, 1, 16, 64, 64, 1, True, False),
+    (2, 2, 8, 64, 64, 1, True, False),
+    (2, 16, 8, 64, 64, 1, True, True),
+    (1, 63, 8, 64, 64, 1, True, False),
+    (1, 64, 8, 64, 64, 1, False, False),
+    (1, 65, 8, 64, 64, 1, True, False),
+    (1, 132, 16, 64, 64, 1, True, True),
+    (2, 2, 2, 8, 100, 2, True, False),
+    (1, 1, 2, 8, 100, 2, True, False),
+    (2, 1, 4, 32, 200, 2, True, False),
+    (1, 70, 4, 40, 200, 1, True, False),
+    # N above 328: the chunked kernel with one stage of inputs
+    (1, 70, 4, 32, 400, 1, True, False),
+    (2, 1, 2, 16, 512, 2, True, True),
 ])
-def test_mamba2_kernel_matches_plain(gen, B, T, H, P, N, G, h0, strided):
+@pytest.mark.parametrize("aliased", [False, True])
+def test_mamba2_kernel_matches_plain(gen, B, T, H, P, N, G, h0, strided,
+                                     aliased):
+    """Both kernels within SCAN_TOL of the sequential plain version; with
+    `aliased` the final state is written over the input state, as
+    `apply_mamba2` passes its cache."""
     from repro_torch.kernels.mamba2_scan import ref
     from repro_torch.kernels.mamba2_scan.ops import mamba2_scan
     x = torch.randn((B, T, H * P + 3), generator=gen, device="cuda")
@@ -624,9 +646,15 @@ def test_mamba2_kernel_matches_plain(gen, B, T, H, P, N, G, h0, strided):
     Bm, Cm = bc[:, :, 0], bc[:, :, 1]                 # strided views
     state = (torch.randn((B, H, P, N), generator=gen, device="cuda")
              if h0 else None)
-    y, h = mamba2_scan(x, dt, A, Bm, Cm, state)
     ry, rh = ref.mamba2_scan(x, dt, A, Bm, Cm, state)
+    out = None
+    if aliased:
+        out = state if state is not None else torch.full(
+            (B, H, P, N), float("nan"), device="cuda")
+    y, h = mamba2_scan(x, dt, A, Bm, Cm, state, state_out=out)
+    torch.cuda.synchronize()
     assert y.shape == (B, T, H, P) and h.shape == (B, H, P, N)
+    assert out is None or h is out
     assert _scan_close(y, ry) and _scan_close(h, rh)
 
 
@@ -678,6 +706,10 @@ def test_scan_wrappers_refuse_grad_and_bad_inputs(gen):
         with pytest.raises(ValueError, match="K <= 64"):
             big = torch.zeros((1, 2, 1, 65), device="cuda")
             rwkv6_fwd(big, big, big, big, torch.zeros((1, 65), device="cuda"))
+        with pytest.raises(ValueError, match="N <= 568"):
+            wide = torch.zeros((1, 8, 1, 576), device="cuda")
+            mamba2_fwd(torch.zeros((1, 8, 2, 4), device="cuda"),
+                       torch.ones((1, 8, 2), device="cuda"), A, wide, wide)
 
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-3b"])
@@ -728,19 +760,28 @@ def test_recurrent_engine_on_card_matches_cpu(gen, arch):
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)   # the JAX kernel tests' bf16 tolerance
 
 
+# f16 keeps 11 significant bits: the kernel and plain round the same f32
+# value once each, so they differ by an f16 ulp at most (2^-10 relative)
+F16_TOL = dict(atol=2e-3, rtol=2e-3)
+HALF_TOL = {torch.bfloat16: BF16_TOL, torch.float16: F16_TOL}
+
+
 def _close_bf16(got, want):
-    """Both bf16, finite, within BF16_TOL: the kernel and plain round the
-    same f32 value, computed in different orders."""
-    assert got.dtype == want.dtype == torch.bfloat16
+    """Both bf16 (or both f16), finite, within BF16_TOL (F16_TOL): the
+    kernel and plain round the same f32 value, computed in different
+    orders."""
+    assert got.dtype == want.dtype and want.dtype in HALF_TOL
     assert torch.isfinite(got.float()).all()
-    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **HALF_TOL[want.dtype])
 
 
-def _bf16(shape, gen, offset=0, scale=1.0):
-    """bf16 normals; `offset` values into their storage (2-byte steps)."""
+def _bf16(shape, gen, offset=0, scale=1.0, dtype=torch.bfloat16):
+    """bf16 (or `dtype`) normals; `offset` values into their storage
+    (2-byte steps)."""
     n = int(np.prod(shape))
     x = (scale * torch.randn(n + offset, generator=gen, device="cuda")
-         ).bfloat16()
+         ).to(dtype)
     return x[offset:].view(shape)
 
 
@@ -748,20 +789,42 @@ def _bf16(shape, gen, offset=0, scale=1.0):
 def test_quant_kernels_bit_equal_bf16(gen, shape):
     """bf16 x quantizes to the plain version's payload and scales, and the
     payload dequantizes to bf16 bit for bit."""
+    _quant_half(gen, shape, torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [(3, 7), (37, 160), (130, 5120)])
+def test_quant_kernels_bit_equal_f16(gen, shape):
+    _quant_half(gen, shape, torch.float16)
+
+
+def _quant_half(gen, shape, dtype):
     from repro_torch.kernels.quant import ref
     from repro_torch.kernels.quant.kernel import dequantize_fwd, quantize_fwd
     from repro_torch.kernels.quant.ops import dequantize_int8, quantize_int8
-    x = _bf16(shape, gen, scale=4.0)
+    x = _bf16(shape, gen, scale=4.0, dtype=dtype)
     for u in (0.5, torch.rand(shape, generator=gen, device="cuda")):
         nq, nd = quantize_fwd.launches, dequantize_fwd.launches
         v, s = quantize_int8(x, u)
-        d = dequantize_int8(v, s, dtype=torch.bfloat16)
+        d = dequantize_int8(v, s, dtype=dtype)
         assert (quantize_fwd.launches, dequantize_fwd.launches) == \
             (nq + 1, nd + 1)
         rv, rs = ref.quantize(x, u)
         assert torch.equal(v, rv) and torch.equal(s, rs)
-        assert d.dtype == torch.bfloat16
-        assert torch.equal(d, ref.dequantize(v, s, torch.bfloat16))
+        assert d.dtype == dtype
+        assert torch.equal(d, ref.dequantize(v, s, dtype))
+
+
+# Head dims 8 mod 16 (a last 16-byte group of the row wholly past Dh), in
+# each narrow instantiation the card probe found loading it: 24, 72, 136,
+# 152 (and 40 above), aligned and off 16 bytes
+PAST_DH_CASES = [
+    (2, 70, 4, 2, 24, True, None, None, None, 0),
+    (1, 129, 8, 4, 72, True, 16, None, 100, 0),
+    (1, 66, 6, 3, 136, True, None, 30.0, None, 0),
+    (2, 64, 4, 4, 152, False, None, None, None, 0),
+    (1, 50, 4, 2, 72, True, None, None, None, 1),
+    (1, 40, 4, 4, 136, True, None, None, None, 1),
+]
 
 
 @pytest.mark.parametrize("case", [
@@ -776,14 +839,58 @@ def test_quant_kernels_bit_equal_bf16(gen, shape):
     (1, 70, 16, 8, 256, True, 20, 50.0, None, 0),     # gemma2's widths
     (2, 133, 32, 8, 160, True, None, None, None, 0),  # stablelm's
     (1, 100, 24, 2, 192, True, None, None, 80, 1),    # nemotron's, single
+    (1, 200, 4, 4, 40, True, 16, None, 60, 0),        # a 16-byte group
+    (1, 64, 4, 4, 40, True, None, None, None, 0),     # past Dh, vector loads
+    # the other head dims 8 mod 16 of the narrow and the wide layouts,
+    # where the 16-bit loader once loaded the group past Dh
+    *PAST_DH_CASES,
 ])
 def test_prefill_kernel_matches_plain_bf16(gen, case):
+    _prefill_half(gen, case, torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Hq, Hkv, Dh, causal, window, softcap, kv_len, offset)
+    (2, 5, 4, 4, 32, True, None, None, None, 0),
+    (1, 45, 10, 2, 16, True, None, None, None, 0),
+    (2, 70, 8, 1, 96, True, 9, None, None, 0),
+    (1, 33, 6, 3, 128, True, None, 30.0, 20, 0),
+    (1, 64, 10, 2, 64, True, 16, 20.0, 17, 0),
+    (2, 21, 4, 2, 16, False, None, None, None, 0),
+    (1, 37, 8, 8, 80, True, None, None, None, 0),     # zamba2's head_dim 80
+    (16, 213, 12, 12, 64, False, None, None, None, 0),  # ViT-Base scoring
+    (1, 1, 4, 2, 64, True, None, None, None, 0),     # Sq ragged over the
+    (1, 65, 8, 2, 64, True, 20, None, None, 0),      # 64-row query block
+    (2, 129, 4, 1, 32, True, None, 30.0, 100, 0),
+    (2, 77, 6, 3, 20, False, None, None, None, 0),   # widths not a multiple
+    (1, 200, 4, 4, 40, True, 16, None, 60, 0),       # of 8 (zero-padded)
+    (2, 50, 6, 2, 64, True, None, None, None, 1),    # one float off 16-byte
+    (1, 90, 4, 4, 40, False, 24, 10.0, None, 1),     # alignment: 4-byte copies
+    (1, 100, 10, 2, 128, True, None, None, 70, 0),   # GQA 5, kv_len < Sq
+    (8, 100, 40, 8, 128, True, 32, 30.0, 90, 0),     # batched, with every
+    (4, 129, 24, 8, 40, True, None, None, 100, 1),   # option at once
+    # the wide head dims: gemma2's 256 (G 2, window, softcap 50),
+    # stablelm's 160 (G 4), nemotron's 192 (G 12), 176 (an odd number of
+    # 16-column pairs), 4-byte copies and a non-causal call at 256
+    (1, 70, 16, 8, 256, True, 20, 50.0, None, 0),
+    (2, 133, 32, 8, 160, True, None, None, None, 0),
+    (1, 100, 24, 2, 192, True, None, None, 80, 0),
+    (1, 200, 8, 4, 176, True, 16, None, 60, 0),
+    (2, 65, 4, 2, 256, False, None, None, None, 1),
+    (1, 90, 12, 1, 192, True, 24, 10.0, None, 1),
+    *PAST_DH_CASES,
+])
+def test_prefill_kernel_matches_plain_f16(gen, case):
+    _prefill_half(gen, case, torch.float16)
+
+
+def _prefill_half(gen, case, dtype):
     from repro_torch.kernels.flash_attention import ref
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
     from repro_torch.kernels.flash_attention.ops import prefill_attention
     B, S, Hq, Hkv, Dh, causal, window, softcap, kv_len, offset = case
-    q = _bf16((B, S, Hq, Dh), gen, offset)
-    kv = _bf16((B, S, 2 * Hkv, Dh), gen, offset)
+    q = _bf16((B, S, Hq, Dh), gen, offset, dtype=dtype)
+    kv = _bf16((B, S, 2 * Hkv, Dh), gen, offset, dtype=dtype)
     k, v = kv[:, :, :Hkv], kv[:, :, Hkv:]           # strided views
     n = flash_attention_fwd.launches
     got = prefill_attention(q, k, v, causal=causal, sliding_window=window,
@@ -803,11 +910,27 @@ def test_decode_kernel_matches_plain_bf16(gen, monkeypatch, kv_dtype, G,
                                           Dh, window, kind):
     """q bf16 over an f32 cache (the engines' case) and over a bf16 one,
     at the wrapper's split count and at 1 and 8."""
+    _decode_half(gen, monkeypatch, torch.bfloat16, kv_dtype, G, Dh, window,
+                 kind)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("G,Dh,window,kind", [
+    (5, 128, None, ""), (1, 80, None, ""), (5, 128, 16, "seam"),
+    (5, 128, None, "empty"), (3, 64, None, "unaligned"),
+    (12, 192, None, ""), (2, 256, 16, "seam"), (4, 160, None, "unaligned")])
+def test_decode_kernel_matches_plain_f16(gen, monkeypatch, kv_dtype, G,
+                                         Dh, window, kind):
+    _decode_half(gen, monkeypatch, torch.float16, kv_dtype, G, Dh, window,
+                 kind)
+
+
+def _decode_half(gen, monkeypatch, dtype, kv_dtype, G, Dh, window, kind):
     from repro_torch.kernels.flash_attention import decode
     from repro_torch.kernels.flash_attention.decode import (
         decode_attention, decode_attention_fwd, grouped_decode)
     B, W, Hkv = 5, 77, 2
-    q = _bf16((B, 1, G * Hkv, Dh), gen)
+    q = _bf16((B, 1, G * Hkv, Dh), gen, dtype=dtype)
     k = torch.randn((B, W, Hkv, Dh), generator=gen, device="cuda")
     v = torch.randn((B, W, Hkv, Dh), generator=gen, device="cuda")
     k, v = k.to(kv_dtype), v.to(kv_dtype)
@@ -846,6 +969,17 @@ def test_decode_kernel_matches_plain_bf16(gen, monkeypatch, kv_dtype, G,
 @pytest.mark.parametrize("page,kind", [(8, ""), (16, "masked"),
                                        (8, "unaligned")])
 def test_paged_decode_kernel_matches_plain_bf16(gen, kv_dtype, page, kind):
+    _paged_half(gen, torch.bfloat16, kv_dtype, page, kind)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("page,kind", [(8, ""), (16, "masked"),
+                                       (8, "unaligned")])
+def test_paged_decode_kernel_matches_plain_f16(gen, kv_dtype, page, kind):
+    _paged_half(gen, torch.float16, kv_dtype, page, kind)
+
+
+def _paged_half(gen, dtype, kv_dtype, page, kind):
     from repro_torch.kernels.flash_attention.decode import (
         paged_decode_attention, paged_decode_attention_fwd,
         paged_gather_decode)
@@ -853,7 +987,7 @@ def test_paged_decode_kernel_matches_plain_bf16(gen, kv_dtype, page, kind):
     lens = _paged_lens(kind, nb, page)
     q, k, v, tables, qp, kvp = _paged_case(gen, B, nb, page, G * Hkv, Hkv,
                                            Dh, lens)
-    q, k, v = q.bfloat16(), k.to(kv_dtype), v.to(kv_dtype)
+    q, k, v = q.to(dtype), k.to(kv_dtype), v.to(kv_dtype)
     if kind == "unaligned":
         P = k.shape[0]
         k = torch.empty((P, page, Hkv, Dh + 1), dtype=kv_dtype,
@@ -875,10 +1009,20 @@ def test_paged_decode_kernel_matches_plain_bf16(gen, kv_dtype, page, kind):
 def test_el2n_kernel_matches_one_pass_plain_bf16(gen, N, V, aligned):
     """bf16 logits, read by the kernel itself: within 1e-5 of the one-pass
     plain form of the same bf16 logits (f32 after an exact widening)."""
+    _el2n_half(gen, N, V, aligned, torch.bfloat16)
+
+
+@pytest.mark.parametrize("N,V,aligned", [(16, 100, True), (3, 1031, False),
+                                         (2, 152064, True)])
+def test_el2n_kernel_matches_one_pass_plain_f16(gen, N, V, aligned):
+    _el2n_half(gen, N, V, aligned, torch.float16)
+
+
+def _el2n_half(gen, N, V, aligned, dtype):
     from repro_torch.kernels.el2n import ref
     from repro_torch.kernels.el2n.kernel import el2n_fwd
     from repro_torch.kernels.el2n.ops import el2n_scores
-    base = _bf16((N, V + 3), gen, scale=3.0)
+    base = _bf16((N, V + 3), gen, scale=3.0, dtype=dtype)
     logits = base[:, :V] if aligned else base[:, 1:V + 1]
     labels = torch.randint(0, V, (N,), generator=gen, device="cuda")
     n = el2n_fwd.launches
@@ -892,10 +1036,19 @@ def test_el2n_kernel_matches_one_pass_plain_bf16(gen, N, V, aligned):
 
 @pytest.mark.parametrize("n", [128, 70016])
 def test_masked_encode_kernel_bit_equal_bf16(gen, n):
+    _masked_encode_half(n, torch.bfloat16)
+
+
+@pytest.mark.parametrize("n", [128, 70016])
+def test_masked_encode_kernel_bit_equal_f16(gen, n):
+    _masked_encode_half(n, torch.float16)
+
+
+def _masked_encode_half(n, dtype):
     from repro_torch.kernels.secure_mask import ref
     from repro_torch.kernels.secure_mask.ops import masked_encode
     x, seeds, signs = _ring_case(n, n)
-    x = x.bfloat16()
+    x = x.to(dtype)
     got = masked_encode(x, seeds, signs)
     assert torch.equal(got, ref.masked_encode(x, seeds, signs))
     # a view one value off an 8-byte boundary is copied, not refused
@@ -905,15 +1058,62 @@ def test_masked_encode_kernel_bit_equal_bf16(gen, n):
 
 def test_mamba2_kernel_matches_plain_bf16(gen):
     """The layer's dtype mix: x, B and C bf16, dt, A and h0 f32."""
+    _mamba2_half(gen, torch.bfloat16, 37)
+
+
+@pytest.mark.parametrize("T", [1, 37])
+def test_mamba2_kernel_matches_plain_f16(gen, T):
+    """The layer's dtype mix at f16, through the step (T 1) and the
+    chunked kernel; an f16 state read by both."""
+    _mamba2_half(gen, torch.float16, T)
+    _mamba2_half(gen, torch.float16, T, state_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("T", [1, 37])
+@pytest.mark.parametrize("dtypes", [
+    # x, B, C, dt, A, state
+    (torch.float32, torch.bfloat16, torch.float16, torch.bfloat16,
+     torch.float16, torch.bfloat16),
+    (torch.float16, torch.float32, torch.bfloat16, torch.float32,
+     torch.float32, torch.float16),
+])
+def test_mamba2_kernel_matches_plain_mixed_dtypes(gen, T, dtypes):
+    """Each input in a dtype of its own, as the JAX op takes them (each
+    read with astype(f32)), through the step (T 1) and the chunked
+    kernel."""
     from repro_torch.kernels.mamba2_scan import ref
     from repro_torch.kernels.mamba2_scan.ops import mamba2_scan
-    B, T, H, P, N, G = 2, 37, 8, 16, 16, 2
-    x = _bf16((B, T, H, P), gen)
+    B, H, P, N, G = 2, 8, 16, 16, 2
+    dx, db, dc, ddt, da, ds = dtypes
+    x = _bf16((B, T, H, P), gen, dtype=dx)
+    Bm = _bf16((B, T, G, N), gen, dtype=db)
+    Cm = _bf16((B, T, G, N), gen, dtype=dc)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, T, H), generator=gen, device="cuda")).to(ddt)
+    A = (-torch.exp(torch.randn((H,), generator=gen, device="cuda"))).to(da)
+    state = torch.randn((B, H, P, N), generator=gen, device="cuda").to(ds)
+    y, h = mamba2_scan(x, dt, A, Bm, Cm, state)
+    ry, rh = ref.mamba2_scan(x, dt, A, Bm, Cm, state)
+    assert y.dtype == dx and h.dtype == torch.float32
+    if dx == torch.float32:
+        assert _scan_close(y, ry)
+    else:
+        _close_bf16(y, ry)
+    assert _scan_close(h, rh)
+
+
+def _mamba2_half(gen, dtype, T, state_dtype=torch.float32):
+    from repro_torch.kernels.mamba2_scan import ref
+    from repro_torch.kernels.mamba2_scan.ops import mamba2_scan
+    B, H, P, N, G = 2, 8, 16, 16, 2
+    x = _bf16((B, T, H, P), gen, dtype=dtype)
     dt = torch.nn.functional.softplus(
         torch.randn((B, T, H), generator=gen, device="cuda"))
     A = -torch.exp(torch.randn((H,), generator=gen, device="cuda"))
-    Bm, Cm = _bf16((B, T, G, N), gen), _bf16((B, T, G, N), gen)
-    state = torch.randn((B, H, P, N), generator=gen, device="cuda")
+    Bm = _bf16((B, T, G, N), gen, dtype=dtype)
+    Cm = _bf16((B, T, G, N), gen, dtype=dtype)
+    state = torch.randn((B, H, P, N), generator=gen,
+                        device="cuda").to(state_dtype)
     y, h = mamba2_scan(x, dt, A, Bm, Cm, state)
     ry, rh = ref.mamba2_scan(x, dt, A, Bm, Cm, state)
     _close_bf16(y, ry)
@@ -923,13 +1123,21 @@ def test_mamba2_kernel_matches_plain_bf16(gen):
 def test_rwkv6_kernel_matches_plain_bf16(gen):
     """Every input bf16 but the f32 state, as tests/test_kernels.py runs
     the JAX kernel."""
+    _rwkv6_half(gen, torch.bfloat16)
+
+
+def test_rwkv6_kernel_matches_plain_f16(gen):
+    _rwkv6_half(gen, torch.float16)
+
+
+def _rwkv6_half(gen, dtype):
     from repro_torch.kernels.rwkv6_scan import ref
     from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
     B, T, H, K, V = 2, 40, 2, 16, 16
-    r, k, v = (_bf16((B, T, H, K), gen) for _ in range(3))
+    r, k, v = (_bf16((B, T, H, K), gen, dtype=dtype) for _ in range(3))
     w = (-torch.exp(torch.randn((B, T, H, K), generator=gen,
-                                device="cuda"))).bfloat16()
-    u = _bf16((H, K), gen)
+                                device="cuda"))).to(dtype)
+    u = _bf16((H, K), gen, dtype=dtype)
     state = torch.randn((B, H, K, V), generator=gen, device="cuda")
     y, S = rwkv6_scan(r, k, v, w, u, state)
     ry, rS = ref.rwkv6_scan(r, k, v, w, u, state)
@@ -938,7 +1146,8 @@ def test_rwkv6_kernel_matches_plain_bf16(gen):
 
 
 def test_wrappers_refuse_f16_and_f64(gen):
-    """bf16 is taken; float16 and float64 still raise, naming the input."""
+    """bf16 and f16 are taken (f16 since the kernels read it: the f16
+    tests above); float64 still raises, naming the input."""
     from repro_torch.kernels.el2n.kernel import el2n_fwd
     from repro_torch.kernels.flash_attention.decode import \
         decode_attention_fwd
@@ -947,7 +1156,7 @@ def test_wrappers_refuse_f16_and_f64(gen):
     from repro_torch.kernels.quant.kernel import quantize_fwd
     from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_fwd
     from repro_torch.kernels.secure_mask.kernel import masked_encode_fwd
-    for dt in (torch.float16, torch.float64):
+    for dt in (torch.float64,):
         x = torch.zeros((2, 8), dtype=dt, device="cuda")
         q = torch.zeros((1, 1, 2, 8), dtype=dt, device="cuda")
         pos = torch.zeros((1,), dtype=torch.int32, device="cuda")
@@ -973,7 +1182,8 @@ def test_wrappers_refuse_f16_and_f64(gen):
             lambda: rwkv6_fwd(q, q, q, q, x),
         ]
         for call in calls:
-            with pytest.raises(ValueError, match="float32 or bfloat16"):
+            with pytest.raises(ValueError,
+                               match="float32, bfloat16 or float16"):
                 call()
 
 

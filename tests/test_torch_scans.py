@@ -75,6 +75,50 @@ def test_mamba2_plain_matches_jax(T, G, chunk):
     np.testing.assert_allclose(h.numpy(), np.asarray(ph), **INTERPRET_STATE)
 
 
+@pytest.mark.parametrize("aliased", [True, False])
+def test_mamba2_state_out_matches_jax(aliased):
+    """`state_out=` receives the final state (the input state itself when
+    aliased, as `apply_mamba2` passes its cache), y and the state within
+    1e-5 of JAX's `impl="ref"`, and the op returns that tensor."""
+    args = mamba2_inputs(21, 2, 37, 4, 16, 2, 8)
+    x, dt, A, Bm, Cm, h0 = _torch(args)
+    state = h0.clone()
+    out = state if aliased else torch.full_like(state, float("nan"))
+    y, h = mamba2_scan(x, dt, A, Bm, Cm, state, state_out=out)
+    assert h is out
+    jy, jh = jmamba2(*_jax(args), impl="ref")
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jh), **TOL)
+    if not aliased:
+        assert torch.equal(state, h0)
+
+
+@pytest.mark.parametrize("T,G,chunk", [(37, 1, 16), (100, 2, 32),
+                                       (65, 4, 64)])
+def test_mamba2_chunked_plain_matches_jax_and_sequential(T, G, chunk):
+    """The ported chunked form (the chunked kernel's algorithm) at T not a
+    multiple of the chunk: within 1e-5 of the sequential plain version,
+    and of JAX's `mamba2_chunked` within the rounding both chunked forms
+    carry, capped at the scans' card gate (2e-5 (1 + |JAX|)). Each takes
+    L's exponent as acum_t - acum_s, the difference of two f32 cumsums
+    that reach chunk * max|dt A| within a chunk, so its absolute error,
+    L's relative one, is up to 2^-23 of that in either package (XLA and
+    PyTorch sum in other orders); the sequential form has no such
+    difference."""
+    from repro.kernels.mamba2_scan.ref import mamba2_chunked as jchunked
+    args = mamba2_inputs(T + 7 * G, 2, T, 4, 16, G, 8)
+    y, h = mamba2_ref.mamba2_chunked(*_torch(args), chunk=chunk)
+    jy, jh = jchunked(*_jax(args), chunk=chunk)
+    rounding = 2.0 ** -23 * chunk * float(np.abs(args[1] * args[2]).max())
+    c = max(TOL["atol"], min(rounding, 2e-5))
+    tol = dict(atol=c, rtol=c)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **tol)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), **tol)
+    sy, sh = mamba2_ref.mamba2_scan(*_torch(args))
+    np.testing.assert_allclose(y.numpy(), sy.numpy(), **TOL)
+    np.testing.assert_allclose(h.numpy(), sh.numpy(), **TOL)
+
+
 @pytest.mark.parametrize("T,chunk", [(64, 16), (100, 32), (128, 128)])
 def test_rwkv6_plain_matches_jax(T, chunk):
     """The JAX tests' shapes (B 2, H 2, K = V = 16, with s0)."""
