@@ -307,6 +307,25 @@ def time_ms(fns, iters: int = 40) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_events(prof):
+    """(name, start us, end us) of each device event of a finished
+    torch.profiler run, kernels and memcpy/memset only. The profiler also
+    lists operator ranges (aten::mm, record_function annotations) on the
+    device timeline; they span the kernels they launch and would count
+    them twice. Read from the raw Kineto events: building the profiler's
+    event tree for a replay took 30-45 s."""
+    from torch.autograd import DeviceType
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation() \
+                or name.startswith("aten::"):
+            continue
+        start = e.start_ns() * 1e-3
+        out.append((name, start, start + e.duration_ns() * 1e-3))
+    return out
+
+
 def device_ms(fns, iters: int = 40) -> float:
     """Device time of one call in ms: the kernels' time under
     torch.profiler over `iters` calls cycling through `fns`. Unlike
@@ -317,7 +336,6 @@ def device_ms(fns, iters: int = 40) -> float:
     a run's events missing (39 of 40, or 11), and a mean over the events
     it kept is not skewed by the ones it lost."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for fn in fns[:3]:
         fn()
@@ -328,12 +346,9 @@ def device_ms(fns, iters: int = 40) -> float:
                 fns[i % len(fns)]()
             torch.cuda.synchronize()
         by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA \
-                    and not getattr(e, "is_user_annotation", False) \
-                    and not e.name.startswith("aten::"):
-                n, us = by_name.get(e.name, (0, 0.0))
-                by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        for name, start, end in device_events(prof):
+            n, us = by_name.get(name, (0, 0.0))
+            by_name[name] = (n + 1, us + end - start)
         kept = sum(n for n, _ in by_name.values())
         if kept >= iters // 2:
             if kept % iters:
@@ -1568,58 +1583,170 @@ def check_mamba2(torch, gen, results):
         step_max_t=K.STEP_MAX_T, chunk=K.CHUNK)
 
 
-def rwkv6_case(torch, gen, B, T, H, K, decay=None, dtype=None):
+def rwkv6_case(torch, gen, B, T, H, K, decay=None, dtype=None, V=None):
     """Inputs as `apply_rwkv6` hands them to the scan: contiguous r, k, v
     of the activation dtype (f32 unless `dtype`), the Finch decay
-    w = -exp(.), the bonus u, and a carried state, all three f32."""
-    r, k, v = (torch.randn((B, T, H, K), generator=gen, device="cuda")
-               .to(dtype or torch.float32) for _ in range(3))
+    w = -exp(.), the bonus u, and a carried (B, H, K, V) state (V = K
+    unless given), all three f32."""
+    V = V or K
+    r, k = (torch.randn((B, T, H, K), generator=gen, device="cuda")
+            .to(dtype or torch.float32) for _ in range(2))
+    v = torch.randn((B, T, H, V), generator=gen, device="cuda").to(
+        dtype or torch.float32)
     w = (torch.full((B, T, H, K), decay, device="cuda") if decay is not None
          else -torch.exp(torch.randn((B, T, H, K), generator=gen,
                                      device="cuda") - 1.0))
     u = 0.5 * torch.randn((H, K), generator=gen, device="cuda")
-    state = torch.randn((B, H, K, K), generator=gen, device="cuda")
+    state = torch.randn((B, H, K, V), generator=gen, device="cuda")
     return r, k, v, w, u, state
 
 
+def rwkv6_build_report():
+    """Registers and spill bytes of each RWKV-6 kernel instantiation (the
+    chunked kernel per element type of r and y, typed and coded, at the
+    serving shape, plus the swept shapes at f32; the step kernel per
+    element type), from the ptxas report; fails on a spill."""
+    out = {name: r for name, r in ptxas_report().items()
+           if "rwkv6_chunk_kernel" in name or "rwkv6_step_kernel" in name}
+    for name, r in sorted(out.items()):
+        say(f"rwkv6 ptxas: {name}: {r.get('registers')} registers, "
+            f"{r.get('spill_bytes')} bytes spilled")
+        if r.get("spill_bytes") != 0:
+            fail(f"rwkv6 kernel {name}: {r.get('spill_bytes')} bytes of "
+                 f"register spills")
+    if len(out) != 12:
+        fail(f"expected 12 RWKV-6 kernel functions (chunked: 3 dtypes x "
+             f"typed and coded, 3 more f32 shapes; step: 3 dtypes), found "
+             f"{sorted(out)}")
+    return {name: dict(r) for name, r in out.items()}
+
+
+def rwkv6_bytes(B, T, H, K, V=None):
+    """r, k, v, w, u and the state read once; y and the state written once
+    (f32)."""
+    V = V or K
+    return 4 * (3 * B * T * H * K + 2 * B * T * H * V + H * K
+                + 2 * B * H * K * V)
+
+
 def check_rwkv6(torch, gen, results):
+    """Both RWKV-6 kernels (the step kernel up to the wrapper's
+    STEP_MAX_T, the chunked one above it) against the sequential plain
+    version at SCAN_TOL, with a fresh final state and written over the
+    input state; the crossover sweep over T 1-16; the chunked kernel's
+    shape sweep (steps a chunk, state columns a block); prefill and decode
+    timed beside the bound, plain, and the sub-chunked plain version (the
+    chunked kernel's algorithm: printed only)."""
+    from repro_torch.kernels.rwkv6_scan import kernel as KR
     from repro_torch.kernels.rwkv6_scan import ref
     from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_fwd
+    results["rwkv6_build"] = rwkv6_build_report()
     worst = 0.0
-    cases = [(1, 132, 40, 64, None), (8, 1, 40, 64, None),
-             (2, 37, 4, 64, -12.0), (3, 65, 2, 16, None)]
-    for B, T, H, K, decay in cases:
-        args = rwkv6_case(torch, gen, B, T, H, K, decay)
-        y, S = rwkv6_fwd(*args)
+    # rwkv6-3b's path shapes (prefill, decode, the steps around the
+    # crossover), the chunk edges, w = -12, then K 16 and V 16, 48, 96
+    cases = [(1, 132, 40, 64, None, None), (8, 1, 40, 64, None, None),
+             (8, 2, 40, 64, None, None), (8, 5, 40, 64, None, None),
+             (1, 31, 8, 64, None, None), (1, 33, 8, 64, None, None),
+             (1, 65, 8, 64, None, None), (2, 37, 4, 64, -12.0, None),
+             (8, 1, 4, 64, -12.0, None), (1, 132, 4, 64, -12.0, None),
+             (3, 65, 2, 16, None, None), (2, 40, 2, 64, None, 48),
+             (2, 3, 2, 64, None, 96), (1, 70, 2, 16, None, 96)]
+    for B, T, H, K, decay, V in cases:
+        args = rwkv6_case(torch, gen, B, T, H, K, decay, V=V)
         ry, rS = ref.rwkv6_scan(*args)
-        err = max(_scan_err(torch, y, ry), _scan_err(torch, S, rS))
+        y, S = rwkv6_fwd(*args)
+        y2, S2 = rwkv6_fwd(*args, state_out=args[5])
+        if S2 is not args[5]:
+            fail("rwkv6_scan: state_out was not the tensor returned")
+        err = max(_scan_err(torch, y, ry), _scan_err(torch, S, rS),
+                  _scan_err(torch, y2, ry), _scan_err(torch, S2, rS))
+        form = "step" if KR.uses_step_kernel(T) else "chunked"
         if not err <= SCAN_TOL:
-            fail(f"rwkv6_scan B={B} T={T} H={H} K={K} decay={decay}: "
-                 f"max|kernel - plain|/(1 + |plain|) = {err:.3g} > "
-                 f"{SCAN_TOL}")
+            fail(f"rwkv6_scan ({form}) B={B} T={T} H={H} K={K} V={V or K} "
+                 f"decay={decay}: max|kernel - plain|/(1 + |plain|) = "
+                 f"{err:.3g} > {SCAN_TOL}")
         worst = max(worst, err)
-        say(f"rwkv6_scan: B={B} T={T} H={H} K=V={K} decay={decay}: max "
-            f"scaled err {err:.3g}")
+        say(f"rwkv6_scan ({form}): B={B} T={T} H={H} K={K} V={V or K} "
+            f"decay={decay}: max scaled err {err:.3g} (fresh state and in "
+            f"place)")
+
+    def calls(B, T, n=None):
+        """Kernel calls over input copies past the L2, each writing its
+        final state over its input state as the serving path does."""
+        sets = [rwkv6_case(torch, gen, B, T, 40, 64)
+                for _ in range(n or n_copies(rwkv6_bytes(B, T, 40, 64)))]
+        return sets, [lambda s=s: rwkv6_fwd(*s, state_out=s[5])
+                      for s in sets]
+
+    # the crossover: each kernel's device time at rwkv6-3b's heads over T
+    sweep, keep = {}, KR.STEP_MAX_T
+    try:
+        for B in (8, 1):
+            for T in (1, 2, 4, 8, 16):
+                _, fns = calls(B, T)
+                for form, limit in (("step", 1 << 30), ("chunked", 0)):
+                    KR.STEP_MAX_T = limit
+                    sweep[f"B {B} T {T} {form}"] = device_ms(fns, iters=20)
+                del fns
+    finally:
+        KR.STEP_MAX_T = keep
+    say("rwkv6_scan crossover (device ms, rwkv6-3b's heads): " + "; ".join(
+        f"{k} {v:.4f}" for k, v in sweep.items())
+        + f"; the wrapper takes the step kernel up to T {KR.STEP_MAX_T}")
+    # the chunked kernel's shape: steps a chunk x state columns a block
+    shapes, keep = {}, (KR.CHUNK, KR.COLS)
+    try:
+        for T in (36, 132):
+            _, fns = calls(1, T)
+            for chunk in (32, 64):
+                for cols in (16, 32):
+                    KR.CHUNK, KR.COLS = chunk, cols
+                    shapes[f"T {T} chunk {chunk} cols {cols}"] = device_ms(
+                        fns, iters=20)
+            del fns
+    finally:
+        KR.CHUNK, KR.COLS = keep
+    say("rwkv6_scan chunked shapes (device ms, batch-1 prefill): "
+        + "; ".join(f"{k} {v:.4f}" for k, v in shapes.items())
+        + f"; the wrapper takes chunks of {KR.CHUNK}, {KR.COLS} columns a "
+          f"block")
+
     timed = {}
     for name, (B, T) in (("decode", (8, 1)), ("prefill", (1, 132))):
         H, K = 40, 64
         # r, k, v, w, u and the state read once; y and the state written
         # once; 5 flops per state entry per step (r S and its sum; exp(w) S,
         # k v, add), the bonus r u k (3 per k) and its v term (2 per v)
-        nbytes = 4 * (4 * B * T * H * K + H * K + B * T * H * K
-                      + 2 * B * H * K * K)
+        nbytes = rwkv6_bytes(B, T, H, K)
         b = bound(nbytes, B * T * H * (5 * K * K + 5 * K))
-        t_k, t_p = time_scan(
-            rwkv6_fwd, ref.rwkv6_scan,
-            lambda: rwkv6_case(torch, gen, B, T, H, K), nbytes)
+        sets, fns = calls(B, T)
+        t_k, d_k = time_ms(fns), device_ms(fns)
+        t_p = time_ms([lambda s=s: ref.rwkv6_scan(*s) for s in sets],
+                      iters=5)
+        t_c = time_ms([lambda s=s: ref.rwkv6_subchunked(*s, chunk=KR.CHUNK)
+                       for s in sets], iters=5)
+        # the kernel's gap to its own decomposition in plain PyTorch
+        args = rwkv6_case(torch, gen, B, T, H, K)
+        cy, cS = ref.rwkv6_subchunked(*args, chunk=KR.CHUNK)
+        ky, kS = rwkv6_fwd(*args)
+        gap = max(_scan_err(torch, ky, cy), _scan_err(torch, kS, cS))
+        del sets, fns
         timed[name] = dict(
-            ms=t_k, plain_ms=t_p, bound_ms=b[0], bound_by=b[1],
-            shape=f"r, k, v, w ({B}, {T}, {H}, {K}), state carried")
-        say(f"rwkv6_scan {name}: {timed[name]['shape']}: kernel {t_k:.4f} "
-            f"ms, plain {t_p:.4f} ms, bound {b[0]:.5f} ms ({b[1]})")
-    results["rwkv6_scan"] = dict(timed["decode"], max_abs_err=worst,
-                                 library_ms=None,
-                                 prefill_shape=timed["prefill"])
+            ms=t_k, device_ms=d_k, plain_ms=t_p, subchunked_plain_ms=t_c,
+            gap_to_subchunked_plain=gap, bound_ms=b[0], bound_by=b[1],
+            kernel="step" if KR.uses_step_kernel(T) else "chunked",
+            shape=f"r, k, v, w ({B}, {T}, {H}, {K}), state carried and "
+                  f"written in place")
+        say(f"rwkv6_scan {name} ({timed[name]['kernel']} kernel): "
+            f"{timed[name]['shape']}: kernel {t_k:.4f} ms ({d_k:.4f} on the "
+            f"device), plain {t_p:.4f} ms, sub-chunked plain {t_c:.4f} ms "
+            f"(scaled gap to it {gap:.3g}, not checked), bound {b[0]:.5f} "
+            f"ms ({b[1]}); device / bound {d_k / b[0]:.2f}")
+    results["rwkv6_scan"] = dict(
+        timed["decode"], max_abs_err=worst, library_ms=None,
+        prefill_shape=timed["prefill"], crossover_device_ms=sweep,
+        shape_device_ms=shapes, step_max_t=KR.STEP_MAX_T, chunk=KR.CHUNK,
+        cols=KR.COLS)
 
 
 # ----------------------------------------------------------- phase 3, bf16
@@ -2771,26 +2898,30 @@ def full_width(torch, fw, path="dense", dtype=None):
     summary["profile"] = profile_replay(torch, engine, reqs)
     say(f"{path} profile: " + json.dumps(summary["profile"], sort_keys=True))
     if path == "hybrid":
-        mamba2_replay(summary["profile"])
+        scan_replay(summary["profile"], "hybrid", "Mamba-2",
+                    ("mamba2_chunk_kernel", "mamba2_step_kernel"))
+    if path == "rwkv":
+        scan_replay(summary["profile"], "rwkv", "RWKV-6",
+                    ("rwkv6_chunk_kernel", "rwkv6_step_kernel"))
     del engine
     return launches, summary
 
 
-def mamba2_replay(prof):
-    """The hybrid replay's Mamba-2 launches and device us a launch, the
-    chunked (prefill) and the step kernel (decode) apart, beside the
-    replay's copy time; fails unless both kernels ran."""
+def scan_replay(prof, path, label, names):
+    """A replay's scan launches and device us a launch, the chunked
+    (prefill) and the step kernel (decode) apart, beside the replay's copy
+    time; fails unless both kernels ran."""
     us, n = prof["port_kernel_us_per_launch"], prof["port_kernel_launches"]
-    missing = [k for k in ("mamba2_chunk_kernel", "mamba2_step_kernel")
-               if not n.get(k)]
+    missing = [k for k in names if not n.get(k)]
     if missing:
-        fail(f"hybrid replay: Mamba-2 kernels never launched: {missing}")
-    copies = prof["device_ms_by_kind"].get("copies and casts (copy_ / to)",
-                                           0.0)
-    say("hybrid replay Mamba-2: " + "; ".join(
+        fail(f"{path} replay: {label} kernels never launched: {missing}")
+    by_kind = prof["device_ms_by_kind"]
+    copies = by_kind.get("copies and casts (copy_ / to)", 0.0)
+    say(f"{path} replay {label}: " + "; ".join(
         f"{k} {n[k]} launches x {us[k]:.2f} us = {n[k] * us[k] * 1e-3:.2f} "
-        f"ms" for k in ("mamba2_chunk_kernel", "mamba2_step_kernel"))
-        + f"; copies and casts {copies:.2f} ms")
+        f"ms" for k in names)
+        + f"; copies and casts {copies:.2f} ms; memcpy/memset "
+          f"{by_kind.get('memcpy/memset', 0.0):.2f} ms")
 
 
 def full_width_paged(torch, fw, path="paged", dtype=None):
@@ -2876,14 +3007,16 @@ def profile_replay(torch, engine, reqs):
     """Replay the measured trace under torch.profiler (CUDA activity) and
     the engine's own step-level tracer: device busy share, device time by
     kernel, and host time in prefill vs decode spans. A separate run, so
-    the measured run above carries no tracing cost."""
+    the measured run above carries no tracing cost. Device activity only:
+    tracing every CPU operator as well slowed the replay's host, so the
+    busy share read low."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.obs.trace import Tracer
     engine.reset_stats()
     engine.tracer = Tracer("step")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t_replay = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         stats = engine.run(reqs)
         torch.cuda.synchronize()
@@ -2895,37 +3028,31 @@ def profile_replay(torch, engine, reqs):
     out = {"wall_s": wall, "tokens_out": stats["tokens_out"],
            "host_span_s": {k: v * 1e-9 for k, v in spans.items()}}
     out.update(device_summary(prof, wall))
+    # the replay with its trace's processing: what profiling costs the run
+    out["profile_s"] = time.perf_counter() - t_replay
     return out
 
 
 def device_summary(prof, wall):
     """Device busy share of `wall`, device time by kernel and by kind, from
     a finished torch.profiler run."""
-    from torch.autograd import DeviceType
-    # device work only: kernels and memcpy/memset. The profiler also lists
-    # operator ranges (aten::mm, record_function annotations) on the device
-    # timeline; they span the kernels they launch and would count them twice.
-    # Kernels are keyed by the first 60 characters of their names (after a
-    # leading "void at::native::", so PyTorch's elementwise kernels keep
-    # the name of their functor), and the template instances of one cuBLAS
-    # kernel add up under one key.
+    # device work only (device_events). Kernels are keyed by the first 60
+    # characters of their names (after a leading "void at::native::", so
+    # PyTorch's elementwise kernels keep the name of their functor), and
+    # the template instances of one cuBLAS kernel add up under one key.
     kernels, by_kind, spans_us, port_n = {}, {}, [], {}
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA \
-                or getattr(evt, "is_user_annotation", False) \
-                or evt.name.startswith("aten::"):
-            continue
-        us = evt.time_range.elapsed_us()
-        key = evt.name.removeprefix("void at::native::")[:60]
+    for name, start, end in device_events(prof):
+        us = end - start
+        key = name.removeprefix("void at::native::")[:60]
         kernels[key] = kernels.get(key, 0) + us
-        kind = _device_kind(evt.name)
+        kind = _device_kind(name)
         by_kind[kind] = by_kind.get(kind, 0) + us
         port = next((k for k in PORT_KERNELS
-                     if re.search(rf"(^|[^A-Za-z_]){k}\b", evt.name)), None)
+                     if re.search(rf"(^|[^A-Za-z_]){k}\b", name)), None)
         if port is not None:
             port_n[port] = port_n.get(port, (0, 0))
             port_n[port] = (port_n[port][0] + 1, port_n[port][1] + us)
-        spans_us.append((evt.time_range.start, evt.time_range.end))
+        spans_us.append((start, end))
     busy_us, reach = 0, None   # union of the device intervals
     for start, end in sorted(spans_us):
         if reach is None or start > reach:
@@ -2956,7 +3083,7 @@ PORT_KERNELS = ("decode_kernel", "paged_decode_kernel",
                 "flash_fwd_wide_kernel", "quantize_kernel",
                 "dequantize_kernel", "el2n_kernel", "masked_encode_kernel",
                 "mamba2_chunk_kernel", "mamba2_step_kernel",
-                "rwkv6_scan_kernel")
+                "rwkv6_chunk_kernel", "rwkv6_step_kernel")
 
 
 def _device_kind(name: str) -> str:

@@ -121,16 +121,51 @@ def _fma32(a, b, c) -> np.float32:
     return np.float32(x)
 
 
+def _seq_sum32(values) -> np.float32:
+    """values summed in order from 0.0, each add rounded to float32."""
+    acc = np.float32(0.0)
+    for v in values:
+        acc = np.float32(acc + v)
+    return acc
+
+
+def _tree_sum32(values) -> np.float32:
+    """XLA's CPU tree reduction of a float32 vector: above 32 elements it
+    is padded to n = 32 * ceil(len / 32), (n - len) // 2 zeros in front and
+    the rest behind, each window of 32 is summed in order, and the window
+    partials are reduced the same way."""
+    n = len(values)
+    if n <= 32:
+        return _seq_sum32(values)
+    m = 32 * -(-n // 32)
+    lo = (m - n) // 2
+    zero = np.float32(0.0)
+    padded = [zero] * lo + list(values) + [zero] * (m - n - lo)
+    return _tree_sum32([_seq_sum32(padded[i:i + 32])
+                        for i in range(0, m, 32)])
+
+
 def cohort_sum(per_client, scale) -> np.float32:
     """sum_k per_client[k] * scale[k] in float32 as the JAX round's jitted
-    reduction computes it on the CPU: one fused multiply-add per client in
-    cohort order (XLA's CPU code, measured equal for cohorts of up to 16).
-    A separate multiply and sum differ from it by an ulp once a
-    straggler's transmit fraction is not 1."""
-    acc = np.float32(0.0)
-    for a, b in zip(per_client, scale):
-        acc = _fma32(a, b, acc)
-    return acc
+    `(per_client * transmit).sum()` computes it on the CPU.
+
+    Up to 32 clients XLA fuses the product into the sum: one fused
+    multiply-add per client, in cohort order. Above 32 the optimized HLO
+    (`--xla_dump_to`, `*.cpu_after_optimizations.txt`, of the round
+    itself at K = 33) has a separate `multiply`, so each product is
+    rounded to float32 on its own, then a `reduce-window` with
+    `window={size=32 stride=32 pad=lo_hi}` (lo = (n - K) // 2 zeros in
+    front, n = 32 * ceil(K / 32)) and a `reduce` of the window partials:
+    `_tree_sum32`. In the round the per-client bytes are a constant
+    broadcast and the multiply is a fusion of its own, as in a standalone
+    jit of `(a * b).sum()`, so the standalone form holds there."""
+    if len(per_client) <= 32:
+        acc = np.float32(0.0)
+        for a, b in zip(per_client, scale):
+            acc = _fma32(a, b, acc)
+        return acc
+    return _tree_sum32([np.float32(np.float32(a) * np.float32(b))
+                        for a, b in zip(per_client, scale)])
 
 
 def dp_seed(round_idx: int, client: int) -> int:

@@ -100,6 +100,7 @@
 
 #include "dtype.cuh"
 #include "mma_tf32.cuh"
+#include "scan_common.cuh"
 
 namespace {
 
@@ -144,70 +145,6 @@ __host__ __device__ constexpr int chunk_stage_floats(int Np) {
 constexpr int chunk_smem_floats(int Np, int stages) {
   return stages * chunk_stage_floats(Np) + kPb * (Np + 4) + kC * (kC + 4) +
          12 * kC + kNG * kNG;
-}
-
-// Stage one value into shared memory as f32: an asynchronous 4-byte copy
-// for f32 (zero-filled where !in; `base` is any valid address), a widening
-// load for bf16 and f16.
-__device__ __forceinline__ void stage(float* dst, const float* src, bool in,
-                                      const float* base) {
-  cp_async4(dst, in ? src : base, in ? 4 : 0);
-}
-template <class T16>
-__device__ __forceinline__ void stage(float* dst, const T16* src, bool in,
-                                      const T16*) {
-  *dst = in ? to_f32(*src) : 0.f;
-}
-
-// The same for element i of B or C: of the element type T (kTyped), or
-// of dtype `code` (uniform over the launch).
-template <bool kTyped, class T>
-__device__ __forceinline__ void stage_bc(float* dst, const void* base,
-                                         int code, long long i, bool in) {
-  if constexpr (kTyped) {
-    const T* t = static_cast<const T*>(base);
-    stage(dst, t + i, in, t);
-  } else if (code == kF32) {
-    const float* f = static_cast<const float*>(base);
-    stage(dst, f + i, in, f);
-  } else {
-    *dst = in ? load_f32(base, code, i) : 0.f;
-  }
-}
-
-// a (16 x 8 row-major at p, row stride ld) -> TF32 halves
-__device__ __forceinline__ void frag_a(const float* p, int ld,
-                                       uint32_t (&big)[4],
-                                       uint32_t (&small)[4]) {
-  split_tf32(p[0], big[0], small[0]);
-  split_tf32(p[8 * ld], big[1], small[1]);
-  split_tf32(p[4], big[2], small[2]);
-  split_tf32(p[8 * ld + 4], big[3], small[3]);
-}
-
-// b0 at p, b1 at p + off -> TF32 halves
-__device__ __forceinline__ void frag_b(const float* p, int off,
-                                       uint32_t (&big)[2],
-                                       uint32_t (&small)[2]) {
-  split_tf32(p[0], big[0], small[0]);
-  split_tf32(p[off], big[1], small[1]);
-}
-
-// acc += a . b in 3xTF32 (small terms first) on a fresh accumulator: the
-// three products of one k-step depend only on each other, so successive
-// k-steps overlap, and the sum over k-steps is f32 adds rounded to
-// nearest rather than the tensor core's accumulation
-__device__ __forceinline__ void mma3(float (&acc)[4],
-                                     const uint32_t (&ab)[4],
-                                     const uint32_t (&as)[4],
-                                     const uint32_t (&bb)[2],
-                                     const uint32_t (&bs)[2]) {
-  float d[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(d, as, bb);
-  mma_tf32(d, ab, bs);
-  mma_tf32(d, ab, bb);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) acc[e] += d[e];
 }
 
 // kTyped: B and C of x's element type TX and two stages of inputs, both
@@ -267,9 +204,9 @@ mamba2_chunk_kernel(Params p, bool two_stages) {
             live && lane < rows, xb);
       for (int n = lane; n < Np; n += 32) {
         const bool in = live && n < p.N;
-        stage_bc<kTyped, TX>(st + kC * ldn + s * ldn + n, p.Bm, p.b_dt,
+        stage_elem<kTyped, TX>(st + kC * ldn + s * ldn + n, p.Bm, p.b_dt,
                              bo + t * p.b_st + n, in);
-        stage_bc<kTyped, TX>(st + s * ldn + n, p.Cm, p.c_dt,
+        stage_elem<kTyped, TX>(st + s * ldn + n, p.Cm, p.c_dt,
                              co + t * p.c_st + n, in);
       }
     }
@@ -517,49 +454,6 @@ mamba2_chunk_kernel(Params p, bool two_stages) {
   for (int r = warp; r < rows; r += kWarps)
     for (int n = lane; n < p.N; n += 32)
       p.h_out[sbase + (long long)r * p.N + n] = hs[r * ldn + n];
-}
-
-// Four consecutive state values at q (n of them live; vec: one aligned
-// vector load), widened. Plain loads: the state may be h_out itself.
-__device__ __forceinline__ float4 state4(const float* q, int n, bool vec) {
-  if (vec) return *reinterpret_cast<const float4*>(q);
-  return make_float4(n > 0 ? q[0] : 0.f, n > 1 ? q[1] : 0.f,
-                     n > 2 ? q[2] : 0.f, n > 3 ? q[3] : 0.f);
-}
-template <class T16>
-__device__ __forceinline__ float4 state4(const T16* q, int n, bool vec) {
-  if (vec) return widen4(*reinterpret_cast<const uint2*>(q), T16{});
-  return make_float4(n > 0 ? to_f32(q[0]) : 0.f, n > 1 ? to_f32(q[1]) : 0.f,
-                     n > 2 ? to_f32(q[2]) : 0.f, n > 3 ? to_f32(q[3]) : 0.f);
-}
-
-// The same at element i of the state: f32 (kTyped), or of dtype `code`
-// (uniform over the launch).
-template <bool kTyped>
-__device__ __forceinline__ float4 state4_of(const void* h0, int code,
-                                            long long i, int n, bool vec) {
-  if (!kTyped && code == kBF16)
-    return state4(static_cast<const bf16*>(h0) + i, n, vec);
-  if (!kTyped && code == kF16)
-    return state4(static_cast<const f16*>(h0) + i, n, vec);
-  return state4(static_cast<const float*>(h0) + i, n, vec);
-}
-
-// Four consecutive values of B or C at q (n of them live), widened; then
-// at element i of B or C: of the element type T (kTyped), or of dtype
-// `code` (uniform over the launch).
-template <class T>
-__device__ __forceinline__ float4 four(const T* q, int n) {
-  return make_float4(n > 0 ? to_f32(q[0]) : 0.f, n > 1 ? to_f32(q[1]) : 0.f,
-                     n > 2 ? to_f32(q[2]) : 0.f, n > 3 ? to_f32(q[3]) : 0.f);
-}
-template <bool kTyped, class T>
-__device__ __forceinline__ float4 four_of(const void* base, int code,
-                                          long long i, int n) {
-  if (kTyped) return four(static_cast<const T*>(base) + i, n);
-  if (code == kBF16) return four(static_cast<const bf16*>(base) + i, n);
-  if (code == kF16) return four(static_cast<const f16*>(base) + i, n);
-  return four(static_cast<const float*>(base) + i, n);
 }
 
 // lanes: a row's lanes, the least power of two >= ceil(N / 4) (<= 32);

@@ -95,8 +95,12 @@ SIGNATURES = {
     "sfp_rwkv6_scan_fwd": (
         [_P, _I] * 6                          # r, k, v, w, u, s0 (or null),
         #                                       each with its dtype
-        + [_P, _P]                            # y (r's dtype), s_out
-        + [_I] * 5                            # B, T, H, K, V
+        + [_P, _P]                            # y (r's dtype), s_out (f32,
+        #                                       may be s0)
+        + [_I] * 8                            # B, T, H, K, V, step (the step
+        #                                       kernel, else chunked), chunk,
+        #                                       cols (the chunked kernel's
+        #                                       steps a chunk, columns a block)
         + [_L] * 12                           # (b, t, h) strides of r, k, v, w
         + [_P]),                              # stream
     "sfp_mma_probe": [_P, _I, _I, _I, _P],    # out, blocks, warps a block,

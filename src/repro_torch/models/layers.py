@@ -471,9 +471,15 @@ def apply_rwkv6(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
     wdd = p["w0"] + torch.tanh(mw.float() @ p["w_lora_a"]) @ p["w_lora_b"]
     w = -torch.exp(wdd).reshape(B, S, H, K)
 
-    scan = rwkv6_ref.rwkv6_scan if ctx.differentiable else rwkv6_scan
-    y, new_state = scan(r, k, v, w, p["u"],
-                        cache["state"] if cache is not None else None)
+    # the scan writes the final state into the cache in place (the
+    # differentiated plain version returns it and the cache takes a copy)
+    state = cache["state"] if cache is not None else None
+    if ctx.differentiable:
+        y, new_state = rwkv6_ref.rwkv6_scan(r, k, v, w, p["u"], state)
+        if state is not None:
+            state.copy_(new_state)
+    else:
+        y, _ = rwkv6_scan(r, k, v, w, p["u"], state, state_out=state)
     # per-head group norm
     yg = y.reshape(B, S, H, K).float()
     mu = yg.mean(-1, keepdim=True)
@@ -494,5 +500,4 @@ def apply_rwkv6(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
     if cache is not None:
         cache["shift_t"].copy_(h[:, -1])
         cache["shift_c"].copy_(hc[:, -1])
-        cache["state"].copy_(new_state)
     return tdelta + cdelta, cache

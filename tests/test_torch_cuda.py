@@ -658,16 +658,10 @@ def test_mamba2_kernel_matches_plain(gen, B, T, H, P, N, G, h0, strided,
     assert _scan_close(y, ry) and _scan_close(h, rh)
 
 
-@pytest.mark.parametrize("B,T,H,K,V,s0,decay", [
-    (2, 1, 2, 16, 16, True, None),
-    (2, 37, 3, 16, 16, False, None),
-    (1, 100, 2, 64, 64, True, None),
-    (2, 65, 2, 40, 48, True, None),          # K not a multiple of 32
-    (1, 96, 1, 8, 8, False, -12.0),          # strong decay stays finite
-])
-def test_rwkv6_kernel_matches_plain(gen, B, T, H, K, V, s0, decay):
-    from repro_torch.kernels.rwkv6_scan import ref
-    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+def _rwkv6_inputs(gen, B, T, H, K, V, s0, decay, dtypes=None):
+    """r, k, v, w, u and the state; `dtypes` (r, k, v, w, u, state) casts
+    each (f32 by default)."""
+    dts = dtypes or (torch.float32,) * 6
     r, k = (torch.randn((B, T, H, K), generator=gen, device="cuda")
             for _ in range(2))
     v = torch.randn((B, T, H, V), generator=gen, device="cuda")
@@ -677,10 +671,93 @@ def test_rwkv6_kernel_matches_plain(gen, B, T, H, K, V, s0, decay):
     u = torch.randn((H, K), generator=gen, device="cuda")
     state = (torch.randn((B, H, K, V), generator=gen, device="cuda")
              if s0 else None)
-    y, S = rwkv6_scan(r, k, v, w, u, state)
+    out = [t.to(d) for t, d in zip((r, k, v, w, u), dts)]
+    return out + [None if state is None else state.to(dts[5])]
+
+
+@pytest.mark.parametrize("B,T,H,K,V,s0,decay", [
+    (2, 1, 2, 16, 16, True, None),
+    (2, 37, 3, 16, 16, False, None),
+    (1, 100, 2, 64, 64, True, None),
+    (2, 65, 2, 40, 48, True, None),          # K not a multiple of 16
+    (1, 96, 1, 8, 8, False, -12.0),          # strong decay stays finite
+    # both sides of the step / chunked crossover (T 1-5) and the chunk
+    # edges (31-33, 65), at rwkv6-3b's heads (K = V = 64) and with V 16,
+    # 48 and 96 (two step blocks, three chunk blocks) and K 16
+    (8, 1, 8, 64, 64, True, None),
+    (2, 2, 4, 64, 64, True, None),
+    (2, 3, 4, 16, 48, True, None),
+    (1, 4, 4, 64, 96, True, None),
+    (2, 5, 4, 64, 64, True, None),
+    (1, 31, 4, 64, 64, True, None),
+    (1, 32, 4, 16, 96, False, None),
+    (2, 33, 4, 64, 16, True, None),
+    (1, 65, 4, 64, 64, True, -12.0),
+    (1, 132, 8, 64, 64, True, None),
+])
+@pytest.mark.parametrize("aliased", [False, True])
+def test_rwkv6_kernel_matches_plain(gen, B, T, H, K, V, s0, decay, aliased):
+    """Both kernels within SCAN_TOL of the sequential plain version; with
+    `aliased` the final state is written over the input state, as
+    `apply_rwkv6` passes its cache."""
+    from repro_torch.kernels.rwkv6_scan import ref
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+    r, k, v, w, u, state = _rwkv6_inputs(gen, B, T, H, K, V, s0, decay)
     ry, rS = ref.rwkv6_scan(r, k, v, w, u, state)
+    out = None
+    if aliased:
+        out = state if state is not None else torch.full(
+            (B, H, K, V), float("nan"), device="cuda")
+    y, S = rwkv6_scan(r, k, v, w, u, state, state_out=out)
+    torch.cuda.synchronize()
     assert y.shape == (B, T, H, V) and S.shape == (B, H, K, V)
+    assert out is None or S is out
     assert _scan_close(y, ry) and _scan_close(S, rS)
+
+
+@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("cols", [16, 32])
+def test_rwkv6_chunk_shapes_match_plain(gen, monkeypatch, chunk, cols):
+    """Every chunk-kernel shape chip_smoke.py sweeps (chunks of 32 and 64
+    steps, blocks of 16 and 32 state columns), at f32, within SCAN_TOL."""
+    from repro_torch.kernels.rwkv6_scan import kernel as KR
+    from repro_torch.kernels.rwkv6_scan import ref
+    monkeypatch.setattr(KR, "CHUNK", chunk)
+    monkeypatch.setattr(KR, "COLS", cols)
+    for B, T, H, K, V, decay in ((1, 132, 4, 64, 64, None),
+                                 (2, 70, 2, 40, 48, None),
+                                 (1, 100, 2, 64, 96, -12.0)):
+        args = _rwkv6_inputs(gen, B, T, H, K, V, True, decay)
+        y, S = KR.rwkv6_fwd(*args)
+        ry, rS = ref.rwkv6_scan(*args)
+        assert _scan_close(y, ry) and _scan_close(S, rS), (B, T, K, V)
+
+
+@pytest.mark.parametrize("T", [1, 37])
+@pytest.mark.parametrize("dtypes", [
+    # r, k, v, w, u, state
+    (torch.float32, torch.bfloat16, torch.float16, torch.bfloat16,
+     torch.float16, torch.bfloat16),
+    (torch.float16, torch.float32, torch.bfloat16, torch.float32,
+     torch.float32, torch.float16),
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16, torch.float32,
+     torch.float32, torch.float32),
+])
+def test_rwkv6_kernel_matches_plain_mixed_dtypes(gen, T, dtypes):
+    """Each input in a dtype of its own, as the JAX op takes them (each
+    read with astype(f32)), through the step (T 1) and the chunked kernel;
+    the last mix is the serving path's (the typed build)."""
+    from repro_torch.kernels.rwkv6_scan import ref
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+    args = _rwkv6_inputs(gen, 2, T, 4, 16, 16, True, None, dtypes)
+    y, S = rwkv6_scan(*args)
+    ry, rS = ref.rwkv6_scan(*args)
+    assert y.dtype == dtypes[0] and S.dtype == torch.float32
+    if dtypes[0] == torch.float32:
+        assert _scan_close(y, ry)
+    else:
+        _close_bf16(y, ry)
+    assert _scan_close(S, rS)
 
 
 def test_scan_wrappers_refuse_grad_and_bad_inputs(gen):

@@ -132,6 +132,59 @@ def test_rwkv6_plain_matches_jax(T, chunk):
     np.testing.assert_allclose(S.numpy(), np.asarray(pS), **INTERPRET_STATE)
 
 
+@pytest.mark.parametrize("aliased", [True, False])
+def test_rwkv6_state_out_matches_jax(aliased):
+    """`state_out=` receives the final state (the input state itself when
+    aliased, as `apply_rwkv6` passes its cache), y and the state within
+    1e-5 of JAX's `impl="ref"`, and the op returns that tensor."""
+    args = rwkv6_inputs(22, 2, 37, 3, 16, 16)
+    r, k, v, w, u, s0 = _torch(args)
+    state = s0.clone()
+    out = state if aliased else torch.full_like(state, float("nan"))
+    y, S = rwkv6_scan(r, k, v, w, u, state, state_out=out)
+    assert S is out
+    jy, jS = jrwkv6(*_jax(args), impl="ref")
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jS), **TOL)
+    if not aliased:
+        assert torch.equal(state, s0)
+
+
+@pytest.mark.parametrize("T,chunk,decay", [
+    (37, 32, None), (100, 32, None), (132, 32, None),
+    (37, 64, None), (100, 64, None), (132, 64, None),
+    (37, 32, -12.0), (132, 32, -12.0), (100, 64, -12.0)])
+def test_rwkv6_subchunked_plain_matches_jax_and_sequential(T, chunk, decay):
+    """The chunked kernel's decomposition in plain PyTorch (sub-chunks of
+    16, every exponent a sum of w's of one sign) at the JAX tests' shapes
+    (B 2, H 2, K = V = 16, with s0), T not a multiple of the chunk: within
+    1e-5 of JAX's sequential `impl="ref"` and of the port's sequential
+    version, finite at w = -12. Against JAX's chunked GLA form
+    (`rwkv6_chunked`) it is held to that form's own distance from JAX's
+    sequential ref, plus 1e-5: `rwkv6_chunked` takes its intra-chunk
+    exponent as cwe_t - cw_s, a difference of f32 cumsums that reach
+    chunk * max|w| (~100 at these decays), whose rounding puts it up to
+    1.3e-4 from the sequential result, past the card's 2e-5 gate, while
+    the sub-chunked form stays within 1e-5 of it."""
+    from repro.kernels.rwkv6_scan.ref import rwkv6_chunked as jchunked
+    args = rwkv6_inputs(T + chunk + int(decay or 0), 2, T, 2, 16, 16,
+                        decay=decay)
+    y, S = rwkv6_ref.rwkv6_subchunked(*_torch(args), chunk=chunk)
+    assert torch.isfinite(y).all() and torch.isfinite(S).all()
+    jy, jS = jrwkv6(*_jax(args), impl="ref")
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(S.numpy(), np.asarray(jS), **TOL)
+    sy, sS = rwkv6_ref.rwkv6_scan(*_torch(args))
+    np.testing.assert_allclose(y.numpy(), sy.numpy(), **TOL)
+    np.testing.assert_allclose(S.numpy(), sS.numpy(), **TOL)
+    cy, cS = jchunked(*_jax(args), chunk=chunk)
+    for got, chk, ref in ((y, cy, jy), (S, cS, jS)):
+        chk, ref = np.asarray(chk), np.asarray(ref)
+        own = np.abs(chk - ref)
+        assert (np.abs(got.numpy() - chk)
+                <= own + TOL["atol"] * (1 + np.abs(chk))).all()
+
+
 @pytest.mark.parametrize("scan", ["mamba2", "rwkv6"])
 def test_streaming_in_two_halves_equals_one_pass(scan):
     if scan == "mamba2":
