@@ -7,7 +7,19 @@ Phases, each of which fails the run with a nonzero exit:
   1. the card's name and power limit (nvidia-smi), TF32 switched off;
   2. build the CUDA kernels from src/repro_torch/csrc (one nvcc per source,
      all at once, linked into one library);
-  3. each kernel against its plain PyTorch version on the card, at the
+  3. the int8 wire pair bit-equal to plain at f32, bf16 and f16 in every
+     layout that holds the row (warp, block, clusters of 2-8), at D 100,
+     768, 2560, 5120, 5124 and 18432 and N 1, 8, 16, 132 and 3408, with u
+     as a float, a (0, 0) tensor and dense, x one element off, with row
+     stride 0 and with an odd row stride, u one element off, broadcast
+     over rows and transposed, payloads dequantized from aligned and
+     unaligned bases; ten round-to-nearest wire crossings must run the
+     pair and no other kernel (no fill); event and device time of the pair
+     at decode (8 and 16 x 5120), prefill (132 x 5120) and training (3408
+     x 768, random u) at each dtype, dequantize beside torch.mul at f32;
+     the quantize kernel's device time with 1, 2, 4 and 8 blocks a row at
+     the decode shapes (the cluster sweep);
+     then each kernel against its plain PyTorch version on the card, at the
      serving paths' shapes (Qwen2.5-14B widths; zamba2's 32 attention
      heads of 80 for the prefill and decode kernels; the Mamba-2 scan's
      two kernels, the step kernel (decode) and the chunked one (prefill),
@@ -41,14 +53,14 @@ Phases, each of which fails the run with a nonzero exit:
      the mean of every value of its table), its split count and valid
      tiles printed, and device time (profiler) beside event time for it,
      the dense decode kernel on the same data gathered, and SDPA; then
-     all nine kernels again with bf16 inputs (quant and masked encode
+     the other seven kernels again with bf16 inputs (masked encode
      bit-equal, EL2N within 1e-5, bf16 outputs within 2e-2 (1 + |plain|)
      of plain fed the same bf16 tensors, with the error in bf16 ulps;
      decode and paged decode with a bf16 query over f32 and over bf16
      K/V; the scans with their layer's dtype mix), timed beside plain and,
      for all-bf16 prefill and decode, bf16 SDPA, bounds at 2 B a bf16
-     value; then every kernel once more at f16, at its path shape (quant,
-     dequant and masked encode bit-equal, EL2N within 1e-5, f16 outputs
+     value; then those seven once more at f16, at its path shape (masked
+     encode bit-equal, EL2N within 1e-5, f16 outputs
      within 2e-3 (1 + |plain|), the error in f16 ulps, one device time
      each beside a bound at 2 B an f16 value);
   4. engine parity: the reduced Qwen2.5 family (with a GQA group of 5)
@@ -362,6 +374,50 @@ def device_ms(fns, iters: int = 40) -> float:
          f"events three times over, fewer than half the calls")
 
 
+def device_ms_cases(cases, iters: int = 40):
+    """device_ms of each case of `cases` (label -> fns) from ONE profiler
+    session, so a sweep does not open a session a case (runs that opened
+    some 150 sessions saw the later ones come back empty). The cases run
+    in turn, with a one-value fill, a marker kernel, before each and after
+    the last; a case's time is device_ms's sum over its kernel names
+    between its markers. Retaken when a marker or more than half a case's
+    events went missing; after three such traces, one device_ms session a
+    case."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    marker = torch.empty(1, device="cuda")
+    for fns in cases.values():
+        for fn in fns[:3]:
+            fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fns in cases.values():
+                marker.fill_(0.0)
+                for i in range(iters):
+                    fns[i % len(fns)]()
+            marker.fill_(0.0)
+            torch.cuda.synchronize()
+        segments = None
+        for name, start, end in sorted(device_events(prof),
+                                       key=lambda e: e[1]):
+            if "FillFunctor" in name:
+                segments = [] if segments is None else segments
+                segments.append({})
+            elif segments:
+                n, us = segments[-1].get(name, (0, 0.0))
+                segments[-1][name] = (n + 1, us + end - start)
+        if segments is not None and len(segments) == len(cases) + 1 and all(
+                sum(n for n, _ in seg.values()) >= iters // 2
+                for seg in segments[:-1]):
+            return {label: sum(us / n * max(1, round(n / iters))
+                               for n, us in seg.values()) * 1e-3
+                    for label, seg in zip(cases, segments)}
+        say(f"device_ms_cases: a trace of {len(cases)} cases lost markers "
+            f"or events")
+    return {label: device_ms(fns, iters) for label, fns in cases.items()}
+
+
 def n_copies(bytes_per_set: int) -> int:
     """Input copies to cycle through so their total exceeds the 50 MB L2."""
     return max(2, min(1024, math.ceil(128e6 / max(bytes_per_set, 1))))
@@ -376,80 +432,283 @@ def bound(nbytes: float, flops: float, rate: float = FP32_FLOPS):
 
 
 # ---------------------------------------------------------------- phase 3
-def check_quant(torch, gen, results):
+QUANT_DTYPES = ("float32", "bfloat16", "float16")
+# bit-equality: D 5124 takes 16-byte loads at f32 and one value a load at
+# 16 bits, 100 has dequantize tails, 18432 is nemotron-4-340b's width
+QUANT_D = (100, 768, 2560, 5120, 5124, 18432)
+QUANT_N = (1, 8, 16, 132, 3408)
+QUANT_LAYOUTS = ("offset", "row stride 0", "odd stride", "u offset",
+                 "u rows broadcast", "u strided")
+# the pair's timed shapes: decode (8 and 16 slots of Qwen2.5-14B's d_model,
+# u 0.5), prefill (132 tokens) and training (ViT-Base's 16 x 213 tokens of
+# 768, random u)
+QUANT_SHAPES = (("decode", 8, 5120), ("decode", 16, 5120),
+                ("prefill", 132, 5120), ("train", 3408, 768))
+SWEEP_C = (1, 2, 4, 8)   # blocks a row in the cluster sweep (1: a block)
+
+
+def quant_plans(D):
+    """None (the plan `quantize_plan` picks), then every layout that holds
+    rows of D values: the warp up to 1024, the block up to 8192, and
+    clusters of 2, 3, 4 and 8 blocks from ceil(D / 8192) on."""
+    plans = [None]
+    if D <= 1024:
+        plans.append(("warp", 1, 256))
+    if D <= 8192:
+        plans.append(("block", 1, 256))
+    return plans + [("cluster", C, 256) for C in (2, 3, 4, 8)
+                    if C * 8192 >= D]
+
+
+def quant_us(torch, gen, N, D):
+    """u as a float (0.5 and another), a (0, 0)-strided tensor, dense."""
+    return (0.5, float(torch.rand((), generator=gen, device="cuda")),
+            torch.rand((), generator=gen, device="cuda").expand(N, D),
+            torch.rand((N, D), generator=gen, device="cuda"))
+
+
+def quant_x(torch, gen, N, D, dtype, offset=0):
+    """(N, D) normals x 3 of `dtype`, `offset` elements into their storage,
+    row 0 opening with zeros and row 1 all zero (scale 1e-8)."""
+    x = (torch.randn(N * D + offset, generator=gen, device="cuda") * 3.0
+         ).to(dtype)[offset:].view(N, D)
+    x[0, :7] = 0.0
+    if N > 1:
+        x[1] = 0.0
+    return x
+
+
+def quant_equal(torch, label, x, us, plans, dtype):
+    """Every (u, plan) against plain, payload and scales; the payload
+    dequantized to f32 and to `dtype`, from an aligned base and from one
+    byte off 16. Returns the number of quantize cases."""
     from repro_torch.kernels.quant import ref
     from repro_torch.kernels.quant.kernel import dequantize_fwd, quantize_fwd
-    D = 5120
-    for N in (1, 8, 132):
-        x = torch.randn((N, D), generator=gen, device="cuda") * 3.0
-        x[0, :7] = 0.0
-        for u in (torch.full((), 0.5, device="cuda"),
-                  torch.rand((N, D), generator=gen, device="cuda")):
-            v, s = quantize_fwd(x, u.expand(N, D))
-            rv, rs = ref.quantize(x, u)
+    for u in us:
+        rv, rs = ref.quantize(x, u)
+        for plan in plans:
+            v, s = quantize_fwd(x, u, plan)
             if not (torch.equal(v, rv) and torch.equal(s, rs)):
-                fail(f"quantize_int8 N={N} D={D} u{tuple(u.shape)}: "
+                kind = (f"float {u}" if isinstance(u, float)
+                        else f"strides {tuple(u.stride())}")
+                fail(f"quantize_int8 {label} plan {plan} u {kind}: "
                      f"{int((v != rv).sum())} values, "
                      f"{int((s != rs).sum())} scales differ from plain")
-            out = dequantize_fwd(v, s)
-            if not torch.equal(out, ref.dequantize(v, s)):
-                fail(f"dequantize_int8 N={N} D={D} differs from plain")
-    say(f"quant: kernel == plain at N in (1, 8, 132), D={D}, scalar and "
-        f"random u")
+    v1 = torch.empty(rv.numel() + 1, dtype=torch.int8,
+                     device="cuda")[1:].view(rv.shape)
+    v1.copy_(rv)
+    for dt in {torch.float32, dtype}:
+        want = ref.dequantize(rv, rs, dt)
+        if not (torch.equal(dequantize_fwd(rv, rs, dt), want)
+                and torch.equal(dequantize_fwd(v1, rs, dt), want)):
+            fail(f"dequantize_int8 {label} to {dt} differs from plain")
+    return len(us) * len(plans)
+
+
+def check_quant(torch, gen, results):
+    """The int8 pair bit-equal to plain in every layout, at f32, bf16 and
+    f16; a wire crossing launches the pair alone; device times at the
+    decode, prefill and training shapes (with dequantize's library call,
+    torch.mul); the cluster sweep."""
+    from repro_torch.kernels.quant import ref
+    n = 0
+    for name in QUANT_DTYPES:
+        dt = getattr(torch, name)
+        for D in QUANT_D:
+            for N in QUANT_N:
+                n += quant_equal(torch, f"{name} ({N}, {D})",
+                                 quant_x(torch, gen, N, D, dt),
+                                 quant_us(torch, gen, N, D), quant_plans(D),
+                                 dt)
+        for layout in QUANT_LAYOUTS:
+            for N, D in ((8, 5120), (132, 768), (16, 18432), (3, 100)):
+                x, us = quant_x(torch, gen, N, D, dt), None
+                if layout == "offset":
+                    x = quant_x(torch, gen, N, D, dt, offset=1)
+                elif layout == "row stride 0":
+                    x = quant_x(torch, gen, 1, D, dt).expand(N, D)
+                elif layout == "odd stride":
+                    x = quant_x(torch, gen, N, D + 1, dt)[:, :D]
+                elif layout == "u offset":
+                    us = (torch.rand(N * D + 1, generator=gen,
+                                     device="cuda")[1:].view(N, D),)
+                elif layout == "u rows broadcast":
+                    us = (torch.rand((1, D), generator=gen, device="cuda")
+                          .expand(N, D),)
+                elif layout == "u strided":
+                    us = (torch.rand((D, N), generator=gen,
+                                     device="cuda").t(),)
+                n += quant_equal(torch, f"{name} ({N}, {D}) {layout}", x,
+                                 us or quant_us(torch, gen, N, D),
+                                 quant_plans(D), dt)
+    say(f"quant: kernel == plain in {n} quantize cases (f32, bf16, f16; D "
+        f"{QUANT_D}; N {QUANT_N}; u a float, (0, 0) and dense; every "
+        f"layout that holds the row; x one element off, row stride 0 and "
+        f"odd; u off, (0, 1) and transposed), dequantized to f32 and x's "
+        f"dtype from aligned and unaligned payloads")
 
     # the training path's shapes (ViT-Base: 16 x 213 tokens of 768 in phase
     # 2, 32 x 213 in evaluate) and the layouts autograd hands the backward
-    # crossing: broadcast gradients, straight to the kernel (row stride 0)
-    # and through the op's .contiguous() branch (column stride 0)
+    # crossing: broadcast gradients through the op's .contiguous() branch
+    from repro_torch.kernels.quant.kernel import dequantize_fwd
     from repro_torch.kernels.quant.ops import quantize_int8
     D = 768
     for N in (16 * 213, 32 * 213):
-        dense = torch.randn((N, D), generator=gen, device="cuda") * 0.05
-        dense[0, :5] = 0.0
         row = torch.randn((1, D), generator=gen, device="cuda").expand(N, D)
         col = torch.randn((N, 1), generator=gen, device="cuda").expand(N, D)
         full = torch.randn((), generator=gen, device="cuda").expand(N, D)
-        cases = (("dense", dense, quantize_fwd),
-                 ("strides (0, 1)", row, quantize_fwd),
-                 ("strides (0, 1), op", row, quantize_int8),
-                 ("strides (1, 0), op", col, quantize_int8),
-                 ("strides (0, 0), op", full, quantize_int8))
-        for u in (torch.full((), 0.5, device="cuda"),
-                  torch.rand((N, D), generator=gen, device="cuda")):
-            for name, x, fn in cases:
-                v, s = fn(x, u.expand(N, D))
+        for u in (0.5, torch.rand((N, D), generator=gen, device="cuda")):
+            for name, x in (("strides (0, 1)", row), ("strides (1, 0)", col),
+                            ("strides (0, 0)", full)):
+                v, s = quantize_int8(x, u)
                 rv, rs = ref.quantize(x, u)
-                if not (torch.equal(v, rv) and torch.equal(s, rs)):
-                    fail(f"quantize_int8 ({N}, {D}) {name} "
-                         f"u{tuple(u.shape)}: {int((v != rv).sum())} values, "
-                         f"{int((s != rs).sum())} scales differ from plain")
-                if not torch.equal(dequantize_fwd(v, s),
-                                   ref.dequantize(v, s)):
-                    fail(f"dequantize_int8 ({N}, {D}) {name} differs from "
-                         f"plain")
-    say(f"quant: kernel == plain at the training shapes N in (3408, 6816), "
-        f"D={D}, scalar and random u, dense and broadcast-gradient layouts "
-        f"(strides (0, 1), (1, 0), (0, 0))")
+                if not (torch.equal(v, rv) and torch.equal(s, rs)
+                        and torch.equal(dequantize_fwd(v, s),
+                                        ref.dequantize(v, s))):
+                    fail(f"quant op ({N}, {D}) {name} differs from plain")
+    say(f"quant: op == plain at the training shapes N in (3408, 6816), "
+        f"D={D}, u 0.5 and random, broadcast-gradient layouts")
+    wire_crossing_kernels(torch, gen)
+    quant_timing(torch, gen, results)
+    results["quantize_int8"]["cluster_sweep"] = quant_cluster_sweep(torch,
+                                                                   gen)
 
-    # timing at the decode shape (8 slots x Qwen2.5-14B's d_model, scalar
-    # u), the one the main path launches most
-    N, D = 8, 5120
-    k = n_copies(N * D * 5)
-    xs = [torch.randn((N, D), generator=gen, device="cuda") for _ in range(k)]
-    half = torch.full((), 0.5, device="cuda").expand(N, D)
-    payloads = [quantize_fwd(x, half) for x in xs]
-    t_q = time_ms([lambda x=x: quantize_fwd(x, half) for x in xs])
-    t_qp = time_ms([lambda x=x: ref.quantize(x, 0.5) for x in xs])
-    t_d = time_ms([lambda p=p: dequantize_fwd(*p) for p in payloads])
-    t_dp = time_ms([lambda p=p: ref.dequantize(*p) for p in payloads])
-    bq = bound(N * D * 4 + 4 + N * D + N * 4, 4 * N * D)
-    bd = bound(N * D + N * 4 + N * D * 4, N * D)
-    results["quantize_int8"] = dict(max_abs_err=0.0, ms=t_q, plain_ms=t_qp,
-                                    bound_ms=bq[0], bound_by=bq[1],
-                                    library_ms=None, shape=f"x ({N}, {D})")
-    results["dequantize_int8"] = dict(max_abs_err=0.0, ms=t_d, plain_ms=t_dp,
-                                      bound_ms=bd[0], bound_by=bd[1],
-                                      library_ms=None, shape=f"v ({N}, {D})")
+
+def wire_crossing_kernels(torch, gen):
+    """Fail unless ten round-to-nearest crossings of the int8 wire at
+    decode (8 slots of 5120) run 10 quantize and 10 dequantize kernels
+    and nothing else: u goes to the kernel by value, no fill makes it."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.boundary import Boundary
+    from repro_torch.runtime.codec import get_codec
+    b = Boundary("head_body", get_codec("int8"))
+    x = torch.randn((8, 1, 5120), generator=gen, device="cuda")
+    b.transmit(x, train=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            b.transmit(x, train=False)
+        torch.cuda.synchronize()
+    names = [name for name, _, _ in device_events(prof)]
+    quant = [k for k in names if re.search(r"\bquantize_kernel", k)]
+    dequant = [k for k in names if "dequantize_kernel" in k]
+    others = sorted(set(names) - set(quant) - set(dequant))
+    if len(quant) != 10 or len(dequant) != 10 or others:
+        fail(f"10 wire crossings ran {len(quant)} quantize and "
+             f"{len(dequant)} dequantize kernels and {others}")
+    say(f"quant: 10 round-to-nearest wire crossings at (8, 1, 5120) ran "
+        f"the pair 10 times and no other kernel (no fill)")
+
+
+def quant_timing(torch, gen, results):
+    """Event and device ms of the pair at QUANT_SHAPES at every dtype, with
+    the same u (0.5 at decode and prefill, dense random u at training) over
+    copies past the L2; plain at (8, 5120); dequantize's library call,
+    torch.mul(values, scales) (int8 x f32 promotes to f32: bit-equal to
+    the kernel's f32 output), at every shape."""
+    from repro_torch.kernels.quant import ref
+    from repro_torch.kernels.quant.kernel import (dequantize_fwd,
+                                                  quantize_fwd, quantize_plan)
+    lines = []
+    for name in QUANT_DTYPES:
+        dt = getattr(torch, name)
+        isz = dt.itemsize
+        for label, N, D in QUANT_SHAPES:
+            random_u = label == "train"
+            q_bytes = N * D * isz + N * D * 4 * random_u + N * D + N * 4
+            d_bytes = N * D + N * 4 + N * D * isz
+            xs = [(torch.randn((N, D), generator=gen, device="cuda") * 3.0
+                   ).to(dt) for _ in range(n_copies(q_bytes))]
+            us = [torch.rand((N, D), generator=gen, device="cuda")
+                  if random_u else 0.5 for _ in xs]
+            pays = [quantize_fwd(x, u) for x, u in zip(xs, us)]
+            quant = [lambda x=x, u=u: quantize_fwd(x, u)
+                     for x, u in zip(xs, us)]
+            deq = [lambda p=p: dequantize_fwd(*p, dt) for p in pays]
+            cases = {"quantize": quant, "dequantize": deq}
+            if dt == torch.float32:
+                v, s = pays[0]
+                if not torch.equal(torch.mul(v, s), dequantize_fwd(v, s)):
+                    fail("torch.mul(values, scales) differs from the "
+                         "dequantize kernel at f32")
+                cases["torch.mul"] = [lambda p=p: torch.mul(*p)
+                                      for p in pays]
+            dev = device_ms_cases(cases)
+            bq, bd = bound(q_bytes, 4 * N * D), bound(d_bytes, N * D)
+            u_s = "random u" if random_u else "u 0.5"
+            q = dict(max_abs_err=0.0, ms=time_ms(quant),
+                     device_ms=dev["quantize"], bound_ms=bq[0],
+                     bound_by=bq[1], library_ms=None, plain_ms=None,
+                     plan=quantize_plan(N, D, isz),
+                     shape=f"x ({N}, {D}) {name}, {u_s}")
+            d = dict(max_abs_err=0.0, ms=time_ms(deq),
+                     device_ms=dev["dequantize"], bound_ms=bd[0],
+                     bound_by=bd[1], library_ms=None, plain_ms=None,
+                     shape=f"v ({N}, {D}) -> {name}")
+            if "torch.mul" in dev:
+                d["library_ms"] = time_ms(cases["torch.mul"])
+                d["library_device_ms"] = dev["torch.mul"]
+            if (N, D) == (8, 5120):
+                q["plain_ms"] = time_ms([lambda x=x: ref.quantize(x, 0.5)
+                                         for x in xs])
+                d["plain_ms"] = time_ms([lambda p=p: ref.dequantize(*p, dt)
+                                         for p in pays])
+            del xs, us, pays, quant, deq, cases
+            for kernel, r in (("quantize_int8", q), ("dequantize_int8", d)):
+                results.setdefault(kernel, {}).setdefault(
+                    {"float32": "f32", "bfloat16": "bf16",
+                     "float16": "f16"}[name], {})[r["shape"]] = r
+                lib = "" if r["library_ms"] is None else \
+                    f", torch.mul {r['library_ms']:.4f} " \
+                    f"({r['library_device_ms']:.4f} on the device)"
+                lines.append(
+                    f"  {kernel} {r['shape']}: {r['ms']:.4f} ms "
+                    f"({r['device_ms']:.4f} on the device; bound "
+                    f"{r['bound_ms']:.6f}, {r['device_ms'] / r['bound_ms']:.1f}"
+                    f"x){lib}" + (f", plan {r['plan']}" if "plan" in r
+                                  else ""))
+    say("quant timing (event ms, device ms):\n" + "\n".join(lines))
+    # the contract's numbers: f32 at the decode shape
+    for kernel, case in (("quantize_int8", "x (8, 5120) float32, u 0.5"),
+                         ("dequantize_int8", "v (8, 5120) -> float32")):
+        results[kernel].update(results[kernel]["f32"][case])
+
+
+def quant_cluster_sweep(torch, gen):
+    """Device ms of the quantize kernel at the decode shapes (N 8 and 16;
+    D 2560, 3584, 5120; f32 and bf16; u 0.5) with C blocks a row for C in
+    SWEEP_C (C 1: the block layout; each C the mean of two passes, in
+    order and reversed, in one profiler session), beside `quantize_plan`'s
+    choice, which would take a cluster where one beat C 1 by 10%. Printed
+    and returned, by case."""
+    from repro_torch.kernels.quant.kernel import quantize_fwd, quantize_plan
+    lines, sweep = [], {}
+    for name in ("float32", "bfloat16"):
+        dt = getattr(torch, name)
+        for D in (2560, 3584, 5120):
+            for N in (8, 16):
+                xs = [(torch.randn((N, D), generator=gen, device="cuda")
+                       ).to(dt) for _ in range(n_copies(N * D * 3))]
+                calls = {C: [lambda x=x, plan=(
+                    ("block", 1, 256) if C == 1 else ("cluster", C, 256)):
+                    quantize_fwd(x, 0.5, plan) for x in xs] for C in SWEEP_C}
+                # each C twice, in order and reversed, against drift
+                order = [(C, k) for k, Cs in enumerate(
+                    (SWEEP_C, SWEEP_C[::-1])) for C in Cs]
+                dev = device_ms_cases({ck: calls[ck[0]] for ck in order})
+                ms = {C: (dev[(C, 0)] + dev[(C, 1)]) / 2 for C in SWEEP_C}
+                best = min(ms, key=ms.get)
+                sweep[f"{name} ({N}, {D})"] = dict(
+                    device_ms=ms, best=best,
+                    plan=quantize_plan(N, D, dt.itemsize))
+                lines.append(
+                    f"  {name} ({N}, {D}): " + ", ".join(
+                        f"C {C} {t:.5f}" for C, t in ms.items())
+                    + f"; best C {best} ({1 - ms[best] / ms[1]:.1%} under "
+                      f"C 1); plan {quantize_plan(N, D, dt.itemsize)}")
+                del xs
+    say("quant cluster sweep (device ms):\n" + "\n".join(lines))
+    return sweep
 
 
 def _prefill_pairs(S, kv_len, window):
@@ -1779,55 +2038,6 @@ def worst_err(errs):
     return {k: max(e[k] for e in errs) for k in errs[0]}
 
 
-def bf16_quant(torch, gen, results):
-    """bf16 x quantized and payloads dequantized to bf16, bit-equal to
-    plain at the decode and prefill row counts; timed at the decode
-    shape."""
-    from repro_torch.kernels.quant import ref
-    from repro_torch.kernels.quant.kernel import dequantize_fwd, quantize_fwd
-    bf16 = torch.bfloat16
-    D = 5120
-    for N in (1, 8, 132):
-        x = (torch.randn((N, D), generator=gen, device="cuda") * 3.0).to(bf16)
-        x[0, :7] = 0.0
-        for u in (torch.full((), 0.5, device="cuda"),
-                  torch.rand((N, D), generator=gen, device="cuda")):
-            v, s = quantize_fwd(x, u.expand(N, D))
-            rv, rs = ref.quantize(x, u)
-            if not (torch.equal(v, rv) and torch.equal(s, rs)):
-                fail(f"quantize_int8 bf16 N={N}: {int((v != rv).sum())} "
-                     f"values, {int((s != rs).sum())} scales differ")
-            if not torch.equal(dequantize_fwd(v, s, bf16),
-                               ref.dequantize(v, s, bf16)):
-                fail(f"dequantize_int8 to bf16 N={N} differs from plain")
-    N = 8
-    xs = [torch.randn((N, D), generator=gen, device="cuda").to(bf16)
-          for _ in range(n_copies(N * D * 3))]
-    half = torch.full((), 0.5, device="cuda").expand(N, D)
-    payloads = [quantize_fwd(x, half) for x in xs]
-    quant = [lambda x=x: quantize_fwd(x, half) for x in xs]
-    dequant = [lambda p=p: dequantize_fwd(*p, bf16) for p in payloads]
-    t_q, d_q = time_ms(quant), device_ms(quant)
-    t_qp = time_ms([lambda x=x: ref.quantize(x, 0.5) for x in xs])
-    t_d, d_d = time_ms(dequant), device_ms(dequant)
-    t_dp = time_ms([lambda p=p: ref.dequantize(*p, bf16) for p in payloads])
-    bq = bound(N * D * 2 + 4 + N * D + N * 4, 4 * N * D)
-    bd = bound(N * D + N * 4 + N * D * 2, N * D)
-    results["quantize_int8"]["bf16"] = {"x bf16": dict(
-        max_abs_err=0.0, ms=t_q, device_ms=d_q, plain_ms=t_qp,
-        bound_ms=bq[0], bound_by=bq[1], library_ms=None,
-        shape=f"x ({N}, {D}) bf16")}
-    results["dequantize_int8"]["bf16"] = {"out bf16": dict(
-        max_abs_err=0.0, ms=t_d, device_ms=d_d, plain_ms=t_dp,
-        bound_ms=bd[0], bound_by=bd[1], library_ms=None,
-        shape=f"v ({N}, {D}) -> bf16")}
-    say(f"quant bf16: kernel == plain (values, scales; dequantized bf16) at "
-        f"N in (1, 8, 132), D={D}; at ({N}, {D}) quantize {t_q:.4f} ms "
-        f"({d_q:.4f} on the device; plain {t_qp:.4f}, bound {bq[0]:.6f}), "
-        f"dequantize {t_d:.4f} ms ({d_d:.4f}; plain {t_dp:.4f}, bound "
-        f"{bd[0]:.6f})")
-
-
 def bf16_prefill(torch, F, gen, results):
     """All-bf16 q, k, v at Qwen2.5-14B's (40 / 8 heads of 128), zamba2's
     (32 heads of 80) and the wide shapes' causal prefill, checked at S 37
@@ -2158,11 +2368,11 @@ def bf16_scans(torch, gen, results):
 
 
 def check_bf16(torch, F, gen, results):
-    """Every kernel again with bf16 inputs, at the shapes phase 3 times:
-    each held against its plain version fed the same bf16 tensors (quant
-    and masked encode bit-equal, EL2N within EL2N_TOL, bf16 outputs within
-    BF16_TOL), timed beside plain, with a bound at 2 B a bf16 element."""
-    bf16_quant(torch, gen, results)
+    """Every kernel but the int8 pair (check_quant holds it at every
+    dtype) again with bf16 inputs, at the shapes phase 3 times: each held
+    against its plain version fed the same bf16 tensors (masked encode
+    bit-equal, EL2N within EL2N_TOL, bf16 outputs within BF16_TOL), timed
+    beside plain, with a bound at 2 B a bf16 element."""
     bf16_prefill(torch, F, gen, results)
     bf16_decode(torch, F, gen, results)
     bf16_paged(torch, gen, results)
@@ -2172,9 +2382,9 @@ def check_bf16(torch, F, gen, results):
 
 
 def check_f16(torch, F, gen, results):
-    """Every kernel once more with f16 inputs, at its path shape: held
-    against its plain version fed the same f16 tensors (quant, dequant and
-    masked encode bit-equal, EL2N within EL2N_TOL, f16 outputs within
+    """Every kernel but the int8 pair (check_quant holds it at every
+    dtype) once more with f16 inputs, at its path shape: held against its
+    plain version fed the same f16 tensors (masked encode bit-equal, EL2N within EL2N_TOL, f16 outputs within
     F16_TOL, the scans' f32 state within SCAN_TOL), the largest error in
     f16 ulps of plain, and one device time each beside a bound at 2 B an
     f16 value; the all-f16 prefill and dense decode also beside one SDPA
@@ -2189,8 +2399,6 @@ def check_f16(torch, F, gen, results):
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
     from repro_torch.kernels.mamba2_scan import ref as mref
     from repro_torch.kernels.mamba2_scan.kernel import mamba2_fwd
-    from repro_torch.kernels.quant import ref as qref
-    from repro_torch.kernels.quant.kernel import dequantize_fwd, quantize_fwd
     from repro_torch.kernels.rwkv6_scan import ref as rref
     from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_fwd
     from repro_torch.kernels.secure_mask import ref as sref
@@ -2249,30 +2457,6 @@ def check_f16(torch, F, gen, results):
         if not torch.equal(got, want):
             fail(f"{label} f16: kernel differs from plain")
         return dict(max_abs_err=0.0, max_ulps=0.0)
-
-    # quantize and dequantize, (8, 5120) and (132, 5120)
-    D = 5120
-    for N in (8, 132):
-        def qx(N=N):
-            x = (torch.randn((N, D), generator=gen, device="cuda") * 3.0
-                 ).to(f16)
-            return x, torch.rand((N, D), generator=gen, device="cuda")
-        def qcheck(a, k, N=N):
-            (v, sc), (rv, rs) = k(a), qref.quantize(*a)
-            equal(f"quantize ({N}, {D}) scales", sc, rs)
-            return equal(f"quantize ({N}, {D}) values", v, rv)
-        record("quantize_int8", f"x ({N}, {D}) f16", qx,
-               lambda a: quantize_fwd(*a), qcheck,
-               N * D * 2 + N * D * 4 + N * D + N * 4, 4 * N * D)
-
-        def qv(N=N):
-            x = torch.randn((N, D), generator=gen, device="cuda") * 3.0
-            return quantize_fwd(x, torch.full((N, D), 0.5, device="cuda"))
-        record("dequantize_int8", f"v ({N}, {D}) -> f16", qv,
-               lambda a: dequantize_fwd(*a, f16),
-               lambda a, k: equal("dequantize", k(a),
-                                  qref.dequantize(*a, f16)),
-               N * D + N * 4 + N * D * 2, N * D)
 
     # prefill, causal, S 132: Qwen2.5-14B and zamba2
     for label, Hq, Hkv, Dh in (("Qwen2.5-14B", 40, 8, 128),
@@ -3040,9 +3224,10 @@ def device_summary(prof, wall):
     # characters of their names (after a leading "void at::native::", so
     # PyTorch's elementwise kernels keep the name of their functor), and
     # the template instances of one cuBLAS kernel add up under one key.
-    kernels, by_kind, spans_us, port_n = {}, {}, [], {}
+    kernels, by_kind, spans_us, port_n, fills = {}, {}, [], {}, 0
     for name, start, end in device_events(prof):
         us = end - start
+        fills += "FillFunctor" in name
         key = name.removeprefix("void at::native::")[:60]
         kernels[key] = kernels.get(key, 0) + us
         kind = _device_kind(name)
@@ -3074,6 +3259,9 @@ def device_summary(prof, wall):
         "port_kernel_us_per_launch": {k: us / n
                                       for k, (n, us) in port_n.items()},
         "port_kernel_launches": {k: n for k, (n, _) in port_n.items()},
+        # PyTorch's fill kernels (torch.full, zeros, fill_): until the int8
+        # wire took u by value, one ran at every round-to-nearest crossing
+        "fill_launches": fills,
     }
 
 
@@ -3703,6 +3891,10 @@ def main() -> None:
             **{k: results[name][k] for k in
                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")})
+        if "f32" in results[name]:
+            rec["device_ms"] = results[name]["device_ms"]
+            rec["f32"] = {case: {k: r.get(k) for k in keys}
+                          for case, r in results[name]["f32"].items()}
         if name in HEADS:
             rec["head_dims"], rec["groups"] = HEADS[name]
             rec["wide"] = {case: {k: r.get(k) for k in keys}

@@ -42,9 +42,13 @@ _F = ctypes.c_float
 # A floating tensor's pointer is followed (or, for attention, preceded) by
 # its dtype code (`kernels.dtype_code`: 0 f32, 1 bf16, 2 f16).
 SIGNATURES = {
-    "sfp_quantize_int8": [_P, _I, _L, _P, _L, _L, _P, _P, _I, _I, _P],
-    #                     x, x dtype, x row stride, u, u strides, values,
-    #                     scales, N, D, stream
+    "sfp_quantize_int8": [_P, _I, _L, _P, _L, _L, _F, _P, _P, _I, _I,
+                          _I, _I, _I, _P],
+    #                     x, x dtype, x row stride, u (or null), u strides,
+    #                     u's value (when null), values, scales, N, D,
+    #                     layout, blocks a row, threads a block (the
+    #                     plan of kernels/quant/kernel.py::quantize_plan),
+    #                     stream
     "sfp_dequantize_int8": [_P, _P, _P, _I, _I, _I, _P],
     #                       values, scales, out, out dtype, N, D, stream
     "sfp_flash_attention_fwd": (

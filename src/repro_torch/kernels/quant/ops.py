@@ -18,12 +18,17 @@ def quantize_int8(x: torch.Tensor, u):
     x: (N, D) float; u: uniform noise in [0,1) broadcastable to (N, D)
     (pass 0.5 for deterministic round-to-nearest).
     Returns (values (N, D) int8, scales (N, 1) f32).
+
+    On the card a Python number or a 0-dim host tensor `u` reaches the
+    kernel by value: no tensor is made and nothing is copied to the card.
     """
     if not on_cuda(x):
         return ref.quantize(x, u)
     if x.stride(-1) != 1:
         # e.g. a gradient that autograd hands over as a broadcast view
         x = x.contiguous()
+    if not isinstance(u, torch.Tensor) or (u.dim() == 0 and not u.is_cuda):
+        return quantize_fwd(x, float(u))
     u = torch.as_tensor(u, dtype=torch.float32, device=x.device)
     return quantize_fwd(x, u.expand(x.shape))
 

@@ -38,9 +38,9 @@ class Boundary:
                noise=None):
         if not self.codec.stochastic or (generator is None and noise is None):
             # round-to-nearest: deterministic — the eval/serving mode. The
-            # noise stays a 0-dim scalar all the way into the kernel.
-            half = torch.full((), 0.5, dtype=torch.float32, device=device)
-            return half, half
+            # noise is the Python float 0.5 all the way into the kernel,
+            # which takes it by value: no tensor, no fill launch.
+            return 0.5, 0.5
         if noise is not None:
             return noise
         return (torch.rand(shape, generator=generator, device=device),

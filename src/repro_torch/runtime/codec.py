@@ -118,8 +118,9 @@ class Int8Codec(WireCodec):
     Payload = int8 values (1 B/elem) + one fp32 scale per row of the last
     axis. The quantize/dequantize pair runs as the CUDA kernels of
     kernels/quant/ on a CUDA tensor and as their plain version on the CPU.
-    A scalar `u` stays a scalar: it reaches the kernel as a stride-0
-    broadcast, never as an (N, D) tensor.
+    A Python-number `u` (the round-to-nearest 0.5) reaches the kernel by
+    value; a tensor `u` through its strides, so a broadcast scalar is
+    never an (N, D) tensor.
     """
 
     name = "int8"
@@ -128,9 +129,10 @@ class Int8Codec(WireCodec):
     def encode(self, x, u):
         D = x.shape[-1]
         x2 = x.reshape(-1, D)
-        u = torch.as_tensor(u, dtype=torch.float32, device=x.device)
-        u2 = u.expand(x.shape).reshape(-1, D)
-        values, scales = quantize_int8(x2, u2)
+        if isinstance(u, torch.Tensor):
+            u = torch.as_tensor(u, dtype=torch.float32, device=x.device)
+            u = u.expand(x.shape).reshape(-1, D)
+        values, scales = quantize_int8(x2, u)
         return values.reshape(x.shape), scales.reshape(x.shape[:-1] + (1,))
 
     def decode(self, payload, dtype):

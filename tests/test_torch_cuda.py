@@ -61,6 +61,157 @@ def test_quant_kernels_bit_equal_on_gradient_layouts(gen, layout):
         assert torch.equal(dequantize_int8(v, s), ref.dequantize(v, s))
 
 
+QUANT_D = (100, 768, 2560, 5120, 5124, 18432)
+QUANT_N = (1, 8, 16, 132, 3408)
+QUANT_DTYPES = ("float32", "bfloat16", "float16")
+
+
+def _quant_plans(D):
+    """None (the plan `quantize_plan` picks), then every layout that holds
+    rows of D values: the warp up to 1024, the block up to 8192, and
+    clusters of 2, 3, 4 and 8 blocks from ceil(D / 8192) on."""
+    plans = [None]
+    if D <= 1024:
+        plans.append(("warp", 1, 256))
+    if D <= 8192:
+        plans.append(("block", 1, 256))
+    plans += [("cluster", C, 256) for C in (2, 3, 4, 8)
+              if C * 8192 >= D]
+    return plans
+
+
+def _quant_us(gen, N, D):
+    """u as a float (0.5 and another), as a (0, 0)-strided tensor, and
+    dense."""
+    return (0.5, float(torch.rand((), generator=gen, device="cuda")),
+            torch.rand((), generator=gen, device="cuda").expand(N, D),
+            torch.rand((N, D), generator=gen, device="cuda"))
+
+
+def _quant_check(x, us, plans, dtype):
+    """Every (u, plan) against plain: payload and scales, then the payload
+    dequantized to f32 and to x's dtype."""
+    from repro_torch.kernels.quant import ref
+    from repro_torch.kernels.quant.kernel import dequantize_fwd, quantize_fwd
+    for u in us:
+        rv, rs = ref.quantize(x, u)
+        for plan in plans:
+            v, s = quantize_fwd(x, u, plan)
+            assert torch.equal(v, rv), (plan, int((v != rv).sum()))
+            assert torch.equal(s, rs), (plan, int((s != rs).sum()))
+    for dt in {torch.float32, dtype}:
+        assert torch.equal(dequantize_fwd(rv, rs, dt),
+                           ref.dequantize(rv, rs, dt))
+
+
+@pytest.mark.parametrize("D", QUANT_D)
+@pytest.mark.parametrize("dtype", QUANT_DTYPES)
+def test_quant_kernel_every_layout_bit_equal(gen, D, dtype):
+    """Every layout (warp, block, clusters) that holds the row, at N 1 to
+    3408 and u as a float, a (0, 0) tensor and dense, bit-equal to plain at
+    f32, bf16 and f16. D 5124 is a multiple of 4 but not of 8 (16-byte
+    loads at f32, one value a load at 16 bits), D 100 neither of 8 nor of
+    16 (the dequantize tails), 18432 nemotron-4-340b's width (a cluster of
+    3 or more)."""
+    dtype = getattr(torch, dtype)
+    for N in QUANT_N:
+        x = _bf16((N, D), gen, scale=3.0, dtype=dtype)
+        x[0, :7] = 0.0
+        if N > 1:
+            x[1] = 0.0                     # an all-zero row: scale 1e-8
+        _quant_check(x, _quant_us(gen, N, D), _quant_plans(D), dtype)
+
+
+@pytest.mark.parametrize("layout", ["offset", "row stride 0", "odd stride",
+                                    "u offset", "u rows broadcast",
+                                    "u strided"])
+@pytest.mark.parametrize("dtype", QUANT_DTYPES)
+def test_quant_kernel_unaligned_and_strided_bit_equal(gen, layout, dtype):
+    """The scalar path and the strided reads: x one element off 16 bytes,
+    x with row stride 0 (the backward's broadcast gradient: 16-byte loads
+    still), x rows one element longer than a 16-byte multiple, a dense u
+    one element off, u broadcast over rows (strides (0, 1)) and u
+    transposed (strides (1, N)); payloads from values one byte off 16
+    dequantize the same."""
+    from repro_torch.kernels.quant import ref
+    from repro_torch.kernels.quant.kernel import dequantize_fwd
+    dtype = getattr(torch, dtype)
+    for N, D in ((8, 5120), (132, 768), (16, 18432), (3, 100)):
+        x = _bf16((N, D), gen, scale=3.0, dtype=dtype)
+        us = _quant_us(gen, N, D)
+        if layout == "offset":
+            x = _bf16((N, D), gen, offset=1, scale=3.0, dtype=dtype)
+        elif layout == "row stride 0":
+            x = _bf16((1, D), gen, scale=3.0, dtype=dtype).expand(N, D)
+        elif layout == "odd stride":
+            x = _bf16((N, D + 1), gen, scale=3.0, dtype=dtype)[:, :D]
+        elif layout == "u offset":
+            us = (torch.rand(N * D + 1, generator=gen, device="cuda")[1:]
+                  .view(N, D),)
+        elif layout == "u rows broadcast":
+            us = (torch.rand((1, D), generator=gen, device="cuda")
+                  .expand(N, D),)
+        else:
+            us = (torch.rand((D, N), generator=gen, device="cuda").t(),)
+        _quant_check(x, us, _quant_plans(D), dtype)
+        v, s = ref.quantize(x, 0.5)
+        v1 = torch.empty(N * D + 1, dtype=torch.int8,
+                         device="cuda")[1:].view(N, D)
+        v1.copy_(v)
+        assert torch.equal(dequantize_fwd(v1, s, dtype),
+                           ref.dequantize(v, s, dtype))
+
+
+def test_dequant_kernel_row_loop_past_65535_rows(gen):
+    """More rows than a grid's y dimension holds: the row loop."""
+    from repro_torch.kernels.quant import ref
+    from repro_torch.kernels.quant.kernel import dequantize_fwd, quantize_fwd
+    for N, D in ((70001, 20), (600000, 16)):
+        x = torch.randn((N, D), generator=gen, device="cuda")
+        v, s = quantize_fwd(x, 0.5)
+        assert torch.equal(v, ref.quantize(x, 0.5)[0])
+        for dt in (torch.float32, torch.bfloat16):
+            assert torch.equal(dequantize_fwd(v, s, dt),
+                               ref.dequantize(v, s, dt))
+
+
+def test_quant_wrapper_refuses_rows_past_65536_and_bad_plans(gen):
+    from repro_torch.kernels.quant.kernel import quantize_fwd
+    with pytest.raises(ValueError, match="65536"):
+        quantize_fwd(torch.zeros((1, 65537), device="cuda"), 0.5)
+    x = torch.zeros((2, 2048), device="cuda")
+    with pytest.raises(ValueError, match="1024"):
+        quantize_fwd(x, 0.5, ("warp", 1, 256))
+    with pytest.raises(ValueError):
+        quantize_fwd(x, 0.5, ("cluster", 16, 256))
+    with pytest.raises(ValueError, match="u must be"):
+        quantize_fwd(x, torch.full((2, 2048), 0.5, dtype=torch.float64,
+                                   device="cuda"))
+
+
+def test_round_to_nearest_crossing_launches_only_the_pair(gen):
+    """A round-to-nearest crossing of the int8 wire on the card runs the
+    quantize and the dequantize kernel and nothing else: the noise 0.5
+    goes to the kernel by value, so no fill kernel makes a tensor of it."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.boundary import Boundary
+    from repro_torch.runtime.codec import get_codec
+    b = Boundary("head_body", get_codec("int8"))
+    x = torch.randn((8, 1, 5120), generator=gen, device="cuda")
+    b.transmit(x, train=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        b.transmit(x, train=False)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type.name == "CUDA"
+             and not e.name.startswith("aten::")]
+    assert len(names) == 2, names
+    assert any("quantize_kernel" in n and "dequantize" not in n
+               for n in names), names
+    assert any("dequantize_kernel" in n for n in names), names
+
+
 @pytest.mark.parametrize("case", [
     # (B, Sq, Hq, Hkv, Dh, causal, window, softcap, kv_len, offset)
     (2, 5, 4, 4, 32, True, None, None, None, 0),
