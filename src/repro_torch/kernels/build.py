@@ -81,7 +81,11 @@ SIGNATURES = {
     "sfp_el2n_fwd": (
         [_P, _I, _L, _P, _P, _P]              # logits, dtype, row stride,
         #                                       labels, el2n, ce
-        + [_I, _I, _P]),                      # N, V, stream
+        + [_I] * 4                            # N, V, layout, threads a
+        #                                       block (the plan of
+        #                                       kernels/el2n/kernel.py::
+        #                                       el2n_plan)
+        + [_P]),                              # stream
     "sfp_masked_encode": (
         [_P, _I, _P, _P, _I, _F, _P, _L, _P]),  # x (or null), x dtype,
     #                                           seeds, signs, J, scale, out,

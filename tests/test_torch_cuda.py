@@ -595,6 +595,96 @@ def test_el2n_kernel_near_certain_rows(gen):
     assert torch.isnan(bad[0][1:3]).all() and torch.isfinite(bad[0][0])
 
 
+# Each layout of the EL2N kernel forced through `plan=` at its boundaries
+# (plan, N, V): the warp at V 100, at its limit of 1024 and with 64-thread
+# blocks; a block of 512 and of 256 one past the warp's limit, at it, at
+# an LM vocabulary and past 65536, and a block whose threads mostly get no
+# column. Row forms (pad, offset): dense rows, rows padded to a multiple of
+# 8 values (every row 16-byte aligned, V not a multiple of a load), a
+# stride of V + 3 (row 0 aligned), and that stride one value in.
+EL2N_PLAN_CASES = [
+    (("warp", 256), 16, 100), (("warp", 256), 9, 1024),
+    (("warp", 64), 5, 1000), (("block", 512), 9, 1025),
+    (("block", 256), 7, 1024), (("block", 512), 2, 152064),
+    (("block", 256), 3, 1025), (("block", 256), 5, 65537),
+    (("block", 512), 2, 152064 + 5), (("block", 64), 4, 13),
+    (("block", 512), 4, 13)]
+EL2N_ROW_FORMS = {"dense": (0, 0), "pad8": (None, 0), "stride+3": (3, 0),
+                  "offset": (3, 1)}
+
+
+@pytest.mark.parametrize("form", list(EL2N_ROW_FORMS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("plan,N,V", EL2N_PLAN_CASES)
+def test_el2n_kernel_every_layout(gen, plan, N, V, dtype, form):
+    """Within 1e-5 (1 + |plain|) of the one-pass plain form in the layout
+    forced and in the one `el2n_plan` picks, labels at columns 0 and
+    V - 1."""
+    from repro_torch.kernels.el2n import ref
+    from repro_torch.kernels.el2n.kernel import el2n_fwd
+    pad, off = EL2N_ROW_FORMS[form]
+    pad = (-V) % 8 + 8 if pad is None else pad
+    base = _bf16((N, V + pad), gen, scale=3.0, dtype=getattr(torch, dtype))
+    logits = base[:, off:off + V]
+    labels = torch.randint(0, V, (N,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    labels[0], labels[-1] = 0, V - 1
+    we, wc = ref.fused_scores(logits, labels)
+    for p in (plan, None):
+        n = el2n_fwd.launches
+        e, c = el2n_fwd(logits, labels, p)
+        torch.cuda.synchronize()
+        assert el2n_fwd.launches == n + 1
+        assert e.dtype == c.dtype == torch.float32
+        torch.testing.assert_close(e, we, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(c, wc, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("plan,V", [(("warp", 256), 50),
+                                    (("block", 512), 1100),
+                                    (("block", 256), 50)])
+def test_el2n_kernel_every_layout_near_certain_and_bad_labels(gen, plan, V):
+    """Near-certain rows stay >= 0 and within 1e-5 of the one-pass form in
+    every layout; -inf logits add nothing; a row of -inf alone gives NaN in
+    both outputs, as the plain form; a label outside [0, V) gives NaN in
+    its row alone."""
+    from repro_torch.kernels.el2n import ref
+    from repro_torch.kernels.el2n.kernel import el2n_fwd
+    logits = torch.zeros((4, V), device="cuda")
+    labels = torch.tensor([0, 7, V - 1, 20], dtype=torch.int32,
+                          device="cuda")
+    logits[torch.arange(4), labels.long()] = torch.tensor(
+        [30.0, 40.0, 25.0, 60.0], device="cuda")
+    logits[3, 30:40] = -torch.inf
+    e, c = el2n_fwd(logits, labels, plan)
+    we, wc = ref.fused_scores(logits, labels)
+    assert (e >= 0).all() and torch.isfinite(c).all()
+    torch.testing.assert_close(e, we, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(c, wc, atol=1e-5, rtol=1e-5)
+    bad = torch.tensor([0, V, -1, 3], dtype=torch.int32, device="cuda")
+    e, c = el2n_fwd(logits, bad, plan)
+    assert torch.isnan(e[1:3]).all() and torch.isnan(c[1:3]).all()
+    assert torch.isfinite(e[[0, 3]]).all() and torch.isfinite(c[[0, 3]]).all()
+    logits[1] = -torch.inf
+    e, c = el2n_fwd(logits, labels, plan)
+    we, wc = ref.fused_scores(logits, labels)
+    assert torch.isnan(we[1]) and torch.isnan(wc[1])
+    assert torch.isnan(e[1]) and torch.isnan(c[1])
+    keep = [0, 2, 3]
+    torch.testing.assert_close(e[keep], we[keep], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(c[keep], wc[keep], atol=1e-5, rtol=1e-5)
+
+
+def test_el2n_wrapper_refuses_bad_plans(gen):
+    from repro_torch.kernels.el2n.kernel import el2n_fwd
+    logits = torch.randn((4, 1100), generator=gen, device="cuda")
+    labels = torch.zeros(4, dtype=torch.int32, device="cuda")
+    for plan in (("warp", 256), ("cluster", 512), ("block", 48),
+                 ("block", 1024)):
+        with pytest.raises(ValueError):
+            el2n_fwd(logits, labels, plan)
+
+
 def test_wrappers_refuse_inputs_that_require_grad(gen):
     """A kernel has no backward: with grad mode on, an input that requires
     grad raises instead of returning an output with no grad_fn. Under
