@@ -158,6 +158,22 @@ Phases, each of which fails the run with a nonzero exit:
      layernorm, d_ff 13824, vocab 100352) cut to 6 layers through the
      paged engine with phase 6's pool, prefix and chunks, checked as phase
      6, then a profiled replay;
+ 16. the FL and SFL baselines and the heterogeneous-cut trainer (run right
+     after phase 9): at the reduced ViT, one round each of FL, SFL+FF and
+     SFL+Linear (K = 2) and a two-group hetero round (cuts 1/1 and 2/2,
+     numpy-seeded wire noise) on the card and on the CPU from the same
+     seeded weights and data, int8 wire — params within 1e-4, the hetero
+     round's metered bytes equal, and the body and head changed or kept as
+     each mode says; at full width, `repro_torch.launch.train.main` runs
+     ViT-Base (head 1 / body 10 / tail 1, 224x224, int8 wire) with
+     `--method fl`, `sfl-ff` and `sfl-linear`, one round each, K = 2, U =
+     1, 64 samples a client, then a hetero round of two ViT-Base cuts (1/1
+     and 2/2, K = 2 a group, gamma 0.5) and its `evaluate`; every metric
+     finite, the hetero boundary bytes within 0.1% of
+     `sfprompt_comm_breakdown` summed over the groups (params bytes
+     equal), and every kernel of each path launched (counts zeroed just
+     before each run); the phase's seconds and each path's launches are
+     printed;
  then the `kernels` JSON line (each kernel once, with the dtypes, head
  dims and groups it was held at, its bf16 numbers and its wide-shape
  numbers), then the seconds each phase took and the total, then the device
@@ -271,6 +287,13 @@ PATHS = {
                "decode_attention"),
     "stablelm": ("quantize_int8", "dequantize_int8",
                  "flash_attention_prefill", "paged_decode_attention"),
+    # phase 16: the baselines' gradient passes run attention plain, so only
+    # the int8 wire launches; the hetero round is SFPrompt's per group
+    "fl": ("quantize_int8", "dequantize_int8"),
+    "sfl_ff": ("quantize_int8", "dequantize_int8"),
+    "sfl_linear": ("quantize_int8", "dequantize_int8"),
+    "hetero": ("quantize_int8", "dequantize_int8", "flash_attention_prefill",
+               "el2n"),
 }
 # the wide attention shapes of phase 3: (label, Hq, Hkv, Dh)
 WIDE_SHAPES = (("gemma2-9b", 16, 8, 256), ("stablelm-12b", 32, 8, 160),
@@ -3912,6 +3935,243 @@ def full_width_private(torch, kernel_ms):
     return launches, summary
 
 
+# --------------------------------------------------------------- phase 16
+def _changed(torch, new, old):
+    """Whether any leaf of `new` differs from the same leaf of `old`."""
+    from repro_torch.tree import tree_leaves
+    return any(not torch.equal(a.cpu(), b.cpu())
+               for a, b in zip(tree_leaves(new), tree_leaves(old)))
+
+
+# init seed of phase 16's card-vs-CPU baseline rounds: the int8 wire is
+# equal on both devices only while their fp32 differences push no value
+# across a rounding boundary (ROADMAP Queue 3); seeds 3, 5, 6 and 7 flip
+# none in the three rounds, seeds 1, 2 and 4 flip one in FL (params 1.7e-4
+# to 2.0e-4 apart) and seed 0 one in SFL+Linear (8.2e-5), on the H100
+BASELINE_SEED = 3
+
+
+def baseline_parity(torch):
+    """One round each of FL, SFL+FF and SFL+Linear and a two-group hetero
+    round of the reduced ViT on the card and on the CPU from the same
+    weights and data, int8 wire."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (BaselineConfig, FLTrainer, ProtocolConfig,
+                                  SFLTrainer, SplitConfig, SplitModel)
+    from repro_torch.data import (DATASETS, iid_partition, select_clients,
+                                  stack_clients, synthetic_image_dataset)
+    from repro_torch.runtime import WireSpec
+    from repro_torch.runtime.hetero import ClientPlan, HeteroSFPromptTrainer
+    from repro_torch.tree import tree_leaves, tree_map
+    report = {}
+    cfg = get_config("vit-base").reduced(n_layers=3, d_model=64, d_ff=128)
+    split = SplitConfig(head_cycles=1, tail_cycles=1, prompt_len=4,
+                        prune_gamma=0.5, local_epochs=1)
+    model = SplitModel(cfg, split, WireSpec.make("int8"))
+    bcfg = BaselineConfig(local_epochs=1, batch_size=8, lr=0.05)
+    d = synthetic_image_dataset(DATASETS["cifar10-syn"], 8 * 24, seed=0,
+                                image_hw=32)
+    cohort = stack_clients(iid_partition(d, 8, seed=0),
+                           select_clients(8, 2, seed=0, round_idx=0))
+    # which segments each method trains: (head, body)
+    trains = {"fl": (True, True), "sfl-ff": (True, True),
+              "sfl-linear": (False, False)}
+    for method, (head, body) in trains.items():
+        params = model.init(torch.Generator().manual_seed(BASELINE_SEED),
+                            device="cpu")
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            tr = (FLTrainer(model, bcfg, device=dev) if method == "fl" else
+                  SFLTrainer(model, bcfg, mode=method.split("-")[1],
+                             device=dev))
+            runs[dev] = tr.round({"params": tree_map(lambda x: x.to(dev),
+                                                     params), "round": 0},
+                                 cohort)
+        (pc, mc), (pg, mg) = ((runs[d][0]["params"], runs[d][1])
+                              for d in ("cpu", "cuda"))
+        diff = max(float((a.cpu() - b).abs().max())
+                   for a, b in zip(tree_leaves(pg), tree_leaves(pc)))
+        loss_diff = abs(mg["train_loss"] - mc["train_loss"])
+        if max(diff, loss_diff) > PARITY_TOL:
+            fail(f"baseline parity ({method}): params differ by {diff:.3g}, "
+                 f"train_loss by {loss_diff:.3g} > {PARITY_TOL}")
+        got = (_changed(torch, pg["head"], params["head"]),
+               _changed(torch, pg["body"], params["body"]))
+        if got != (head, body) or _changed(torch, pg["prompt"],
+                                           params["prompt"]) \
+                or not _changed(torch, pg["tail"]["head"],
+                                params["tail"]["head"]):
+            fail(f"baseline parity ({method}): head/body changed {got}, "
+                 f"want {(head, body)}; the prompt must stay and the task "
+                 f"head change")
+        report[method] = dict(param_max_diff=diff, loss_diff=loss_diff,
+                              train_loss=mg["train_loss"])
+        say(f"baseline parity ({cfg.name}, K=2, int8 wire, {method}): max "
+            f"param diff {diff:.3g}, train_loss diff {loss_diff:.3g} (<= "
+            f"{PARITY_TOL}), head/body changed {got}")
+
+    hcfg = get_config("vit-base").reduced(n_layers=5, d_model=64, d_ff=128)
+    plans = [ClientPlan(SplitConfig(head_cycles=c, tail_cycles=c,
+                                    prompt_len=4, prune_gamma=0.5,
+                                    local_epochs=1), 2, name)
+             for c, name in ((1, "phone"), (2, "ws"))]
+    pcfg = ProtocolConfig(clients_per_round=2, local_epochs=1, batch_size=8,
+                          lr_local=0.05, lr_split=0.05)
+    groups = []
+    for g in range(2):
+        part = {k: v[g * 96:(g + 1) * 96] for k, v in d.items()}
+        groups.append(stack_clients(iid_partition(part, 2, seed=g), [0, 1]))
+    runs = {}
+    states0 = HeteroSFPromptTrainer(hcfg, plans, pcfg, WireSpec.make("int8"),
+                                    device="cpu").init(
+        torch.Generator().manual_seed(0))
+    for dev in ("cpu", "cuda"):
+        ht = HeteroSFPromptTrainer(hcfg, plans, pcfg, WireSpec.make("int8"),
+                                   device=dev)
+        states = [{"params": tree_map(lambda x: x.to(dev), s["params"]),
+                   "round": 0} for s in states0]
+        new, m = ht.round(states, groups,
+                          wire_noise=numpy_wire_noise(torch, dev))
+        runs[dev] = (new, m, ht.meter.as_dict())
+    (nc, mc, bc), (ng, mg, bg) = runs["cpu"], runs["cuda"]
+    if bg != bc:
+        fail(f"hetero parity: metered bytes {bg} on the card vs {bc}")
+    diff = max(float((a.cpu() - b).abs().max()) for sg, sc in zip(ng, nc)
+               for a, b in zip(tree_leaves(sg["params"]),
+                               tree_leaves(sc["params"])))
+    if diff > PARITY_TOL:
+        fail(f"hetero parity: params differ by {diff:.3g} > {PARITY_TOL}")
+    if not torch.equal(ng[0]["params"]["prompt"], ng[1]["params"]["prompt"]):
+        fail("hetero parity: the groups' prompts differ after the round")
+    report["hetero"] = dict(param_max_diff=diff, meter=bg)
+    say(f"hetero parity ({hcfg.name}, cuts 1/1 and 2/2, K=2 a group, int8 "
+        f"wire, numpy-seeded noise): metered bytes ==, max param diff "
+        f"{diff:.3g} (<= {PARITY_TOL})")
+    return report
+
+
+BASELINE_ARGV = [
+    "--arch", "vit-base", "--dataset", "cifar100-syn", "--samples", "128",
+    "--clients", "2", "--k", "2", "--rounds", "1", "--local-epochs", "1",
+    "--batch-size", "16", "--image-hw", "224", "--wire", "int8", "--seed",
+    "0", "--device", "cuda"]
+
+
+def full_width_baselines(torch):
+    """FL, SFL+FF and SFL+Linear at full width through the launcher, one
+    round each (K = 2, U = 1, 64 samples a client), then a hetero round of
+    two ViT-Base cuts and its `evaluate`. Returns the launches by path and
+    the summary."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import ProtocolConfig, SplitConfig
+    from repro_torch.core.comm import (measured_cost_inputs,
+                                       sfprompt_comm_breakdown)
+    from repro_torch.data import (DATASETS, iid_partition, stack_clients,
+                                  synthetic_image_dataset)
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch import train
+    from repro_torch.runtime import WireSpec
+    from repro_torch.runtime.hetero import ClientPlan, HeteroSFPromptTrainer
+    by_path, summary = {}, {"argv": BASELINE_ARGV}
+    for method in ("fl", "sfl-ff", "sfl-linear"):
+        out = OUT / "baselines" / method
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        train.main(BASELINE_ARGV + ["--method", method, "--out", str(out)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        with open(out / f"vit-base_{method}_cifar100-syn.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        for p in out.rglob("*.npz"):    # too large to bring back
+            p.unlink()
+        path = method.replace("-", "_")
+        if len(recs) != 1 or not np.isfinite(recs[0]["train_loss"]):
+            fail(f"{method} full width: records {recs}")
+        missing = [k for k in PATHS[path] if launches[k] <= 0]
+        if missing:
+            fail(f"{method} full width: kernels never launched: {missing}")
+        by_path[path] = launches
+        summary[path] = {"main_s": wall, "round_wall_s": recs[0]["wall_s"],
+                         "train_loss": recs[0]["train_loss"],
+                         "launches": {k: v for k, v in launches.items()
+                                      if v}}
+        say(f"{method} full width (ViT-Base, 224x224, K 2, U 1, 64 samples "
+            f"a client, int8 wire): train_loss {recs[0]['train_loss']:.6f}, "
+            f"round {recs[0]['wall_s']} s (the launcher's record), main "
+            f"{wall:.2f} s with set-up, launches {summary[path]['launches']}")
+
+    cfg = get_config("vit-base")
+    n_local, K, bs = 64, 2, 16
+    plans = [ClientPlan(SplitConfig(head_cycles=c, tail_cycles=c,
+                                    prompt_len=16, prune_gamma=0.5,
+                                    local_epochs=1), K, name)
+             for c, name in ((1, "1/1"), (2, "2/2"))]
+    pcfg = ProtocolConfig(clients_per_round=K, local_epochs=1,
+                          batch_size=bs, lr_local=0.03, lr_split=0.03)
+    d = synthetic_image_dataset(DATASETS["cifar100-syn"],
+                                2 * K * n_local + 128, seed=0, image_hw=224)
+    groups = []
+    for g in range(2):
+        part = {k: v[g * K * n_local:(g + 1) * K * n_local]
+                for k, v in d.items()}
+        groups.append(stack_clients(iid_partition(part, K, seed=g),
+                                    list(range(K))))
+    test = {k: v[2 * K * n_local:] for k, v in d.items()}
+    ht = HeteroSFPromptTrainer(cfg, plans, pcfg, WireSpec.make("int8"),
+                               device="cuda")
+    states = ht.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    states, m = ht.round(states, groups)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    ev = ht.evaluate(states, test, batch_size=32)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0 - round_s
+    launches = launch_counts()
+    bad = [k for k, v in m.items() if not np.isfinite(v)] + \
+        [k for k in ("ce", "acc") if not np.isfinite(ev[k])]
+    if bad:
+        fail(f"hetero full width: non-finite metrics {bad}")
+    analytical = {"head_body": 0.0, "body_tail": 0.0, "params": 0.0}
+    for tr in ht.trainers:
+        ci = measured_cost_inputs(tr.model,
+                                  tokens_per_sample=(224 // 16) ** 2 + 1,
+                                  n_local=n_local, batch_size=bs, K=K)
+        for k, v in sfprompt_comm_breakdown(ci).items():
+            analytical[k] += v
+    metered = ht.meter.as_dict()
+    wire_err = {}
+    for name, want in analytical.items():
+        got = metered[name]
+        wire_err[name] = abs(got - want) / want
+        ok = (got == want if name == "params"
+              else wire_err[name] <= TRAIN_WIRE_TOL)
+        if not ok:
+            fail(f"hetero full width: {name} metered {got} B vs analytical "
+                 f"{want} B")
+    missing = [k for k in PATHS["hetero"] if launches[k] <= 0]
+    if missing:
+        fail(f"hetero full width: kernels never launched: {missing}")
+    by_path["hetero"] = launches
+    summary["hetero"] = {
+        "config": "ViT-Base, cuts 1/1 (body 10) and 2/2 (body 8), prompt "
+                  "16, 224x224, K 2 a group, 64 samples a client, U 1, "
+                  "gamma 0.5, batch 16, int8 wire",
+        "round_s": round_s, "eval_s": eval_s, "metrics": m, "eval": {
+            k: ev[k] for k in ("ce", "acc")},
+        "metered_bytes": metered, "analytical_bytes": analytical,
+        "wire_rel_err": wire_err,
+        "launches": {k: v for k, v in launches.items() if v}}
+    say("hetero full width: " + json.dumps(summary["hetero"],
+                                           sort_keys=True))
+    return by_path, summary
+
+
 # -------------------------------------------------------------------- main
 def main() -> None:
     try:
@@ -4008,6 +4268,18 @@ def main() -> None:
         torch, results["secure_masked_encode"]["ms"])
     summaries["recurrent_parity"] = recurrent
     lap("9")
+
+    # 16. the FL and SFL baselines and the heterogeneous-cut trainer: card
+    # against CPU at the reduced ViT, then at full width
+    t16 = time.perf_counter()
+    summaries["baseline_parity"] = baseline_parity(torch)
+    paths16, summaries["baselines"] = full_width_baselines(torch)
+    by_path.update(paths16)
+    torch.cuda.empty_cache()
+    say(f"phase 16: {time.perf_counter() - t16:.1f} s; launches "
+        + json.dumps({p: {k: v for k, v in c.items() if v}
+                      for p, c in paths16.items()}, sort_keys=True))
+    lap("16")
 
     # 10-11. the recurrent families at full width through the dense engine;
     # 14. gemma2-9b through the dense engine; 15. stablelm-12b through the

@@ -21,10 +21,10 @@ Conventions, as in the JAX package:
 `SplitModel` runs (segment sizes from its init, the codec's real bytes per
 float), so `sfprompt_comm_breakdown` is the exact counterpart of the
 trainer's TrafficMeter. `serve_comm_breakdown` is the serving slice's,
-`secure_agg_breakdown` the masked secure aggregation's, and
-`sfprompt_compute` the client compute the round scheduler's cost model
-needs. The other compute and latency models and the edge breakdowns wait
-for slices C and E.
+`secure_agg_breakdown` the masked secure aggregation's. The client
+compute and latency models of FL, SFL and SFPrompt and `summarize` (the
+paper's Table-1 comparison) keep the JAX package's order of operations, so
+their floats are equal bit for bit. The edge breakdowns wait for slice E.
 """
 from __future__ import annotations
 
@@ -192,6 +192,59 @@ def sfprompt_compute(c: CostInputs) -> float:
     local = 6 * (1 - c.tau) * c.D * c.W * c.U
     split = 6 * (1 - c.tau) * c.gamma_keep * c.D * c.W * c.E
     return local + split
+
+
+def fl_compute(c: CostInputs) -> float:
+    """FLOPs per client per round (6 * params * tokens convention folded
+    into |D||W| as in the paper: one epoch touches |D||W| work units)."""
+    return 6 * c.D * c.W * c.U
+
+
+def sfl_compute(c: CostInputs) -> float:
+    return 6 * (1 - c.tau) * c.D * c.W * c.U
+
+
+def sfprompt_compute_paper(c: CostInputs) -> float:
+    """The paper's Table-1 entry (1-tau)*gamma*|D||W| — phase-2 only."""
+    return 6 * (1 - c.tau) * c.gamma_keep * c.D * c.W * c.E
+
+
+# --------------------------------------------------------- latency
+def fl_latency(c: CostInputs) -> float:
+    comm = fl_comm(c) / c.R
+    comp = fl_compute(c) / c.P_C
+    return comm + comp
+
+
+def sfl_latency(c: CostInputs) -> float:
+    comm = sfl_comm(c) / c.R
+    client = 6 * (1 - c.tau) * c.D * c.W * c.U / c.P_C
+    server = 6 * c.tau * c.D * c.W * c.U * c.K / c.P_S
+    return comm + client + server
+
+
+def sfprompt_latency(c: CostInputs) -> float:
+    comm = sfprompt_comm(c) / c.R
+    # phase 1 (client only, parallel across clients)
+    phase1 = 6 * (1 - c.tau) * c.D * c.W * c.U / c.P_C
+    # phase 2: client head fwd + tail, server body — pipelined; take max
+    client2 = 6 * (1 - c.tau) * c.gamma_keep * c.D * c.W * c.E / c.P_C
+    server2 = 6 * c.tau * c.gamma_keep * c.D * c.W * c.E * c.K / c.P_S
+    return comm + phase1 + max(client2, server2)
+
+
+def summarize(c: CostInputs) -> Dict[str, Dict[str, float]]:
+    """The Table-1 comparison: per-round bytes, client FLOPs and latency of
+    FL, SFL and SFPrompt."""
+    return {
+        "FL": {"comm_bytes": fl_comm(c), "client_flops": fl_compute(c),
+               "latency_s": fl_latency(c)},
+        "SFL": {"comm_bytes": sfl_comm(c), "client_flops": sfl_compute(c),
+                "latency_s": sfl_latency(c)},
+        "SFPrompt": {"comm_bytes": sfprompt_comm(c),
+                     "client_flops": sfprompt_compute_paper(c),
+                     "latency_s": sfprompt_latency(c)},
+    }
 
 
 # --------------------------------------------------------- model binding

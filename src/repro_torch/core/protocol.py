@@ -121,28 +121,24 @@ def _fma32(a, b, c) -> np.float32:
     return np.float32(x)
 
 
-def _seq_sum32(values) -> np.float32:
-    """values summed in order from 0.0, each add rounded to float32."""
-    acc = np.float32(0.0)
-    for v in values:
-        acc = np.float32(acc + v)
-    return acc
-
-
-def _tree_sum32(values) -> np.float32:
-    """XLA's CPU tree reduction of a float32 vector: above 32 elements it
-    is padded to n = 32 * ceil(len / 32), (n - len) // 2 zeros in front and
-    the rest behind, each window of 32 is summed in order, and the window
-    partials are reduced the same way."""
+def xla_sum(values, zero):
+    """`values` summed as XLA's CPU reduction over their leading axis sums
+    them, starting from `zero` (a float32 zero of their type: a numpy
+    scalar or a tensor): in order up to 32 values; above, padded to n = 32
+    * ceil(len / 32) with (n - len) // 2 zeros in front and the rest
+    behind, each window of 32 summed in order and the window partials
+    reduced the same way (its tree reduction)."""
     n = len(values)
     if n <= 32:
-        return _seq_sum32(values)
+        acc = zero
+        for v in values:
+            acc = acc + v
+        return acc
     m = 32 * -(-n // 32)
     lo = (m - n) // 2
-    zero = np.float32(0.0)
     padded = [zero] * lo + list(values) + [zero] * (m - n - lo)
-    return _tree_sum32([_seq_sum32(padded[i:i + 32])
-                        for i in range(0, m, 32)])
+    return xla_sum([xla_sum(padded[i:i + 32], zero)
+                    for i in range(0, m, 32)], zero)
 
 
 def cohort_sum(per_client, scale) -> np.float32:
@@ -156,7 +152,7 @@ def cohort_sum(per_client, scale) -> np.float32:
     rounded to float32 on its own, then a `reduce-window` with
     `window={size=32 stride=32 pad=lo_hi}` (lo = (n - K) // 2 zeros in
     front, n = 32 * ceil(K / 32)) and a `reduce` of the window partials:
-    `_tree_sum32`. In the round the per-client bytes are a constant
+    `xla_sum`. In the round the per-client bytes are a constant
     broadcast and the multiply is a fusion of its own, as in a standalone
     jit of `(a * b).sum()`, so the standalone form holds there."""
     if len(per_client) <= 32:
@@ -164,8 +160,8 @@ def cohort_sum(per_client, scale) -> np.float32:
         for a, b in zip(per_client, scale):
             acc = _fma32(a, b, acc)
         return acc
-    return _tree_sum32([np.float32(np.float32(a) * np.float32(b))
-                        for a, b in zip(per_client, scale)])
+    return xla_sum([np.float32(np.float32(a) * np.float32(b))
+                    for a, b in zip(per_client, scale)], np.float32(0.0))
 
 
 def dp_seed(round_idx: int, client: int) -> int:

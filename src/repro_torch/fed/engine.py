@@ -16,6 +16,10 @@ metered bytes, epsilon — is byte-identical to the uninterrupted run
 (samplers, schedulers and the trainer's noise generators are pure
 functions of (seed, round), so the round counter IS their position).
 
+A trainer without `supports_partial` (the FL and SFL baselines) trains its
+cohort synchronously: the straggler plan is ignored for it, as in the JAX
+package.
+
 The trainer fingerprint covers the trainer's hyperparameter reprs; the
 port's `ProtocolConfig` has no `impl` field, so a checkpoint written by the
 JAX package's engine fails the check here rather than resuming silently.
@@ -109,30 +113,36 @@ class FederatedEngine:
         plan = self.scheduler.plan(cohort, r)
         data = self.population.gather(cohort)
 
-        part = plan.participation()
-        # paper Eq. 3: FedAvg weighted by TRUE per-client sample counts
-        # (pre-padding Dirichlet sizes), folded into the participation
-        # weight — fedavg_partial normalizes, so only ratios matter
-        part["aggregate"] = (part["aggregate"] *
-                             self.population.cohort_sizes(cohort)
-                             .astype(np.float32))
-        init_tails = None
-        if self.personalize_tails:
-            # each sampled client resumes from its OWN last tail (global
-            # tail for the never-sampled); FedAvg still feeds the shared
-            # global tail every round
-            per_client = self.population.get_tails(
-                cohort, self.state["params"]["tail"])
-            if per_client is not None:
-                init_tails = tree_map(
-                    lambda *xs: torch.stack(
-                        [torch.as_tensor(x).to(self.trainer.device)
-                         for x in xs]), *per_client)
-        self.state, metrics = self.trainer.round(self.state, data, part,
-                                                 init_tails, **round_kw)
+        if getattr(self.trainer, "supports_partial", False):
+            part = plan.participation()
+            # paper Eq. 3: FedAvg weighted by TRUE per-client sample counts
+            # (pre-padding Dirichlet sizes), folded into the participation
+            # weight — fedavg_partial normalizes, so only ratios matter
+            part["aggregate"] = (part["aggregate"] *
+                                 self.population.cohort_sizes(cohort)
+                                 .astype(np.float32))
+            init_tails = None
+            if self.personalize_tails:
+                # each sampled client resumes from its OWN last tail
+                # (global tail for the never-sampled); FedAvg still feeds
+                # the shared global tail every round
+                per_client = self.population.get_tails(
+                    cohort, self.state["params"]["tail"])
+                if per_client is not None:
+                    init_tails = tree_map(
+                        lambda *xs: torch.stack(
+                            [torch.as_tensor(x).to(self.trainer.device)
+                             for x in xs]), *per_client)
+            self.state, metrics = self.trainer.round(
+                self.state, data, part, init_tails, **round_kw)
+        else:
+            # baselines (FL / SFL) predate partial participation: they run
+            # the cohort synchronously and ignore the straggler plan
+            self.state, metrics = self.trainer.round(self.state, data,
+                                                     **round_kw)
 
         if self.personalize_tails:
-            per_client = self.trainer.last_client_trainable
+            per_client = getattr(self.trainer, "last_client_trainable", None)
             if per_client is not None:
                 # survivors keep their own post-round tail (pre-FedAvg)
                 active_ids = cohort[plan.aggregate > 0]

@@ -7,7 +7,7 @@ Rounds run through the federated population engine: an N-client
 full round state (params, meter totals, sampler position, privacy ledger)
 every `--ckpt-every` rounds; `--resume` restarts a killed run
 byte-identically. Each round appends one JSONL record (the JAX launcher's
-keys) and is followed by `evaluate`.
+keys) and is followed by `evaluate` where the trainer has one.
 
 Privacy knobs (sfprompt methods):
   * `--secure-agg` masks uploads (Bonawitz-style, uint32 ring, through the
@@ -26,10 +26,21 @@ Runs on the GPU unless asked for the CPU (--device cpu):
   # after a crash / preemption: identical continuation
   PYTHONPATH=src python -m repro_torch.launch.train ... --resume
 
-Methods: sfprompt (default) and sfprompt-nolocal (the Fig-6 ablation
-arm). The FL/SFL baselines, the buffered async runtime, hierarchical
-aggregation, the mesh and the trace exporters belong to later slices of
-the port; their flags exit with a message naming the slice.
+Methods: sfprompt (default), sfprompt-nolocal (the Fig-6 ablation arm),
+fl, sfl-ff and sfl-linear. The baselines train their cohort synchronously
+(the straggler plan only applies to SFPrompt's partial aggregation), have
+no `evaluate` and no meter, and refuse the sfprompt-only flags as the JAX
+launcher does: `--personalize-tails`, `--dropout-rate`/`--straggle`,
+`--secure-agg`/`--dp-epsilon`, and the async, edge and mesh flags:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --method sfl-ff --reduced --layers 3 --dataset cifar10-syn \\
+      --clients 4 --k 2 --samples 64 --image-hw 32 --batch-size 8 \\
+      --local-epochs 1 --rounds 1 --out /tmp/b
+
+The buffered async runtime, hierarchical aggregation, the mesh and the
+trace exporters belong to later slices of the port; their flags exit with
+a message naming the slice.
 """
 from __future__ import annotations
 
@@ -42,7 +53,8 @@ import torch
 
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.configs import get_config
-from repro_torch.core import (ProtocolConfig, SFPromptTrainer, SplitConfig,
+from repro_torch.core import (BaselineConfig, FLTrainer, ProtocolConfig,
+                              SFLTrainer, SFPromptTrainer, SplitConfig,
                               SplitModel)
 from repro_torch.core.aggregation import get_aggregator
 from repro_torch.core.comm import (cost_inputs_from, sfprompt_comm,
@@ -80,6 +92,13 @@ def build_data(args, cfg):
 
 
 def build_trainer(args, model, device):
+    if not args.method.startswith("sfprompt"):
+        bcfg = BaselineConfig(local_epochs=args.local_epochs,
+                              batch_size=args.batch_size, lr=args.lr)
+        if args.method == "fl":
+            return FLTrainer(model, bcfg, device=device)
+        return SFLTrainer(model, bcfg, mode=args.method.split("-")[1],
+                          device=device)
     dp_noise = 0.0
     if args.dp_epsilon > 0:
         # budget the target (eps, delta) evenly across the full run
@@ -134,9 +153,6 @@ def build_engine(args, trainer, population, model):
 def _later_slice(args) -> str:
     """The ROADMAP slice that brings a flag this port does not run yet, or
     '' when every flag given is ported."""
-    if args.method not in ("sfprompt", "sfprompt-nolocal"):
-        return (f"--method {args.method} (the FL/SFL baselines) is ported "
-                f"with slice C")
     if (args.async_buffer or args.async_concurrency is not None
             or args.staleness_alpha is not None
             or args.staleness_beta is not None):
@@ -150,6 +166,31 @@ def _later_slice(args) -> str:
         return ("--trace-out/--trace-level/--trace-profiler/--metrics-every "
                 "are ported with slice F")
     return ""
+
+
+def _refuse_for_baselines(ap, args) -> None:
+    """The JAX launcher's refusals of sfprompt-only flags under a baseline
+    method, with its messages."""
+    if args.method.startswith("sfprompt"):
+        return
+    if args.personalize_tails:
+        ap.error("--personalize-tails needs an sfprompt method")
+    if args.dropout_rate > 0 or args.straggle:
+        ap.error("straggler simulation (--dropout-rate/--straggle) needs an "
+                 "sfprompt method — FL/SFL baselines train their cohort "
+                 "synchronously")
+    if args.secure_agg or args.dp_epsilon > 0:
+        ap.error("--secure-agg/--dp-epsilon need an sfprompt method — the "
+                 "privacy engine plugs into the SFPrompt phase-3 "
+                 "aggregation path")
+    if args.mesh_devices or args.edges or args.fsdp:
+        ap.error("--mesh-devices/--edges/--fsdp need an sfprompt method — "
+                 "only the SFPrompt trainer dispatches sharded cohorts "
+                 "and hierarchical aggregation")
+    if args.async_buffer > 0:
+        ap.error("--async-buffer needs an sfprompt method — only the "
+                 "SFPrompt trainer exposes per-client updates for "
+                 "flush-time aggregation")
 
 
 def parse_args(argv=None):
@@ -234,6 +275,7 @@ def parse_args(argv=None):
                     help="(slice F)")
     ap.add_argument("--metrics-every", type=int, default=0, help="(slice F)")
     args = ap.parse_args(argv)
+    _refuse_for_baselines(ap, args)
     reason = _later_slice(args)
     if reason:
         ap.error(f"{reason}; this port runs the synchronous sfprompt path")
@@ -304,9 +346,10 @@ def main(argv=None):
             plan, metrics = engine.run_round()
             rec = {"round": r, "wall_s": round(time.time() - t0, 1),
                    "cohort": plan.cohort.tolist(), **metrics}
-            ev = trainer.evaluate(engine.params, test,
-                                  batch_size=args.batch_size)
-            rec.update({f"eval_{k}": v for k, v in ev.items()})
+            if hasattr(trainer, "evaluate"):
+                ev = trainer.evaluate(engine.params, test,
+                                      batch_size=args.batch_size)
+                rec.update({f"eval_{k}": v for k, v in ev.items()})
             log.write(json.dumps(rec) + "\n")
             log.flush()
             print(rec, flush=True)
@@ -316,8 +359,10 @@ def main(argv=None):
     engine.save(ckpt_dir)
     save_checkpoint(os.path.join(args.out, "final.npz"), engine.params)
     print("saved", os.path.join(args.out, "final.npz"), "log:", log_path)
-    print(trainer.meter.report())
-    if trainer.accountant is not None:
+    meter = getattr(trainer, "meter", None)
+    if meter is not None:
+        print(meter.report())
+    if getattr(trainer, "accountant", None) is not None:
         print(trainer.accountant.report())
     return engine
 

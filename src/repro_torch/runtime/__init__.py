@@ -5,6 +5,8 @@
   boundary.py — Boundary / WireSpec: the head->body and body->tail links
   meter.py    — TrafficMeter: measured bytes per boundary (a copy of the
                 JAX package's, which has no JAX in it)
+  hetero.py   — per-client SplitConfig groups (import directly to avoid a
+                core<->runtime import cycle at package load)
 """
 from repro_torch.runtime.boundary import (BOUNDARY_NAMES, Boundary,  # noqa: F401
                                           WireSpec)

@@ -369,7 +369,8 @@ def test_launcher_asks_for_cuda_by_default(tmp_path):
 
 
 @pytest.mark.parametrize("extra,slice_", [
-    (["--method", "fl"], "slice C"), (["--method", "sfl-ff"], "slice C"),
+    (["--staleness-alpha", "1"], "slice E"),
+    (["--async-concurrency", "2"], "slice E"),
     (["--async-buffer", "4"], "slice E"), (["--edges", "2"], "slice E"),
     (["--staleness-beta", "0"], "slice E"),
     (["--mesh-devices", "4"], "slice H"), (["--fsdp"], "slice H"),

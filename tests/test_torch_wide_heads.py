@@ -78,6 +78,27 @@ PREFILL_CASES = [
 ]
 
 
+def _attention_f64(q, k, v, causal, window, softcap):
+    """The plain attention formula in float64 numpy: the yardstick that
+    says which side of a failed comparison moved."""
+    S, Skv, group = q.shape[1], k.shape[1], q.shape[2] // k.shape[2]
+    kg = np.repeat(k.astype(np.float64), group, axis=2)
+    vg = np.repeat(v.astype(np.float64), group, axis=2)
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), kg)
+    s = s * q.shape[-1] ** -0.5
+    if softcap is not None:
+        s = softcap * np.tanh(s / softcap)
+    qi, kj = np.arange(S)[:, None], np.arange(Skv)[None, :]
+    valid = np.ones((S, Skv), bool)
+    if causal:
+        valid &= kj <= qi
+    if window is not None:
+        valid &= kj > qi - window
+    s = np.where(valid, s, -2.0 ** 30)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return np.einsum("bhqk,bkhd->bqhd", p / p.sum(-1, keepdims=True), vg)
+
+
 @pytest.mark.parametrize("case", PREFILL_CASES)
 def test_wide_prefill_plain_matches_jax(case):
     B, S, Hq, Hkv, Dh, Dv, causal, window, softcap = case
@@ -88,12 +109,19 @@ def test_wide_prefill_plain_matches_jax(case):
     got = flash_attention(_t(q), _t(k), _t(v), causal=causal,
                           sliding_window=window, softcap=softcap).numpy()
     assert got.shape == (B, S, Hq, Dv) and np.isfinite(got).all()
+    exact = _attention_f64(q, k, v, causal, window, softcap)
     for impl, tol in (("ref", TOL), ("interpret", ITOL)):
-        want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                      causal=causal, sliding_window=window, softcap=softcap,
-                      impl=impl, block_q=16, block_kv=16)
-        np.testing.assert_allclose(got, np.asarray(want), **tol,
-                                   err_msg=impl)
+        want = np.asarray(jflash(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+            sliding_window=window, softcap=softcap, impl=impl, block_q=16,
+            block_kv=16))
+        # on a failure, the side further from float64 is the one that moved
+        np.testing.assert_allclose(
+            got, want, **tol,
+            err_msg=(f"{impl}: max |port - f64| "
+                     f"{np.abs(got - exact).max():.3g}, max |jax - f64| "
+                     f"{np.abs(want - exact).max():.3g}, torch threads "
+                     f"{torch.get_num_threads()}"))
 
 
 # ------------------------------------------------------------- decode
