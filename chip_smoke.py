@@ -174,6 +174,36 @@ Phases, each of which fails the run with a nonzero exit:
      equal), and every kernel of each path launched (counts zeroed just
      before each run); the phase's seconds and each path's launches are
      printed;
+ 17. tracing (run right after phase 13, on phase 5's model): phase 5's
+     dense engine serves 6 requests untraced, then a new engine under a
+     step-level tracer, then the first again; tokens and wire bytes equal
+     across the three, every kernel of the dense path launched in the
+     traced run, the tok/s of the three printed, and the export
+     (`obs.export_all`: JSONL, Chrome trace, Prometheus text) must pass
+     `tools/trace_check.py` in a subprocess, its exact meter bytes
+     included; then `repro_torch.launch.train.main` runs one ViT-Base
+     round (phase 16's data, K 2, U 1, int8 wire) with `--trace-out
+     --trace-level step --metrics-every 1`, and its JSONL (with the round,
+     dispatch and phase records) must pass `tools/trace_check.py` too;
+ 18. the LM training path (run right after phase 16): one SFPrompt round
+     on token data for the reduced qwen2.5, zamba2 and rwkv6 (d_model 64,
+     3 cycles, vocab 128, 16 tokens, K 2, 8 samples a client, int8 wire,
+     numpy-seeded noise) and `evaluate`, card against CPU — bytes,
+     kept_frac and kept sets equal, params, losses and eval CE within
+     1e-4, and the card's scoring launching the family's kernels (the
+     Mamba-2 and RWKV-6 scans included); then Qwen2.5-14B at published
+     widths (d_model 5120, 40 / 8 heads of 128, vocab 152064) cut to 6
+     layers (1 head / 4 body / 1 tail, prompt 4, int8 wire) through one
+     round on `synthetic_lm_dataset` (seq 64, K 2, 16 samples a client,
+     batch 4, U 1, gamma 0.5) and `evaluate`: metrics finite, wire bytes
+     equal to the exact count, the launches of quantize, dequantize,
+     prefill and EL2N printed (each must be > 0), the per-phase wall
+     times and peak memory, the EL2N kernel's device time at the round's
+     scoring shape (252, 152064) beside its bound; then one
+     `launch.steps.make_train_step` (K 2, b 4, S 64, microbatches 2, bf16
+     activations: loss finite, the K copies equal) and a prefill plus a
+     decode step (bf16 activations, which must launch the wire, prefill
+     and decode kernels);
  then the `kernels` JSON line (each kernel once, with the dtypes, head
  dims and groups it was held at, its bf16 numbers and its wide-shape
  numbers), then the seconds each phase took and the total, then the device
@@ -294,6 +324,25 @@ PATHS = {
     "sfl_linear": ("quantize_int8", "dequantize_int8"),
     "hetero": ("quantize_int8", "dequantize_int8", "flash_attention_prefill",
                "el2n"),
+    # phase 17: phase 5's dense engine and phase 8's round under a tracer
+    "traced_dense": ("quantize_int8", "dequantize_int8",
+                     "flash_attention_prefill", "decode_attention"),
+    "traced_train": ("quantize_int8", "dequantize_int8",
+                     "flash_attention_prefill", "el2n"),
+    # phase 18: the LM round at Qwen2.5-14B widths (causal prefill in
+    # scoring and evaluate, EL2N at the vocabulary), its prefill and decode
+    # steps, and the reduced families' card-vs-CPU rounds (the scans run in
+    # scoring)
+    "lm": ("quantize_int8", "dequantize_int8", "flash_attention_prefill",
+           "el2n"),
+    "lm_train_step": ("quantize_int8", "dequantize_int8"),
+    "lm_steps": ("quantize_int8", "dequantize_int8",
+                 "flash_attention_prefill", "decode_attention"),
+    "lm_dense": ("quantize_int8", "dequantize_int8",
+                 "flash_attention_prefill", "el2n"),
+    "lm_hybrid": ("quantize_int8", "dequantize_int8",
+                  "flash_attention_prefill", "el2n", "mamba2_scan"),
+    "lm_rwkv": ("quantize_int8", "dequantize_int8", "el2n", "rwkv6_scan"),
 }
 # the wide attention shapes of phase 3: (label, Hq, Hkv, Dh)
 WIDE_SHAPES = (("gemma2-9b", 16, 8, 256), ("stablelm-12b", 32, 8, 160),
@@ -4172,6 +4221,411 @@ def full_width_baselines(torch):
     return by_path, summary
 
 
+# --------------------------------------------------------------- phase 17
+def trace_check(path) -> str:
+    """`tools/trace_check.py` on an exported JSONL, in a subprocess; fails
+    the run unless it exits 0. Returns its summary."""
+    res = subprocess.run([sys.executable, str(ROOT / "tools" /
+                                              "trace_check.py"), str(path)],
+                         capture_output=True, text=True, timeout=120)
+    if res.returncode != 0:
+        fail(f"trace_check {path}: exit {res.returncode}: "
+             f"{res.stdout.strip()} {res.stderr.strip()}")
+    return res.stdout.strip()
+
+
+def traced_serve(torch, fw):
+    """Phase 5's full-width dense engine over a short trace, untraced, then
+    under a step-level tracer, then untraced again: tokens and wire bytes
+    equal across the three, every kernel of the dense path launched in the
+    traced run, and the export (JSONL, Chrome trace, Prometheus) passes
+    tools/trace_check.py with its exact meter bytes."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.obs import MetricsRegistry, Tracer, export_all
+    from repro_torch.serve import (ServeConfig, ServeEngine, WorkloadConfig,
+                                   synthetic_requests)
+    cfg = fw["cfg"]
+    wl = dict(WORKLOAD, vocab_size=cfg.vocab_size)
+    reqs = synthetic_requests(WorkloadConfig(n_requests=6, seed=2, **wl))
+    OUT.mkdir(exist_ok=True)     # a fresh checkout has no output directory
+
+    def engine(tracer=None):
+        return ServeEngine(fw["model"], fw["params"], fw["bank"],
+                           ServeConfig(n_slots=8, max_seq=512,
+                                       decode_block=8),
+                           tracer=tracer, device="cuda")
+
+    def run(eng):
+        torch.cuda.synchronize()
+        reset_launches()
+        stats = eng.run(reqs)
+        torch.cuda.synchronize()
+        return stats, launch_counts()
+
+    plain = engine()
+    plain.run(synthetic_requests(WorkloadConfig(n_requests=2, seed=1, **wl)))
+    plain.reset_stats()
+    first, _ = run(plain)
+    traced = engine(Tracer("step"))
+    registry = MetricsRegistry()
+    registry.bind_engine(traced)
+    on, launches = run(traced)
+    plain.reset_stats()
+    second, _ = run(plain)
+    toks = {f.req.rid: f.tokens.tolist() for f in first["finished"]}
+    for label, stats in (("traced", on), ("second untraced", second)):
+        got = {f.req.rid: f.tokens.tolist() for f in stats["finished"]}
+        if got != toks:
+            fail(f"traced serve: the {label} run's tokens differ from the "
+                 f"untraced run's")
+        if stats["wire_bytes"] != first["wire_bytes"]:
+            fail(f"traced serve: the {label} run's wire bytes "
+                 f"{stats['wire_bytes']} differ from {first['wire_bytes']}")
+    missing = [k for k in PATHS["traced_dense"] if launches[k] <= 0]
+    if missing:
+        fail(f"traced serve: kernels of the path never launched: {missing}")
+    base = OUT / "trace17_serve"
+    paths = export_all(traced.tracer, str(base), meter=traced.meter,
+                       registry=registry)
+    check = trace_check(paths["jsonl"])
+    say(f"traced serve ({fw['desc']}, 6 requests, tracer at step): tok/s "
+        f"untraced {first['tok_per_s']:.1f}, traced {on['tok_per_s']:.1f}, "
+        f"untraced again {second['tok_per_s']:.1f}; tokens and wire bytes "
+        f"==; {len(traced.tracer.records())} records; trace_check: "
+        + check.splitlines()[0])
+    del plain, traced
+    return launches, {
+        "tok_per_s": {"untraced": first["tok_per_s"],
+                      "traced": on["tok_per_s"],
+                      "untraced_again": second["tok_per_s"]},
+        "wall_s": {"untraced": first["wall_s"], "traced": on["wall_s"],
+                   "untraced_again": second["wall_s"]},
+        "tokens_out": first["tokens_out"], "trace_check": check,
+        "exports": paths,
+        "launches": {k: v for k, v in launches.items() if v}}
+
+
+TRACED_TRAIN_ARGV = [
+    "--arch", "vit-base", "--dataset", "cifar100-syn", "--samples", "128",
+    "--clients", "2", "--k", "2", "--rounds", "1", "--local-epochs", "1",
+    "--batch-size", "16", "--image-hw", "224", "--wire", "int8", "--seed",
+    "0", "--device", "cuda", "--trace-level", "step", "--metrics-every",
+    "1"]
+
+
+def traced_train(torch):
+    """`launch.train.main` at ViT-Base full width for one SFPrompt round
+    with `--trace-out --trace-level step --metrics-every 1`: the record is
+    finite, every kernel of the training path launched, and the exported
+    JSONL passes tools/trace_check.py."""
+    import numpy as np
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch import train
+    out, base = OUT / "traced_train", OUT / "trace17_train"
+    OUT.mkdir(exist_ok=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    train.main(TRACED_TRAIN_ARGV + ["--out", str(out), "--trace-out",
+                                    str(base)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    with open(out / "vit-base_sfprompt_cifar100-syn.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    for p in out.rglob("*.npz"):    # too large to bring back
+        p.unlink()
+    bad = [k for r in recs for k, v in r.items()
+           if isinstance(v, float) and not np.isfinite(v)]
+    if len(recs) != 1 or bad:
+        fail(f"traced train: records {recs}")
+    missing = [k for k in PATHS["traced_train"] if launches[k] <= 0]
+    if missing:
+        fail(f"traced train: kernels never launched: {missing}")
+    check = trace_check(f"{base}.jsonl")
+    names = sorted({json.loads(line)["name"]
+                    for line in open(f"{base}.jsonl")})
+    for want in ("round", "round.dispatch", "phase1a", "phase1b", "phase2",
+                 "phase3", "meter.absorb", "meter.final"):
+        if want not in names:
+            fail(f"traced train: no {want!r} record in {base}.jsonl")
+    say(f"traced train (ViT-Base, 224x224, K 2, U 1, int8 wire, tracer at "
+        f"step): main {wall:.2f} s, round {recs[0]['wall_s']} s; "
+        f"trace_check: " + check.splitlines()[0])
+    return launches, {"argv": TRACED_TRAIN_ARGV, "main_s": wall,
+                      "round_wall_s": recs[0]["wall_s"],
+                      "record_names": names, "trace_check": check,
+                      "launches": {k: v for k, v in launches.items() if v}}
+
+
+# --------------------------------------------------------------- phase 18
+def lm_parity(torch):
+    """One SFPrompt round on token data for the reduced qwen2.5, zamba2 and
+    rwkv6 (d_model 64, 3 cycles: head 1 / body 1 / tail 1, vocab 128,
+    sequences of 16, K 2, 8 samples a client, gamma 0.5) on the card and
+    on the CPU from the same seeded weights, data and numpy wire noise,
+    int8 wire, then `evaluate`: metered bytes, kept_frac and kept sets
+    equal, params and losses within 1e-4, and on the card the kernels of
+    each family's scoring launched (the Mamba-2 and RWKV-6 scans
+    included). Returns the card's launches by path and the report."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ProtocolConfig, SFPromptTrainer,
+                                  SplitConfig, SplitModel)
+    from repro_torch.data import (iid_partition, stack_clients,
+                                  synthetic_lm_dataset)
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.runtime import WireSpec
+    from repro_torch.tree import tree_leaves, tree_map
+    split = SplitConfig(head_cycles=1, tail_cycles=1, prompt_len=4,
+                        prune_gamma=0.5, local_epochs=1)
+    pcfg = ProtocolConfig(clients_per_round=2, local_epochs=1, batch_size=4,
+                          lr_local=0.05, lr_split=0.05)
+    cohort = stack_clients(
+        iid_partition(synthetic_lm_dataset(16, 16, 128, seed=0), 2, seed=0),
+        [0, 1])
+    test = synthetic_lm_dataset(16, 16, 128, seed=1)
+    by_path, report = {}, {}
+    for path, arch in (("lm_dense", "qwen2.5-14b"),
+                       ("lm_hybrid", "zamba2-2.7b"),
+                       ("lm_rwkv", "rwkv6-3b")):
+        cyc = len(get_config(arch).layer_pattern)
+        cfg = get_config(arch).reduced(n_layers=3 * cyc, d_model=64,
+                                       d_ff=128, vocab_size=128)
+        model = SplitModel(cfg, split, WireSpec.make("int8"))
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            tr = SFPromptTrainer(model, pcfg, device=dev)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                reset_launches()
+            state, m = tr.round(
+                {"params": tree_map(lambda x: x.to(dev), params),
+                 "round": 0}, cohort, wire_noise=numpy_wire_noise(torch, dev))
+            ev = tr.evaluate(state["params"], test, batch_size=4)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                by_path[path] = launch_counts()
+            runs[dev] = (state["params"], m, tr.last_scores.cpu(),
+                         tr.last_kept.cpu(), ev)
+        (pc, mc, sc, kc, evc), (pg, mg, sg, kg, evg) = runs["cpu"], \
+            runs["cuda"]
+        for key in mc:
+            if (key.startswith(("wire/", "cohort/")) or key == "kept_frac") \
+                    and mg[key] != mc[key]:
+                fail(f"lm parity ({arch}): {key} {mg[key]} on the card vs "
+                     f"{mc[key]} on the CPU")
+        for k in range(kc.shape[0]):
+            differ = set(kc[k].tolist()) ^ set(kg[k].tolist())
+            if differ:
+                fail(f"lm parity ({arch}): client {k} kept samples "
+                     f"{sorted(differ)} on one device only, scores "
+                     f"{[float(sc[k, i]) for i in sorted(differ)]} vs cut "
+                     f"{float(sc[k, kc[k, -1]])}")
+        param_diff = max(float((a.cpu() - b).abs().max())
+                         for a, b in zip(tree_leaves(pg), tree_leaves(pc)))
+        loss_diff = max(abs(mg[k] - mc[k])
+                        for k in ("local_loss", "split_loss", "el2n_mean"))
+        if max(param_diff, loss_diff, abs(evg["ce"] - evc["ce"])) \
+                > PARITY_TOL:
+            fail(f"lm parity ({arch}): params differ by {param_diff:.3g}, "
+                 f"losses by {loss_diff:.3g}, eval CE by "
+                 f"{abs(evg['ce'] - evc['ce']):.3g} > {PARITY_TOL}")
+        missing = [k for k in PATHS[path] if by_path[path][k] <= 0]
+        if missing:
+            fail(f"lm parity ({arch}): kernels never launched on the card: "
+                 f"{missing}")
+        report[arch] = dict(
+            param_max_diff=param_diff, loss_max_diff=loss_diff,
+            score_max_diff=float((sg - sc).abs().max()),
+            eval_ce_diff=abs(evg["ce"] - evc["ce"]),
+            wire_bytes={k: mc[k] for k in mc if k.startswith("wire/")},
+            launches={k: v for k, v in by_path[path].items() if v})
+        say(f"lm parity ({cfg.name}, K 2, int8 wire, numpy-seeded noise): "
+            f"bytes, kept_frac and kept sets ==, max param diff "
+            f"{param_diff:.3g}, loss diff {loss_diff:.3g} (<= {PARITY_TOL}), "
+            f"card launches {report[arch]['launches']}")
+    return by_path, report
+
+
+def lm_round(torch):
+    """One SFPrompt round on token data at Qwen2.5-14B widths cut to 6
+    layers (1 head / 4 body / 1 tail, prompt 4, int8 wire, fp32):
+    `synthetic_lm_dataset` at seq 64, K 2, 16 samples a client, batch 4, U
+    1, gamma 0.5, then `evaluate` on 16 sequences. Wire bytes equal the
+    exact count, every metric finite, the kernels of the path launched
+    (counts printed); the EL2N kernel's device time at the round's scoring
+    shape (4 x 63 rows of the vocabulary); then one `make_train_step` (K
+    2, b 4, S 64, microbatches 2, bf16 activations) and a prefill plus a
+    decode step at the same widths. Returns the launches by path and the
+    summary."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ProtocolConfig, SFPromptTrainer,
+                                  SplitConfig, SplitModel)
+    from repro_torch.data import (iid_partition, stack_clients,
+                                  synthetic_lm_dataset)
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.el2n import ref as el2n_ref
+    from repro_torch.kernels.el2n.kernel import el2n_fwd
+    from repro_torch.launch import steps
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.runtime import WireSpec
+    from repro_torch.tree import tree_leaves, tree_map
+    S, K, n_local, bs, prompt = 64, 2, 16, 4, 4
+    cfg = dataclasses.replace(get_config("qwen2.5-14b"), n_layers=6)
+    split = SplitConfig(head_cycles=1, tail_cycles=1, prompt_len=prompt,
+                        prune_gamma=0.5, local_epochs=1)
+    model = SplitModel(cfg, split, WireSpec.make("int8"))
+    pcfg = ProtocolConfig(clients_per_round=K, local_epochs=1,
+                          batch_size=bs, lr_local=0.01, lr_split=0.01)
+    V = cfg.vocab_size
+    cohort = stack_clients(iid_partition(
+        synthetic_lm_dataset(K * n_local, S, V, seed=0), K, seed=0),
+        list(range(K)))
+    test = synthetic_lm_dataset(16, S, V, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = SFPromptTrainer(model, pcfg, device="cuda",
+                              tracer=Tracer("step"))
+    state = trainer.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(state["params"]))
+    reset_launches()
+    t0 = time.perf_counter()
+    state, m = trainer.round(state, cohort)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    round_launches = launch_counts()
+    t0 = time.perf_counter()
+    ev = trainer.evaluate(state["params"], test, batch_size=bs)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    phase_s = {r["name"]: r["dur_ns"] * 1e-9
+               for r in trainer.tracer.records() if r["kind"] == "span"}
+    bad = [k for k, v in list(m.items()) + list(ev.items())
+           if not np.isfinite(v)]
+    if bad:
+        fail(f"lm round: non-finite metrics {bad}")
+    keep = trainer.phase2_keep(n_local)
+    per_crossing = model.wire.head_body.payload_nbytes((bs, prompt + S,
+                                                        cfg.d_model))
+    want = float(np.float32(K * (keep // bs) * 2 * per_crossing))
+    for name in ("head_body", "body_tail"):
+        if m[f"wire/{name}_bytes"] != want:
+            fail(f"lm round: {name} metered {m[f'wire/{name}_bytes']} B, "
+                 f"exact count {want} B")
+    missing = [k for k in PATHS["lm"] if launches[k] <= 0]
+    if missing:
+        fail(f"lm round: kernels of the path never launched: {missing}")
+    shown = {k: launches[k] for k in PATHS["lm"]}
+    say(f"lm round launches (round + evaluate): {json.dumps(shown)}; the "
+        f"round alone: "
+        + json.dumps({k: round_launches[k] for k in PATHS["lm"]}))
+
+    # the EL2N kernel at the round's scoring shape
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = bs * (S - 1)
+    logits = torch.randn((rows, V), generator=gen, device="cuda")
+    labels = torch.randint(0, V, (rows,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    got, want_s = el2n_fwd(logits, labels), el2n_ref.fused_scores(logits,
+                                                                  labels)
+    err = max(float(((a - b).abs() / (1 + b.abs())).max())
+              for a, b in zip(got, want_s))
+    if err > EL2N_TOL:
+        fail(f"lm round: EL2N at ({rows}, {V}) off by {err:.3g}")
+    el2n_dev = device_ms([lambda: el2n_fwd(logits, labels)])
+    el2n_bound = bound(rows * V * 4 + rows * 4 + 2 * rows * 4,
+                       5 * rows * V)[0]
+    say(f"lm round EL2N at the scoring shape ({rows}, {V}) f32: device "
+        f"{el2n_dev:.4f} ms, bound {el2n_bound:.4f} ms (bytes), err "
+        f"{err:.3g}")
+    del logits, labels, got, want_s
+
+    # one make_train_step and a prefill plus a decode step, same widths
+    params = state["params"]
+    del trainer, state
+    torch.cuda.empty_cache()
+    train_step, opt = steps.make_train_step(model, n_clients=K,
+                                            microbatches=2, lr=0.01)
+    frozen = {"head": params["head"], "body": params["body"]}
+    trainable_k = tree_map(lambda x: x[None].expand((K,) + tuple(x.shape)),
+                           {"tail": params["tail"],
+                            "prompt": params["prompt"]})
+    opt_k = steps.init_opt_states(opt, trainable_k)
+    batch_k = {"tokens": torch.from_numpy(
+        cohort["tokens"][:, :bs]).cuda()}
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainable_k, opt_k, loss = train_step(frozen, trainable_k, opt_k,
+                                          batch_k)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    step_launches = launch_counts()
+    same = all(bool(torch.equal(x[0], x[1]))
+               for x in tree_leaves(trainable_k))
+    if not (np.isfinite(float(loss)) and same):
+        fail(f"lm train step: loss {float(loss)}, client copies equal "
+             f"{same}")
+    missing = [k for k in PATHS["lm_train_step"] if step_launches[k] <= 0]
+    if missing:
+        fail(f"lm train step: kernels never launched: {missing}")
+    del trainable_k, opt_k
+    torch.cuda.empty_cache()
+    prefill = steps.make_prefill_step(model)
+    decode = steps.make_decode_step(model)
+    cache = model.init_cache(bs, 2 * S + prompt, device="cuda")
+    toks = torch.from_numpy(test["tokens"][:bs]).cuda()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    last, cache = prefill(params, {"tokens": toks}, cache)
+    nxt = torch.argmax(last, -1).to(torch.int32)[:, None]
+    tok, dlogits, cache = decode(
+        params, {"tokens": nxt,
+                 "pos": torch.full((bs,), S + prompt, dtype=torch.int32,
+                                   device="cuda")}, cache)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = launch_counts()
+    if not (bool(torch.isfinite(last).all()) and
+            bool(torch.isfinite(dlogits).all())) or \
+            int(tok.min()) < 0 or int(tok.max()) >= V:
+        fail(f"lm prefill/decode steps: tokens {tok.tolist()}")
+    missing = [k for k in PATHS["lm_steps"] if serve_launches[k] <= 0]
+    if missing:
+        fail(f"lm prefill/decode steps: kernels never launched: {missing}")
+    summary = {
+        "config": f"{cfg.name} widths (d_model {cfg.d_model}, "
+                  f"{cfg.attention.n_heads} / {cfg.attention.n_kv_heads} x "
+                  f"{cfg.attention.head_dim}, vocab {V}), 6 layers (1 head "
+                  f"/ 4 body / 1 tail), prompt {prompt}, "
+                  f"synthetic_lm_dataset seq {S}, K {K}, {n_local} samples "
+                  f"a client, batch {bs}, U 1, gamma 0.5, int8 wire, fp32",
+        "params": n_params, "setup_s": setup_s, "round_s": round_s,
+        "phase_s": phase_s, "eval_s": eval_s, "metrics": m, "eval": ev,
+        "max_memory_allocated_gb": peak_gb,
+        "launches": {k: v for k, v in launches.items() if v},
+        "round_launches": {k: v for k, v in round_launches.items() if v},
+        "el2n_scoring": {"shape": [rows, V], "device_ms": el2n_dev,
+                         "bound_ms": el2n_bound, "max_err": err},
+        "train_step": {"s": step_s, "loss": float(loss),
+                       "launches": {k: v for k, v in step_launches.items()
+                                    if v}},
+        "prefill_decode": {"s": serve_s, "tokens": tok.tolist(),
+                           "launches": {k: v for k, v in
+                                        serve_launches.items() if v}}}
+    say("lm round full width: " + json.dumps(summary, sort_keys=True))
+    return {"lm": launches, "lm_train_step": step_launches,
+            "lm_steps": serve_launches}, summary
+
+
 # -------------------------------------------------------------------- main
 def main() -> None:
     try:
@@ -4250,8 +4704,18 @@ def main() -> None:
     by_path["paged_bf16"], summaries["paged_bf16"] = full_width_paged(
         torch, fw, "paged_bf16", torch.bfloat16)
     lap("12-13")
+
+    # 17. tracing: phase 5's engine untraced and traced, the export through
+    # tools/trace_check.py; then a traced round through the train launcher
+    t17 = time.perf_counter()
+    by_path["traced_dense"], summaries["traced_serve"] = traced_serve(torch,
+                                                                      fw)
     del fw
     torch.cuda.empty_cache()
+    by_path["traced_train"], summaries["traced_train"] = traced_train(torch)
+    torch.cuda.empty_cache()
+    say(f"phase 17: {time.perf_counter() - t17:.1f} s")
+    lap("17")
 
     # 7. training parity card vs CPU, clear and private
     summaries["train_parity"] = training_parity(torch)
@@ -4280,6 +4744,18 @@ def main() -> None:
         + json.dumps({p: {k: v for k, v in c.items() if v}
                       for p, c in paths16.items()}, sort_keys=True))
     lap("16")
+
+    # 18. the LM training path: the reduced families' rounds card against
+    # CPU, then Qwen2.5-14B widths through a round, `evaluate`, a
+    # `make_train_step` and prefill and decode steps
+    t18 = time.perf_counter()
+    paths18, summaries["lm_parity"] = lm_parity(torch)
+    by_path.update(paths18)
+    paths18, summaries["lm"] = lm_round(torch)
+    by_path.update(paths18)
+    torch.cuda.empty_cache()
+    say(f"phase 18: {time.perf_counter() - t18:.1f} s")
+    lap("18")
 
     # 10-11. the recurrent families at full width through the dense engine;
     # 14. gemma2-9b through the dense engine; 15. stablelm-12b through the

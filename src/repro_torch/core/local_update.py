@@ -38,14 +38,18 @@ def local_loss_fn(model: SplitModel, head_p, trainable, batch):
 
 def value_and_grad(loss_fn, trainable, *args):
     """(loss, aux, grads) of `loss_fn(trainable, *args) -> (loss, aux)`
-    with respect to every leaf of `trainable` (a dict tree)."""
+    with respect to every leaf of `trainable` (a dict tree); a leaf the
+    loss does not depend on gets zeros."""
     leaves = tree_leaves(trainable)
     with torch.enable_grad():
         live = [x.detach().requires_grad_(True) for x in leaves]
         it = iter(live)
         tr = tree_map(lambda _: next(it), trainable)
         loss, aux = loss_fn(tr, *args)
-        grads = torch.autograd.grad(loss, live)
+        # a leaf the loss never reads (zamba2's shared-attention position
+        # placeholder) gets a zero gradient, as `jax.grad` gives it
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
+            live, torch.autograd.grad(loss, live, allow_unused=True))]
     it = iter(grads)
     return loss.detach(), aux, tree_map(lambda _: next(it), trainable)
 

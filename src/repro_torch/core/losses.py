@@ -16,10 +16,20 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.el2n import ref as el2n_ref
 from repro_torch.kernels.el2n.ops import el2n_scores
+
+
+def accuracy(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """The share of `pred == target` as the JAX package's jitted
+    `jnp.mean(... .astype(float32))` computes it on the CPU: the exact
+    count times the float32 reciprocal of the size (XLA turns the division
+    by a constant into that product)."""
+    hits = (pred == target).sum().float()
+    return hits * float(np.float32(1.0 / target.numel()))
 
 
 def lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
@@ -30,7 +40,7 @@ def lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
     tg = tokens[:, 1:]
     _, ce = el2n_ref.el2n_scores(lg.reshape(-1, V), tg.reshape(-1))
     loss = ce.mean()
-    acc = (lg.argmax(-1) == tg).float().mean()
+    acc = accuracy(lg.argmax(-1), tg)
     return loss, {"ce": loss, "acc": acc}
 
 
@@ -50,7 +60,7 @@ def classifier_loss(logits: torch.Tensor,
     """logits (B, C), integer labels (B,)."""
     _, ce = el2n_ref.el2n_scores(logits, labels)
     loss = ce.mean()
-    acc = (logits.argmax(-1) == labels).float().mean()
+    acc = accuracy(logits.argmax(-1), labels)
     return loss, {"ce": loss, "acc": acc}
 
 

@@ -185,8 +185,9 @@ class SFPromptTrainer:
         self.pcfg = pcfg
         self.device = resolve_device(device)
         # flight recorder: the default NOOP records nothing. A tracer at
-        # level "step" also records one span per phase, closed after a
-        # device sync so it covers the phase's device work
+        # level "step" also records the `round.dispatch` event (as the JAX
+        # round does) and one span per phase, closed after a device sync
+        # so it covers the phase's device work
         self.tracer = tracer if tracer is not None else NOOP
         self.opt_local = make_optimizer(pcfg, pcfg.lr_local)
         self.opt_split = make_optimizer(pcfg, pcfg.lr_split)
@@ -438,6 +439,9 @@ class SFPromptTrainer:
             participation = {"transmit": ones, "aggregate": ones}
         tracer = self.tracer
         with tracer.span("round") as sp:
+            if tracer.enabled:
+                tracer.event("round.dispatch", level=LEVEL_STEP, cohort=K,
+                             personalized_tails=init_tails is not None)
             with tracer.annotate("sfprompt.round"):
                 state, metrics = self._round(
                     state, client_data, participation, init_tails,
@@ -476,5 +480,9 @@ class SFPromptTrainer:
             _, m = losses.task_loss(self.model.cfg, out, batch)
             ce.append(m["ce"])
             acc.append(m["acc"])
-        return {"ce": float(torch.stack(ce).mean()),
-                "acc": float(torch.stack(acc).mean())}
+        # the batch means' mean as the JAX round's jitted `.mean()` of its
+        # scan outputs: summed in order, times the f32 reciprocal
+        inv = float(np.float32(1.0 / len(ce)))
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        return {"ce": float(xla_sum(ce, zero) * inv),
+                "acc": float(xla_sum(acc, zero) * inv)}

@@ -30,9 +30,20 @@ Runs on the GPU unless asked for the CPU (--device cpu):
 `--arch rwkv6-3b` serve recurrent-state families through the dense
 engine; the paged engine refuses them (recurrent state has no pages).
 
-Tensor-parallel serving (--mesh-model > 1), checkpoint loading (--params)
-and the trace exporters (--trace-out, --metrics-every) belong to later
-slices of the port; those flags exit with a message naming the slice.
+`--params PATH` serves the weights of an npz checkpoint (a training run's
+`final.npz`, written by either package) instead of a fresh init; a
+missing, extra or misshapen leaf raises.
+
+Observability: `--trace-level {round,step}` records the engine's spans
+and the meter's byte events; `--trace-out BASE` (which implies `round`)
+writes BASE.jsonl, BASE.trace.json (Chrome/Perfetto) and BASE.prom at the
+end; `--metrics-every N` prints a metrics-registry snapshot every N
+engine steps; `--trace-profiler` wraps the traced dispatches in
+`torch.profiler.record_function` ranges. `python tools/trace_check.py
+BASE.jsonl` validates the export (traced bytes == the meter's).
+
+Tensor-parallel serving (--mesh-model > 1) belongs to slice H of the port
+and exits naming it.
 """
 from __future__ import annotations
 
@@ -41,17 +52,19 @@ import json
 
 import torch
 
+from repro_torch.checkpoint import load_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.core import SplitConfig, SplitModel
 from repro_torch.core.comm import serve_comm_breakdown
 from repro_torch.core.split import resolve_device
-from repro_torch.obs.trace import LEVELS, make_tracer
+from repro_torch.obs import MetricsRegistry, export_all, make_tracer
+from repro_torch.obs.trace import LEVELS
 from repro_torch.runtime import WireSpec
 from repro_torch.runtime.meter import MB
 from repro_torch.serve import (PagedServeConfig, PagedServeEngine,
                                ServeConfig, ServeEngine, TenantBank,
                                WorkloadConfig, synthetic_requests)
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 
 def personalized_bank(model: SplitModel, params, n_tenants: int,
@@ -82,14 +95,33 @@ def shared_prefix_tokens(n: int, vocab_size: int):
     return tuple(int(1 + (i * 13) % (vocab_size - 1)) for i in range(n))
 
 
+def load_params(model: SplitModel, path: str, device) -> dict:
+    """The params of the npz checkpoint at `path` on `device`. Every leaf
+    must be one of `model`'s, with its shape and dtype: a missing, extra or
+    misshapen leaf raises ValueError (nothing falls back to a fresh
+    init)."""
+    want = dict(tree_flatten(model.init(torch.Generator(), device="meta")))
+    loaded = load_checkpoint(path)
+    got = dict(tree_flatten(loaded))
+    problems = [f"missing {'/'.join(k)}" for k in want if k not in got]
+    problems += [f"unexpected {'/'.join(k)}" for k in got if k not in want]
+    for k in want.keys() & got.keys():
+        w, g = want[k], got[k]
+        if tuple(g.shape) != tuple(w.shape) or \
+                torch.as_tensor(g).dtype != w.dtype:
+            problems.append(f"{'/'.join(k)}: {g.dtype}{list(g.shape)} in "
+                            f"the file, {w.dtype}{list(w.shape)} in "
+                            f"{model.cfg.name}")
+    if problems:
+        raise ValueError(f"--params {path} does not fit {model.cfg.name}: "
+                         + "; ".join(sorted(problems)))
+    return tree_map(lambda x: torch.as_tensor(x).to(device), loaded)
+
+
 def _later_slice(args) -> str:
     if args.mesh_model > 1:
-        return "--mesh-model > 1 is ported with the multi-device slice"
-    if args.params:
-        return "--params (checkpoint loading) is ported with the checkpoint slice"
-    if args.trace_out or args.metrics_every:
-        return ("--trace-out / --metrics-every (exporters, metrics registry) "
-                "are ported with the observability slice")
+        return ("--mesh-model > 1 is ported with the multi-device slice "
+                "(slice H)")
     return ""
 
 
@@ -134,17 +166,21 @@ def main(argv=None):
                          "single-device")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--params", default=None,
-                    help="checkpoint to serve (later slice)")
+                    help="checkpoint to serve (e.g. a training run's "
+                         "final.npz); default: fresh random init")
     ap.add_argument("--wire", default="fp32", choices=("fp32", "bf16", "int8"),
                     help="codec for the smashed tensors on both boundaries")
     ap.add_argument("--trace-out", default=None,
-                    help="flight-recorder export (later slice)")
+                    help="flight-recorder export basename: writes "
+                         "<base>.jsonl, <base>.trace.json (Chrome/Perfetto) "
+                         "and <base>.prom; implies --trace-level round")
     ap.add_argument("--trace-level", default="off", choices=list(LEVELS),
                     help="flight-recorder detail: off = zero-overhead noop, "
                          "round = admission/prefill/retire spans + meter "
-                         "bytes, step = decode steps too")
+                         "bytes, step = decode steps and page churn too")
     ap.add_argument("--metrics-every", type=int, default=0,
-                    help="metrics-registry snapshots (later slice)")
+                    help="print a metrics-registry snapshot every N engine "
+                         "steps (0 = only at the end when tracing is on)")
     ap.add_argument("--trace-profiler", action="store_true",
                     help="wrap traced device dispatches in "
                          "torch.profiler.record_function ranges")
@@ -163,10 +199,16 @@ def main(argv=None):
     wire = WireSpec.make(args.wire)
     model = SplitModel(cfg, split, wire)
     device = resolve_device(args.device)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = model.init(gen, device=device)
+    if args.params:
+        params = load_params(model, args.params, device)
+    else:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = model.init(gen, device=device)
 
-    tracer = make_tracer(args.trace_level, profiler=args.trace_profiler)
+    trace_level = args.trace_level
+    if args.trace_out and trace_level == "off":
+        trace_level = "round"
+    tracer = make_tracer(trace_level, profiler=args.trace_profiler)
     bank = personalized_bank(model, params, args.tenants)
     if args.page_size > 0:
         engine = PagedServeEngine(
@@ -195,7 +237,20 @@ def main(argv=None):
         new_token_choices=tuple(args.new_token_choices),
         n_tenants=args.tenants, vocab_size=cfg.vocab_size,
         seed=args.seed))
-    stats = engine.run(reqs)
+
+    registry = MetricsRegistry()
+    registry.bind_engine(engine)
+    if args.page_size > 0:
+        registry.bind_pool(engine.pool_alloc)
+
+    on_step = None
+    if args.metrics_every:
+        def on_step(step_idx, _every=args.metrics_every):
+            if step_idx % _every == 0:
+                print(json.dumps({"step": step_idx,
+                                  "metrics": registry.snapshot()},
+                                 sort_keys=True, default=str), flush=True)
+    stats = engine.run(reqs, on_step=on_step)
 
     print(f"{cfg.name}: {stats['n_finished']} requests over "
           f"{args.tenants} tenants | {stats['tokens_out']} tokens in "
@@ -230,10 +285,14 @@ def main(argv=None):
               f"{stats['prefix_hits'] + stats['prefix_misses']} "
               f"(ratio {stats['prefix_hit_ratio']:.2f}) | "
               f"prefill chunks {stats['prefill_chunks']}")
-    if tracer.enabled:
-        print(json.dumps({"metrics": engine.live_stats(),
-                          "trace_records": len(tracer.records())},
-                         sort_keys=True, default=str), flush=True)
+    if tracer.enabled and args.trace_out:
+        paths = export_all(tracer, args.trace_out, meter=engine.meter,
+                           registry=registry)
+        for fmt, p in sorted(paths.items()):
+            print(f"trace [{fmt}]: {p}", flush=True)
+    elif tracer.enabled:
+        print(json.dumps({"metrics": registry.snapshot()}, sort_keys=True,
+                         default=str), flush=True)
     return stats
 
 

@@ -38,8 +38,18 @@ launcher does: `--personalize-tails`, `--dropout-rate`/`--straggle`,
       --clients 4 --k 2 --samples 64 --image-hw 32 --batch-size 8 \\
       --local-epochs 1 --rounds 1 --out /tmp/b
 
-The buffered async runtime, hierarchical aggregation, the mesh and the
-trace exporters belong to later slices of the port; their flags exit with
+Observability: `--trace-level {round,step}` records the round spans and
+the meter's byte events (`step` adds the dispatch event and one span per
+protocol phase, each closed after a device sync); `--trace-out BASE`
+(which implies `round`) writes BASE.jsonl, BASE.trace.json
+(Chrome/Perfetto) and BASE.prom at the end; `--metrics-every N` prints a
+metrics-registry snapshot (the meter's totals) every N rounds;
+`--trace-profiler` wraps the traced dispatches in
+`torch.profiler.record_function` ranges. `python tools/trace_check.py
+BASE.jsonl` validates the export (traced bytes == the meter's).
+
+The buffered async runtime and hierarchical aggregation (slice E) and the
+mesh (slice H) belong to later slices of the port; their flags exit with
 a message naming the slice.
 """
 from __future__ import annotations
@@ -65,6 +75,8 @@ from repro_torch.data import (DATASETS, synthetic_image_dataset,
 from repro_torch.fed import (ClientSampler, FederatedEngine, Population,
                              RoundScheduler, StragglerConfig)
 from repro_torch.fed.scheduler import LINK_REGIMES
+from repro_torch.obs import MetricsRegistry, export_all, make_tracer
+from repro_torch.obs.trace import LEVELS
 from repro_torch.privacy.dp import calibrate_noise
 from repro_torch.runtime import WireSpec
 from repro_torch.tree import tree_map
@@ -91,14 +103,21 @@ def build_data(args, cfg):
     return population, test
 
 
-def build_trainer(args, model, device):
+def build_trainer(args, model, device, tracer=None):
     if not args.method.startswith("sfprompt"):
         bcfg = BaselineConfig(local_epochs=args.local_epochs,
                               batch_size=args.batch_size, lr=args.lr)
         if args.method == "fl":
-            return FLTrainer(model, bcfg, device=device)
-        return SFLTrainer(model, bcfg, mode=args.method.split("-")[1],
-                          device=device)
+            trainer = FLTrainer(model, bcfg, device=device)
+        else:
+            trainer = SFLTrainer(model, bcfg, mode=args.method.split("-")[1],
+                                 device=device)
+        # baselines have no tracer plumbing; a meter, where one exists,
+        # still emits its byte events into the flight recorder
+        meter = getattr(trainer, "meter", None)
+        if meter is not None and tracer is not None:
+            meter.attach_tracer(tracer)
+        return trainer
     dp_noise = 0.0
     if args.dp_epsilon > 0:
         # budget the target (eps, delta) evenly across the full run
@@ -116,7 +135,8 @@ def build_trainer(args, model, device):
         dp_noise_multiplier=dp_noise, dp_delta=args.dp_delta)
     aggregator = (get_aggregator(secure=True, seed=args.seed)
                   if args.secure_agg else None)
-    return SFPromptTrainer(model, pcfg, aggregator, device=device)
+    return SFPromptTrainer(model, pcfg, aggregator, tracer=tracer,
+                           device=device)
 
 
 def build_scheduler(args, population, model):
@@ -161,10 +181,6 @@ def _later_slice(args) -> str:
         return "--edges (hierarchical aggregation) is ported with slice E"
     if args.mesh_devices or args.mesh_model != 1 or args.fsdp:
         return "--mesh-devices/--mesh-model/--fsdp are ported with slice H"
-    if (args.trace_out or args.trace_level != "off" or args.trace_profiler
-            or args.metrics_every):
-        return ("--trace-out/--trace-level/--trace-profiler/--metrics-every "
-                "are ported with slice F")
     return ""
 
 
@@ -255,6 +271,20 @@ def parse_args(argv=None):
                     help="checkpoint to warm-start from (pretrained backbone)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; nothing falls back")
+    ap.add_argument("--trace-out", default=None,
+                    help="flight-recorder export basename: writes "
+                         "<base>.jsonl, <base>.trace.json (Chrome/Perfetto) "
+                         "and <base>.prom; implies --trace-level round")
+    ap.add_argument("--trace-level", default="off", choices=list(LEVELS),
+                    help="flight-recorder detail: off = zero-overhead noop, "
+                         "round = round spans + meter bytes, step = the "
+                         "dispatch event and per-phase spans too")
+    ap.add_argument("--metrics-every", type=int, default=0,
+                    help="print a metrics-registry snapshot every N rounds "
+                         "(0 = only at the end when tracing is on)")
+    ap.add_argument("--trace-profiler", action="store_true",
+                    help="wrap traced device dispatches in "
+                         "torch.profiler.record_function ranges")
     # flags of later slices: parsed so that they fail with the slice's name
     ap.add_argument("--async-buffer", type=int, default=0,
                     help="buffered-async runtime (slice E)")
@@ -269,11 +299,6 @@ def parse_args(argv=None):
     ap.add_argument("--mesh-devices", type=int, default=0, help="(slice H)")
     ap.add_argument("--mesh-model", type=int, default=1, help="(slice H)")
     ap.add_argument("--fsdp", action="store_true", help="(slice H)")
-    ap.add_argument("--trace-out", default=None, help="(slice F)")
-    ap.add_argument("--trace-level", default="off", help="(slice F)")
-    ap.add_argument("--trace-profiler", action="store_true",
-                    help="(slice F)")
-    ap.add_argument("--metrics-every", type=int, default=0, help="(slice F)")
     args = ap.parse_args(argv)
     _refuse_for_baselines(ap, args)
     reason = _later_slice(args)
@@ -303,9 +328,19 @@ def main(argv=None):
             f"// --clients {args.clients}); lower --batch-size or raise "
             f"--samples")
 
-    trainer = build_trainer(args, model, device)
+    trace_level = args.trace_level
+    if args.trace_out and trace_level == "off":
+        trace_level = "round"
+    tracer = make_tracer(trace_level, profiler=args.trace_profiler)
+
+    trainer = build_trainer(args, model, device, tracer=tracer)
     engine = build_engine(args, trainer, population, model)
     ckpt_dir = os.path.join(args.out, "ckpt")
+
+    registry = MetricsRegistry()
+    meter = getattr(trainer, "meter", None)
+    if meter is not None:
+        registry.bind_meter(meter)
 
     resumed = args.resume and engine.restore(ckpt_dir)
     if resumed:
@@ -353,15 +388,25 @@ def main(argv=None):
             log.write(json.dumps(rec) + "\n")
             log.flush()
             print(rec, flush=True)
+            if args.metrics_every and (r + 1) % args.metrics_every == 0:
+                print(json.dumps({"metrics": registry.snapshot()},
+                                 sort_keys=True), flush=True)
             if args.ckpt_every and (r + 1) % args.ckpt_every == 0:
                 engine.save(ckpt_dir)
 
     engine.save(ckpt_dir)
     save_checkpoint(os.path.join(args.out, "final.npz"), engine.params)
     print("saved", os.path.join(args.out, "final.npz"), "log:", log_path)
-    meter = getattr(trainer, "meter", None)
     if meter is not None:
         print(meter.report())
+    if tracer.enabled and args.trace_out:
+        paths = export_all(tracer, args.trace_out, meter=meter,
+                           registry=registry)
+        for fmt, p in sorted(paths.items()):
+            print(f"trace [{fmt}]: {p}", flush=True)
+    elif tracer.enabled:
+        print(json.dumps({"metrics": registry.snapshot()}, sort_keys=True),
+              flush=True)
     if getattr(trainer, "accountant", None) is not None:
         print(trainer.accountant.report())
     return engine

@@ -266,6 +266,42 @@ def test_tracer_records_identical_without_times():
     assert jtrace.LEVELS == ttrace.LEVELS
 
 
+@pytest.mark.parametrize("module", ["metrics.py", "export.py"])
+def test_obs_registry_and_exporters_copied_byte_for_byte(module):
+    """`obs/metrics.py` and `obs/export.py` import only the standard
+    library: the port's are the JAX package's files, byte for byte."""
+    jax_file = ROOT / "src" / "repro" / "obs" / module
+    port_file = ROOT / "src" / "repro_torch" / "obs" / module
+    assert port_file.read_bytes() == jax_file.read_bytes()
+    assert not re.search(r"^\s*(?:import|from)\s+(?!__future__|typing|json|"
+                         r"bisect)\w", port_file.read_text(), re.MULTILINE)
+
+
+def test_obs_package_exports_the_same_names():
+    import repro.obs as jobs
+    import repro_torch.obs as tobs
+    from repro.obs import export as jexport
+    from repro_torch.obs import export as texport
+    public = {n for n in dir(jobs) if not n.startswith("_")} - {
+        "trace", "metrics", "export"}
+    assert public <= set(dir(tobs))
+    assert {n for n in dir(tobs) if not n.startswith("_")} - {
+        "trace", "metrics", "export"} == public
+    # the copies behave as the originals on the same records and snapshot
+    recs = []
+    for trace, export in ((jtrace, jexport), (ttrace, texport)):
+        tr = trace.Tracer("step")
+        with tr.span("round", cohort=2):
+            tr.event("meter.absorb", head_body=64.0)
+        tr.span_at("async.client", 0.5, 2.0, lane=4)
+        events = export.chrome_trace(tr.records())["traceEvents"]
+        recs.append(([{k: v for k, v in e.items() if k not in ("ts", "dur")}
+                      for e in events],
+                     export.prometheus_text({"a/b-c.d": 2, "x": "skip"})))
+    assert recs[0][1] == recs[1][1] == "a_b_c_d 2.0\n"
+    assert recs[0][0] == recs[1][0]
+
+
 _FORBIDDEN = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$)"
     r"|import_module\(\s*f?[\"'](?:jax|repro)\.", re.MULTILINE)

@@ -4,7 +4,8 @@ DP-SGD (cohorts, plans, bytes, epsilon and params), byte-identical resume,
 npz checkpoints readable by both packages, the fingerprint check that
 refuses a JAX engine checkpoint, the population's state, and the
 `repro_torch.launch.train` launcher (JSONL records against the JAX
-launcher's, resume, unported flags)."""
+launcher's, resume, unported flags, and the trace flags: the exports and
+tools/trace_check.py, metrics snapshots, the step level's phase spans)."""
 import torch
 
 torch.set_num_threads(2)
@@ -375,8 +376,6 @@ def test_launcher_asks_for_cuda_by_default(tmp_path):
     (["--staleness-beta", "0"], "slice E"),
     (["--mesh-devices", "4"], "slice H"), (["--fsdp"], "slice H"),
     (["--mesh-model", "2"], "slice H"),
-    (["--trace-out", "t"], "slice F"), (["--metrics-every", "1"], "slice F"),
-    (["--trace-level", "step"], "slice F"),
 ])
 def test_unported_flags_name_their_slice(extra, slice_, capsys, tmp_path):
     with pytest.raises(SystemExit) as exc:
@@ -384,3 +383,69 @@ def test_unported_flags_name_their_slice(extra, slice_, capsys, tmp_path):
                     + extra)
     assert exc.value.code == 2
     assert slice_ in capsys.readouterr().err
+
+
+# the launcher's trace flags (slice F): two rounds, no privacy, so the runs
+# stay short
+TRACE_FLAGS = FLAGS[:FLAGS.index("--rounds")] + [
+    "--rounds", "2", "--seed", "0", "--device", "cpu"]
+PHASES = ["phase1a", "phase1b", "phase2", "phase3"]
+
+
+def _trace_check():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "trace_check", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "tools", "trace_check.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_trace_out_writes_the_three_exports_and_passes_trace_check(
+        tmp_path, capsys):
+    """--trace-out alone raises the level to `round`: round spans and the
+    meter's byte events, no per-phase spans; JSONL, Chrome trace and the
+    registry's Prometheus text are written and trace_check accepts the
+    JSONL."""
+    base = str(tmp_path / "run")
+    engine = ttrain.main(TRACE_FLAGS + ["--out", str(tmp_path / "o"),
+                                        "--trace-out", base])
+    out = capsys.readouterr().out
+    for ext in ("jsonl", "trace.json", "prom"):
+        assert os.path.exists(f"{base}.{ext}") and f"{base}.{ext}" in out
+    with open(f"{base}.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    with open(f"{base}.jsonl") as f:
+        assert _trace_check().check(f) == 0
+    assert [r["name"] for r in recs] == ["meter.absorb", "round"] * 2 + [
+        "meter.final"]
+    meter = engine.trainer.meter
+    assert recs[-1]["attrs"]["params"] == meter.totals["params"]
+    prom = open(f"{base}.prom").read()
+    assert f"meter_totals_head_body {meter.totals['head_body']}" in prom
+
+
+def test_metrics_every_prints_one_snapshot_a_round(tmp_path, capsys):
+    ttrain.main(TRACE_FLAGS + ["--out", str(tmp_path), "--metrics-every",
+                               "1"])
+    snaps = [json.loads(line)["metrics"]
+             for line in capsys.readouterr().out.splitlines()
+             if line.startswith('{"metrics"')]
+    # one a round, and no final one: the tracer is off
+    assert [s["meter/rounds"] for s in snaps] == [1.0, 2.0]
+    assert snaps[1]["meter/totals/head_body"] == \
+        2 * snaps[0]["meter/totals/head_body"]
+
+
+def test_trace_level_step_alone_emits_the_phase_spans(tmp_path, capsys):
+    """--trace-level step without --trace-out: the dispatch event and the
+    per-phase spans inside each round, and the registry's snapshot printed
+    at the end."""
+    engine = ttrain.main(TRACE_FLAGS + ["--out", str(tmp_path),
+                                        "--trace-level", "step"])
+    names = [r["name"] for r in engine.trainer.tracer.records()]
+    assert names == (["round.dispatch"] + PHASES
+                     + ["meter.absorb", "round"]) * 2
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert json.loads(last)["metrics"]["meter/rounds"] == 2.0
