@@ -204,6 +204,32 @@ Phases, each of which fails the run with a nonzero exit:
      activations: loss finite, the K copies equal) and a prefill plus a
      decode step (bf16 activations, which must launch the wire, prefill
      and decode kernels);
+ 19. the buffered async runtime and hierarchical aggregation (run right
+     after phase 9): at the reduced ViT (3 layers, d_model 32, int8 wire,
+     numpy-seeded noise), the sync anchor on the card (buffer K,
+     concurrency 1, beta 0: one flush equals one `FederatedEngine` round,
+     params and bytes bit for bit, with the same kernel launches in the
+     same order), two secure flushes under dropout card against CPU
+     (clock, cohorts, ledger and bytes equal, params within
+     roundtrip_tol(3) + 1e-4, masked-encode launches one per buffered
+     entry plus one per flush with a dropped passenger) and a secure
+     hierarchical round (2 edges, one client dropped, one late) card
+     against CPU (bytes equal, params within roundtrip_tol(4) + 1e-4, K +
+     1 masked-encode launches); then `repro_torch.launch.train.main` at
+     ViT-Base width as phase 9 with `--async-buffer 4 --async-concurrency
+     2 --regime wan --dropout-rate 0.25 --secure-agg`, 3 flushes (the seed
+     puts dropped passengers in flushes 0 and 2), and again with clear
+     flushes: the same clock and arrivals, secure params within
+     roundtrip_tol(4) + 1e-4 of the clear ones, each flush's uploads and
+     secure bytes equal to `secure_agg_breakdown`, its masked-encode
+     launches one per entry plus one with a passenger, every metric
+     finite; then `--k 4 --edges 2 --secure-agg --dropout-rate 0.2` for 2
+     rounds: edge_global, params and secure bytes equal to
+     `hierarchical_secure_agg_breakdown` fed the plan's edge uploads, K
+     masked-encode launches plus one per edge with a dropout; it prints
+     the seconds of each dispatch round, flush and round, the simulated
+     seconds, staleness, the contributions held, peak memory and the
+     launches per kernel;
  then the `kernels` JSON line (each kernel once, with the dtypes, head
  dims and groups it was held at, its bf16 numbers and its wide-shape
  numbers), then the seconds each phase took and the total, then the device
@@ -343,6 +369,15 @@ PATHS = {
     "lm_hybrid": ("quantize_int8", "dequantize_int8",
                   "flash_attention_prefill", "el2n", "mamba2_scan"),
     "lm_rwkv": ("quantize_int8", "dequantize_int8", "el2n", "rwkv6_scan"),
+    # phase 19: the async runtime's dispatch rounds (SFPrompt rounds) and
+    # secure flushes, the same with clear flushes, and the hierarchical
+    # round with a secure aggregator per edge
+    "async": ("quantize_int8", "dequantize_int8", "flash_attention_prefill",
+              "el2n", "secure_masked_encode"),
+    "async_clear": ("quantize_int8", "dequantize_int8",
+                    "flash_attention_prefill", "el2n"),
+    "hier": ("quantize_int8", "dequantize_int8", "flash_attention_prefill",
+             "el2n", "secure_masked_encode"),
 }
 # the wide attention shapes of phase 3: (label, Hq, Hkv, Dh)
 WIDE_SHAPES = (("gemma2-9b", 16, 8, 256), ("stablelm-12b", 32, 8, 160),
@@ -3984,6 +4019,500 @@ def full_width_private(torch, kernel_ms):
     return launches, summary
 
 
+# --------------------------------------------------------------- phase 19
+# phase 19's full-width async run: the seed makes flushes 0 and 2 carry
+# dropped passengers (entries 5, 4, 5 over four dispatch groups; the
+# simulated clock is numpy alone, so a clock-only run on the CPU found it)
+ASYNC_SEED = 10
+ASYNC_ARGV = [
+    "--arch", "vit-base", "--dataset", "cifar100-syn", "--samples", "512",
+    "--clients", "8", "--k", "4", "--rounds", "3", "--local-epochs", "2",
+    "--batch-size", "16", "--gamma", "0.5", "--prompt-len", "16",
+    "--image-hw", "224", "--wire", "int8", "--async-buffer", "4",
+    "--async-concurrency", "2", "--regime", "wan", "--dropout-rate", "0.25",
+    "--seed", str(ASYNC_SEED), "--device", "cuda"]
+# phase 19's hierarchical run: phase 9's seed, so round 0 loses a client
+# (one edge recovers a dropped mask) and round 1 keeps all four
+HIER_ARGV = [
+    "--arch", "vit-base", "--dataset", "cifar100-syn", "--samples", "512",
+    "--clients", "8", "--k", "4", "--edges", "2", "--rounds", "2",
+    "--local-epochs", "2", "--batch-size", "16", "--gamma", "0.5",
+    "--prompt-len", "16", "--image-hw", "224", "--wire", "int8",
+    "--secure-agg", "--dropout-rate", "0.2", "--seed", "8",
+    "--device", "cuda"]
+
+
+class launch_sequence:
+    """Context manager: every kernel launch inside it appends its kernel's
+    name to `log`, in order. Each wrapper counts a launch with
+    `fn.launches += 1`; the counters become int subclasses whose `+`
+    records the name, and plain ints again on exit."""
+
+    def __init__(self, log):
+        self.log = log
+
+    def __enter__(self):
+        from repro_torch.kernels import wrappers
+        log = self.log
+
+        class Counted(int):
+            def __add__(self, n):
+                log.append(self.name)
+                out = Counted(int(self) + n)
+                out.name = self.name
+                return out
+
+        self.fns = wrappers()
+        for name, fn in self.fns.items():
+            fn.launches = Counted(fn.launches)
+            fn.launches.name = name
+        return log
+
+    def __exit__(self, *exc):
+        for fn in self.fns.values():
+            fn.launches = int(fn.launches)
+
+
+def async_parity(torch):
+    """Phase 19 (a), the reduced ViT of tests/test_torch_async.py (3 layers,
+    d_model 32) on the int8 wire with numpy-seeded noise: the sync anchor
+    on the card (one async flush == one synchronous round, bit for bit,
+    with the same launches in the same order); an async secure flush under
+    dropout card against CPU; a secure hierarchical round card against
+    CPU."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ProtocolConfig, SFPromptTrainer,
+                                  SplitConfig, SplitModel)
+    from repro_torch.core.aggregation import get_aggregator
+    from repro_torch.data import DATASETS, synthetic_image_dataset
+    from repro_torch.fed import (AsyncConfig, AsyncRoundEngine,
+                                 ClientSampler, FederatedEngine, Population,
+                                 RoundScheduler, StragglerConfig)
+    from repro_torch.kernels import launch_counts
+    from repro_torch.privacy.fixed_point import roundtrip_tol
+    from repro_torch.privacy.secure_agg import SecureAggregator
+    from repro_torch.runtime import WireSpec
+    from repro_torch.tree import tree_flatten, tree_map
+    n_clients, K = 40, 4
+    cfg = get_config("vit-base").reduced(n_layers=3, d_model=32, d_ff=64)
+    model = SplitModel(cfg, SplitConfig(head_cycles=1, tail_cycles=1,
+                                        prompt_len=2, prune_gamma=0.3,
+                                        local_epochs=1),
+                       WireSpec.make("int8"))
+    pcfg = ProtocolConfig(clients_per_round=K, local_epochs=1, batch_size=4,
+                          momentum=0.0, return_client_trainable=True)
+    data = synthetic_image_dataset(DATASETS["cifar10-syn"], n_clients * 8,
+                                   seed=0, image_hw=32)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+
+    def pop():
+        return Population.from_partition(data, n_clients, scheme="dirichlet",
+                                         alpha=0.1, seed=0)
+
+    def wan(dropout):
+        return RoundScheduler(StragglerConfig(regime="wan",
+                                              dropout_rate=dropout),
+                              seed=3, round_bytes_per_client=1e6,
+                              round_flops_per_client=1e12)
+
+    def start(engine, dev):
+        engine.state = {"params": tree_map(lambda x: x.to(dev), params),
+                        "round": 0}
+        return engine
+
+    def max_diff(a, b):
+        return max(float((x.cpu() - y.cpu()).abs().max()) for (_, x), (_, y)
+                   in zip(tree_flatten(a), tree_flatten(b)))
+
+    report = {}
+    # ---- the sync anchor on the card: buffer K, concurrency 1, beta 0
+    noise = numpy_wire_noise(torch, "cuda")
+    sync = start(FederatedEngine(SFPromptTrainer(model, pcfg, device="cuda"),
+                                 pop(), ClientSampler(n_clients, K, seed=3)),
+                 "cuda")
+    with launch_sequence([]) as sync_seq:
+        sync.run_round(wire_noise=noise)
+    anchor = start(AsyncRoundEngine(
+        SFPromptTrainer(model, pcfg, device="cuda"), pop(),
+        ClientSampler(n_clients, K, seed=3),
+        acfg=AsyncConfig(buffer_size=K, concurrency=1, staleness_beta=0.0)),
+        "cuda")
+    with launch_sequence([]) as async_seq:
+        anchor.run_flushes(1, wire_noise=noise)
+    if max_diff(sync.params, anchor.params) != 0.0:
+        fail(f"async parity: the sync anchor's flush differs from the sync "
+             f"round by {max_diff(sync.params, anchor.params):.3g}")
+    sm, am = sync.trainer.meter.as_dict(), anchor.meter.as_dict()
+    if sm != am:
+        fail(f"async parity: sync anchor bytes {am} vs the round's {sm}")
+    if sync_seq != async_seq or not sync_seq:
+        fail(f"async parity: the sync round launched {len(sync_seq)} "
+             f"kernels, the flush {len(async_seq)}, in another order")
+    counts = {k: sync_seq.count(k) for k in sorted(set(sync_seq))}
+    report["sync_anchor"] = {"launches": counts, "bytes": am}
+    say(f"async parity: sync anchor on the card: params and bytes ==, the "
+        f"same {len(sync_seq)} launches in the same order {counts}")
+
+    # ---- an async secure flush under dropout, card against CPU
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        weights = []
+
+        class Recording(SecureAggregator):
+            def aggregate(self, client_trees, w, fallback, round_idx):
+                weights.append(np.asarray(w.cpu(), np.float32))
+                return super().aggregate(client_trees, w, fallback,
+                                         round_idx)
+
+        eng = start(AsyncRoundEngine(
+            SFPromptTrainer(model, pcfg, device=dev), pop(),
+            ClientSampler(n_clients, K, seed=3), wan(0.3),
+            AsyncConfig(buffer_size=3, concurrency=2, staleness_beta=0.5),
+            aggregator=Recording(seed=0)), dev)
+        n0 = launch_counts()["secure_masked_encode"]
+        eng.run_flushes(2, wire_noise=numpy_wire_noise(torch, dev))
+        runs[dev] = (eng, weights,
+                     launch_counts()["secure_masked_encode"] - n0)
+    (ec, wc, lc), (eg, wg, lg) = runs["cpu"], runs["cuda"]
+    passengers = [int((w == 0).any()) for w in wg]
+    want = sum(len(w) for w in wg) + sum(passengers)
+    if (lc, lg) != (0, want) or not any(passengers):
+        fail(f"async parity: masked-encode launches {lc} on the CPU, {lg} "
+             f"on the card (want 0 and {want}), passenger flushes "
+             f"{passengers}")
+    same = (eg.t_sim == ec.t_sim and eg.arrivals == ec.arrivals
+            and eg.flush_history == ec.flush_history
+            and eg.meter.state_dict() == ec.meter.state_dict()
+            and all((x == y).all() for x, y in zip(wg, wc))
+            and all(np.array_equal(v, ec.ledger.state_dict()[k])
+                    for k, v in eg.ledger.state_dict().items()))
+    if not same:
+        fail("async parity: the secure flushes' clock, cohorts, ledger or "
+             "bytes differ between the card and the CPU")
+    tol = roundtrip_tol(3) + PARITY_TOL
+    diff = max_diff(eg.params, ec.params)
+    if diff > tol:
+        fail(f"async parity: secure flush params differ by {diff:.3g} > "
+             f"{tol:.3g}")
+    report["secure_flush"] = {"param_max_diff": diff, "tol": tol,
+                              "launches": lg, "entries": [len(w) for w in wg],
+                              "passenger_flushes": passengers,
+                              "t_sim": eg.t_sim}
+    say(f"async parity: 2 secure flushes (entries {[len(w) for w in wg]}, "
+        f"passengers {passengers}) card vs CPU: clock, cohorts, ledger and "
+        f"bytes ==, params {diff:.3g} (<= {tol:.3g}), {lg} masked-encode "
+        f"launches on the card")
+
+    # ---- a secure hierarchical round, card against CPU: client 0 of edge
+    # 0 dropped, client 1 late at 0.4
+    part = {"transmit": np.array([0.0, 0.4, 1.0, 1.0], np.float32),
+            "aggregate": np.array([0.0, 1.0, 1.0, 1.0], np.float32)}
+    cohort = pop().gather(np.arange(K))
+    hier = {}
+    for dev in ("cpu", "cuda"):
+        tr = SFPromptTrainer(model, pcfg, get_aggregator(
+            secure=True, n_edges=2, cohort_size=K, seed=3), device=dev)
+        n0 = launch_counts()["secure_masked_encode"]
+        st, m = tr.round({"params": tree_map(lambda x: x.to(dev), params),
+                          "round": 0}, cohort, part,
+                         wire_noise=numpy_wire_noise(torch, dev))
+        hier[dev] = (st["params"], m,
+                     launch_counts()["secure_masked_encode"] - n0)
+    (pc, mc, lc), (pg, mg, lg) = hier["cpu"], hier["cuda"]
+    if (lc, lg) != (0, K + 1):
+        fail(f"hier parity: masked-encode launches {lc} on the CPU, {lg} on "
+             f"the card (want 0 and K + 1 edge with a dropout = {K + 1})")
+    for key in mc:
+        if key.startswith(("wire/", "cohort/")) and mg[key] != mc[key]:
+            fail(f"hier parity: {key} {mg[key]} on the card vs {mc[key]}")
+    tol = roundtrip_tol(K) + PARITY_TOL
+    diff = max_diff(pg, pc)
+    if diff > tol:
+        fail(f"hier parity: params differ by {diff:.3g} > {tol:.3g}")
+    report["hier"] = {"param_max_diff": diff, "tol": tol, "launches": lg,
+                      "wire_bytes": {k: mc[k] for k in mc
+                                     if k.startswith("wire/")}}
+    say(f"hier parity (2 edges, secure, one dropped, one late) card vs CPU: "
+        f"bytes == (edge_global {mc['wire/edge_global_bytes']}), params "
+        f"{diff:.3g} (<= {tol:.3g}), {lg} masked-encode launches")
+    return report
+
+
+def _contribution_mb(engine) -> float:
+    """MB of client contributions the engine holds (in flight and
+    buffered)."""
+    from repro_torch.tree import tree_leaves
+    held = [f.contribution for f in engine.in_flight] + \
+        [e.contribution for e in engine.buffer.entries]
+    return sum(x.numel() * x.element_size() for c in held if c is not None
+               for x in tree_leaves(c)) / 1e6
+
+
+def full_width_async(torch):
+    """Phase 19 (b): the buffered async runtime at full width through the
+    launcher — ViT-Base, 8 clients of 64, K 4, buffer 4, two groups in
+    flight, WAN, dropout 0.25, int8 wire, 3 flushes — with secure flushes,
+    then again with clear ones."""
+    import numpy as np
+    from unittest import mock
+    from repro_torch.core import SFPromptTrainer
+    from repro_torch.core.comm import secure_agg_breakdown
+    from repro_torch.fed import AsyncRoundEngine
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch import train
+    from repro_torch.privacy.fixed_point import roundtrip_tol
+    from repro_torch.privacy.secure_agg import SecureAggregator
+    from repro_torch.tree import tree_leaves
+    client_updates = SFPromptTrainer.client_updates
+    flush, aggregate = AsyncRoundEngine._flush, SecureAggregator.aggregate
+    runs, paths = {}, {}
+    for label, extra in (("secure", ["--secure-agg"]), ("clear", [])):
+        out = OUT / f"async_{label}"
+        if out.exists():
+            import shutil
+            shutil.rmtree(out)
+        dispatch_s, flushes, aggs, held = [], [], [], []
+
+        def timed_updates(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = client_updates(self, *a, **kw)
+            torch.cuda.synchronize()
+            dispatch_s.append(time.perf_counter() - t0)
+            return res
+
+        def timed_flush(self):
+            entries = list(self.buffer.entries)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flush(self)
+            torch.cuda.synchronize()
+            flushes.append({"wall_s": time.perf_counter() - t0,
+                            "entries": len(entries),
+                            "live": sum(not e.dropped for e in entries),
+                            "staleness": [self.version - 1 - e.version
+                                          for e in entries if not e.dropped]})
+            held.append(_contribution_mb(self))
+
+        def counted_aggregate(self, client_trees, weights, fallback,
+                              round_idx):
+            n0 = launch_counts()["secure_masked_encode"]
+            agg, wire = aggregate(self, client_trees, weights, fallback,
+                                  round_idx)
+            torch.cuda.synchronize()
+            aggs.append({"launches": launch_counts()["secure_masked_encode"]
+                         - n0, "wire": {k: float(v) for k, v in wire.items()},
+                         "n_trainable": sum(x[0].numel() for x in
+                                            tree_leaves(client_trees))})
+            return agg, wire
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(SFPromptTrainer, "client_updates",
+                               timed_updates), \
+                mock.patch.object(AsyncRoundEngine, "_flush", timed_flush), \
+                mock.patch.object(SecureAggregator, "aggregate",
+                                  counted_aggregate):
+            engine = train.main(ASYNC_ARGV + extra + ["--out", str(out)])
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = launch_counts()
+        with open(out / "vit-base_sfprompt_cifar100-syn.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        for p in out.rglob("*.npz"):    # too large to bring back
+            p.unlink()
+        bad = [k for r in recs for k, v in r.items()
+               if isinstance(v, float) and not np.isfinite(v)]
+        if len(recs) != 3 or len(flushes) != 3 or bad:
+            fail(f"async full width ({label}): {len(recs)} records, "
+                 f"{len(flushes)} flushes, non-finite {bad}")
+        runs[label] = dict(
+            engine=engine, recs=recs, flushes=flushes, aggs=aggs,
+            dispatch_s=dispatch_s, held_mb=held, total_s=total_s,
+            launches=launches,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        paths["async" if label == "secure" else "async_clear"] = launches
+    sec, clr = runs["secure"], runs["clear"]
+    es, ec = sec["engine"], clr["engine"]
+    if (es.t_sim, es.arrivals) != (ec.t_sim, ec.arrivals):
+        fail(f"async full width: t_sim/arrivals {es.t_sim}/{es.arrivals} "
+             f"secure vs {ec.t_sim}/{ec.arrivals} clear")
+    tol = roundtrip_tol(4) + PARITY_TOL
+    diff = max(float((a - b).abs().max()) for a, b in
+               zip(tree_leaves(es.params), tree_leaves(ec.params)))
+    if diff > tol:
+        fail(f"async full width: secure params {diff:.3g} from the clear "
+             f"ones > {tol:.3g}")
+    passengers = [int(f["entries"] > f["live"]) for f in sec["flushes"]]
+    if not any(passengers):
+        fail(f"async full width: no flush carried a dropped passenger "
+             f"({sec['flushes']})")
+    n_tr = sec["aggs"][0]["n_trainable"]
+    pb = 4.0 * n_tr
+    for i, (f, a) in enumerate(zip(sec["flushes"], sec["aggs"])):
+        want = secure_agg_breakdown(n_trainable=n_tr, param_nbytes=pb,
+                                    K=f["entries"], n_uploads=f["live"])
+        # the flush bills the uploads; each entry's fp32 downlink was
+        # billed when its group was dispatched
+        got = {"params": a["wire"]["params_up"] + f["entries"] * pb,
+               "secure": a["wire"]["secure"]}
+        if got != want:
+            fail(f"async full width flush {i}: bytes {got} vs "
+                 f"secure_agg_breakdown {want}")
+        if a["launches"] != f["entries"] + passengers[i]:
+            fail(f"async full width flush {i}: {a['launches']} masked-"
+                 f"encode launches, want {f['entries'] + passengers[i]}")
+    n_dispatched = 4 * len(sec["dispatch_s"])
+    want_params = n_dispatched * pb + sum(a["wire"]["params_up"]
+                                          for a in sec["aggs"])
+    if es.meter.totals["params"] != want_params:
+        fail(f"async full width: params total {es.meter.totals['params']} "
+             f"vs {want_params}")
+    if sec["launches"]["secure_masked_encode"] != sum(
+            a["launches"] for a in sec["aggs"]):
+        fail("async full width: masked-encode launches outside the flushes")
+    for label, path in (("secure", "async"), ("clear", "async_clear")):
+        missing = [k for k in PATHS[path] if runs[label]["launches"][k] <= 0]
+        if missing:
+            fail(f"async full width ({label}): kernels never launched: "
+                 f"{missing}")
+    summary = {"argv": ASYNC_ARGV, "param_diff_secure_vs_clear": diff,
+               "tol": tol, "passenger_flushes": passengers}
+    for label, r in runs.items():
+        e = r["engine"]
+        summary[label] = {
+            "total_s": r["total_s"], "dispatch_s": r["dispatch_s"],
+            "flushes": r["flushes"], "t_sim": e.t_sim,
+            "arrivals": e.arrivals,
+            "mean_staleness": e.ledger.mean_staleness(),
+            "max_staleness": e.ledger.max_staleness,
+            "contributions_mb_after_flush": r["held_mb"],
+            "max_memory_allocated_gb": r["peak_gb"],
+            "launches": r["launches"], "records": r["recs"],
+            "meter": e.meter.as_dict(), "aggs": r["aggs"]}
+        say(f"async full width ({label}): dispatch rounds "
+            f"{[round(s, 3) for s in r['dispatch_s']]} s, flushes "
+            f"{[round(f['wall_s'] * 1e3, 2) for f in r['flushes']]} ms "
+            f"(entries {[f['entries'] for f in r['flushes']]}, live "
+            f"{[f['live'] for f in r['flushes']]}), {e.t_sim:.2f} simulated "
+            f"s, staleness mean {e.ledger.mean_staleness():.3f} max "
+            f"{e.ledger.max_staleness}, contributions held after each flush "
+            f"{[round(m, 1) for m in r['held_mb']]} MB "
+            f"({n_tr * 4 / 1e6:.1f} MB each), peak "
+            f"{r['peak_gb']:.2f} GB, {r['total_s']:.1f} s, launches "
+            + json.dumps({k: v for k, v in r["launches"].items() if v},
+                         sort_keys=True))
+    say(f"async full width: passengers in flushes {passengers}; secure "
+        f"params {diff:.3g} from clear (<= {tol:.3g}); per-flush bytes == "
+        f"secure_agg_breakdown")
+    return paths, summary
+
+
+def full_width_hier(torch):
+    """Phase 19 (c): hierarchical secure aggregation at full width through
+    the launcher — ViT-Base, K 4 over 2 edges, dropout 0.2, int8 wire, 2
+    rounds."""
+    import numpy as np
+    from unittest import mock
+    from repro_torch.core.comm import (hierarchical_edge_breakdown,
+                                       hierarchical_secure_agg_breakdown)
+    from repro_torch.fed import FederatedEngine
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch import train
+    from repro_torch.privacy.secure_agg import SecureAggregator
+    from repro_torch.tree import tree_leaves
+    out = OUT / "hier"
+    if out.exists():
+        import shutil
+        shutil.rmtree(out)
+    K, E = 4, 2
+    run_round, aggregate = FederatedEngine.run_round, SecureAggregator.aggregate
+    rounds, edge_launches = [], []
+
+    def timed_round(self, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n0 = launch_counts()["secure_masked_encode"]
+        plan, m = run_round(self, **kw)
+        torch.cuda.synchronize()
+        rounds.append({"wall_s": time.perf_counter() - t0,
+                       "aggregate": plan.aggregate.tolist(),
+                       "launches": launch_counts()["secure_masked_encode"]
+                       - n0})
+        return plan, m
+
+    def counted_aggregate(self, client_trees, weights, fallback, round_idx):
+        n0 = launch_counts()["secure_masked_encode"]
+        agg, wire = aggregate(self, client_trees, weights, fallback,
+                              round_idx)
+        edge_launches.append(launch_counts()["secure_masked_encode"] - n0)
+        return agg, wire
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(FederatedEngine, "run_round", timed_round), \
+            mock.patch.object(SecureAggregator, "aggregate",
+                              counted_aggregate):
+        engine = train.main(HIER_ARGV + ["--out", str(out)])
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = launch_counts()
+    with open(out / "vit-base_sfprompt_cifar100-syn.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    for p in out.rglob("*.npz"):
+        p.unlink()
+    bad = [k for r in recs for k, v in r.items()
+           if isinstance(v, float) and not np.isfinite(v)]
+    if len(recs) != 2 or len(rounds) != 2 or bad:
+        fail(f"hier full width: {len(recs)} records, {len(rounds)} rounds, "
+             f"non-finite {bad}")
+    params = engine.params
+    n_tr = sum(x.numel() for x in tree_leaves(
+        {"tail": params["tail"], "prompt": params["prompt"]}))
+    pb = 4.0 * n_tr
+    for r, (rec, rd) in enumerate(zip(recs, rounds)):
+        alive = np.asarray(rd["aggregate"]) > 0
+        ups = [float(alive[e * (K // E):(e + 1) * (K // E)].sum())
+               for e in range(E)]
+        want = hierarchical_secure_agg_breakdown(
+            n_trainable=n_tr, param_nbytes=pb, edge_sizes=[K // E] * E,
+            edge_uploads=ups)
+        edge = hierarchical_edge_breakdown(
+            param_nbytes=pb, n_edges=E,
+            live_edges=float(sum(u > 0 for u in ups)))
+        if rec["wire/edge_global_bytes"] != edge["edge_global"]:
+            fail(f"hier full width round {r}: edge_global "
+                 f"{rec['wire/edge_global_bytes']} vs {edge['edge_global']}")
+        for key in ("params", "secure"):
+            if rec[f"wire/{key}_bytes"] != want[key]:
+                fail(f"hier full width round {r}: {key} "
+                     f"{rec[f'wire/{key}_bytes']} vs {want[key]}")
+        want_launches = K + sum(u < K // E for u in ups)
+        if rd["launches"] != want_launches:
+            fail(f"hier full width round {r}: {rd['launches']} masked-encode "
+                 f"launches, want {want_launches}")
+        rd["edge_uploads"] = ups
+    if not any(0 < sum(rd["edge_uploads"]) < K for rd in rounds):
+        fail("hier full width: no round lost a client")
+    missing = [k for k in PATHS["hier"] if launches[k] <= 0]
+    if missing:
+        fail(f"hier full width: kernels never launched: {missing}")
+    summary = {"argv": HIER_ARGV, "total_s": total_s, "rounds": rounds,
+               "edge_launches": edge_launches, "records": recs,
+               "launches": launches}
+    say(f"hier full width: rounds {[round(r['wall_s'], 3) for r in rounds]} "
+        f"s, edge uploads {[r['edge_uploads'] for r in rounds]}, masked-"
+        f"encode launches {[r['launches'] for r in rounds]} (by edge "
+        f"{edge_launches}), bytes == hierarchical_secure_agg_breakdown, "
+        f"{total_s:.1f} s, launches "
+        + json.dumps({k: v for k, v in launches.items() if v},
+                     sort_keys=True))
+    return launches, summary
+
+
 # --------------------------------------------------------------- phase 16
 def _changed(torch, new, old):
     """Whether any leaf of `new` differs from the same leaf of `old`."""
@@ -4732,6 +5261,19 @@ def main() -> None:
         torch, results["secure_masked_encode"]["ms"])
     summaries["recurrent_parity"] = recurrent
     lap("9")
+
+    # 19. the buffered async runtime and hierarchical aggregation: card
+    # against CPU at the reduced ViT, then at full width through the
+    # launcher
+    t19 = time.perf_counter()
+    summaries["async_parity"] = async_parity(torch)
+    paths19, summaries["async"] = full_width_async(torch)
+    by_path.update(paths19)
+    torch.cuda.empty_cache()
+    by_path["hier"], summaries["hier"] = full_width_hier(torch)
+    torch.cuda.empty_cache()
+    say(f"phase 19: {time.perf_counter() - t19:.1f} s")
+    lap("19")
 
     # 16. the FL and SFL baselines and the heterogeneous-cut trainer: card
     # against CPU at the reduced ViT, then at full width

@@ -24,7 +24,8 @@ trainer's TrafficMeter. `serve_comm_breakdown` is the serving slice's,
 `secure_agg_breakdown` the masked secure aggregation's. The client
 compute and latency models of FL, SFL and SFPrompt and `summarize` (the
 paper's Table-1 comparison) keep the JAX package's order of operations, so
-their floats are equal bit for bit. The edge breakdowns wait for slice E.
+their floats are equal bit for bit, as do the hierarchical (edge) breakdowns
+and the async round-time twin `async_vs_sync_round_time`.
 """
 from __future__ import annotations
 
@@ -139,6 +140,45 @@ def secure_agg_breakdown(*, n_trainable: int, param_nbytes: float, K: int,
     }
 
 
+def hierarchical_edge_breakdown(*, param_nbytes: float, n_edges: int,
+                                live_edges: float) -> Dict[str, float]:
+    """Analytical backhaul bytes of one hierarchical round's tier 2, keyed
+    like the TrafficMeter's `edge_global` stream: each LIVE edge (one with
+    at least one surviving client) uploads its fp32 edge mean, and the new
+    globals broadcast down to all `n_edges` edges."""
+    return {"edge_global": (n_edges + live_edges) * param_nbytes}
+
+
+def hierarchical_secure_agg_breakdown(*, n_trainable: int,
+                                      param_nbytes: float,
+                                      edge_sizes, edge_uploads,
+                                      ) -> Dict[str, float]:
+    """Analytical wire bytes of one hierarchical SECURE round — the
+    per-edge sum of `secure_agg_breakdown` plus the tier-2 backhaul.
+
+    edge_sizes: per-edge sub-cohort sizes k_e (sum = K); edge_uploads: how
+    many of each edge's clients survived to upload. Key agreement costs
+    sum(k_e^2) pubkeys — the hierarchical win over the flat K^2 — and
+    escrow reveals pair each edge's survivors with ITS dropped clients
+    only. `params` keeps the flat shape: the fp32 downlink reaches all K
+    clients and every survivor uploads one padded ring tensor; `edge_global`
+    follows `hierarchical_edge_breakdown` with an all-dropped edge not
+    uploading its mean."""
+    totals = {"params": 0.0, "secure": 0.0}
+    live = 0.0
+    for k_e, up_e in zip(edge_sizes, edge_uploads):
+        part = secure_agg_breakdown(
+            n_trainable=n_trainable, param_nbytes=param_nbytes, K=int(k_e),
+            n_uploads=float(up_e))
+        totals["params"] += part["params"]
+        totals["secure"] += part["secure"]
+        live += float(up_e > 0)
+    totals.update(hierarchical_edge_breakdown(
+        param_nbytes=param_nbytes, n_edges=len(list(edge_sizes)),
+        live_edges=live))
+    return totals
+
+
 def serve_comm_breakdown(wire, *, d_model: int, soft_prompt_len: int,
                          requests) -> Dict[str, float]:
     """Analytical SERVING wire bytes per boundary for a request trace.
@@ -231,6 +271,76 @@ def sfprompt_latency(c: CostInputs) -> float:
     client2 = 6 * (1 - c.tau) * c.gamma_keep * c.D * c.W * c.E / c.P_C
     server2 = 6 * c.tau * c.gamma_keep * c.D * c.W * c.E * c.K / c.P_S
     return comm + phase1 + max(client2, server2)
+
+
+# ------------------------------------------- async round-time twin
+def _lognormal_moments(t_comm: float, t_comp: float, link_sigma: float,
+                       speed_sigma: float, jitter_sigma: float):
+    """Fenton-Wilkinson fit of one client's round latency to a single
+    lognormal(mu, sigma). The simulated latency (fed/scheduler.py) is
+    (t_comm * L + t_comp * C) * J with L, C, J independent lognormals of
+    median 1 — moment-match the sum, then fold the jitter in exactly
+    (products of lognormals add mus and sigma^2s)."""
+    import math
+
+    def mv(scale, s):
+        mean = scale * math.exp(s * s / 2.0)
+        var = scale * scale * (math.exp(s * s) - 1.0) * math.exp(s * s)
+        return mean, var
+
+    m_l, v_l = mv(t_comm, link_sigma)
+    m_c, v_c = mv(t_comp, speed_sigma)
+    mean, var = m_l + m_c, v_l + v_c
+    sigma2 = math.log(1.0 + var / (mean * mean))
+    mu = math.log(mean) - sigma2 / 2.0
+    return mu, math.sqrt(sigma2 + jitter_sigma * jitter_sigma)
+
+
+def _expected_max_lognormal(n: int, mu: float, sigma: float) -> float:
+    """E[max of n iid lognormal(mu, sigma)] via the order-statistic
+    quantile approximation exp(mu + sigma * Phi^-1(n/(n+1))) — stdlib
+    only (statistics.NormalDist), no scipy."""
+    import math
+    from statistics import NormalDist
+
+    if n <= 1:
+        return math.exp(mu + sigma * sigma / 2.0)
+    return math.exp(mu + sigma * NormalDist().inv_cdf(n / (n + 1.0)))
+
+
+def async_vs_sync_round_time(*, t_comm: float, t_comp: float, K: int,
+                             buffer_size: int, concurrency: int,
+                             group_size: int = 0,
+                             link_sigma: float = 0.8,
+                             speed_sigma: float = 0.4,
+                             jitter_sigma: float = 0.15,
+                             ) -> Dict[str, float]:
+    """Analytical twin of the async engine's simulated clock
+    (`fed/async_engine.py`): contributions/s of the synchronous barrier vs
+    the buffered-async runtime, from the same latency distribution the
+    simulated engines draw from.
+
+    Sync: every round waits for the slowest of its K sampled clients, so
+    it lands K contributions per E[max_K T] seconds. Async: `concurrency`
+    dispatch groups of `group_size` clients run independently; each group
+    cycles in E[max_g T] (the engine refills a group when its last member
+    lands), so arrivals stream at concurrency * g / E[max_g] per second —
+    the straggler tail is paid per GROUP, not per cohort, and groups
+    overlap. The ratio is the throughput speedup of async over sync (the
+    JAX package's `benchmarks/async_rounds.py --check` holds its simulated
+    clock against this)."""
+    g = group_size or K
+    mu, sigma = _lognormal_moments(t_comm, t_comp, link_sigma,
+                                   speed_sigma, jitter_sigma)
+    t_sync = _expected_max_lognormal(K, mu, sigma)
+    t_group = _expected_max_lognormal(g, mu, sigma)
+    sync_rate = K / t_sync
+    async_rate = concurrency * g / t_group
+    return {"sync_round_s": t_sync, "async_group_s": t_group,
+            "sync_contrib_per_s": sync_rate,
+            "async_contrib_per_s": async_rate,
+            "async_flush_interval_s": buffer_size / async_rate,
+            "throughput_speedup": async_rate / sync_rate}
 
 
 def summarize(c: CostInputs) -> Dict[str, Dict[str, float]]:

@@ -36,13 +36,14 @@ DP noise likewise: with `dp_clip > 0` each client's delta is clipped and
 noised with unit normals from a per-(round, client) generator seeded from
 DP_SEED, unless `round(dp_noise=...)` hands them in.
 
-Phase 3 goes through the pluggable aggregator (clear FedAvg, or the masked
-secure aggregation of `privacy/secure_agg.py`, whose wire bytes the
-aggregator meters itself). The zCDP accountant spends one release per
-round when the noise multiplier is positive.
+Phase 3 goes through the pluggable aggregator (clear FedAvg, the masked
+secure aggregation of `privacy/secure_agg.py`, or the edge topology of
+`fed/topology.py`; a metered aggregator bills its own uplink, key
+agreement and backhaul). The zCDP accountant spends one release per round
+when the noise multiplier is positive. `client_updates` is the async
+runtime's dispatch: the round with an all-zero aggregate.
 
-The mesh (slice H) and the async `client_updates` (slice E) are not ported
-yet and raise.
+The mesh (slice H) is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -62,7 +63,7 @@ from repro_torch.core.split import SplitModel, resolve_device
 from repro_torch.obs.trace import LEVEL_STEP, NOOP
 from repro_torch.optim import Optimizer, adamw, apply_updates, sgd
 from repro_torch.privacy.dp import DP_SEED, PrivacyAccountant
-from repro_torch.runtime.meter import SECURE, TrafficMeter
+from repro_torch.runtime.meter import EDGE, SECURE, TrafficMeter
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
@@ -404,11 +405,16 @@ class SFPromptTrainer:
                                      for x in tree_leaves(fallback)))
         if agg_wire:
             # metered aggregator: fp32 broadcast down to all K; the uplink
-            # is what the aggregator metered (the masked ring uploads);
-            # key agreement and escrow reveals ride their own stream
-            metrics["wire/params_bytes"] = (np.float32(K) * param_bytes
-                                            + agg_wire["params_up"])
-            metrics[f"wire/{SECURE}_bytes"] = agg_wire[SECURE]
+            # is whatever the aggregator metered (masked ring uploads on
+            # the secure path) or the clear survivors-only default; key
+            # agreement / escrow reveals and the hierarchical edge->global
+            # backhaul ride their own streams
+            up = agg_wire.get("params_up", np.float32(n_up) * param_bytes)
+            metrics["wire/params_bytes"] = np.float32(K) * param_bytes + up
+            if SECURE in agg_wire:
+                metrics[f"wire/{SECURE}_bytes"] = agg_wire[SECURE]
+            if EDGE in agg_wire:
+                metrics[f"wire/{EDGE}_bytes"] = agg_wire[EDGE]
         else:
             # clear path: (tail, prompt) travel server->client for all K
             # at round start and client->server only for the survivors
@@ -462,9 +468,38 @@ class SFPromptTrainer:
                        active=metrics.get("cohort/active"), **wire)
         return state, metrics
 
-    def client_updates(self, state: Params, client_data, transmit=None):
-        raise NotImplementedError(
-            "async dispatch (client_updates) is not ported yet (slice E)")
+    def client_updates(self, state: Params, client_data, transmit=None,
+                       **round_kw) -> Tuple[Any, Dict]:
+        """Phases 1-2 (+ the per-client DP step) for a dispatched cohort
+        WITHOUT phase-3 aggregation — the async runtime's dispatch
+        primitive. Returns (K-stacked (tail, prompt) contributions,
+        round metrics); the global params are untouched.
+
+        It is the ordinary round with an all-zero `aggregate` vector:
+        `fedavg_partial` then returns the pre-round globals exactly, so the
+        same code path serves both the synchronous barrier and async
+        dispatch (the bit identity the async tests pin depends on it). The
+        metered `params` stream carries only the K-client downlink;
+        uploads are billed when each delta reaches the server's buffer.
+        `transmit` (K,) scales phase-2 wire bytes for clients that die
+        mid-flight (fraction sent before death). `round_kw` (`wire_noise=`,
+        `dp_noise=`) passes through to `round`. The contributions come back
+        detached: nothing of the round's autograd survives in them.
+        Requires ProtocolConfig(return_client_trainable=True)."""
+        if not self.pcfg.return_client_trainable:
+            raise ValueError(
+                "client_updates needs ProtocolConfig("
+                "return_client_trainable=True) — without it the jitted "
+                "round aggregates and discards the per-client trees")
+        K = tree_leaves(client_data)[0].shape[0]
+        if transmit is None:
+            transmit = np.ones((K,), np.float32)
+        participation = {"transmit": np.asarray(transmit, np.float32),
+                         "aggregate": np.zeros((K,), np.float32)}
+        _, metrics = self.round(state, client_data, participation,
+                                **round_kw)
+        return (tree_map(lambda x: x.detach(), self.last_client_trainable),
+                metrics)
 
     # ------------------------------------------------------------- eval
     @torch.no_grad()

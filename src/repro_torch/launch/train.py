@@ -1,15 +1,29 @@
-"""SFPrompt training launcher — the port of the synchronous path of
-`repro/launch/train.py`.
+"""SFPrompt training launcher — the port of `repro/launch/train.py`.
 
 Rounds run through the federated population engine: an N-client
 `Population` (N can be >> K), a deterministic `ClientSampler`, and a
 `RoundScheduler` that simulates stragglers/dropouts. Runs checkpoint the
 full round state (params, meter totals, sampler position, privacy ledger)
 every `--ckpt-every` rounds; `--resume` restarts a killed run
-byte-identically. Each round appends one JSONL record (the JAX launcher's
-keys) and is followed by `evaluate` where the trainer has one.
+byte-identically — including, in async mode, the delta buffer and the
+in-flight clients. Each round appends one JSONL record (the JAX
+launcher's keys) and is followed by `evaluate` where the trainer has one.
 
-Privacy knobs (sfprompt methods):
+Two runtimes:
+  * synchronous barrier (default) — `FederatedEngine`: every round waits
+    for its whole surviving cohort before aggregating;
+  * buffered async (`--async-buffer N`) — `AsyncRoundEngine`: sampled
+    clients stream updates on their own simulated clocks, the server
+    aggregates every N arrivals with staleness weights
+    alpha / (1 + s)^beta (`--staleness-alpha/--staleness-beta`);
+    `--async-concurrency` dispatch groups overlap, `--rounds` counts
+    FLUSHES. Composes with `--secure-agg` (the flush is the secure-agg
+    cohort) and `--dp-epsilon` (noise rides each client's update).
+
+Aggregation and privacy knobs (sfprompt methods):
+  * `--edges E` aggregates hierarchically (client -> edge -> global; K
+    must divide into E equal blocks), each edge with its own secure
+    aggregator under `--secure-agg`;
   * `--secure-agg` masks uploads (Bonawitz-style, uint32 ring, through the
     CUDA masked-encode kernel on the card);
   * `--dp-epsilon/--dp-delta/--dp-clip` run DP-SGD on client deltas with a
@@ -23,6 +37,11 @@ Runs on the GPU unless asked for the CPU (--device cpu):
       --reduced --layers 3 --clients 8 --k 3 --samples 96 --image-hw 32 \\
       --batch-size 8 --local-epochs 1 --rounds 2 --secure-agg \\
       --dp-epsilon 8 --dropout-rate 0.3 --ckpt-every 1 --out /tmp/r
+  # buffered async over consumer WAN links, secure flushes
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --reduced --layers 3 --clients 8 --k 3 --samples 96 --image-hw 32 \\
+      --batch-size 8 --local-epochs 1 --regime wan --async-buffer 3 \\
+      --secure-agg --dropout-rate 0.2 --rounds 2 --out /tmp/a
   # after a crash / preemption: identical continuation
   PYTHONPATH=src python -m repro_torch.launch.train ... --resume
 
@@ -48,9 +67,8 @@ metrics-registry snapshot (the meter's totals) every N rounds;
 `torch.profiler.record_function` ranges. `python tools/trace_check.py
 BASE.jsonl` validates the export (traced bytes == the meter's).
 
-The buffered async runtime and hierarchical aggregation (slice E) and the
-mesh (slice H) belong to later slices of the port; their flags exit with
-a message naming the slice.
+The mesh (slice H) belongs to a later slice of the port; its flags exit
+with a message naming the slice.
 """
 from __future__ import annotations
 
@@ -72,8 +90,9 @@ from repro_torch.core.comm import (cost_inputs_from, sfprompt_comm,
 from repro_torch.core.split import resolve_device
 from repro_torch.data import (DATASETS, synthetic_image_dataset,
                               synthetic_lm_dataset)
-from repro_torch.fed import (ClientSampler, FederatedEngine, Population,
-                             RoundScheduler, StragglerConfig)
+from repro_torch.fed import (AsyncConfig, AsyncRoundEngine, ClientSampler,
+                             FederatedEngine, Population, RoundScheduler,
+                             StragglerConfig)
 from repro_torch.fed.scheduler import LINK_REGIMES
 from repro_torch.obs import MetricsRegistry, export_all, make_tracer
 from repro_torch.obs.trace import LEVELS
@@ -130,11 +149,27 @@ def build_trainer(args, model, device, tracer=None):
         clients_per_round=args.k, local_epochs=args.local_epochs,
         batch_size=args.batch_size, lr_local=args.lr, lr_split=args.lr,
         use_local_loss=(args.method == "sfprompt"),
-        return_client_trainable=args.personalize_tails,
+        # async dispatch aggregates at flush time, from the per-client
+        # trees the round returns — same flag personalized tails use
+        return_client_trainable=(args.personalize_tails
+                                 or args.async_buffer > 0),
         dp_clip=(args.dp_clip if args.dp_epsilon > 0 else 0.0),
         dp_noise_multiplier=dp_noise, dp_delta=args.dp_delta)
-    aggregator = (get_aggregator(secure=True, seed=args.seed)
-                  if args.secure_agg else None)
+    if args.async_buffer > 0:
+        # the trainer stays CLEAR under async: the flush, not the dispatch
+        # round, is the (possibly secure) aggregation unit
+        aggregator = None
+    elif args.edges > 0:
+        # hierarchical (client -> edge -> global) aggregation; on the
+        # secure path each edge runs its own masked aggregator
+        kw = {"seed": args.seed} if args.secure_agg else {}
+        aggregator = get_aggregator(secure=args.secure_agg,
+                                    n_edges=args.edges, cohort_size=args.k,
+                                    **kw)
+    elif args.secure_agg:
+        aggregator = get_aggregator(secure=True, seed=args.seed)
+    else:
+        aggregator = None
     return SFPromptTrainer(model, pcfg, aggregator, tracer=tracer,
                            device=device)
 
@@ -142,7 +177,8 @@ def build_trainer(args, model, device, tracer=None):
 def build_scheduler(args, population, model):
     """Per-client round cost from the Table-1 model bound to THIS
     model/split — the regime's comm-vs-compute mix then decides whether
-    slow-link or slow-compute devices miss the deadline."""
+    slow-link or slow-compute devices miss the deadline (sync) or arrive
+    stale (async)."""
     toks = (args.seq_len if args.dataset == "lm-syn"
             else (args.image_hw // 16) ** 2 + 1)
     ci = cost_inputs_from(model.cfg, model.split, tokens_per_sample=toks,
@@ -163,6 +199,18 @@ def build_engine(args, trainer, population, model):
         population.n_clients, args.k, kind=args.sampler, seed=args.seed,
         weights=(population.sizes.astype(float)
                  if args.sampler == "weighted" else None))
+    if args.async_buffer > 0:
+        # async always needs the latency model — arrival order IS the
+        # runtime's semantics, not an optional failure simulation
+        acfg = AsyncConfig(buffer_size=args.async_buffer,
+                           concurrency=args.async_concurrency,
+                           staleness_alpha=args.staleness_alpha,
+                           staleness_beta=args.staleness_beta)
+        aggregator = (get_aggregator(secure=True, seed=args.seed)
+                      if args.secure_agg else None)
+        return AsyncRoundEngine(trainer, population, sampler,
+                                build_scheduler(args, population, model),
+                                acfg, aggregator=aggregator)
     scheduler = None
     if args.dropout_rate > 0 or args.straggle:
         scheduler = build_scheduler(args, population, model)
@@ -173,12 +221,6 @@ def build_engine(args, trainer, population, model):
 def _later_slice(args) -> str:
     """The ROADMAP slice that brings a flag this port does not run yet, or
     '' when every flag given is ported."""
-    if (args.async_buffer or args.async_concurrency is not None
-            or args.staleness_alpha is not None
-            or args.staleness_beta is not None):
-        return "--async-buffer and its knobs are ported with slice E"
-    if args.edges:
-        return "--edges (hierarchical aggregation) is ported with slice E"
     if args.mesh_devices or args.mesh_model != 1 or args.fsdp:
         return "--mesh-devices/--mesh-model/--fsdp are ported with slice H"
     return ""
@@ -209,6 +251,22 @@ def _refuse_for_baselines(ap, args) -> None:
                  "flush-time aggregation")
 
 
+def _refuse_runtime_mixes(ap, args) -> None:
+    """The JAX launcher's refusals of edge layouts and async mixes, with
+    its messages."""
+    if args.edges > 0 and args.k % args.edges != 0:
+        ap.error(f"--k {args.k} must divide evenly into --edges "
+                 f"{args.edges} contiguous blocks")
+    if args.async_buffer > 0:
+        if args.personalize_tails:
+            ap.error("--async-buffer and --personalize-tails are mutually "
+                     "exclusive (personalized tails ride the synchronous "
+                     "engine's cohort write-back)")
+        if args.edges > 0:
+            ap.error("--async-buffer with --edges is not supported: the "
+                     "flush cohort is the buffer, not an edge layout")
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="vit-base")
@@ -234,9 +292,24 @@ def parse_args(argv=None):
     ap.add_argument("--deadline-factor", type=float, default=1.5)
     ap.add_argument("--late-mode", default="drop",
                     choices=["drop", "partial"])
+    ap.add_argument("--async-buffer", type=int, default=0,
+                    help="buffered-async runtime: aggregate every N "
+                         "arrivals instead of at a cohort barrier (0 = "
+                         "synchronous). --rounds then counts flushes")
+    ap.add_argument("--async-concurrency", type=int, default=2,
+                    help="dispatch groups in flight at once under "
+                         "--async-buffer (>= 2 overlaps client compute)")
+    ap.add_argument("--staleness-alpha", type=float, default=1.0,
+                    help="async flush weight numerator: alpha/(1+s)^beta")
+    ap.add_argument("--staleness-beta", type=float, default=0.5,
+                    help="async staleness decay exponent (0 = uniform "
+                         "weights regardless of staleness)")
     ap.add_argument("--personalize-tails", action="store_true",
                     help="keep each sampled client's post-round tail in "
                          "the population")
+    ap.add_argument("--edges", type=int, default=0,
+                    help="hierarchical aggregation over this many edge "
+                         "aggregators (0 = flat); K must divide evenly")
     ap.add_argument("--secure-agg", action="store_true",
                     help="masked secure aggregation: the server sums "
                          "blinded uint32 ring uploads it cannot invert")
@@ -285,31 +358,23 @@ def parse_args(argv=None):
     ap.add_argument("--trace-profiler", action="store_true",
                     help="wrap traced device dispatches in "
                          "torch.profiler.record_function ranges")
-    # flags of later slices: parsed so that they fail with the slice's name
-    ap.add_argument("--async-buffer", type=int, default=0,
-                    help="buffered-async runtime (slice E)")
-    ap.add_argument("--async-concurrency", type=int, default=None,
-                    help="(slice E)")
-    ap.add_argument("--staleness-alpha", type=float, default=None,
-                    help="(slice E)")
-    ap.add_argument("--staleness-beta", type=float, default=None,
-                    help="(slice E)")
-    ap.add_argument("--edges", type=int, default=0,
-                    help="hierarchical aggregation (slice E)")
+    # flags of a later slice: parsed so that they fail with the slice's name
     ap.add_argument("--mesh-devices", type=int, default=0, help="(slice H)")
     ap.add_argument("--mesh-model", type=int, default=1, help="(slice H)")
     ap.add_argument("--fsdp", action="store_true", help="(slice H)")
     args = ap.parse_args(argv)
     _refuse_for_baselines(ap, args)
+    _refuse_runtime_mixes(ap, args)
     reason = _later_slice(args)
     if reason:
-        ap.error(f"{reason}; this port runs the synchronous sfprompt path")
+        ap.error(f"{reason}; this port runs on one device")
     return ap, args
 
 
 def main(argv=None):
     """Run the launcher with `argv` (default: the command line). Returns
-    the `FederatedEngine` after the last round."""
+    the engine (`FederatedEngine`, or `AsyncRoundEngine` under
+    `--async-buffer`) after the last round."""
     ap, args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -341,11 +406,18 @@ def main(argv=None):
     meter = getattr(trainer, "meter", None)
     if meter is not None:
         registry.bind_meter(meter)
+    if getattr(engine, "ledger", None) is not None:
+        registry.bind_ledger(engine.ledger)
+
+    is_async = args.async_buffer > 0
+
+    def progress():
+        return engine.version if is_async else engine.round_idx
 
     resumed = args.resume and engine.restore(ckpt_dir)
     if resumed:
-        print(f"resumed from round {engine.round_idx} ({ckpt_dir})",
-              flush=True)
+        print(f"resumed from {'flush' if is_async else 'round'} "
+              f"{progress()} ({ckpt_dir})", flush=True)
     else:
         engine.init(torch.Generator(device=device).manual_seed(args.seed))
         if args.init_params:
@@ -368,7 +440,7 @@ def main(argv=None):
             kept = []
             for line in f:
                 try:
-                    if json.loads(line).get("round", -1) < engine.round_idx:
+                    if json.loads(line).get("round", -1) < progress():
                         kept.append(line)
                 except json.JSONDecodeError:
                     pass   # torn tail line from the kill
@@ -376,11 +448,17 @@ def main(argv=None):
             f.writelines(kept)
     with open(log_path, "a" if resumed else "w") as log:
         t0 = time.time()
-        while engine.round_idx < args.rounds:
-            r = engine.round_idx
-            plan, metrics = engine.run_round()
-            rec = {"round": r, "wall_s": round(time.time() - t0, 1),
-                   "cohort": plan.cohort.tolist(), **metrics}
+        while progress() < args.rounds:
+            r = progress()
+            if is_async:
+                metrics = engine.run_flushes(1)
+                metrics["t_sim"] = engine.t_sim
+                rec = {"round": r, "wall_s": round(time.time() - t0, 1),
+                       **metrics}
+            else:
+                plan, metrics = engine.run_round()
+                rec = {"round": r, "wall_s": round(time.time() - t0, 1),
+                       "cohort": plan.cohort.tolist(), **metrics}
             if hasattr(trainer, "evaluate"):
                 ev = trainer.evaluate(engine.params, test,
                                       batch_size=args.batch_size)
@@ -407,6 +485,11 @@ def main(argv=None):
     elif tracer.enabled:
         print(json.dumps({"metrics": registry.snapshot()}, sort_keys=True),
               flush=True)
+    if is_async:
+        print(f"async: {engine.version} flush(es) over {engine.t_sim:.1f} "
+              f"simulated s, staleness mean "
+              f"{engine.ledger.mean_staleness():.2f} "
+              f"max {engine.ledger.max_staleness}")
     if getattr(trainer, "accountant", None) is not None:
         print(trainer.accountant.report())
     return engine

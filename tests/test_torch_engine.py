@@ -4,7 +4,8 @@ DP-SGD (cohorts, plans, bytes, epsilon and params), byte-identical resume,
 npz checkpoints readable by both packages, the fingerprint check that
 refuses a JAX engine checkpoint, the population's state, and the
 `repro_torch.launch.train` launcher (JSONL records against the JAX
-launcher's, resume, unported flags, and the trace flags: the exports and
+launcher's, resume, the slice-H flags' refusals, the async and edge flags
+and JAX's refusals of their mixes, and the trace flags: the exports and
 tools/trace_check.py, metrics snapshots, the step level's phase spans)."""
 import torch
 
@@ -43,8 +44,9 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (ProtocolConfig, SFPromptTrainer,  # noqa: E402
                               SplitConfig, SplitModel)
 from repro_torch.core.aggregation import get_aggregator  # noqa: E402
-from repro_torch.fed import (ClientSampler, FederatedEngine,  # noqa: E402
-                             Population, RoundScheduler, StragglerConfig)
+from repro_torch.fed import (AsyncConfig, AsyncRoundEngine,  # noqa: E402
+                             ClientSampler, FederatedEngine, Population,
+                             RoundScheduler, StragglerConfig)
 from repro_torch.fed.engine import trainer_fingerprint  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.privacy.fixed_point import roundtrip_tol  # noqa: E402
@@ -370,10 +372,6 @@ def test_launcher_asks_for_cuda_by_default(tmp_path):
 
 
 @pytest.mark.parametrize("extra,slice_", [
-    (["--staleness-alpha", "1"], "slice E"),
-    (["--async-concurrency", "2"], "slice E"),
-    (["--async-buffer", "4"], "slice E"), (["--edges", "2"], "slice E"),
-    (["--staleness-beta", "0"], "slice E"),
     (["--mesh-devices", "4"], "slice H"), (["--fsdp"], "slice H"),
     (["--mesh-model", "2"], "slice H"),
 ])
@@ -383,6 +381,74 @@ def test_unported_flags_name_their_slice(extra, slice_, capsys, tmp_path):
                     + extra)
     assert exc.value.code == 2
     assert slice_ in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--edges", "2"], "--k 3 must divide evenly into --edges 2"),
+    (["--async-buffer", "4", "--personalize-tails"], "mutually exclusive"),
+    (["--async-buffer", "4", "--k", "4", "--edges", "2"],
+     "the flush cohort is the buffer"),
+])
+def test_async_and_edge_mixes_refused_as_jax(extra, message, capsys,
+                                             tmp_path, monkeypatch):
+    """The JAX launcher's refusals of an uneven edge layout and of async
+    with personalized tails or edges, with its messages."""
+    errors = []
+    for run in ("port", "jax"):
+        with pytest.raises(SystemExit) as exc:
+            if run == "port":
+                ttrain.main(FLAGS + ["--out", str(tmp_path), "--device",
+                                     "cpu"] + extra)
+            else:
+                monkeypatch.setattr(sys, "argv", ["train"] + FLAGS + [
+                    "--out", str(tmp_path)] + extra)
+                jtrain.main()
+        assert exc.value.code == 2
+        err = capsys.readouterr().err.strip().splitlines()[-1]
+        errors.append(err.split("error: ", 1)[1])
+    assert errors[0] == errors[1] and message in errors[0]
+
+
+ONE_ROUND = FLAGS[:FLAGS.index("--rounds")] + [
+    "--rounds", "1", "--secure-agg", "--dp-epsilon", "8",
+    "--dropout-rate", "0.3",
+    "--seed", "0", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--async-buffer", "3"],
+    ["--async-buffer", "3", "--async-concurrency", "1"],
+    ["--async-buffer", "3", "--staleness-alpha", "2"],
+    ["--async-buffer", "3", "--staleness-beta", "0"],
+    ["--edges", "3"],
+])
+def test_async_and_edge_flags_parse_and_run(extra, tmp_path, capsys):
+    """Each async and edge flag now parses into its engine and runs one
+    round (a flush under --async-buffer) of the private launcher."""
+    engine = ttrain.main(ONE_ROUND + ["--out", str(tmp_path)] + extra)
+    out = capsys.readouterr().out
+    rec = _records(str(tmp_path))
+    assert len(rec) == 1 and np.isfinite(rec[0]["eval_ce"])
+    if "--edges" in extra:
+        assert isinstance(engine, FederatedEngine)
+        agg = engine.trainer.aggregator
+        assert agg.describe() == "hier(edges=3x1; edge=secure(" \
+            "frac_bits=16, seed=0))"
+        assert rec[0]["wire/edge_global_bytes"] > 0
+        return
+    _, args = ttrain.parse_args(ONE_ROUND + ["--out", str(tmp_path)]
+                                + extra)
+    assert isinstance(engine, AsyncRoundEngine) and engine.version == 1
+    assert engine.acfg == AsyncConfig(
+        buffer_size=3, concurrency=args.async_concurrency,
+        staleness_alpha=args.staleness_alpha,
+        staleness_beta=args.staleness_beta)
+    # the trainer stays clear; the flush is the secure cohort
+    assert engine.trainer.aggregator.name == "clear"
+    assert engine.aggregator.describe() == "secure(frac_bits=16, seed=0)"
+    assert engine.trainer.pcfg.return_client_trainable
+    assert rec[0]["flushes"] == 1.0 and "t_sim" in rec[0]
+    assert f"async: 1 flush(es) over {engine.t_sim:.1f} simulated s" in out
 
 
 # the launcher's trace flags (slice F): two rounds, no privacy, so the runs

@@ -276,8 +276,13 @@ def test_fedavg_partial_matches_jax_and_falls_back():
     assert secure.name == "secure"
     assert secure.describe() == jagg.get_aggregator(secure=True,
                                                     seed=4).describe()
-    with pytest.raises(NotImplementedError, match="slice E"):
-        aggregation.get_aggregator(n_edges=2, cohort_size=4)
+    # hierarchical aggregation is ported (slice E): the edge layout JAX
+    # builds, clear and secure
+    for kw in ({}, {"secure": True, "seed": 4}):
+        hier = aggregation.get_aggregator(n_edges=2, cohort_size=4, **kw)
+        assert hier.name == "hierarchical"
+        assert hier.describe() == jagg.get_aggregator(
+            n_edges=2, cohort_size=4, **kw).describe()
 
 
 # ------------------------------------------------------------- pruning
@@ -407,9 +412,15 @@ def test_trainer_defaults_to_cuda_and_refuses_unported_paths():
                         device="cpu")
     with pytest.raises(NotImplementedError, match="slice H"):
         SFPromptTrainer(tm, ProtocolConfig(), mesh=object(), device="cpu")
+    # async dispatch is ported (slice E): without the per-client trees it
+    # is refused with JAX's message
     tr = SFPromptTrainer(tm, ProtocolConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice E"):
+    with pytest.raises(ValueError, match="return_client_trainable") as te:
         tr.client_updates({}, {})
+    jm, _ = _models("fp32")
+    with pytest.raises(ValueError) as je:
+        JSFPromptTrainer(jm, JProtocolConfig()).client_updates({}, {})
+    assert str(te.value) == str(je.value)
 
 
 # ------------------------------------------------------------ cost model

@@ -110,6 +110,19 @@ def test_wide_prefill_plain_matches_jax(case):
                           sliding_window=window, softcap=softcap).numpy()
     assert got.shape == (B, S, Hq, Dv) and np.isfinite(got).all()
     exact = _attention_f64(q, k, v, causal, window, softcap)
+    # the f32 QK^T product's distance from f64: if the port moved, this
+    # says whether the process's f32 matmul did
+    kg = np.repeat(k, Hq // Hkv, axis=2)
+    qk = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64),
+                   kg.astype(np.float64))
+    qk_err = np.abs(torch.einsum("bqhd,bkhd->bhqk", _t(q), _t(kg)).numpy()
+                    - qk).max()
+    # and torch's exp and tanh (relative error) on the logits' range
+    x = qk.astype(np.float32) / 16
+    op_err = max(np.abs(fn(_t(x)).numpy() / ref(x.astype(np.float64))
+                        - 1).max()
+                 for fn, ref in ((torch.tanh, np.tanh),
+                                 (torch.exp, np.exp)))
     for impl, tol in (("ref", TOL), ("interpret", ITOL)):
         want = np.asarray(jflash(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
@@ -121,7 +134,11 @@ def test_wide_prefill_plain_matches_jax(case):
             err_msg=(f"{impl}: max |port - f64| "
                      f"{np.abs(got - exact).max():.3g}, max |jax - f64| "
                      f"{np.abs(want - exact).max():.3g}, torch threads "
-                     f"{torch.get_num_threads()}"))
+                     f"{torch.get_num_threads()}, f32 QK^T vs f64 "
+                     f"{qk_err:.3g}, f32 exp/tanh vs f64 (rel) {op_err:.3g}, "
+                     f"matmul precision "
+                     f"{torch.get_float32_matmul_precision()}, cpu "
+                     f"{torch.backends.cpu.get_cpu_capability()}"))
 
 
 # ------------------------------------------------------------- decode
