@@ -230,6 +230,33 @@ Phases, each of which fails the run with a nonzero exit:
      the seconds of each dispatch round, flush and round, the simulated
      seconds, staleness, the contributions held, peak memory and the
      launches per kernel;
+ 20. the MoE families (run right after phase 19): the reduced phi3.5-moe
+     and deepseek-v3 (3 MoE layers of top-2 of 4 experts, deepseek-v3 also
+     its dense prefix layer, MLA throughout, a shared expert and the MTP
+     head; d_model 64, vocab 128) on the card and on the CPU from the same
+     seeded weights: the unsplit `Transformer` (train logits, aux loss,
+     MTP logits, prefill then decode logits within 1e-4), the dense engine
+     on the int8 wire with phase 4's traffic (tokens and wire bytes equal,
+     logits within 1e-4) and an SFPrompt round on token data with
+     `evaluate` as phase 18's (bytes, kept_frac and kept sets equal,
+     params, losses and eval CE within 1e-4), each run's router margin
+     (the smallest gap between a token's k-th and (k+1)-th router
+     probability) printed and held above 1e-4 (the round: 1e-5), the
+     family's kernels launched on the card; then phi3.5-moe at published
+     widths (d_model 4096, 32 / 8 heads of 128, 16 experts top-2 of d_ff
+     6400, vocab 32064, layernorm) cut to 4 layers (head 1 / body 2 / tail
+     1) and deepseek-v3 at published widths (d_model 7168, MLA with 128
+     heads, q_lora 1536, kv_lora 512, nope / rope / v 128 / 64 / 128,
+     dense d_ff 18432, a shared expert and routed experts of d_ff 2048
+     top-8, vocab 129280, the MTP head in the tail) cut to 6 layers (its 3
+     dense prefix layers, then MoE head 1 / body 1 / tail 1) and 16 of its
+     256 routed experts, each with 2 tenants and phase 5's slots, wire and
+     traffic through `ServeEngine.run`: the weights on the card within 2%
+     of `param_count()`, every request finishes, wire bytes within 5% of
+     `serve_comm_breakdown`, the dense path's four kernels launched, the
+     attention of both kernels at the family's head dims (deepseek-v3:
+     192 / 128), the MoE host syncs a decode step and the peak memory
+     printed, then a profiled replay;
  then the `kernels` JSON line (each kernel once, with the dtypes, head
  dims and groups it was held at, its bf16 numbers and its wide-shape
  numbers), then the seconds each phase took and the total, then the device
@@ -244,7 +271,9 @@ Phases, each of which fails the run with a nonzero exit:
  softcap; device time by split count at gemma2's); the paged decode
  kernel at the three shapes over 16 slots of page 16 (with a fully masked
  row); each timed beside plain and SDPA, on the device and by events,
- with its bound, and each at bf16 too. Phase 3 also prints the
+ with its bound, and each at bf16 too. The dense decode kernel is also
+ held and timed at deepseek-v3's MLA shape: 8 slots of 512, 128 / 128
+ heads, keys of 192 and values of 128, scale 192^-0.5, a wrapped ring. Phase 3 also prints the
  Qwen2.5-14B, zamba2 and ViT shapes' device times beside the baseline
  PERF.md records for them from before the wide shapes, so drift in the
  instantiations those paths use shows. Phase 4 also serves
@@ -378,6 +407,18 @@ PATHS = {
                     "flash_attention_prefill", "el2n"),
     "hier": ("quantize_int8", "dequantize_int8", "flash_attention_prefill",
              "el2n", "secure_masked_encode"),
+    # phase 20: phi3.5-moe (moe) and deepseek-v3 (mla: MLA at 192 / 128)
+    # served at published widths through the dense engine, and their
+    # reduced families card against CPU (the unsplit model, the engine, an
+    # SFPrompt round with its scoring and `evaluate`)
+    "moe": ("quantize_int8", "dequantize_int8", "flash_attention_prefill",
+            "decode_attention"),
+    "mla": ("quantize_int8", "dequantize_int8", "flash_attention_prefill",
+            "decode_attention"),
+    "moe_parity": ("quantize_int8", "dequantize_int8",
+                   "flash_attention_prefill", "decode_attention", "el2n"),
+    "mla_parity": ("quantize_int8", "dequantize_int8",
+                   "flash_attention_prefill", "decode_attention", "el2n"),
 }
 # the wide attention shapes of phase 3: (label, Hq, Hkv, Dh)
 WIDE_SHAPES = (("gemma2-9b", 16, 8, 256), ("stablelm-12b", 32, 8, 160),
@@ -1228,12 +1269,14 @@ def check_prefill_wide(torch, F, gen, results):
         r["max_abs_err"] for r in rec["wide"].values()))
 
 
-def decode_case(torch, gen, B, W, Hq, Hkv, Dh, lengths, wrap_slot=None):
+def decode_case(torch, gen, B, W, Hq, Hkv, Dh, lengths, wrap_slot=None,
+                Dv=None):
     """Ring caches: slot b holds lengths[b] tokens (0 = empty, all -1); the
-    `wrap_slot` has run past W so its ring has wrapped."""
+    `wrap_slot` has run past W so its ring has wrapped. Values are Dv wide
+    (default Dh)."""
     q = torch.randn((B, 1, Hq, Dh), generator=gen, device="cuda")
     k = torch.randn((B, W, Hkv, Dh), generator=gen, device="cuda")
-    v = torch.randn((B, W, Hkv, Dh), generator=gen, device="cuda")
+    v = torch.randn((B, W, Hkv, Dv or Dh), generator=gen, device="cuda")
     kvp = torch.full((B, W), -1, dtype=torch.int32)
     qp = torch.zeros((B,), dtype=torch.int32)
     for b, n in enumerate(lengths):
@@ -1258,6 +1301,10 @@ def check_decode(torch, F, gen, results):
         label: decode_record(torch, F, gen, Hq, Hkv, Dh,
                              sweep=label == "gemma2-9b")
         for label, Hq, Hkv, Dh in WIDE_SHAPES}
+    # deepseek-v3's MLA decode: 128 heads, each its own kv head (G 1),
+    # keys of 192 (nope 128 + rope 64) and values of 128, scale 192^-0.5
+    results["decode_attention"]["wide"]["deepseek-v3 MLA"] = decode_record(
+        torch, F, gen, 128, 128, 192, sweep=False, Dv=128)
     results["decode_attention"]["ptxas"] = decode_build_report()
 
 
@@ -1304,19 +1351,21 @@ def slot_tiles(torch, qp, kvp, window=None):
     return int(tiles.sum()), int((~valid.any(-1)).sum())
 
 
-def decode_record(torch, F, gen, Hq, Hkv, Dh, sweep=True):
+def decode_record(torch, F, gen, Hq, Hkv, Dh, sweep=True, Dv=None):
     """The decode kernel against plain at 8 slots of 512 (one wrapped ring,
     two empty slots), with and without window and softcap, and with a
     window across the seam of a ring wrapped 8 past W; then timed, by
     events and on the device beside SDPA, and (`sweep`) on the device at
     every split count (each checked against plain): Qwen2.5-14B's (40, 8,
-    128), zamba2's shared block (32, 32, 80) and the wide shapes."""
+    128), zamba2's shared block (32, 32, 80), the wide shapes and
+    deepseek-v3's MLA (128, 128, 192 with values of `Dv` 128)."""
     from repro_torch.kernels.flash_attention import decode
     from repro_torch.kernels.flash_attention.decode import (
         decode_attention_fwd, decode_blocks_per_sm, decode_splits,
         grouped_decode, sm_count)
     B, W = 8, 512
     G = Hq // Hkv
+    Dv = Dv or Dh
     scale = Dh ** -0.5
     lengths = [37, 0, 512, 200, 0, 1, 333, 100]
     # slot 7 wrapped 8 past W: a window of 16 keeps keys 504..511 and 0..7
@@ -1324,37 +1373,38 @@ def decode_record(torch, F, gen, Hq, Hkv, Dh, sweep=True):
     worst = 0.0
     for window, softcap, lens in ((None, None, lengths),
                                   (64, 50.0, lengths), (16, None, seam)):
-        args = decode_case(torch, gen, B, W, Hq, Hkv, Dh, lens, wrap_slot=7)
+        args = decode_case(torch, gen, B, W, Hq, Hkv, Dh, lens, wrap_slot=7,
+                           Dv=Dv)
         got = decode_attention_fwd(*args, scale=scale,
                                    sliding_window=window, softcap=softcap)
         want = grouped_decode(*args, scale=scale, sliding_window=window,
                               softcap=softcap)
         err = float((got - want).abs().max())
         if not (torch.isfinite(got).all() and err <= ATTN_TOL):
-            fail(f"decode Hq={Hq} Hkv={Hkv} Dh={Dh} window={window} "
+            fail(f"decode Hq={Hq} Hkv={Hkv} Dh={Dh} Dv={Dv} window={window} "
                  f"softcap={softcap} lengths={lens}: max|kernel - plain| = "
                  f"{err:.3g} > {ATTN_TOL}")
         worst = max(worst, err)
         tiles, idle = slot_tiles(torch, *args[3:], window)
-        say(f"decode: B={B} W={W} G={G} Dh={Dh} lengths={lens} (slot 7 "
-            f"wrapped) window={window} softcap={softcap}: {tiles} valid "
-            f"tiles of {B * W // 32}, {idle} idle slots; max abs err "
+        say(f"decode: B={B} W={W} G={G} Dh={Dh} Dv={Dv} lengths={lens} "
+            f"(slot 7 wrapped) window={window} softcap={softcap}: {tiles} "
+            f"valid tiles of {B * W // 32}, {idle} idle slots; max abs err "
             f"{err:.3g}")
 
     q, k, v, qp, kvp = decode_case(torch, gen, B, W, Hq, Hkv, Dh, lengths,
-                                   wrap_slot=7)
+                                   wrap_slot=7, Dv=Dv)
     n_valid = int(((kvp >= 0) & (kvp <= qp[:, None])).sum())
     tiles, idle = slot_tiles(torch, qp, kvp)
     del q, k, v, qp, kvp
     # bytes the function must move: q, out, the valid entries' K/V, every
     # value of an idle slot (its answer is their mean), the positions
-    nbytes = ((B * Hq * Dh * 2 + n_valid * Hkv * Dh * 2 + idle * W * Hkv * Dh)
-              * 4 + B * W * 4 + B * 4)
-    flops = n_valid * Hq * 4 * Dh + idle * W * Hq * Dh
+    nbytes = ((B * Hq * (Dh + Dv) + n_valid * Hkv * (Dh + Dv)
+               + idle * W * Hkv * Dv) * 4 + B * W * 4 + B * 4)
+    flops = n_valid * Hq * 2 * (Dh + Dv) + idle * W * Hq * Dv
     b = bound(nbytes, flops)
-    per = (B * W * Hkv * Dh * 2 + B * Hq * Dh * 2) * 4 + B * W * 4
-    sets = [decode_case(torch, gen, B, W, Hq, Hkv, Dh, lengths, wrap_slot=7)
-            for _ in range(n_copies(per))]
+    per = (B * W * Hkv * (Dh + Dv) + B * Hq * (Dh + Dv)) * 4 + B * W * 4
+    sets = [decode_case(torch, gen, B, W, Hq, Hkv, Dh, lengths, wrap_slot=7,
+                        Dv=Dv) for _ in range(n_copies(per))]
     kernel = [lambda s=s: decode_attention_fwd(
         *s, scale=scale, sliding_window=None, softcap=None) for s in sets]
     t_k = time_ms(kernel)
@@ -1376,7 +1426,7 @@ def decode_record(torch, F, gen, Hq, Hkv, Dh, sweep=True):
     d_l = device_ms(sdpa)
     del lib, sdpa
     splits = decode_splits(B, Hkv, W, sm_count(torch.cuda.current_device()),
-                           decode_blocks_per_sm(Dh, Dh, G))
+                           decode_blocks_per_sm(Dh, Dv, G))
     # device time at every split count, each forced by standing in for
     # decode_splits and checked against plain
     by_splits = {}
@@ -1399,7 +1449,7 @@ def decode_record(torch, F, gen, Hq, Hkv, Dh, sweep=True):
         say(f"decode (G {G}, Dh {Dh}) device ms by splits: " + ", ".join(
             f"S {S} {ms:.4f}" for S, ms in by_splits.items()))
     say(f"decode timed: q ({B}, 1, {Hq}, {Dh}), cache ({B}, {W}, {Hkv}, "
-        f"{Dh}), {splits} splits a row, {tiles} valid tiles of "
+        f"{Dh} / {Dv}), {splits} splits a row, {tiles} valid tiles of "
         f"{B * W // 32} and {idle} idle slots (x {Hkv} kv heads): kernel "
         f"{t_k:.4f} ms ({d_k:.4f} on the device), plain {t_p:.4f} ms, SDPA "
         f"{t_l:.4f} ms ({d_l:.4f}), bound {b[0]:.5f} ms ({b[1]})")
@@ -1408,8 +1458,9 @@ def decode_record(torch, F, gen, Hq, Hkv, Dh, sweep=True):
         bound_by=b[1], library_ms=t_l, device_ms=d_k,
         library_device_ms=d_l, splits=splits, valid_tiles=tiles,
         idle_slots=idle, device_ms_by_splits=by_splits,
-        shape=f"q ({B}, 1, {Hq}, {Dh}), cache ({B}, {W}, {Hkv}, {Dh}), "
-              f"{n_valid} valid entries, {idle} idle slots")
+        shape=f"q ({B}, 1, {Hq}, {Dh}), cache ({B}, {W}, {Hkv}, {Dh}"
+              f"{'' if Dv == Dh else f' / {Dv}'}), {n_valid} valid "
+              f"entries, {idle} idle slots")
 
 
 def paged_case(torch, gen, lengths, page, nb, P, Hq=40, Hkv=8, Dh=128):
@@ -3220,32 +3271,37 @@ def recurrent_parity(torch):
 
 
 # ------------------------------------------------ phases 5-6 and 10-11
-def full_width_model(torch, arch="qwen2.5-14b", n_layers=6):
+def full_width_model(torch, arch="qwen2.5-14b", n_layers=6, tenants=4,
+                     cfg=None):
     """A model at `arch`'s published widths cut to `n_layers` (one cycle
     of the layer pattern in the head and in the tail, the rest in the
-    body), soft prompt 4, int8 wire, fp32, 4 tenants, seeded random
-    weights. Qwen2.5-14B at 6 layers is shared by the dense and the paged
+    body; a dense prefix stays in the head), soft prompt 4, int8 wire,
+    fp32, `tenants` tenants, seeded random weights; `cfg` replaces the
+    cut config (phase 20 also cuts deepseek-v3's routed experts).
+    Qwen2.5-14B at 6 layers is shared by the dense and the paged
     full-width runs."""
     from repro_torch.configs import get_config
     from repro_torch.core import SplitConfig, SplitModel
     from repro_torch.launch.serve import personalized_bank
     from repro_torch.runtime import WireSpec
-    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    cfg = cfg or dataclasses.replace(get_config(arch), n_layers=n_layers)
     split = SplitConfig(head_cycles=1, tail_cycles=1, prompt_len=4)
     model = SplitModel(cfg, split, WireSpec.make("int8"))
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = model.init(gen, device="cuda")
-    bank = personalized_bank(model, params, 4)
+    bank = personalized_bank(model, params, tenants)
     del params["tail"]
     torch.cuda.synchronize()
     cyc = len(cfg.layer_pattern)
-    desc = (f"{cfg.name} widths, {cfg.n_layers} layers (1 head / "
+    dense = (f"{cfg.n_dense_layers} dense + " if cfg.n_dense_layers else "")
+    desc = (f"{cfg.name} widths, {cfg.n_layers} layers ({dense}1 head / "
             f"{model.body_cycles * cyc} body / 1 tail)" if cyc == 1 else
             f"{cfg.name} widths, {cfg.n_layers} layers ({cfg.n_cycles} "
             f"cycles of {cyc}: 1 head / {model.body_cycles} body / 1 tail)")
     return dict(cfg=cfg, split=split, model=model, params=params, bank=bank,
-                desc=desc, setup_s=time.perf_counter() - t0)
+                desc=desc, tenants=tenants,
+                setup_s=time.perf_counter() - t0)
 
 
 def run_path(torch, path, engine, reqs, warm):
@@ -3254,14 +3310,18 @@ def run_path(torch, path, engine, reqs, warm):
     request finished with in-range tokens and every kernel of `path` was
     launched."""
     from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import layers
     engine.run(warm)       # cuBLAS handles, allocator pools, the library
     engine.reset_stats()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    syncs = layers.moe_host_syncs
     stats = engine.run(reqs)
     torch.cuda.synchronize()
     launches = launch_counts()
+    # the MoE blocks' group-size reads (one an `apply_moe` call)
+    stats["moe_host_syncs"] = layers.moe_host_syncs - syncs
     vocab = engine.model.cfg.vocab_size
     if stats["n_finished"] != len(reqs):
         fail(f"{path} full width: {stats['n_finished']} of {len(reqs)} "
@@ -3312,7 +3372,7 @@ def full_width(torch, fw, path="dense", dtype=None):
                          ServeConfig(n_slots=8, max_seq=512, decode_block=8,
                                      dtype=dtype),
                          device="cuda")
-    wl = dict(WORKLOAD, vocab_size=cfg.vocab_size)
+    wl = dict(WORKLOAD, vocab_size=cfg.vocab_size, n_tenants=fw["tenants"])
     reqs = synthetic_requests(WorkloadConfig(n_requests=16, seed=0, **wl))
     stats, launches = run_path(
         torch, path, engine, reqs,
@@ -3328,9 +3388,20 @@ def full_width(torch, fw, path="dense", dtype=None):
             fail(f"{path} full width: {name} measured {got} B vs analytical "
                  f"{want} B")
     summary = _summary(torch, stats, fw, {
-        "config": f"{fw['desc']}, 4 tenants, 8 slots, max_seq 512, int8 "
-                  f"wire, decode_block 8, {str(dtype)[6:]}",
+        "config": f"{fw['desc']}, {fw['tenants']} tenants, 8 slots, "
+                  f"max_seq 512, int8 wire, decode_block 8, "
+                  f"{str(dtype)[6:]}",
         "wire_rel_err": wire_err, "launches": launches})
+    if "moe" in cfg.layer_pattern:
+        # every prefill runs each MoE layer once; a decode step runs the
+        # head's and body's once and the tail's once a tenant present
+        n_moe = cfg.n_layers - cfg.n_dense_layers
+        decode_syncs = stats["moe_host_syncs"] - stats["prefills"] * n_moe
+        summary.update(
+            moe_host_syncs=stats["moe_host_syncs"],
+            moe_host_syncs_per_decode_step=(decode_syncs
+                                            / max(1, stats["decode_steps"])),
+            prefills=stats["prefills"])
     if dtype != torch.float32:
         summary["first_token_gap_to_f32"] = first_token_gap(torch, fw, reqs,
                                                             dtype)
@@ -4890,14 +4961,33 @@ def traced_train(torch):
 # --------------------------------------------------------------- phase 18
 def lm_parity(torch):
     """One SFPrompt round on token data for the reduced qwen2.5, zamba2 and
-    rwkv6 (d_model 64, 3 cycles: head 1 / body 1 / tail 1, vocab 128,
-    sequences of 16, K 2, 8 samples a client, gamma 0.5) on the card and
-    on the CPU from the same seeded weights, data and numpy wire noise,
-    int8 wire, then `evaluate`: metered bytes, kept_frac and kept sets
-    equal, params and losses within 1e-4, and on the card the kernels of
-    each family's scoring launched (the Mamba-2 and RWKV-6 scans
-    included). Returns the card's launches by path and the report."""
+    rwkv6 (d_model 64, 3 cycles: head 1 / body 1 / tail 1, vocab 128),
+    card against CPU (`round_parity`). Returns the card's launches by path
+    and the report."""
     from repro_torch.configs import get_config
+    by_path, report = {}, {}
+    for path, arch in (("lm_dense", "qwen2.5-14b"),
+                       ("lm_hybrid", "zamba2-2.7b"),
+                       ("lm_rwkv", "rwkv6-3b")):
+        cyc = len(get_config(arch).layer_pattern)
+        cfg = get_config(arch).reduced(n_layers=3 * cyc, d_model=64,
+                                       d_ff=128, vocab_size=128)
+        by_path[path], report[arch] = round_parity(torch, path, cfg)
+    return by_path, report
+
+
+def round_parity(torch, path, cfg, seed=0, margin=None, kernels=None):
+    """One SFPrompt round on token data for the reduced `cfg` (head 1 /
+    body 1 / tail 1, vocab 128, sequences of 16, K 2, 8 samples a client,
+    gamma 0.5) on the card and on the CPU from the same weights (the
+    port's init at `seed`), data and numpy wire noise, int8 wire, then
+    `evaluate`: metered bytes, kept_frac and kept sets equal, params and
+    losses within 1e-4, and on the card the kernels of `path` (or
+    `kernels`) launched (the Mamba-2 and RWKV-6 scans in scoring
+    included). With `margin`,
+    the router margin of the card's MoE calls (`router_margins`) is
+    printed and must exceed it. Returns the card's launches and the
+    report."""
     from repro_torch.core import (ProtocolConfig, SFPromptTrainer,
                                   SplitConfig, SplitModel)
     from repro_torch.data import (iid_partition, stack_clients,
@@ -4913,68 +5003,66 @@ def lm_parity(torch):
         iid_partition(synthetic_lm_dataset(16, 16, 128, seed=0), 2, seed=0),
         [0, 1])
     test = synthetic_lm_dataset(16, 16, 128, seed=1)
-    by_path, report = {}, {}
-    for path, arch in (("lm_dense", "qwen2.5-14b"),
-                       ("lm_hybrid", "zamba2-2.7b"),
-                       ("lm_rwkv", "rwkv6-3b")):
-        cyc = len(get_config(arch).layer_pattern)
-        cfg = get_config(arch).reduced(n_layers=3 * cyc, d_model=64,
-                                       d_ff=128, vocab_size=128)
-        model = SplitModel(cfg, split, WireSpec.make("int8"))
-        params = model.init(torch.Generator().manual_seed(0), device="cpu")
-        runs = {}
-        for dev in ("cpu", "cuda"):
-            tr = SFPromptTrainer(model, pcfg, device=dev)
-            if dev == "cuda":
-                torch.cuda.synchronize()
-                reset_launches()
+    arch = cfg.name
+    model = SplitModel(cfg, split, WireSpec.make("int8"))
+    params = model.init(torch.Generator().manual_seed(seed), device="cpu")
+    runs, margins = {}, []
+    for dev in ("cpu", "cuda"):
+        tr = SFPromptTrainer(model, pcfg, device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            reset_launches()
+        with router_margins(margins if dev == "cuda" else []):
             state, m = tr.round(
                 {"params": tree_map(lambda x: x.to(dev), params),
                  "round": 0}, cohort, wire_noise=numpy_wire_noise(torch, dev))
             ev = tr.evaluate(state["params"], test, batch_size=4)
-            if dev == "cuda":
-                torch.cuda.synchronize()
-                by_path[path] = launch_counts()
-            runs[dev] = (state["params"], m, tr.last_scores.cpu(),
-                         tr.last_kept.cpu(), ev)
-        (pc, mc, sc, kc, evc), (pg, mg, sg, kg, evg) = runs["cpu"], \
-            runs["cuda"]
-        for key in mc:
-            if (key.startswith(("wire/", "cohort/")) or key == "kept_frac") \
-                    and mg[key] != mc[key]:
-                fail(f"lm parity ({arch}): {key} {mg[key]} on the card vs "
-                     f"{mc[key]} on the CPU")
-        for k in range(kc.shape[0]):
-            differ = set(kc[k].tolist()) ^ set(kg[k].tolist())
-            if differ:
-                fail(f"lm parity ({arch}): client {k} kept samples "
-                     f"{sorted(differ)} on one device only, scores "
-                     f"{[float(sc[k, i]) for i in sorted(differ)]} vs cut "
-                     f"{float(sc[k, kc[k, -1]])}")
-        param_diff = max(float((a.cpu() - b).abs().max())
-                         for a, b in zip(tree_leaves(pg), tree_leaves(pc)))
-        loss_diff = max(abs(mg[k] - mc[k])
-                        for k in ("local_loss", "split_loss", "el2n_mean"))
-        if max(param_diff, loss_diff, abs(evg["ce"] - evc["ce"])) \
-                > PARITY_TOL:
-            fail(f"lm parity ({arch}): params differ by {param_diff:.3g}, "
-                 f"losses by {loss_diff:.3g}, eval CE by "
-                 f"{abs(evg['ce'] - evc['ce']):.3g} > {PARITY_TOL}")
-        missing = [k for k in PATHS[path] if by_path[path][k] <= 0]
-        if missing:
-            fail(f"lm parity ({arch}): kernels never launched on the card: "
-                 f"{missing}")
-        report[arch] = dict(
-            param_max_diff=param_diff, loss_max_diff=loss_diff,
-            score_max_diff=float((sg - sc).abs().max()),
-            eval_ce_diff=abs(evg["ce"] - evc["ce"]),
-            wire_bytes={k: mc[k] for k in mc if k.startswith("wire/")},
-            launches={k: v for k, v in by_path[path].items() if v})
-        say(f"lm parity ({cfg.name}, K 2, int8 wire, numpy-seeded noise): "
-            f"bytes, kept_frac and kept sets ==, max param diff "
-            f"{param_diff:.3g}, loss diff {loss_diff:.3g} (<= {PARITY_TOL}), "
-            f"card launches {report[arch]['launches']}")
-    return by_path, report
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = launch_counts()
+        runs[dev] = (state["params"], m, tr.last_scores.cpu(),
+                     tr.last_kept.cpu(), ev)
+    (pc, mc, sc, kc, evc), (pg, mg, sg, kg, evg) = runs["cpu"], runs["cuda"]
+    for key in mc:
+        if (key.startswith(("wire/", "cohort/")) or key == "kept_frac") \
+                and mg[key] != mc[key]:
+            fail(f"lm parity ({arch}): {key} {mg[key]} on the card vs "
+                 f"{mc[key]} on the CPU")
+    for k in range(kc.shape[0]):
+        differ = set(kc[k].tolist()) ^ set(kg[k].tolist())
+        if differ:
+            fail(f"lm parity ({arch}): client {k} kept samples "
+                 f"{sorted(differ)} on one device only, scores "
+                 f"{[float(sc[k, i]) for i in sorted(differ)]} vs cut "
+                 f"{float(sc[k, kc[k, -1]])}")
+    param_diff = max(float((a.cpu() - b).abs().max())
+                     for a, b in zip(tree_leaves(pg), tree_leaves(pc)))
+    loss_diff = max(abs(mg[k] - mc[k])
+                    for k in ("local_loss", "split_loss", "el2n_mean"))
+    if max(param_diff, loss_diff, abs(evg["ce"] - evc["ce"])) > PARITY_TOL:
+        fail(f"lm parity ({arch}): params differ by {param_diff:.3g}, "
+             f"losses by {loss_diff:.3g}, eval CE by "
+             f"{abs(evg['ce'] - evc['ce']):.3g} > {PARITY_TOL}")
+    missing = [k for k in kernels or PATHS[path] if launches[k] <= 0]
+    if missing:
+        fail(f"lm parity ({arch}): kernels never launched on the card: "
+             f"{missing}")
+    report = dict(
+        param_max_diff=param_diff, loss_max_diff=loss_diff,
+        score_max_diff=float((sg - sc).abs().max()),
+        eval_ce_diff=abs(evg["ce"] - evc["ce"]),
+        wire_bytes={k: mc[k] for k in mc if k.startswith("wire/")},
+        launches={k: v for k, v in launches.items() if v})
+    extra = ""
+    if margin is not None:
+        report["router_margin"] = check_margin(f"lm parity ({arch})",
+                                               margins, margin)
+        extra = f", router margin {report['router_margin']:.3g}"
+    say(f"lm parity ({cfg.name}, K 2, int8 wire, numpy-seeded noise): "
+        f"bytes, kept_frac and kept sets ==, max param diff "
+        f"{param_diff:.3g}, loss diff {loss_diff:.3g} (<= {PARITY_TOL})"
+        f"{extra}, card launches {report['launches']}")
+    return launches, report
 
 
 def lm_round(torch):
@@ -5155,6 +5243,268 @@ def lm_round(torch):
             "lm_steps": serve_launches}, summary
 
 
+# ------------------------------------------------------------- phase 20
+MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "deepseek-v3-671b")
+# the port's init seeds of phase 20 (a) whose reduced runs keep every
+# router margin above its floor, drawn on the CPU: for the Transformer and
+# the engine, seeds 0-11 kept both above 1e-4 at 2, 8, 9, 10 (phi3.5-moe;
+# seed 0's engine 8.3e-5) and 5, 9 (deepseek-v3; seed 0's Transformer
+# 7.2e-5); for the round and `evaluate`, 18 and 20 of seeds 0-39 stayed
+# above 1e-5 (seed 0: 1.1e-5 and 3.8e-6)
+MOE_SEED = {"phi3.5-moe-42b-a6.6b": 9, "deepseek-v3-671b": 9}
+MOE_ROUND_SEED = {"phi3.5-moe-42b-a6.6b": 11, "deepseek-v3-671b": 21}
+MOE_MARGIN = 1e-4        # the Transformer and the engine
+MOE_ROUND_MARGIN = 1e-5  # a round's ~1700 routed tokens a layer pass
+#                          (tests/test_torch_moe_round.py)
+
+
+class router_margins:
+    """Context manager: appends the router margin (the smallest gap between
+    a token's k-th and (k+1)-th router probability,
+    `models/layers.py::router_margin`) of every MoE call inside it to
+    `log`."""
+
+    def __init__(self, log):
+        self.log = log
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.layers, self.inner, log = layers, layers.apply_moe, self.log
+
+        def probe(p, cfg, x, inner=self.inner):
+            log.append(layers.router_margin(p, cfg, x))
+            return inner(p, cfg, x)
+        layers.apply_moe = probe
+        return log
+
+    def __exit__(self, *exc):
+        self.layers.apply_moe = self.inner
+
+
+def check_margin(label, margins, floor):
+    """The smallest router margin of a run; fails at or below `floor`."""
+    if not margins:
+        fail(f"{label}: no MoE call was probed")
+    low = min(margins)
+    if low <= floor:
+        fail(f"{label}: router margin {low:.3g} <= {floor}: an expert "
+             f"choice is within reach of rounding")
+    return low
+
+
+class attention_shapes:
+    """Context manager: the (query/key dim, value dim) of every prefill and
+    decode attention call the layers make inside it, by op."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.layers = layers
+        self.inner = (layers.flash_attention, layers.decode_attention)
+        self.seen = {"prefill": set(), "decode": set()}
+
+        def rec(op, fn):
+            def call(q, k, v, **kw):
+                self.seen[op].add((q.shape[-1], v.shape[-1]))
+                return fn(q, k, v, **kw)
+            return call
+        layers.flash_attention = rec("prefill", self.inner[0])
+        layers.decode_attention = rec("decode", self.inner[1])
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.layers.flash_attention, self.layers.decode_attention = \
+            self.inner
+
+
+def moe_reduced(arch):
+    from repro_torch.configs import get_config
+    return get_config(arch).reduced(n_layers=3, d_model=64, d_ff=128,
+                                    vocab_size=128)
+
+
+def moe_parity(torch):
+    """Phase 20 (a): the reduced phi3.5-moe and deepseek-v3 (3 MoE layers,
+    deepseek-v3 also its dense prefix layer; MLA, a shared expert and the
+    MTP head; d_model 64, vocab 128, top-2 of 4) on the card and on the
+    CPU from the same seeded weights: the unsplit `Transformer` (train
+    logits, aux loss and deepseek-v3's MTP logits, then prefill and decode
+    logits, within 1e-4), the dense engine on the int8 wire with phase 4's
+    traffic (tokens and wire bytes equal, logits within 1e-4) and an
+    SFPrompt round on token data with `evaluate` (`round_parity`, int8,
+    numpy noise); the router margins printed and held above their floors,
+    the family's kernels launched on the card. Returns the launches by
+    path and the report."""
+    import numpy as np
+    from repro_torch.core import SplitConfig, SplitModel
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.serve import personalized_bank
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.runtime import WireSpec
+    from repro_torch.serve import (ServeConfig, ServeEngine, TenantBank,
+                                   WorkloadConfig, synthetic_requests)
+    from repro_torch.tree import tree_map
+    by_path, report = {}, {}
+    for path, arch in zip(("moe_parity", "mla_parity"), MOE_ARCHS):
+        cfg = moe_reduced(arch)
+        seed, out = MOE_SEED[arch], {}
+        torch.cuda.synchronize()
+        reset_launches()
+        # the unsplit model
+        tm = Transformer(cfg)
+        params = tm.init(torch.Generator().manual_seed(seed), device="cpu")
+        toks = np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (2, 17)).astype(np.int32)
+        got, margins = {}, []
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda x: x.to(dev), params)
+            t = torch.from_numpy(toks).to(dev)
+            with torch.no_grad(), router_margins(
+                    margins if dev == "cuda" else []):
+                tr = tm.apply(p, {"tokens": t}, mode="train")
+                cache = tm.init_cache(2, 32, device=dev)
+                pre = tm.apply(p, {"tokens": t[:, :16]}, mode="prefill",
+                               cache=cache)
+                dec = tm.apply(p, {"tokens": t[:, 16:], "pos": torch.full(
+                    (2,), 16, dtype=torch.int32, device=dev)},
+                    mode="decode", cache=pre["cache"])
+            got[dev] = {"train logits": tr["logits"],
+                        "aux_loss": tr["aux_loss"],
+                        "prefill logits": pre["logits"],
+                        "decode logits": dec["logits"]}
+            if "mtp_logits" in tr:
+                got[dev]["mtp_logits"] = tr["mtp_logits"]
+        diffs = {k: float((got["cuda"][k].cpu() - v).abs().max())
+                 for k, v in got["cpu"].items()}
+        if max(diffs.values()) > PARITY_TOL:
+            fail(f"{arch} Transformer card vs CPU: {diffs} > {PARITY_TOL}")
+        out["transformer"] = dict(max_diff=diffs, router_margin=check_margin(
+            f"{arch} Transformer", margins, MOE_MARGIN))
+        # the dense engine, phase 4's traffic
+        model = SplitModel(cfg, SplitConfig(head_cycles=1, tail_cycles=1,
+                                            prompt_len=4),
+                           WireSpec.make("int8"))
+        params = model.init(torch.Generator().manual_seed(seed),
+                            device="cpu")
+        bank = personalized_bank(model, params, 3, jitter=0.2)
+        reqs = synthetic_requests(WorkloadConfig(
+            n_requests=6, prompt_choices=(6, 11), new_token_choices=(3, 6),
+            n_tenants=3, vocab_size=cfg.vocab_size, seed=3))
+        runs, margins = {}, []
+        for dev in ("cpu", "cuda"):
+            with router_margins(margins if dev == "cuda" else []):
+                st = ServeEngine(
+                    model, tree_map(lambda x: x.to(dev), params),
+                    TenantBank(tree_map(lambda x: x.to(dev), bank.tails),
+                               bank.prompts.to(dev)),
+                    ServeConfig(n_slots=3, max_seq=48, decode_block=4),
+                    collect_logits=True, device=dev).run(reqs)
+            runs[dev] = ({f.req.rid: f for f in st["finished"]},
+                         st["wire_bytes"])
+        out["engine"] = dict(
+            max_logit_diff=compare_runs(f"{arch} engine parity", runs),
+            router_margin=check_margin(f"{arch} engine", margins,
+                                       MOE_MARGIN))
+        torch.cuda.synchronize()
+        serve_launches = launch_counts()
+        # the SFPrompt round and `evaluate` (phase 18's setup)
+        launches, out["round"] = round_parity(
+            torch, path, cfg, seed=MOE_ROUND_SEED[arch],
+            margin=MOE_ROUND_MARGIN, kernels=PATHS["lm"])
+        by_path[path] = {k: v + serve_launches[k]
+                         for k, v in launches.items()}
+        missing = [k for k in PATHS[path] if by_path[path][k] <= 0]
+        if missing:
+            fail(f"{arch} parity: kernels never launched on the card: "
+                 f"{missing}")
+        out["launches"] = {k: v for k, v in by_path[path].items() if v}
+        say(f"{arch} card vs CPU ({cfg.name}, {cfg.n_layers} layers, int8 "
+            f"wire): Transformer max diffs {diffs}, router margin "
+            f"{out['transformer']['router_margin']:.3g}; engine tokens and "
+            f"bytes ==, max logit diff {out['engine']['max_logit_diff']:.3g}"
+            f", router margin {out['engine']['router_margin']:.3g}; round "
+            f"router margin {out['round']['router_margin']:.3g}; card "
+            f"launches {out['launches']}")
+        report[arch] = out
+    return by_path, report
+
+
+def moe_full_cfg(arch):
+    """Phase 20's full-width configs: phi3.5-moe at 4 layers (head 1 / body
+    2 / tail 1); deepseek-v3 at 6 (its 3 dense prefix layers, then MoE
+    head 1 / body 1 / tail 1) with 16 of its 256 routed experts."""
+    from repro_torch.configs import get_config
+    base = get_config(arch)
+    if arch == "phi3.5-moe-42b-a6.6b":
+        return dataclasses.replace(base, n_layers=4), {
+            "n_layers": f"{base.n_layers} -> 4"}
+    return (dataclasses.replace(base, n_layers=6, moe=dataclasses.replace(
+        base.moe, n_experts=16)),
+        {"n_layers": f"{base.n_layers} -> 6 (3 dense + 3 MoE)",
+         "routed experts": f"{base.moe.n_experts} -> 16"})
+
+
+def analytic_weight_bytes(cfg, tenants):
+    """4 B a param of what the card holds for a full-width serving run,
+    counted from `param_count()`: the model, the MTP head (`param_count`
+    leaves it out) and the extra tenants' tails (an MoE layer and the LM
+    head, and the MTP head, each)."""
+    rep = dataclasses.replace
+    total = cfg.param_count()
+    moe_layer = total - rep(cfg, n_layers=cfg.n_layers - 1).param_count()
+    mtp = 0
+    if cfg.mtp:
+        n = cfg.n_dense_layers or 1
+        dense = (rep(cfg, n_layers=n + 1, n_dense_layers=n + 1).param_count()
+                 - rep(cfg, n_layers=n, n_dense_layers=n).param_count())
+        mtp = 2 * cfg.d_model ** 2 + dense
+    tail = moe_layer + cfg.d_model * cfg.vocab_size + mtp
+    return 4 * (total + mtp + (tenants - 1) * tail)
+
+
+def full_width_moe(torch, arch, path):
+    """Phase 20 (b) and (c): `arch` at published widths (`moe_full_cfg`),
+    2 tenants, through the dense engine with phase 5's other settings (8
+    slots, max_seq 512, int8 wire, decode_block 8, 16 requests): checked
+    as phase 5, then a profiled replay; the card's weight bytes after
+    set-up against `param_count()` (within 2%), the host syncs per decode
+    step, the attention head dims each kernel ran at (deepseek-v3's prefill
+    and decode must both run at 192 / 128)."""
+    cfg, cuts = moe_full_cfg(arch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    fw = full_width_model(torch, arch, tenants=2, cfg=cfg)
+    held = torch.cuda.memory_allocated() - before
+    want = analytic_weight_bytes(cfg, 2)
+    if abs(held - want) / want > 0.02:
+        fail(f"{path} full width: {held / 1e9:.3f} GB of weights on the "
+             f"card vs {want / 1e9:.3f} GB by param_count()")
+    say(f"{path} full width: {fw['desc']}, cuts {cuts}; weights on the "
+        f"card {held / 1e9:.3f} GB, by param_count() {want / 1e9:.3f} GB")
+    with attention_shapes() as shapes:
+        launches, summary = full_width(torch, fw, path)
+    att = cfg.attention
+    if att.mla is not None:
+        m = att.mla
+        want_dims = {(m.qk_nope_head_dim + m.qk_rope_head_dim,
+                      m.v_head_dim)}
+    else:
+        want_dims = {(att.head_dim, att.head_dim)}
+    if shapes["prefill"] != want_dims or shapes["decode"] != want_dims:
+        fail(f"{path} full width: attention ran at {shapes}, want "
+             f"{want_dims} for prefill and decode")
+    summary.update(cuts=cuts, weight_gb=held / 1e9,
+                   weight_gb_by_param_count=want / 1e9,
+                   attention_dims={k: sorted(v) for k, v in shapes.items()})
+    say(f"{path} full width: host syncs {summary['moe_host_syncs']} "
+        f"({summary['moe_host_syncs_per_decode_step']:.2f} a decode step), "
+        f"peak {summary['max_memory_allocated_gb']:.2f} GB, attention dims "
+        f"{summary['attention_dims']}")
+    del fw
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
 # -------------------------------------------------------------------- main
 def main() -> None:
     try:
@@ -5274,6 +5624,16 @@ def main() -> None:
     torch.cuda.empty_cache()
     say(f"phase 19: {time.perf_counter() - t19:.1f} s")
     lap("19")
+
+    # 20. the MoE families: the reduced phi3.5-moe and deepseek-v3 card
+    # against CPU, then each at published widths through the dense engine
+    t20 = time.perf_counter()
+    paths20, summaries["moe_parity"] = moe_parity(torch)
+    by_path.update(paths20)
+    for path, arch in (("moe", MOE_ARCHS[0]), ("mla", MOE_ARCHS[1])):
+        by_path[path], summaries[path] = full_width_moe(torch, arch, path)
+    say(f"phase 20: {time.perf_counter() - t20:.1f} s")
+    lap("20")
 
     # 16. the FL and SFL baselines and the heterogeneous-cut trainer: card
     # against CPU at the reduced ViT, then at full width

@@ -69,17 +69,23 @@ def classifier_el2n(logits: torch.Tensor, labels: torch.Tensor):
     return el2n_scores(logits, labels)
 
 
-def task_loss(cfg, out: Dict, batch: Dict):
-    """Dispatch on arch type; adds the MoE aux term. The DeepSeek MTP term
-    is not ported yet."""
-    if "mtp_logits" in out:
-        raise NotImplementedError(
-            "the MTP loss term is not ported yet (slice G)")
+def task_loss(cfg, out: Dict, batch: Dict, *, mtp_weight: float = 0.3):
+    """Dispatch on arch type; adds the MoE aux loss and the DeepSeek MTP
+    term: plain CE of `mtp_logits[:, :-1]` against `tokens[:, 2:]` (MTP
+    predicts token t + 2 from position t), weighted by `mtp_weight`."""
     if cfg.num_classes:
         loss, metrics = classifier_loss(out["logits"], batch["labels"])
     else:
         loss, metrics = lm_loss(out["logits"], batch["tokens"],
                                 out.get("n_prefix", 0))
+        if "mtp_logits" in out:
+            mlg = out["mtp_logits"][:, :-1, :]
+            mtg = batch["tokens"][:, 2:]
+            V = mlg.shape[-1]
+            _, mce = el2n_ref.el2n_scores(mlg.reshape(-1, V),
+                                          mtg.reshape(-1))
+            metrics["mtp_ce"] = mce.mean()
+            loss = loss + mtp_weight * mce.mean()
     loss = loss + out.get("aux", out.get("aux_loss", 0.0))
     metrics["loss"] = loss
     return loss, metrics

@@ -9,12 +9,15 @@ The head->body and body->tail cut points are real wire boundaries: a
 `forward(route="split")` pushes every smashed activation through it,
 reporting the measured bytes in `out["wire_bytes"]`.
 
-This is the port of `repro/core/split.py` for token models with attention,
-Mamba-2 and RWKV-6 layers (zamba2's shared attention block is copied into
-each segment, as in the JAX package) — the serving path's subset (caches,
-slots, page pools, segments, forward with chunked-prefill continuation) —
-and for the ViT classifier the training round splits (patch embedding, CLS
-token and soft prompt, non-causal attention, logits from the CLS row).
+This is the port of `repro/core/split.py` for token models with attention
+(MLA included), MoE, Mamba-2 and RWKV-6 layers (zamba2's shared attention
+block is copied into each segment, as in the JAX package; DeepSeek's dense
+prefix layers belong to the head, its MTP head to the tail) — the serving
+path's subset (caches, slots, page pools, segments, forward with
+chunked-prefill continuation) — and for the ViT classifier the training
+round splits (patch embedding, CLS token and soft prompt, non-causal
+attention, logits from the CLS row). Audio, VLM and encoder models are
+slice G items 5 and 6 of ROADMAP.md.
 Params and caches are nested dicts of tensors keyed as the JAX pytrees;
 caches and page pools are written in place.
 
@@ -31,8 +34,9 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import init_block, init_stack, run_stack, \
-    stack_cache
+from repro_torch.models.transformer import (embed, init_block, init_embed,
+                                            init_mtp, init_stack, run_stack,
+                                            stack_cache, unported_reason)
 from repro_torch.runtime.boundary import WireSpec
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -79,12 +83,9 @@ class SplitModel:
         self._has_shared = "shared_attn" in cfg.layer_pattern
 
     def _check_ported(self):
-        cfg = self.cfg
-        if cfg.arch_type in ("audio", "vlm") or cfg.encoder is not None \
-                or cfg.n_dense_layers or cfg.mtp:
-            raise NotImplementedError(
-                f"{cfg.name}: only ViT and token models without encoder, "
-                f"dense prefix or MTP head are ported yet")
+        reason = unported_reason(self.cfg)
+        if reason is not None:
+            raise NotImplementedError(f"{self.cfg.name}: {reason}")
 
     # -------------------------------------------------------------- sizes
     def segment_fractions(self):
@@ -108,17 +109,10 @@ class SplitModel:
         self._check_ported()
         device = resolve_device(device)
         cfg, g = self.cfg, generator
-        if cfg.arch_type == "vit":
-            head: Params = {"embed": {
-                "patch": L.dense_init(g, 16 * 16 * 3, cfg.d_model,
-                                      device=device),
-                "cls": 0.02 * torch.randn((1, cfg.d_model), generator=g,
-                                          device=device),
-                "pos": 0.02 * torch.randn((cfg.max_seq_len, cfg.d_model),
-                                          generator=g, device=device)}}
-        else:
-            head = {"embed": {"tok": 0.02 * torch.randn(
-                (cfg.vocab_size, cfg.d_model), generator=g, device=device)}}
+        head: Params = {"embed": init_embed(g, cfg, device=device)}
+        if cfg.n_dense_layers:
+            head["dense_stack"] = {"pos0": init_stack(
+                g, cfg, "attn", cfg.n_dense_layers, device=device)}
         head["stack"] = self._init_cycles(g, self.split.head_cycles, device)
         body: Params = {"stack": self._init_cycles(g, self.body_cycles,
                                                    device)}
@@ -127,6 +121,10 @@ class SplitModel:
         tail["final_norm"] = L.norm_init(cfg.d_model, cfg.norm, device)
         out_dim = cfg.num_classes or cfg.vocab_size
         tail["head"] = L.dense_init(g, cfg.d_model, out_dim, device=device)
+        if cfg.mtp:
+            # the split forward never runs it; it is part of the tail a
+            # client holds and uploads
+            tail["mtp"] = init_mtp(g, cfg, device=device)
         if self._has_shared:
             sh = init_block(g, cfg, "shared_attn", device=device)
             for seg in (head, body, tail):
@@ -159,11 +157,16 @@ class SplitModel:
                                            device=device)
                     for i, kind in enumerate(cfg.layer_pattern)}
 
-        return {
+        cache: Params = {
             "head": {"stack": seg_cache(self.split.head_cycles)},
             "body": {"stack": seg_cache(self.body_cycles)},
             "tail": {"stack": seg_cache(self.split.tail_cycles)},
         }
+        if cfg.n_dense_layers:
+            cache["head"]["dense_stack"] = {"pos0": stack_cache(
+                cfg, "attn", cfg.n_dense_layers, batch, seq_len, dtype,
+                window=window, device=device)}
+        return cache
 
     # ------------------------------------------------- slotted allocation
     # A serving engine's shared KV cache is `init_cache(n_slots, ...)`:
@@ -319,49 +322,6 @@ class SplitModel:
         tree_map(lambda a: a[:, dst].copy_(a[:, src]), pool)
         return pool
 
-    # -------------------------------------------------------------- embed
-    def _embed(self, head_p, batch, mode, prompt, dtype, chunk_start=None):
-        emb = head_p["embed"]
-        if self.cfg.arch_type == "vit":
-            # [CLS | soft prompt | patches] plus the first T position rows
-            patches = batch["patches"]
-            B = patches.shape[0]
-            x = L.dense(emb["patch"], patches.to(dtype))
-            cls = emb["cls"][None].expand(B, 1, self.cfg.d_model)
-            x = torch.cat([cls.to(x.dtype), x], dim=1)
-            if prompt is not None:
-                pr = prompt[None].expand((B,) + tuple(prompt.shape))
-                x = torch.cat([x[:, :1], pr.to(x.dtype), x[:, 1:]], dim=1)
-            x = x + emb["pos"][: x.shape[1]].to(x.dtype)
-            pos = torch.arange(x.shape[1], dtype=torch.int32,
-                               device=x.device)[None].expand(B, x.shape[1])
-            return x, pos, pos, 0
-        toks = batch["tokens"]
-        B, S = toks.shape
-        # gather the rows, then cast them: the same values as casting the
-        # whole table first, without a copy of the table at `dtype`
-        x = emb["tok"][toks.long()].to(dtype)
-        n_prefix = 0
-        if prompt is not None and mode != "decode" and chunk_start is None:
-            pr = prompt[None].expand((B,) + tuple(prompt.shape))
-            x = torch.cat([pr.to(dtype), x], dim=1)
-            n_prefix += prompt.shape[0]
-        T = x.shape[1]
-        if mode == "decode":
-            base = batch["pos"][:, None]
-        elif chunk_start is not None:
-            # chunked-prefill continuation: this chunk's tokens sit at
-            # positions [chunk_start, chunk_start + T) of an already
-            # partially-filled cache; no soft prompt is prepended (it went
-            # in with the first chunk)
-            base = chunk_start[:, None] + torch.arange(
-                T, dtype=torch.int32, device=x.device)[None]
-        else:
-            base = torch.arange(T, dtype=torch.int32,
-                                device=x.device)[None].expand(B, T)
-        base = base.to(torch.int32)
-        return x, base, base, n_prefix
-
     # -------------------------------------------------------------- segments
     def _seg_fwd(self, seg_p, x, ctx, cache):
         caches = cache["stack"] if cache is not None else None
@@ -379,14 +339,20 @@ class SplitModel:
         (attention then runs write-then-attend over the full cache, like
         decode, instead of chunk-local causal). `differentiable` marks a
         pass autograd goes through; body_fwd and tail_fwd inherit it."""
-        x, positions, seq_pos, n_prefix = self._embed(
-            head_p, batch, mode, prompt, dtype, chunk_start)
-        ho = {"positions": positions, "seq_pos": seq_pos, "mode": mode,
+        x, positions, n_prefix = embed(self.cfg, head_p["embed"], batch,
+                                       mode, prompt, dtype, chunk_start)
+        ho = {"positions": positions, "seq_pos": positions, "mode": mode,
               "has_context": chunk_start is not None,
               "differentiable": differentiable}
-        x, aux, new_cache = self._seg_fwd(head_p, x, self._ctx_from(ho),
-                                          cache)
-        return dict(ho, smashed=x, n_prefix=n_prefix, aux=aux,
+        ctx = self._ctx_from(ho)
+        aux = 0.0
+        if self.cfg.n_dense_layers:
+            # DeepSeek's dense prefix layers run before the head cycles
+            x, aux, _ = run_stack(
+                self.cfg, head_p["dense_stack"], ("attn",), x, ctx,
+                cache["dense_stack"] if cache is not None else None)
+        x, a, new_cache = self._seg_fwd(head_p, x, ctx, cache)
+        return dict(ho, smashed=x, n_prefix=n_prefix, aux=aux + a,
                     cache=new_cache)
 
     def _ctx_from(self, head_out) -> L.Ctx:
@@ -424,6 +390,11 @@ class SplitModel:
             logits = c * torch.tanh(logits / c)
         out["logits"] = logits
         out["n_prefix"] = head_out["n_prefix"]
+        if cfg.mtp and head_out["mode"] == "train" and batch is not None:
+            # the MTP head needs the embedding, which lives in the head
+            # segment; the client holds both, so it is local (no extra
+            # communication)
+            out["mtp_hidden_ready"] = True
         return out
 
     # -------------------------------------------------------------- routes

@@ -1,5 +1,5 @@
-"""Layer library, the subset the serving paths and the ViT training round
-run: attention, MLP, Mamba-2 and RWKV-6 blocks.
+"""Layer library: attention (with DeepSeek's Multi-head Latent Attention),
+MLP, the token-choice MoE, Mamba-2 and RWKV-6 blocks.
 
 Functional style, as in `repro/models/layers.py`: each block kind has
 ``init_<kind>(generator, cfg, device) -> params`` and
@@ -20,10 +20,18 @@ device, so autograd flows through PyTorch ops: no kernel has a backward,
 and the JAX round likewise runs every pass with `impl="ref"`. Forward-only
 passes (EL2N scoring, evaluation, serving) keep the device dispatch and
 launch the kernels on the card.
+
+The MoE block runs its grouped expert products as plain `torch.matmul`s
+over each expert's row range on every device (`jax.lax.ragged_dot` is an
+XLA op, not a Pallas kernel), differentiated by autograd. Its group sizes
+come to the host once a call (`moe_host_syncs` counts them).
+Cross-attention, the encoder and M-RoPE are ROADMAP slice G items 5 and
+6.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -40,6 +48,9 @@ from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
 from repro_torch.models.config import AttentionConfig, ModelConfig
 
 Params = Dict[str, Any]
+
+# group-size reads from the device (one an `apply_moe` call)
+moe_host_syncs = 0
 
 
 # ---------------------------------------------------------------- helpers
@@ -124,32 +135,56 @@ def _seq_pos(ctx: Ctx) -> torch.Tensor:
 # ---------------------------------------------------------------- attention
 def init_attention(gen, cfg: ModelConfig, *, device="cuda") -> Params:
     att = cfg.attention
-    if att.mla is not None:
-        raise NotImplementedError("MLA attention is not ported yet")
     D = cfg.d_model
-    return {
-        "ln": norm_init(D, cfg.norm, device),
-        "q": dense_init(gen, D, att.n_heads * att.head_dim,
-                        bias=att.qkv_bias, device=device),
-        "k": dense_init(gen, D, att.n_kv_heads * att.head_dim,
-                        bias=att.qkv_bias, device=device),
-        "v": dense_init(gen, D, att.n_kv_heads * att.head_dim,
-                        bias=att.qkv_bias, device=device),
-        "o": dense_init(gen, att.n_heads * att.head_dim, D, device=device),
-    }
+    p: Params = {"ln": norm_init(D, cfg.norm, device)}
+    if att.mla is not None:
+        m = att.mla
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        p["q_a"] = dense_init(gen, D, m.q_lora_rank, device=device)
+        p["q_a_ln"] = norm_init(m.q_lora_rank, "rmsnorm", device)
+        p["q_b"] = dense_init(gen, m.q_lora_rank, att.n_heads * qk,
+                              device=device)
+        p["kv_a"] = dense_init(gen, D, m.kv_lora_rank + m.qk_rope_head_dim,
+                               device=device)
+        p["kv_a_ln"] = norm_init(m.kv_lora_rank, "rmsnorm", device)
+        p["kv_b"] = dense_init(
+            gen, m.kv_lora_rank,
+            att.n_heads * (m.qk_nope_head_dim + m.v_head_dim), device=device)
+        p["o"] = dense_init(gen, att.n_heads * m.v_head_dim, D,
+                            device=device)
+        return p
+    p["q"] = dense_init(gen, D, att.n_heads * att.head_dim,
+                        bias=att.qkv_bias, device=device)
+    p["k"] = dense_init(gen, D, att.n_kv_heads * att.head_dim,
+                        bias=att.qkv_bias, device=device)
+    p["v"] = dense_init(gen, D, att.n_kv_heads * att.head_dim,
+                        bias=att.qkv_bias, device=device)
+    p["o"] = dense_init(gen, att.n_heads * att.head_dim, D, device=device)
+    return p
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, window: int,
                     dtype=torch.float32, device="cuda") -> Params:
+    """A ring of `window` positions a row; MLA keeps only the compressed
+    latent `ckv` (B, W, kv_lora) and the shared rotary key `kr`
+    (B, W, rope)."""
     att = cfg.attention
+    positions = torch.full((batch, window), -1, dtype=torch.int32,
+                           device=device)
     if att.mla is not None:
-        raise NotImplementedError("MLA latent caches are not ported yet")
+        m = att.mla
+        return {
+            "ckv": torch.zeros((batch, window, m.kv_lora_rank), dtype=dtype,
+                               device=device),
+            "kr": torch.zeros((batch, window, m.qk_rope_head_dim),
+                              dtype=dtype, device=device),
+            "positions": positions,
+        }
     shape = (batch, window, att.n_kv_heads, att.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "positions": torch.full((batch, window), -1, dtype=torch.int32,
-                                device=device),
+        "positions": positions,
     }
 
 
@@ -165,6 +200,22 @@ def _cache_write(cache: Params, names: Tuple[str, ...], values,
         cache[name][b_idx, slot] = val[:, 0].to(cache[name].dtype)
     cache["positions"][b_idx, slot] = pos.to(torch.int32)
     return cache
+
+
+def _ring_fill(cache: Params, names: Tuple[str, ...], values,
+               sp: torch.Tensor):
+    """Prefill's cache write, in place: the last min(W, S) tokens of each
+    row's `values` (B, S, ...) at slots pos % W (the ring layout), with
+    their positions."""
+    w = cache["positions"].shape[1]
+    S = sp.shape[1]
+    keep = min(w, S)
+    tail_pos = sp[:, S - keep:]
+    slot = (tail_pos % w).long()
+    b_idx = torch.arange(sp.shape[0], device=sp.device)[:, None]
+    for name, val in zip(names, values):
+        cache[name][b_idx, slot] = val[:, S - keep:].to(cache[name].dtype)
+    cache["positions"][b_idx, slot] = tail_pos.to(torch.int32)
 
 
 def _paged_cache_write(cache: Params, names: Tuple[str, ...], values,
@@ -203,13 +254,14 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
                     cache: Optional[Params], *, kind: str = "attn"):
     """Self-attention block half (pre-norm). Returns (residual_delta, cache)."""
     att = cfg.attention
-    if att.mla is not None:
-        raise NotImplementedError("MLA attention is not ported yet")
     if att.mrope_sections is not None and ctx.positions.dim() == 3:
-        raise NotImplementedError("M-RoPE is not ported yet")
+        raise NotImplementedError(
+            "M-RoPE is not ported yet: it comes with slice G item 6")
     B, S, D = x.shape
     h = apply_norm(p["ln"], x, cfg.norm)
     window = att.sliding_window if kind == "attn_local" else None
+    if att.mla is not None:
+        return _apply_mla(p, cfg, x, h, ctx, cache, window)
     sp = _seq_pos(ctx)
 
     q = dense(p["q"], h).reshape(B, S, att.n_heads, att.head_dim)
@@ -254,17 +306,70 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
         out = _gqa_attend(q, k, v, ctx, att, window=window,
                           softcap=att.attn_logit_softcap, causal=ctx.causal)
         if ctx.mode == "prefill" and cache is not None:
-            w = cache["positions"].shape[1]
-            keep = min(w, S)
-            # store last `keep` tokens at slots pos % w (ring layout)
-            tail_pos = sp[:, S - keep:]
-            slot = (tail_pos % w).long()
-            b_idx = torch.arange(B, device=x.device)[:, None]
-            cache["k"][b_idx, slot] = k[:, S - keep:].to(cache["k"].dtype)
-            cache["v"][b_idx, slot] = v[:, S - keep:].to(cache["v"].dtype)
-            cache["positions"][b_idx, slot] = tail_pos.to(torch.int32)
+            _ring_fill(cache, ("k", "v"), (k, v), sp)
 
     out = out.reshape(B, S, att.n_heads * att.head_dim)
+    return dense(p["o"], out), cache
+
+
+def _apply_mla(p: Params, cfg: ModelConfig, x, h, ctx: Ctx, cache, window):
+    """DeepSeek-V3 Multi-head Latent Attention. The decode cache holds only
+    the compressed latent (kv_lora + rope dims). Decode writes the step's
+    latent into the ring, then decompresses the WHOLE window through
+    `kv_b` every step (as the JAX block does) and attends with query and
+    key dims nope + rope (192 at DeepSeek-V3's widths) and value dim v
+    (128), every head its own kv head (G 1). Prefill is always causal. k
+    is built by `torch.cat`, so the kernels read it with a unit last-axis
+    stride."""
+    att = cfg.attention
+    m = att.mla
+    if cache is not None and "block_tables" in cache:
+        raise NotImplementedError(
+            "paged KV cache does not support MLA latent caches")
+    B, S, D = x.shape
+    H, nope, rope = att.n_heads, m.qk_nope_head_dim, m.qk_rope_head_dim
+    sp = _seq_pos(ctx)
+    qk = nope + rope
+
+    q = dense(p["q_b"], apply_norm(p["q_a_ln"], dense(p["q_a"], h),
+                                   "rmsnorm"))
+    q = q.reshape(B, S, H, qk)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+
+    kv_a = dense(p["kv_a"], h)
+    ckv = apply_norm(p["kv_a_ln"], kv_a[..., :m.kv_lora_rank], "rmsnorm")
+    k_rope = kv_a[..., m.kv_lora_rank:]                     # (B, S, rope)
+
+    cos, sin = rope_cos_sin(ctx.positions, rope, att.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)    # (B, S, 1, rope)
+    qfull = torch.cat([q_nope, q_rope], dim=-1)
+
+    def decompress(ckv_seq):
+        kv = dense(p["kv_b"], ckv_seq)
+        kv = kv.reshape(*ckv_seq.shape[:-1], H, nope + m.v_head_dim)
+        return kv[..., :nope], kv[..., nope:]
+
+    scale = qk ** -0.5
+    if ctx.mode == "decode":
+        _cache_write(cache, ("ckv", "kr"), (ckv, k_rope[:, :, 0]), sp[:, 0])
+        k_nope, v = decompress(cache["ckv"])                # (B, W, H, ·)
+        kr = cache["kr"][:, :, None, :].to(k_nope.dtype)
+        k = torch.cat([k_nope, kr.expand(-1, -1, H, -1)], dim=-1)
+        out = decode_attention(
+            qfull, k, v, q_positions=sp[:, 0],
+            kv_positions=cache["positions"], sliding_window=window,
+            softcap=att.attn_logit_softcap, scale=scale)
+    else:
+        k_nope, v = decompress(ckv)
+        k = torch.cat([k_nope, k_rope.expand(-1, -1, H, -1)], dim=-1)
+        out = _gqa_attend(qfull, k, v, ctx, att, window=window,
+                          softcap=att.attn_logit_softcap, causal=True,
+                          scale=scale)
+        if ctx.mode == "prefill" and cache is not None:
+            _ring_fill(cache, ("ckv", "kr"), (ckv, k_rope[:, :, 0]), sp)
+
+    out = out.reshape(B, S, H * m.v_head_dim)
     return dense(p["o"], out), cache
 
 
@@ -298,6 +403,109 @@ def apply_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         h = _act(dense(p["up"], h), cfg.mlp_activation)
     return dense(p["down"], h)
+
+
+# ---------------------------------------------------------------- MoE
+def init_moe(gen, cfg: ModelConfig, *, device="cuda") -> Params:
+    e = cfg.moe
+    D, Fe, E = cfg.d_model, e.d_ff_expert, e.n_experts
+
+    def normal(*shape):
+        return 0.02 * torch.randn(shape, generator=gen, device=device)
+
+    p = {
+        "ln": norm_init(D, cfg.norm, device),
+        "router": dense_init(gen, D, E, device=device),
+        "experts": {"up": normal(E, D, Fe), "gate": normal(E, D, Fe),
+                    "down": normal(E, Fe, D)},
+    }
+    if e.n_shared_experts:
+        p["shared"] = init_mlp(gen, cfg, d_ff=Fe * e.n_shared_experts,
+                               device=device)
+        del p["shared"]["ln"]  # share the block norm
+    return p
+
+
+def _route(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    """The block norm and the f32 router: (h, flat (N, D), probs (N, E),
+    probs sorted descending (N, E), their expert ids). The sort is stable,
+    so among equal probabilities the lower expert comes first, as
+    `jax.lax.top_k` orders them."""
+    h = apply_norm(p["ln"], x, cfg.norm)
+    flat = h.reshape(-1, h.shape[-1])
+    probs = torch.softmax(dense(p["router"], flat).float(), dim=-1)
+    sorted_p, sorted_e = torch.sort(probs, dim=-1, descending=True,
+                                    stable=True)
+    return h, flat, probs, sorted_p, sorted_e
+
+
+@torch.no_grad()
+def router_margin(p: Params, cfg: ModelConfig, x: torch.Tensor) -> float:
+    """The smallest gap between the k-th and the (k+1)-th router
+    probability over the tokens of x: how far the block's expert choice is
+    from a tie that rounding could flip (inf when every expert is
+    chosen)."""
+    k = cfg.moe.top_k
+    sorted_p = _route(p, cfg, x)[3]
+    if k >= sorted_p.shape[-1]:
+        return math.inf
+    return float((sorted_p[:, k - 1] - sorted_p[:, k]).min())
+
+
+def apply_moe(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    """Token-choice top-k MoE with DROPLESS sort-based dispatch, the port of
+    `repro/models/layers.py:469-527`. Returns (delta, aux), aux the
+    Switch-style load-balance loss as a float32 scalar.
+
+    The (token, choice) pairs are sorted by expert (a stable argsort, as
+    `jnp.argsort` is), each expert's gate, up and down products run as
+    one `torch.matmul` over its row range, and the outputs, weighted by
+    the renormalized router probabilities, are scatter-added back to
+    their tokens. No token is ever dropped, so a row's result does not
+    depend on the other rows in the batch: the decode step may run a
+    tenant's tail on its rows alone. The group sizes come to the host
+    (one device sync a call, counted in `moe_host_syncs`). The JAX
+    block's sharding constraint on the dispatched rows applies under a
+    device mesh only (ROADMAP slice H) and is left out."""
+    e = cfg.moe
+    B, S, D = x.shape
+    N, k = B * S, e.top_k
+    h, flat, probs, sorted_p, sorted_e = _route(p, cfg, x)
+    top_p, top_e = sorted_p[:, :k], sorted_e[:, :k]
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    # load-balance aux loss (Switch-style)
+    density = torch.bincount(top_e[:, 0], minlength=e.n_experts).float() / N
+    aux = e.load_balance_coef * e.n_experts * (density * probs.mean(0)).sum()
+
+    flat_e = top_e.reshape(-1)                                 # (N*k,)
+    order = torch.argsort(flat_e, stable=True)
+    tok = order // k                                           # token a row
+    sizes = torch.bincount(flat_e, minlength=e.n_experts).tolist()
+    global moe_host_syncs
+    moe_host_syncs += 1
+    xs = flat[tok]                                             # (N*k, D)
+    we = p["experts"]
+    outs, start = [], 0
+    for expert, n in enumerate(sizes):
+        if n:
+            rows = xs[start:start + n]
+            gate = rows @ we["gate"][expert].to(h.dtype)
+            up = rows @ we["up"][expert].to(h.dtype)
+            outs.append((_act(gate, "silu_glu") * up)
+                        @ we["down"][expert].to(h.dtype))
+            start += n
+    ys = torch.cat(outs)
+    gathered = ys * top_p.reshape(-1)[order][:, None].to(h.dtype)
+    y = torch.zeros((N, D), dtype=h.dtype, device=x.device).index_add(
+        0, tok, gathered).reshape(B, S, D)
+
+    if "shared" in p:
+        sh = p["shared"]
+        hshared = _act(dense(sh["gate"], h), "silu_glu") * dense(sh["up"], h)
+        y = y + dense(sh["down"], hshared)
+    return y, aux
+
 
 
 # ---------------------------------------------------------------- Mamba-2

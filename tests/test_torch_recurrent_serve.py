@@ -282,13 +282,21 @@ def test_launcher_main_on_cpu(arch, capsys):
 
 
 def test_unported_block_kinds_name_their_slice():
+    """`moe` builds (slice G item 1 is ported: an attention half and the
+    MoE block, and an attention cache); `cross_attn` still names item 5."""
     from repro_torch.models.transformer import init_block, init_block_cache
     cfg = _cfg(get_config, "zamba2-2.7b")
     gen = torch.Generator().manual_seed(0)
-    for kind, item in (("moe", "item 1"), ("cross_attn", "item 5")):
-        with pytest.raises(NotImplementedError, match=f"slice G {item}"):
-            init_block(gen, cfg, kind, device="cpu")
-        with pytest.raises(NotImplementedError, match=f"slice G {item}"):
-            init_block_cache(cfg, kind, 1, 8, device="cpu")
+    moe_cfg = get_config("phi3.5-moe-42b-a6.6b").reduced(
+        n_layers=3, d_model=64, d_ff=128, vocab_size=128)
+    block = init_block(gen, moe_cfg, "moe", device="cpu")
+    assert set(block) == {"attn", "moe"}
+    assert set(block["moe"]["experts"]) == {"up", "gate", "down"}
+    assert set(init_block_cache(moe_cfg, "moe", 1, 8, device="cpu")) == \
+        {"k", "v", "positions"}
+    with pytest.raises(NotImplementedError, match="slice G item 5"):
+        init_block(gen, cfg, "cross_attn", device="cpu")
+    with pytest.raises(NotImplementedError, match="slice G item 5"):
+        init_block_cache(cfg, "cross_attn", 1, 8, device="cpu")
     with pytest.raises(ValueError):
         init_block(gen, cfg, "no-such-kind", device="cpu")

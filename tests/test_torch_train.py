@@ -217,8 +217,33 @@ def test_losses_and_logit_grads_match_jax():
     jel2n, _ = jlosses.lm_el2n(jnp.asarray(lm_logits), jnp.asarray(tokens),
                                2, impl="ref")
     np.testing.assert_allclose(el2n.numpy(), np.asarray(jel2n), **TOL)
-    with pytest.raises(NotImplementedError, match="slice G"):
-        losses.task_loss(cfg, dict(out, mtp_logits=out["logits"]), batch)
+    # the DeepSeek MTP term (token t + 2 from position t, weight 0.3) and
+    # the aux loss on an LM config: loss, metrics and both logit gradients
+    lm_cfg, jlm_cfg = (get("deepseek-v3-671b").reduced(vocab_size=17)
+                       for get in (get_config, jget_config))
+    mtp = rng.standard_normal((3, 6, 17)).astype(np.float32)
+
+    def jmtp(lg, m):
+        return jlosses.task_loss(
+            jlm_cfg, {"logits": lg, "mtp_logits": m, "n_prefix": 2,
+                      "aux": jnp.float32(0.25)},
+            {"tokens": jnp.asarray(tokens)}, impl="ref")
+
+    (jl, jm), jg = jax.value_and_grad(jmtp, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(lm_logits), jnp.asarray(mtp))
+    xt, mt = (torch.from_numpy(a).requires_grad_(True)
+              for a in (lm_logits, mtp))
+    tl, tm_ = losses.task_loss(
+        lm_cfg, {"logits": xt, "mtp_logits": mt, "n_prefix": 2,
+                 "aux": torch.tensor(0.25)},
+        {"tokens": torch.from_numpy(tokens)})
+    tg = torch.autograd.grad(tl, (xt, mt))
+    np.testing.assert_allclose(tl.item(), float(jl), **TOL)
+    assert set(tm_) == set(jm) >= {"mtp_ce", "ce", "acc", "loss"}
+    np.testing.assert_allclose(float(tm_["mtp_ce"].detach()),
+                               float(jm["mtp_ce"]), **TOL)
+    for a, b in zip(tg, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
 
 
 # ---------------------------------------------------------- optimizers
