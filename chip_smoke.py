@@ -257,10 +257,41 @@ Phases, each of which fails the run with a nonzero exit:
      attention of both kernels at the family's head dims (deepseek-v3:
      192 / 128), the MoE host syncs a decode step and the peak memory
      printed, then a profiled replay;
+ 21. Whisper and Qwen2-VL (run right after phase 20): the reduced
+     whisper-base (a 1-layer encoder over 16 frames, 3 decoder layers) and
+     qwen2-vl-72b (M-RoPE (4, 6, 6), QKV bias), d_model 64, vocab 128, on
+     the card and on the CPU from the same seeded weights: the unsplit
+     `Transformer` (train, prefill and decode logits within 1e-4), a split
+     prefill with frames or 8 patch embeddings and their (2, 2, 2) grid
+     positions then 4 greedy decode steps on the int8 wire (tokens and
+     wire bytes equal, logits within 1e-4), an SFPrompt round (K 2, 16
+     samples a client with the family's keys, batch 4, U 1, gamma 0.5;
+     bytes, kept_frac and kept sets equal, params, losses and eval CE
+     within 1e-4) and `evaluate` on 32 samples; then whisper-base at its
+     published width and depth (6 + 6 layers, d_model 512, 8 x 64, 1500
+     frames, vocab 51865) through a split prefill of 4 sequences of 64
+     tokens with their frames and 32 greedy decode steps, and an SFPrompt
+     round (K 2, 16 samples of 16 tokens, batch 4, U 1, gamma 0.5) with
+     `evaluate` on 32 samples (kernels 1, 2, 3, 4 and 6: path `whisper`);
+     then qwen2-vl-72b at published widths (8192; 64 / 8 x 128; M-RoPE
+     16/24/24; QKV bias; vocab 152064) cut to 6 layers (1 head / 4 body /
+     1 tail) through a split prefill of 2 sequences of a 4-token prompt, 64
+     patch embeddings on a (1, 8, 8) grid and 64 text tokens and 32 greedy
+     decode steps (kernels 1-4: path `vlm`); each prints its weights, its
+     peak memory, tok/s and its launches by kernel, and its metered bytes
+     must equal the exact count;
  then the `kernels` JSON line (each kernel once, with the dtypes, head
- dims and groups it was held at, its bf16 numbers and its wide-shape
- numbers), then the seconds each phase took and the total, then the device
- line last.
+ dims and groups it was held at, its bf16 numbers, its wide-shape
+ numbers and its slice G part 2 shapes), then the seconds each phase took
+ and the total, then the device line last.
+
+ Phase 3 also holds and times the shapes Whisper and Qwen2-VL bring
+ (`check_slice_g2`): the prefill kernel at whisper-base's encoder (4,
+ 1500, 8 x 64, non-causal), its cross-attention (64 and 1 queries over
+ 1500 frames, non-causal) and qwen2-vl-72b's (2, 132, 64 / 8 x 128,
+ causal, G 8); the dense decode kernel at 8 / 8 x 64 and 64 / 8 x 128
+ over 8 slots of 512; the int8 pair at (8, 8192) and (132, 8192), the
+ block layout at its capacity, bit-equal in every plan.
 
  The wide attention shapes (head dims 160, 192 and 256; GQA groups up to
  16) run in phase 3 as well: the prefill kernel at gemma2-9b's (1, 132,
@@ -419,6 +450,19 @@ PATHS = {
                    "flash_attention_prefill", "decode_attention", "el2n"),
     "mla_parity": ("quantize_int8", "dequantize_int8",
                    "flash_attention_prefill", "decode_attention", "el2n"),
+    # phase 21: whisper-base (the encoder and the cross-attention through
+    # the prefill kernel, non-causal; its round scores with EL2N) and
+    # qwen2-vl-72b (causal GQA 8) at published widths, and their reduced
+    # families card against CPU
+    "whisper": ("quantize_int8", "dequantize_int8",
+                "flash_attention_prefill", "decode_attention", "el2n"),
+    "vlm": ("quantize_int8", "dequantize_int8", "flash_attention_prefill",
+            "decode_attention"),
+    "whisper_parity": ("quantize_int8", "dequantize_int8",
+                       "flash_attention_prefill", "decode_attention",
+                       "el2n"),
+    "vlm_parity": ("quantize_int8", "dequantize_int8",
+                   "flash_attention_prefill", "decode_attention", "el2n"),
 }
 # the wide attention shapes of phase 3: (label, Hq, Hkv, Dh)
 WIDE_SHAPES = (("gemma2-9b", 16, 8, 256), ("stablelm-12b", 32, 8, 160),
@@ -436,8 +480,8 @@ RECORDED_DEVICE_MS = {
 # the head dims and GQA groups each attention kernel is held at in phase 3
 HEADS = {
     "flash_attention_prefill": ([20, 32, 40, 64, 80, 128, 160, 176, 192,
-                                 256], [1, 2, 3, 4, 5, 12]),
-    "decode_attention": ([80, 128, 160, 192, 256], [1, 2, 4, 5, 12]),
+                                 256], [1, 2, 3, 4, 5, 8, 12]),
+    "decode_attention": ([64, 80, 128, 160, 192, 256], [1, 2, 4, 5, 8, 12]),
     "paged_decode_attention": ([128, 160, 192, 256], [2, 4, 5, 12]),
 }
 T0 = time.perf_counter()
@@ -1170,23 +1214,26 @@ def check_prefill(torch, F, gen, results):
 
 
 def prefill_shape(torch, F, gen, label, B, H, Dh, causal, lengths,
-                  Hkv=None, softcap=None):
+                  Hkv=None, softcap=None, q_len=None):
     """An extra shape of the prefill kernel, not a kernel record: held
     against plain at each of `lengths` (kv_len = S), timed at the last
     beside plain, SDPA and the bound. The training path's (ViT-Base
     scoring and evaluation: non-causal, B 16, S 213 = 196 patches + CLS +
     16 prompt, 12 heads of 64), zamba2's shared attention block (causal,
     32 heads of 80, at the hybrid path's longest prefill of 132 and an odd
-    length), and the wide families' (H query heads over Hkv kv heads, with
-    gemma2's softcap: SDPA, which has none, is timed without it)."""
+    length), the wide families' (H query heads over Hkv kv heads, with
+    gemma2's softcap: SDPA, which has none, is timed without it), and
+    Whisper's cross-attention: `q_len` queries over S keys, non-causal."""
     from repro_torch.kernels.flash_attention import ref
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
     scale = Dh ** -0.5
     Hkv = Hkv or H
+    if q_len is not None and causal:
+        fail(f"prefill {label}: q_len is for non-causal calls")
 
     def inputs(S):
-        return tuple(torch.randn((B, S, h, Dh), generator=gen, device="cuda")
-                     for h in (H, Hkv, Hkv))
+        return tuple(torch.randn((B, n, h, Dh), generator=gen, device="cuda")
+                     for n, h in ((q_len or S, H), (S, Hkv), (S, Hkv)))
 
     worst = 0.0
     for S in lengths:
@@ -1202,7 +1249,8 @@ def prefill_shape(torch, F, gen, label, B, H, Dh, causal, lengths,
                  f"> {ATTN_TOL}")
         worst = max(worst, err)
     S = lengths[-1]
-    per = (2 * B * S * H * Dh + 2 * B * S * Hkv * Dh) * 4
+    Sq = q_len or S
+    per = (2 * B * Sq * H * Dh + 2 * B * S * Hkv * Dh) * 4
     sets = [inputs(S) for _ in range(n_copies(per))]
     kernel = [lambda s=s: flash_attention_fwd(
         *s, causal=causal, sliding_window=None, softcap=softcap, scale=scale,
@@ -1220,20 +1268,21 @@ def prefill_shape(torch, F, gen, label, B, H, Dh, causal, lengths,
     t_l = time_ms(sdpa)
     d_k = device_ms(kernel)
     d_l = device_ms(sdpa)
-    pairs = _prefill_pairs(S, S, None) if causal else S * S
+    pairs = _prefill_pairs(S, S, None) if causal else Sq * S
     b, b32 = prefill_bounds(per, B * H * pairs * 4 * Dh)
     kind = "causal" if causal else "non-causal"
     picked, efficient = sdpa_backends(torch, F, lib[0], causal, scale)
     heads = f"{H}" if Hkv == H else f"{H} / {Hkv}"
     cap = f", softcap {softcap} (SDPA without)" if softcap else ""
     same = "matches" if picked == efficient else "differs from"
-    say(f"prefill {label}: q ({B}, {S}, {heads}, {Dh}) {kind}{cap}: max "
-        f"abs err {worst:.3g}; kernel {t_k:.4f} ms ({d_k:.4f} on the "
+    kv = "" if Sq == S else f" over {S} keys"
+    say(f"prefill {label}: q ({B}, {Sq}, {heads}, {Dh}){kv} {kind}{cap}: "
+        f"max abs err {worst:.3g}; kernel {t_k:.4f} ms ({d_k:.4f} on the "
         f"device), plain {t_p:.4f} ms, SDPA {t_l:.4f} ms ({d_l:.4f}), bound "
         f"{b[0]:.5f} ms ({b[1]}, 3xTF32), fp32-pipe bound {b32[0]:.5f} ms; "
         f"SDPA ran {picked} ({same} EFFICIENT_ATTENTION)")
     del lib, sdpa, sets
-    return dict(shape=f"q ({B}, {S}, {H}, {Dh}), k, v ({B}, {S}, {Hkv}, "
+    return dict(shape=f"q ({B}, {Sq}, {H}, {Dh}), k, v ({B}, {S}, {Hkv}, "
                       f"{Dh}), {kind}{cap}",
                 max_abs_err=worst, ms=t_k, plain_ms=t_p, library_ms=t_l,
                 device_ms=d_k, library_device_ms=d_l,
@@ -2326,6 +2375,98 @@ def check_rwkv6(torch, gen, results):
         prefill_shape=timed["prefill"], crossover_device_ms=sweep,
         shape_device_ms=shapes, step_max_t=KR.STEP_MAX_T, chunk=KR.CHUNK,
         cols=KR.COLS)
+
+
+# ------------------------------------------ phase 3, slice G part 2 shapes
+# the int8 pair at Qwen2-VL-72B's d_model: 8192 is the block layout's
+# capacity (`quantize_plan`), at decode (8 slots) and prefill (132 rows)
+G2_QUANT_SHAPES = (("decode", 8, 8192), ("prefill", 132, 8192))
+
+
+def check_slice_g2(torch, F, gen, results):
+    """The attention and int8 shapes Whisper and Qwen2-VL bring, each held
+    against plain and timed (event and device ms beside plain, SDPA or
+    torch.mul, and the bound), under "g2" in its kernel's record: the
+    prefill kernel at Whisper-base's encoder (B 4, 1500 frames, 8 heads of
+    64, non-causal), its cross-attention (64 and 1 queries over the 1500
+    frames, non-causal) and Qwen2-VL-72B's causal GQA prefill (B 2, S 132,
+    64 / 8 heads of 128: G 8); the dense decode kernel at Whisper's 8 / 8 x
+    64 (G 1, the kD 128 instantiation's padding lanes) and Qwen2-VL's 64 /
+    8 x 128 (G 8) over phase 3's 8 slots of 512; the int8 pair at
+    G2_QUANT_SHAPES, bit-equal in every layout that holds a row of 8192."""
+    pre = results["flash_attention_prefill"]
+    pre["g2"] = {
+        "whisper-base encoder": prefill_shape(
+            torch, F, gen, "whisper-base encoder", 4, 8, 64, False,
+            (1500,)),
+        "whisper-base cross-attention Sq 64": prefill_shape(
+            torch, F, gen, "whisper-base cross-attention", 4, 8, 64, False,
+            (1500,), q_len=64),
+        "whisper-base cross-attention Sq 1": prefill_shape(
+            torch, F, gen, "whisper-base cross-attention (decode)", 4, 8,
+            64, False, (1500,), q_len=1),
+        "qwen2-vl-72b": prefill_shape(torch, F, gen, "qwen2-vl-72b", 2, 64,
+                                      128, True, (37, 132), Hkv=8)}
+    pre["max_abs_err"] = max(pre["max_abs_err"], *(
+        r["max_abs_err"] for r in pre["g2"].values()))
+    dec = results["decode_attention"]
+    dec["g2"] = {
+        "whisper-base 8 / 8 x 64": decode_record(torch, F, gen, 8, 8, 64,
+                                                 sweep=False),
+        "qwen2-vl-72b 64 / 8 x 128": decode_record(torch, F, gen, 64, 8,
+                                                   128, sweep=False)}
+    dec["max_abs_err"] = max(dec["max_abs_err"], *(
+        r["max_abs_err"] for r in dec["g2"].values()))
+    g2_quant(torch, gen, results)
+
+
+def g2_quant(torch, gen, results):
+    """The int8 pair at G2_QUANT_SHAPES, f32: bit-equal to plain in every
+    plan that holds the row (the block layout at its capacity, clusters of
+    2-8), u a float, (0, 0) and dense; then the event and device ms of
+    quantize (u 0.5) and of dequantize beside torch.mul, with the bound."""
+    from repro_torch.kernels.quant.kernel import (dequantize_fwd,
+                                                  quantize_fwd, quantize_plan)
+    for _, N, D in G2_QUANT_SHAPES:
+        quant_equal(torch, f"float32 ({N}, {D})",
+                    quant_x(torch, gen, N, D, torch.float32),
+                    quant_us(torch, gen, N, D), quant_plans(D),
+                    torch.float32)
+    lines = []
+    for label, N, D in G2_QUANT_SHAPES:
+        q_bytes = N * D * 4 + N * D + N * 4
+        xs = [torch.randn((N, D), generator=gen, device="cuda") * 3.0
+              for _ in range(n_copies(q_bytes))]
+        pays = [quantize_fwd(x, 0.5) for x in xs]
+        cases = {"quantize": [lambda x=x: quantize_fwd(x, 0.5) for x in xs],
+                 "dequantize": [lambda p=p: dequantize_fwd(*p)
+                                for p in pays],
+                 "torch.mul": [lambda p=p: torch.mul(*p) for p in pays]}
+        dev = device_ms_cases(cases)
+        bq, bd = bound(q_bytes, 4 * N * D), bound(q_bytes, N * D)
+        q = dict(max_abs_err=0.0, ms=time_ms(cases["quantize"]),
+                 device_ms=dev["quantize"], bound_ms=bq[0], bound_by=bq[1],
+                 plain_ms=None, library_ms=None,
+                 plan=quantize_plan(N, D, 4),
+                 shape=f"x ({N}, {D}) float32, u 0.5 ({label})")
+        d = dict(max_abs_err=0.0, ms=time_ms(cases["dequantize"]),
+                 device_ms=dev["dequantize"], bound_ms=bd[0], bound_by=bd[1],
+                 plain_ms=None, library_ms=time_ms(cases["torch.mul"]),
+                 library_device_ms=dev["torch.mul"],
+                 shape=f"v ({N}, {D}) -> float32 ({label})")
+        del xs, pays, cases
+        for kernel, r in (("quantize_int8", q), ("dequantize_int8", d)):
+            results[kernel].setdefault("g2", {})[r["shape"]] = r
+            lines.append(
+                f"  {kernel} {r['shape']}: {r['ms']:.4f} ms "
+                f"({r['device_ms']:.4f} on the device; bound "
+                f"{r['bound_ms']:.6f}, "
+                f"{r['device_ms'] / r['bound_ms']:.1f}x)"
+                + (f", plan {r['plan']}" if "plan" in r else
+                   f", torch.mul {r['library_ms']:.4f} "
+                   f"({r['library_device_ms']:.4f} on the device)"))
+    say("quant at D 8192 (block layout at capacity), kernel == plain in "
+        "every plan; event ms (device ms):\n" + "\n".join(lines))
 
 
 # ----------------------------------------------------------- phase 3, bf16
@@ -4976,15 +5117,16 @@ def lm_parity(torch):
     return by_path, report
 
 
-def round_parity(torch, path, cfg, seed=0, margin=None, kernels=None):
+def round_parity(torch, path, cfg, seed=0, margin=None, kernels=None,
+                 cohort=None, test=None):
     """One SFPrompt round on token data for the reduced `cfg` (head 1 /
     body 1 / tail 1, vocab 128, sequences of 16, K 2, 8 samples a client,
-    gamma 0.5) on the card and on the CPU from the same weights (the
-    port's init at `seed`), data and numpy wire noise, int8 wire, then
-    `evaluate`: metered bytes, kept_frac and kept sets equal, params and
-    losses within 1e-4, and on the card the kernels of `path` (or
-    `kernels`) launched (the Mamba-2 and RWKV-6 scans in scoring
-    included). With `margin`,
+    gamma 0.5; or the given `cohort` and `test` sets) on the card and on
+    the CPU from the same weights (the port's init at `seed`), data and
+    numpy wire noise, int8 wire, then `evaluate` (batches of 4):
+    metered bytes, kept_frac and kept sets equal, params and losses within
+    1e-4, and on the card the kernels of `path` (or `kernels`) launched
+    (the Mamba-2 and RWKV-6 scans in scoring included). With `margin`,
     the router margin of the card's MoE calls (`router_margins`) is
     printed and must exceed it. Returns the card's launches and the
     report."""
@@ -4999,10 +5141,10 @@ def round_parity(torch, path, cfg, seed=0, margin=None, kernels=None):
                         prune_gamma=0.5, local_epochs=1)
     pcfg = ProtocolConfig(clients_per_round=2, local_epochs=1, batch_size=4,
                           lr_local=0.05, lr_split=0.05)
-    cohort = stack_clients(
-        iid_partition(synthetic_lm_dataset(16, 16, 128, seed=0), 2, seed=0),
-        [0, 1])
-    test = synthetic_lm_dataset(16, 16, 128, seed=1)
+    if cohort is None:
+        cohort = stack_clients(iid_partition(
+            synthetic_lm_dataset(16, 16, 128, seed=0), 2, seed=0), [0, 1])
+        test = synthetic_lm_dataset(16, 16, 128, seed=1)
     arch = cfg.name
     model = SplitModel(cfg, split, WireSpec.make("int8"))
     params = model.init(torch.Generator().manual_seed(seed), device="cpu")
@@ -5316,7 +5458,7 @@ class attention_shapes:
             self.inner
 
 
-def moe_reduced(arch):
+def reduced_family(arch):
     from repro_torch.configs import get_config
     return get_config(arch).reduced(n_layers=3, d_model=64, d_ff=128,
                                     vocab_size=128)
@@ -5345,7 +5487,7 @@ def moe_parity(torch):
     from repro_torch.tree import tree_map
     by_path, report = {}, {}
     for path, arch in zip(("moe_parity", "mla_parity"), MOE_ARCHS):
-        cfg = moe_reduced(arch)
+        cfg = reduced_family(arch)
         seed, out = MOE_SEED[arch], {}
         torch.cuda.synchronize()
         reset_launches()
@@ -5505,6 +5647,337 @@ def full_width_moe(torch, arch, path):
     return launches, summary
 
 
+# ------------------------------------------------------------- phase 21
+G2_ARCHS = ("whisper-base", "qwen2-vl-72b")
+
+
+def g2_extras(np, cfg, rng, n, grid=(2, 2, 2)):
+    """The batch keys the frontend stubs bring for n samples: Whisper's
+    frames (n, n_frames, D); Qwen2-VL's patch embeddings (n, t h w, D) and
+    their M-RoPE positions on the (t, h, w) `grid`, stored
+    client-axis-first as (n, 3, t h w)."""
+    if cfg.arch_type == "audio":
+        return {"frames": (0.02 * rng.standard_normal(
+            (n, cfg.encoder.n_frames, cfg.d_model))).astype(np.float32)}
+    g = np.stack(np.meshgrid(*(np.arange(k) for k in grid),
+                             indexing="ij")).reshape(3, -1)
+    return {"patch_embeds": (0.02 * rng.standard_normal(
+                (n, g.shape[1], cfg.d_model))).astype(np.float32),
+            "mrope_positions": np.ascontiguousarray(
+                np.broadcast_to(g[None], (n,) + g.shape), dtype=np.int32)}
+
+
+def split_generate(torch, model, params, batch, n_new):
+    """Greedy generation through the split route: a prefill of `batch`
+    (tensors on the model's device) into a fresh cache, then `n_new`
+    decode steps, each feeding back the token before. Returns the tokens
+    (B, 1 + n_new), the logits of every step, the wire bytes per link
+    summed over the steps, and the prefill and decode seconds (synced)."""
+    B, S = batch["tokens"].shape
+    dev = batch["tokens"].device
+    n_pre = model.split.prompt_len + S + (batch["patch_embeds"].shape[1]
+                                          if "patch_embeds" in batch else 0)
+    cache = model.init_cache(B, n_pre + n_new, device=dev)
+    wire = {}
+
+    def add(out):
+        for k, v in out["wire_bytes"].items():
+            wire[k] = wire.get(k, 0.0) + float(v)
+        return out["logits"][:, -1]
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = [add(model.forward(params, batch, mode="prefill",
+                                    cache=cache))]
+        toks = [torch.argmax(logits[-1], -1).to(torch.int32)]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for t in range(n_new):
+            step = {"tokens": toks[-1][:, None],
+                    "pos": torch.full((B,), n_pre + t, dtype=torch.int32,
+                                      device=dev)}
+            logits.append(add(model.forward(params, step, mode="decode",
+                                            cache=cache)))
+            toks.append(torch.argmax(logits[-1], -1).to(torch.int32))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (torch.stack(toks, 1), torch.stack(logits, 1), wire, t1 - t0,
+            t2 - t1)
+
+
+def g2_parity(torch):
+    """Phase 21 (a): the reduced whisper-base (a 1-layer encoder over 16
+    frames, 3 decoder layers) and qwen2-vl-72b (M-RoPE (4, 6, 6), QKV
+    bias), d_model 64, vocab 128, on the card and on the CPU from the same
+    seeded weights: the unsplit `Transformer` (train logits, then a
+    prefill and a decode step, within 1e-4), a split prefill of (2, 7)
+    tokens with frames or 8 patch embeddings on a (2, 2, 2) grid, then 4
+    greedy decode steps on the int8 wire (tokens and wire bytes equal,
+    logits within 1e-4), and an SFPrompt round (K 2, 16 samples a client
+    with the family's keys, batch 4, U 1, gamma 0.5) with `evaluate` on 32
+    samples (`round_parity`); the family's kernels launched on the card.
+    Returns the launches by path and the report."""
+    import numpy as np
+    from repro_torch.core import SplitConfig, SplitModel
+    from repro_torch.data import (iid_partition, stack_clients,
+                                  synthetic_lm_dataset)
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.runtime import WireSpec
+    from repro_torch.tree import tree_map
+    by_path, report = {}, {}
+    for path, arch in zip(("whisper_parity", "vlm_parity"), G2_ARCHS):
+        cfg, out = reduced_family(arch), {}
+        torch.cuda.synchronize()
+        reset_launches()
+        # the unsplit model
+        tm = Transformer(cfg)
+        params = tm.init(torch.Generator().manual_seed(0), device="cpu")
+        rng = np.random.default_rng(0)
+        batch = dict(tokens=rng.integers(0, 128, (2, 17)).astype(np.int32),
+                     **g2_extras(np, cfg, rng, 2))
+        n_extra = 8 if "patch_embeds" in batch else 0
+        got = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda x: x.to(dev), params)
+            b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            with torch.no_grad():
+                tr = tm.apply(p, b, mode="train")
+                cache = tm.init_cache(2, 32 + n_extra, device=dev)
+                pre = tm.apply(p, dict(b, tokens=b["tokens"][:, :16]),
+                               mode="prefill", cache=cache)
+                dec = tm.apply(p, {"tokens": b["tokens"][:, 16:],
+                                   "pos": torch.full(
+                                       (2,), 16 + n_extra, dtype=torch.int32,
+                                       device=dev)},
+                               mode="decode", cache=pre["cache"])
+            got[dev] = {"train logits": tr["logits"],
+                        "prefill logits": pre["logits"],
+                        "decode logits": dec["logits"]}
+        diffs = {k: float((got["cuda"][k].cpu() - v).abs().max())
+                 for k, v in got["cpu"].items()}
+        if max(diffs.values()) > PARITY_TOL:
+            fail(f"{arch} Transformer card vs CPU: {diffs} > {PARITY_TOL}")
+        out["transformer_max_diff"] = diffs
+        # the split model on the int8 wire
+        model = SplitModel(cfg, SplitConfig(head_cycles=1, tail_cycles=1,
+                                            prompt_len=4),
+                           WireSpec.make("int8"))
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        rng = np.random.default_rng(1)
+        batch = dict(tokens=rng.integers(0, 128, (2, 7)).astype(np.int32),
+                     **g2_extras(np, cfg, rng, 2))
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            runs[dev] = split_generate(
+                torch, model, tree_map(lambda x: x.to(dev), params),
+                {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+                4)
+        (tc, lc, wc, _, _), (tg, lg, wg, _, _) = runs["cpu"], runs["cuda"]
+        gap = float((lg.cpu() - lc).abs().max())
+        if not torch.equal(tg.cpu(), tc) or wg != wc or gap > PARITY_TOL:
+            fail(f"{arch} split generate card vs CPU: tokens "
+                 f"{tg.tolist()} vs {tc.tolist()}, bytes {wg} vs {wc}, "
+                 f"max logit diff {gap:.3g}")
+        out["split"] = dict(tokens=tc.tolist(), wire_bytes=wc,
+                            max_logit_diff=gap)
+        torch.cuda.synchronize()
+        serve_launches = launch_counts()
+        # the SFPrompt round with the family's keys, `evaluate` on 32
+        rng = np.random.default_rng(2)
+        data = synthetic_lm_dataset(32, 16, 128, seed=0)
+        data.update(g2_extras(np, cfg, rng, 32))
+        test = synthetic_lm_dataset(32, 16, 128, seed=1)
+        test.update(g2_extras(np, cfg, rng, 32))
+        launches, out["round"] = round_parity(
+            torch, path, cfg, kernels=PATHS["lm"],
+            cohort=stack_clients(iid_partition(data, 2, seed=0), [0, 1]),
+            test=test)
+        by_path[path] = {k: v + serve_launches[k]
+                         for k, v in launches.items()}
+        missing = [k for k in PATHS[path] if by_path[path][k] <= 0]
+        if missing:
+            fail(f"{arch} parity: kernels never launched on the card: "
+                 f"{missing}")
+        out["launches"] = {k: v for k, v in by_path[path].items() if v}
+        say(f"{arch} card vs CPU ({cfg.name}, {cfg.n_layers} layers, int8 "
+            f"wire): Transformer max diffs {diffs}; split tokens and bytes "
+            f"==, max logit diff {gap:.3g}; round as above; card launches "
+            f"{out['launches']}")
+        report[arch] = out
+    return by_path, report
+
+
+def g2_full_cfg(arch):
+    """Phase 21's full-width configs: whisper-base whole (6 encoder + 6
+    decoder layers); qwen2-vl-72b at 6 of its 80 layers (1 head / 4 body
+    / 1 tail)."""
+    from repro_torch.configs import get_config
+    base = get_config(arch)
+    if arch == "whisper-base":
+        return base, {}
+    return (dataclasses.replace(base, n_layers=6),
+            {"n_layers": f"{base.n_layers} -> 6"})
+
+
+def g2_full_width(torch, arch, path):
+    """Phase 21 (b) and (c): `arch` at published widths (`g2_full_cfg`),
+    head 1 / tail 1, prompt 4, int8 wire, f32, seeded weights: a split
+    prefill and 32 greedy decode steps (Whisper: 4 sequences of 64 tokens
+    with their 1500 frames; Qwen2-VL: 2 sequences of a 4-token prompt, 64
+    patch embeddings on a (1, 8, 8) grid and 64 text tokens), the metered
+    bytes equal to the exact count; for Whisper also an SFPrompt round (K
+    2, 16 samples a client of 16 tokens and 1500 frames, batch 4, U 1,
+    gamma 0.5) and `evaluate` on 32 samples, the round's bytes equal to the
+    exact count. Prints the weights, the peak memory, tok/s and the
+    launches by kernel; fails unless every kernel of `path` launched."""
+    import numpy as np
+    from repro_torch.core import (ProtocolConfig, SFPromptTrainer,
+                                  SplitConfig, SplitModel)
+    from repro_torch.data import (iid_partition, stack_clients,
+                                  synthetic_lm_dataset)
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.runtime import WireSpec
+    from repro_torch.tree import tree_leaves
+    cfg, cuts = g2_full_cfg(arch)
+    split = SplitConfig(head_cycles=1, tail_cycles=1, prompt_len=4,
+                        prune_gamma=0.5, local_epochs=1)
+    model = SplitModel(cfg, split, WireSpec.make("int8"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    weight_gb = (torch.cuda.memory_allocated() - before) / 1e9
+    # the init's own peak (a stack's layers and the stacked copy at once),
+    # then the run's from here
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    V, D = cfg.vocab_size, cfg.d_model
+    rng = np.random.default_rng(0)
+    if cfg.arch_type == "audio":
+        B, S, grid = 4, 64, None
+        batch = dict(tokens=rng.integers(0, V, (B, S)).astype(np.int32),
+                     **g2_extras(np, cfg, rng, B))
+    else:
+        B, S, grid = 2, 64, (1, 8, 8)
+        batch = dict(tokens=rng.integers(0, V, (B, S)).astype(np.int32),
+                     **g2_extras(np, cfg, rng, B, grid))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    n_new = 32
+    reset_launches()
+    toks, logits, wire, pre_s, dec_s = split_generate(torch, model, params,
+                                                      batch, n_new)
+    gen_launches = launch_counts()
+    n_pre = split.prompt_len + S + (64 if grid else 0)
+    want = float(model.wire.head_body.payload_nbytes((B, n_pre, D))
+                 + n_new * model.wire.head_body.payload_nbytes((B, 1, D)))
+    if not bool(torch.isfinite(logits).all()) or int(toks.min()) < 0 \
+            or int(toks.max()) >= V:
+        fail(f"{path} full width: tokens {toks.tolist()}")
+    if wire != {"head_body": want, "body_tail": want}:
+        fail(f"{path} full width: metered {wire}, exact count {want} B a "
+             f"link")
+    summary = dict(
+        config=f"{cfg.name} widths (d_model {D}, {cfg.attention.n_heads} / "
+               f"{cfg.attention.n_kv_heads} x {cfg.attention.head_dim}, "
+               f"vocab {V}), {cfg.n_layers} layers (1 head / "
+               f"{model.body_cycles} body / 1 tail)"
+               + (f", encoder {cfg.encoder.n_layers} layers over "
+                  f"{cfg.encoder.n_frames} frames" if cfg.encoder else "")
+               + ", prompt 4, int8 wire, fp32",
+        cuts=cuts, params=n_params, weight_gb=weight_gb, setup_s=setup_s,
+        init_peak_gb=init_peak_gb,
+        generate=dict(batch=B, prefill_rows=n_pre, new_tokens=n_new,
+                      prefill_s=pre_s, decode_s=dec_s,
+                      decode_tok_per_s=B * n_new / dec_s,
+                      tok_per_s=B * (n_new + 1) / (pre_s + dec_s),
+                      wire_bytes=wire,
+                      launches={k: v for k, v in gen_launches.items()
+                                if v}))
+    launches = dict(gen_launches)
+    if cfg.arch_type == "audio":
+        K, n_local, bs, Sr = 2, 16, 4, 16
+        pcfg = ProtocolConfig(clients_per_round=K, local_epochs=1,
+                              batch_size=bs, lr_local=0.01, lr_split=0.01)
+        data = synthetic_lm_dataset(K * n_local, Sr, V, seed=0)
+        data.update(g2_extras(np, cfg, rng, K * n_local))
+        cohort = stack_clients(iid_partition(data, K, seed=0),
+                               list(range(K)))
+        test = synthetic_lm_dataset(32, Sr, V, seed=1)
+        test.update(g2_extras(np, cfg, rng, 32))
+        trainer = SFPromptTrainer(model, pcfg, device="cuda",
+                                  tracer=Tracer("step"))
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        state, m = trainer.round({"params": params, "round": 0}, cohort)
+        torch.cuda.synchronize()
+        round_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ev = trainer.evaluate(state["params"], test, batch_size=bs)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        round_launches = launch_counts()
+        bad = [k for k, v in list(m.items()) + list(ev.items())
+               if not np.isfinite(v)]
+        if bad:
+            fail(f"{path} round: non-finite metrics {bad}")
+        keep = trainer.phase2_keep(n_local)
+        per_crossing = model.wire.head_body.payload_nbytes(
+            (bs, split.prompt_len + Sr, D))
+        want_r = float(np.float32(K * (keep // bs) * 2 * per_crossing))
+        for name in ("head_body", "body_tail"):
+            if m[f"wire/{name}_bytes"] != want_r:
+                fail(f"{path} round: {name} metered "
+                     f"{m[f'wire/{name}_bytes']} B, exact count {want_r} B")
+        summary["round"] = dict(
+            K=K, samples_a_client=n_local, seq=Sr, batch=bs, round_s=round_s,
+            eval_s=eval_s, metrics=m, eval=ev,
+            phase_s={r["name"]: r["dur_ns"] * 1e-9
+                     for r in trainer.tracer.records()
+                     if r["kind"] == "span"},
+            launches={k: v for k, v in round_launches.items() if v})
+        launches = {k: v + round_launches[k] for k, v in launches.items()}
+        del trainer, state
+    summary["max_memory_allocated_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    missing = [k for k in PATHS[path] if launches[k] <= 0]
+    if missing:
+        fail(f"{path} full width: kernels of the path never launched: "
+             f"{missing}")
+    summary["launches"] = {k: v for k, v in launches.items() if v}
+    g = summary["generate"]
+    say(f"{path} full width: {summary['config']}, cuts {cuts}; weights "
+        f"{weight_gb:.3f} GB ({n_params} params), peak "
+        f"{summary['max_memory_allocated_gb']:.2f} GB (the init's "
+        f"{init_peak_gb:.2f}); prefill of "
+        f"{B} x {n_pre} rows {pre_s:.3f} s, {n_new} decode steps "
+        f"{dec_s:.3f} s ({g['decode_tok_per_s']:.1f} tok/s decoding, "
+        f"{g['tok_per_s']:.1f} tok/s with the prefill); wire {wire}; "
+        f"launches {summary['launches']}")
+    if "round" in summary:
+        r = summary["round"]
+        say(f"{path} round: {r['round_s']:.3f} s (phases "
+            + ", ".join(f"{k} {v:.3f}" for k, v in r["phase_s"].items()
+                        if k != "round")
+            + f"), evaluate {r['eval_s']:.3f} s; metrics {r['metrics']}, "
+            f"eval {r['eval']}")
+    del params, batch, logits
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
 # -------------------------------------------------------------------- main
 def main() -> None:
     try:
@@ -5529,8 +6002,10 @@ def main() -> None:
     say(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    say(f"torch {torch.__version__} cuda {torch.version.cuda} | "
-        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+    import numpy
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} numpy "
+        f"{numpy.__version__} | matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
     lap("1")
@@ -5557,6 +6032,7 @@ def main() -> None:
     check_secure_mask(torch, gen, results)
     check_mamba2(torch, gen, results)
     check_rwkv6(torch, gen, results)
+    check_slice_g2(torch, F, gen, results)
     check_bf16(torch, F, gen, results)
     check_f16(torch, F, gen, results)
     drift = report_drift(results)
@@ -5635,6 +6111,17 @@ def main() -> None:
     say(f"phase 20: {time.perf_counter() - t20:.1f} s")
     lap("20")
 
+    # 21. Whisper and Qwen2-VL: the reduced families card against CPU, then
+    # whisper-base whole and qwen2-vl-72b at 6 layers, each model freed
+    # before the next loads
+    t21 = time.perf_counter()
+    paths21, summaries["g2_parity"] = g2_parity(torch)
+    by_path.update(paths21)
+    for path, arch in (("whisper", G2_ARCHS[0]), ("vlm", G2_ARCHS[1])):
+        by_path[path], summaries[path] = g2_full_width(torch, arch, path)
+    say(f"phase 21: {time.perf_counter() - t21:.1f} s")
+    lap("21")
+
     # 16. the FL and SFL baselines and the heterogeneous-cut trainer: card
     # against CPU at the reduced ViT, then at full width
     t16 = time.perf_counter()
@@ -5702,6 +6189,9 @@ def main() -> None:
             rec["head_dims"], rec["groups"] = HEADS[name]
             rec["wide"] = {case: {k: r.get(k) for k in keys}
                            for case, r in results[name]["wide"].items()}
+        if "g2" in results[name]:
+            rec["slice_g2"] = {case: {k: r.get(k) for k in keys}
+                               for case, r in results[name]["g2"].items()}
         kernels.append(rec)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(

@@ -9,15 +9,18 @@ The head->body and body->tail cut points are real wire boundaries: a
 `forward(route="split")` pushes every smashed activation through it,
 reporting the measured bytes in `out["wire_bytes"]`.
 
-This is the port of `repro/core/split.py` for token models with attention
+This is the port of `repro/core/split.py`: token models with attention
 (MLA included), MoE, Mamba-2 and RWKV-6 layers (zamba2's shared attention
 block is copied into each segment, as in the JAX package; DeepSeek's dense
-prefix layers belong to the head, its MTP head to the tail) — the serving
-path's subset (caches, slots, page pools, segments, forward with
-chunked-prefill continuation) — and for the ViT classifier the training
-round splits (patch embedding, CLS token and soft prompt, non-causal
-attention, logits from the CLS row). Audio, VLM and encoder models are
-slice G items 5 and 6 of ROADMAP.md.
+prefix layers belong to the head, its MTP head to the tail), the ViT
+classifier the training round splits (patch embedding, CLS token and soft
+prompt, non-causal attention, logits from the CLS row), Whisper (its
+encoder is client-side feature extraction in the head segment; its output
+reaches body and tail in the head's output, as in the JAX package, never
+crossing a metered wire) and Qwen2-VL (the patch prefix and M-RoPE grid
+positions, `models/transformer.py::embed`). Caches, slots, page pools,
+segments and the forward with chunked-prefill continuation serve the
+engines.
 Params and caches are nested dicts of tensors keyed as the JAX pytrees;
 caches and page pools are written in place.
 
@@ -34,11 +37,14 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (embed, init_block, init_embed,
-                                            init_mtp, init_stack, run_stack,
-                                            stack_cache, unported_reason)
+from repro_torch.models.transformer import (embed, encoder_out,
+                                            init_block, init_embed,
+                                            init_encoder, init_mtp,
+                                            init_stack, run_stack,
+                                            stack_cache)
 from repro_torch.runtime.boundary import WireSpec
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
+                              tree_map_with_path)
 
 Params = Dict[str, Any]
 
@@ -82,11 +88,6 @@ class SplitModel:
         self.n_body_layers = self.body_cycles * cyc
         self._has_shared = "shared_attn" in cfg.layer_pattern
 
-    def _check_ported(self):
-        reason = unported_reason(self.cfg)
-        if reason is not None:
-            raise NotImplementedError(f"{self.cfg.name}: {reason}")
-
     # -------------------------------------------------------------- sizes
     def segment_fractions(self):
         """(alpha, tau) parameter fractions of |W| in head and body — feeds
@@ -106,10 +107,11 @@ class SplitModel:
     def init(self, generator: torch.Generator, *, device="cuda") -> Params:
         """Random params drawn from `generator` (which must live on
         `device`), keyed as the JAX package's `SplitModel.init`."""
-        self._check_ported()
         device = resolve_device(device)
         cfg, g = self.cfg, generator
         head: Params = {"embed": init_embed(g, cfg, device=device)}
+        if cfg.encoder is not None:
+            head["encoder"] = init_encoder(g, cfg, device=device)
         if cfg.n_dense_layers:
             head["dense_stack"] = {"pos0": init_stack(
                 g, cfg, "attn", cfg.n_dense_layers, device=device)}
@@ -147,7 +149,8 @@ class SplitModel:
     # -------------------------------------------------------------- caches
     def init_cache(self, batch: int, seq_len: int, dtype=torch.float32,
                    window=None, *, device="cuda") -> Params:
-        self._check_ported()
+        """Stacked caches of each segment; Whisper's head also holds
+        `encoder_out` (batch, n_frames, D), batch axis first."""
         device = resolve_device(device)
         cfg = self.cfg
 
@@ -166,6 +169,10 @@ class SplitModel:
             cache["head"]["dense_stack"] = {"pos0": stack_cache(
                 cfg, "attn", cfg.n_dense_layers, batch, seq_len, dtype,
                 window=window, device=device)}
+        if cfg.encoder is not None:
+            cache["head"]["encoder_out"] = torch.zeros(
+                (batch, cfg.encoder.n_frames, cfg.d_model), dtype=dtype,
+                device=device)
         return cache
 
     # ------------------------------------------------- slotted allocation
@@ -174,7 +181,12 @@ class SplitModel:
     # leaf carries the slot axis at 1, after the stacked-layer axis: the
     # attention k/v/positions and the recurrent conv (n, B, d_conv-1, C),
     # ssm (n, B, H, P, N), shift_t/shift_c (n, B, D) and state
-    # (n, B, H, K, V) alike.
+    # (n, B, H, K, V) alike; the head's `encoder_out` (B, F, D) alone has
+    # it at 0.
+
+    @staticmethod
+    def _slot_axis(path) -> int:
+        return 0 if "encoder_out" in path else 1
 
     def blank_slot_cache(self, seq_len: int, dtype=torch.float32,
                          window=None, *, device="cuda") -> Params:
@@ -187,14 +199,18 @@ class SplitModel:
         """Copy a batch=1 cache into slot `slot` of the shared n-slot cache,
         in place. Overwrites every leaf of that slot — positions included —
         so a newly allocated slot never sees a previous tenant's KV state."""
-        tree_map(lambda s, one: s.select(1, slot).copy_(one.select(1, 0)),
-                 shared, single)
+        for (path, s), (_, one) in zip(tree_flatten(shared),
+                                       tree_flatten(single)):
+            ax = SplitModel._slot_axis(path)
+            s.select(ax, slot).copy_(one.select(ax, 0))
         return shared
 
     @staticmethod
     def cache_read_slot(shared: Params, slot: int) -> Params:
         """A copy of slot `slot` of the shared cache as a batch=1 cache."""
-        return tree_map(lambda s: s.narrow(1, slot, 1).clone(), shared)
+        return tree_map_with_path(
+            lambda path, s: s.narrow(SplitModel._slot_axis(path), slot,
+                                     1).clone(), shared)
 
     # ------------------------------------------------- paged allocation
     # The paged serving cache replaces the dense (slot, window) pair with a
@@ -332,24 +348,32 @@ class SplitModel:
     def head_fwd(self, head_p, prompt, batch, *, mode="train", cache=None,
                  dtype=torch.float32, chunk_start=None,
                  differentiable: bool = False) -> Dict[str, Any]:
-        """Client-side: embed (+prompts) -> head layers. Output `smashed` is
-        the cut-layer activation sent to the server. `chunk_start` (B,)
-        marks a chunked-prefill continuation: the batch's tokens extend a
-        partially-filled prefill cache starting at those positions
-        (attention then runs write-then-attend over the full cache, like
-        decode, instead of chunk-local causal). `differentiable` marks a
-        pass autograd goes through; body_fwd and tail_fwd inherit it."""
-        x, positions, n_prefix = embed(self.cfg, head_p["embed"], batch,
-                                       mode, prompt, dtype, chunk_start)
-        ho = {"positions": positions, "seq_pos": positions, "mode": mode,
+        """Client-side: embed (+prompts, + Whisper's encoder) -> head
+        layers. Output `smashed` is the cut-layer activation sent to the
+        server. `chunk_start` (B,) marks a chunked-prefill continuation: the
+        batch's tokens extend a partially-filled prefill cache starting at
+        those positions (attention then runs write-then-attend over the full
+        cache, like decode, instead of chunk-local causal). `differentiable`
+        marks a pass autograd goes through; body_fwd and tail_fwd inherit
+        it. Whisper's encoder output rides in the returned dict to body and
+        tail (the JAX package's `head_out`); prefill writes it into the
+        head's cache, decode reads it from there."""
+        cfg = self.cfg
+        enc = (encoder_out(cfg, head_p["encoder"], batch, mode, cache, dtype,
+                           differentiable)
+               if cfg.encoder is not None else None)
+        x, positions, seq_pos, n_prefix = embed(
+            cfg, head_p["embed"], batch, mode, prompt, dtype, chunk_start)
+        ho = {"positions": positions, "seq_pos": seq_pos, "mode": mode,
+              "encoder_out": enc,
               "has_context": chunk_start is not None,
               "differentiable": differentiable}
         ctx = self._ctx_from(ho)
         aux = 0.0
-        if self.cfg.n_dense_layers:
+        if cfg.n_dense_layers:
             # DeepSeek's dense prefix layers run before the head cycles
             x, aux, _ = run_stack(
-                self.cfg, head_p["dense_stack"], ("attn",), x, ctx,
+                cfg, head_p["dense_stack"], ("attn",), x, ctx,
                 cache["dense_stack"] if cache is not None else None)
         x, a, new_cache = self._seg_fwd(head_p, x, ctx, cache)
         return dict(ho, smashed=x, n_prefix=n_prefix, aux=aux + a,
@@ -359,6 +383,7 @@ class SplitModel:
         return L.Ctx(mode=head_out["mode"], positions=head_out["positions"],
                      seq_pos=head_out["seq_pos"],
                      causal=self.cfg.arch_type != "vit",
+                     encoder_out=head_out.get("encoder_out"),
                      has_context=head_out.get("has_context", False),
                      differentiable=head_out.get("differentiable", False))
 

@@ -1,5 +1,6 @@
-"""Layer library: attention (with DeepSeek's Multi-head Latent Attention),
-MLP, the token-choice MoE, Mamba-2 and RWKV-6 blocks.
+"""Layer library: attention (with DeepSeek's Multi-head Latent Attention,
+Qwen2-VL's M-RoPE and Whisper's cross-attention), MLP, the token-choice
+MoE, Mamba-2 and RWKV-6 blocks.
 
 Functional style, as in `repro/models/layers.py`: each block kind has
 ``init_<kind>(generator, cfg, device) -> params`` and
@@ -25,8 +26,12 @@ The MoE block runs its grouped expert products as plain `torch.matmul`s
 over each expert's row range on every device (`jax.lax.ragged_dot` is an
 XLA op, not a Pallas kernel), differentiated by autograd. Its group sizes
 come to the host once a call (`moe_host_syncs` counts them).
-Cross-attention, the encoder and M-RoPE are ROADMAP slice G items 5 and
-6.
+
+Cross-attention (Whisper's decoder) attends the encoder's output with no
+positions and no mask; it goes through the same dispatch as self-attention
+(`_gqa_attend`), so a forward-only pass on the card launches the prefill
+kernel non-causally, at Sq 1 in decode. The encoder's K and V are projected
+again at every call, as the JAX block does: no cross-attention cache.
 """
 from __future__ import annotations
 
@@ -109,15 +114,49 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
                      dim=-1).to(x.dtype)
 
 
+def mrope_cos_sin(positions: torch.Tensor, sections: Tuple[int, int, int],
+                  rot_dim: int, theta: float):
+    """Qwen2-VL M-RoPE [arXiv:2409.12191]: positions (3, B, S) for
+    (temporal, height, width); the frequency bands are split across the
+    three position streams by `sections` (in half-dim units, sum =
+    rot_dim/2). Returns cos/sin (B, S, rot_dim/2)."""
+    if sum(sections) != rot_dim // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"{rot_dim // 2}")
+    cos3, sin3 = rope_cos_sin(positions, rot_dim, theta)  # (3, B, S, rot/2)
+
+    def bands(t):   # band i from position stream i
+        return torch.cat([c[i] for i, c in enumerate(
+            t.split(list(sections), dim=-1))], dim=-1)
+    return bands(cos3), bands(sin3)
+
+
+def sinusoidal_embedding(positions: torch.Tensor, d: int):
+    """Whisper's absolute positions: positions (...,) -> (..., d), sines of
+    the first d/2 angles then their cosines, frequencies 10000^(-i/(d/2-1)).
+    At 1500 frames an angle reaches 1499 rad, so one ulp of a frequency
+    moves it by about 1e-4; the JAX package's own eager and jitted forms
+    differ by that much there."""
+    half = d // 2
+    i = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = torch.exp(-math.log(10000.0) * i / max(half - 1, 1))
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------- context
 @dataclasses.dataclass
 class Ctx:
     """Per-call context threaded through blocks."""
     mode: str                                   # train | prefill | decode
-    positions: torch.Tensor                     # RoPE positions (B, S)
+    positions: torch.Tensor                     # RoPE positions: (B, S) or
+    #                                             (3, B, S) for M-RoPE
     seq_pos: Optional[torch.Tensor] = None      # (B, S) sequence indices for
-    #                                             masking & cache slots
-    causal: bool = True
+    #                                             masking & cache slots (only
+    #                                             differs from positions for
+    #                                             M-RoPE sequences)
+    causal: bool = True                         # False: ViT / Whisper encoder
+    encoder_out: Optional[torch.Tensor] = None  # (B, F, D) for cross-attn
     has_context: bool = False                   # prefill continuation (paged
     #                                             engine's chunked prefill)
     differentiable: bool = False                # a pass autograd goes through:
@@ -128,15 +167,24 @@ class Ctx:
         return self.mode == "decode"
 
 
+def _pos2d(ctx: Ctx) -> torch.Tensor:
+    return ctx.positions[0] if ctx.positions.dim() == 3 else ctx.positions
+
+
 def _seq_pos(ctx: Ctx) -> torch.Tensor:
-    return ctx.seq_pos if ctx.seq_pos is not None else ctx.positions
+    return ctx.seq_pos if ctx.seq_pos is not None else _pos2d(ctx)
 
 
 # ---------------------------------------------------------------- attention
-def init_attention(gen, cfg: ModelConfig, *, device="cuda") -> Params:
+def init_attention(gen, cfg: ModelConfig, *, cross: bool = False,
+                   device="cuda") -> Params:
+    """Self-attention params; `cross` adds the cross-attention half's norm
+    `ln_cross` (its projections come from `init_cross_attention_extra`)."""
     att = cfg.attention
     D = cfg.d_model
     p: Params = {"ln": norm_init(D, cfg.norm, device)}
+    if cross:
+        p["ln_cross"] = norm_init(D, cfg.norm, device)
     if att.mla is not None:
         m = att.mla
         qk = m.qk_nope_head_dim + m.qk_rope_head_dim
@@ -252,11 +300,10 @@ def _gqa_attend(q, k, v, ctx: Ctx, att: AttentionConfig, *, window, softcap,
 
 def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
                     cache: Optional[Params], *, kind: str = "attn"):
-    """Self-attention block half (pre-norm). Returns (residual_delta, cache)."""
+    """Self-attention block half (pre-norm). Returns (residual_delta, cache).
+    With M-RoPE sections and (3, B, S) positions the rotary angles come
+    from `mrope_cos_sin`; otherwise from the first position stream."""
     att = cfg.attention
-    if att.mrope_sections is not None and ctx.positions.dim() == 3:
-        raise NotImplementedError(
-            "M-RoPE is not ported yet: it comes with slice G item 6")
     B, S, D = x.shape
     h = apply_norm(p["ln"], x, cfg.norm)
     window = att.sliding_window if kind == "attn_local" else None
@@ -269,7 +316,12 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
     v = dense(p["v"], h).reshape(B, S, att.n_kv_heads, att.head_dim)
 
     if att.use_rope:
-        cos, sin = rope_cos_sin(ctx.positions, att.head_dim, att.rope_theta)
+        if att.mrope_sections is not None and ctx.positions.dim() == 3:
+            cos, sin = mrope_cos_sin(ctx.positions, att.mrope_sections,
+                                     att.head_dim, att.rope_theta)
+        else:
+            cos, sin = rope_cos_sin(_pos2d(ctx), att.head_dim,
+                                    att.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
@@ -340,7 +392,7 @@ def _apply_mla(p: Params, cfg: ModelConfig, x, h, ctx: Ctx, cache, window):
     ckv = apply_norm(p["kv_a_ln"], kv_a[..., :m.kv_lora_rank], "rmsnorm")
     k_rope = kv_a[..., m.kv_lora_rank:]                     # (B, S, rope)
 
-    cos, sin = rope_cos_sin(ctx.positions, rope, att.rope_theta)
+    cos, sin = rope_cos_sin(_pos2d(ctx), rope, att.rope_theta)
     q_rope = apply_rope(q_rope, cos, sin)
     k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)    # (B, S, 1, rope)
     qfull = torch.cat([q_nope, q_rope], dim=-1)
@@ -371,6 +423,38 @@ def _apply_mla(p: Params, cfg: ModelConfig, x, h, ctx: Ctx, cache, window):
 
     out = out.reshape(B, S, H * m.v_head_dim)
     return dense(p["o"], out), cache
+
+
+def init_cross_attention_extra(gen, cfg: ModelConfig, *,
+                               device="cuda") -> Params:
+    """Extra q/k/v/o for the cross-attention half of a decoder block."""
+    att = cfg.attention
+    D = cfg.d_model
+    return {
+        "cq": dense_init(gen, D, att.n_heads * att.head_dim, device=device),
+        "ck": dense_init(gen, D, att.n_kv_heads * att.head_dim,
+                         device=device),
+        "cv": dense_init(gen, D, att.n_kv_heads * att.head_dim,
+                         device=device),
+        "co": dense_init(gen, att.n_heads * att.head_dim, D, device=device),
+    }
+
+
+def apply_cross_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                          ctx: Ctx) -> torch.Tensor:
+    """Cross-attention to ctx.encoder_out (Whisper's decoder): every query
+    over every frame, no positions, no mask. Returns the residual delta."""
+    att = cfg.attention
+    B, S, D = x.shape
+    h = apply_norm(p["ln_cross"], x, cfg.norm)
+    enc = ctx.encoder_out
+    F_ = enc.shape[1]
+    q = dense(p["cq"], h).reshape(B, S, att.n_heads, att.head_dim)
+    k = dense(p["ck"], enc).reshape(B, F_, att.n_kv_heads, att.head_dim)
+    v = dense(p["cv"], enc).reshape(B, F_, att.n_kv_heads, att.head_dim)
+    out = _gqa_attend(q, k, v, ctx, att, window=None, softcap=None,
+                      causal=False)
+    return dense(p["co"], out.reshape(B, S, -1))
 
 
 # ---------------------------------------------------------------- MLP

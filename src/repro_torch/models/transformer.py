@@ -1,5 +1,6 @@
 """Transformer stacks and the unsplit model: the self-attention kinds
-(MLA included), the MoE block, Mamba-2 and RWKV-6.
+(MLA included), Whisper's cross-attention decoder block, the MoE block,
+Mamba-2 and RWKV-6.
 
 The layer stack is grouped by the config's layer-pattern cycle. Each cycle
 position holds its n layers' params STACKED on a leading layer axis, keyed
@@ -18,9 +19,12 @@ with its own cache site.
   decode  — one token per call against the cache
 
 with the ViT CLS head, tied embeddings, the final logit softcap,
-DeepSeek's dense prefix layers and its multi-token-prediction logits.
-Cross-attention, the encoder and audio are slice G item 5 of ROADMAP.md;
-the VLM frontend and M-RoPE are item 6.
+DeepSeek's dense prefix layers and its multi-token-prediction logits,
+Whisper's encoder (the batch's `frames` plus sinusoidal positions through
+non-causal attention layers; its output kept in the cache at prefill and
+read back at decode) and sinusoidal decoder positions, and Qwen2-VL's
+patch prefix (`patch_embeds`) with its M-RoPE grid positions
+(`mrope_positions`, stored client-axis-first as (B, 3, Np)).
 """
 from __future__ import annotations
 
@@ -35,31 +39,6 @@ from repro_torch.tree import tree_map
 Params = Dict[str, Any]
 
 _SELF_ATTN_KINDS = ("attn", "attn_local", "attn_global", "shared_attn")
-# what later items of ROADMAP slice G bring
-_LATER = {"cross_attn": "slice G item 5 (cross-attention and Whisper)",
-          "audio": "slice G item 5 (cross-attention and Whisper)",
-          "encoder": "slice G item 5 (cross-attention and Whisper)",
-          "vlm": "slice G item 6 (M-RoPE and the VLM path)"}
-
-
-def _unported(kind: str):
-    if kind in _LATER:
-        return NotImplementedError(f"block kind {kind!r} is not ported yet: "
-                                   f"it comes with {_LATER[kind]}")
-    return ValueError(kind)
-
-
-def unported_reason(cfg: ModelConfig) -> Optional[str]:
-    """None when the port runs `cfg`; otherwise the later item that brings
-    what it lacks."""
-    if cfg.arch_type in ("audio", "vlm"):
-        return (f"arch_type {cfg.arch_type!r} comes with "
-                f"{_LATER[cfg.arch_type]}")
-    if cfg.encoder is not None:
-        return f"the encoder comes with {_LATER['encoder']}"
-    if "cross_attn" in cfg.layer_pattern:
-        return f"cross-attention comes with {_LATER['cross_attn']}"
-    return None
 
 
 # ------------------------------------------------------------------ blocks
@@ -67,6 +46,10 @@ def init_block(gen, cfg: ModelConfig, kind: str, *, device="cuda") -> Params:
     if kind in _SELF_ATTN_KINDS:
         return {"attn": L.init_attention(gen, cfg, device=device),
                 "mlp": L.init_mlp(gen, cfg, device=device)}
+    if kind == "cross_attn":
+        attn = L.init_attention(gen, cfg, cross=True, device=device)
+        attn.update(L.init_cross_attention_extra(gen, cfg, device=device))
+        return {"attn": attn, "mlp": L.init_mlp(gen, cfg, device=device)}
     if kind == "mamba2":
         return {"mamba": L.init_mamba2(gen, cfg, device=device)}
     if kind == "moe":
@@ -74,17 +57,21 @@ def init_block(gen, cfg: ModelConfig, kind: str, *, device="cuda") -> Params:
                 "moe": L.init_moe(gen, cfg, device=device)}
     if kind == "rwkv6":
         return {"rwkv": L.init_rwkv6(gen, cfg, device=device)}
-    raise _unported(kind)
+    raise ValueError(kind)
 
 
 def apply_block(params: Params, cfg: ModelConfig, kind: str, x, ctx: L.Ctx,
                 cache):
     """-> (x, new_cache, aux_loss): aux_loss the MoE block's float32
-    load-balance loss, 0.0 for the other kinds."""
-    if kind in _SELF_ATTN_KINDS or kind == "moe":
+    load-balance loss, 0.0 for the other kinds. A `cross_attn` block runs
+    causal self-attention, then cross-attention to ctx.encoder_out, then
+    the MLP, each adding to the residual stream."""
+    if kind in _SELF_ATTN_KINDS or kind in ("cross_attn", "moe"):
         delta, new_cache = L.apply_attention(params["attn"], cfg, x, ctx,
                                              cache, kind=kind)
         x = x + delta
+        if kind == "cross_attn":
+            x = x + L.apply_cross_attention(params["attn"], cfg, x, ctx)
         if kind == "moe":
             delta, aux = L.apply_moe(params["moe"], cfg, x)
             return x + delta, new_cache, aux
@@ -96,7 +83,7 @@ def apply_block(params: Params, cfg: ModelConfig, kind: str, x, ctx: L.Ctx,
     if kind == "rwkv6":
         delta, new_cache = L.apply_rwkv6(params["rwkv"], cfg, x, ctx, cache)
         return x + delta, new_cache, 0.0
-    raise _unported(kind)
+    raise ValueError(kind)
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
@@ -108,8 +95,8 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
         return L.init_mamba2_cache(cfg, batch, dtype, device=device)
     if kind == "rwkv6":
         return L.init_rwkv6_cache(cfg, batch, dtype, device=device)
-    if kind not in ATTN_KINDS + ("moe",) or kind == "cross_attn":
-        raise _unported(kind)
+    if kind not in ATTN_KINDS + ("moe",):
+        raise ValueError(kind)
     att = cfg.attention
     eff = seq_len if window is None else min(seq_len, window)
     if kind == "attn_local" and att.sliding_window:
@@ -185,16 +172,56 @@ def init_mtp(gen, cfg: ModelConfig, *, device="cuda") -> Params:
             "norm": L.norm_init(cfg.d_model, cfg.norm, device)}
 
 
+def init_encoder(gen, cfg: ModelConfig, *, device="cuda") -> Params:
+    """Whisper's encoder: `encoder.n_layers` self-attention layers (run
+    non-causally, no RoPE) and a final norm."""
+    return {"cycle": {"pos0": init_stack(gen, cfg, "attn",
+                                         cfg.encoder.n_layers,
+                                         device=device)},
+            "final_norm": L.norm_init(cfg.d_model, cfg.norm, device)}
+
+
+def encoder_out(cfg: ModelConfig, enc_p: Params, batch, mode: str, cache,
+                dtype, differentiable: bool = False) -> torch.Tensor:
+    """Whisper's encoder output (B, F, D) for a call in `mode`: decode
+    reads it from `cache["encoder_out"]`; the other modes run the batch's
+    frames (B, F, D) plus sinusoidal positions through the encoder layers,
+    non-causal, then the final norm, and a prefill writes the result into
+    the cache. The modality frontend (mel + conv) is a stub: the batch
+    brings the frame embeddings."""
+    if mode == "decode":
+        return cache["encoder_out"]
+    frames = batch["frames"].to(dtype)
+    B, F_, _ = frames.shape
+    fpos = torch.arange(F_, dtype=torch.int32,
+                        device=frames.device)[None].expand(B, F_)
+    h = frames + L.sinusoidal_embedding(fpos, cfg.d_model).to(dtype)
+    ectx = L.Ctx(mode="train", positions=fpos, seq_pos=fpos, causal=False,
+                 differentiable=differentiable)
+    h, _, _ = run_stack(cfg, enc_p["cycle"], ("attn",), h, ectx)
+    out = L.apply_norm(enc_p["final_norm"], h, cfg.norm)
+    if cache is not None:
+        cache["encoder_out"].copy_(out)
+    return out
+
+
 def embed(cfg: ModelConfig, emb: Params, batch, mode: str, prompt, dtype,
           chunk_start=None):
-    """The embedding frontend's forward -> (x, positions, n_prefix).
+    """The embedding frontend's forward -> (x, positions, seq_pos,
+    n_prefix), as the JAX package's `_embed`s.
 
     ViT: [CLS | soft prompt | patches] plus the first T position rows.
-    Tokens: the soft prompt (outside decode and continuations) prepended
-    to the gathered rows, n_prefix its length; positions 0..T-1, the
-    decode step's `batch["pos"]`, or from `chunk_start` (B,) for a
-    chunked-prefill continuation, which prepends no prompt (it went in
-    with the first chunk)."""
+    Tokens: [soft prompt | patch_embeds (VLM) | tokens], the prompt left
+    out in decode and continuations, n_prefix the prompt and patch rows;
+    Whisper's tokens add sinusoidal positions of their own index (decode:
+    `batch["pos"]`). seq_pos runs 0..T-1, is the decode step's
+    `batch["pos"]`, or starts at `chunk_start` (B,) for a chunked-prefill
+    continuation, which prepends no prompt (it went in with the first
+    chunk). positions is seq_pos, except under M-RoPE: (3, B, T), the
+    patches' grid positions (`mrope_positions`, (B, 3, Np)) offset by the
+    prompt length and every other row's sequence index on all three
+    streams (not Qwen2-VL's "largest grid position + 1"; the JAX package's
+    layout)."""
     if cfg.arch_type == "vit":
         patches = batch["patches"]
         B = patches.shape[0]
@@ -207,13 +234,23 @@ def embed(cfg: ModelConfig, emb: Params, batch, mode: str, prompt, dtype,
         x = x + emb["pos"][: x.shape[1]].to(x.dtype)
         pos = torch.arange(x.shape[1], dtype=torch.int32,
                            device=x.device)[None].expand(B, x.shape[1])
-        return x, pos, 0
+        return x, pos, pos, 0
     toks = batch["tokens"]
-    B = toks.shape[0]
+    B, S = toks.shape
     # gather the rows, then cast them: the same values as casting the
     # whole table first, without a copy of the table at `dtype`
     x = emb["tok"][toks.long()].to(dtype)
     n_prefix = 0
+    if cfg.arch_type == "audio":
+        # Whisper's decoder: absolute positions, no RoPE
+        apos = (batch["pos"][:, None] if mode == "decode" else
+                torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S))
+        x = x + L.sinusoidal_embedding(apos, cfg.d_model).to(dtype)
+    if cfg.arch_type == "vlm" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(dtype)                 # (B, Np, D)
+        x = torch.cat([pe, x], dim=1)
+        n_prefix += pe.shape[1]
     if prompt is not None and mode != "decode" and chunk_start is None:
         pr = prompt[None].expand((B,) + tuple(prompt.shape))
         x = torch.cat([pr.to(dtype), x], dim=1)
@@ -227,7 +264,20 @@ def embed(cfg: ModelConfig, emb: Params, batch, mode: str, prompt, dtype,
     else:
         base = torch.arange(T, dtype=torch.int32,
                             device=x.device)[None].expand(B, T)
-    return x, base.to(torch.int32), n_prefix
+    base = base.to(torch.int32)
+    att = cfg.attention
+    if att is None or att.mrope_sections is None:
+        return x, base, base, n_prefix
+    b3 = base[None].expand((3,) + tuple(base.shape))
+    if mode != "decode" and "mrope_positions" in batch:
+        # stored client-axis-first as (B, 3, Np); the model wants (3, B, Np)
+        grid = batch["mrope_positions"].transpose(0, 1).to(torch.int32)
+        npz = grid.shape[-1]
+        npr = n_prefix - npz
+        pos = torch.cat([b3[:, :, :npr], grid + npr, b3[:, :, npr + npz:]],
+                        dim=-1)
+        return x, pos, base, n_prefix
+    return x, b3, base, n_prefix
 
 
 # ------------------------------------------------------------------ model
@@ -235,22 +285,17 @@ class Transformer:
     """The unsplit model, keyed as the JAX package's: `embed`,
     `dense_stack/pos0` (DeepSeek's dense prefix), `cycle/pos{i}`,
     `shared_attn` (zamba2), `final_norm`, `head` (absent when the
-    embeddings are tied), `mtp/{proj,block,norm}` (DeepSeek)."""
+    embeddings are tied), `encoder/{cycle,final_norm}` (Whisper),
+    `mtp/{proj,block,norm}` (DeepSeek)."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
-
-    def _check_ported(self):
-        reason = unported_reason(self.cfg)
-        if reason is not None:
-            raise NotImplementedError(f"{self.cfg.name}: {reason}")
 
     # ---------------- init
     def init(self, generator: torch.Generator, *, device="cuda") -> Params:
         """Random params drawn from `generator` (which must live on
         `device`)."""
         from repro_torch.core.split import resolve_device
-        self._check_ported()
         device = resolve_device(device)
         cfg, g = self.cfg, generator
         params: Params = {"embed": init_embed(g, cfg, device=device)}
@@ -269,6 +314,8 @@ class Transformer:
             params["head"] = L.dense_init(
                 g, cfg.d_model, cfg.num_classes or cfg.vocab_size,
                 device=device)
+        if cfg.encoder is not None:
+            params["encoder"] = init_encoder(g, cfg, device=device)
         if cfg.mtp:
             params["mtp"] = init_mtp(g, cfg, device=device)
         return params
@@ -276,8 +323,9 @@ class Transformer:
     # ---------------- caches
     def init_cache(self, batch: int, seq_len: int, dtype=torch.float32,
                    window=None, *, device="cuda") -> Params:
+        """Stacked per-layer caches; Whisper's also holds `encoder_out`
+        (batch, n_frames, D), written at prefill and read at decode."""
         from repro_torch.core.split import resolve_device
-        self._check_ported()
         device = resolve_device(device)
         cfg = self.cfg
 
@@ -291,6 +339,10 @@ class Transformer:
         if cfg.n_dense_layers:
             cache["dense_stack"] = {"pos0": stack("attn",
                                                   cfg.n_dense_layers)}
+        if cfg.encoder is not None:
+            cache["encoder_out"] = torch.zeros(
+                (batch, cfg.encoder.n_frames, cfg.d_model), dtype=dtype,
+                device=device)
         return cache
 
     # ---------------- public apply
@@ -305,12 +357,14 @@ class Transformer:
         too (token t + 2 from position t). `differentiable` marks a pass
         autograd goes through: attention and the scans run their plain
         versions on every device."""
-        self._check_ported()
         cfg = self.cfg
-        x, positions, n_prefix = embed(cfg, params["embed"], batch, mode,
-                                       prompts, dtype)
-        ctx = L.Ctx(mode=mode, positions=positions, seq_pos=positions,
-                    causal=cfg.arch_type != "vit",
+        enc = (encoder_out(cfg, params["encoder"], batch, mode, cache, dtype,
+                           differentiable)
+               if cfg.encoder is not None else None)
+        x, positions, seq_pos, n_prefix = embed(
+            cfg, params["embed"], batch, mode, prompts, dtype)
+        ctx = L.Ctx(mode=mode, positions=positions, seq_pos=seq_pos,
+                    causal=cfg.arch_type != "vit", encoder_out=enc,
                     differentiable=differentiable)
         aux = 0.0
         if cfg.n_dense_layers:
@@ -348,8 +402,9 @@ class Transformer:
             h_txt = x[:, n_prefix:, :]
             hm = L.dense(params["mtp"]["proj"],
                          torch.cat([h_txt[:, :-1], emb_next], dim=-1))
-            mpos = positions[:, n_prefix:-1]
-            mctx = L.Ctx(mode="train", positions=mpos, seq_pos=mpos,
+            mpos = positions[..., n_prefix:-1]
+            mctx = L.Ctx(mode="train", positions=mpos,
+                         seq_pos=seq_pos[:, n_prefix:-1],
                          differentiable=differentiable)
             hm, _, _ = apply_block(params["mtp"]["block"], cfg, "attn", hm,
                                    mctx, None)

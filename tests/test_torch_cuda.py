@@ -269,6 +269,34 @@ def test_prefill_kernel_matches_plain(gen, case):
     assert float((got - want).abs().max()) <= ATTN_TOL
 
 
+@pytest.mark.parametrize("S", [1, 7, 64])
+def test_cross_attention_launches_prefill_kernel(gen, S):
+    """Whisper's cross-attention on the card: S queries over 100 encoder
+    frames, non-causal (S 1: a decode step), through the layers' dispatch
+    (one prefill launch) against its differentiable pass (the plain
+    form)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.models import layers as L
+    cfg = get_config("whisper-base").reduced(d_model=128, d_ff=256)
+    p = L.init_attention(gen, cfg, cross=True, device="cuda")
+    p.update(L.init_cross_attention_extra(gen, cfg, device="cuda"))
+    x = torch.randn((3, S, 128), generator=gen, device="cuda")
+    enc = torch.randn((3, 100, 128), generator=gen, device="cuda")
+    pos = torch.zeros((3, S), dtype=torch.int32, device="cuda")
+    out = {}
+    for differentiable in (False, True):
+        n = flash_attention_fwd.launches
+        with torch.no_grad():
+            out[differentiable] = L.apply_cross_attention(
+                p, cfg, x, L.Ctx(mode="decode" if S == 1 else "prefill",
+                                 positions=pos, encoder_out=enc,
+                                 differentiable=differentiable))
+        assert flash_attention_fwd.launches == n + (not differentiable)
+    assert torch.isfinite(out[False]).all()
+    assert float((out[False] - out[True]).abs().max()) <= ATTN_TOL
+
+
 def _decode_lens(kind, W):
     if kind == "empty":            # no slot has held a request
         return [0] * 5
@@ -298,6 +326,9 @@ def _decode_lens(kind, W):
     pytest.param(16, 64, None, None, "", id="G16-64"),
     pytest.param(12, 192, 64, 50.0, "unaligned", id="192-G12-unaligned"),
     pytest.param(2, 256, None, None, "empty", id="256-all-slots-empty"),
+    # Whisper's 64 (G 1) and Qwen2-VL's 128 at G 8
+    pytest.param(1, 64, None, None, "", id="whisper-64"),
+    pytest.param(8, 128, None, None, "seam", id="qwen2-vl-G8-128-seam"),
 ])
 def test_decode_kernel_matches_plain(gen, monkeypatch, G, Dh, window,
                                      softcap, kind):

@@ -1,9 +1,9 @@
 """The port's unsplit `Transformer` against the JAX package's, on bridged
-weights: tests/test_models.py's seven contracts for every family the port
-takes (qwen2.5, gemma2, nemotron, stablelm, phi3.5-moe, deepseek-v3,
-zamba2, rwkv6, and the ViT classifier), at the port tests' reduced width
-(`reduced(d_model=64, d_ff=128, vocab_size=128)`, the layer counts of
-tests/test_models.py). At `reduced()`'s default width 256 rwkv6's
+weights: tests/test_models.py's seven contracts for every assigned family
+(qwen2.5, gemma2, nemotron, stablelm, phi3.5-moe, deepseek-v3, zamba2,
+rwkv6, whisper, qwen2-vl) and the ViT classifier, at the port tests'
+reduced width (`reduced(d_model=64, d_ff=128, vocab_size=128)`, the layer
+counts of tests/test_models.py). At `reduced()`'s default width 256 rwkv6's
 gradient is ill-conditioned in f32 in both packages: at one RWKV-6 layer
 JAX's gradient of the `k` weights is 9.6e-5 and the port's 1.8e-4 from a
 float64 evaluation (max 17), and the embedding gradients of the model end
@@ -23,10 +23,12 @@ are 5.4e-7 apart.
 5. stablelm's greedy 4-step decode equals the teacher-forced forward;
 6. zamba2's shared attention block is one parameter set;
 7. the analytic `param_count` is within 2% of a `meta` init of every
-   full-size ported config.
+   full-size config.
 
-Whisper and qwen2-vl raise NotImplementedError naming the slice G items
-that bring them (5 and 6).
+Whisper's batches carry `frames` (its reduced encoder's 16), qwen2-vl's 8
+`patch_embeds` and their (2, 2, 2) grid's M-RoPE positions, as
+tests/test_models.py's do; qwen2-vl's decode check prefills the patches
+too (no grid positions) and decodes at S + 8.
 
 The MoE families' router margins (the smallest gap between a token's k-th
 and (k+1)-th router probability) are asserted above 1e-4
@@ -55,9 +57,7 @@ from repro_torch.optim import apply_updates, sgd  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
-UNPORTED = {"whisper-base": "slice G item 5", "qwen2-vl-72b": "slice G item 6"}
-PORTED = [a for a in ASSIGNED if a not in UNPORTED]
-FAMILIES = PORTED + ["vit-base"]
+FAMILIES = list(ASSIGNED) + ["vit-base"]
 MOE = ("phi3.5-moe-42b-a6.6b", "deepseek-v3-671b")
 KEY = jax.random.PRNGKey(0)
 SIZE = dict(d_model=64, d_ff=128, vocab_size=128)
@@ -85,8 +85,28 @@ def make_batch(cfg, B=2, S=24, seed=1):
                     (B, 16, 16 * 16 * 3))).astype(np.float32),
                 "labels": rng.integers(0, cfg.num_classes, B).astype(
                     np.int32)}
-    return {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(
         np.int32)}
+    batch.update(modality(cfg, rng, B))
+    return batch
+
+
+def modality(cfg, rng, B, grid=True):
+    """Whisper's frames, or qwen2-vl's 8 patch embeddings and (with
+    `grid`) their M-RoPE positions on a (2, 2, 2) grid, stored (B, 3, 8)."""
+    if cfg.arch_type == "audio":
+        return {"frames": (0.02 * rng.standard_normal(
+            (B, cfg.encoder.n_frames, cfg.d_model))).astype(np.float32)}
+    if cfg.arch_type != "vlm":
+        return {}
+    out = {"patch_embeds": (0.02 * rng.standard_normal(
+        (B, 8, cfg.d_model))).astype(np.float32)}
+    if grid:
+        g = np.stack(np.meshgrid(np.arange(2), np.arange(2), np.arange(2),
+                                 indexing="ij")).reshape(3, 8)
+        out["mrope_positions"] = np.ascontiguousarray(
+            np.broadcast_to(g[None], (B, 3, 8)), dtype=np.int32)
+    return out
 
 
 def _probe(arch):
@@ -211,19 +231,22 @@ def test_train_step_matches_jax(arch):
 
 
 # ----------------------------------------------------- 3. decode == full
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ASSIGNED)
 def test_decode_matches_full_and_jax(arch):
     jm, tm, params, tparams = build(arch)
     B, S = 2, 16
-    toks = np.random.default_rng(1).integers(
-        0, tm.cfg.vocab_size, (B, S + 1)).astype(np.int32)
-    step = {"tokens": toks[:, S:S + 1], "pos": np.full((B,), S, np.int32)}
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, tm.cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    extra = modality(tm.cfg, rng, B, grid=False)
+    n_extra = 8 if "patch_embeds" in extra else 0
+    step = {"tokens": toks[:, S:S + 1],
+            "pos": np.full((B,), S + n_extra, np.int32)}
+    bfull = tree_map(torch.from_numpy, dict(extra, tokens=toks))
+    bpre = tree_map(torch.from_numpy, dict(extra, tokens=toks[:, :S]))
     with _probe(arch) as margins:
-        full = tm.apply(tparams, {"tokens": torch.from_numpy(toks)},
-                        mode="train")["logits"]
+        full = tm.apply(tparams, bfull, mode="train")["logits"]
         cache = tm.init_cache(B, seq_len=64, device="cpu")
-        pre = tm.apply(tparams, {"tokens": torch.from_numpy(toks[:, :S])},
-                       mode="prefill", cache=cache)
+        pre = tm.apply(tparams, bpre, mode="prefill", cache=cache)
         dec = tm.apply(tparams, tree_map(torch.from_numpy, step),
                        mode="decode", cache=pre["cache"])
     _check_margin(arch, "decode", margins)
@@ -231,7 +254,8 @@ def test_decode_matches_full_and_jax(arch):
                                full[:, -1].numpy(), rtol=2e-4, atol=2e-4)
     jcache = jm.init_cache(B, seq_len=64)
     jpre = jax.jit(lambda p, b, c: jm.apply(p, b, mode="prefill", cache=c))(
-        params, {"tokens": jnp.asarray(toks[:, :S])}, jcache)
+        params, jax.tree.map(jnp.asarray, dict(extra, tokens=toks[:, :S])),
+        jcache)
     jdec = jax.jit(lambda p, b, c: jm.apply(p, b, mode="decode", cache=c))(
         params, jax.tree.map(jnp.asarray, step), jpre["cache"])
     np.testing.assert_allclose(pre["logits"].numpy(),
@@ -330,16 +354,6 @@ def test_param_count_sane(arch):
     jshapes = jax.eval_shape(JTransformer(jget_config(arch)).init, KEY)
     assert actual == sum(int(np.prod(s.shape))
                          for s in jax.tree.leaves(jshapes))
-
-
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_families_name_their_item(arch):
-    tm = Transformer(get_config(arch).reduced(**SIZE))
-    for call in (lambda: tm.init(torch.Generator(), device="cpu"),
-                 lambda: tm.init_cache(1, 8, device="cpu"),
-                 lambda: tm.apply({}, {})):
-        with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
-            call()
 
 
 def test_transformer_defaults_to_cuda():

@@ -282,8 +282,10 @@ def test_launcher_main_on_cpu(arch, capsys):
 
 
 def test_unported_block_kinds_name_their_slice():
-    """`moe` builds (slice G item 1 is ported: an attention half and the
-    MoE block, and an attention cache); `cross_attn` still names item 5."""
+    """Every block kind builds now: `moe` (an attention half and the MoE
+    block, and an attention cache) and `cross_attn` (self-attention with
+    the cross-attention half's norm and projections, an MLP, and a
+    self-attention cache); an unknown kind raises ValueError."""
     from repro_torch.models.transformer import init_block, init_block_cache
     cfg = _cfg(get_config, "zamba2-2.7b")
     gen = torch.Generator().manual_seed(0)
@@ -294,9 +296,10 @@ def test_unported_block_kinds_name_their_slice():
     assert set(block["moe"]["experts"]) == {"up", "gate", "down"}
     assert set(init_block_cache(moe_cfg, "moe", 1, 8, device="cpu")) == \
         {"k", "v", "positions"}
-    with pytest.raises(NotImplementedError, match="slice G item 5"):
-        init_block(gen, cfg, "cross_attn", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice G item 5"):
-        init_block_cache(cfg, "cross_attn", 1, 8, device="cpu")
+    cross = init_block(gen, cfg, "cross_attn", device="cpu")
+    assert set(cross) == {"attn", "mlp"}
+    assert {"ln_cross", "cq", "ck", "cv", "co"} <= set(cross["attn"])
+    assert set(init_block_cache(cfg, "cross_attn", 1, 8, device="cpu")) == \
+        {"k", "v", "positions"}
     with pytest.raises(ValueError):
         init_block(gen, cfg, "no-such-kind", device="cpu")
