@@ -280,10 +280,35 @@ Phases, each of which fails the run with a nonzero exit:
      decode steps (kernels 1-4: path `vlm`); each prints its weights, its
      peak memory, tok/s and its launches by kernel, and its metered bytes
      must equal the exact count;
+ 22. tensor parallelism (run last): two host ranks on the one card, a
+     gloo group (`repro_torch.launch.mesh.spawn_ranks`), each sending its
+     launch counts, all-reduce counts and memory back. (a) Serving: the
+     reduced Qwen2.5 family of tests/test_mesh_tp.py (3 layers, d_model
+     128, 4 heads of 32, vocab 128), then phase 5's model (Qwen2.5-14B
+     widths, 6 layers, seed 0) with 2 tenants, on (data 1, model 2), a
+     trace of 6 requests (32-64 prompt, 8-16 new tokens) through the
+     dense engine, then the paged one (page 16), each on the fp32 wire,
+     then the int8 wire, against one process on the card: wire bytes
+     `==` on both wires, tokens `==` on the fp32 wire, and the reduced
+     model's fp32 last-step logits within PARITY_TOL; every logit gap and
+     the int8 wire's token agreement printed beside one process's own
+     gaps (dense vs paged, int8 vs fp32), the local shard shapes, each
+     rank's memory, tok/s and the all-reduces a decode step with their
+     ms; kernels 1-4 (dense) and 1-3 and 5 (paged) launched on both ranks
+     on the int8 wire. (b) Rounds: phase 8's ViT-Base round with client 0
+     dropped on (data 2) clear, secure and with FSDP, and on (model 2)
+     clear, against one process: params within 1e-4 (clear) and
+     roundtrip_tol(4) + 1e-4 (secure), bytes, kept_frac and kept sets
+     `==`, kernels 1, 2, 3 and 6 (and 7, secure) launched on both ranks.
+     The rates are gloo's through host memory on one card, not a
+     tensor-parallel speed. Phase 3 also holds and times the attention
+     kernels at a rank's shapes (`tp_shapes`: Qwen2.5-14B's 20 / 4 x 128
+     prefill, decode and paged decode; ViT-Base's 6 x 64 prefill);
  then the `kernels` JSON line (each kernel once, with the dtypes, head
  dims and groups it was held at, its bf16 numbers, its wide-shape
- numbers and its slice G part 2 shapes), then the seconds each phase took
- and the total, then the device line last.
+ numbers, its slice G part 2 shapes and its slice H per-rank shapes),
+ then the seconds each phase took and the total, then the device line
+ last.
 
  Phase 3 also holds and times the shapes Whisper and Qwen2-VL bring
  (`check_slice_g2`): the prefill kernel at whisper-base's encoder (4,
@@ -463,6 +488,23 @@ PATHS = {
                        "el2n"),
     "vlm_parity": ("quantize_int8", "dequantize_int8",
                    "flash_attention_prefill", "decode_attention", "el2n"),
+    # phase 22: Qwen2.5-14B served tensor-parallel on two ranks (each rank's
+    # counts must show every kernel; the line sums the ranks), and ViT-Base
+    # rounds on (data 2), with FSDP, and on (model 2)
+    "tp_dense": ("quantize_int8", "dequantize_int8",
+                 "flash_attention_prefill", "decode_attention"),
+    "tp_paged": ("quantize_int8", "dequantize_int8",
+                 "flash_attention_prefill", "paged_decode_attention"),
+    "tp_dense_fp32": ("flash_attention_prefill", "decode_attention"),
+    "tp_paged_fp32": ("flash_attention_prefill", "paged_decode_attention"),
+    "tp_train_data": ("quantize_int8", "dequantize_int8",
+                      "flash_attention_prefill", "el2n"),
+    "tp_private": ("quantize_int8", "dequantize_int8",
+                   "flash_attention_prefill", "el2n", "secure_masked_encode"),
+    "tp_train_fsdp": ("quantize_int8", "dequantize_int8",
+                      "flash_attention_prefill", "el2n"),
+    "tp_train_model": ("quantize_int8", "dequantize_int8",
+                       "flash_attention_prefill", "el2n"),
 }
 # the wide attention shapes of phase 3: (label, Hq, Hkv, Dh)
 WIDE_SHAPES = (("gemma2-9b", 16, 8, 256), ("stablelm-12b", 32, 8, 160),
@@ -5979,6 +6021,474 @@ def g2_full_width(torch, arch, path):
 
 
 # -------------------------------------------------------------------- main
+# ---------------------------------------------------------------- phase 22
+TP_RANKS = 2
+TP_TENANTS = 2
+TP_SERVE_CFG = dict(n_slots=4, max_seq=256, decode_block=8)
+TP_PAGE = 16
+
+
+def tp_shapes(torch, F, gen, results):
+    """The attention kernels at the per-rank shapes of phase 22 (a rank's
+    heads at 'model' 2), held against plain and timed as phase 3 times
+    its shapes, under "tp" in each record: the prefill kernel at
+    Qwen2.5-14B's causal prefill (1, 132, 20 / 4 x 128: G 5) and ViT-Base's
+    non-causal scoring (16, 213, 6 x 64), the dense decode kernel at 20 / 4
+    x 128 over 8 slots of 512 and the paged one at 20 / 4 x 128 over 16
+    slots of page 16. The wire and EL2N run on replicated rows, at the
+    shapes phase 3 already holds."""
+    pre = results["flash_attention_prefill"]
+    pre["tp"] = {
+        "qwen2.5-14b 20 / 4 x 128": prefill_shape(
+            torch, F, gen, "qwen2.5-14b a rank of 2", 1, 20, 128, True,
+            (37, 132), Hkv=4),
+        "vit-base 6 x 64": prefill_shape(
+            torch, F, gen, "vit-base a rank of 2", 16, 6, 64, False, (213,))}
+    dec = results["decode_attention"]
+    dec["tp"] = {"qwen2.5-14b 20 / 4 x 128": decode_record(
+        torch, F, gen, 20, 4, 128, sweep=False)}
+    paged = results["paged_decode_attention"]
+    paged["tp"] = {"qwen2.5-14b 20 / 4 x 128": paged_record(
+        torch, F, gen, 20, 4, 128, sweep=False)}
+    for rec in (pre, dec, paged):
+        rec["max_abs_err"] = max(rec["max_abs_err"], *(
+            r["max_abs_err"] for r in rec["tp"].values()))
+
+
+def tp_trace(cfg):
+    """Phase 22's serving trace: shorter than phase 5's."""
+    from repro_torch.serve import WorkloadConfig, synthetic_requests
+    return synthetic_requests(WorkloadConfig(
+        n_requests=6, seed=3, mean_interarrival=1.0,
+        prompt_choices=(32, 64), new_token_choices=(8, 16),
+        n_tenants=TP_TENANTS, vocab_size=cfg.vocab_size))
+
+
+def tp_engine(torch, kind, model, params, bank, mesh, dev):
+    from repro_torch.serve import (PagedServeConfig, PagedServeEngine,
+                                   ServeConfig, ServeEngine)
+    if kind == "dense":
+        return ServeEngine(model, params, bank, ServeConfig(**TP_SERVE_CFG),
+                           collect_logits=True, mesh=mesh, device=dev)
+    return PagedServeEngine(
+        model, params, bank,
+        PagedServeConfig(page_size=TP_PAGE, **TP_SERVE_CFG),
+        collect_logits=True, mesh=mesh, device=dev)
+
+
+def tp_serve_model(torch, dev, small):
+    """Phase 5's model (Qwen2.5-14B widths, 6 layers, seed 0) with
+    TP_TENANTS tenants on its int8 wire and the same weights on the fp32
+    wire; `small`: the family reduced as tests/test_mesh_tp.py's serving
+    fixture (3 layers, d_model 128, d_ff 256, vocab 128)."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.core import SplitConfig, SplitModel
+    from repro_torch.launch.serve import personalized_bank
+    from repro_torch.runtime import WireSpec
+    cfg = get_config("qwen2.5-14b")
+    cfg = (cfg.reduced(n_layers=3, d_model=128, d_ff=256, vocab_size=128)
+           if small else dc.replace(cfg, n_layers=6))
+    split = SplitConfig(head_cycles=1, tail_cycles=1, prompt_len=4)
+    models = {w: SplitModel(cfg, split, WireSpec.make(w))
+              for w in ("fp32", "int8")}
+    params = models["int8"].init(torch.Generator(device=dev).manual_seed(0),
+                                 device=dev)
+    bank = personalized_bank(models["int8"], params, TP_TENANTS)
+    del params["tail"]
+    return cfg, models, params, bank
+
+
+def tp_serve_runs(torch, mesh, dev, small, on_run=None):
+    """Dense then paged, fp32 wire then int8, one engine at a time, on
+    `mesh` (None: one process). Returns per run the tokens, every logits
+    row, the wire bytes, tok/s and (through `on_run(label, engine)`,
+    called around each run) whatever the caller measures."""
+    import numpy as np
+    cfg, models, params, bank = tp_serve_model(torch, dev, small)
+    reqs = tp_trace(cfg)
+    out = {}
+    for wire in ("fp32", "int8"):
+        for kind in ("dense", "paged"):
+            label = f"{kind}_{wire}"
+            eng = tp_engine(torch, kind, models[wire], params, bank, mesh,
+                            dev)
+            eng.run(tp_trace(cfg)[:1])          # warm: handles, pools
+            eng.reset_stats()
+            ctx = on_run(label, eng) if on_run else None
+            if ctx is not None:
+                ctx.__enter__()
+            stats = eng.run(list(reqs))
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            if ctx is not None:
+                ctx.__exit__(None, None, None)
+            if stats["n_finished"] != len(reqs):
+                fail(f"phase 22 {label}: {stats['n_finished']} of "
+                     f"{len(reqs)} requests finished")
+            out[label] = {
+                "tokens": {f.req.rid: np.asarray(f.tokens)
+                           for f in stats["finished"]},
+                "logits": {f.req.rid: np.asarray(f.logits)
+                           for f in stats["finished"]},
+                "wire": stats["wire_bytes"], "tok_per_s": stats["tok_per_s"],
+                "decode_steps": stats["decode_steps"]}
+            if label == "dense_int8" and mesh is not None:
+                out["shapes"] = tp_shard_shapes(eng)
+            if label == "dense_fp32" and mesh is None:
+                out["batch1_gap"] = tp_batch1_gap(torch, models[wire],
+                                                  params, bank, reqs,
+                                                  out[label], dev)
+            del eng
+            if dev != "cpu":
+                torch.cuda.empty_cache()
+    return out
+
+
+def tp_batch1_gap(torch, model, params, bank, reqs, run, dev):
+    """One process's own logit gap from a change of batch shape alone:
+    each request teacher-forced alone (batch 1, `forced_logits`) on the
+    engine's tokens against its rows in the engine's batch of slots."""
+    import numpy as np
+    from repro_torch.serve.steps import forced_logits
+    shared = {"head": params["head"], "body": params["body"]}
+    gap = 0.0
+    for req in reqs:
+        alone = forced_logits(model, shared, bank, req,
+                              run["tokens"][req.rid],
+                              max_seq=TP_SERVE_CFG["max_seq"], device=dev)
+        gap = max(gap, float(np.abs(alone - run["logits"][req.rid]).max()))
+    return gap
+
+
+def tp_shard_shapes(eng):
+    """The local shapes of a few of an engine's frozen leaves and caches."""
+    h, b = eng.shared["head"], eng.shared["body"]
+    att, mlp = b["stack"]["pos0"]["attn"], b["stack"]["pos0"]["mlp"]
+    out = {"head embed/tok": h["embed"]["tok"].shape}
+    for name, leaf in (("q/w", att["q"]["w"]), ("k/w", att["k"]["w"]),
+                       ("o/w", att["o"]["w"]), ("up/w", mlp["up"]["w"]),
+                       ("down/w", mlp["down"]["w"])):
+        out[f"body {name}"] = leaf.shape
+    for seg in ("head", "body", "tail"):
+        out[f"{seg} cache k"] = eng.cache[seg]["stack"]["pos0"]["k"].shape
+    return {k: list(v) for k, v in out.items()}
+
+
+class AllReduceClock:
+    """Counts and times (host clock, the call blocks until done) the
+    all-reduces made while `on` is set."""
+
+    def __init__(self, dist):
+        self.dist, self.plain = dist, dist.all_reduce
+        self.on, self.calls, self.seconds = False, 0, 0.0
+        dist.all_reduce = self
+
+    def __call__(self, *a, **kw):
+        if not self.on:
+            return self.plain(*a, **kw)
+        t = time.perf_counter()
+        out = self.plain(*a, **kw)
+        self.seconds += time.perf_counter() - t
+        self.calls += 1
+        return out
+
+
+def tp_round_setup(torch, dev, small):
+    """Phase 8's round (ViT-Base at full width and depth, int8 wire, K 4,
+    U 2, 64 samples a client, gamma 0.5) on round 0's cohort with client
+    0 dropped; `small` (a CPU rehearsal) the reduced ViT on 32 x 32."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ProtocolConfig, SFPromptTrainer,
+                                  SplitConfig, SplitModel)
+    from repro_torch.data import (DATASETS, iid_partition, select_clients,
+                                  stack_clients, synthetic_image_dataset)
+    from repro_torch.runtime import WireSpec
+    cfg = get_config("vit-base")
+    hw, n_local, bs, data = 224, 64, 16, "cifar100-syn"
+    if small:
+        cfg = cfg.reduced(n_layers=4, d_model=64, d_ff=128)
+        hw, n_local, bs, data = 32, 8, 4, "cifar10-syn"
+    split = SplitConfig(head_cycles=1, tail_cycles=1, prompt_len=16,
+                        prune_gamma=0.5, local_epochs=2)
+    model = SplitModel(cfg, split, WireSpec.make("int8"))
+    K = 4
+    pcfg = ProtocolConfig(clients_per_round=K, local_epochs=2,
+                          split_epochs=1, batch_size=bs, lr_local=0.03,
+                          lr_split=0.03, optimizer="sgd", momentum=0.9)
+    d = synthetic_image_dataset(DATASETS[data], 8 * n_local, seed=0,
+                                image_hw=hw)
+    cohort = stack_clients(iid_partition(d, 8, seed=0),
+                           select_clients(8, K, seed=0, round_idx=0))
+    part = {"transmit": np.array([0, 1, 1, 1], np.float32),
+            "aggregate": np.array([0, 1, 1, 1], np.float32)}
+    init = SFPromptTrainer(model, pcfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))["params"]
+    return model, pcfg, cohort, part, init
+
+
+TP_ROUNDS = (("data2_clear", "data", False, False),
+             ("data2_secure", "data", True, False),
+             ("data2_fsdp", "data", False, True),
+             ("model2_clear", "model", False, False))
+
+
+def tp_round(torch, setup, mesh, secure, fsdp, dev):
+    """One round from the setup's init; returns the trained tail and
+    prompt, the metrics, the kept sets and the seconds."""
+    from repro_torch.core import SFPromptTrainer
+    from repro_torch.core.aggregation import get_aggregator
+    from repro_torch.tree import tree_flatten
+    model, pcfg, cohort, part, init = setup
+    agg = get_aggregator(secure=True, seed=0) if secure else None
+    tr = SFPromptTrainer(model, pcfg, agg, mesh=mesh, fsdp=fsdp, device=dev)
+    state = {"params": tr.shard_params(init), "round": 0}
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, metrics = tr.round(state, cohort, part)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    trained = {"/".join(p): x.cpu().numpy() for p, x in tree_flatten(
+        {"tail": new["params"]["tail"], "prompt": new["params"]["prompt"]})}
+    body = [x for _, x in tree_flatten(new["params"]["body"])]
+    return {"params": trained, "metrics": metrics, "seconds": seconds,
+            "kept": tr.last_kept.cpu().numpy(),
+            "body_bytes": sum((x.local if hasattr(x, "local") else x).numel()
+                              * 4 for x in body)}
+
+
+def tp_rank(small, dev):
+    """One rank of phase 22: TP serving on (data 1, model 2), then the
+    rounds on (data 2) and (model 2), with this rank's launch counts,
+    all-reduces and memory."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.mesh import make_host_mesh
+    if dev != "cpu":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    meshes = {"model": make_host_mesh(TP_RANKS, model=TP_RANKS),
+              "data": make_host_mesh(TP_RANKS)}
+    clock = AllReduceClock(dist)
+    out = {"launches": {}, "all_reduce": {}, "memory_gb": {}}
+
+    def on_run(label, eng):
+        import contextlib
+
+        @contextlib.contextmanager
+        def measure():
+            dispatch = eng._dispatch_decode
+
+            def timed(*a, **kw):
+                clock.on = True
+                try:
+                    return dispatch(*a, **kw)
+                finally:
+                    clock.on = False
+            eng._dispatch_decode = timed
+            clock.calls, clock.seconds = 0, 0.0
+            if dev != "cpu":
+                torch.cuda.reset_peak_memory_stats()
+                out["memory_gb"][f"{label}_held"] = (
+                    torch.cuda.memory_allocated() / 1e9)
+            reset_launches()
+            yield
+            del eng._dispatch_decode        # the engine can be freed
+            out["launches"][label] = launch_counts()
+            out["all_reduce"][label] = {"calls": clock.calls,
+                                        "seconds": clock.seconds}
+            if dev != "cpu":
+                out["memory_gb"][f"{label}_peak"] = (
+                    torch.cuda.max_memory_allocated() / 1e9)
+        return measure()
+
+    out["reduced"] = tp_serve_runs(torch, meshes["model"], dev, True)
+    serve = tp_serve_runs(torch, meshes["model"], dev, small, on_run)
+    lead = dist.get_rank() == 0
+    out["serve"] = serve if lead else {
+        k: ({kk: vv for kk, vv in v.items() if kk != "logits"}
+            if isinstance(v, dict) and "logits" in v else v)
+        for k, v in serve.items()}
+    setup = tp_round_setup(torch, dev, small)
+    out["rounds"] = {}
+    for label, axis, secure, fsdp in TP_ROUNDS:
+        reset_launches()
+        out["rounds"][label] = tp_round(torch, setup, meshes[axis], secure,
+                                        fsdp, dev)
+        out["launches"][label] = launch_counts()
+    return out
+
+
+def _agreeing_gap(a, b):
+    """(largest logit gap over the rows two runs share a token prefix for,
+    the last step's gap or None where their tokens part) of two runs'
+    `tokens` and `logits` by request."""
+    import numpy as np
+    rows, last = 0.0, 0.0
+    for rid, lg in b["logits"].items():
+        g = a["logits"][rid]
+        agree = int(np.argmax(np.concatenate(
+            [a["tokens"][rid] != b["tokens"][rid], [True]])))
+        n = min(len(lg), agree + 1)
+        rows = max(rows, float(np.abs(g[:n] - lg[:n]).max()))
+        if last is not None and agree >= len(lg):
+            last = max(last, float(np.abs(g[-1] - lg[-1]).max()))
+        else:
+            last = None
+    return rows, last
+
+
+def tp_compare_serve(ref, ranks, key="serve", strict=False):
+    """Against one process: wire bytes `==` on both wires, tokens `==` on
+    the fp32 wire, the int8 wire's logit gap (rows while the tokens
+    agree) no larger than one process's own int8-vs-fp32 gap; with
+    `strict` (the reduced model) the fp32 wire's last-step logits within
+    PARITY_TOL. At full width the random-weight stack amplifies a sum in
+    another order (~1e-7 relative) by about 1e3, so there the fp32 gap is
+    printed beside one process's own gap from a change of batch shape
+    (`tp_batch1_gap`), as is the int8 wire's token agreement: a reordered
+    sum can cross an int8 rounding edge."""
+    import numpy as np
+    summary = {}
+    for label in ("dense_fp32", "paged_fp32", "dense_int8", "paged_int8"):
+        want = ref[label]
+        exact = label.endswith("fp32")
+        rec = {}
+        for r, res in enumerate(ranks):
+            got = res[key][label]
+            if got["wire"] != want["wire"]:
+                fail(f"phase 22 {key} {label} rank {r}: wire bytes "
+                     f"{got['wire']} != one process {want['wire']}")
+            same = {rid: bool(np.array_equal(got["tokens"][rid], t))
+                    for rid, t in want["tokens"].items()}
+            rec[f"rank{r}_requests_with_equal_tokens"] = sum(same.values())
+            if exact and not all(same.values()):
+                fail(f"phase 22 {key} {label} rank {r}: tokens differ from "
+                     f"one process: {same}")
+        rows, last = _agreeing_gap(ranks[0][key][label], want)
+        rec.update(last_step_logit_gap=last, logit_gap_while_agreeing=rows,
+                   tok_per_s=ranks[0][key][label]["tok_per_s"],
+                   one_process_tok_per_s=want["tok_per_s"])
+        if strict and exact and not last <= PARITY_TOL:
+            fail(f"phase 22 {key} {label}: last-step logits {last} from "
+                 f"one process > {PARITY_TOL}")
+        summary[label] = rec
+    own = _agreeing_gap(ref["dense_int8"], ref["dense_fp32"])[0]
+    for label in ("dense_int8", "paged_int8"):
+        # the int8 wire's own error bounds how far its rounding edges may
+        # carry a reordered sum
+        if summary[label]["logit_gap_while_agreeing"] > own:
+            fail(f"phase 22 {key} {label}: logit gap to one process "
+                 f"{summary[label]['logit_gap_while_agreeing']} exceeds "
+                 f"the int8 wire's own gap to fp32 {own}")
+    summary["one_process_gaps"] = {
+        "dense_vs_paged_fp32": _agreeing_gap(ref["dense_fp32"],
+                                             ref["paged_fp32"]),
+        "dense_vs_paged_int8": _agreeing_gap(ref["dense_int8"],
+                                             ref["paged_int8"]),
+        "int8_vs_fp32_dense": _agreeing_gap(ref["dense_int8"],
+                                            ref["dense_fp32"]),
+        "batch1_vs_batch_fp32": ref["batch1_gap"]}
+    return summary
+
+
+def tp_compare_rounds(ref, ranks, K=4):
+    """Params within 1e-4 (clear) and roundtrip_tol(K) + 1e-4 (secure) of
+    one process; bytes, kept_frac and kept sets equal."""
+    import numpy as np
+    from repro_torch.privacy.fixed_point import roundtrip_tol
+    summary = {}
+    for label, _, secure, _ in TP_ROUNDS:
+        want = ref["round_secure" if secure else "round_clear"]
+        tol = (roundtrip_tol(K) + 1e-4) if secure else 1e-4
+        rec = {}
+        for r, res in enumerate(ranks):
+            got = res["rounds"][label]
+            gap = max(float(np.abs(got["params"][k] - v).max())
+                      for k, v in want["params"].items())
+            if not gap <= tol:
+                fail(f"phase 22 {label} rank {r}: params {gap:.3g} from one "
+                     f"process > {tol:.3g}")
+            for k, v in want["metrics"].items():
+                if not np.isfinite(got["metrics"][k]):
+                    fail(f"phase 22 {label} rank {r}: {k} not finite")
+                if (k.startswith("wire/") or k == "kept_frac") and \
+                        got["metrics"][k] != v:
+                    fail(f"phase 22 {label} rank {r}: {k} "
+                         f"{got['metrics'][k]} != {v}")
+            if not np.array_equal(got["kept"], want["kept"]):
+                fail(f"phase 22 {label} rank {r}: kept sets differ")
+            rec[f"rank{r}_params_gap"] = gap
+        rec.update(seconds=ranks[0]["rounds"][label]["seconds"],
+                   one_process_seconds=want["seconds"],
+                   body_mb_a_rank=ranks[0]["rounds"][label]["body_bytes"]
+                   / 1e6)
+        summary[label] = rec
+    return summary
+
+
+TP_PATHS = {"dense_int8": "tp_dense", "paged_int8": "tp_paged",
+            "dense_fp32": "tp_dense_fp32", "paged_fp32": "tp_paged_fp32",
+            "data2_clear": "tp_train_data", "data2_secure": "tp_private",
+            "data2_fsdp": "tp_train_fsdp", "model2_clear": "tp_train_model"}
+
+
+def tensor_parallel(torch, dev="cuda", small=False):
+    """Phase 22: the references in this process, then TP_RANKS ranks on
+    the card over gloo; returns (launches by path, summary)."""
+    from repro_torch.launch.mesh import spawn_ranks
+    t0 = time.perf_counter()
+    ref_reduced = tp_serve_runs(torch, None, dev, True)
+    ref = tp_serve_runs(torch, None, dev, small)
+    setup = tp_round_setup(torch, dev, small)
+    for secure in (False, True):
+        ref[f"round_{'secure' if secure else 'clear'}"] = tp_round(
+            torch, setup, None, secure, False, dev)
+    del setup
+    if dev != "cpu":
+        torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(tp_rank, TP_RANKS, small, dev, threads=2)
+    ranks_s = time.perf_counter() - t0
+    summary = {"reduced": tp_compare_serve(ref_reduced, ranks, "reduced",
+                                           strict=True),
+               "serve": tp_compare_serve(ref, ranks),
+               "rounds": tp_compare_rounds(ref, ranks),
+               "one_process_s": ref_s, "ranks_s": ranks_s}
+    by_path = {}
+    for label, path in TP_PATHS.items():
+        per_rank = [r["launches"][label] for r in ranks]
+        for r, counts in enumerate(per_rank):
+            missing = [k for k in PATHS[path] if counts[k] <= 0]
+            if missing:
+                fail(f"phase 22 {label}: rank {r} never launched {missing}")
+        by_path[path] = {k: sum(c[k] for c in per_rank)
+                         for k in per_rank[0]}
+        summary.setdefault("launches_by_rank", {})[label] = [
+            {k: v for k, v in c.items() if v} for c in per_rank]
+    ar = ranks[0]["all_reduce"]
+    summary["decode_all_reduces"] = {
+        label: {"per_decode_step": ar[label]["calls"] / max(
+            1, ranks[0]["serve"][label]["decode_steps"]),
+                "ms_each": 1e3 * ar[label]["seconds"] / max(
+                    1, ar[label]["calls"])}
+        for label in ar}
+    summary["shapes"] = ranks[0]["serve"]["shapes"]
+    summary["memory_gb_by_rank"] = [r["memory_gb"] for r in ranks]
+    summary["note"] = ("the ranks share one card and their all-reduces "
+                       "go through host memory (gloo): these rates are "
+                       "not a tensor-parallel speed")
+    say("phase 22 tensor-parallel: " + json.dumps(summary, sort_keys=True,
+                                                   default=str))
+    return by_path, summary
+
+
 def main() -> None:
     try:
         import torch
@@ -6033,6 +6543,7 @@ def main() -> None:
     check_mamba2(torch, gen, results)
     check_rwkv6(torch, gen, results)
     check_slice_g2(torch, F, gen, results)
+    tp_shapes(torch, F, gen, results)
     check_bf16(torch, F, gen, results)
     check_f16(torch, F, gen, results)
     drift = report_drift(results)
@@ -6160,6 +6671,14 @@ def main() -> None:
         del fw
         lap(phase)
 
+    # 22. tensor parallelism: two ranks on the card over gloo, serving
+    # Qwen2.5-14B widths at 'model' 2 and running ViT-Base rounds on
+    # (data 2), with FSDP, and on (model 2), each against one process
+    torch.cuda.empty_cache()
+    paths22, summaries["tensor_parallel"] = tensor_parallel(torch)
+    by_path.update(paths22)
+    lap("22")
+
     # the kernels line (f32 numbers under the contract's keys, bf16 ones
     # under "bf16" and the wide shapes' under "wide", by case), the phase
     # times, then the device line
@@ -6192,6 +6711,9 @@ def main() -> None:
         if "g2" in results[name]:
             rec["slice_g2"] = {case: {k: r.get(k) for k in keys}
                                for case, r in results[name]["g2"].items()}
+        if "tp" in results[name]:
+            rec["slice_h"] = {case: {k: r.get(k) for k in keys}
+                              for case, r in results[name]["tp"].items()}
         kernels.append(rec)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(

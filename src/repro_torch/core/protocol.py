@@ -43,7 +43,23 @@ agreement and backhaul). The zCDP accountant spends one release per round
 when the noise multiplier is positive. `client_updates` is the async
 runtime's dispatch: the round with an all-zero aggregate.
 
-The mesh (slice H) is not ported yet and raises.
+On a mesh (`mesh=`, a `launch.mesh.make_host_mesh` DeviceMesh, every rank
+running the same calls): the frozen head and body are cut to this rank's
+local shards by `sharding.rules.params_pspecs` and run tensor-parallel
+over 'model' (`core/split.py`); with `fsdp=True` frozen leaves of at least
+`fsdp_threshold` elements are also stored sharded over 'data' and
+gathered a layer at a time. The tail and prompt, trainable, stay whole on
+every rank. Each 'data' rank trains the contiguous block of clients that
+`cohort_pspecs` gives it (all K where K does not divide the plane), with
+the wire and DP noise of each client's GLOBAL index, so a client draws the
+same numbers on any layout. The blocks' scores, trained (tail, prompt)
+and per-client metrics are then assembled on every rank by all-reduces
+over 'data', and the aggregator (clear, secure or edge) and every metric
+run replicated, in the unsharded round's order: on a data-only mesh the
+round is bit-equal to the unsharded one. Model families whose tensor
+parallelism is slice H part 2 (MoE, MLA, Mamba-2, RWKV-6, Whisper's
+encoder and cross-attention, Qwen2-VL) raise on a 'model' axis > 1 and
+run on a data-only mesh.
 """
 from __future__ import annotations
 
@@ -64,7 +80,9 @@ from repro_torch.obs.trace import LEVEL_STEP, NOOP
 from repro_torch.optim import Optimizer, adamw, apply_updates, sgd
 from repro_torch.privacy.dp import DP_SEED, PrivacyAccountant
 from repro_torch.runtime.meter import EDGE, SECURE, TrafficMeter
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.sharding import parallel
+from repro_torch.sharding.rules import P, params_pspecs, report_fallbacks
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 Params = Dict[str, Any]
 # (client, step, boundary name, shape) -> (u_fwd, u_bwd)
@@ -174,14 +192,19 @@ class SFPromptTrainer:
     supports_partial = True   # round() accepts a participation dict
 
     def __init__(self, model: SplitModel, pcfg: ProtocolConfig,
-                 aggregator=None, *, mesh=None, tracer=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the mesh-sharded cohort is not ported yet (slice H)")
+                 aggregator=None, *, mesh=None, fsdp: bool = False,
+                 fsdp_threshold: int = 1 << 21, tracer=None, device="cuda"):
         if pcfg.dp_noise_multiplier > 0 and pcfg.dp_clip <= 0:
             raise ValueError(
                 "dp_noise_multiplier > 0 needs dp_clip > 0: the Gaussian "
                 "noise is calibrated to the clip (sensitivity)")
+        if mesh is not None:
+            parallel.refuse_part2(model.cfg, mesh)
+            model = model.on_mesh(mesh)
+        self.mesh = mesh
+        self.fsdp = fsdp
+        self.fsdp_threshold = fsdp_threshold
+        self._param_specs = None      # the specs `shard_params` cut by
         self.model = model
         self.pcfg = pcfg
         self.device = resolve_device(device)
@@ -210,8 +233,65 @@ class SFPromptTrainer:
 
     # ------------------------------------------------------------- state
     def init(self, generator: torch.Generator) -> Params:
-        return {"params": self.model.init(generator, device=self.device),
-                "round": 0}
+        """Random params from `generator`; on a mesh every rank draws the
+        whole tree from the same seed and keeps its shards."""
+        params = self.model.init(generator, device=self.device)
+        return {"params": self.shard_params(params), "round": 0}
+
+    def shard_params(self, params: Params) -> Params:
+        """Whole params -> this rank's: the frozen head and body cut to
+        local shards by `params_pspecs` (leaves FSDP stores over 'data'
+        become `parallel.DataSharded`), the tail and prompt whole. The
+        specs are built over the whole tree, so the fallbacks reported
+        (once, as `protocol.mesh`) are the JAX round's. Identity without a
+        mesh."""
+        if self.mesh is None:
+            return params
+        specs = params_pspecs(params, self.mesh, fsdp=self.fsdp,
+                              fsdp_threshold=self.fsdp_threshold)
+        report_fallbacks("protocol.mesh", self.tracer)
+        self._param_specs = specs
+        mesh = self.mesh
+
+        def cut(x, spec):
+            if all(e is None for e in spec):
+                return x
+            on_model = P(*(None if e == "data" else e for e in spec))
+            y = parallel.local_shard(x, on_model, mesh)
+            if "data" not in spec:
+                return y.clone()
+            d = spec.index("data")
+            on_data = P(*(e if e == "data" else None for e in spec))
+            return parallel.DataSharded(
+                parallel.local_shard(y, on_data, mesh).clone(), d,
+                y.shape[d])
+
+        out = dict(params)
+        for seg in ("head", "body"):
+            out[seg] = tree_map(cut, params[seg], specs[seg])
+        return out
+
+    def full_params(self, params: Params) -> Params:
+        """The inverse of `shard_params`: every leaf gathered whole (a
+        collective: every rank calls it). Identity without a mesh."""
+        if self.mesh is None:
+            return params
+        mesh = self.mesh
+
+        def whole(x, spec):
+            if isinstance(x, parallel.DataSharded):
+                x = x.gather(mesh)
+            for d, e in enumerate(spec):
+                if e == "model":
+                    x = parallel.gather_axis(x.contiguous(), d, mesh,
+                                             "model")
+            return x
+
+        out = dict(params)
+        for seg in ("head", "body"):
+            out[seg] = tree_map(whole, params[seg],
+                                self._param_specs[seg])
+        return out
 
     def phase2_keep(self, n_local: int) -> int:
         """Samples per client that train phase 2 — `n_local` shrunk by EL2N
@@ -311,6 +391,9 @@ class SFPromptTrainer:
         client_data = tree_map(lambda x: torch.as_tensor(x, device=dev),
                                client_data)
         K, n_local = tree_leaves(client_data)[0].shape[:2]
+        # this rank's block of the cohort (all K without a mesh)
+        lo, hi = parallel.client_block(K, self.mesh)
+        mine = range(lo, hi)
         data = [tree_map(lambda x: x[k], client_data) for k in range(K)]
         trainable = [{"tail": params["tail"], "prompt": params["prompt"]}
                      for _ in range(K)]
@@ -322,27 +405,27 @@ class SFPromptTrainer:
         head = params["head"]
         frozen = {"head": head, "body": params["body"]}
         metrics: Dict[str, Any] = {}
+        local = [None] * K
 
         # ---- Phase 1a: local-loss self-update, client by client
         if pcfg.use_local_loss and pcfg.local_epochs > 0:
             with self._phase("phase1a"):
-                local = []
-                for k in range(K):
-                    trainable[k], _, loss = local_epochs(
+                for k in mine:
+                    trainable[k], _, local[k] = local_epochs(
                         model, head, trainable[k], self.opt_local,
                         self.opt_local.init(trainable[k]), data[k],
                         batch_size=pcfg.batch_size,
                         n_epochs=pcfg.local_epochs)
-                    local.append(loss)
-                metrics["local_loss"] = torch.stack(local).mean()
 
         # ---- Phase 1b: EL2N scoring and pruning
         keep = self.phase2_keep(n_local)
         if pcfg.use_pruning and model.split.prune_gamma > 0:
             with self._phase("phase1b"):
-                scores = torch.stack([pruning.score_client_data(
+                rows = [pruning.score_client_data(
                     model, head, trainable[k]["tail"], trainable[k]["prompt"],
-                    data[k], batch_size=pcfg.batch_size) for k in range(K)])
+                    data[k], batch_size=pcfg.batch_size) if k in mine
+                    else None for k in range(K)]
+                scores = parallel.assemble_clients(rows, self.mesh, dev)
                 order = pruning.rank_descending(scores, dim=1)[:, :keep]
                 self.last_scores, self.last_kept = scores, order
                 pruned = [tree_map(lambda x: x[order[k]], data[k])
@@ -355,15 +438,34 @@ class SFPromptTrainer:
         # ---- Phase 2: split training, client by client over the one
         # shared frozen {head, body}
         noise = wire_noise or self._generator_noise(int(state["round"]))
+        split_loss, wire = [None] * K, [None] * K
         with self._phase("phase2"):
-            split_loss, wire = [], []
-            for k in range(K):
-                trainable[k], _, loss, w = self._split_epochs(
+            for k in mine:
+                trainable[k], _, split_loss[k], wire[k] = self._split_epochs(
                     frozen, trainable[k], self.opt_split.init(trainable[k]),
                     pruned[k], noise, k)
-                split_loss.append(loss)
-                wire.append(w)
-            metrics["split_loss"] = torch.stack(split_loss).mean()
+
+        # ---- DP-SGD on the client update: clip the round delta against
+        # the broadcast globals, add calibrated Gaussian noise — BEFORE the
+        # server (or the masked aggregator) ever sees the upload
+        norms = [None] * K
+        if pcfg.dp_clip > 0:
+            reference = {"tail": params["tail"], "prompt": params["prompt"]}
+            dp_noise = dp_noise or self._generator_dp_noise(
+                int(state["round"]))
+            for k in mine:
+                trainable[k], norms[k] = dp_clip_and_noise(
+                    trainable[k], reference,
+                    lambda path, shape, k=k: dp_noise(k, path, shape),
+                    l2_clip=pcfg.dp_clip,
+                    noise_multiplier=pcfg.dp_noise_multiplier)
+        if len(mine) < K:
+            self._assemble(mine, trainable, local, split_loss, wire, norms)
+
+        if local[0] is not None:
+            # first, where the unsharded round puts it
+            metrics = {"local_loss": torch.stack(local).mean(), **metrics}
+        metrics["split_loss"] = torch.stack(split_loss).mean()
         transmit = np.asarray(participation["transmit"], np.float32)
         for b in model.wire.boundaries:
             # a straggler only sent a fraction of its phase-2 traffic
@@ -371,21 +473,7 @@ class SFPromptTrainer:
             metrics[f"wire/{b.name}_bytes"] = cohort_sum(per_client,
                                                           transmit)
 
-        # ---- DP-SGD on the client update: clip the round delta against
-        # the broadcast globals, add calibrated Gaussian noise — BEFORE the
-        # server (or the masked aggregator) ever sees the upload
         if pcfg.dp_clip > 0:
-            reference = {"tail": params["tail"], "prompt": params["prompt"]}
-            dp_noise = dp_noise or self._generator_dp_noise(
-                int(state["round"]))
-            norms = []
-            for k in range(K):
-                trainable[k], norm = dp_clip_and_noise(
-                    trainable[k], reference,
-                    lambda path, shape, k=k: dp_noise(k, path, shape),
-                    l2_clip=pcfg.dp_clip,
-                    noise_multiplier=pcfg.dp_noise_multiplier)
-                norms.append(norm)
             metrics["dp/delta_norm"] = torch.stack(norms).mean()
 
         # ---- Phase 3: participation-corrected weighted FedAvg of
@@ -424,6 +512,41 @@ class SFPromptTrainer:
                                                     np.ones_like(transmit))
         return ({"params": new_params, "round": int(state["round"]) + 1},
                 metrics)
+
+    def _assemble(self, mine, trainable, local, split_loss, wire, norms):
+        """Fill the other ranks' clients into the per-client lists, in
+        place: each client's trained (tail, prompt) and metrics packed into
+        one float32 row, this rank's rows written into zeros, one
+        all-reduce over 'data'."""
+        k0 = mine[0]
+        names = sorted(wire[k0])
+
+        def values(k):
+            return ([x for _, x in tree_flatten(trainable[k])]
+                    + [v for v in (local[k], split_loss[k], norms[k])
+                       if v is not None] + [wire[k][b] for b in names])
+
+        _, layout = parallel.pack(values(k0), self.device)
+        rows = [parallel.pack(values(k), self.device)[0] if k in mine
+                else None for k in range(len(trainable))]
+        full = parallel.assemble_clients(rows, self.mesh, self.device)
+        paths = [p for p, _ in tree_flatten(trainable[k0])]
+        for k in range(len(trainable)):
+            if k in mine:
+                continue
+            vals = parallel.unpack(full[k], layout)
+            leaves = dict(zip(paths, vals))
+            trainable[k] = tree_map(lambda _: None, trainable[k0])
+            for path, leaf in leaves.items():
+                node = trainable[k]
+                for key in path[:-1]:
+                    node = node[key]
+                node[path[-1]] = leaf
+            rest = vals[len(paths):]
+            for seq in (local, split_loss, norms):
+                if seq[k0] is not None:
+                    seq[k], rest = rest[0], rest[1:]
+            wire[k] = {b: np.float32(v) for b, v in zip(names, rest)}
 
     def round(self, state: Params, client_data,
               participation: Optional[Dict[str, Any]] = None,

@@ -27,9 +27,19 @@ caches and page pools are written in place.
 `head_fwd(differentiable=True)` marks a pass that autograd goes through;
 its attention and scans then run the plain versions on every device
 (`models/layers.py`), as the JAX training round runs with `impl="ref"`.
+
+On a mesh (`on_mesh`) the frozen head and body run on this rank's local
+shards, tensor-parallel over 'model' (`sharding/parallel.py`); the tail,
+a client's trainable segment (a tenant's, in serving), runs whole on
+every rank. The activations that cross the wire come out of an
+all-reduce, so every 'model' rank holds the same rows and meters and
+codes them alike; the bytes of a crossing are counted once, by the
+trainer or engine, whatever the number of ranks.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
@@ -43,6 +53,7 @@ from repro_torch.models.transformer import (embed, encoder_out,
                                             init_stack, run_stack,
                                             stack_cache)
 from repro_torch.runtime.boundary import WireSpec
+from repro_torch.sharding import parallel
 from repro_torch.tree import (tree_flatten, tree_leaves, tree_map,
                               tree_map_with_path)
 
@@ -87,6 +98,24 @@ class SplitModel:
         self.n_tail_layers = split.tail_cycles * cyc
         self.n_body_layers = self.body_cycles * cyc
         self._has_shared = "shared_attn" in cfg.layer_pattern
+        self.mesh = None
+
+    def on_mesh(self, mesh) -> "SplitModel":
+        """A copy of this model whose forwards run the head and body on
+        local shards over `mesh` (params cut by `sharding.rules`)."""
+        out = copy.copy(self)
+        out.mesh = mesh
+        return out
+
+    def _cache_cfg(self) -> ModelConfig:
+        """The config the head's and body's caches are shaped by: on a
+        'model' axis that divides the kv heads, a rank caches its own."""
+        t = parallel.axis_size(self.mesh, "model")
+        att = self.cfg.attention
+        if t == 1 or att is None or att.n_kv_heads % t:
+            return self.cfg
+        return dataclasses.replace(self.cfg, attention=dataclasses.replace(
+            att, n_kv_heads=att.n_kv_heads // t))
 
     # -------------------------------------------------------------- sizes
     def segment_fractions(self):
@@ -152,17 +181,19 @@ class SplitModel:
         """Stacked caches of each segment; Whisper's head also holds
         `encoder_out` (batch, n_frames, D), batch axis first."""
         device = resolve_device(device)
-        cfg = self.cfg
+        cfg, local = self.cfg, self._cache_cfg()
 
-        def seg_cache(n_cycles):
-            return {f"pos{i}": stack_cache(cfg, kind, n_cycles, batch,
+        def seg_cache(n_cycles, c=cfg):
+            return {f"pos{i}": stack_cache(c, kind, n_cycles, batch,
                                            seq_len, dtype, window=window,
                                            device=device)
                     for i, kind in enumerate(cfg.layer_pattern)}
 
+        # on a mesh the head and body caches hold this rank's kv heads; the
+        # tail runs whole, and so does its cache
         cache: Params = {
-            "head": {"stack": seg_cache(self.split.head_cycles)},
-            "body": {"stack": seg_cache(self.body_cycles)},
+            "head": {"stack": seg_cache(self.split.head_cycles, local)},
+            "body": {"stack": seg_cache(self.body_cycles, local)},
             "tail": {"stack": seg_cache(self.split.tail_cycles)},
         }
         if cfg.n_dense_layers:
@@ -358,12 +389,13 @@ class SplitModel:
         it. Whisper's encoder output rides in the returned dict to body and
         tail (the JAX package's `head_out`); prefill writes it into the
         head's cache, decode reads it from there."""
-        cfg = self.cfg
+        cfg, mesh = self.cfg, self.mesh
         enc = (encoder_out(cfg, head_p["encoder"], batch, mode, cache, dtype,
-                           differentiable)
+                           differentiable, mesh)
                if cfg.encoder is not None else None)
         x, positions, seq_pos, n_prefix = embed(
-            cfg, head_p["embed"], batch, mode, prompt, dtype, chunk_start)
+            cfg, parallel.materialize(head_p["embed"], mesh), batch, mode,
+            prompt, dtype, chunk_start, mesh)
         ho = {"positions": positions, "seq_pos": seq_pos, "mode": mode,
               "encoder_out": enc,
               "has_context": chunk_start is not None,
@@ -385,7 +417,8 @@ class SplitModel:
                      causal=self.cfg.arch_type != "vit",
                      encoder_out=head_out.get("encoder_out"),
                      has_context=head_out.get("has_context", False),
-                     differentiable=head_out.get("differentiable", False))
+                     differentiable=head_out.get("differentiable", False),
+                     mesh=self.mesh)
 
     def body_fwd(self, body_p, smashed, head_out, *, cache=None):
         """Server-side: frozen body over the smashed activations."""

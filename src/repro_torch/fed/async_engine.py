@@ -56,11 +56,13 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.io import load_latest, save_checkpoint
+from repro_torch.checkpoint.io import load_latest
 from repro_torch.core.aggregation import get_aggregator
 from repro_torch.fed.buffer import (BufferEntry, DeltaBuffer,
                                     StalenessLedger, flush_weights)
-from repro_torch.fed.engine import _flatten_numeric, trainer_fingerprint
+from repro_torch.fed.engine import (_flatten_numeric, rank_params,
+                                    trainer_fingerprint, whole_params,
+                                    write_run)
 from repro_torch.fed.population import Population
 from repro_torch.fed.sampler import ClientSampler
 from repro_torch.fed.scheduler import (LINK_REGIMES,
@@ -511,7 +513,8 @@ class AsyncRoundEngine:
         trainer_state: Dict[str, Any] = {
             "round": np.int32(self.state["round"])}
         if self.trainer is not None:
-            trainer_state["params"] = self.state["params"]
+            trainer_state["params"] = whole_params(self.trainer,
+                                                   self.state["params"])
         state: Dict[str, Any] = {
             "trainer": trainer_state,
             "version": np.int64(self.version),
@@ -540,8 +543,8 @@ class AsyncRoundEngine:
     def save(self, ckpt_dir: str, *, keep_last: Optional[int] = 3) -> str:
         """Atomic full-run checkpoint INCLUDING the buffer and in-flight
         clients — resume replays arrivals/flushes byte-identically."""
-        return save_checkpoint(ckpt_dir, self._run_state(),
-                               step=self.version, keep_last=keep_last)
+        return write_run(self.trainer, ckpt_dir, self._run_state(),
+                         step=self.version, keep_last=keep_last)
 
     def restore(self, ckpt_dir: str) -> bool:
         """Resume from the newest checkpoint in `ckpt_dir`. Returns False
@@ -587,7 +590,8 @@ class AsyncRoundEngine:
 
         self.state = {"round": int(run["trainer"]["round"])}
         if self.trainer is not None:
-            self.state["params"] = to_device(run["trainer"]["params"])
+            self.state["params"] = rank_params(
+                self.trainer, to_device(run["trainer"]["params"]))
         self.version = int(run["version"])
         self.dispatch_idx = int(run["dispatch_idx"])
         self.t_sim = float(run["t_sim"])

@@ -23,21 +23,59 @@ package.
 The trainer fingerprint covers the trainer's hyperparameter reprs; the
 port's `ProtocolConfig` has no `impl` field, so a checkpoint written by the
 JAX package's engine fails the check here rather than resuming silently.
+
+On a mesh (an `SFPromptTrainer(mesh=...)`) every rank runs the same
+engine: the samplers and schedulers are pure functions of their seeds, so
+every rank draws the same cohort and plan. A checkpoint holds the params
+gathered whole; the lead rank alone writes it, and a restore cuts each
+rank's shards again.
 """
 from __future__ import annotations
 
+import os
 import zlib
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.io import load_latest, save_checkpoint
 from repro_torch.fed.population import Population
 from repro_torch.fed.sampler import ClientSampler
 from repro_torch.fed.scheduler import (FullParticipationScheduler, RoundPlan,
                                        RoundScheduler)
+from repro_torch.launch.mesh import is_lead
 from repro_torch.tree import tree_map
+
+
+def whole_params(trainer, params):
+    """The params a checkpoint holds: on a mesh the trainer's local shards
+    gathered whole (a collective: every rank calls it)."""
+    full = getattr(trainer, "full_params", None)
+    return params if full is None else full(params)
+
+
+def rank_params(trainer, params):
+    """Restored whole params cut to this rank's shards (identity without
+    a mesh)."""
+    shard = getattr(trainer, "shard_params", None)
+    return params if shard is None else shard(params)
+
+
+def write_run(trainer, ckpt_dir: str, state, *, step: int,
+              keep_last: Optional[int]) -> str:
+    """`save_checkpoint` on the lead rank alone; on a mesh every rank then
+    waits for the file, so a restore that follows reads it. Returns the
+    checkpoint's path."""
+    mesh = getattr(trainer, "mesh", None)
+    path = os.path.join(ckpt_dir, f"ckpt_{step:08d}.npz")
+    if is_lead(mesh):
+        path = save_checkpoint(ckpt_dir, state, step=step,
+                               keep_last=keep_last)
+    if mesh is not None:
+        dist.barrier()
+    return path
 
 
 def trainer_fingerprint(trainer) -> np.int64:
@@ -164,7 +202,8 @@ class FederatedEngine:
     def _run_state(self) -> Dict[str, Any]:
         state: Dict[str, Any] = {
             # the round rides as int32, the JAX package's layout
-            "trainer": {"params": self.state["params"],
+            "trainer": {"params": whole_params(self.trainer,
+                                               self.state["params"]),
                         "round": np.int32(self.state["round"])},
             "round_idx": np.int64(self.round_idx),
             "sampler": self.sampler.state_dict(),
@@ -185,9 +224,10 @@ class FederatedEngine:
         return state
 
     def save(self, ckpt_dir: str, *, keep_last: Optional[int] = 3) -> str:
-        """Atomic full-run checkpoint; safe to call every round."""
-        return save_checkpoint(ckpt_dir, self._run_state(),
-                               step=self.round_idx, keep_last=keep_last)
+        """Atomic full-run checkpoint; safe to call every round. On a mesh
+        every rank calls it and the lead rank writes."""
+        return write_run(self.trainer, ckpt_dir, self._run_state(),
+                         step=self.round_idx, keep_last=keep_last)
 
     def restore(self, ckpt_dir: str) -> bool:
         """Resume from the newest checkpoint in `ckpt_dir`. Returns False
@@ -222,7 +262,7 @@ class FederatedEngine:
         # bit-identical to the saved ones
         params = tree_map(lambda x: torch.from_numpy(np.array(x)).to(device),
                           run["trainer"]["params"])
-        self.state = {"params": params,
+        self.state = {"params": rank_params(self.trainer, params),
                       "round": int(run["trainer"]["round"])}
         self.round_idx = int(run["round_idx"])
         self.sampler.load_state_dict(run["sampler"])

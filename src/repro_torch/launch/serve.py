@@ -42,13 +42,25 @@ engine steps; `--trace-profiler` wraps the traced dispatches in
 `torch.profiler.record_function` ranges. `python tools/trace_check.py
 BASE.jsonl` validates the export (traced bytes == the meter's).
 
-Tensor-parallel serving (--mesh-model > 1) belongs to slice H of the port
-and exits naming it.
+Tensor-parallel serving: `--mesh-model T` (T > 1) starts T host ranks (a
+gloo group, spawned by the launcher) that serve the same trace with the
+frozen head and body cut over a ('data', 'model') mesh of 'data' 1; rank
+0 prints. On the card every rank shares the one GPU, so its rate is that
+of gloo through host memory, not of tensor parallelism. Families whose
+tensor parallelism is slice H part 2 (MoE, MLA, Mamba-2, RWKV-6) exit
+naming it:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --mesh-model 2 --requests 4 --wire int8
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
+import sys
+import warnings
 
 import torch
 
@@ -57,6 +69,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import SplitConfig, SplitModel
 from repro_torch.core.comm import serve_comm_breakdown
 from repro_torch.core.split import resolve_device
+from repro_torch.launch.mesh import is_lead, make_host_mesh, spawn_ranks
 from repro_torch.obs import MetricsRegistry, export_all, make_tracer
 from repro_torch.obs.trace import LEVELS
 from repro_torch.runtime import WireSpec
@@ -64,6 +77,7 @@ from repro_torch.runtime.meter import MB
 from repro_torch.serve import (PagedServeConfig, PagedServeEngine,
                                ServeConfig, ServeEngine, TenantBank,
                                WorkloadConfig, synthetic_requests)
+from repro_torch.sharding.parallel import refuse_part2
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 
@@ -118,14 +132,7 @@ def load_params(model: SplitModel, path: str, device) -> dict:
     return tree_map(lambda x: torch.as_tensor(x).to(device), loaded)
 
 
-def _later_slice(args) -> str:
-    if args.mesh_model > 1:
-        return ("--mesh-model > 1 is ported with the multi-device slice "
-                "(slice H)")
-    return ""
-
-
-def main(argv=None):
+def _parse(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-14b")
     ap.add_argument("--reduced", action="store_true", default=True,
@@ -162,8 +169,10 @@ def main(argv=None):
                     help="stream prompts in pieces of this many tokens "
                          "(paged engine only; default: monolithic)")
     ap.add_argument("--mesh-model", type=int, default=1,
-                    help="tensor-parallel serving (later slice); 1 = "
-                         "single-device")
+                    help="serve tensor-parallel over a (data, model) host "
+                         "mesh of this many ranks, spawned by the launcher "
+                         "(frozen body sharded, KV kv-heads sharded; 1 = "
+                         "one process)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--params", default=None,
                     help="checkpoint to serve (e.g. a training run's "
@@ -186,15 +195,46 @@ def main(argv=None):
                          "torch.profiler.record_function ranges")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: cuda)")
-    args = ap.parse_args(argv)
-    reason = _later_slice(args)
-    if reason:
-        raise SystemExit(reason)
+    return ap.parse_args(argv)
 
+
+def _model_cfg(args):
     cfg = get_config(args.arch)
     if args.reduced:
         # at least 3 layer-pattern cycles so head/body/tail are all non-empty
         cfg = cfg.reduced(n_layers=3 * len(cfg.layer_pattern))
+    return cfg
+
+
+def main(argv=None):
+    """Serve the synthetic trace; returns the engine's stats (with
+    `--mesh-model` > 1, rank 0's)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = _parse(argv)
+    if args.mesh_model <= 1:
+        return _serve(args, None)
+    resolve_device(args.device)
+    try:
+        refuse_part2(_model_cfg(args), type("Mesh", (), {"shape": {
+            "model": args.mesh_model}})())
+    except NotImplementedError as e:
+        raise SystemExit(f"multi-device serving: {e}")
+    return spawn_ranks(_rank_main, args.mesh_model, argv)[0]
+
+
+def _rank_main(argv):
+    """One host rank of a `--mesh-model` run; only rank 0 prints."""
+    args = _parse(argv)
+    mesh = make_host_mesh(args.mesh_model, model=args.mesh_model)
+    if is_lead(mesh):
+        return _serve(args, mesh)
+    warnings.simplefilter("ignore")
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        _serve(args, mesh)
+
+
+def _serve(args, mesh):
+    cfg = _model_cfg(args)
     split = SplitConfig(head_cycles=1, tail_cycles=1, prompt_len=4)
     wire = WireSpec.make(args.wire)
     model = SplitModel(cfg, split, wire)
@@ -220,7 +260,7 @@ def main(argv=None):
                              shared_prefix=shared_prefix_tokens(
                                  args.shared_prefix, cfg.vocab_size) or None,
                              prefill_chunk=args.prefill_chunk),
-            tracer=tracer, device=device)
+            mesh=mesh, tracer=tracer, device=device)
     else:
         if args.shared_prefix or args.prefill_chunk:
             raise SystemExit("--shared-prefix/--prefill-chunk need the "
@@ -229,7 +269,7 @@ def main(argv=None):
                              ServeConfig(n_slots=args.slots,
                                          max_seq=args.max_seq,
                                          decode_block=args.decode_block),
-                             tracer=tracer, device=device)
+                             mesh=mesh, tracer=tracer, device=device)
     reqs = synthetic_requests(WorkloadConfig(
         n_requests=args.requests,
         mean_interarrival=args.mean_interarrival,
@@ -285,7 +325,7 @@ def main(argv=None):
               f"{stats['prefix_hits'] + stats['prefix_misses']} "
               f"(ratio {stats['prefix_hit_ratio']:.2f}) | "
               f"prefill chunks {stats['prefill_chunks']}")
-    if tracer.enabled and args.trace_out:
+    if tracer.enabled and args.trace_out and is_lead(mesh):
         paths = export_all(tracer, args.trace_out, meter=engine.meter,
                            registry=registry)
         for fmt, p in sorted(paths.items()):

@@ -67,15 +67,29 @@ metrics-registry snapshot (the meter's totals) every N rounds;
 `torch.profiler.record_function` ranges. `python tools/trace_check.py
 BASE.jsonl` validates the export (traced bytes == the meter's).
 
-The mesh (slice H) belongs to a later slice of the port; its flags exit
-with a message naming the slice.
+Mesh: `--mesh-devices N` starts N host ranks (a gloo group, spawned by
+the launcher itself) that run the same rounds on an ('data',) mesh, each
+training its block of the cohort; `--mesh-model M` folds it to
+('data', 'model') with the frozen body tensor-parallel over M ranks;
+`--fsdp` stores large frozen leaves sharded over 'data'. Rank 0 prints
+and writes the log and checkpoints. On the card every rank shares the one
+GPU. MoE, MLA, Mamba-2, RWKV-6, Whisper and Qwen2-VL refuse `--mesh-model
+> 1` (slice H part 2) and run on a data-only mesh:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --reduced --layers 3 --dataset cifar10-syn --clients 8 --k 4 \\
+      --samples 64 --image-hw 32 --batch-size 4 --local-epochs 1 \\
+      --rounds 1 --mesh-devices 4 --mesh-model 2 --fsdp --out /tmp/m
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import sys
 import time
+import warnings
 
 import torch
 
@@ -93,11 +107,15 @@ from repro_torch.data import (DATASETS, synthetic_image_dataset,
 from repro_torch.fed import (AsyncConfig, AsyncRoundEngine, ClientSampler,
                              FederatedEngine, Population, RoundScheduler,
                              StragglerConfig)
+from repro_torch.fed.engine import rank_params, whole_params
 from repro_torch.fed.scheduler import LINK_REGIMES
+from repro_torch.launch.mesh import (check_host_mesh, is_lead,
+                                     make_host_mesh, spawn_ranks)
 from repro_torch.obs import MetricsRegistry, export_all, make_tracer
 from repro_torch.obs.trace import LEVELS
 from repro_torch.privacy.dp import calibrate_noise
 from repro_torch.runtime import WireSpec
+from repro_torch.sharding import parallel
 from repro_torch.tree import tree_map
 
 METHODS = ["sfprompt", "sfprompt-nolocal", "fl", "sfl-ff", "sfl-linear"]
@@ -122,7 +140,15 @@ def build_data(args, cfg):
     return population, test
 
 
-def build_trainer(args, model, device, tracer=None):
+def build_mesh(args):
+    """The host mesh of this rank (--mesh-devices; None without it):
+    ('data',), or ('data', 'model') with --mesh-model > 1."""
+    if not args.mesh_devices:
+        return None
+    return make_host_mesh(args.mesh_devices, model=max(1, args.mesh_model))
+
+
+def build_trainer(args, model, device, tracer=None, mesh=None):
     if not args.method.startswith("sfprompt"):
         bcfg = BaselineConfig(local_epochs=args.local_epochs,
                               batch_size=args.batch_size, lr=args.lr)
@@ -170,8 +196,8 @@ def build_trainer(args, model, device, tracer=None):
         aggregator = get_aggregator(secure=True, seed=args.seed)
     else:
         aggregator = None
-    return SFPromptTrainer(model, pcfg, aggregator, tracer=tracer,
-                           device=device)
+    return SFPromptTrainer(model, pcfg, aggregator, mesh=mesh,
+                           fsdp=args.fsdp, tracer=tracer, device=device)
 
 
 def build_scheduler(args, population, model):
@@ -218,14 +244,6 @@ def build_engine(args, trainer, population, model):
                            personalize_tails=args.personalize_tails)
 
 
-def _later_slice(args) -> str:
-    """The ROADMAP slice that brings a flag this port does not run yet, or
-    '' when every flag given is ported."""
-    if args.mesh_devices or args.mesh_model != 1 or args.fsdp:
-        return "--mesh-devices/--mesh-model/--fsdp are ported with slice H"
-    return ""
-
-
 def _refuse_for_baselines(ap, args) -> None:
     """The JAX launcher's refusals of sfprompt-only flags under a baseline
     method, with its messages."""
@@ -254,6 +272,12 @@ def _refuse_for_baselines(ap, args) -> None:
 def _refuse_runtime_mixes(ap, args) -> None:
     """The JAX launcher's refusals of edge layouts and async mixes, with
     its messages."""
+    if args.mesh_model > 1 and not args.mesh_devices:
+        ap.error("--mesh-model needs --mesh-devices: the 'model' axis is "
+                 "carved out of the host mesh")
+    if args.mesh_devices < 0:
+        ap.error("--mesh-devices takes the number of host ranks to start "
+                 "(the port has no visible-device count to default to)")
     if args.edges > 0 and args.k % args.edges != 0:
         ap.error(f"--k {args.k} must divide evenly into --edges "
                  f"{args.edges} contiguous blocks")
@@ -358,28 +382,66 @@ def parse_args(argv=None):
     ap.add_argument("--trace-profiler", action="store_true",
                     help="wrap traced device dispatches in "
                          "torch.profiler.record_function ranges")
-    # flags of a later slice: parsed so that they fail with the slice's name
-    ap.add_argument("--mesh-devices", type=int, default=0, help="(slice H)")
-    ap.add_argument("--mesh-model", type=int, default=1, help="(slice H)")
-    ap.add_argument("--fsdp", action="store_true", help="(slice H)")
+    ap.add_argument("--mesh-devices", type=int, default=0,
+                    help="run the rounds on a host mesh of this many ranks "
+                         "(spawned by the launcher; 0 = one process)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="tensor-parallel size of the mesh's 'model' axis "
+                         "(must divide --mesh-devices): the frozen body "
+                         "computes sharded — attention head-parallel, MLP "
+                         "d_ff-parallel (1 = data-only mesh)")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="FSDP-shard large frozen params over the mesh's "
+                         "data axis instead of replicating them")
     args = ap.parse_args(argv)
     _refuse_for_baselines(ap, args)
     _refuse_runtime_mixes(ap, args)
-    reason = _later_slice(args)
-    if reason:
-        ap.error(f"{reason}; this port runs on one device")
     return ap, args
+
+
+def _model_cfg(args):
+    cfg = get_config(args.arch)
+    return cfg.reduced(n_layers=args.layers) if args.reduced else cfg
+
+
+def _rank_main(argv) -> None:
+    """One host rank of a `--mesh-devices` run: the launcher's rounds on
+    this rank's mesh; only the lead rank prints."""
+    ap, args = parse_args(argv)
+    mesh = build_mesh(args)
+    if is_lead(mesh):
+        _run(ap, args, mesh)
+        return
+    warnings.simplefilter("ignore")
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        _run(ap, args, mesh)
 
 
 def main(argv=None):
     """Run the launcher with `argv` (default: the command line). Returns
     the engine (`FederatedEngine`, or `AsyncRoundEngine` under
-    `--async-buffer`) after the last round."""
+    `--async-buffer`) after the last round; with `--mesh-devices` the
+    launcher starts the ranks, waits for them and returns None."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     ap, args = parse_args(argv)
+    if not args.mesh_devices:
+        return _run(ap, args, None)
+    resolve_device(args.device)
+    try:
+        check_host_mesh(args.mesh_devices, args.mesh_devices,
+                        args.mesh_model)
+        parallel.refuse_part2(_model_cfg(args),
+                              type("Mesh", (), {"shape": {
+                                  "model": args.mesh_model}})())
+    except (ValueError, NotImplementedError) as e:
+        ap.error(str(e))
+    spawn_ranks(_rank_main, args.mesh_devices, argv)
+    return None
+
+
+def _run(ap, args, mesh):
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced(n_layers=args.layers)
+    cfg = _model_cfg(args)
     split = SplitConfig(head_cycles=args.head_cycles,
                         tail_cycles=args.tail_cycles,
                         prompt_len=args.prompt_len, prune_gamma=args.gamma,
@@ -398,8 +460,9 @@ def main(argv=None):
         trace_level = "round"
     tracer = make_tracer(trace_level, profiler=args.trace_profiler)
 
-    trainer = build_trainer(args, model, device, tracer=tracer)
+    trainer = build_trainer(args, model, device, tracer=tracer, mesh=mesh)
     engine = build_engine(args, trainer, population, model)
+    lead = is_lead(mesh)
     ckpt_dir = os.path.join(args.out, "ckpt")
 
     registry = MetricsRegistry()
@@ -422,18 +485,19 @@ def main(argv=None):
         engine.init(torch.Generator(device=device).manual_seed(args.seed))
         if args.init_params:
             warm = load_checkpoint(args.init_params)
-            params = dict(engine.state["params"])
+            params = dict(whole_params(trainer, engine.state["params"]))
             for seg in ("head", "body", "tail"):
                 if seg in warm:
                     params[seg] = tree_map(
                         lambda x: torch.as_tensor(x).to(device), warm[seg])
-            engine.state = dict(engine.state, params=params)
+            engine.state = dict(engine.state,
+                                params=rank_params(trainer, params))
 
     os.makedirs(args.out, exist_ok=True)
     log_path = os.path.join(
         args.out, f"{args.arch}_{args.method}_{args.dataset}"
         f"{'_noniid' if args.non_iid else ''}.jsonl")
-    if resumed and os.path.exists(log_path):
+    if resumed and lead and os.path.exists(log_path):
         # drop records from rounds after the restored checkpoint — they are
         # about to be replayed and would otherwise appear twice in the log
         with open(log_path) as f:
@@ -446,7 +510,9 @@ def main(argv=None):
                     pass   # torn tail line from the kill
         with open(log_path, "w") as f:
             f.writelines(kept)
-    with open(log_path, "a" if resumed else "w") as log:
+    # the lead rank keeps the log; every rank runs the rounds
+    with open(log_path if lead else os.devnull,
+              "a" if resumed else "w") as log:
         t0 = time.time()
         while progress() < args.rounds:
             r = progress()
@@ -473,11 +539,13 @@ def main(argv=None):
                 engine.save(ckpt_dir)
 
     engine.save(ckpt_dir)
-    save_checkpoint(os.path.join(args.out, "final.npz"), engine.params)
+    final = whole_params(trainer, engine.params)
+    if lead:
+        save_checkpoint(os.path.join(args.out, "final.npz"), final)
     print("saved", os.path.join(args.out, "final.npz"), "log:", log_path)
     if meter is not None:
         print(meter.report())
-    if tracer.enabled and args.trace_out:
+    if tracer.enabled and args.trace_out and lead:
         paths = export_all(tracer, args.trace_out, meter=meter,
                            registry=registry)
         for fmt, p in sorted(paths.items()):

@@ -51,6 +51,7 @@ from repro_torch.kernels.mamba2_scan.ops import mamba2_scan
 from repro_torch.kernels.rwkv6_scan import ref as rwkv6_ref
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
 from repro_torch.models.config import AttentionConfig, ModelConfig
+from repro_torch.sharding import parallel
 
 Params = Dict[str, Any]
 
@@ -161,6 +162,9 @@ class Ctx:
     #                                             engine's chunked prefill)
     differentiable: bool = False                # a pass autograd goes through:
     #                                             attention runs plain
+    mesh: Any = None                            # the DeviceMesh whose 'model'
+    #                                             axis a block's local weight
+    #                                             shards are cut over
 
     @property
     def decoding(self) -> bool:
@@ -298,11 +302,50 @@ def _gqa_attend(q, k, v, ctx: Ctx, att: AttentionConfig, *, window, softcap,
         sliding_window=window, softcap=softcap, scale=scale)
 
 
+def _column(p: Params, h: torch.Tensor, full: int, mesh) -> torch.Tensor:
+    """h @ w (+ b) for a column-parallel product whose whole output has
+    `full` columns: with a shard of the columns, the bias (replicated by
+    the rules) is cut to the same columns."""
+    w = p["w"]
+    y = h @ w.to(h.dtype)
+    if "b" in p:
+        b = p["b"]
+        if w.shape[-1] < full and b.shape[-1] == full:
+            b = parallel.model_slice(b, w.shape[-1], mesh)
+        y = y + b.to(h.dtype)
+    return y
+
+
+def _row(p: Params, x: torch.Tensor, full: int, mesh) -> torch.Tensor:
+    """x @ w (+ b) for a row-parallel product over `full` input rows: a
+    shard of the rows gives a partial sum, summed over 'model' before the
+    bias."""
+    w = p["w"]
+    y = x @ w.to(x.dtype)
+    if w.shape[0] < full:
+        y = parallel.reduce_from_model(y, mesh)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
 def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
                     cache: Optional[Params], *, kind: str = "attn"):
     """Self-attention block half (pre-norm). Returns (residual_delta, cache).
     With M-RoPE sections and (3, B, S) positions the rotary angles come
-    from `mrope_cos_sin`; otherwise from the first position stream."""
+    from `mrope_cos_sin`; otherwise from the first position stream.
+
+    Tensor-parallel on local shards (`ctx.mesh`): q/k/v are column shards
+    and o a row shard over 'model', so the head counts come from the local
+    weights. Where the shards hold whole heads (a multiple of head_dim, q
+    and kv split alike, so each rank's query heads find their GQA group's
+    kv heads locally) the rank attends its own heads against a cache of
+    its own kv heads. Where they do not — half a head a rank (2 heads on
+    'model' 4, JAX's own test mesh) — q, k and v are gathered over 'model'
+    and every rank attends all heads against a whole-head cache (the
+    rules then replicate the cache's kv-heads dim), keeping its own
+    columns for the row-parallel `o`. The partial sums of `o` are summed
+    over 'model'."""
     att = cfg.attention
     B, S, D = x.shape
     h = apply_norm(p["ln"], x, cfg.norm)
@@ -310,10 +353,26 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
     if att.mla is not None:
         return _apply_mla(p, cfg, x, h, ctx, cache, window)
     sp = _seq_pos(ctx)
-
-    q = dense(p["q"], h).reshape(B, S, att.n_heads, att.head_dim)
-    k = dense(p["k"], h).reshape(B, S, att.n_kv_heads, att.head_dim)
-    v = dense(p["v"], h).reshape(B, S, att.n_kv_heads, att.head_dim)
+    dh, mesh = att.head_dim, ctx.mesh
+    q_full, kv_full = att.n_heads * dh, att.n_kv_heads * dh
+    qc, kc = p["q"]["w"].shape[-1], p["k"]["w"].shape[-1]
+    tp = qc < q_full or kc < kv_full
+    if tp:
+        if not (qc < q_full and kc < kv_full):
+            raise NotImplementedError(
+                f"q sharded to {qc} of {q_full} columns but k to {kc} of "
+                f"{kv_full}: one is replicated")
+        h = parallel.copy_to_model(h, mesh)
+    q = _column(p["q"], h, q_full, mesh)
+    k = _column(p["k"], h, kv_full, mesh)
+    v = _column(p["v"], h, kv_full, mesh)
+    whole = qc % dh == 0 and kc % dh == 0
+    if tp and not whole:
+        q, k, v = (parallel.gather_model(t, mesh) for t in (q, k, v))
+    Hq, Hkv = q.shape[-1] // dh, k.shape[-1] // dh
+    q = q.reshape(B, S, Hq, dh)
+    k = k.reshape(B, S, Hkv, dh)
+    v = v.reshape(B, S, Hkv, dh)
 
     if att.use_rope:
         if att.mrope_sections is not None and ctx.positions.dim() == 3:
@@ -360,8 +419,10 @@ def apply_attention(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
         if ctx.mode == "prefill" and cache is not None:
             _ring_fill(cache, ("k", "v"), (k, v), sp)
 
-    out = out.reshape(B, S, att.n_heads * att.head_dim)
-    return dense(p["o"], out), cache
+    out = out.reshape(B, S, Hq * dh)
+    if tp and not whole:
+        out = parallel.model_slice(out, qc, mesh)
+    return _row(p["o"], out, q_full, mesh), cache
 
 
 def _apply_mla(p: Params, cfg: ModelConfig, x, h, ctx: Ctx, cache, window):
@@ -480,13 +541,20 @@ def _act(x, kind: str):
     raise ValueError(kind)
 
 
-def apply_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              mesh=None) -> torch.Tensor:
+    """Pre-norm MLP. On local shards (`mesh`): up/gate are column shards
+    and down a row shard of d_ff over 'model', summed over 'model'."""
     h = apply_norm(p["ln"], x, cfg.norm)
+    full = p["down"]["w"].shape[0]
+    if p["up"]["w"].shape[-1] < cfg.d_ff and mesh is not None:
+        full = cfg.d_ff
+        h = parallel.copy_to_model(h, mesh)
     if cfg.mlp_activation.endswith("_glu"):
         h = _act(dense(p["gate"], h), cfg.mlp_activation) * dense(p["up"], h)
     else:
         h = _act(dense(p["up"], h), cfg.mlp_activation)
-    return dense(p["down"], h)
+    return _row(p["down"], h, full, mesh)
 
 
 # ---------------------------------------------------------------- MoE
@@ -550,7 +618,8 @@ def apply_moe(p: Params, cfg: ModelConfig, x: torch.Tensor):
     tenant's tail on its rows alone. The group sizes come to the host
     (one device sync a call, counted in `moe_host_syncs`). The JAX
     block's sharding constraint on the dispatched rows applies under a
-    device mesh only (ROADMAP slice H) and is left out."""
+    device mesh only; expert parallelism is slice H part 2 and the
+    constraint is left out."""
     e = cfg.moe
     B, S, D = x.shape
     N, k = B * S, e.top_k

@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ATTN_KINDS, ModelConfig
+from repro_torch.sharding import parallel
 from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
@@ -75,7 +76,7 @@ def apply_block(params: Params, cfg: ModelConfig, kind: str, x, ctx: L.Ctx,
         if kind == "moe":
             delta, aux = L.apply_moe(params["moe"], cfg, x)
             return x + delta, new_cache, aux
-        x = x + L.apply_mlp(params["mlp"], cfg, x)
+        x = x + L.apply_mlp(params["mlp"], cfg, x, ctx.mesh)
         return x, new_cache, 0.0
     if kind == "mamba2":
         delta, new_cache = L.apply_mamba2(params["mamba"], cfg, x, ctx, cache)
@@ -126,13 +127,19 @@ def run_stack(cfg: ModelConfig, stacked: Params, kinds, x, ctx: L.Ctx,
     None) and is written in place. Returns (x, aux_loss, caches): the
     MoE layers' aux losses summed in layer order into a float32 scalar, as
     the JAX scan carries it; 0.0 (no tensor, no device work) for a stack
-    without MoE layers."""
+    without MoE layers. A leaf that FSDP stores sharded over 'data'
+    (`parallel.DataSharded`) is gathered one layer at a time, just before
+    that layer runs."""
     aux = 0.0
     n = _n_layers(stacked)
+    if shared is not None:
+        shared = parallel.materialize(shared, ctx.mesh)
     for layer in range(n):
         for i, kind in enumerate(kinds):
             p = (shared if kind == "shared_attn"
-                 else tree_map(lambda a: a[layer], stacked[f"pos{i}"]))
+                 else tree_map(lambda a: parallel.take_layer(a, layer,
+                                                             ctx.mesh),
+                               stacked[f"pos{i}"]))
             c = (tree_map(lambda a: a[layer], caches[f"pos{i}"])
                  if caches is not None else None)
             x, _, a = apply_block(p, cfg, kind, x, ctx, c)
@@ -182,7 +189,8 @@ def init_encoder(gen, cfg: ModelConfig, *, device="cuda") -> Params:
 
 
 def encoder_out(cfg: ModelConfig, enc_p: Params, batch, mode: str, cache,
-                dtype, differentiable: bool = False) -> torch.Tensor:
+                dtype, differentiable: bool = False,
+                mesh=None) -> torch.Tensor:
     """Whisper's encoder output (B, F, D) for a call in `mode`: decode
     reads it from `cache["encoder_out"]`; the other modes run the batch's
     frames (B, F, D) plus sinusoidal positions through the encoder layers,
@@ -197,16 +205,17 @@ def encoder_out(cfg: ModelConfig, enc_p: Params, batch, mode: str, cache,
                         device=frames.device)[None].expand(B, F_)
     h = frames + L.sinusoidal_embedding(fpos, cfg.d_model).to(dtype)
     ectx = L.Ctx(mode="train", positions=fpos, seq_pos=fpos, causal=False,
-                 differentiable=differentiable)
+                 differentiable=differentiable, mesh=mesh)
     h, _, _ = run_stack(cfg, enc_p["cycle"], ("attn",), h, ectx)
-    out = L.apply_norm(enc_p["final_norm"], h, cfg.norm)
+    out = L.apply_norm(parallel.materialize(enc_p["final_norm"], mesh), h,
+                       cfg.norm)
     if cache is not None:
         cache["encoder_out"].copy_(out)
     return out
 
 
 def embed(cfg: ModelConfig, emb: Params, batch, mode: str, prompt, dtype,
-          chunk_start=None):
+          chunk_start=None, mesh=None):
     """The embedding frontend's forward -> (x, positions, seq_pos,
     n_prefix), as the JAX package's `_embed`s.
 
@@ -221,7 +230,11 @@ def embed(cfg: ModelConfig, emb: Params, batch, mode: str, prompt, dtype,
     patches' grid positions (`mrope_positions`, (B, 3, Np)) offset by the
     prompt length and every other row's sequence index on all three
     streams (not Qwen2-VL's "largest grid position + 1"; the JAX package's
-    layout)."""
+    layout).
+
+    A token table cut into vocab rows over 'model' (`mesh`) is looked up
+    vocab-parallel: each rank gathers the rows it holds, zeros elsewhere,
+    and the rows are summed over 'model' (exact: one rank holds each)."""
     if cfg.arch_type == "vit":
         patches = batch["patches"]
         B = patches.shape[0]
@@ -239,7 +252,15 @@ def embed(cfg: ModelConfig, emb: Params, batch, mode: str, prompt, dtype,
     B, S = toks.shape
     # gather the rows, then cast them: the same values as casting the
     # whole table first, without a copy of the table at `dtype`
-    x = emb["tok"][toks.long()].to(dtype)
+    table = emb["tok"]
+    if table.shape[0] < cfg.vocab_size:
+        lo = parallel.axis_index(mesh, "model") * table.shape[0]
+        local = toks.long() - lo
+        held = (local >= 0) & (local < table.shape[0])
+        x = table[local.clamp(0, table.shape[0] - 1)].to(dtype)
+        x = parallel.reduce_sum(x * held[..., None].to(dtype), mesh, "model")
+    else:
+        x = table[toks.long()].to(dtype)
     n_prefix = 0
     if cfg.arch_type == "audio":
         # Whisper's decoder: absolute positions, no RoPE

@@ -15,8 +15,18 @@ each, copied in with `cache_write_slot`), then runs ONE batched decode
 dispatch over all slots — requests join and leave mid-flight without ever
 draining the batch.
 
+On a mesh (`mesh=`, a ('data', 'model') host mesh with 'data' 1: every
+rank runs the same host loop on the same requests) the frozen head and
+body are cut to this rank's shards by `make_step_shardings` and run
+tensor-parallel over 'model'; the head's and body's caches hold this
+rank's kv heads (`cache_pspecs`). The tenants' tails, and the tail's
+cache, stay whole on every rank, so the logits, and the tokens picked
+from them, are the same on every rank. Slots over 'data' are slice H
+part 2 and raise.
+
 Differences from the JAX engine, none of which changes a token or a byte:
-  * no mesh (multi-device serving comes with a later slice);
+  * on a mesh the tails and their caches are replicated, where the JAX
+    engine's tail cache shards its kv heads as the body's do;
   * the shared KV cache is updated in place instead of donated; a prefill
     fills a fresh blank slot cache, and admission overwrites every leaf of
     the slot with it (positions reset to -1 included), so a reused slot
@@ -46,9 +56,12 @@ from repro_torch.runtime.meter import TrafficMeter
 from repro_torch.serve.bank import TenantBank
 from repro_torch.serve.steps import (make_batched_decode_step,
                                      make_multi_decode_step,
+                                     make_step_shardings,
                                      make_tenant_prefill_step)
 from repro_torch.serve.workload import Request
-from repro_torch.tree import tree_leaves
+from repro_torch.sharding import parallel
+from repro_torch.sharding.rules import report_fallbacks
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclass(frozen=True)
@@ -83,7 +96,7 @@ class Finished:
 class ServeEngine:
     def __init__(self, model: SplitModel, shared_params, bank: TenantBank,
                  cfg: ServeConfig, *, collect_logits: bool = False,
-                 tracer=None, device="cuda"):
+                 mesh=None, tracer=None, device="cuda"):
         if model.cfg.arch_type in ("vit", "audio", "vlm") \
                 or model.cfg.encoder is not None:
             raise ValueError(
@@ -108,13 +121,28 @@ class ServeEngine:
             if leaf.device.type != self.device.type:
                 raise ValueError(f"params on {leaf.device}, engine on "
                                  f"{self.device}")
-        self.model = model
         self.bank = bank
         self.cfg = cfg
         self.collect_logits = collect_logits
         # flight recorder: observation only — the default NOOP records
         # nothing; byte-carrying records appear only at the meter flush
         self.tracer = tracer if tracer is not None else NOOP
+        self.mesh = mesh
+        if mesh is not None:
+            parallel.refuse_part2(model.cfg, mesh)
+            if parallel.axis_size(mesh, "data") > 1:
+                raise NotImplementedError(
+                    "serving with slots over 'data' is slice H part 2: "
+                    "serve on a mesh of 'model' ranks alone")
+            self.step_specs = self._mesh_specs(model)
+            self._report_fallbacks()
+            specs = self.step_specs["shared"]
+            self.shared = tree_map(
+                lambda x, spec: parallel.local_shard(x, spec, mesh).clone()
+                if any(e is not None for e in spec) else x,
+                self.shared, specs)
+            model = model.on_mesh(mesh)
+        self.model = model
         self.meter = TrafficMeter()
         self.meter.attach_tracer(self.tracer)
 
@@ -140,6 +168,21 @@ class ServeEngine:
         self.rejected = 0
         self.tokens_out = 0
         self._occupancy_sum = 0.0
+
+    def _mesh_specs(self, model) -> Dict[str, Any]:
+        """`make_step_shardings` over the whole shapes of this engine's
+        caches (built on the `meta` device)."""
+        return make_step_shardings(
+            self.mesh, self.shared,
+            cache=model.init_cache(self.cfg.n_slots, self.cfg.max_seq,
+                                   device="meta"),
+            blank=model.blank_slot_cache(self.cfg.max_seq, device="meta"))
+
+    def _report_fallbacks(self, context: str = "serve.steps") -> None:
+        """Surface the divisibility fallbacks the spec builders recorded
+        (a kv-head count that does not divide 'model' replicates the cache
+        heads): one tracer event when traced, a warning either way."""
+        report_fallbacks(context, self.tracer)
 
     def _alloc_cache(self):
         """The shared n-slot KV cache, one full `max_seq` window per slot.

@@ -40,8 +40,13 @@ to the scratch page so their in-flight (discarded) decode writes never
 touch a live page; unallocated table entries point at the null page whose
 positions stay -1, masking exactly like empty cache slots.
 
+On a mesh (see `ServeEngine`) the pool's kv heads are sharded over
+'model' (`cache_pspecs(paged=True)`: the page axis stays replicated, as
+any table may point at any page), and copy-on-write copies, slot gathers
+and scatters run on every rank's local pool alike.
+
 Differences from the JAX engine, none of which changes a token or a byte:
-no mesh; the pool is written in place by the steps and the helpers below
+the pool is written in place by the steps and the helpers below
 (the JAX engine donates it into jitted functions); every prefill fills a
 fresh blank scratch cache, because the port's prefill writes its cache in
 place; the block tables go to the device once per decode dispatch.
@@ -62,7 +67,8 @@ from repro_torch.serve.engine import (Finished, ServeConfig, ServeEngine,
 from repro_torch.serve.paging import PagePool, PrefixEntry
 from repro_torch.serve.steps import (make_chunk_continue_step,
                                      make_paged_decode_step,
-                                     make_paged_multi_decode_step)
+                                     make_paged_multi_decode_step,
+                                     make_step_shardings)
 from repro_torch.serve.workload import Request
 
 
@@ -87,7 +93,7 @@ class PagedServeConfig(ServeConfig):
 class PagedServeEngine(ServeEngine):
     def __init__(self, model: SplitModel, shared_params, bank: TenantBank,
                  cfg: PagedServeConfig, *, collect_logits: bool = False,
-                 tracer=None, device="cuda"):
+                 mesh=None, tracer=None, device="cuda"):
         reason = model.paged_cache_unsupported()
         if reason is not None:
             raise ValueError(f"{model.cfg.name}: paged serving unsupported "
@@ -97,16 +103,18 @@ class PagedServeEngine(ServeEngine):
         if cfg.prefill_chunk is not None and cfg.prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, "
                              f"got {cfg.prefill_chunk}")
-        super().__init__(model, shared_params, bank, cfg,
-                         collect_logits=collect_logits, tracer=tracer,
-                         device=device)
         ps = cfg.page_size
         self.nb_max = -(-cfg.max_seq // ps)         # blocks per slot table
         self.capacity = self.nb_max * ps            # page-rounded window
-        n_pages = (cfg.n_pages if cfg.n_pages is not None
-                   else cfg.n_slots * self.nb_max + PagePool.N_RESERVED)
-        self.pool_alloc = PagePool(n_pages, ps, tracer=self.tracer)
-        self.pool = model.init_paged_cache(n_pages, ps, dtype=torch.float32,
+        self.n_pages = (cfg.n_pages if cfg.n_pages is not None
+                        else cfg.n_slots * self.nb_max + PagePool.N_RESERVED)
+        super().__init__(model, shared_params, bank, cfg,
+                         collect_logits=collect_logits, mesh=mesh,
+                         tracer=tracer, device=device)
+        model = self.model
+        self.pool_alloc = PagePool(self.n_pages, ps, tracer=self.tracer)
+        self.pool = model.init_paged_cache(self.n_pages, ps,
+                                           dtype=torch.float32,
                                            device=self.device)
         # idle rows point every block at the SCRATCH page: idle slots keep
         # decoding for shape stability and their (discarded) writes must
@@ -131,6 +139,13 @@ class PagedServeEngine(ServeEngine):
 
     def _alloc_cache(self):
         return None   # the page pool replaces the dense shared cache
+
+    def _mesh_specs(self, model):
+        return make_step_shardings(
+            self.mesh, self.shared,
+            blank=model.blank_slot_cache(self.capacity, device="meta"),
+            pool=model.init_paged_cache(self.n_pages, self.cfg.page_size,
+                                        device="meta"))
 
     # ------------------------------------------------------ pool helpers
     def _blank(self):

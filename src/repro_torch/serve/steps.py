@@ -49,7 +49,29 @@ import torch
 
 from repro_torch.core.split import SplitModel
 from repro_torch.runtime.boundary import BOUNDARY_NAMES
+from repro_torch.sharding.rules import P, cache_pspecs, params_pspecs
 from repro_torch.tree import tree_map
+
+
+def make_step_shardings(mesh, shared, *, cache=None, blank=None, pool=None):
+    """The `P` spec trees of the serve steps' operands on a (data, model)
+    mesh, as the JAX package's `make_step_shardings` builds its
+    NamedSharding trees: the frozen head/body by `params_pspecs`
+    (attention head-parallel, MLP d_ff-parallel, vocab-parallel token
+    table), KV caches by `cache_pspecs` (slot dim over the client plane,
+    kv heads over 'model'), page pools with paged=True (the page axis
+    replicated), `blank` the batch=1 scratch cache, `repl` the replicated
+    spec. The trees hold whole shapes (leaves anything with `.shape`,
+    such as a cache built on the `meta` device); the engines cut their
+    local shards by them."""
+    out = {"repl": P(), "shared": params_pspecs(shared, mesh)}
+    if cache is not None:
+        out["cache"] = cache_pspecs(cache, mesh)
+    if blank is not None:
+        out["blank"] = cache_pspecs(blank, mesh)
+    if pool is not None:
+        out["pool"] = cache_pspecs(pool, mesh, paged=True)
+    return out
 
 
 def make_tenant_prefill_step(model: SplitModel, *, dtype=torch.float32):

@@ -372,10 +372,17 @@ def test_launcher_asks_for_cuda_by_default(tmp_path):
 
 
 @pytest.mark.parametrize("extra,slice_", [
-    (["--mesh-devices", "4"], "slice H"), (["--fsdp"], "slice H"),
-    (["--mesh-model", "2"], "slice H"),
+    (["--arch", "phi3.5-moe-42b-a6.6b", "--mesh-devices", "2",
+      "--mesh-model", "2"], "slice H"),
+    (["--arch", "zamba2-2.7b", "--mesh-devices", "4", "--mesh-model", "2",
+      "--fsdp"], "slice H"),
+    (["--arch", "whisper-base", "--mesh-devices", "2", "--mesh-model", "2"],
+     "slice H"),
 ])
 def test_unported_flags_name_their_slice(extra, slice_, capsys, tmp_path):
+    """The mesh flags run (tests/test_torch_mesh_tp.py); a 'model' axis on
+    a family whose tensor parallelism is slice H part 2 exits naming it,
+    before any rank starts."""
     with pytest.raises(SystemExit) as exc:
         ttrain.main(FLAGS + ["--out", str(tmp_path), "--device", "cpu"]
                     + extra)

@@ -200,10 +200,12 @@ def test_launcher_main_on_cpu(capsys):
     assert stats["n_finished"] == 5
     out = capsys.readouterr().out
     assert "tok/s" in out and "MB analytical" in out
-    # flags of later slices exit naming theirs (the paged flags run:
-    # tests/test_torch_paged.py)
-    with pytest.raises(SystemExit, match="multi-device"):
-        launch_serve.main(["--device", "cpu", "--mesh-model", "2"])
+    # tensor-parallel serving runs (tests/test_torch_mesh_tp.py); on a
+    # family whose tensor parallelism is slice H part 2 it exits naming it
+    # (the paged flags run: tests/test_torch_paged.py)
+    with pytest.raises(SystemExit, match="multi-device.*slice H part 2"):
+        launch_serve.main(["--device", "cpu", "--mesh-model", "2",
+                           "--arch", "rwkv6-3b"])
 
 
 def test_engine_without_device_refuses_cpu_fallback():
