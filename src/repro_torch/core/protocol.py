@@ -56,10 +56,10 @@ same numbers on any layout. The blocks' scores, trained (tail, prompt)
 and per-client metrics are then assembled on every rank by all-reduces
 over 'data', and the aggregator (clear, secure or edge) and every metric
 run replicated, in the unsharded round's order: on a data-only mesh the
-round is bit-equal to the unsharded one. Model families whose tensor
-parallelism is slice H part 2 (MoE, MLA, Mamba-2, RWKV-6, Whisper's
-encoder and cross-attention, Qwen2-VL) raise on a 'model' axis > 1 and
-run on a data-only mesh.
+round is bit-equal to the unsharded one. Every family runs on a 'model'
+axis > 1: MoE expert-parallel, MLA, Mamba-2 and RWKV-6 on a rank's heads,
+Whisper's encoder and cross-attention and Qwen2-VL as attention does
+(`models/layers.py`).
 """
 from __future__ import annotations
 
@@ -199,7 +199,6 @@ class SFPromptTrainer:
                 "dp_noise_multiplier > 0 needs dp_clip > 0: the Gaussian "
                 "noise is calibrated to the clip (sensitivity)")
         if mesh is not None:
-            parallel.refuse_part2(model.cfg, mesh)
             model = model.on_mesh(mesh)
         self.mesh = mesh
         self.fsdp = fsdp

@@ -29,7 +29,8 @@ its attention and scans then run the plain versions on every device
 (`models/layers.py`), as the JAX training round runs with `impl="ref"`.
 
 On a mesh (`on_mesh`) the frozen head and body run on this rank's local
-shards, tensor-parallel over 'model' (`sharding/parallel.py`); the tail,
+shards, tensor-parallel over 'model' (`sharding/parallel.py`), their
+caches holding the rank's kv heads, Mamba-2 heads and RWKV-6 heads; the tail,
 a client's trainable segment (a tenant's, in serving), runs whole on
 every rank. The activations that cross the wire come out of an
 all-reduce, so every 'model' rank holds the same rows and meters and
@@ -117,6 +118,22 @@ class SplitModel:
         return dataclasses.replace(self.cfg, attention=dataclasses.replace(
             att, n_kv_heads=att.n_kv_heads // t))
 
+    def _local_state_heads(self, stacks: Params) -> Params:
+        """The head's and body's recurrent states at this rank's heads, in
+        place of the whole ones: on a 'model' axis that divides them, the
+        Mamba-2 `ssm` and RWKV-6 `state` leaves (n, B, H, ., .) hold H/T
+        heads, as `cache_pspecs` shards them; conv and token-shift states
+        stay whole."""
+        t = parallel.axis_size(self.mesh, "model")
+        for stack in stacks.values():
+            for name in ("ssm", "state"):
+                leaf = stack.get(name)
+                if t > 1 and leaf is not None and leaf.shape[2] % t == 0:
+                    shape = list(leaf.shape)
+                    shape[2] //= t
+                    stack[name] = leaf.new_zeros(shape)
+        return stacks
+
     # -------------------------------------------------------------- sizes
     def segment_fractions(self):
         """(alpha, tau) parameter fractions of |W| in head and body — feeds
@@ -189,11 +206,13 @@ class SplitModel:
                                            device=device)
                     for i, kind in enumerate(cfg.layer_pattern)}
 
-        # on a mesh the head and body caches hold this rank's kv heads; the
-        # tail runs whole, and so does its cache
+        # on a mesh the head and body caches hold this rank's kv heads and
+        # recurrent-state heads; the tail runs whole, and so does its cache
         cache: Params = {
-            "head": {"stack": seg_cache(self.split.head_cycles, local)},
-            "body": {"stack": seg_cache(self.body_cycles, local)},
+            "head": {"stack": self._local_state_heads(
+                seg_cache(self.split.head_cycles, local))},
+            "body": {"stack": self._local_state_heads(
+                seg_cache(self.body_cycles, local))},
             "tail": {"stack": seg_cache(self.split.tail_cycles)},
         }
         if cfg.n_dense_layers:

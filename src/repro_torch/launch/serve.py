@@ -46,9 +46,9 @@ Tensor-parallel serving: `--mesh-model T` (T > 1) starts T host ranks (a
 gloo group, spawned by the launcher) that serve the same trace with the
 frozen head and body cut over a ('data', 'model') mesh of 'data' 1; rank
 0 prints. On the card every rank shares the one GPU, so its rate is that
-of gloo through host memory, not of tensor parallelism. Families whose
-tensor parallelism is slice H part 2 (MoE, MLA, Mamba-2, RWKV-6) exit
-naming it:
+of gloo through host memory, not of tensor parallelism. Every token
+family runs (MoE expert-parallel; MLA, Mamba-2 and RWKV-6 on a rank's
+heads):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --mesh-model 2 --requests 4 --wire int8
@@ -77,7 +77,6 @@ from repro_torch.runtime.meter import MB
 from repro_torch.serve import (PagedServeConfig, PagedServeEngine,
                                ServeConfig, ServeEngine, TenantBank,
                                WorkloadConfig, synthetic_requests)
-from repro_torch.sharding.parallel import refuse_part2
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 
@@ -214,11 +213,6 @@ def main(argv=None):
     if args.mesh_model <= 1:
         return _serve(args, None)
     resolve_device(args.device)
-    try:
-        refuse_part2(_model_cfg(args), type("Mesh", (), {"shape": {
-            "model": args.mesh_model}})())
-    except NotImplementedError as e:
-        raise SystemExit(f"multi-device serving: {e}")
     return spawn_ranks(_rank_main, args.mesh_model, argv)[0]
 
 

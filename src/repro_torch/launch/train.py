@@ -73,8 +73,8 @@ training its block of the cohort; `--mesh-model M` folds it to
 ('data', 'model') with the frozen body tensor-parallel over M ranks;
 `--fsdp` stores large frozen leaves sharded over 'data'. Rank 0 prints
 and writes the log and checkpoints. On the card every rank shares the one
-GPU. MoE, MLA, Mamba-2, RWKV-6, Whisper and Qwen2-VL refuse `--mesh-model
-> 1` (slice H part 2) and run on a data-only mesh:
+GPU. Every family runs tensor-parallel (MoE expert-parallel; MLA,
+Mamba-2 and RWKV-6 on a rank's heads):
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --reduced --layers 3 --dataset cifar10-syn --clients 8 --k 4 \\
@@ -115,7 +115,6 @@ from repro_torch.obs import MetricsRegistry, export_all, make_tracer
 from repro_torch.obs.trace import LEVELS
 from repro_torch.privacy.dp import calibrate_noise
 from repro_torch.runtime import WireSpec
-from repro_torch.sharding import parallel
 from repro_torch.tree import tree_map
 
 METHODS = ["sfprompt", "sfprompt-nolocal", "fl", "sfl-ff", "sfl-linear"]
@@ -430,10 +429,7 @@ def main(argv=None):
     try:
         check_host_mesh(args.mesh_devices, args.mesh_devices,
                         args.mesh_model)
-        parallel.refuse_part2(_model_cfg(args),
-                              type("Mesh", (), {"shape": {
-                                  "model": args.mesh_model}})())
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         ap.error(str(e))
     spawn_ranks(_rank_main, args.mesh_devices, argv)
     return None

@@ -433,7 +433,17 @@ def _apply_mla(p: Params, cfg: ModelConfig, x, h, ctx: Ctx, cache, window):
     key dims nope + rope (192 at DeepSeek-V3's widths) and value dim v
     (128), every head its own kv head (G 1). Prefill is always causal. k
     is built by `torch.cat`, so the kernels read it with a unit last-axis
-    stride."""
+    stride.
+
+    Tensor-parallel on local shards (`ctx.mesh`): the rules cut q_a, kv_a,
+    q_b and kv_b by columns and o by rows over 'model'. The two
+    down-projections' column shards cut through the latents, so their
+    outputs are gathered over 'model' and every rank normalizes the whole
+    latents, writes the same (replicated) latent cache and decompresses
+    through its own columns of q_b and kv_b, which are its heads; o's
+    partial sums are summed over 'model'. Where the shards of q_b or kv_b
+    are not whole heads, their outputs are gathered too, every rank
+    attends every head and keeps its own columns for o."""
     att = cfg.attention
     m = att.mla
     if cache is not None and "block_tables" in cache:
@@ -441,15 +451,38 @@ def _apply_mla(p: Params, cfg: ModelConfig, x, h, ctx: Ctx, cache, window):
             "paged KV cache does not support MLA latent caches")
     B, S, D = x.shape
     H, nope, rope = att.n_heads, m.qk_nope_head_dim, m.qk_rope_head_dim
-    sp = _seq_pos(ctx)
-    qk = nope + rope
+    sp, mesh = _seq_pos(ctx), ctx.mesh
+    qk, kvw = nope + rope, nope + m.v_head_dim
+    widths = {"q_a": m.q_lora_rank, "kv_a": m.kv_lora_rank + rope,
+              "q_b": H * qk, "kv_b": H * kvw}
+    tp = p["o"]["w"].shape[0] < H * m.v_head_dim
+    if not tp and any(p[n]["w"].shape[-1] < w for n, w in widths.items()):
+        raise NotImplementedError(
+            "MLA with o replicated but a projection sharded over 'model'")
+    if tp:
+        h = parallel.copy_to_model(h, mesh)
 
-    q = dense(p["q_b"], apply_norm(p["q_a_ln"], dense(p["q_a"], h),
-                                   "rmsnorm"))
-    q = q.reshape(B, S, H, qk)
+    def down(name):
+        # a down-projection's columns gathered whole over 'model'
+        y = dense(p[name], h)
+        return (parallel.gather_model(y, mesh) if y.shape[-1] < widths[name]
+                else y)
+
+    def up(name, z):
+        # an up-projection: this rank's heads, or every head gathered where
+        # the shard is not whole heads
+        y = dense(p[name], z)
+        if y.shape[-1] < widths[name] and y.shape[-1] % (widths[name] // H):
+            y = parallel.gather_model(y, mesh)
+        return y
+
+    q_lat = apply_norm(p["q_a_ln"], down("q_a"), "rmsnorm")
+    q = up("q_b", q_lat)
+    Hq = q.shape[-1] // qk
+    q = q.reshape(B, S, Hq, qk)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
 
-    kv_a = dense(p["kv_a"], h)
+    kv_a = down("kv_a")
     ckv = apply_norm(p["kv_a_ln"], kv_a[..., :m.kv_lora_rank], "rmsnorm")
     k_rope = kv_a[..., m.kv_lora_rank:]                     # (B, S, rope)
 
@@ -459,8 +492,8 @@ def _apply_mla(p: Params, cfg: ModelConfig, x, h, ctx: Ctx, cache, window):
     qfull = torch.cat([q_nope, q_rope], dim=-1)
 
     def decompress(ckv_seq):
-        kv = dense(p["kv_b"], ckv_seq)
-        kv = kv.reshape(*ckv_seq.shape[:-1], H, nope + m.v_head_dim)
+        kv = up("kv_b", ckv_seq)
+        kv = kv.reshape(*ckv_seq.shape[:-1], Hq, kvw)
         return kv[..., :nope], kv[..., nope:]
 
     scale = qk ** -0.5
@@ -468,22 +501,25 @@ def _apply_mla(p: Params, cfg: ModelConfig, x, h, ctx: Ctx, cache, window):
         _cache_write(cache, ("ckv", "kr"), (ckv, k_rope[:, :, 0]), sp[:, 0])
         k_nope, v = decompress(cache["ckv"])                # (B, W, H, ·)
         kr = cache["kr"][:, :, None, :].to(k_nope.dtype)
-        k = torch.cat([k_nope, kr.expand(-1, -1, H, -1)], dim=-1)
+        k = torch.cat([k_nope, kr.expand(-1, -1, Hq, -1)], dim=-1)
         out = decode_attention(
             qfull, k, v, q_positions=sp[:, 0],
             kv_positions=cache["positions"], sliding_window=window,
             softcap=att.attn_logit_softcap, scale=scale)
     else:
         k_nope, v = decompress(ckv)
-        k = torch.cat([k_nope, k_rope.expand(-1, -1, H, -1)], dim=-1)
+        k = torch.cat([k_nope, k_rope.expand(-1, -1, Hq, -1)], dim=-1)
         out = _gqa_attend(qfull, k, v, ctx, att, window=window,
                           softcap=att.attn_logit_softcap, causal=True,
                           scale=scale)
         if ctx.mode == "prefill" and cache is not None:
             _ring_fill(cache, ("ckv", "kr"), (ckv, k_rope[:, :, 0]), sp)
 
-    out = out.reshape(B, S, H * m.v_head_dim)
-    return dense(p["o"], out), cache
+    out = out.reshape(B, S, Hq * m.v_head_dim)
+    rows = p["o"]["w"].shape[0]
+    if out.shape[-1] > rows:
+        out = parallel.model_slice(out, rows, mesh)
+    return _row(p["o"], out, H * m.v_head_dim, mesh), cache
 
 
 def init_cross_attention_extra(gen, cfg: ModelConfig, *,
@@ -504,18 +540,36 @@ def init_cross_attention_extra(gen, cfg: ModelConfig, *,
 def apply_cross_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
                           ctx: Ctx) -> torch.Tensor:
     """Cross-attention to ctx.encoder_out (Whisper's decoder): every query
-    over every frame, no positions, no mask. Returns the residual delta."""
+    over every frame, no positions, no mask. Returns the residual delta.
+
+    Tensor-parallel on local shards (`ctx.mesh`) as `apply_attention`:
+    cq/ck/cv column shards (their inputs, the normed stream and the
+    encoder output, through `copy_to_model`) and co a row shard summed
+    over 'model'. Shards that are not whole heads are refused."""
     att = cfg.attention
     B, S, D = x.shape
     h = apply_norm(p["ln_cross"], x, cfg.norm)
-    enc = ctx.encoder_out
+    enc, mesh, dh = ctx.encoder_out, ctx.mesh, att.head_dim
     F_ = enc.shape[1]
-    q = dense(p["cq"], h).reshape(B, S, att.n_heads, att.head_dim)
-    k = dense(p["ck"], enc).reshape(B, F_, att.n_kv_heads, att.head_dim)
-    v = dense(p["cv"], enc).reshape(B, F_, att.n_kv_heads, att.head_dim)
+    q_full, kv_full = att.n_heads * dh, att.n_kv_heads * dh
+    qc, kc = p["cq"]["w"].shape[-1], p["ck"]["w"].shape[-1]
+    tp = qc < q_full
+    if tp and (qc % dh or kc % dh):
+        raise NotImplementedError(
+            "cross-attention with q/k/v shards over 'model' that are not "
+            "whole heads")
+    if tp:
+        h = parallel.copy_to_model(h, mesh)
+        enc = parallel.copy_to_model(enc, mesh)
+    q = _column(p["cq"], h, q_full, mesh)
+    k = _column(p["ck"], enc, kv_full, mesh)
+    v = _column(p["cv"], enc, kv_full, mesh)
+    q = q.reshape(B, S, -1, dh)
+    k = k.reshape(B, F_, -1, dh)
+    v = v.reshape(B, F_, -1, dh)
     out = _gqa_attend(q, k, v, ctx, att, window=None, softcap=None,
-                      causal=False)
-    return dense(p["co"], out.reshape(B, S, -1))
+                      causal=False).reshape(B, S, -1)
+    return _row(p["co"], out, q_full, mesh)
 
 
 # ---------------------------------------------------------------- MLP
@@ -604,7 +658,7 @@ def router_margin(p: Params, cfg: ModelConfig, x: torch.Tensor) -> float:
     return float((sorted_p[:, k - 1] - sorted_p[:, k]).min())
 
 
-def apply_moe(p: Params, cfg: ModelConfig, x: torch.Tensor):
+def apply_moe(p: Params, cfg: ModelConfig, x: torch.Tensor, mesh=None):
     """Token-choice top-k MoE with DROPLESS sort-based dispatch, the port of
     `repro/models/layers.py:469-527`. Returns (delta, aux), aux the
     Switch-style load-balance loss as a float32 scalar.
@@ -616,10 +670,19 @@ def apply_moe(p: Params, cfg: ModelConfig, x: torch.Tensor):
     their tokens. No token is ever dropped, so a row's result does not
     depend on the other rows in the batch: the decode step may run a
     tenant's tail on its rows alone. The group sizes come to the host
-    (one device sync a call, counted in `moe_host_syncs`). The JAX
-    block's sharding constraint on the dispatched rows applies under a
-    device mesh only; expert parallelism is slice H part 2 and the
-    constraint is left out."""
+    (one device sync a call, counted in `moe_host_syncs`).
+
+    Expert-parallel on local shards (`mesh`): a rank holding E/T of the
+    experts (the rules cut them over 'model') runs only their row ranges,
+    at global expert offset rank * E/T, scatter-adds them into zeros and
+    sums the partial outputs over 'model' (with the shared expert's
+    row-parallel partials, in one all-reduce). The routing and the aux
+    loss are computed replicated, from the replicated residual stream, so
+    they are the same on every rank and their gradient counts once; the
+    rows the local experts take and their weights pass through
+    `copy_to_model`, whose backward sums the ranks' partial gradients.
+    Where E does not divide 'model' the rules replicate the experts and
+    every rank runs all of them, with nothing to sum."""
     e = cfg.moe
     B, S, D = x.shape
     N, k = B * S, e.top_k
@@ -637,10 +700,20 @@ def apply_moe(p: Params, cfg: ModelConfig, x: torch.Tensor):
     sizes = torch.bincount(flat_e, minlength=e.n_experts).tolist()
     global moe_host_syncs
     moe_host_syncs += 1
-    xs = flat[tok]                                             # (N*k, D)
     we = p["experts"]
+    n_local = we["up"].shape[0]
+    ep = n_local < e.n_experts
+    first = parallel.axis_index(mesh, "model") * n_local if ep else 0
+    lo = sum(sizes[:first])
+    hi = lo + sum(sizes[first:first + n_local])
+    if ep:
+        flat = parallel.copy_to_model(flat, mesh)
+        top_p = parallel.copy_to_model(top_p, mesh)
+    mine = tok[lo:hi]
+    xs = flat[mine]                                            # (rows, D)
     outs, start = [], 0
-    for expert, n in enumerate(sizes):
+    for expert in range(n_local):
+        n = sizes[first + expert]
         if n:
             rows = xs[start:start + n]
             gate = rows @ we["gate"][expert].to(h.dtype)
@@ -648,17 +721,28 @@ def apply_moe(p: Params, cfg: ModelConfig, x: torch.Tensor):
             outs.append((_act(gate, "silu_glu") * up)
                         @ we["down"][expert].to(h.dtype))
             start += n
-    ys = torch.cat(outs)
-    gathered = ys * top_p.reshape(-1)[order][:, None].to(h.dtype)
-    y = torch.zeros((N, D), dtype=h.dtype, device=x.device).index_add(
-        0, tok, gathered).reshape(B, S, D)
+    y = torch.zeros((N, D), dtype=h.dtype, device=x.device)
+    if outs:
+        gathered = torch.cat(outs) * top_p.reshape(-1)[order[lo:hi]][
+            :, None].to(h.dtype)
+        y = y.index_add(0, mine, gathered)
+    y = y.reshape(B, S, D)
 
+    partial, whole = ([y], []) if ep else ([], [y])
     if "shared" in p:
+        # column-parallel gate/up and row-parallel down, as `apply_mlp`
         sh = p["shared"]
-        hshared = _act(dense(sh["gate"], h), "silu_glu") * dense(sh["up"], h)
-        y = y + dense(sh["down"], hshared)
-    return y, aux
-
+        sh_tp = sh["up"]["w"].shape[-1] < e.d_ff_expert * e.n_shared_experts
+        hs = parallel.copy_to_model(h, mesh) if sh_tp else h
+        hshared = _act(dense(sh["gate"], hs), "silu_glu") * dense(sh["up"],
+                                                                  hs)
+        (partial if sh_tp else whole).append(dense(sh["down"], hshared))
+    out = None
+    if partial:
+        out = parallel.reduce_from_model(sum(partial[1:], partial[0]), mesh)
+    for t in whole:
+        out = t if out is None else out + t
+    return out, aux
 
 
 # ---------------------------------------------------------------- Mamba-2
@@ -717,14 +801,37 @@ def apply_mamba2(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
     SSD scan -> D skip, SiLU(z) gate, RMSNorm -> out_proj. Returns
     (residual_delta, cache). `F.softplus` returns x above 20 where
     `jax.nn.softplus` is logaddexp(x, 0); the two agree to f32 rounding
-    there."""
+    there.
+
+    Tensor-parallel on local shards (`ctx.mesh`): the rules cut in_proj's
+    columns (the concatenation [z | x | B | C | dt], cut inside x) and
+    out_proj's rows (d_inner) over 'model' and replicate the conv, A_log,
+    D, dt_bias and the gated norm. The in_proj output is gathered over
+    'model' and the conv runs on every channel, so the replicated conv
+    cache is the same on every rank; a rank then scans the heads whose
+    d_inner rows its out_proj holds (H/T of them, with its slice of the
+    `ssm` cache), gathers the gated output for the norm over the whole
+    d_inner and keeps its own columns for out_proj, whose partial sums
+    are summed over 'model'. Shards that are not whole heads (H not
+    divisible by 'model') are refused."""
     m = cfg.mamba2
     B, S, D = x.shape
     di = m.d_inner(D)
     H = m.n_heads(D)
     G, N = 1, m.d_state
+    mesh = ctx.mesh
     h = apply_norm(p["ln"], x, cfg.norm)
+    rows = p["out_proj"]["w"].shape[0]
+    tp = rows < di
+    if tp and H % (di // rows):
+        raise NotImplementedError(
+            f"Mamba-2 with {H} heads over a 'model' axis of {di // rows}: "
+            f"the shards are not whole heads")
+    if tp:
+        h = parallel.copy_to_model(h, mesh)
     zxbcdt = dense(p["in_proj"], h)
+    if zxbcdt.shape[-1] < 2 * di + 2 * G * N + H:
+        zxbcdt = parallel.gather_model(zxbcdt, mesh)
     z, xin, BC, dt = torch.split(zxbcdt, [di, di, 2 * G * N, H], dim=-1)
     conv_in = torch.cat([xin, BC], dim=-1)
     prev = cache["conv"] if cache is not None else None
@@ -732,10 +839,21 @@ def apply_mamba2(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
                                         prev)
     conv_out = F.silu(conv_out)
     xin, Bm, Cm = torch.split(conv_out, [di, G * N, G * N], dim=-1)
-    dt = F.softplus(dt.float() + p["dt_bias"])                  # (B, S, H)
-    A = -torch.exp(p["A_log"])
+    A_log, Dskip, dt_bias = p["A_log"], p["D"], p["dt_bias"]
+    if tp:
+        # this rank's heads: those of its out_proj rows
+        hl = rows // m.head_dim
+        i = parallel.axis_index(mesh, "model")
+        heads = slice(i * hl, (i + 1) * hl)
+        xin = parallel.model_slice(xin, rows, mesh)
+        z = parallel.model_slice(z, rows, mesh)
+        dt, A_log, Dskip, dt_bias = (t[..., heads] for t in
+                                     (dt, A_log, Dskip, dt_bias))
+    Hl = dt.shape[-1]
+    dt = F.softplus(dt.float() + dt_bias)                       # (B, S, Hl)
+    A = -torch.exp(A_log)
 
-    xh = xin.reshape(B, S, H, m.head_dim)
+    xh = xin.reshape(B, S, Hl, m.head_dim)
     # the scan writes the final state into the cache in place (the
     # differentiated plain version returns it and the cache takes a copy)
     ssm = cache["ssm"] if cache is not None else None
@@ -747,12 +865,16 @@ def apply_mamba2(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
             ssm.copy_(new_ssm)
     else:
         y, _ = mamba2_scan(*scan_in, state_out=ssm)
-    y = y + p["D"].to(y.dtype)[None, None, :, None] * xh
-    y = y.reshape(B, S, di) * F.silu(z)
-    y = apply_norm(p["norm"], y, "rmsnorm")
+    y = y + Dskip.to(y.dtype)[None, None, :, None] * xh
+    y = y.reshape(B, S, Hl * m.head_dim) * F.silu(z)
+    if tp:
+        y = parallel.model_slice(apply_norm(
+            p["norm"], parallel.gather_model(y, mesh), "rmsnorm"), rows, mesh)
+    else:
+        y = apply_norm(p["norm"], y, "rmsnorm")
     if cache is not None:
         cache["conv"].copy_(new_prev)
-    return dense(p["out_proj"], y), cache
+    return _row(p["out_proj"], y, di, mesh), cache
 
 
 # ---------------------------------------------------------------- RWKV-6
@@ -814,49 +936,93 @@ def apply_rwkv6(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
     channel-mix, each with token-shift [arXiv:2404.05892]. Returns
     (tdelta + cdelta, cache): the caller adds it to the residual stream,
     and the channel mix reads x + tdelta. The per-head group norm takes eps
-    1e-5, as the JAX block does (not `apply_norm`'s 1e-6)."""
+    1e-5, as the JAX block does (not `apply_norm`'s 1e-6).
+
+    Tensor-parallel on local shards (`ctx.mesh`): the rules cut r, k, v, g
+    by columns and o by rows (attention's rules), ck by columns over d_ff,
+    and cv and cr — which the attention rule's names match — by columns
+    over D; u, w0, the decay LoRA, the lerps and the group norm are
+    replicated. The time mix scans this rank's heads (those of its r/k/v
+    columns, with its slice of the `state` cache; the decay from the
+    replicated LoRA and u, w0 and the group norm cut to the same heads)
+    and sums o's partial outputs over 'model'. The channel mix gathers
+    ck's output over 'model' before cv, and its D/T columns of the delta
+    are gathered into the replicated residual stream by
+    `gather_replicated`, whose backward keeps this rank's slice. The
+    token-shift caches stay whole. Where the heads do not divide 'model',
+    r, k, v and g are gathered and every rank scans every head, keeping
+    its own columns for o. A channel mix with only one of ck and cv
+    sharded is refused."""
     r6 = cfg.rwkv6
     B, S, D = x.shape
     H, K = D // r6.head_size, r6.head_size
+    mesh = ctx.mesh
 
     # ---- time mix
     h = apply_norm(p["ln_t"], x, "layernorm")
-    xx = _token_shift(h, cache["shift_t"] if cache is not None else None)
-    mr, mk, mv, mw, mg = (h + (xx - h) * p["mu"][i].to(h.dtype)
+    cols = p["r"]["w"].shape[-1]
+    tp = cols < D
+    ctp = p["cv"]["w"].shape[-1] < D
+    if ctp != (p["ck"]["w"].shape[-1] < cfg.d_ff):
+        raise NotImplementedError(
+            "RWKV-6's channel mix with one of ck and cv sharded over "
+            "'model' and the other whole")
+    hm = parallel.copy_to_model(h, mesh) if tp else h
+    xx = _token_shift(hm, cache["shift_t"] if cache is not None else None)
+    mr, mk, mv, mw, mg = (hm + (xx - hm) * p["mu"][i].to(h.dtype)
                           for i in range(5))
-    r = dense(p["r"], mr).reshape(B, S, H, K)
-    k = dense(p["k"], mk).reshape(B, S, H, K)
-    v = dense(p["v"], mv).reshape(B, S, H, K)
-    g = F.silu(dense(p["g"], mg))
+    r, k, v, g = (dense(p[n], t) for n, t in
+                  (("r", mr), ("k", mk), ("v", mv), ("g", mg)))
     # data-dependent decay (Finch): w = w0 + tanh(mw A) B, log-decay -exp(w)
     wdd = p["w0"] + torch.tanh(mw.float() @ p["w_lora_a"]) @ p["w_lora_b"]
-    w = -torch.exp(wdd).reshape(B, S, H, K)
+    u, gn = p["u"], p["gn"]
+    local = tp and H % (D // cols) == 0
+    if local:
+        # this rank's heads: those of its r/k/v/g columns and o rows
+        i = parallel.axis_index(mesh, "model")
+        wdd = parallel.model_slice(wdd, cols, mesh)
+        u = u[i * (cols // K):(i + 1) * (cols // K)]
+        gn = {n: parallel.model_slice(t, cols, mesh) for n, t in gn.items()}
+    elif tp:
+        r, k, v, g = (parallel.gather_model(t, mesh) for t in (r, k, v, g))
+    Hl = r.shape[-1] // K
+    r, k, v = (t.reshape(B, S, Hl, K) for t in (r, k, v))
+    g = F.silu(g)
+    w = -torch.exp(wdd).reshape(B, S, Hl, K)
 
     # the scan writes the final state into the cache in place (the
     # differentiated plain version returns it and the cache takes a copy)
     state = cache["state"] if cache is not None else None
     if ctx.differentiable:
-        y, new_state = rwkv6_ref.rwkv6_scan(r, k, v, w, p["u"], state)
+        y, new_state = rwkv6_ref.rwkv6_scan(r, k, v, w, u, state)
         if state is not None:
             state.copy_(new_state)
     else:
-        y, _ = rwkv6_scan(r, k, v, w, p["u"], state, state_out=state)
+        y, _ = rwkv6_scan(r, k, v, w, u, state, state_out=state)
     # per-head group norm
-    yg = y.reshape(B, S, H, K).float()
+    yg = y.reshape(B, S, Hl, K).float()
     mu = yg.mean(-1, keepdim=True)
     var = ((yg - mu) ** 2).mean(-1, keepdim=True)
-    yg = ((yg - mu) * torch.rsqrt(var + 1e-5)).reshape(B, S, D)
-    y = (yg * p["gn"]["scale"] + p["gn"]["bias"]).to(x.dtype) * g
-    tdelta = dense(p["o"], y)
+    yg = ((yg - mu) * torch.rsqrt(var + 1e-5)).reshape(B, S, Hl * K)
+    y = (yg * gn["scale"] + gn["bias"]).to(x.dtype) * g
+    if tp and not local:
+        y = parallel.model_slice(y, p["o"]["w"].shape[0], mesh)
+    tdelta = _row(p["o"], y, D, mesh)
     x = x + tdelta
 
     # ---- channel mix
     hc = apply_norm(p["ln_c"], x, "layernorm")
-    xxc = _token_shift(hc, cache["shift_c"] if cache is not None else None)
-    mkc = hc + (xxc - hc) * p["mu_c"][0].to(hc.dtype)
-    mrc = hc + (xxc - hc) * p["mu_c"][1].to(hc.dtype)
+    hcm = parallel.copy_to_model(hc, mesh) if ctp else hc
+    xxc = _token_shift(hcm, cache["shift_c"] if cache is not None else None)
+    mkc = hcm + (xxc - hcm) * p["mu_c"][0].to(hc.dtype)
+    mrc = hcm + (xxc - hcm) * p["mu_c"][1].to(hc.dtype)
     kk = F.relu(dense(p["ck"], mkc))
+    if ctp:
+        # cv's column shards leave kk's gradient partial a rank
+        kk = parallel.gather_model(kk, mesh)
     cdelta = torch.sigmoid(dense(p["cr"], mrc)) * dense(p["cv"], kk * kk)
+    if ctp:
+        cdelta = parallel.gather_replicated(cdelta, mesh)
 
     if cache is not None:
         cache["shift_t"].copy_(h[:, -1])

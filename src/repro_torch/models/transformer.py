@@ -74,7 +74,7 @@ def apply_block(params: Params, cfg: ModelConfig, kind: str, x, ctx: L.Ctx,
         if kind == "cross_attn":
             x = x + L.apply_cross_attention(params["attn"], cfg, x, ctx)
         if kind == "moe":
-            delta, aux = L.apply_moe(params["moe"], cfg, x)
+            delta, aux = L.apply_moe(params["moe"], cfg, x, ctx.mesh)
             return x + delta, new_cache, aux
         x = x + L.apply_mlp(params["mlp"], cfg, x, ctx.mesh)
         return x, new_cache, 0.0

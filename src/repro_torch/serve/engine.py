@@ -17,12 +17,14 @@ draining the batch.
 
 On a mesh (`mesh=`, a ('data', 'model') host mesh with 'data' 1: every
 rank runs the same host loop on the same requests) the frozen head and
-body are cut to this rank's shards by `make_step_shardings` and run
+body, given whole or already as this rank's blocks, are cut to this
+rank's shards by `make_step_shardings` and run
 tensor-parallel over 'model'; the head's and body's caches hold this
-rank's kv heads (`cache_pspecs`). The tenants' tails, and the tail's
-cache, stay whole on every rank, so the logits, and the tokens picked
-from them, are the same on every rank. Slots over 'data' are slice H
-part 2 and raise.
+rank's kv heads, Mamba-2 heads and RWKV-6 heads (`cache_pspecs`; MLA's
+latent and the recurrent conv and token-shift states stay whole). The
+tenants' tails, and the tail's cache, stay whole on every rank, so the
+logits, and the tokens picked from them, are the same on every rank.
+Slots over 'data' are slice H part 3 and raise.
 
 Differences from the JAX engine, none of which changes a token or a byte:
   * on a mesh the tails and their caches are replicated, where the JAX
@@ -129,18 +131,16 @@ class ServeEngine:
         self.tracer = tracer if tracer is not None else NOOP
         self.mesh = mesh
         if mesh is not None:
-            parallel.refuse_part2(model.cfg, mesh)
             if parallel.axis_size(mesh, "data") > 1:
                 raise NotImplementedError(
-                    "serving with slots over 'data' is slice H part 2: "
+                    "serving with slots over 'data' is slice H part 3: "
                     "serve on a mesh of 'model' ranks alone")
-            self.step_specs = self._mesh_specs(model)
+            whole = model.init(torch.Generator(), device="meta")
+            whole = {"head": whole["head"], "body": whole["body"]}
+            self.step_specs = self._mesh_specs(model, whole)
             self._report_fallbacks()
-            specs = self.step_specs["shared"]
-            self.shared = tree_map(
-                lambda x, spec: parallel.local_shard(x, spec, mesh).clone()
-                if any(e is not None for e in spec) else x,
-                self.shared, specs)
+            self.shared = tree_map(self._local_leaf, self.shared, whole,
+                                   self.step_specs["shared"])
             model = model.on_mesh(mesh)
         self.model = model
         self.meter = TrafficMeter()
@@ -169,11 +169,25 @@ class ServeEngine:
         self.tokens_out = 0
         self._occupancy_sum = 0.0
 
-    def _mesh_specs(self, model) -> Dict[str, Any]:
-        """`make_step_shardings` over the whole shapes of this engine's
-        caches (built on the `meta` device)."""
+    def _local_leaf(self, x, whole, spec):
+        """This rank's block of a frozen leaf given whole (cut and copied),
+        or the leaf itself where it is already this rank's block (a rank
+        that drew or loaded only its shards)."""
+        local = tuple(parallel.local_shard(whole, spec, self.mesh).shape)
+        if tuple(x.shape) == local:
+            return x
+        if tuple(x.shape) != tuple(whole.shape):
+            raise ValueError(f"a frozen leaf of shape {tuple(x.shape)} is "
+                             f"neither whole {tuple(whole.shape)} nor this "
+                             f"rank's block {local}")
+        return parallel.local_shard(x, spec, self.mesh).clone()
+
+    def _mesh_specs(self, model, whole) -> Dict[str, Any]:
+        """`make_step_shardings` over the whole shapes of the frozen head
+        and body and of this engine's caches (built on the `meta`
+        device)."""
         return make_step_shardings(
-            self.mesh, self.shared,
+            self.mesh, whole,
             cache=model.init_cache(self.cfg.n_slots, self.cfg.max_seq,
                                    device="meta"),
             blank=model.blank_slot_cache(self.cfg.max_seq, device="meta"))

@@ -140,9 +140,9 @@ class PagedServeEngine(ServeEngine):
     def _alloc_cache(self):
         return None   # the page pool replaces the dense shared cache
 
-    def _mesh_specs(self, model):
+    def _mesh_specs(self, model, whole):
         return make_step_shardings(
-            self.mesh, self.shared,
+            self.mesh, whole,
             blank=model.blank_slot_cache(self.capacity, device="meta"),
             pool=model.init_paged_cache(self.n_pages, self.cfg.page_size,
                                         device="meta"))

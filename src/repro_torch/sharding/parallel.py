@@ -12,7 +12,11 @@ collectives below where a partitioned computation needs one:
   `torch.distributed.nn.functional.all_reduce`, whose backward reduces
   the gradient again and multiplies it by the model size.)
 * `gather_model` — all-gather over 'model' along the last dim forward,
-  all-reduce and this rank's slice backward: split heads gathered whole;
+  all-reduce and this rank's slice backward: split heads gathered whole,
+  or a column product's output feeding compute that stays partial a rank;
+* `gather_replicated` — the same forward, but its backward keeps this
+  rank's slice without a sum: a column product's output gathered into
+  replicated compute (RWKV-6's channel mix into the residual stream);
 * `gather_axis` / `reduce_sum` — the same gathers and sums outside
   autograd (client blocks over 'data', FSDP leaves, vocab-parallel rows).
 
@@ -146,6 +150,13 @@ class _GatherModel(torch.autograd.Function):
         return g[..., i * ctx.width:(i + 1) * ctx.width], None
 
 
+class _GatherReplicated(_GatherModel):
+    @staticmethod
+    def backward(ctx, g):
+        i = axis_index(ctx.mesh, "model")
+        return g[..., i * ctx.width:(i + 1) * ctx.width].contiguous(), None
+
+
 def _tracked(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -176,6 +187,19 @@ def gather_model(x: torch.Tensor, mesh) -> torch.Tensor:
     if not _tracked(x):
         return gather_axis(x.contiguous(), x.dim() - 1, mesh, "model")
     return _GatherModel.apply(x, mesh)
+
+
+def gather_replicated(x: torch.Tensor, mesh) -> torch.Tensor:
+    """All-gather the last dim over 'model' into a tensor that every rank
+    then uses whole in replicated compute. Every rank's gradient of the
+    gathered tensor is then already the whole gradient, so the backward
+    keeps this rank's slice and sums nothing (`gather_model`'s sum would
+    count it once a rank)."""
+    if axis_size(mesh, "model") == 1:
+        return x
+    if not _tracked(x):
+        return gather_axis(x.contiguous(), x.dim() - 1, mesh, "model")
+    return _GatherReplicated.apply(x, mesh)
 
 
 def model_slice(x: torch.Tensor, width: int, mesh) -> torch.Tensor:
@@ -230,28 +254,6 @@ def materialize(tree: Any, mesh) -> Any:
     if isinstance(tree, DataSharded):
         return tree.gather(mesh)
     return tree
-
-
-def refuse_part2(cfg, mesh) -> None:
-    """Raise for a 'model' axis > 1 on a family whose tensor parallelism
-    is not ported (slice H part 2); data-only meshes run every family."""
-    if axis_size(mesh, "model") == 1:
-        return
-    kinds = set(cfg.layer_pattern)
-    att = cfg.attention
-    parts = [what for what, hit in (
-        ("MoE experts", "moe" in kinds),
-        ("MLA", att is not None and att.mla is not None),
-        ("Mamba-2 heads", "mamba2" in kinds),
-        ("RWKV-6 heads", "rwkv6" in kinds),
-        ("Whisper's encoder and cross-attention",
-         cfg.encoder is not None or "cross_attn" in kinds),
-        ("Qwen2-VL", cfg.arch_type == "vlm")) if hit]
-    if parts:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over 'model' for "
-            f"{', '.join(parts)} is slice H part 2; run it on a data-only "
-            f"mesh (model 1)")
 
 
 # ---------------------------------------------------------- client plane

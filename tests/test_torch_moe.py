@@ -65,9 +65,9 @@ def margin_probe():
     inside the block; yields the list of margins."""
     margins, inner = [], L.apply_moe
 
-    def probe(p, cfg, x):
+    def probe(p, cfg, x, *mesh):
         margins.append(L.router_margin(p, cfg, x))
-        return inner(p, cfg, x)
+        return inner(p, cfg, x, *mesh)
     L.apply_moe = probe
     try:
         yield margins

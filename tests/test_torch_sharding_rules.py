@@ -245,13 +245,30 @@ def test_make_host_mesh_refusals_as_jax():
 
 
 def test_part2_families_refuse_a_model_axis():
+    """Slice H part 2 is ported: no family refuses a 'model' axis any
+    more, and at 'model' 2 the rules record no divisibility fallback for
+    the six it brought at their reduced widths; at their published widths
+    (shapes only) none in a block: whisper-base's odd vocabulary (51865)
+    alone replicates its token table and LM head."""
+    import torch
+
     from repro_torch.configs import get_config
+    from repro_torch.core import SplitConfig, SplitModel
+    from repro_torch.tree import tree_leaves
+    assert not hasattr(parallel, "refuse_part2")
     tp = stub({"data": 1, "model": 2})
+    split = SplitConfig(head_cycles=1, tail_cycles=1, prompt_len=4)
     for arch in ("phi3.5-moe-42b-a6.6b", "deepseek-v3-671b", "zamba2-2.7b",
                  "rwkv6-3b", "whisper-base", "qwen2-vl-72b"):
-        with pytest.raises(NotImplementedError, match="slice H part 2"):
-            parallel.refuse_part2(get_config(arch), tp)
-        parallel.refuse_part2(get_config(arch), stub({"data": 4}))
-    for arch in ("qwen2.5-14b", "gemma2-9b", "stablelm-12b",
-                 "nemotron-4-340b", "vit-base"):
-        parallel.refuse_part2(get_config(arch), tp)
+        base = get_config(arch)
+        for cfg in (base.reduced(n_layers=3 * len(base.layer_pattern)),
+                    base):
+            params = SplitModel(cfg, split).init(torch.Generator(),
+                                                 device="meta")
+            rules.pop_sharding_fallbacks()
+            specs = rules.params_pspecs(params, tp)
+            vocab = (("embed/tok", "head/w") if cfg is base
+                     and arch == "whisper-base" else ())
+            assert [path for path, _, _ in rules.pop_sharding_fallbacks()
+                    if not path.endswith(vocab)] == [], (arch, cfg.name)
+            assert any("model" in s for s in tree_leaves(specs["body"]))

@@ -435,14 +435,13 @@ def test_trainer_defaults_to_cuda_and_refuses_unported_paths():
     with pytest.raises(ValueError, match="dp_clip"):
         SFPromptTrainer(tm, ProtocolConfig(dp_noise_multiplier=1.0),
                         device="cpu")
-    # the mesh is ported (slice H part 1); a 'model' axis on a family
-    # whose tensor parallelism is part 2 raises naming it
+    # the mesh is ported (slice H parts 1 and 2): a 'model' axis on an
+    # MoE family is taken (tests/test_torch_mesh_moe.py runs it)
     moe = SplitModel(get_config("phi3.5-moe-42b-a6.6b").reduced(n_layers=3),
                      SplitConfig(**SPLIT))
-    with pytest.raises(NotImplementedError, match="slice H part 2"):
-        SFPromptTrainer(moe, ProtocolConfig(), device="cpu",
-                        mesh=type("Mesh", (), {"shape": {"data": 1,
-                                                         "model": 2}})())
+    tp = type("Mesh", (), {"shape": {"data": 1, "model": 2}})()
+    assert SFPromptTrainer(moe, ProtocolConfig(), device="cpu",
+                           mesh=tp).model.mesh is tp
     # async dispatch is ported (slice E): without the per-client trees it
     # is refused with JAX's message
     tr = SFPromptTrainer(tm, ProtocolConfig(), device="cpu")
