@@ -84,7 +84,8 @@ Phases, each of which fails the run with a nonzero exit:
      on the CPU's tokens, the card's mean logit gap to the CPU at bf16 is
      at most the CPU's own bf16-vs-f32 gap (the paged engine compared
      while its tokens agree);
-  5. the dense path at full width: Qwen2.5-14B widths cut to 6 layers, 4
+  5. the dense path at full width: Qwen2.5-14B widths cut to 3 layers (1
+     head / 1 body / 1 tail, the fewest a split takes), 4
      tenants, 8 slots, max_seq 512, int8 wire, decode_block 8, 16 synthetic
      requests through `ServeEngine.run`; every request finishes, metered
      wire bytes are within 5% of `serve_comm_breakdown`, and every kernel
@@ -137,8 +138,8 @@ Phases, each of which fails the run with a nonzero exit:
      prints each one's launches and device us a launch beside the
      replay's copy time;
  11. the rwkv path at full width: rwkv6-3b at published widths (d_model
-     2560, 40 heads of 64, decay LoRA 64, d_ff 8960, vocab 65536) cut to 8
-     layers (head 1 / body 6 / tail 1), checked as phase 10 (the wire and
+     2560, 40 heads of 64, decay LoRA 64, d_ff 8960, vocab 65536) cut to 3
+     layers (head 1 / body 1 / tail 1), checked as phase 10 (the wire and
      the RWKV-6 scan), then a profiled replay;
  12. the dense path at bf16 (run right after phase 6, on its weights):
      phase 5 with `ServeConfig(dtype=torch.bfloat16)`, checked as phase 5,
@@ -285,7 +286,7 @@ Phases, each of which fails the run with a nonzero exit:
      launch counts, all-reduce counts and memory back. (a) Serving: the
      reduced Qwen2.5 family of tests/test_mesh_tp.py (3 layers, d_model
      128, 4 heads of 32, vocab 128), then phase 5's model (Qwen2.5-14B
-     widths, 6 layers, seed 0) with 2 tenants, on (data 1, model 2), a
+     widths, 3 layers, seed 0) with 2 tenants, on (data 1, model 2), a
      trace of 6 requests (32-64 prompt, 8-16 new tokens) through the
      dense engine, then the paged one (page 16), each on the fp32 wire,
      then the int8 wire, against one process on the card: wire bytes
@@ -307,7 +308,7 @@ Phases, each of which fails the run with a nonzero exit:
  23. the families slice H part 2 brought to the mesh (run last), on phase
      22's two ranks: (a) phi3.5-moe and deepseek-v3 at phase 20's depths
      and expert counts (8 experts a rank), zamba2-2.7b at 18 layers (3
-     cycles: 40 Mamba-2 heads a rank) and rwkv6-3b at phase 11's 8 layers
+     cycles: 40 Mamba-2 heads a rank) and rwkv6-3b at phase 11's 3 layers
      (20 heads a rank), each drawn leaf by leaf (a rank draws a frozen
      leaf whole, keeps its block and frees it), 2 tenants, served on
      (data 1, model 2) over phase 22's trace on the fp32 wire, then its
@@ -332,6 +333,20 @@ Phases, each of which fails the run with a nonzero exit:
      Mamba-2 at 40 heads and RWKV-6 at 20, decode (8, 1) and prefill (1,
      132); MLA decode at 64 heads 192 / 128 over 8 slots of 512 and its
      prefill at (1, 132));
+ 24. slots over 'data' (run last): phase 22's model, trace and engines,
+     its weights drawn leaf by leaf as phase 23's (the ranks of the whole
+     group taking turns), on four ranks (data 2, model 2) and then two
+     (data 2), after the reduced model on each: the dense engine's ranks
+     each decode their block of the 4 slots (2) and gather the next
+     tokens and logits, the paged engine's every 'data' row runs the whole
+     batch (its pool replicated over 'data'); fp32 then int8 wire; held
+     against one process as phase 22 holds its ranks, plus each rank's
+     slot block and cache slot axis; all-reduces a decode step, tok/s, a
+     rank's memory and the card's printed; kernels 1-4 (dense) and 1-3
+     and 5 (paged) launched on every rank on the int8 wire. Phase 3 also
+     holds and times the kernels at a rank's shapes (`data_shapes`: the
+     dense decode kernel over 2 slots of 256 at 20 / 4 and 40 / 8 x 128,
+     the int8 pair on 2 rows of 5120);
  then the `kernels` JSON line (each kernel once, with the dtypes, head
  dims and groups it was held at, its bf16 numbers, its wide-shape
  numbers, its slice G part 2 shapes and its slice H per-rank shapes),
@@ -556,6 +571,23 @@ PATHS = {
     "tp2_vlm": ("quantize_int8", "dequantize_int8",
                 "flash_attention_prefill", "el2n"),
     "tp2_vlm_fp32": ("flash_attention_prefill", "el2n"),
+    # phase 24: Qwen2.5-14B served with slots over 'data' on (data 2,
+    # model 2) and (data 2), int8 wire then fp32, dense (a rank decodes its
+    # block of slots) and paged (every 'data' row runs the whole batch)
+    "data_d2m2_dense": ("quantize_int8", "dequantize_int8",
+                        "flash_attention_prefill", "decode_attention"),
+    "data_d2m2_paged": ("quantize_int8", "dequantize_int8",
+                        "flash_attention_prefill", "paged_decode_attention"),
+    "data_d2m2_dense_fp32": ("flash_attention_prefill", "decode_attention"),
+    "data_d2m2_paged_fp32": ("flash_attention_prefill",
+                             "paged_decode_attention"),
+    "data_d2_dense": ("quantize_int8", "dequantize_int8",
+                      "flash_attention_prefill", "decode_attention"),
+    "data_d2_paged": ("quantize_int8", "dequantize_int8",
+                      "flash_attention_prefill", "paged_decode_attention"),
+    "data_d2_dense_fp32": ("flash_attention_prefill", "decode_attention"),
+    "data_d2_paged_fp32": ("flash_attention_prefill",
+                           "paged_decode_attention"),
 }
 # the wide attention shapes of phase 3: (label, Hq, Hkv, Dh)
 WIDE_SHAPES = (("gemma2-9b", 16, 8, 256), ("stablelm-12b", 32, 8, 160),
@@ -1517,30 +1549,36 @@ def slot_tiles(torch, qp, kvp, window=None):
     return int(tiles.sum()), int((~valid.any(-1)).sum())
 
 
-def decode_record(torch, F, gen, Hq, Hkv, Dh, sweep=True, Dv=None):
+def decode_record(torch, F, gen, Hq, Hkv, Dh, sweep=True, Dv=None,
+                  lengths=None, W=512):
     """The decode kernel against plain at 8 slots of 512 (one wrapped ring,
     two empty slots), with and without window and softcap, and with a
     window across the seam of a ring wrapped 8 past W; then timed, by
     events and on the device beside SDPA, and (`sweep`) on the device at
     every split count (each checked against plain): Qwen2.5-14B's (40, 8,
     128), zamba2's shared block (32, 32, 80), the wide shapes and
-    deepseek-v3's MLA (128, 128, 192 with values of `Dv` 128)."""
+    deepseek-v3's MLA (128, 128, 192 with values of `Dv` 128). `lengths`
+    (a slot each, W wide) replaces the 8 slots: a rank's block of slots
+    (phase 24), no ring wrapped."""
     from repro_torch.kernels.flash_attention import decode
     from repro_torch.kernels.flash_attention.decode import (
         decode_attention_fwd, decode_blocks_per_sm, decode_splits,
         grouped_decode, sm_count)
-    B, W = 8, 512
+    wrap = None if lengths else 7
+    lengths = lengths or [37, 0, 512, 200, 0, 1, 333, 100]
+    B = len(lengths)
     G = Hq // Hkv
     Dv = Dv or Dh
     scale = Dh ** -0.5
-    lengths = [37, 0, 512, 200, 0, 1, 333, 100]
-    # slot 7 wrapped 8 past W: a window of 16 keeps keys 504..511 and 0..7
-    seam = lengths[:7] + [8]
+    cases = [(None, None, lengths), (64, 50.0, lengths)]
+    if wrap is not None:
+        # slot 7 wrapped 8 past W: a window of 16 keeps keys 504..511 and
+        # 0..7
+        cases.append((16, None, lengths[:7] + [8]))
     worst = 0.0
-    for window, softcap, lens in ((None, None, lengths),
-                                  (64, 50.0, lengths), (16, None, seam)):
-        args = decode_case(torch, gen, B, W, Hq, Hkv, Dh, lens, wrap_slot=7,
-                           Dv=Dv)
+    for window, softcap, lens in cases:
+        args = decode_case(torch, gen, B, W, Hq, Hkv, Dh, lens,
+                           wrap_slot=wrap, Dv=Dv)
         got = decode_attention_fwd(*args, scale=scale,
                                    sliding_window=window, softcap=softcap)
         want = grouped_decode(*args, scale=scale, sliding_window=window,
@@ -1553,12 +1591,12 @@ def decode_record(torch, F, gen, Hq, Hkv, Dh, sweep=True, Dv=None):
         worst = max(worst, err)
         tiles, idle = slot_tiles(torch, *args[3:], window)
         say(f"decode: B={B} W={W} G={G} Dh={Dh} Dv={Dv} lengths={lens} "
-            f"(slot 7 wrapped) window={window} softcap={softcap}: {tiles} "
-            f"valid tiles of {B * W // 32}, {idle} idle slots; max abs err "
-            f"{err:.3g}")
+            f"(wrapped: slot {wrap}) window={window} softcap={softcap}: "
+            f"{tiles} valid tiles of {B * W // 32}, {idle} idle slots; max "
+            f"abs err {err:.3g}")
 
     q, k, v, qp, kvp = decode_case(torch, gen, B, W, Hq, Hkv, Dh, lengths,
-                                   wrap_slot=7, Dv=Dv)
+                                   wrap_slot=wrap, Dv=Dv)
     n_valid = int(((kvp >= 0) & (kvp <= qp[:, None])).sum())
     tiles, idle = slot_tiles(torch, qp, kvp)
     del q, k, v, qp, kvp
@@ -1569,8 +1607,8 @@ def decode_record(torch, F, gen, Hq, Hkv, Dh, sweep=True, Dv=None):
     flops = n_valid * Hq * 2 * (Dh + Dv) + idle * W * Hq * Dv
     b = bound(nbytes, flops)
     per = (B * W * Hkv * (Dh + Dv) + B * Hq * (Dh + Dv)) * 4 + B * W * 4
-    sets = [decode_case(torch, gen, B, W, Hq, Hkv, Dh, lengths, wrap_slot=7,
-                        Dv=Dv) for _ in range(n_copies(per))]
+    sets = [decode_case(torch, gen, B, W, Hq, Hkv, Dh, lengths,
+                        wrap_slot=wrap, Dv=Dv) for _ in range(n_copies(per))]
     kernel = [lambda s=s: decode_attention_fwd(
         *s, scale=scale, sliding_window=None, softcap=None) for s in sets]
     t_k = time_ms(kernel)
@@ -3529,14 +3567,14 @@ def recurrent_parity(torch):
 
 
 # ------------------------------------------------ phases 5-6 and 10-11
-def full_width_model(torch, arch="qwen2.5-14b", n_layers=6, tenants=4,
+def full_width_model(torch, arch="qwen2.5-14b", n_layers=3, tenants=4,
                      cfg=None):
     """A model at `arch`'s published widths cut to `n_layers` (one cycle
     of the layer pattern in the head and in the tail, the rest in the
     body; a dense prefix stays in the head), soft prompt 4, int8 wire,
     fp32, `tenants` tenants, seeded random weights; `cfg` replaces the
     cut config (phase 20 also cuts deepseek-v3's routed experts).
-    Qwen2.5-14B at 6 layers is shared by the dense and the paged
+    Qwen2.5-14B at 3 layers is shared by the dense and the paged
     full-width runs."""
     from repro_torch.configs import get_config
     from repro_torch.core import SplitConfig, SplitModel
@@ -3695,8 +3733,8 @@ def scan_replay(prof, path, label, names):
 
 def full_width_paged(torch, fw, path="paged", dtype=None):
     """The paged path at full width: 16 slots over a pool of 128 usable
-    pages of 16 tokens — the KV memory of 4 dense 512-token slots (786,432
-    B a page over 6 layers) — with a 32-token shared prefix and prefill
+    pages of 16 tokens — the KV memory of 4 dense 512-token slots (393,216
+    B a page over 3 layers) — with a 32-token shared prefix and prefill
     chunks of 64; at f32 activations, or at `dtype` (phase 13: bf16)."""
     from repro_torch.launch.serve import shared_prefix_tokens
     from repro_torch.serve import (PagedServeConfig, PagedServeEngine,
@@ -6152,7 +6190,7 @@ def tp_engine(torch, kind, model, params, bank, mesh, dev):
 
 
 def tp_serve_model(torch, dev, small):
-    """Phase 5's model (Qwen2.5-14B widths, 6 layers, seed 0) with
+    """Phase 5's model (Qwen2.5-14B widths, 3 layers, seed 0) with
     TP_TENANTS tenants on its int8 wire and the same weights on the fp32
     wire; `small`: the family reduced as tests/test_mesh_tp.py's serving
     fixture (3 layers, d_model 128, d_ff 256, vocab 128)."""
@@ -6163,7 +6201,7 @@ def tp_serve_model(torch, dev, small):
     from repro_torch.runtime import WireSpec
     cfg = get_config("qwen2.5-14b")
     cfg = (cfg.reduced(n_layers=3, d_model=128, d_ff=256, vocab_size=128)
-           if small else dc.replace(cfg, n_layers=6))
+           if small else dc.replace(cfg, n_layers=3))
     split = SplitConfig(head_cycles=1, tail_cycles=1, prompt_len=4)
     models = {w: SplitModel(cfg, split, WireSpec.make(w))
               for w in ("fp32", "int8")}
@@ -6418,7 +6456,7 @@ def _agreeing_gap(a, b):
     return rows, last
 
 
-def tp_compare_serve(ref, ranks, key="serve", strict=False):
+def tp_compare_serve(ref, ranks, key="serve", strict=False, phase="22"):
     """Against one process: wire bytes `==` on both wires, tokens `==` on
     the fp32 wire, the int8 wire's logit gap (rows while the tokens
     agree) no larger than one process's own int8-vs-fp32 gap; with
@@ -6437,20 +6475,20 @@ def tp_compare_serve(ref, ranks, key="serve", strict=False):
         for r, res in enumerate(ranks):
             got = res[key][label]
             if got["wire"] != want["wire"]:
-                fail(f"phase 22 {key} {label} rank {r}: wire bytes "
+                fail(f"phase {phase} {key} {label} rank {r}: wire bytes "
                      f"{got['wire']} != one process {want['wire']}")
             same = {rid: bool(np.array_equal(got["tokens"][rid], t))
                     for rid, t in want["tokens"].items()}
             rec[f"rank{r}_requests_with_equal_tokens"] = sum(same.values())
             if exact and not all(same.values()):
-                fail(f"phase 22 {key} {label} rank {r}: tokens differ from "
-                     f"one process: {same}")
+                fail(f"phase {phase} {key} {label} rank {r}: tokens differ "
+                     f"from one process: {same}")
         rows, last = _agreeing_gap(ranks[0][key][label], want)
         rec.update(last_step_logit_gap=last, logit_gap_while_agreeing=rows,
                    tok_per_s=ranks[0][key][label]["tok_per_s"],
                    one_process_tok_per_s=want["tok_per_s"])
         if strict and exact and not last <= PARITY_TOL:
-            fail(f"phase 22 {key} {label}: last-step logits {last} from "
+            fail(f"phase {phase} {key} {label}: last-step logits {last} from "
                  f"one process > {PARITY_TOL}")
         summary[label] = rec
     own = _agreeing_gap(ref["dense_int8"], ref["dense_fp32"])[0]
@@ -6458,7 +6496,7 @@ def tp_compare_serve(ref, ranks, key="serve", strict=False):
         # the int8 wire's own error bounds how far its rounding edges may
         # carry a reordered sum
         if summary[label]["logit_gap_while_agreeing"] > own:
-            fail(f"phase 22 {key} {label}: logit gap to one process "
+            fail(f"phase {phase} {key} {label}: logit gap to one process "
                  f"{summary[label]['logit_gap_while_agreeing']} exceeds "
                  f"the int8 wire's own gap to fp32 {own}")
     summary["one_process_gaps"] = {
@@ -6639,12 +6677,12 @@ def tp2_shapes(torch, F, gen, results):
 def tp2_serve_cfg(arch):
     """Phase 23's served configs at published widths: phase 20's MoE
     configs; zamba2-2.7b at 18 layers (3 cycles of its 6: 1 head / 1 body
-    / 1 tail, the fewest a split takes); rwkv6-3b at phase 11's 8."""
+    / 1 tail, the fewest a split takes); rwkv6-3b at phase 11's 3."""
     from repro_torch.configs import get_config
     if arch in MOE_ARCHS:
         return moe_full_cfg(arch)
     base = get_config(arch)
-    n = {"zamba2-2.7b": 18, "rwkv6-3b": 8}[arch]
+    n = {"zamba2-2.7b": 18, "rwkv6-3b": 3}[arch]
     return dataclasses.replace(base, n_layers=n), {
         "n_layers": f"{base.n_layers} -> {n}"}
 
@@ -6686,7 +6724,7 @@ def tp2_leaf(torch, path, shape, dev):
         return torch.full(shape, math.log(math.expm1(0.01)), device=dev)
     gen = torch.Generator(device=dev).manual_seed(
         zlib.crc32("/".join(path).encode()))
-    return 0.02 * torch.randn(shape, generator=gen, device=dev)
+    return torch.randn(shape, generator=gen, device=dev).mul_(0.02)
 
 
 def tp2_build(torch, model, dev, mesh=None):
@@ -6717,11 +6755,15 @@ def tp2_build(torch, model, dev, mesh=None):
         return parallel.local_shard(x, spec_of(path), mesh).clone()
 
     def tenants(path, leaf):
-        x = tp2_leaf(torch, path, tuple(leaf.shape), dev)
-        out = x[None].repeat((TP_TENANTS,) + (1,) * x.dim())
+        # written tenant by tenant into one buffer: at a vocabulary head a
+        # whole copy a tenant is GBs
+        out = torch.empty((TP_TENANTS,) + tuple(leaf.shape), device=dev)
+        out[0] = tp2_leaf(torch, path, tuple(leaf.shape), dev)
         for t in range(1, TP_TENANTS):
             g = torch.Generator(device=dev).manual_seed(101 + t)
-            out[t] += 0.05 * torch.randn(x.shape, generator=g, device=dev)
+            out[t] = out[0]
+            out[t] += torch.randn(leaf.shape, generator=g,
+                                  device=dev).mul_(0.05)
         return out
 
     shared = {seg: tree_map_with_path(
@@ -7098,6 +7140,271 @@ def tensor_parallel_families(torch, dev="cuda", small=False):
     return by_path, summary
 
 
+# ---------------------------------------------------------------- phase 24
+# Qwen2.5-14B (phase 22's widths, 3 layers, phase 22's trace and engines)
+# served with slots over 'data': (label, ranks, 'model' size). The ranks
+# draw their weights leaf by leaf as phase 23's (`tp2_build`), so none
+# holds a whole copy of the frozen head and body.
+DATA_MESHES = (("d2m2", 4, 2), ("d2", 2, 1))
+DATA_RANKS = 4
+
+
+def data_shapes(torch, F, gen, results):
+    """The kernels at a rank's shapes in phase 24, under "data" in each
+    record: the dense decode kernel over a rank's block of TP_SERVE_CFG's
+    slots (4 / 'data' 2 = 2 slots of 256, lengths 97 and 180) at Qwen's
+    kv heads over 'model' 2 (20 / 4 x 128) and whole (40 / 8 x 128), and
+    the int8 pair on those 2 rows of 5120. Prefill runs replicated and the
+    paged pool is replicated over 'data', so kernels 3 and 5 run at phase
+    22's and phase 3's shapes (held there)."""
+    from repro_torch.kernels.quant import ref
+    from repro_torch.kernels.quant.kernel import dequantize_fwd, quantize_fwd
+    rows = TP_SERVE_CFG["n_slots"] // 2
+    W = TP_SERVE_CFG["max_seq"]
+    dec = results["decode_attention"].setdefault("data", {})
+    for label, Hq, Hkv in (("20 / 4 x 128", 20, 4), ("40 / 8 x 128", 40, 8)):
+        dec[f"qwen2.5-14b {label}, {rows} slots of {W}"] = decode_record(
+            torch, F, gen, Hq, Hkv, 128, sweep=False, lengths=[97, 180],
+            W=W)
+    D = 5120
+    xs = [torch.randn((rows, D), generator=gen, device="cuda") * 3.0
+          for _ in range(n_copies(rows * D * 9))]
+    v, sc = quantize_fwd(xs[0], 0.5)
+    rv, rs = ref.quantize(xs[0], 0.5)
+    if not (torch.equal(v, rv) and torch.equal(sc, rs) and torch.equal(
+            dequantize_fwd(v, sc), ref.dequantize(v, sc))):
+        fail(f"quant pair at a rank's ({rows}, {D}) differs from plain")
+    pays = [quantize_fwd(x, 0.5) for x in xs]
+    cases = {"quantize": [lambda x=x: quantize_fwd(x, 0.5) for x in xs],
+             "dequantize": [lambda p=p: dequantize_fwd(*p) for p in pays],
+             "torch.mul": [lambda p=p: torch.mul(*p) for p in pays]}
+    dev = device_ms_cases(cases)
+    plain = {"quantize": time_ms([lambda x=x: ref.quantize(x, 0.5)
+                                  for x in xs]),
+             "dequantize": time_ms([lambda p=p: ref.dequantize(*p)
+                                    for p in pays])}
+    for name, key, nbytes, flops in (
+            ("quantize_int8", "quantize", rows * D * 5 + rows * 4,
+             4 * rows * D),
+            ("dequantize_int8", "dequantize", rows * D * 5 + rows * 4,
+             rows * D)):
+        b = bound(nbytes, flops)
+        rec = dict(max_abs_err=0.0, ms=time_ms(cases[key]),
+                   device_ms=dev[key], plain_ms=plain[key], bound_ms=b[0],
+                   bound_by=b[1], library_ms=None,
+                   shape=f"({rows}, {D}) f32, u 0.5")
+        if key == "dequantize":
+            rec["library_ms"] = time_ms(cases["torch.mul"])
+            rec["library_device_ms"] = dev["torch.mul"]
+        results[name].setdefault("data", {})[f"a rank's {rows} rows"] = rec
+        say(f"{key} at a rank's ({rows}, {D}): {rec['ms']:.4f} ms "
+            f"({rec['device_ms']:.4f} on the device), plain "
+            f"{rec['plain_ms']:.4f} ms, bound {b[0]:.6f} ms ({b[1]})")
+    results["decode_attention"]["max_abs_err"] = max(
+        results["decode_attention"]["max_abs_err"],
+        *(r["max_abs_err"] for r in dec.values()))
+
+
+def data_serve_runs(torch, mesh, dev, small, on_run=None, turns=False):
+    """Phase 22's four runs (dense then paged, fp32 wire then int8, each
+    after one warm request) of phase 22's model on `mesh` (None: one
+    process), with phase 23's leaf-by-leaf weights; returns per run the
+    tokens, logits, bytes, tok/s and decode steps, and (dense, on a mesh)
+    the rank's slot block and cache slot axis. `small`: the model reduced
+    as phase 22's (3 layers, d_model 128, vocab 128). `turns`: the ranks
+    of the whole group build their weights one after another, so only
+    one holds a build's whole leaves at a time."""
+    import torch.distributed as dist
+    import dataclasses as dc
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import SplitConfig, SplitModel
+    from repro_torch.runtime import WireSpec
+    cfg = get_config("qwen2.5-14b")
+    cfg = (cfg.reduced(n_layers=3, d_model=128, d_ff=256, vocab_size=128)
+           if small else dc.replace(cfg, n_layers=3))
+    split = SplitConfig(head_cycles=1, tail_cycles=1, prompt_len=4)
+    models = {w: SplitModel(cfg, split, WireSpec.make(w))
+              for w in ("fp32", "int8")}
+    for r in range(dist.get_world_size() if turns else 1):
+        if not turns or r == dist.get_rank():
+            shared, bank = tp2_build(torch, models["fp32"], dev, mesh)
+            if dev != "cpu":
+                torch.cuda.empty_cache()    # the whole leaves drawn, cut
+        if turns:
+            dist.barrier()
+    reqs = tp_trace(cfg)
+    out = {}
+    for wire in ("fp32", "int8"):
+        for kind in ("dense", "paged"):
+            label = f"{kind}_{wire}"
+            eng = tp_engine(torch, kind, models[wire], shared, bank, mesh,
+                            dev)
+            eng.run(tp_trace(cfg)[:1])          # warm: handles, pools
+            eng.reset_stats()
+            ctx = on_run(label, eng) if on_run else None
+            if ctx is not None:
+                ctx.__enter__()
+            stats = eng.run(list(reqs))
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            if ctx is not None:
+                ctx.__exit__(None, None, None)
+            if stats["n_finished"] != len(reqs):
+                fail(f"phase 24 {label}: {stats['n_finished']} of "
+                     f"{len(reqs)} requests finished")
+            out[label] = {
+                "tokens": {f.req.rid: np.asarray(f.tokens)
+                           for f in stats["finished"]},
+                "logits": {f.req.rid: np.asarray(f.logits)
+                           for f in stats["finished"]},
+                "wire": stats["wire_bytes"], "tok_per_s": stats["tok_per_s"],
+                "decode_steps": stats["decode_steps"]}
+            if kind == "dense" and mesh is not None:
+                k = eng.cache["body"]["stack"]["pos0"]["k"]
+                out[f"{label}_slots"] = {"block": list(eng.slots),
+                                         "cache_k": list(k.shape)}
+            if label == "dense_fp32" and mesh is None:
+                out["batch1_gap"] = tp_batch1_gap(torch, models[wire],
+                                                  shared, bank, reqs,
+                                                  out[label], dev)
+            del eng
+            if dev != "cpu":
+                torch.cuda.empty_cache()
+    del shared, bank
+    if dev != "cpu":
+        torch.cuda.empty_cache()
+    return out
+
+
+def data_rank(small, dev):
+    """One rank of phase 24: the reduced model, then phase 22's model, on
+    each mesh of DATA_MESHES that holds this rank (the others wait), with
+    its launches, all-reduces a decode step and memory."""
+    import contextlib
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.mesh import make_host_mesh
+    if dev != "cpu":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    clock = AllReduceClock(dist)
+    out = {}
+    for mesh_label, n, tp in DATA_MESHES:
+        mesh = make_host_mesh(n, model=tp)
+        if dist.get_rank() >= n:
+            continue
+        rec = {"launches": {}, "all_reduce": {}, "memory_gb": {}}
+
+        def on_run(label, eng, rec=rec):
+            @contextlib.contextmanager
+            def measure():
+                dispatch = eng._dispatch_decode
+
+                def timed(*a, **kw):
+                    clock.on = True
+                    try:
+                        return dispatch(*a, **kw)
+                    finally:
+                        clock.on = False
+                eng._dispatch_decode = timed
+                clock.calls, clock.seconds = 0, 0.0
+                if dev != "cpu":
+                    torch.cuda.reset_peak_memory_stats()
+                    free, total = torch.cuda.mem_get_info()
+                    rec["memory_gb"][f"{label}_held"] = (
+                        torch.cuda.memory_allocated() / 1e9)
+                    rec["memory_gb"][f"{label}_card_used"] = (
+                        (total - free) / 1e9)
+                reset_launches()
+                yield
+                del eng._dispatch_decode
+                rec["launches"][label] = launch_counts()
+                rec["all_reduce"][label] = {"calls": clock.calls,
+                                            "seconds": clock.seconds}
+                if dev != "cpu":
+                    rec["memory_gb"][f"{label}_peak"] = (
+                        torch.cuda.max_memory_allocated() / 1e9)
+            return measure()
+
+        rec["reduced"] = data_serve_runs(torch, mesh, dev, True)
+        serve = data_serve_runs(torch, mesh, dev, small, on_run,
+                                turns=n == dist.get_world_size())
+        if dist.get_rank():
+            for v in serve.values():
+                if isinstance(v, dict):
+                    v.pop("logits", None)
+        rec["serve"] = serve
+        out[mesh_label] = rec
+    return out
+
+
+def data_parallel(torch, dev="cuda", small=False):
+    """Phase 24: the references in this process, then DATA_RANKS ranks on
+    the card over gloo serving on each mesh of DATA_MESHES; held as phase
+    22 holds its ranks (`tp_compare_serve`: bytes `==`, fp32 tokens `==`,
+    the reduced model's fp32 logits within PARITY_TOL, the int8 gap within
+    one process's own); returns (launches by path, summary)."""
+    from repro_torch.launch.mesh import spawn_ranks
+    t0 = time.perf_counter()
+    ref_reduced = data_serve_runs(torch, None, dev, True)
+    ref = data_serve_runs(torch, None, dev, small)
+    ref_s = time.perf_counter() - t0
+    parent = {}
+    if dev != "cpu":
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        parent = {"held_gb": torch.cuda.memory_allocated() / 1e9,
+                  "card_used_gb": (total - free) / 1e9}
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(data_rank, DATA_RANKS, small, dev, threads=2)
+    summary = {"one_process_s": ref_s, "ranks_s": time.perf_counter() - t0,
+               "parent_before_ranks": parent}
+    by_path = {}
+    for mesh_label, n, tp in DATA_MESHES:
+        sub = [r[mesh_label] for r in ranks[:n]]
+        rec = {"reduced": tp_compare_serve(ref_reduced, sub, "reduced",
+                                           strict=True, phase="24"),
+               "serve": tp_compare_serve(ref, sub, phase="24")}
+        rec["slots"] = [r["serve"].get("dense_int8_slots") for r in sub]
+        for r, got in enumerate(rec["slots"]):
+            d, block = r // tp, TP_SERVE_CFG["n_slots"] // (n // tp)
+            if got["block"] != [d * block, (d + 1) * block] or \
+                    got["cache_k"][1] != block:
+                fail(f"phase 24 {mesh_label} rank {r}: slots {got}, not "
+                     f"block {d} of {block}")
+        for label in ("dense_int8", "paged_int8", "dense_fp32",
+                      "paged_fp32"):
+            path = f"data_{mesh_label}_{label}".replace("_int8", "")
+            per_rank = [x["launches"][label] for x in sub]
+            for r, counts in enumerate(per_rank):
+                missing = [k for k in PATHS[path] if counts[k] <= 0]
+                if missing:
+                    fail(f"phase 24 {path}: rank {r} never launched "
+                         f"{missing}")
+            by_path[path] = {k: sum(c[k] for c in per_rank)
+                             for k in per_rank[0]}
+            rec.setdefault("launches_by_rank", {})[label] = [
+                {k: v for k, v in c.items() if v} for c in per_rank]
+        ar = sub[0]["all_reduce"]
+        rec["decode_all_reduces"] = {
+            label: {"per_decode_step": ar[label]["calls"] / max(
+                1, sub[0]["serve"][label]["decode_steps"]),
+                    "ms_each": 1e3 * ar[label]["seconds"] / max(
+                        1, ar[label]["calls"])}
+            for label in ar}
+        rec["memory_gb_by_rank"] = [x["memory_gb"] for x in sub]
+        summary[mesh_label] = rec
+    summary["note"] = ("the ranks share one card and their collectives go "
+                       "through host memory (gloo): these rates are not a "
+                       "data-parallel speed")
+    say("phase 24 slots over data: " + json.dumps(summary, sort_keys=True,
+                                                   default=str))
+    return by_path, summary
+
+
 def main() -> None:
     try:
         import torch
@@ -7154,6 +7461,7 @@ def main() -> None:
     check_slice_g2(torch, F, gen, results)
     tp_shapes(torch, F, gen, results)
     tp2_shapes(torch, F, gen, results)
+    data_shapes(torch, F, gen, results)
     check_bf16(torch, F, gen, results)
     check_f16(torch, F, gen, results)
     drift = report_drift(results)
@@ -7272,7 +7580,7 @@ def main() -> None:
     # paged engine; each model freed before the next loads
     for phase, path, arch, n_layers, run in (
             ("10", "hybrid", "zamba2-2.7b", 18, full_width),
-            ("11", "rwkv", "rwkv6-3b", 8, full_width),
+            ("11", "rwkv", "rwkv6-3b", 3, full_width),
             ("14", "gemma2", "gemma2-9b", 6, full_width),
             ("15", "stablelm", "stablelm-12b", 3, full_width_paged)):
         torch.cuda.empty_cache()
@@ -7297,6 +7605,14 @@ def main() -> None:
         tensor_parallel_families(torch)
     by_path.update(paths23)
     lap("23")
+
+    # 24. slots over 'data': phase 22's model served on four ranks (data
+    # 2, model 2) and on two (data 2), dense and paged, fp32 and int8,
+    # each against one process
+    torch.cuda.empty_cache()
+    paths24, summaries["slots_over_data"] = data_parallel(torch)
+    by_path.update(paths24)
+    lap("24")
 
     # the kernels line (f32 numbers under the contract's keys, bf16 ones
     # under "bf16" and the wide shapes' under "wide", by case), the phase
@@ -7333,6 +7649,10 @@ def main() -> None:
         if "tp" in results[name]:
             rec["slice_h"] = {case: {k: r.get(k) for k in keys}
                               for case, r in results[name]["tp"].items()}
+        if "data" in results[name]:
+            rec["slice_h_data"] = {
+                case: {k: r.get(k) for k in keys}
+                for case, r in results[name]["data"].items()}
         kernels.append(rec)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(

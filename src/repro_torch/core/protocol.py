@@ -81,7 +81,7 @@ from repro_torch.optim import Optimizer, adamw, apply_updates, sgd
 from repro_torch.privacy.dp import DP_SEED, PrivacyAccountant
 from repro_torch.runtime.meter import EDGE, SECURE, TrafficMeter
 from repro_torch.sharding import parallel
-from repro_torch.sharding.rules import P, params_pspecs, report_fallbacks
+from repro_torch.sharding.rules import params_pspecs, report_fallbacks
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map
 
 Params = Dict[str, Any]
@@ -250,24 +250,11 @@ class SFPromptTrainer:
                               fsdp_threshold=self.fsdp_threshold)
         report_fallbacks("protocol.mesh", self.tracer)
         self._param_specs = specs
-        mesh = self.mesh
-
-        def cut(x, spec):
-            if all(e is None for e in spec):
-                return x
-            on_model = P(*(None if e == "data" else e for e in spec))
-            y = parallel.local_shard(x, on_model, mesh)
-            if "data" not in spec:
-                return y.clone()
-            d = spec.index("data")
-            on_data = P(*(e if e == "data" else None for e in spec))
-            return parallel.DataSharded(
-                parallel.local_shard(y, on_data, mesh).clone(), d,
-                y.shape[d])
-
         out = dict(params)
         for seg in ("head", "body"):
-            out[seg] = tree_map(cut, params[seg], specs[seg])
+            out[seg] = tree_map(
+                lambda x, spec: parallel.cut_leaf(x, spec, self.mesh),
+                params[seg], specs[seg])
         return out
 
     def full_params(self, params: Params) -> Params:

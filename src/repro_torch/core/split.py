@@ -245,21 +245,41 @@ class SplitModel:
                                device=device)
 
     @staticmethod
-    def cache_write_slot(shared: Params, single: Params, slot: int) -> Params:
+    def _slot_count(shared: Params) -> int:
+        path, leaf = tree_flatten(shared)[0]
+        return leaf.shape[SplitModel._slot_axis(path)]
+
+    @staticmethod
+    def cache_write_slot(shared: Params, single: Params, slot: int, *,
+                         first: int = 0) -> Params:
         """Copy a batch=1 cache into slot `slot` of the shared n-slot cache,
         in place. Overwrites every leaf of that slot — positions included —
-        so a newly allocated slot never sees a previous tenant's KV state."""
+        so a newly allocated slot never sees a previous tenant's KV state.
+        `first`: `shared` holds a rank's block of slots from global slot
+        `first` on ('data'-sharded serving); a slot outside the block is
+        another rank's, and nothing is written."""
+        local = slot - first
+        if not 0 <= local < SplitModel._slot_count(shared):
+            return shared
         for (path, s), (_, one) in zip(tree_flatten(shared),
                                        tree_flatten(single)):
             ax = SplitModel._slot_axis(path)
-            s.select(ax, slot).copy_(one.select(ax, 0))
+            s.select(ax, local).copy_(one.select(ax, 0))
         return shared
 
     @staticmethod
-    def cache_read_slot(shared: Params, slot: int) -> Params:
-        """A copy of slot `slot` of the shared cache as a batch=1 cache."""
+    def cache_read_slot(shared: Params, slot: int, *,
+                        first: int = 0) -> Params:
+        """A copy of slot `slot` of the shared cache as a batch=1 cache;
+        `first` as in `cache_write_slot` (a slot outside the block
+        raises)."""
+        local = slot - first
+        if not 0 <= local < SplitModel._slot_count(shared):
+            raise ValueError(f"slot {slot} is not in this block of "
+                             f"{SplitModel._slot_count(shared)} slots from "
+                             f"{first}")
         return tree_map_with_path(
-            lambda path, s: s.narrow(SplitModel._slot_axis(path), slot,
+            lambda path, s: s.narrow(SplitModel._slot_axis(path), local,
                                      1).clone(), shared)
 
     # ------------------------------------------------- paged allocation
@@ -397,17 +417,20 @@ class SplitModel:
 
     def head_fwd(self, head_p, prompt, batch, *, mode="train", cache=None,
                  dtype=torch.float32, chunk_start=None,
-                 differentiable: bool = False) -> Dict[str, Any]:
+                 differentiable: bool = False,
+                 chunked: bool = False) -> Dict[str, Any]:
         """Client-side: embed (+prompts, + Whisper's encoder) -> head
         layers. Output `smashed` is the cut-layer activation sent to the
         server. `chunk_start` (B,) marks a chunked-prefill continuation: the
         batch's tokens extend a partially-filled prefill cache starting at
         those positions (attention then runs write-then-attend over the full
         cache, like decode, instead of chunk-local causal). `differentiable`
-        marks a pass autograd goes through; body_fwd and tail_fwd inherit
-        it. Whisper's encoder output rides in the returned dict to body and
-        tail (the JAX package's `head_out`); prefill writes it into the
-        head's cache, decode reads it from there."""
+        marks a pass autograd goes through, `chunked` one whose plain
+        scans take their chunked forms (JAX's `impl="chunked"`); body_fwd
+        and tail_fwd inherit both. Whisper's encoder output rides in the
+        returned dict to body and tail (the JAX package's `head_out`);
+        prefill writes it into the head's cache, decode reads it from
+        there."""
         cfg, mesh = self.cfg, self.mesh
         enc = (encoder_out(cfg, head_p["encoder"], batch, mode, cache, dtype,
                            differentiable, mesh)
@@ -418,7 +441,7 @@ class SplitModel:
         ho = {"positions": positions, "seq_pos": seq_pos, "mode": mode,
               "encoder_out": enc,
               "has_context": chunk_start is not None,
-              "differentiable": differentiable}
+              "differentiable": differentiable, "chunked": chunked}
         ctx = self._ctx_from(ho)
         aux = 0.0
         if cfg.n_dense_layers:
@@ -437,7 +460,7 @@ class SplitModel:
                      encoder_out=head_out.get("encoder_out"),
                      has_context=head_out.get("has_context", False),
                      differentiable=head_out.get("differentiable", False),
-                     mesh=self.mesh)
+                     mesh=self.mesh, chunked=head_out.get("chunked", False))
 
     def body_fwd(self, body_p, smashed, head_out, *, cache=None):
         """Server-side: frozen body over the smashed activations."""
@@ -478,7 +501,7 @@ class SplitModel:
     def forward(self, params, batch, *, route="split", mode="train",
                 cache=None, dtype=torch.float32, prompt=None, last_only=True,
                 wire_generator: Optional[torch.Generator] = None,
-                chunk_start=None):
+                chunk_start=None, chunked: bool = False):
         """route='split': head -> body -> tail, every smashed tensor
         crossing the head_body / body_tail wire boundaries through their
         codecs; out['wire_bytes'] holds the measured bytes per link.
@@ -486,14 +509,16 @@ class SplitModel:
         `wire_generator` draws stochastic-rounding noise (training); None
         rounds to nearest. `chunk_start` (B,) runs a chunked-prefill
         continuation (see `head_fwd`); the soft prompt went in with the
-        first chunk, so none is prepended here."""
+        first chunk, so none is prepended here. `chunked` as in
+        `head_fwd`."""
         if chunk_start is not None:
             prompt = None
         else:
             prompt = params["prompt"] if prompt is None else prompt
         hc = cache["head"] if cache is not None else None
         ho = self.head_fwd(params["head"], prompt, batch, mode=mode,
-                           cache=hc, dtype=dtype, chunk_start=chunk_start)
+                           cache=hc, dtype=dtype, chunk_start=chunk_start,
+                           chunked=chunked)
         x, aux = ho["smashed"], ho["aux"]
         new_cache = {"head": ho["cache"]} if cache is not None else None
         wire_bytes = {}

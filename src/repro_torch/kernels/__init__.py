@@ -5,7 +5,8 @@ Each kernel lives in its own subpackage, mirroring `repro/kernels/`:
   <name>/kernel.py  — the launch wrapper of the CUDA kernel in csrc/,
                       with a `launches` counter
   <name>/ops.py     — the public op: plain version for a CPU tensor, the
-                      kernel for a CUDA tensor, and nothing else
+                      kernel for a CUDA tensor, the accounting form for a
+                      `meta` tensor, and nothing else
 
 Kernels (csrc/, built by `build.py` into one shared library at first use):
   quant            — int8 wire quantize / dequantize      (quant.cu)
@@ -37,14 +38,33 @@ from typing import Callable, Dict
 import torch
 
 
-def on_cuda(x: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; anything else raises.
-    The device alone picks the kernel or the plain version."""
+# ops a `meta` tensor took the accounting form of: the kernel launches a
+# card would make for the same step (`launch/hlo.py` reads them as
+# "custom-call")
+accounted_ops = 0
+
+
+def route(x: torch.Tensor) -> str:
+    """The device alone picks an op's path: "kernel" for a CUDA tensor,
+    "plain" for a CPU one, "accounting" for a `meta` one (the dry-run:
+    shapes only; the scans take their loop-free chunked forms, every other
+    op its plain version, whose FLOPs and bytes depend on shapes alone).
+    Any other device raises; nothing falls back."""
+    global accounted_ops
     if x.is_cuda:
-        return True
+        return "kernel"
     if x.device.type == "cpu":
-        return False
+        return "plain"
+    if x.device.type == "meta":
+        accounted_ops += 1
+        return "accounting"
     raise ValueError(f"no kernel or plain version for device {x.device}")
+
+
+def on_cuda(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU or
+    `meta` one (the plain version); anything else raises (`route`)."""
+    return route(x) == "kernel"
 
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}

@@ -11,7 +11,9 @@ Per head h with scalar log-decay rate A_h < 0, state h in R^{P x N}:
 A Python loop over T in f32, with B and C repeated from G groups to H
 heads. `mamba2_chunked` is the port of the JAX package's chunked form, the
 algorithm the chunked CUDA kernel runs (tests and `chip_smoke.py` hold the
-two against each other); it is never on the path.
+two against each other), and the accounting form of the `meta` device and
+of `impl="chunked"` (`ops.plain_scan`); no serving or training path on the
+CPU or the card runs it.
 """
 from __future__ import annotations
 

@@ -11,8 +11,9 @@ Per head with state S in R^{K x V}, data-dependent log-decay w_t < 0
 exp(-cumsum) factor, so strong decays stay finite): the plain version the
 kernels are held to. `rwkv6_subchunked` is the chunked kernel's own
 decomposition in plain PyTorch, for the tests and `chip_smoke.py`; nothing
-on the serving path calls it. The JAX package's chunked GLA form
-(`rwkv6_chunked`) is an XLA-side alternative and is not ported.
+on the serving path calls it. `rwkv6_chunked` is the JAX package's
+chunked GLA form, loop-free within a chunk: the accounting form of the
+`meta` device and of `impl="chunked"` (`launch/steps.py`).
 """
 from __future__ import annotations
 
@@ -133,5 +134,56 @@ def rwkv6_subchunked(
         S = torch.exp(tot.sum(dim=1))[..., None] * S + torch.einsum(
             "bshk,bshv->bhkv", kS.reshape(B, chunk, H, K),
             vc.reshape(B, chunk, H, V))
+    y = torch.cat(ys, dim=1)[:, :T]
+    return y.to(r.dtype), S
+
+
+def rwkv6_chunked(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+    u: torch.Tensor, state: Optional[torch.Tensor] = None, *,
+    chunk: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked GLA form (`repro/kernels/rwkv6_scan/ref.py::rwkv6_chunked`):
+    T zero-padded to a multiple of `chunk` (no input, a decay of 1), then
+    per chunk, with cw the inclusive and cwe the exclusive cumsum of w,
+
+        A[t, s] = sum_k r_t k_s exp(min(cwe_t - cw_s, 0))    (s < t)
+        y_t = sum_s A[t, s] v_s + (r_t . (u o k_t)) v_t
+              + (r_t o exp(cwe_t))^T S
+        S <- diag(exp(cw_last)) S + sum_s (exp(cw_last - cw_s) o k_s) v_s^T
+
+    through the pairwise-difference tensor (every retained exponent <= 0)
+    and the carried state. The same math as the sequential recurrence."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    f32 = torch.float32
+    S = (torch.zeros((B, H, K, V), dtype=f32, device=r.device)
+         if state is None else state.float())
+    uf = u.float()
+    pad = (-T) % chunk
+    r_, k_, v_, w_ = (torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0,
+                                                          pad))
+                      for t in (r, k, v, w))
+    idx = torch.arange(chunk, device=r.device)
+    tri = idx[:, None] > idx[None, :]
+    zero = torch.zeros((), dtype=f32, device=r.device)
+    ys = []
+    for s0 in range(0, T + pad, chunk):
+        rc, kc, vc, wc = (t[:, s0:s0 + chunk] for t in (r_, k_, v_, w_))
+        cw = torch.cumsum(wc, dim=1)                   # inclusive
+        cwe = cw - wc                                  # exclusive
+        diff = cwe[:, :, None] - cw[:, None, :]        # (B, t, s, H, K)
+        diff = torch.where(tri[None, :, :, None, None], diff, zero)
+        A = torch.einsum("bthk,bshk,btshk->bhts", rc, kc,
+                         torch.exp(torch.clamp(diff, max=0.0)))
+        A = torch.where(tri[None, None], A, zero)
+        diag = torch.einsum("bthk,hk,bthk->bth", rc, uf, kc)
+        y = torch.einsum("bhts,bshv->bthv", A, vc) + diag[..., None] * vc
+        y = y + torch.einsum("bthk,bhkv->bthv", rc * torch.exp(cwe), S)
+        ys.append(y)
+        total = cw[:, -1]                              # (B, H, K)
+        wgt = torch.exp(total[:, None] - cw)           # (B, c, H, K), <= 1
+        S = torch.exp(total)[..., None] * S + torch.einsum(
+            "bshk,bshv->bhkv", kc * wgt, vc)
     y = torch.cat(ys, dim=1)[:, :T]
     return y.to(r.dtype), S

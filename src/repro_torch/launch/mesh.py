@@ -13,8 +13,17 @@ computes on the same `device`: on a card all of them share `cuda:0`, and
 gloo moves CUDA tensors through host memory. NCCL (one GPU a rank) waits
 for a machine with more than one card.
 
-The JAX module's production mesh and its TPU constants have no
-counterpart here.
+The production meshes of the dry-run (`make_production_mesh`) are
+`parallel.AccountingMesh`es: JAX's axis names and sizes seen from rank 0,
+with no process group, so a rank's step runs on the `meta` device in one
+process. The roofline's constants are the card's, per card, from
+NVIDIA's H100 SXM5 80GB HBM3 datasheet at 700 W (the card of PERF.md), in
+place of the JAX module's v5e numbers: dense bf16 tensor-core FLOP/s, HBM
+bytes/s, and an NVLink link rate of 900 GB/s in all, 450 GB/s a
+direction, where JAX has its ICI link. The NVLink Switch System joins up
+to 256 GPUs, so pod16x16's 256 ranks stay on NVLink; the 'pod' axis of
+pod2x16x16 would cross InfiniBand, which the roofline does not model: it
+keeps JAX's single collective term.
 """
 from __future__ import annotations
 
@@ -26,9 +35,25 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
+from repro_torch.sharding.parallel import AccountingMesh
 from repro_torch.sharding.rules import axis_sizes, report_fallbacks
 
 COLLECTIVE_TIMEOUT_S = 900   # a rank waiting longer on a collective fails
+
+# H100 SXM5 80GB HBM3 at 700 W, NVIDIA's datasheet (per card)
+PEAK_FLOPS_BF16 = 989e12       # FLOP/s, dense bf16 tensor cores
+HBM_BW = 3.35e12               # bytes/s
+LINK_BW = 450e9                # bytes/s: NVLink's 900 GB/s, one direction
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AccountingMesh:
+    """The dry-run's mesh, seen from rank 0: (data 16, model 16) =
+    256 ranks, named pod16x16, or (pod 2, data 16, model 16) = 512,
+    named pod2x16x16. Opens no process group."""
+    if multi_pod:
+        return AccountingMesh({"pod": 2, "data": 16, "model": 16},
+                              name="pod2x16x16")
+    return AccountingMesh({"data": 16, "model": 16}, name="pod16x16")
 
 
 def check_host_mesh(n: int, world: int, model: int = 1) -> None:

@@ -42,16 +42,22 @@ engine steps; `--trace-profiler` wraps the traced dispatches in
 `torch.profiler.record_function` ranges. `python tools/trace_check.py
 BASE.jsonl` validates the export (traced bytes == the meter's).
 
-Tensor-parallel serving: `--mesh-model T` (T > 1) starts T host ranks (a
-gloo group, spawned by the launcher) that serve the same trace with the
-frozen head and body cut over a ('data', 'model') mesh of 'data' 1; rank
-0 prints. On the card every rank shares the one GPU, so its rate is that
-of gloo through host memory, not of tensor parallelism. Every token
-family runs (MoE expert-parallel; MLA, Mamba-2 and RWKV-6 on a rank's
-heads):
+Serving on a mesh: `--mesh-devices N` starts N host ranks (a gloo group,
+spawned by the launcher) that serve the same trace on
+`make_host_mesh(N, model=T)` with T = `--mesh-model`: the frozen head and
+body cut over 'model', the dense cache's slots over 'data' = N / T (each
+rank decodes its block of slots; the next tokens are gathered), the
+paged pool replicated over 'data'. `--mesh-devices` defaults to
+`--mesh-model`, so `--mesh-model T` alone serves on (data 1, model T),
+the counterpart of the JAX launcher's mesh over every visible device.
+Rank 0 prints. On the card every rank shares the one GPU, so its rate is
+that of gloo through host memory, not of a mesh. Every token family runs
+(MoE expert-parallel; MLA, Mamba-2 and RWKV-6 on a rank's heads):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --mesh-model 2 --requests 4 --wire int8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --mesh-devices 4 --mesh-model 2 --requests 4
 """
 from __future__ import annotations
 
@@ -69,7 +75,8 @@ from repro_torch.configs import get_config
 from repro_torch.core import SplitConfig, SplitModel
 from repro_torch.core.comm import serve_comm_breakdown
 from repro_torch.core.split import resolve_device
-from repro_torch.launch.mesh import is_lead, make_host_mesh, spawn_ranks
+from repro_torch.launch.mesh import (check_host_mesh, is_lead,
+                                     make_host_mesh, spawn_ranks)
 from repro_torch.obs import MetricsRegistry, export_all, make_tracer
 from repro_torch.obs.trace import LEVELS
 from repro_torch.runtime import WireSpec
@@ -168,10 +175,13 @@ def _parse(argv):
                     help="stream prompts in pieces of this many tokens "
                          "(paged engine only; default: monolithic)")
     ap.add_argument("--mesh-model", type=int, default=1,
-                    help="serve tensor-parallel over a (data, model) host "
-                         "mesh of this many ranks, spawned by the launcher "
-                         "(frozen body sharded, KV kv-heads sharded; 1 = "
-                         "one process)")
+                    help="ranks on the mesh's 'model' axis (frozen body "
+                         "sharded, KV kv-heads sharded; 1 = none)")
+    ap.add_argument("--mesh-devices", type=int, default=None,
+                    help="serve on a (data, model) host mesh of this many "
+                         "ranks, spawned by the launcher; 'data' = this / "
+                         "--mesh-model holds the dense cache's slots "
+                         "(default: --mesh-model; 1 = one process)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--params", default=None,
                     help="checkpoint to serve (e.g. a training run's "
@@ -206,20 +216,27 @@ def _model_cfg(args):
 
 
 def main(argv=None):
-    """Serve the synthetic trace; returns the engine's stats (with
-    `--mesh-model` > 1, rank 0's)."""
+    """Serve the synthetic trace; returns the engine's stats (on a mesh,
+    rank 0's)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     args = _parse(argv)
-    if args.mesh_model <= 1:
+    n = _mesh_devices(args)
+    if n <= 1:
         return _serve(args, None)
+    check_host_mesh(n, n, args.mesh_model)
     resolve_device(args.device)
-    return spawn_ranks(_rank_main, args.mesh_model, argv)[0]
+    return spawn_ranks(_rank_main, n, argv)[0]
+
+
+def _mesh_devices(args) -> int:
+    return (args.mesh_model if args.mesh_devices is None
+            else args.mesh_devices)
 
 
 def _rank_main(argv):
-    """One host rank of a `--mesh-model` run; only rank 0 prints."""
+    """One host rank of a `--mesh-devices` run; only rank 0 prints."""
     args = _parse(argv)
-    mesh = make_host_mesh(args.mesh_model, model=args.mesh_model)
+    mesh = make_host_mesh(_mesh_devices(args), model=args.mesh_model)
     if is_lead(mesh):
         return _serve(args, mesh)
     warnings.simplefilter("ignore")

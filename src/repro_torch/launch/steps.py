@@ -15,7 +15,12 @@ Loss modes:
 
 Eager PyTorch has no `jit`, `vmap` or `scan`: the JAX factories'
 `remat`, `unroll`, `impl` and `donate_cache` are accepted with the JAX
-signatures and mean what each docstring says. The split loss runs under
+signatures and mean what each docstring says. `impl` "chunked" and
+"analysis" (the dry-run's) run the scans' chunked forms wherever a plain
+scan runs (the CPU, differentiated passes), as the JAX ops' do; a `meta`
+tensor takes those forms whatever the impl, and a CUDA tensor in a
+forward pass launches its kernel whatever the impl. Every other impl
+changes nothing: the device picks the path. The split loss runs under
 autograd, so its attention, scans and CE run their plain versions on every
 device (the kernel wrappers refuse grad), as JAX's gradient runs through
 XLA; the prefill and decode steps run under `torch.no_grad()` and launch
@@ -34,16 +39,21 @@ from repro_torch.core.split import SplitModel
 from repro_torch.kernels.el2n import ref as el2n_ref
 from repro_torch.models import layers as L
 from repro_torch.optim import Optimizer, apply_updates, sgd
+from repro_torch.sharding import parallel
+from repro_torch.sharding.rules import client_axes
 from repro_torch.tree import tree_leaves, tree_map
 
 ACT_DTYPE = torch.bfloat16
 
-IMPLS = ("auto", "ref", "pallas", "interpret")
+IMPLS = ("auto", "ref", "pallas", "interpret", "chunked", "analysis")
 
 
-def _check_impl(impl: str) -> None:
+def _check_impl(impl: str) -> bool:
+    """Refuse an impl JAX does not know; True where the scans' chunked
+    forms are asked for."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    return impl in ("chunked", "analysis")
 
 
 def _fused_lm_loss(hidden, head_w, tokens, n_prefix, softcap=None):
@@ -69,12 +79,12 @@ def make_split_loss(model: SplitModel, *, impl="ref", remat=True,
     `split_loss(trainable, frozen, batch, generator=None)`: `generator`
     draws a stochastic codec's rounding noise; None rounds to nearest.
 
-    `impl`: the port picks the path by device and by autograd, so every
-    JAX value is accepted and changes nothing here: this loss is
-    differentiated and runs plain. `remat`: accepted; eager autograd keeps
-    the forward activations (no rematerialization). `unroll`: accepted;
-    layers already run in a Python loop."""
-    _check_impl(impl)
+    `impl`: the port picks the path by device and by autograd; this loss
+    is differentiated and runs plain, its scans chunked under "chunked"
+    and "analysis" (and on `meta`). `remat`: accepted; eager autograd
+    keeps the forward activations (no rematerialization). `unroll`:
+    accepted; layers already run in a Python loop."""
+    chunked = _check_impl(impl)
     if loss_mode not in ("logits", "fused"):
         raise ValueError(f"loss_mode must be 'logits' or 'fused', got "
                          f"{loss_mode!r}")
@@ -83,7 +93,7 @@ def make_split_loss(model: SplitModel, *, impl="ref", remat=True,
     def split_loss(trainable, frozen, batch, generator=None):
         ho = model.head_fwd(frozen["head"], trainable["prompt"], batch,
                             mode="train", dtype=ACT_DTYPE,
-                            differentiable=True)
+                            differentiable=True, chunked=chunked)
         x_hb, _ = model.wire.head_body.transmit(ho["smashed"],
                                                 generator=generator)
         bo = model.body_fwd(frozen["body"], x_hb, ho)
@@ -136,8 +146,16 @@ def make_train_step(model: SplitModel, *, n_clients: int,
     one SGD step with momentum 0.9; FedAvg with unit weights then gives
     every client the same (tail, prompt). The frozen segments are one
     shared copy, never K. `impl`, `remat` and `unroll` as in
-    `make_split_loss`."""
+    `make_split_loss`.
+
+    On a model `on_mesh` with a client plane ('pod', 'data') of P > 1
+    ranks, `n_clients` is this rank's block of the cohort: the FedAvg
+    mean and the loss are then summed over the plane and divided by P
+    (one all-reduce each, as the JAX step's mean over its sharded client
+    axis)."""
     opt = sgd(lr, momentum=0.9)
+    plane = None if model.mesh is None else client_axes(model.mesh)
+    planes = parallel.axis_size(model.mesh, plane) if plane else 1
     split_loss = make_split_loss(model, impl=impl, remat=remat,
                                  loss_mode=loss_mode, unroll=unroll)
 
@@ -176,9 +194,16 @@ def make_train_step(model: SplitModel, *, n_clients: int,
         del states
         # phase-3 aggregation: the protocol's signature collective
         agg = fedavg(trainable_k, torch.ones(n_clients))
-        trainable_k = broadcast_to_clients(agg, n_clients)
         loss = xla_sum(losses_k, torch.zeros_like(losses_k[0])) * float(
             np.float32(1.0 / n_clients))
+        if planes > 1:
+            # the other ranks' client blocks: the mean of equal blocks'
+            # means is the cohort's mean
+            agg = tree_map(lambda x: parallel.reduce_sum(
+                x.clone(), model.mesh, plane) / planes, agg)
+            loss = parallel.reduce_sum(loss.clone(), model.mesh,
+                                       plane) / planes
+        trainable_k = broadcast_to_clients(agg, n_clients)
         return trainable_k, opt_state_k, loss
 
     return train_step, opt
@@ -195,12 +220,12 @@ def make_prefill_step(model: SplitModel, *, impl: str = "ref",
     cache[, wire_bytes])`. The cache is written in place and returned, so
     `donate_cache` (the JAX package's buffer donation) is accepted and
     changes nothing; `impl` and `unroll` as in `make_split_loss`."""
-    _check_impl(impl)
+    chunked = _check_impl(impl)
 
     @torch.no_grad()
     def prefill_step(params, batch, cache):
         out = model.forward(params, batch, route="split", mode="prefill",
-                            cache=cache, dtype=dtype)
+                            cache=cache, dtype=dtype, chunked=chunked)
         if with_wire_bytes:
             return out["logits"][:, -1, :], out["cache"], out["wire_bytes"]
         return out["logits"][:, -1, :], out["cache"]
@@ -214,12 +239,12 @@ def make_decode_step(model: SplitModel, *, impl: str = "ref",
     batch, cache) -> (next_tok int32, logits, cache[, wire_bytes])`, with
     `batch = {"tokens": (B, 1), "pos": (B,)}`. The arguments as in
     `make_prefill_step` (the cache is updated in place)."""
-    _check_impl(impl)
+    chunked = _check_impl(impl)
 
     @torch.no_grad()
     def decode_step(params, batch, cache):
         out = model.forward(params, batch, route="split", mode="decode",
-                            cache=cache, dtype=dtype)
+                            cache=cache, dtype=dtype, chunked=chunked)
         logits = out["logits"][:, 0, :]
         next_tok = torch.argmax(logits, -1).to(torch.int32)
         if with_wire_bytes:

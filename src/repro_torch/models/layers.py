@@ -20,7 +20,9 @@ set by the training round's two losses) run their plain versions on every
 device, so autograd flows through PyTorch ops: no kernel has a backward,
 and the JAX round likewise runs every pass with `impl="ref"`. Forward-only
 passes (EL2N scoring, evaluation, serving) keep the device dispatch and
-launch the kernels on the card.
+launch the kernels on the card. On the `meta` device (the dry-run) the
+scans take their loop-free chunked forms, and `Ctx.chunked` (JAX's
+`impl="chunked"`) asks for them wherever a plain scan runs.
 
 The MoE block runs its grouped expert products as plain `torch.matmul`s
 over each expert's row range on every device (`jax.lax.ragged_dot` is an
@@ -46,9 +48,9 @@ from repro_torch.kernels.flash_attention import ref as attention_ref
 from repro_torch.kernels.flash_attention.decode import (
     decode_attention, paged_decode_attention)
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.mamba2_scan import ref as mamba2_ref
 from repro_torch.kernels.mamba2_scan.ops import mamba2_scan
-from repro_torch.kernels.rwkv6_scan import ref as rwkv6_ref
+from repro_torch.kernels.mamba2_scan.ops import plain_scan as mamba2_plain
+from repro_torch.kernels.rwkv6_scan.ops import plain_scan as rwkv6_plain
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
 from repro_torch.models.config import AttentionConfig, ModelConfig
 from repro_torch.sharding import parallel
@@ -165,6 +167,9 @@ class Ctx:
     mesh: Any = None                            # the DeviceMesh whose 'model'
     #                                             axis a block's local weight
     #                                             shards are cut over
+    chunked: bool = False                       # the scans' plain versions
+    #                                             take their chunked forms
+    #                                             (JAX's impl="chunked")
 
     @property
     def decoding(self) -> bool:
@@ -545,7 +550,10 @@ def apply_cross_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     Tensor-parallel on local shards (`ctx.mesh`) as `apply_attention`:
     cq/ck/cv column shards (their inputs, the normed stream and the
     encoder output, through `copy_to_model`) and co a row shard summed
-    over 'model'. Shards that are not whole heads are refused."""
+    over 'model'. Where the shards are not whole heads (whisper-base's 8
+    heads on 'model' 16), q, k and v are gathered over 'model', every rank
+    attends all heads and keeps its own columns for co, as
+    `apply_attention` does."""
     att = cfg.attention
     B, S, D = x.shape
     h = apply_norm(p["ln_cross"], x, cfg.norm)
@@ -554,21 +562,22 @@ def apply_cross_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     q_full, kv_full = att.n_heads * dh, att.n_kv_heads * dh
     qc, kc = p["cq"]["w"].shape[-1], p["ck"]["w"].shape[-1]
     tp = qc < q_full
-    if tp and (qc % dh or kc % dh):
-        raise NotImplementedError(
-            "cross-attention with q/k/v shards over 'model' that are not "
-            "whole heads")
     if tp:
         h = parallel.copy_to_model(h, mesh)
         enc = parallel.copy_to_model(enc, mesh)
     q = _column(p["cq"], h, q_full, mesh)
     k = _column(p["ck"], enc, kv_full, mesh)
     v = _column(p["cv"], enc, kv_full, mesh)
+    split = tp and (qc % dh or kc % dh)
+    if split:
+        q, k, v = (parallel.gather_model(t, mesh) for t in (q, k, v))
     q = q.reshape(B, S, -1, dh)
     k = k.reshape(B, F_, -1, dh)
     v = v.reshape(B, F_, -1, dh)
     out = _gqa_attend(q, k, v, ctx, att, window=None, softcap=None,
                       causal=False).reshape(B, S, -1)
+    if split:
+        out = parallel.model_slice(out, qc, mesh)
     return _row(p["co"], out, q_full, mesh)
 
 
@@ -670,7 +679,11 @@ def apply_moe(p: Params, cfg: ModelConfig, x: torch.Tensor, mesh=None):
     their tokens. No token is ever dropped, so a row's result does not
     depend on the other rows in the batch: the decode step may run a
     tenant's tail on its rows alone. The group sizes come to the host
-    (one device sync a call, counted in `moe_host_syncs`).
+    (one device sync a call, counted in `moe_host_syncs`); on the `meta`
+    device, which holds no values, equal groups stand in, which gives the
+    exact FLOP count of the unsharded expert products (they scale with the
+    N*k rows, whatever their split among experts, as JAX's
+    `_ragged_dot`).
 
     Expert-parallel on local shards (`mesh`): a rank holding E/T of the
     experts (the rules cut them over 'model') runs only their row ranges,
@@ -691,15 +704,27 @@ def apply_moe(p: Params, cfg: ModelConfig, x: torch.Tensor, mesh=None):
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
 
     # load-balance aux loss (Switch-style)
-    density = torch.bincount(top_e[:, 0], minlength=e.n_experts).float() / N
+    flat_e = top_e.reshape(-1)                                 # (N*k,)
+    if x.is_meta:
+        # the dry-run: no values to count, so equal groups (N*k / E each,
+        # the remainder to the lowest experts) stand in; the FLOPs of the
+        # expert products and the bytes of their rows depend only on the
+        # N*k rows in all, so the unsharded count is exact (an
+        # expert-parallel rank's is its experts' share of even routing)
+        density = probs.new_zeros((e.n_experts,)).scatter_add_(
+            0, top_e[:, 0], probs.new_ones((N,))) / N
+        q, rem = divmod(N * k, e.n_experts)
+        sizes = [q + (i < rem) for i in range(e.n_experts)]
+    else:
+        density = torch.bincount(top_e[:, 0],
+                                 minlength=e.n_experts).float() / N
+        sizes = torch.bincount(flat_e, minlength=e.n_experts).tolist()
+        global moe_host_syncs
+        moe_host_syncs += 1
     aux = e.load_balance_coef * e.n_experts * (density * probs.mean(0)).sum()
 
-    flat_e = top_e.reshape(-1)                                 # (N*k,)
     order = torch.argsort(flat_e, stable=True)
     tok = order // k                                           # token a row
-    sizes = torch.bincount(flat_e, minlength=e.n_experts).tolist()
-    global moe_host_syncs
-    moe_host_syncs += 1
     we = p["experts"]
     n_local = we["up"].shape[0]
     ep = n_local < e.n_experts
@@ -860,11 +885,11 @@ def apply_mamba2(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
     scan_in = (xh, dt, A, Bm.reshape(B, S, G, N), Cm.reshape(B, S, G, N),
                ssm)
     if ctx.differentiable:
-        y, new_ssm = mamba2_ref.mamba2_scan(*scan_in)
+        y, new_ssm = mamba2_plain(*scan_in, chunked=ctx.chunked)
         if ssm is not None:
             ssm.copy_(new_ssm)
     else:
-        y, _ = mamba2_scan(*scan_in, state_out=ssm)
+        y, _ = mamba2_scan(*scan_in, state_out=ssm, chunked=ctx.chunked)
     y = y + Dskip.to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(B, S, Hl * m.head_dim) * F.silu(z)
     if tp:
@@ -994,11 +1019,13 @@ def apply_rwkv6(p: Params, cfg: ModelConfig, x: torch.Tensor, ctx: Ctx,
     # differentiated plain version returns it and the cache takes a copy)
     state = cache["state"] if cache is not None else None
     if ctx.differentiable:
-        y, new_state = rwkv6_ref.rwkv6_scan(r, k, v, w, u, state)
+        y, new_state = rwkv6_plain(r, k, v, w, u, state,
+                                   chunked=ctx.chunked)
         if state is not None:
             state.copy_(new_state)
     else:
-        y, _ = rwkv6_scan(r, k, v, w, u, state, state_out=state)
+        y, _ = rwkv6_scan(r, k, v, w, u, state, state_out=state,
+                          chunked=ctx.chunked)
     # per-head group norm
     yg = y.reshape(B, S, Hl, K).float()
     mu = yg.mean(-1, keepdim=True)

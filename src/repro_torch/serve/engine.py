@@ -15,16 +15,22 @@ each, copied in with `cache_write_slot`), then runs ONE batched decode
 dispatch over all slots — requests join and leave mid-flight without ever
 draining the batch.
 
-On a mesh (`mesh=`, a ('data', 'model') host mesh with 'data' 1: every
-rank runs the same host loop on the same requests) the frozen head and
-body, given whole or already as this rank's blocks, are cut to this
-rank's shards by `make_step_shardings` and run
-tensor-parallel over 'model'; the head's and body's caches hold this
-rank's kv heads, Mamba-2 heads and RWKV-6 heads (`cache_pspecs`; MLA's
-latent and the recurrent conv and token-shift states stay whole). The
-tenants' tails, and the tail's cache, stay whole on every rank, so the
-logits, and the tokens picked from them, are the same on every rank.
-Slots over 'data' are slice H part 3 and raise.
+On a mesh (`mesh=`, a ('data', 'model') host mesh: every rank runs the
+same host loop on the same requests) the frozen head and body, given
+whole or already as this rank's blocks, are cut to this rank's shards by
+`make_step_shardings` and run tensor-parallel over 'model'; the head's
+and body's caches hold this rank's kv heads, Mamba-2 heads and RWKV-6
+heads (`cache_pspecs`; MLA's latent and the recurrent conv and
+token-shift states stay whole). The tenants' tails stay whole on every
+rank. The cache's slot axis is cut over 'data' (`cache_pspecs`, as the
+JAX engine shards it): a rank holds its block of slots in every leaf,
+the tail's included, or all of them where the slot count does not divide
+'data' (the recorded fallback, kept in `fallbacks`). A prefill runs
+replicated on every rank against a one-slot blank cache and only the
+slot's owner keeps it (`cache_write_slot(first=)`); a decode runs the
+rank's slots and gathers the next tokens (and the logits, when
+collected) over 'data', so every rank's host loop sees every slot and
+makes the same choices.
 
 Differences from the JAX engine, none of which changes a token or a byte:
   * on a mesh the tails and their caches are replicated, where the JAX
@@ -36,7 +42,9 @@ Differences from the JAX engine, none of which changes a token or a byte:
   * the decode tail runs per present tenant, never per slot (serve/steps.py);
   * wire bytes accumulate in f32 on the host — every count is known there —
     with the JAX engine's f32 adds in the same order, and fold into the
-    meter in `stats()` / `reset_stats()`.
+    meter in `stats()` / `reset_stats()`; on a 'data' mesh every rank
+    meters the whole batch's rows, as JAX's meter does, never its own
+    slots' alone (a sum over ranks would add in another order).
 
 Per-tenant personalization: every request carries a tenant id; prefill
 injects the tenant's soft prompt and tail. The frozen head/body are shared.
@@ -45,7 +53,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -130,15 +138,13 @@ class ServeEngine:
         # nothing; byte-carrying records appear only at the meter flush
         self.tracer = tracer if tracer is not None else NOOP
         self.mesh = mesh
+        self.step_specs: Dict[str, Any] = {}
+        self.fallbacks: tuple = ()
         if mesh is not None:
-            if parallel.axis_size(mesh, "data") > 1:
-                raise NotImplementedError(
-                    "serving with slots over 'data' is slice H part 3: "
-                    "serve on a mesh of 'model' ranks alone")
             whole = model.init(torch.Generator(), device="meta")
             whole = {"head": whole["head"], "body": whole["body"]}
             self.step_specs = self._mesh_specs(model, whole)
-            self._report_fallbacks()
+            self.fallbacks = self._report_fallbacks()
             self.shared = tree_map(self._local_leaf, self.shared, whole,
                                    self.step_specs["shared"])
             model = model.on_mesh(mesh)
@@ -147,6 +153,7 @@ class ServeEngine:
         self.meter.attach_tracer(self.tracer)
 
         S = cfg.n_slots
+        self.slots = self._slot_block()
         self.cache = self._alloc_cache()
         self._tokens = np.zeros((S,), np.int32)     # next input per slot
         self._pos = np.zeros((S,), np.int32)
@@ -157,7 +164,9 @@ class ServeEngine:
         self._t_enqueue: Dict[int, float] = {}      # rid -> submit time
 
         self._prefill = make_tenant_prefill_step(model, dtype=cfg.dtype)
-        self._decode = make_batched_decode_step(model, dtype=cfg.dtype)
+        self._decode = make_batched_decode_step(
+            model, dtype=cfg.dtype, slots=self.slots,
+            with_logits=collect_logits)
         self._multi: Dict[int, Any] = {}    # decode_block bucket -> step
         self._wire_acc = self._zero_wire()
 
@@ -192,18 +201,34 @@ class ServeEngine:
                                    device="meta"),
             blank=model.blank_slot_cache(self.cfg.max_seq, device="meta"))
 
-    def _report_fallbacks(self, context: str = "serve.steps") -> None:
+    def _report_fallbacks(self, context: str = "serve.steps") -> tuple:
         """Surface the divisibility fallbacks the spec builders recorded
         (a kv-head count that does not divide 'model' replicates the cache
-        heads): one tracer event when traced, a warning either way."""
-        report_fallbacks(context, self.tracer)
+        heads, a slot count that does not divide 'data' the slots): one
+        tracer event when traced, a warning either way. Returns them."""
+        return report_fallbacks(context, self.tracer)
+
+    def _slot_block(self) -> Tuple[int, int]:
+        """[lo, hi) of the slots this rank holds: its block of the cache's
+        slot axis under `cache_pspecs` (all of them off a mesh, where the
+        slot count does not divide 'data', and in the paged engine, whose
+        pool is replicated over 'data')."""
+        S = self.cfg.n_slots
+        if "cache" not in self.step_specs:
+            return 0, S
+        entry = next(spec[1] for spec in tree_leaves(self.step_specs["cache"])
+                     if len(spec) >= 2)
+        if entry is None:
+            return 0, S
+        i, n = parallel.block_index(self.mesh, entry)
+        return i * S // n, (i + 1) * S // n
 
     def _alloc_cache(self):
-        """The shared n-slot KV cache, one full `max_seq` window per slot.
-        The paged engine overrides this: its page pool replaces the dense
-        cache, which it never allocates."""
-        return self.model.init_cache(self.cfg.n_slots,
-                                     seq_len=self.cfg.max_seq,
+        """The shared KV cache of this rank's slots, one full `max_seq`
+        window per slot. The paged engine overrides this: its page pool
+        replaces the dense cache, which it never allocates."""
+        lo, hi = self.slots
+        return self.model.init_cache(hi - lo, seq_len=self.cfg.max_seq,
                                      dtype=torch.float32, device=self.device)
 
     # -------------------------------------------------------------- wire
@@ -279,7 +304,8 @@ class ServeEngine:
             with self.tracer.annotate("serve.prefill"):
                 tok, logits, slot_cache, wb = self._prefill(
                     self.shared, tail, prompt, {"tokens": tokens}, blank)
-            self.model.cache_write_slot(self.cache, slot_cache, slot)
+            self.model.cache_write_slot(self.cache, slot_cache, slot,
+                                        first=self.slots[0])
         self._absorb_wire(wb)
         self.prefill_count += 1
         self.tokens_out += 1
@@ -323,7 +349,8 @@ class ServeEngine:
         if fn is None:
             fn = make_multi_decode_step(self.model, n_steps,
                                         dtype=self.cfg.dtype,
-                                        with_logits=self.collect_logits)
+                                        with_logits=self.collect_logits,
+                                        slots=self.slots)
             self._multi[n_steps] = fn
         return fn
 
@@ -356,7 +383,7 @@ class ServeEngine:
             toks, logits, self.cache, wb = self._decode(
                 self.shared, self.bank, self._tenants, tokens, pos,
                 remaining > 0, self.cache)
-            return toks[None], logits[None], wb
+            return toks[None], None if logits is None else logits[None], wb
         toks, logits, self.cache, wb = self._get_multi(n_eff)(
             self.shared, self.bank, self._tenants, tokens, pos, remaining,
             self.cache)

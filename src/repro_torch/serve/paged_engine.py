@@ -41,9 +41,12 @@ touch a live page; unallocated table entries point at the null page whose
 positions stay -1, masking exactly like empty cache slots.
 
 On a mesh (see `ServeEngine`) the pool's kv heads are sharded over
-'model' (`cache_pspecs(paged=True)`: the page axis stays replicated, as
-any table may point at any page), and copy-on-write copies, slot gathers
-and scatters run on every rank's local pool alike.
+'model' (`cache_pspecs(paged=True)`: the page axis stays replicated over
+'data', as any table may point at any page), and copy-on-write copies,
+slot gathers and scatters run on every rank's local pool alike. With
+'data' > 1 every 'data' row holds the whole pool and runs the whole
+batch, as the JAX engine's paged steps take every operand but the pool
+replicated; no page is mapped to a rank.
 
 Differences from the JAX engine, none of which changes a token or a byte:
 the pool is written in place by the steps and the helpers below

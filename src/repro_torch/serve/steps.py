@@ -49,6 +49,7 @@ import torch
 
 from repro_torch.core.split import SplitModel
 from repro_torch.runtime.boundary import BOUNDARY_NAMES
+from repro_torch.sharding import parallel
 from repro_torch.sharding.rules import P, cache_pspecs, params_pspecs
 from repro_torch.tree import tree_map
 
@@ -63,7 +64,10 @@ def make_step_shardings(mesh, shared, *, cache=None, blank=None, pool=None):
     replicated), `blank` the batch=1 scratch cache, `repl` the replicated
     spec. The trees hold whole shapes (leaves anything with `.shape`,
     such as a cache built on the `meta` device); the engines cut their
-    local shards by them."""
+    local shards by them: the dense cache's slot axis over 'data', the
+    pool's kv heads alone (its pages replicated over 'data', so every
+    'data' row runs the whole paged batch, as JAX's paged steps take
+    every other operand replicated)."""
     out = {"repl": P(), "shared": params_pspecs(shared, mesh)}
     if cache is not None:
         out["cache"] = cache_pspecs(cache, mesh)
@@ -88,21 +92,33 @@ def make_tenant_prefill_step(model: SplitModel, *, dtype=torch.float32):
     return prefill_step
 
 
-def make_batched_decode_step(model: SplitModel, *, dtype=torch.float32):
+def make_batched_decode_step(model: SplitModel, *, dtype=torch.float32,
+                             slots=None, with_logits: bool = True):
     """decode_step(shared, bank, tenant_ids, tokens, pos, active, cache) ->
     (next_tok (S,), logits (S, V), cache, wire_bytes).
 
     `tokens`/`pos` are per-slot (S,) device tensors; `tenant_ids` (S,) and
     `active` (S,) bool are host arrays. Idle slots ride through the head
     and body for shape stability (their cache rows are wholly overwritten
-    at the next allocation) and contribute zero wire bytes."""
+    at the next allocation) and contribute zero wire bytes.
+
+    `slots` = (lo, hi): `cache` holds this rank's block [lo, hi) of the S
+    slots ('data'-sharded serving, `model.mesh`). The step then runs those
+    rows alone and gathers the next tokens, and with `with_logits` the
+    logits (else None), over 'data'; the wire bytes still count every
+    active row of the whole batch, as the JAX step meters them."""
     wire = model.wire
 
     def decode_step(shared, bank, tenant_ids, tokens, pos, active, cache):
+        S_all = len(active)
+        lo, hi = slots or (0, S_all)
+        n_active = np.float32(np.count_nonzero(active))
+        if hi - lo < S_all:
+            tokens, pos = tokens[lo:hi], pos[lo:hi]
+            tenant_ids, active = tenant_ids[lo:hi], active[lo:hi]
         batch = {"tokens": tokens[:, None], "pos": pos}
         ho = model.head_fwd(shared["head"], None, batch, mode="decode",
                             cache=cache["head"], dtype=dtype)
-        n_active = np.float32(np.count_nonzero(active))
         x, b_hb = wire.head_body.transmit(ho["smashed"], train=False,
                                           rows=n_active)
         bo = model.body_fwd(shared["body"], x, ho, cache=cache["body"])
@@ -126,13 +142,20 @@ def make_batched_decode_step(model: SplitModel, *, dtype=torch.float32):
             tree_map(lambda c, new: c.index_copy_(1, idx, new), tail_stack,
                      sub["stack"])
         next_tok = logits.argmax(-1).to(torch.int32)
+        if hi - lo < S_all:
+            # token ids below 2^24 survive the f32 sum exactly
+            next_tok = parallel.gather_axis(
+                next_tok.float(), 0, model.mesh, "data").to(torch.int32)
+            logits = (parallel.gather_axis(logits, 0, model.mesh, "data")
+                      if with_logits else None)
         return next_tok, logits, cache, {"head_body": b_hb,
                                          "body_tail": b_bt}
     return decode_step
 
 
 def make_multi_decode_step(model: SplitModel, n_steps: int, *,
-                           dtype=torch.float32, with_logits: bool = True):
+                           dtype=torch.float32, with_logits: bool = True,
+                           slots=None):
     """multi_decode_step(shared, bank, tenant_ids, tokens, pos, remaining,
     cache) -> (toks (n_steps, S), logits (n_steps, S, V) or None, cache,
     wire_bytes).
@@ -143,8 +166,9 @@ def make_multi_decode_step(model: SplitModel, n_steps: int, *,
     wire-active for the first remaining[i] steps and skipped after — the
     engine discards its trailing tokens and retires it at loop exit.
     `with_logits=False` keeps the (n_steps, S, V) logits out of the
-    result."""
-    decode_step = make_batched_decode_step(model, dtype=dtype)
+    result. `slots` as in `make_batched_decode_step`."""
+    decode_step = make_batched_decode_step(model, dtype=dtype, slots=slots,
+                                           with_logits=with_logits)
 
     def multi_decode_step(shared, bank, tenant_ids, tokens, pos, remaining,
                           cache):

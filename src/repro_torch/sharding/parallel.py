@@ -20,10 +20,19 @@ collectives below where a partitioned computation needs one:
 * `gather_axis` / `reduce_sum` — the same gathers and sums outside
   autograd (client blocks over 'data', FSDP leaves, vocab-parallel rows).
 
-Only all-reduce (sum) and broadcast run: a gather is an all-reduce of a
-zero-filled buffer into which each rank writes its block, which is exact
-(x + 0 is x). Those are the collectives gloo runs on CUDA tensors. A
-collective that fails raises; nothing falls back.
+Only all-reduce (sum) runs: a gather is an all-reduce of a zero-filled
+buffer into which each rank writes its block, which is exact (x + 0 is
+x). That is the collective gloo runs on CUDA tensors. A collective that
+fails raises; nothing falls back.
+
+Every collective passes through `_all_reduce`, which adds it to each open
+`collective_log()` under its LOGICAL kind (`all-reduce`, or `all-gather`
+for the gathers, whatever runs underneath) with its output bytes, the
+convention of the JAX package's `launch/hlo.py`. `AccountingMesh` is a
+mesh of axis names and sizes seen from one rank, with no process group:
+its collectives are recorded and return their input as it is (on the
+`meta` device, its shape), which is how the dry-run accounts a rank's
+step of a production mesh in one process.
 
 `DataSharded` is a frozen leaf stored sharded over 'data' for FSDP;
 `materialize` gathers it (whole, or one layer of a stacked leaf) just
@@ -31,21 +40,54 @@ before use.
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Tuple
+import contextlib
+from collections import Counter
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.sharding.rules import axis_sizes
+from repro_torch.sharding.rules import P, axis_sizes
 
 
 # ----------------------------------------------------------------- mesh
-def axis_size(mesh, name: str) -> int:
-    """Size of mesh axis `name`; 1 when the mesh (or `mesh`) is absent."""
+class AccountingMesh:
+    """A mesh seen from one rank for accounting: JAX's axis names and
+    sizes (`shape`, name -> size, in mesh order) and this rank's
+    coordinates (`coords`, rank 0's by default). It opens no process
+    group; the collectives below record on it and return their input
+    unchanged, so a step runs whole on the `meta` device as one rank's."""
+
+    def __init__(self, shape: Dict[str, int], *, name: str = "",
+                 coords: Optional[Dict[str, int]] = None):
+        self.shape = dict(shape)
+        self.name = name
+        self.coords = {k: 0 for k in self.shape}
+        self.coords.update(coords or {})
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(list(self.shape.values())))
+
+    def get_local_rank(self, name: str) -> int:
+        return self.coords[name]
+
+    def __repr__(self) -> str:
+        return f"AccountingMesh({self.name or self.shape}, {self.coords})"
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def axis_size(mesh, name) -> int:
+    """Size of mesh axis `name` (or the product over a tuple of names); 1
+    where the mesh (or the axis) is absent."""
     if mesh is None:
         return 1
-    return axis_sizes(mesh).get(name, 1)
+    sizes = axis_sizes(mesh)
+    return int(np.prod([sizes.get(a, 1) for a in _axes(name)]))
 
 
 def axis_index(mesh, name: str) -> int:
@@ -53,10 +95,6 @@ def axis_index(mesh, name: str) -> int:
     if axis_size(mesh, name) == 1:
         return 0
     return int(mesh.get_local_rank(name))
-
-
-def _axes(entry) -> Tuple[str, ...]:
-    return entry if isinstance(entry, tuple) else (entry,)
 
 
 def block_index(mesh, entry) -> Tuple[int, int]:
@@ -81,15 +119,62 @@ def local_shard(full: torch.Tensor, spec, mesh) -> torch.Tensor:
     return out
 
 
-def _group(mesh, name: str):
-    return mesh.get_group(name)
+# ------------------------------------------------------- collective log
+_LOGS: list = []
+
+
+class CollectiveLog:
+    """The collectives run while it is open: `records` (kind, axis, output
+    bytes) in order; `bytes_by_kind()` and `count()` sum them."""
+
+    def __init__(self):
+        self.records: list = []
+
+    def bytes_by_kind(self) -> Dict[str, int]:
+        out: Counter = Counter()
+        for kind, _, nbytes in self.records:
+            out[kind] += nbytes
+        return dict(out)
+
+    def count(self) -> Dict[str, int]:
+        return dict(Counter(kind for kind, _, _ in self.records))
+
+
+@contextlib.contextmanager
+def collective_log():
+    """Record every collective run inside the block (nested logs each get
+    every record)."""
+    log = CollectiveLog()
+    _LOGS.append(log)
+    try:
+        yield log
+    finally:
+        _LOGS.remove(log)
+
+
+def _all_reduce(x: torch.Tensor, mesh, name: str, kind: str = "all-reduce",
+                out_bytes: Optional[int] = None) -> torch.Tensor:
+    """The one place a collective runs: an in-place sum of `x` over mesh
+    axis `name`, logged as `kind` with the logical op's output bytes
+    (`out_bytes`, default x's). On an `AccountingMesh` nothing runs and
+    `x` comes back as it is."""
+    nbytes = x.numel() * x.element_size() if out_bytes is None else out_bytes
+    for log in _LOGS:
+        log.records.append((kind, name, nbytes))
+    if isinstance(mesh, AccountingMesh):
+        return x
+    if isinstance(name, tuple):
+        raise ValueError(f"a host mesh sums over one axis at a time, not "
+                         f"{name}")
+    dist.all_reduce(x, group=mesh.get_group(name))
+    return x
 
 
 # --------------------------------------------------- outside autograd
 def reduce_sum(x: torch.Tensor, mesh, name: str) -> torch.Tensor:
     """Sum `x` over mesh axis `name`, in place; returns `x`."""
     if axis_size(mesh, name) > 1:
-        dist.all_reduce(x, group=_group(mesh, name))
+        _all_reduce(x, mesh, name)
     return x
 
 
@@ -106,8 +191,7 @@ def gather_axis(x: torch.Tensor, dim: int, mesh, name: str,
     shape[dim] = full if full is not None else chunk * n
     buf = x.new_zeros(shape)
     buf.narrow(dim, axis_index(mesh, name) * chunk, chunk).copy_(x)
-    dist.all_reduce(buf, group=_group(mesh, name))
-    return buf
+    return _all_reduce(buf, mesh, name, "all-gather")
 
 
 # ------------------------------------------------------ autograd pairs
@@ -119,17 +203,13 @@ class _CopyToModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=_group(ctx.mesh, "model"))
-        return g, None
+        return _all_reduce(g.contiguous().clone(), ctx.mesh, "model"), None
 
 
 class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
-        y = x.contiguous().clone()
-        dist.all_reduce(y, group=_group(mesh, "model"))
-        return y
+        return _all_reduce(x.contiguous().clone(), mesh, "model")
 
     @staticmethod
     def backward(ctx, g):
@@ -144,8 +224,10 @@ class _GatherModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=_group(ctx.mesh, "model"))
+        # a reduce-scatter: the sum, of which this rank keeps its slice
+        g = _all_reduce(g.contiguous().clone(), ctx.mesh, "model",
+                        "reduce-scatter", g.numel() * g.element_size()
+                        // axis_size(ctx.mesh, "model"))
         i = axis_index(ctx.mesh, "model")
         return g[..., i * ctx.width:(i + 1) * ctx.width], None
 
@@ -237,7 +319,22 @@ class DataSharded:
         buf = self.local.new_zeros(self.local.shape[1:])
         if owner == axis_index(mesh, "data"):
             buf.copy_(self.local[row])
-        return reduce_sum(buf, mesh, "data")
+        return _all_reduce(buf, mesh, "data", "all-gather")
+
+
+def cut_leaf(x: torch.Tensor, spec, mesh):
+    """This rank's copy of a frozen leaf held whole: `x` itself where the
+    spec replicates it, else its 'model' block, stored as a `DataSharded`
+    block where the spec also puts a dim over 'data' (FSDP)."""
+    if all(e is None for e in spec):
+        return x
+    on_model = P(*(None if e == "data" else e for e in spec))
+    y = local_shard(x, on_model, mesh)
+    if "data" not in spec:
+        return y.clone()
+    d = spec.index("data")
+    on_data = P(*(e if e == "data" else None for e in spec))
+    return DataSharded(local_shard(y, on_data, mesh).clone(), d, y.shape[d])
 
 
 def take_layer(leaf, layer: int, mesh) -> torch.Tensor:
@@ -282,7 +379,7 @@ def assemble_clients(rows: Sequence[Optional[torch.Tensor]], mesh,
     for k, r in enumerate(rows):
         if r is not None:
             buf[k] = r.reshape(-1)
-    return reduce_sum(buf, mesh, "data").reshape(
+    return _all_reduce(buf, mesh, "data", "all-gather").reshape(
         (len(rows),) + tuple(mine[0].shape))
 
 

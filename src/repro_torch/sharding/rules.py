@@ -176,6 +176,12 @@ def _client_axes(sizes) -> Any:
         data_axes[0] if data_axes else None)
 
 
+def client_axes(mesh) -> Any:
+    """The client plane of `mesh`: ('pod', 'data'), one of them, or None
+    (whichever the mesh has), as the specs name it."""
+    return _client_axes(axis_sizes(mesh))
+
+
 def params_pspecs(params_shape: Any, mesh, *, client_axis: bool = False,
                   fsdp: bool = False, fsdp_threshold: int = 1 << 21) -> Any:
     """Tree of `P` for a params tree (leaves: anything with `.shape`).

@@ -13,13 +13,13 @@ the head, cq/ck/cv by columns and co by rows); on the int8 wire the
 'model' ranks cross with bit-identical rows and uniforms. Neither family
 has a token engine: both engines still refuse them with the JAX
 package's message. Cross-attention shards that are not whole heads are
-refused. JAX init seed 0, as tests/test_torch_whisper.py's and
+gathered, as self-attention's are. JAX init seed 0, as tests/test_torch_whisper.py's and
 test_torch_vlm.py's rounds."""
 import numpy as np
 import pytest
 
 from torch_mesh_families import (TOL, TP, check_local_shapes, check_round,
-                                 run_ranks, section)
+                                 family_cfg, run_ranks, section)
 
 WHISPER, VLM = "whisper-base", "qwen2-vl-72b"
 CASES = {WHISPER: dict(seed=0, updates=True, wire=True),
@@ -107,29 +107,64 @@ def test_engines_still_refuse_on_a_model_axis(arch):
             engine(model, {}, bank, scfg, mesh=tp, device="cpu")
 
 
-def test_cross_attention_refuses_split_heads():
-    """Whisper's cross-attention with cq/ck/cv shards of half a head (4
-    heads of 32 cut 8 ways) raises NotImplementedError before any
-    collective; the whole block runs."""
-    import torch
+def _split_head_cfg():
+    """The whisper family with 2 heads of 32: on 'model' 4 a rank's
+    cq/ck/cv hold 16 columns, half a head."""
+    import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.models import layers as L
-    from torch_mesh_families import family_cfg
     cfg = family_cfg(get_config, WHISPER)
-    att = cfg.attention
+    return dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, n_heads=2, n_kv_heads=2))
+
+
+def cross_attention_split_rank():
+    """One rank of `test_cross_attention_refuses_split_heads`: the
+    cross-attention half on local shards of half a head over a (data 1,
+    model 4) mesh, forward and the gradients of its input and of the
+    encoder output in a differentiated pass, beside the whole block on
+    the same draws."""
+    import torch
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.sharding.parallel import axis_index
+    cfg = _split_head_cfg()
     gen = torch.Generator().manual_seed(0)
     p = L.init_attention(gen, cfg, cross=True, device="cpu")
     p.update(L.init_cross_attention_extra(gen, cfg, device="cpu"))
     x = torch.randn((2, 3, cfg.d_model), generator=gen)
     enc = torch.randn((2, 5, cfg.d_model), generator=gen)
-    ctx = L.Ctx(mode="train", positions=torch.zeros((2, 3), dtype=torch.int32),
-                differentiable=True, encoder_out=enc)
-    assert L.apply_cross_attention(p, cfg, x, ctx).shape == x.shape
-    cut = att.n_heads * att.head_dim // 8
-    assert cut % att.head_dim
+    pos = torch.zeros((2, 3), dtype=torch.int32)
+    mesh = make_host_mesh(model=4)
+    cut = cfg.attention.n_heads * cfg.attention.head_dim // 4
+    cols = slice(axis_index(mesh, "model") * cut,
+                 (axis_index(mesh, "model") + 1) * cut)
+    local = dict(p)
     for n in ("cq", "ck", "cv"):
-        p[n] = dict(p[n], w=p[n]["w"][:, :cut])
-    p["co"] = dict(p["co"], w=p["co"]["w"][:cut])
-    with pytest.raises(NotImplementedError, match="not whole heads"):
-        L.apply_cross_attention(p, cfg, x, ctx)
+        local[n] = {k: (v[..., cols] if k in ("w", "b") else v)
+                    for k, v in p[n].items()}
+    local["co"] = dict(p["co"], w=p["co"]["w"][cols])
+    out = {}
+    for name, params, m in (("whole", p, None), ("split", local, mesh)):
+        xs, es = x.clone().requires_grad_(), enc.clone().requires_grad_()
+        ctx = L.Ctx(mode="train", positions=pos, differentiable=True,
+                    encoder_out=es, mesh=m)
+        y = L.apply_cross_attention(params, cfg, xs, ctx)
+        (y * torch.arange(y.numel()).reshape(y.shape).sin()).sum().backward()
+        out[name] = [t.detach().numpy() for t in (y, xs.grad, es.grad)]
+    return out
+
+
+def test_cross_attention_refuses_split_heads():
+    """Whisper's cross-attention with cq/ck/cv shards of half a head (2
+    heads of 32 over 'model' 4) no longer refuses: q, k and v are gathered
+    over 'model' and every rank attends all heads, as self-attention
+    does. On 4 ranks the output and the gradients of the input and of the
+    encoder output equal the whole block's within 1e-5."""
+    from repro_torch.launch.mesh import spawn_ranks
+    att = _split_head_cfg().attention
+    assert (att.n_heads * att.head_dim // 4) % att.head_dim
+    for r in spawn_ranks(cross_attention_split_rank, 4):
+        for got, want in zip(r["split"], r["whole"]):
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

@@ -19,9 +19,9 @@ holds a frozen leaf the rules shard at full size); on the int8 wire the
 'model' ranks of a 'data' index cross the wire with bit-identical rows,
 uniforms and payloads; TP serving gives JAX's tokens, logits within 1e-5
 and its wire bytes, and the paged engine with a shared prefix and chunks
-drains its pool. Then the families part 2 brought to the mesh, the one
-refusal left (slots over 'data', slice H part 3), and both launchers'
-mesh flags from a subprocess."""
+drains its pool. Then the families part 2 brought to the mesh, both
+engines taking slots over 'data', and both launchers' mesh flags from a
+subprocess."""
 import hashlib
 import json
 import os
@@ -389,8 +389,13 @@ def test_tp_paged_prefix_and_chunks_run(runs):
 def test_part2_cases_refuse_naming_it():
     """Slice H part 2 is ported: the six families it refused take a
     'model' axis (their TP rounds and engines run in
-    tests/test_torch_mesh_{moe,scans,encdec}.py), and what is left, slots
-    over 'data' in both engines, raises naming slice H part 3."""
+    tests/test_torch_mesh_{moe,scans,encdec}.py). Slots over 'data' are
+    ported too (tests/test_torch_mesh_data_serve.py): both engines take a
+    (data 2, model 2) mesh, here an accounting mesh seen from rank 0, the
+    dense cache holding rank 0's block of slots and its kv heads, the
+    paged pool every page; the one refusal left is the paged engine's of
+    recurrent state, with the JAX package's message."""
+    from repro_torch.sharding.parallel import AccountingMesh
     from repro_torch.configs import get_config
     from repro_torch.core import (ProtocolConfig, SFPromptTrainer,
                                   SplitConfig, SplitModel)
@@ -408,7 +413,7 @@ def test_part2_cases_refuse_naming_it():
     bank = TenantBank({k: v for k, v in
                        {"x": torch.zeros((1, 1))}.items()},
                       torch.zeros((1, 4, 256)))
-    two_d = type("Mesh", (), {"shape": {"data": 2, "model": 2}})()
+    two_d = AccountingMesh({"data": 2, "model": 2})
     for arch in ("qwen2.5-14b", "rwkv6-3b"):
         model = SplitModel(get_config(arch).reduced(n_layers=3), split)
         params = model.init(torch.Generator(), device="cpu")
@@ -423,9 +428,19 @@ def test_part2_cases_refuse_naming_it():
                     engine(model, params, bank, scfg, mesh=two_d,
                            device="cpu")
                 continue
-            with pytest.raises(NotImplementedError,
-                               match="slots over 'data' is slice H part 3"):
-                engine(model, params, bank, scfg, mesh=two_d, device="cpu")
+            eng = engine(model, params, bank, scfg, mesh=two_d,
+                         device="cpu")
+            if engine is ServeEngine:
+                assert eng.slots == (0, scfg.n_slots // 2)
+                held = eng.cache["body"]["stack"]["pos0"]
+                assert all(leaf.shape[1] == scfg.n_slots // 2
+                           for leaf in held.values())
+            else:
+                assert eng.slots == (0, scfg.n_slots)
+                pool = eng.pool["body"]["stack"]["pos0"]
+                assert pool["k"].shape[1] == eng.n_pages
+                assert pool["k"].shape[3] == model.cfg.attention.n_kv_heads \
+                    // 2
 
 
 def _launch(module, args):

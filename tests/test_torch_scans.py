@@ -225,6 +225,72 @@ def test_ops_on_cpu_are_the_plain_versions():
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+@pytest.mark.parametrize("s0", [True, False])
+@pytest.mark.parametrize("chunk", [16, 64])
+@pytest.mark.parametrize("T", [1, 63, 64, 130])
+def test_rwkv6_chunked_matches_jax_and_sequential(T, chunk, s0):
+    """The port of JAX's chunked GLA form (`rwkv6_chunked`, chunk capped at
+    T as the JAX op caps it) at the JAX tests' shapes (B 2, H 2, K = V =
+    16), with and without a state: against JAX's `rwkv6_chunked` and the
+    port's sequential plain version within 1e-5, or, where larger, the
+    rounding both chunked forms carry: the intra-chunk exponent cwe_t -
+    cw_s is a difference of f32 cumsums reaching chunk * max|w|, off by
+    up to 2^-23 of that in either package (JAX's own chunked form is
+    6.9e-5 from its sequential ref at chunk 64 here; the sequential form
+    has no such difference)."""
+    from repro.kernels.rwkv6_scan.ref import rwkv6_chunked as jchunked
+    args = rwkv6_inputs(T + chunk + s0, 2, T, 2, 16, 16, s0=s0)
+    c = min(chunk, T)
+    y, S = rwkv6_ref.rwkv6_chunked(*_torch(args), chunk=c)
+    jy, jS = jchunked(*_jax(args), chunk=c)
+    rounding = 2.0 ** -23 * c * float(np.abs(args[3]).max())
+    tol = dict(atol=max(TOL["atol"], rounding),
+               rtol=max(TOL["rtol"], rounding))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **tol)
+    np.testing.assert_allclose(S.numpy(), np.asarray(jS), **tol)
+    sy, sS = rwkv6_ref.rwkv6_scan(*_torch(args))
+    np.testing.assert_allclose(y.numpy(), sy.numpy(), **tol)
+    np.testing.assert_allclose(S.numpy(), sS.numpy(), **tol)
+
+
+def test_meta_and_chunked_take_the_chunked_forms(monkeypatch):
+    """A `meta` tensor takes each scan's chunked form (shapes and dtypes as
+    the plain version's, nothing computed), in the op and in the
+    differentiable `plain_scan`; `chunked=True` takes it on the CPU; any
+    other device raises."""
+    from repro_torch import kernels
+    from repro_torch.kernels.mamba2_scan import ops as mops
+    from repro_torch.kernels.rwkv6_scan import ops as rops
+    calls = []
+    for mod, name in ((mamba2_ref, "mamba2_chunked"),
+                      (rwkv6_ref, "rwkv6_chunked")):
+        plain = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _p=plain, _n=name, **k: (
+            calls.append(_n), _p(*a, **k))[1])
+    margs = _torch(mamba2_inputs(5, 2, 9, 2, 4, 1, 4))
+    rargs = _torch(rwkv6_inputs(5, 2, 9, 2, 4, 4))
+    meta = lambda args: [a.to("meta") for a in args]  # noqa: E731
+    before = kernels.accounted_ops
+    for op, plain_scan, args, want in (
+            (mamba2_scan, mops.plain_scan, margs, mamba2_ref.mamba2_scan),
+            (rwkv6_scan, rops.plain_scan, rargs, rwkv6_ref.rwkv6_scan)):
+        ref_y, ref_s = want(*args)
+        for fn in (op, plain_scan):
+            y, st = fn(*meta(args))
+            assert y.is_meta and st.is_meta
+            assert (y.shape, y.dtype, st.shape, st.dtype) == (
+                ref_y.shape, ref_y.dtype, ref_s.shape, ref_s.dtype)
+        y, st = op(*args, chunked=True)
+        np.testing.assert_allclose(y.numpy(), ref_y.numpy(), **TOL)
+        np.testing.assert_allclose(st.numpy(), ref_s.numpy(), **TOL)
+    assert calls == ["mamba2_chunked"] * 3 + ["rwkv6_chunked"] * 3
+    assert kernels.accounted_ops == before + 2
+    other = type("T", (), {"is_cuda": False,
+                           "device": torch.device("xpu")})()
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        kernels.route(other)
+
+
 # ------------------------------------------------------------------ blocks
 def _block_cfgs(arch):
     kw = dict(n_layers=6 if arch == "zamba2-2.7b" else 1, d_model=64,
@@ -296,3 +362,61 @@ def test_block_without_cache_matches_jax(block):
     np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy), **TOL)
     ty.sum().backward()
     assert torch.isfinite(xt.grad).all() and xt.grad.abs().sum() > 0
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-3b"])
+def test_chunked_impl_steps_match_jax(arch, monkeypatch):
+    """`launch/steps.py` at `impl="chunked"` (f32 activations in both
+    packages) on bridged weights of the reduced family: the prefill
+    step's last logits and a K-2 train step's params and loss within 1e-5
+    of JAX's. JAX's rwkv6 runs `impl="chunked"`; its zamba2 runs
+    `"analysis"`, the same chunked scans, because at `"chunked"` its
+    shared attention block reaches a Pallas kernel, which runs only
+    interpreted on the CPU."""
+    import repro.launch.steps as jsteps
+    import repro_torch.launch.steps as tsteps
+    from repro.core import SplitConfig as JSplitConfig
+    from repro.core import SplitModel as JSplitModel
+    from repro_torch.core import SplitConfig, SplitModel
+    from repro_torch.tree import tree_flatten
+    monkeypatch.setattr(jsteps, "ACT_DTYPE", jnp.float32)
+    monkeypatch.setattr(tsteps, "ACT_DTYPE", torch.float32)
+    kw = dict(n_layers=18 if arch == "zamba2-2.7b" else 3, d_model=64,
+              d_ff=128, vocab_size=128)
+    split = dict(head_cycles=1, tail_cycles=1, prompt_len=4)
+    jm = JSplitModel(jget_config(arch).reduced(**kw), JSplitConfig(**split))
+    tm = SplitModel(get_config(arch).reduced(**kw), SplitConfig(**split))
+    jimpl = "analysis" if arch == "zamba2-2.7b" else "chunked"
+    params = jm.init(jax.random.PRNGKey(0))
+    tparams = jax_to_torch(params, "cpu")
+    toks = np.random.default_rng(7).integers(0, 128, (2, 4, 20)).astype(
+        np.int32)
+
+    jlg, _ = jax.jit(jsteps.make_prefill_step(
+        jm, impl=jimpl, dtype=jnp.float32))(
+        params, {"tokens": jnp.asarray(toks[0])}, jm.init_cache(4, 32))
+    tlg, _ = tsteps.make_prefill_step(tm, impl="chunked",
+                                      dtype=torch.float32)(
+        tparams, {"tokens": torch.from_numpy(toks[0])},
+        tm.init_cache(4, 32, device="cpu"))
+    np.testing.assert_allclose(tlg.numpy(), np.asarray(jlg), **TOL)
+
+    def split_k(p, k):
+        return ({"head": p["head"], "body": p["body"]},
+                {"tail": p["tail"], "prompt": p["prompt"]})
+    jf, jt = split_k(params, 2)
+    jtk = jax.tree.map(lambda x: jnp.broadcast_to(x[None], (2,) + x.shape),
+                       jt)
+    jstep, jopt = jsteps.make_train_step(jm, n_clients=2, impl=jimpl)
+    jtr, _, jloss = jax.jit(jstep)(jf, jtk, jax.vmap(jopt.init)(jtk),
+                                   {"tokens": jnp.asarray(toks)})
+    tstep, topt = tsteps.make_train_step(tm, n_clients=2, impl="chunked")
+    tf, _ = split_k(tparams, 2)
+    ttk = jax_to_torch(jtk, "cpu")
+    ttr, _, tloss = tstep(tf, ttk, tsteps.init_opt_states(topt, ttk),
+                          {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(float(tloss), float(jloss), **TOL)
+    want = dict(tree_flatten(jax.tree.map(np.asarray, jtr)))
+    for path, leaf in tree_flatten(ttr):
+        np.testing.assert_allclose(leaf.detach().numpy(), want[path],
+                                   err_msg="/".join(path), **TOL)

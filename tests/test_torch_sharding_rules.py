@@ -30,7 +30,8 @@ from repro_torch.sharding import parallel, rules
 
 ARCHS = sorted(ASSIGNED) + ["vit-base"]
 MESHES = {"data8": {"data": 8}, "data2_model4": {"data": 2, "model": 4},
-          "pod2_data2_model2": {"pod": 2, "data": 2, "model": 2}}
+          "pod2_data2_model2": {"pod": 2, "data": 2, "model": 2},
+          "data2_model2": {"data": 2, "model": 2}, "data4": {"data": 4}}
 FSDP_THRESHOLD = 64
 
 
@@ -133,6 +134,35 @@ def test_cohort_batch_and_cache_pspecs_match_jax(arch, mesh):
         # the page axis stays replicated whatever the client plane
         for spec in jax.tree.leaves(got):
             assert spec[1] is None
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "zamba2-2.7b",
+                                  "rwkv6-3b"])
+def test_cache_slots_over_data_and_their_fallback_as_jax(arch):
+    """The serving engines' cache rules on the meshes that serve slots
+    over 'data': 4 slots on (data 2, model 2) and (data 4) put every
+    leaf's slot axis over 'data', nothing recorded; 3 slots on (data 2)
+    replicate it, every leaf of more than one slot recorded, as JAX's
+    `cache_pspecs` records them."""
+    base = jget_config(arch)
+    model = JSplitModel(base.reduced(n_layers=3 * len(base.layer_pattern)),
+                        JSplitConfig(head_cycles=1, tail_cycles=1,
+                                     prompt_len=4))
+    for slots, mesh, shards in ((4, {"data": 2, "model": 2}, True),
+                                (4, {"data": 4}, True),
+                                (3, {"data": 2}, False)):
+        cache = jax.eval_shape(lambda: model.init_cache(slots, 16))
+        got, want, fb, jfb = both("cache_pspecs", cache, stub(mesh))
+        assert_specs_equal(got, want, (arch, slots, mesh))
+        assert fb == jfb
+        slot_axes = {spec[1] for spec in jax.tree.leaves(got)
+                     if len(spec) >= 2}
+        if shards:
+            assert slot_axes == {"data"} and fb == ()
+        else:
+            assert slot_axes == {None}
+            assert fb and all(axis == "data" and shape[1] == 3
+                              for _, axis, shape in fb)
 
 
 def test_guard_divisibility_and_unit_dims_as_jax():
