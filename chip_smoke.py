@@ -421,6 +421,9 @@ F16_TOL = 2e-3                # f16 outputs: |kernel - plain| <= tol (1 +
 #                               |plain|): f16 keeps 11 significant bits and
 #                               both round the same f32 value once
 PARITY_TOL = 1e-4
+DIFFER_MARGIN = 0.005         # the 16-bit prefill's share of values that
+#                               differ from plain, past the f32 kernel's
+#                               (rounded once): 0.5 percentage points
 MARKER_PAD = 8                # marker fills at each end of a device_ms_cases
 #                               trace
 PAGED_WIRE_TOL = 1e-3
@@ -449,6 +452,10 @@ SOURCES = {
     "secure_masked_encode": "src/repro_torch/csrc/secure_mask.cu",
     "mamba2_scan": "src/repro_torch/csrc/mamba2_scan.cu",
     "rwkv6_scan": "src/repro_torch/csrc/rwkv6_scan.cu",
+}
+# the prefill entry point's 16-bit kernel (bf16 and f16 q, k and v)
+SOURCES_16 = {
+    "flash_attention_prefill": "src/repro_torch/csrc/flash_attention_16.cu",
 }
 # the kernels each full-width path must launch
 PATHS = {
@@ -1212,18 +1219,24 @@ def ptxas_report():
 
 
 def prefill_build_report():
-    """Per instantiation of the prefill kernel (flash_fwd_kernel<ND, vec16,
-    T>): HMMA instructions with .TF32 in its SASS (cuobjdump of the built
-    library), and registers and spill bytes from the ptxas report. Fails
-    if one has no TF32 HMMA or spills."""
+    """Per instantiation of the prefill kernels, f32's
+    (flash_fwd_kernel<ND, vec16, float> and flash_fwd_wide_kernel) and the
+    16-bit one's (flash16_kernel<ND, vec, T>, bf16 and f16): HMMA
+    instructions in its SASS (cuobjdump of the built library) by kind,
+    TF32 (m16n8k8) and 16-bit (m16n8k16), and registers and spill bytes
+    from the ptxas report. Fails if an f32 one has no TF32 HMMA, a 16-bit
+    one no 16-bit HMMA, one spills, or a 16-bit instantiation of the f32
+    kernels is left in the library."""
     from repro_torch.kernels import build
-    pat = re.compile(r"flash_fwd_(wide_)?kernelILi(\d+)ELb(\d)E"
-                     r"(f|13__nv_bfloat16|6__half)")
+    pat = re.compile(r"(flash_fwd_(?:wide_)?kernel|flash16_kernel)ILi(\d+)"
+                     r"ELb(\d)E(f|13__nv_bfloat16|6__half)")
     dtypes = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
 
     def key(name):
         m = pat.search(name)
-        return m and (f"ND {m.group(2)}{' (wide)' if m.group(1) else ''}, "
+        return m and (f"{'16-bit' if m.group(1) == 'flash16_kernel' else 'f32'}"
+                      f" ND {m.group(2)}"
+                      f"{' (wide)' if 'wide' in m.group(1) else ''}, "
                       f"{'vector' if m.group(3) == '1' else 'single'} "
                       f"loads, {dtypes[m.group(4)]}")
     out = {key(name): dict(r) for name, r in ptxas_report().items()
@@ -1236,21 +1249,65 @@ def prefill_build_report():
     for part in dump.stdout.split("Function : ")[1:]:
         name = key(part.split("\n", 1)[0])
         if name:
-            out.setdefault(name, {})["hmma_tf32"] = sum(
-                "HMMA" in ln and ".TF32" in ln for ln in part.splitlines())
+            lines = [ln for ln in part.splitlines() if "HMMA" in ln]
+            r = out.setdefault(name, {})
+            r["hmma_tf32"] = sum(".TF32" in ln for ln in lines)
+            r["hmma_16"] = sum("HMMA.16816" in ln for ln in lines)
+    old16 = [n for n in out if n.startswith("f32") and not n.endswith("f32")]
+    if old16:
+        fail(f"16-bit instantiations of the f32 prefill kernels are left in "
+             f"the library: {old16}")
     if len(out) != 42:
         fail(f"expected 42 prefill kernel instantiations (ND 4, 8, 10, 16, "
-             f"20, 24, 32 x copies x 3 dtypes), found {sorted(out)}")
+             f"20, 24, 32 x copies x f32 / bf16 / f16), found {sorted(out)}")
     for name, r in sorted(out.items()):
-        say(f"prefill kernel {name}: {r.get('hmma_tf32')} HMMA .TF32 in its "
-            f"SASS, {r.get('registers')} registers, {r.get('spill_bytes')} "
-            f"bytes spilled")
-        if not r.get("hmma_tf32"):
-            fail(f"prefill kernel {name}: no TF32 HMMA in its SASS")
+        say(f"prefill kernel {name}: {r.get('hmma_tf32')} HMMA .TF32 and "
+            f"{r.get('hmma_16')} HMMA.16816 in its SASS, "
+            f"{r.get('registers')} registers, {r.get('spill_bytes')} bytes "
+            f"spilled")
+        kind = "hmma_16" if name.startswith("16") else "hmma_tf32"
+        if not r.get(kind):
+            fail(f"prefill kernel {name}: no {kind[5:]} HMMA in its SASS")
         if r.get("spill_bytes") != 0:
             fail(f"prefill kernel {name}: {r.get('spill_bytes')} bytes of "
                  f"register spills")
     return out
+
+
+def prefill_instantiation(report, Dh, Dv, dtype_name, vec=True):
+    """The build report's entry for the instantiation a call of these
+    widths at `dtype_name` ("f32", "bf16", "f16") launches."""
+    from repro_torch.kernels.flash_attention.kernel import (F32_WIDE,
+                                                            prefill_width)
+    nd = prefill_width(Dh, Dv)
+    kind = "f32" if dtype_name == "f32" else "16-bit"
+    wide = " (wide)" if kind == "f32" and nd >= F32_WIDE else ""
+    name = (f"{kind} ND {nd}{wide}, {'vector' if vec else 'single'} loads, "
+            f"{dtype_name}")
+    return name, report.get(name, {})
+
+
+def prefill_16_accuracy(torch, label, q, k, v, got, dtype, **kw):
+    """half_err of the 16-bit kernel's output `got` against plain, and the
+    share of values in which the f32 kernel's output on the widened
+    inputs, rounded once to `dtype`, differs from plain; fails if the
+    16-bit kernel's share passes that by more than 0.5 percentage points
+    (the f32 kernel's accuracy kept)."""
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    L = kw["kv_len"]
+    want = ref.attention(q, k[:, :L], v[:, :L], causal=kw["causal"],
+                         sliding_window=kw["sliding_window"],
+                         softcap=kw["softcap"], scale=kw["scale"])
+    err = half_err(torch, label, got, want, dtype)
+    f32 = flash_attention_fwd(q.float(), k.float(), v.float(), **kw)
+    share32 = half_err(torch, f"{label} (f32 kernel)", f32.to(dtype), want,
+                       dtype)["differ_share"]
+    if err["differ_share"] > share32 + DIFFER_MARGIN:
+        fail(f"{label}: {err['differ_share']:.4f} of the 16-bit kernel's "
+             f"values differ from plain, the f32 kernel's {share32:.4f} "
+             f"(+ {DIFFER_MARGIN})")
+    return dict(err, f32_kernel_differ_share=share32)
 
 
 def mma_tf32_rate(torch):
@@ -2656,15 +2713,21 @@ def worst_err(errs):
 
 def bf16_prefill(torch, F, gen, results):
     """All-bf16 q, k, v at Qwen2.5-14B's (40 / 8 heads of 128), zamba2's
-    (32 heads of 80) and the wide shapes' causal prefill, checked at S 37
-    and 132, timed at 132 beside plain and SDPA on the same bf16 values."""
+    (32 heads of 80) and the wide shapes' causal prefill through the
+    16-bit kernel, checked at S 37 and 132 (at 132 also against the f32
+    kernel's share of differing values: `prefill_16_accuracy`), timed at
+    132 beside plain and SDPA on the same bf16 values; with the plan's
+    rows and blocks and the instantiation's registers and spills."""
     from repro_torch.kernels.flash_attention import ref
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_fwd, prefill_plan)
+    report = results["flash_attention_prefill"]["instantiations"]
     out = {}
     for label, B, Hq, Hkv, Dh in (("Qwen2.5-14B", 1, 40, 8, 128),
                                   ("zamba2", 1, 32, 32, 80)) + tuple(
             (label, 1, Hq, Hkv, Dh) for label, Hq, Hkv, Dh in WIDE_SHAPES):
         scale = Dh ** -0.5
+        kw = dict(causal=True, sliding_window=None, softcap=None, scale=scale)
 
         def inputs(S):
             return tuple(torch.randn((B, S, h, Dh), generator=gen,
@@ -2673,18 +2736,24 @@ def bf16_prefill(torch, F, gen, results):
         errs = []
         for S in (37, 132):
             q, k, v = inputs(S)
-            got = flash_attention_fwd(q, k, v, causal=True,
-                                      sliding_window=None, softcap=None,
-                                      scale=scale, kv_len=S)
-            errs.append(half_err(torch, f"prefill bf16 {label} S={S}", got,
-                                 ref.attention(q, k, v, causal=True,
-                                               scale=scale)))
+            got = flash_attention_fwd(q, k, v, kv_len=S, **kw)
+            if S == 132:
+                acc = prefill_16_accuracy(torch, f"prefill bf16 {label} S={S}",
+                                          q, k, v, got, torch.bfloat16,
+                                          kv_len=S, **kw)
+                errs.append({k_: acc[k_] for k_ in
+                             ("max_abs_err", "max_ulps", "differ_share")})
+            else:
+                errs.append(half_err(torch, f"prefill bf16 {label} S={S}",
+                                     got, ref.attention(q, k, v, causal=True,
+                                                        scale=scale)))
         S = 132
+        plan = prefill_plan(B, S, Hq, Dh, Dh, 2, SMS)
+        inst, regs = prefill_instantiation(report, Dh, Dh, "bf16")
         per = (B * S * (Hq + 2 * Hkv) * Dh + B * S * Hq * Dh) * 2
         sets = [inputs(S) for _ in range(n_copies(per))]
-        kernel = [lambda s=s: flash_attention_fwd(
-            *s, causal=True, sliding_window=None, softcap=None, scale=scale,
-            kv_len=S) for s in sets]
+        kernel = [lambda s=s: flash_attention_fwd(*s, kv_len=S, **kw)
+                  for s in sets]
         t_k, d_k = time_ms(kernel), device_ms(kernel)
         t_p = time_ms([lambda s=s: ref.attention(*s, causal=True,
                                                  scale=scale) for s in sets])
@@ -2702,14 +2771,25 @@ def bf16_prefill(torch, F, gen, results):
         out[label] = dict(
             worst_err(errs), ms=t_k, device_ms=d_k, plain_ms=t_p,
             library_ms=t_l, library_device_ms=d_l, bound_ms=b[0],
-            bound_by=b[1],
+            bound_by=b[1], f32_kernel_differ_share=acc[
+                "f32_kernel_differ_share"], differ_share_s132=acc[
+                "differ_share"], rows=plan.rows, blocks=-(-S // plan.rows)
+            * Hq * B, blocks_per_sm=plan.blocks_per_sm,
+            shared_bytes=plan.shared_bytes, instantiation=inst,
+            registers=regs.get("registers"),
+            spill_bytes=regs.get("spill_bytes"),
             shape=f"q ({B}, {S}, {Hq}, {Dh}), kv {Hkv} heads, causal, bf16")
-        say(f"prefill bf16 {label}: {out[label]['shape']}: max abs err "
-            f"{out[label]['max_abs_err']:.3g} ({out[label]['max_ulps']:.3g} "
-            f"ulps, {out[label]['differ_share']:.3g} of elements differ); "
-            f"kernel {t_k:.4f} ms ({d_k:.4f} on the device), plain "
-            f"{t_p:.4f} ms, SDPA bf16 {t_l:.4f} ms ({d_l:.4f}), bound "
-            f"{b[0]:.5f} ms ({b[1]})")
+        r = out[label]
+        say(f"prefill bf16 {label}: {r['shape']}: max abs err "
+            f"{r['max_abs_err']:.3g} ({r['max_ulps']:.3g} ulps; at S 132 "
+            f"{r['differ_share_s132']:.4f} of values differ from plain, the "
+            f"f32 kernel's {r['f32_kernel_differ_share']:.4f}); kernel "
+            f"{t_k:.4f} ms ({d_k:.4f} on the device), plain {t_p:.4f} ms, "
+            f"SDPA bf16 {t_l:.4f} ms ({d_l:.4f}), bound {b[0]:.5f} ms "
+            f"({b[1]}); {plan.rows} rows a block, {r['blocks']} blocks, "
+            f"{plan.blocks_per_sm} an SM, {plan.shared_bytes} B shared; "
+            f"{inst}: {r['registers']} registers, {r['spill_bytes']} B "
+            f"spilled")
     results["flash_attention_prefill"]["bf16"] = out
 
 
@@ -2994,11 +3074,11 @@ def check_f16(torch, F, gen, results):
     sweeps."""
     from repro_torch.kernels.el2n import ref as eref
     from repro_torch.kernels.el2n.kernel import el2n_fwd
-    from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.flash_attention.decode import (
         decode_attention_fwd, grouped_decode, paged_decode_attention_fwd,
         paged_gather_decode)
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_fwd, prefill_plan)
     from repro_torch.kernels.mamba2_scan import ref as mref
     from repro_torch.kernels.mamba2_scan.kernel import mamba2_fwd
     from repro_torch.kernels.rwkv6_scan import ref as rref
@@ -3060,26 +3140,39 @@ def check_f16(torch, F, gen, results):
             fail(f"{label} f16: kernel differs from plain")
         return dict(max_abs_err=0.0, max_ulps=0.0)
 
-    # prefill, causal, S 132: Qwen2.5-14B and zamba2
+    # prefill, causal, S 132: Qwen2.5-14B and zamba2, through the 16-bit
+    # kernel, held also against the f32 kernel's share of differing values
+    report = results["flash_attention_prefill"]["instantiations"]
     for label, Hq, Hkv, Dh in (("Qwen2.5-14B", 40, 8, 128),
                                ("zamba2", 32, 32, 80)):
         scale, S = Dh ** -0.5, 132
+        kw = dict(causal=True, sliding_window=None, softcap=None,
+                  scale=scale, kv_len=S)
 
         def pq(Hq=Hq, Hkv=Hkv, Dh=Dh):
             return tuple(torch.randn((1, S, h, Dh), generator=gen,
                                      device="cuda").to(f16)
                          for h in (Hq, Hkv, Hkv))
-        record("flash_attention_prefill",
-               f"{label} q (1, {S}, {Hq}, {Dh}), kv {Hkv} heads, causal",
-               pq, lambda a, scale=scale: flash_attention_fwd(
-                   *a, causal=True, sliding_window=None, softcap=None,
-                   scale=scale, kv_len=S),
-               lambda a, k, scale=scale, label=label: half_err(
-                   torch, f"prefill f16 {label}", k(a),
-                   fref.attention(*a, causal=True, scale=scale), f16),
+        case = f"{label} q (1, {S}, {Hq}, {Dh}), kv {Hkv} heads, causal"
+        record("flash_attention_prefill", case, pq,
+               lambda a, kw=kw: flash_attention_fwd(*a, **kw),
+               lambda a, k, kw=kw, label=label: prefill_16_accuracy(
+                   torch, f"prefill f16 {label}", *a, k(a), f16, **kw),
                S * (2 * Hq + 2 * Hkv) * Dh * 2,
                _prefill_pairs(S, S, None) * Hq * 4 * Dh,
                library=lambda a, scale=scale: sdpa_prefill(a, scale))
+        r = results["flash_attention_prefill"]["f16"][case]
+        plan = prefill_plan(1, S, Hq, Dh, Dh, 2, SMS)
+        r["instantiation"], regs = prefill_instantiation(report, Dh, Dh,
+                                                         "f16")
+        r.update(rows=plan.rows, blocks_per_sm=plan.blocks_per_sm,
+                 registers=regs.get("registers"),
+                 spill_bytes=regs.get("spill_bytes"))
+        say(f"prefill f16 {label}: {r['differ_share']:.4f} of values differ "
+            f"from plain, the f32 kernel's "
+            f"{r['f32_kernel_differ_share']:.4f}; {plan.rows} rows a block, "
+            f"{plan.blocks_per_sm} an SM; {r['instantiation']}: "
+            f"{r['registers']} registers, {r['spill_bytes']} B spilled")
 
     # dense decode, 8 slots of 512, Qwen2.5-14B: q f16 over f32 and f16 K/V
     B, W, Hq, Hkv, Dh = 8, 512, 40, 8, 128
@@ -3891,7 +3984,7 @@ def device_summary(prof, wall):
 # device-side names of the port's own kernels (csrc/)
 PORT_KERNELS = ("decode_kernel", "paged_decode_kernel",
                 "decode_combine_kernel", "flash_fwd_kernel",
-                "flash_fwd_wide_kernel", "quantize_kernel",
+                "flash_fwd_wide_kernel", "flash16_kernel", "quantize_kernel",
                 "dequantize_kernel", "el2n_warp_kernel",
                 # el2n_kernel: the EL2N kernel of checkouts from before its
                 # warp and block layouts, which tools/time_el2n.py --replays
@@ -7635,6 +7728,8 @@ def main() -> None:
             **{k: results[name][k] for k in
                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")})
+        if name in SOURCES_16:
+            rec["source_16_bit"] = SOURCES_16[name]
         if "f32" in results[name]:
             rec["device_ms"] = results[name]["device_ms"]
             rec["f32"] = {case: {k: r.get(k) for k in keys}

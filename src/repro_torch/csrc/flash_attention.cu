@@ -1,5 +1,6 @@
-// GQA prefill attention (f32, bf16 or f16 in, fp32 accuracy) for Hopper
-// (sm_90a), on the tensor cores through 3xTF32 mma.sync.
+// GQA prefill attention (f32 in, fp32 accuracy) for Hopper (sm_90a), on
+// the tensor cores through 3xTF32 mma.sync; the C entry point below also
+// takes bf16 and f16, for flash_attention_16.cu's kernel.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py::
 // flash_attention_fwd: causal or not, GQA, sliding window, softcap and a
@@ -79,17 +80,10 @@
 // shapes (serving prefill) that the bytes bound. Dh and Dv may differ (a
 // 192-wide QK^T with 128-wide values takes ND 24).
 //
-// q, k and v are all f32, all bf16 or all f16, and the output is in their
-// dtype (the TPU kernel reads them with astype(f32) and writes q's dtype).
-// 16-bit tiles are read with plain 16-byte loads (8 values; single values
-// where a base or stride is not a multiple of 8), widened exactly and
-// stored as f32 into the same shared layout, so everything after the load
-// is the f32 kernel's: the 16-bit loads are synchronous, and only f32
-// tiles keep the cp.async overlap. bf16 and f16 values are exact in TF32
-// (f16's 11 significant bits are TF32's), so the 3xTF32 split's small
-// halves are 0 for Q, K and V at 16 bits; skipping their products, and a
-// 16-bit m16n8k16 mma.sync, are later work. The output is rounded to bf16
-// or f16 once, to nearest even.
+// q, k and v are all f32 here. bf16 and f16 q, k and v take the 16-bit
+// kernel of flash_attention_16.cu behind the same entry point (16-bit
+// tiles by cp.async, QK^T on m16n8k16, PV on TF32 with P split in two):
+// the entry point dispatches on the dtype code.
 //
 // Masks use the finite -2^30 of the plain version. A masked key (causal,
 // window) scores -2^30 and takes part in the max; an absent key (at or
@@ -101,6 +95,7 @@
 
 #include "attention_common.cuh"
 #include "dtype.cuh"
+#include "flash_attention_16.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -112,7 +107,7 @@ using namespace sfp;
 constexpr int kBQ = 64;
 constexpr int kThr = 256;
 
-// q, k, v and o of one dtype, float, bf16 or f16 (the kernel's T)
+// q, k, v and o of one dtype (the kernel's T: float, the one instantiated)
 struct FaParams {
   const void* q;
   const void* k;
@@ -149,56 +144,6 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
       cp_async16(dst + r * LD + pcol, n ? s : src, n);
     else
       cp_async4(dst + r * LD + pcol, n ? s : src, n);
-  }
-}
-
-// The same copy from bf16 or f16 rows (`width` a multiple of 8), widened
-// to f32 on the way: synchronous loads of 8 values (kVec16: src and ss
-// aligned to 16 bytes), each stored as two 16-byte chunks, or of one
-// value. Visible to the block after its next __syncthreads, as the
-// cp.async copies are after their wait. (For float rows the overload
-// above, the more specialised template, is the one called.)
-template <int LD, bool kSwz, bool kVec16, class T16>
-__device__ __forceinline__ void load_rows(float* dst, const T16* src,
-                                          long long ss, int n_rows, int rows,
-                                          int d, int width, int tid) {
-  static_assert(sizeof(T16) == 2, "16-bit rows only");
-  constexpr int kUnit = kVec16 ? 8 : 1;  // values a load
-  const int per_row = width / kUnit, step = kThr / per_row;  // rows a pass
-  const int r0 = tid / per_row, col = (tid - r0 * per_row) * kUnit;
-  if (r0 >= step) return;
-  // Of the load's columns, those < d, written as comparisons, and the
-  // full load taken on left >= 8. An earlier form, the count as
-  // max(0, min(kUnit, d - col)) and the full load on count == 8, means
-  // the same in C++, yet the kernel nvcc 12.9 (V12.9.86, sm_90a) built
-  // from it loaded the group at col == d (past Dh at head dims 8 mod 16)
-  // where it must zero it. Reduced: one block running the loader on 64
-  // bf16 rows at Dh 40 (width 48) into shared memory, against the f32
-  // loader on the same values, differed in 512 of 4096 values (the group
-  // at columns 40-47) with that form, in none with either change alone.
-  // The card tests hold the prefill kernel at Dh 24, 40, 72, 136 and 152
-  // at bf16 and f16; built from that form, it fails each of them.
-  const int left = d - col;
-  const int n = left >= kUnit ? kUnit : (left > 0 ? left : 0);
-  const T16* s = src + r0 * ss + col;
-  for (int r = r0; r < rows; r += step, s += step * ss) {
-    const int pcol = kSwz ? col ^ ((r & 1) << 4) : col;  // chunk c ^ 4
-    float* out = dst + r * LD + pcol;
-    if constexpr (kVec16) {
-      float f[8];
-      if (r < n_rows && left >= 8) {
-        load16(s, f);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          f[e] = r < n_rows && e < n ? to_f32(s[e]) : 0.f;
-      }
-      *reinterpret_cast<float4*>(out) = make_float4(f[0], f[1], f[2], f[3]);
-      *reinterpret_cast<float4*>(out + 4) =
-          make_float4(f[4], f[5], f[6], f[7]);
-    } else {
-      *out = r < n_rows && n ? to_f32(*s) : 0.f;
-    }
   }
 }
 
@@ -789,13 +734,32 @@ __global__ void __launch_bounds__(kThr, 1)
 // Widths from this ND up take the wide layout.
 constexpr int kWideND = 24;
 
+// Dynamic shared memory of a block of width class ND (see the note at the
+// top): the wide layout's Q and two K and V buffers, or the narrow one's
+// Q halves, two K and V buffers and their small halves.
+template <int ND>
+constexpr int block_bytes32() {
+  constexpr int LDK = 8 * ND, LDV = 8 * ND + 4;
+  return (ND >= kWideND ? kBQ * LDK + 2 * kBK * (LDK + LDV)
+                        : 2 * kBQ * LDK + 3 * kBK * (LDK + LDV)) *
+         static_cast<int>(sizeof(float));
+}
+
+// The bytes prefill_plan (kernels/flash_attention/kernel.py) computes for
+// each width class at 4 B a value; tests/test_torch_prefill_plan.py reads
+// these lines.
+static_assert(block_bytes32<4>() == 42496, "ND 4");
+static_assert(block_bytes32<8>() == 83456, "ND 8");
+static_assert(block_bytes32<10>() == 103936, "ND 10");
+static_assert(block_bytes32<16>() == 165376, "ND 16");
+static_assert(block_bytes32<20>() == 206336, "ND 20");
+static_assert(block_bytes32<24>() == 148480, "ND 24");
+static_assert(block_bytes32<32>() == 197632, "ND 32");
+
 template <int ND, bool kVec16, class T>
 cudaError_t launch(const FaParams& p, cudaStream_t stream) {
   constexpr bool kWide = ND >= kWideND;
-  constexpr int LDK = 8 * ND, LDV = 8 * ND + 4;
-  constexpr int bytes =
-      (kWide ? kBQ * LDK + 2 * kBK * (LDK + LDV)
-             : 2 * kBQ * LDK + 3 * kBK * (LDK + LDV)) * sizeof(float);
+  constexpr int bytes = block_bytes32<ND>();
   static_assert(bytes <= 232448, "over the shared memory a block may have");
   void (*kernel)(FaParams);
   if constexpr (kWide)
@@ -830,7 +794,8 @@ cudaError_t launch_width(const FaParams& p, cudaStream_t stream) {
 }  // namespace
 
 // q, k, v and o all of dtype `dtype` (kF32, kBF16 or kF16); strides in
-// elements.
+// elements; `rows` the query rows a block (prefill_plan's choice: 64 at
+// f32, 64, 32 or 16 at 16 bits).
 extern "C" int sfp_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Sq, int Skv, int Hq, int Hkv, int Dh, int Dv, long long q_sb,
@@ -838,11 +803,7 @@ extern "C" int sfp_flash_attention_fwd(
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, int causal, int window, float softcap,
-    float scale, int kv_len, void* stream) {
-  FaParams p{q,    k,    v,    o,    B,    Sq,   Skv,  Hq,   Hkv,
-             Dh,   Dv,   q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-             v_ss, v_sh, o_sb, o_ss, o_sh, causal, window, softcap,
-             scale, kv_len};
+    float scale, int kv_len, int rows, void* stream) {
   if (Dh > kDMax || Dv > kDMax) return (int)cudaErrorInvalidValue;
   if (B <= 0 || Sq <= 0) return (int)cudaGetLastError();
   // 16-byte copies need every row of q, k and v to start 16-byte aligned:
@@ -855,8 +816,18 @@ extern "C" int sfp_flash_attention_fwd(
   const bool vec =
       addr % 16 == 0 && strides % (dtype == kF32 ? 4 : 8) == 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)with_dtype(dtype, [&](auto as) {
-    using T = typename decltype(as)::type;
-    return vec ? launch_width<true, T>(p, st) : launch_width<false, T>(p, st);
-  });
+  if (dtype != kF32) {
+    const Prefill16Params p16{
+        q,    k,    v,    o,    B,    Sq,   Skv,  Hq,     Hkv,    Dh,
+        Dv,   q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,   v_ss,   v_sh,
+        o_sb, o_ss, o_sh, causal, window, softcap, scale, kv_len, rows};
+    return (int)flash16_fwd(p16, dtype, vec, st);
+  }
+  if (rows != kBQ) return (int)cudaErrorInvalidValue;
+  FaParams p{q,    k,    v,    o,    B,    Sq,   Skv,  Hq,   Hkv,
+             Dh,   Dv,   q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+             v_ss, v_sh, o_sb, o_ss, o_sh, causal, window, softcap,
+             scale, kv_len};
+  return (int)(vec ? launch_width<true, float>(p, st)
+                   : launch_width<false, float>(p, st));
 }

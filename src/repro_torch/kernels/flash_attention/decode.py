@@ -62,26 +62,23 @@ NULL page's positions are -1) need no host-side bookkeeping.
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import dtype_code, on_cuda, refuse_grad
 from repro_torch.kernels.build import check, current_stream, library
-from repro_torch.kernels.flash_attention.kernel import D_MAX
+from repro_torch.kernels.flash_attention.kernel import (
+    BLOCK_RESERVED_BYTES, D_MAX, SM_SHARED_BYTES, TILE_KEYS, sm_count)
 
 MASK_VALUE = -2.0 ** 30
 MAX_GROUP = 16   # csrc/decode_common.cuh: kDecodeMaxGroup
 MAX_SPLITS = 8   # csrc/decode_common.cuh: kMaxSplits
-TILE_KEYS = 32   # keys a tile, one a lane (csrc/attention_common.cuh: kBK)
 # blocks of a decode kernel an SM should get at most: at head dims up to
 # 128 and groups up to 8 its shared memory (72.7 KB a block) lets three
 # stay resident, and filling all three measured faster than two
 # (chip_smoke.py phase 3 times each split count; PERF.md)
 BLOCKS_PER_SM = 3
-SM_SHARED_BYTES = 233_472    # shared memory of an H100 SM (228 KB)
-BLOCK_RESERVED_BYTES = 1024  # the runtime's own shared memory a block
 
 
 def decode_shape(Dh: int, Dv: int, G: int):
@@ -106,12 +103,6 @@ def decode_blocks_per_sm(Dh: int, Dv: int, G: int) -> int:
     at (128, 2), 2 at (128, 4), 1 at (256, 2) and (256, 4)."""
     per = decode_block_bytes(Dh, Dv, G) + BLOCK_RESERVED_BYTES
     return max(1, min(BLOCKS_PER_SM, SM_SHARED_BYTES // per))
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device_index: int) -> int:
-    """Streaming multiprocessors of a CUDA device, read once a device."""
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def decode_splits(B: int, Hkv: int, width: int, sms: int,

@@ -1,21 +1,29 @@
-"""Launch wrapper of the causal GQA prefill attention CUDA kernel.
+"""Launch wrapper of the causal GQA prefill attention CUDA kernels.
 
 Replaces the TPU kernel `repro/kernels/flash_attention/kernel.py::
-flash_attention_fwd` with `csrc/flash_attention.cu`: QK^T and PV on the
-tensor cores at fp32 accuracy (3xTF32 mma.sync), K/V tiles double-buffered
-with cp.async. It reads q, k and v in the model's (B, S, H, Dh) layout
-through strides, so none of the TPU wrapper's transpose, reshape and pad
-copies exist, and it masks the ragged Sq/Skv edge itself; it picks 16-byte
-or 4-byte copies from the pointers and strides. q, k and v are f32 or
-bf16 (one dtype, read by the kernel itself) and the output is in their
-dtype, as the TPU kernel's. Head dims up to D_MAX: up to 160 in one
-layout, 192 and 256 in a wide one (Q, K and V split into TF32 halves in
-registers, each warp of a pair owning half of the value columns). See the
-note in the source for the tiling.
+flash_attention_fwd` with two kernels behind one C entry point. f32 q, k
+and v take `csrc/flash_attention.cu`: QK^T and PV on the tensor cores at
+fp32 accuracy (3xTF32 mma.sync), K/V tiles double-buffered with cp.async,
+64 query rows a block; head dims up to 160 in one layout, 192 and 256 in a
+wide one (Q, K and V split into TF32 halves in registers, each warp of a
+pair owning half of the value columns). bf16 and f16 q, k and v take
+`csrc/flash_attention_16.cu`: 16-bit Q, K and V tiles by cp.async in a
+ring of 2 or 3 stages, QK^T and PV on m16n8k16 16-bit tensor cores
+(exact products, f32 sums) with P as three bf16 or two f16 terms (f32
+accuracy: never rounded once to 16 bits), one layout up to head dim 256,
+64, 32 or 16 query rows a block as `prefill_plan` chooses. Both read q, k and v in the model's
+(B, S, H, Dh) layout through strides, so none of the TPU wrapper's
+transpose, reshape and pad copies exist, and mask the ragged Sq/Skv edge
+themselves; the entry point picks 16-byte copies from the pointers and
+strides (else 4-byte copies at f32, plain loads at 16 bits). q, k and v
+are of one dtype, f32, bf16 or f16, read by the kernel itself, and the
+output is in their dtype, as the TPU kernel's. See the notes in the
+sources for the tiling.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -23,15 +31,124 @@ from repro_torch.kernels import dtype_code, refuse_grad
 from repro_torch.kernels.build import check, current_stream, library
 
 D_MAX = 256   # csrc/attention_common.cuh: kDMax
+TILE_KEYS = 32   # keys a K/V tile (csrc/attention_common.cuh: kBK)
+SM_SHARED_BYTES = 233_472    # shared memory of an H100 SM (228 KB)
+BLOCK_RESERVED_BYTES = 1024  # the runtime's own shared memory a block
+SM_REGISTERS = 65_536
+# the kernels' width classes: 8-column steps of max(Dh, Dv)
+WIDTHS = (4, 8, 10, 16, 20, 24, 32)
+F32_ROWS = 64             # csrc/flash_attention.cu: kBQ
+F32_WIDE = 24             # csrc/flash_attention.cu: kWideND
+ROWS_16 = (64, 32, 16)    # query rows a 16-bit block, largest first
+WIDE_16 = 20              # csrc/flash_attention_16.cu: Shape16::kWide
+# csrc/flash_attention_16.cu: Shape16::kMinBlocks, the blocks of 256
+# threads an SM must hold (__launch_bounds__): 2 (at most 128 registers a
+# thread) but at width classes 10, 16 and 32, 1 (255, allocated as 256)
+MIN_BLOCKS_16 = {10: 1, 16: 1, 32: 1}
+
+
+class PrefillPlan(NamedTuple):
+    """What the prefill kernel launches: `rows` query rows a block (4 x rows
+    threads at 16 bits, 256 at f32), width class `nd`, the block's dynamic
+    shared memory and the blocks of it an SM holds."""
+    rows: int
+    nd: int
+    shared_bytes: int
+    blocks_per_sm: int
+
+
+def prefill_width(Dh: int, Dv: int) -> int:
+    """The width class of a call: the smallest of WIDTHS holding
+    max(Dh, Dv) in 8-column steps."""
+    d8 = -(-max(Dh, Dv) // 8)
+    return next(nd for nd in WIDTHS if d8 <= nd)
+
+
+def prefill_shared_bytes(nd: int, rows: int, itemsize: int) -> int:
+    """Dynamic shared memory of a block (csrc's block_bytes32 and
+    block_bytes16). f32: its kernel's layouts, 64 rows (narrow: Q's two TF32
+    halves, two K and V buffers and one small-half tile each, rows of 8 nd
+    floats, V's padded by 4; wide from nd 24: Q and two K and V buffers of
+    plain values). 16 bits: Q of `rows` rows and a ring of K and V tiles
+    (Shape16::kStages of kKeys: 2 of 64 keys where the two warps of a row
+    tile split the keys, 3 or 2 of 32 from nd WIDE_16, where they split
+    V's columns), rows of 8 nd + 8 values, plus the wide split's score
+    exchange (2 KB a row tile)."""
+    if itemsize == 4:
+        ldk, ldv = 8 * nd, 8 * nd + 4
+        if nd >= F32_WIDE:
+            return (F32_ROWS * ldk + 2 * TILE_KEYS * (ldk + ldv)) * 4
+        return (2 * F32_ROWS * ldk + 3 * TILE_KEYS * (ldk + ldv)) * 4
+    ld = 8 * nd + 8
+    if nd >= WIDE_16:
+        keys, stages, exchange = 32, 3 if nd <= 24 else 2, rows // 16 * 2048
+    else:
+        keys, stages, exchange = 64, 2, 0
+    return 2 * (rows * ld + stages * 2 * keys * ld) + exchange
+
+
+def max_registers_16(nd: int) -> int:
+    """Registers a thread of the 16-bit kernel may take at width class nd
+    (its launch bounds' cap, as allocated)."""
+    return SM_REGISTERS // (256 * MIN_BLOCKS_16.get(nd, 2))
+
+
+def prefill_blocks_per_sm(nd: int, rows: int, itemsize: int) -> int:
+    """Blocks an SM holds by shared memory and by the launch bounds'
+    register cap: f32 two up to nd 8 (`__launch_bounds__(256, 2)`), else
+    one; 16 bits `max_registers_16` a thread at most."""
+    per = prefill_shared_bytes(nd, rows, itemsize) + BLOCK_RESERVED_BYTES
+    if itemsize == 4:
+        cap = 2 if nd <= 8 else 1
+    else:
+        cap = SM_REGISTERS // (4 * rows * max_registers_16(nd))
+    return max(1, min(cap, SM_SHARED_BYTES // per))
+
+
+def prefill_plan(B: int, Sq: int, Hq: int, Dh: int, Dv: int, itemsize: int,
+                 sms: int = 132) -> PrefillPlan:
+    """The prefill kernel's launch for (B, Sq, Hq) queries of head dims
+    Dh / Dv at `itemsize` bytes a value on a card of `sms` SMs. f32: its
+    kernel's 64 rows. 16 bits: the largest of 64, 32 and 16 rows that launches
+    at least `sms` blocks (ceil(Sq / rows) x Hq x B), else 16: Qwen2.5-14B's
+    40 heads at S 132 take 32 (200 blocks, against 120 at 64), gemma2-9b's
+    16 take 16 (144). A function of shapes alone, so choosing it needs no
+    device sync."""
+    nd = prefill_width(Dh, Dv)
+    if itemsize == 4:
+        rows = F32_ROWS
+    else:
+        rows = next((r for r in ROWS_16[:-1]
+                     if -(-Sq // r) * Hq * B >= sms), ROWS_16[-1])
+    return PrefillPlan(rows, nd, prefill_shared_bytes(nd, rows, itemsize),
+                       prefill_blocks_per_sm(nd, rows, itemsize))
+
+
+def check_plan(plan: PrefillPlan, Dh: int, Dv: int, itemsize: int) -> None:
+    """Raise unless `plan` launches these widths at this itemsize: f32
+    takes 64 rows, 16 bits 64, 32 or 16, and the width class must be the
+    call's."""
+    rows_ok = ROWS_16 if itemsize == 2 else (F32_ROWS,)
+    if plan.rows not in rows_ok or plan.nd != prefill_width(Dh, Dv):
+        raise ValueError(f"flash_attention_fwd: plan {plan} does not launch "
+                         f"Dh {Dh}, Dv {Dv} at {itemsize} B a value")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device, read once a device."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool, sliding_window: Optional[int],
                         softcap: Optional[float], scale: float,
-                        kv_len: int) -> torch.Tensor:
+                        kv_len: int,
+                        plan: Optional[PrefillPlan] = None) -> torch.Tensor:
     """q (B, Sq, Hq, Dh), k (B, Skv, Hkv, Dh), v (B, Skv, Hkv, Dv): CUDA
     tensors of one dtype, f32, bf16 or f16, with unit stride on the last axis;
-    keys at or past `kv_len` are absent. Returns (B, Sq, Hq, Dv) in q's
+    keys at or past `kv_len` are absent. `plan` overrides `prefill_plan`
+    (the card tests force each row count). Returns (B, Sq, Hq, Dv) in q's
     dtype."""
     refuse_grad("flash_attention_fwd", q, k, v)
     code = dtype_code("flash_attention_fwd: q", q.dtype)
@@ -60,13 +177,18 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"sliding_window must be >= 1, got {sliding_window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
+    itemsize = q.element_size()
+    if plan is None:
+        plan = prefill_plan(B, Sq, Hq, Dh, Dv, itemsize,
+                            sm_count(q.device.index))
+    check_plan(plan, Dh, Dv, itemsize)
     out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     check(library().sfp_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), code,
         B, Sq, Skv, Hq, Hkv, Dh, Dv, *strides, int(causal),
         int(sliding_window or 0), float(softcap or 0.0), float(scale),
-        int(kv_len), current_stream()), "sfp_flash_attention_fwd")
+        int(kv_len), plan.rows, current_stream()), "sfp_flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out
 

@@ -1176,6 +1176,31 @@ PAST_DH_CASES = [
 ]
 
 
+# The 16-bit kernel's own cases: (..., offset, Dv, rows, q_layout). Values
+# narrower than the keys (MLA's 192 / 128), rows that every key masks (a
+# window ending before kv_len: rows from kv_len + window - 1 on average
+# every key), each row count the plan can choose in the narrow (keys split
+# between a pair of warps) and wide (columns split) layouts, and q strided
+# (heads-major, a fused qkv tensor, and one value off 16 bytes)
+PREFILL_16_CASES = [
+    (2, 77, 24, 2, 192, True, 16, 50.0, None, 0, 128, None, None),
+    (1, 77, 4, 2, 192, True, None, None, 60, 1, 128, 16, None),
+    (1, 100, 4, 2, 64, True, 8, None, 40, 0, None, None, None),
+    (1, 90, 8, 4, 256, True, 8, 30.0, 30, 0, None, 32, None),
+    (1, 129, 6, 3, 160, False, 12, None, 50, 0, None, 16, None),
+    *((1, 100, 8, 2, 128, True, None, None, None, 0, None, r, None)
+      for r in (64, 32, 16)),
+    *((2, 77, 8, 4, 256, True, 16, 50.0, None, 0, None, r, None)
+      for r in (64, 32, 16)),
+    *((1, 70, 6, 2, 80, False, None, None, 50, 0, None, r, None)
+      for r in (64, 32, 16)),
+    (1, 132, 40, 8, 128, True, None, None, None, 0, None, None, "transposed"),
+    (2, 65, 8, 2, 256, True, 20, None, None, 0, None, 32, "transposed"),
+    (1, 70, 10, 2, 64, True, None, None, 60, 0, None, None, "fused"),
+    (1, 70, 10, 2, 64, True, None, None, 60, 1, None, 16, "fused"),
+]
+
+
 @pytest.mark.parametrize("case", [
     # (B, Sq, Hq, Hkv, Dh, causal, window, softcap, kv_len, offset)
     (2, 5, 4, 4, 32, True, None, None, None, 0),
@@ -1193,6 +1218,7 @@ PAST_DH_CASES = [
     # the other head dims 8 mod 16 of the narrow and the wide layouts,
     # where the 16-bit loader once loaded the group past Dh
     *PAST_DH_CASES,
+    *PREFILL_16_CASES,
 ])
 def test_prefill_kernel_matches_plain_bf16(gen, case):
     _prefill_half(gen, case, torch.bfloat16)
@@ -1228,26 +1254,90 @@ def test_prefill_kernel_matches_plain_bf16(gen, case):
     (2, 65, 4, 2, 256, False, None, None, None, 1),
     (1, 90, 12, 1, 192, True, 24, 10.0, None, 1),
     *PAST_DH_CASES,
+    *PREFILL_16_CASES,
 ])
 def test_prefill_kernel_matches_plain_f16(gen, case):
     _prefill_half(gen, case, torch.float16)
 
 
 def _prefill_half(gen, case, dtype):
+    """One case, (B, Sq, Hq, Hkv, Dh, causal, window, softcap, kv_len,
+    offset) and optionally (Dv, rows, q_layout): values Dv wide (default
+    Dh), the plan forced to `rows` query rows a block, q heads-major
+    ("transposed": a (B, Hq, Sq, Dh) tensor's transpose) or taken from a
+    fused qkv tensor ("fused")."""
     from repro_torch.kernels.flash_attention import ref
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_fwd, prefill_plan)
     from repro_torch.kernels.flash_attention.ops import prefill_attention
-    B, S, Hq, Hkv, Dh, causal, window, softcap, kv_len, offset = case
-    q = _bf16((B, S, Hq, Dh), gen, offset, dtype=dtype)
-    kv = _bf16((B, S, 2 * Hkv, Dh), gen, offset, dtype=dtype)
-    k, v = kv[:, :, :Hkv], kv[:, :, Hkv:]           # strided views
+    B, S, Hq, Hkv, Dh, causal, window, softcap, kv_len, offset = case[:10]
+    Dv, rows, q_layout = tuple(case[10:]) + (None,) * (13 - len(case))
+    Dv = Dv or Dh
+    if q_layout == "transposed":
+        q = _bf16((B, Hq, S, Dh), gen, offset, dtype=dtype).transpose(1, 2)
+    elif q_layout == "fused":
+        q = _bf16((B, S, 2 * Hq, Dh), gen, offset, dtype=dtype)[:, :, Hq:]
+    else:
+        q = _bf16((B, S, Hq, Dh), gen, offset, dtype=dtype)
+    if Dv == Dh:
+        kv = _bf16((B, S, 2 * Hkv, Dh), gen, offset, dtype=dtype)
+        k, v = kv[:, :, :Hkv], kv[:, :, Hkv:]       # strided views
+    else:
+        k = _bf16((B, S, Hkv, Dh), gen, offset, dtype=dtype)
+        v = _bf16((B, S, Hkv, Dv), gen, offset, dtype=dtype)
     n = flash_attention_fwd.launches
-    got = prefill_attention(q, k, v, causal=causal, sliding_window=window,
-                            softcap=softcap, kv_len=kv_len)
-    assert flash_attention_fwd.launches == n + 1
     L = kv_len or S
+    if rows is None:
+        got = prefill_attention(q, k, v, causal=causal,
+                                sliding_window=window, softcap=softcap,
+                                kv_len=kv_len)
+    else:
+        plan = prefill_plan(B, S, Hq, Dh, Dv, 2)._replace(rows=rows)
+        got = flash_attention_fwd(q, k, v, causal=causal,
+                                  sliding_window=window, softcap=softcap,
+                                  scale=Dh ** -0.5, kv_len=L, plan=plan)
+    assert flash_attention_fwd.launches == n + 1
+    assert got.shape == (B, S, Hq, Dv)
     _close_bf16(got, ref.attention(q, k[:, :L], v[:, :L], causal=causal,
                                    sliding_window=window, softcap=softcap))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,Dh,Dv,window,softcap", [
+    (1, 132, 40, 8, 128, 128, None, None),    # Qwen2.5-14B
+    (1, 132, 32, 32, 80, 80, None, None),     # zamba2
+    (1, 132, 16, 8, 256, 256, None, 50.0),    # gemma2-9b
+    (1, 132, 32, 8, 160, 160, None, None),    # stablelm-12b
+    (2, 77, 24, 2, 192, 128, 16, 50.0),       # MLA's widths
+])
+def test_prefill_16_bit_kernel_is_f32_accurate(gen, dtype, B, S, Hq, Hkv, Dh,
+                                               Dv, window, softcap):
+    """The 16-bit kernel keeps the f32 kernel's accuracy: the share of
+    its output values that differ from plain (the f32 function rounded
+    once) is at most that of the f32 kernel's output on the widened
+    inputs, rounded once to the same dtype, plus 0.5 percentage points.
+    And the call runs the 16-bit kernel alone (the profiler's names)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.kernels.flash_attention.ops import prefill_attention
+    q = _bf16((B, S, Hq, Dh), gen, dtype=dtype)
+    k = _bf16((B, S, Hkv, Dh), gen, dtype=dtype)
+    v = _bf16((B, S, Hkv, Dv), gen, dtype=dtype)
+    kw = dict(causal=True, sliding_window=window, softcap=softcap)
+    want = ref.attention(q, k, v, **kw)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = prefill_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+    assert any("flash16_kernel" in x for x in names), names
+    assert not any("flash_fwd" in x for x in names), names
+    f32 = prefill_attention(q.float(), k.float(), v.float(), **kw).to(dtype)
+    _close_bf16(got, want)
+
+    def share(x):
+        return float((x.float() != want.float()).float().mean())
+    assert share(got) <= share(f32) + 0.005, (share(got), share(f32))
 
 
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])

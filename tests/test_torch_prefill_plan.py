@@ -1,0 +1,123 @@
+"""The prefill kernel's launch plan on the CPU
+(`kernels/flash_attention/kernel.py::prefill_plan`): query rows a block,
+width class, shared memory and blocks an SM, pinned to the values the CUDA
+sources compute (their static_asserts) and to the batch-1 serving shapes
+that must fill an H100's 132 SMs."""
+import torch
+
+torch.set_num_threads(2)
+
+import re  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+import pytest  # noqa: E402
+
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    MIN_BLOCKS_16, ROWS_16, WIDTHS, PrefillPlan, check_plan,
+    max_registers_16, prefill_blocks_per_sm, prefill_plan,
+    prefill_shared_bytes, prefill_width)
+
+CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+BLOCK_MAX = 232_448   # dynamic shared memory a block may have on an H100
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_shared_bytes_fit_a_block_at_every_head_dim(itemsize):
+    """Head dims 8-256 in steps of 8, values as wide as the keys or 128
+    (MLA's), at every row count the plan can choose."""
+    for d in range(8, 257, 8):
+        for dv in {d, min(d, 128)}:
+            nd = prefill_width(d, dv)
+            for rows in (ROWS_16 if itemsize == 2 else (64,)):
+                assert prefill_shared_bytes(nd, rows, itemsize) <= BLOCK_MAX
+            plan = prefill_plan(1, 132, 8, d, dv, itemsize)
+            assert plan.shared_bytes <= BLOCK_MAX and plan.blocks_per_sm >= 1
+
+
+@pytest.mark.parametrize("nd,rows,itemsize,nbytes,blocks", [
+    # 16 bits: Q of `rows` rows and a ring of 2 K/V tiles of 64 keys (nd
+    # <= 16), 3 of 32 (20, 24) or 2 of 32 (32), rows of 8 nd + 8 values;
+    # 2 KB a row tile of score exchange from nd 20; blocks by shared
+    # memory and the register cap (256 at nd 10, 16 and 32, else 128)
+    (4, 64, 2, 25_600, 2), (4, 32, 2, 23_040, 4), (4, 16, 2, 21_760, 8),
+    (8, 64, 2, 46_080, 2), (8, 32, 2, 41_472, 4), (8, 16, 2, 39_168, 5),
+    (10, 64, 2, 56_320, 1), (10, 32, 2, 50_688, 2), (10, 16, 2, 47_872, 4),
+    (16, 64, 2, 87_040, 1), (16, 32, 2, 78_336, 2), (16, 16, 2, 73_984, 3),
+    (20, 64, 2, 94_208, 2), (20, 32, 2, 79_360, 2), (20, 16, 2, 71_936, 3),
+    (24, 64, 2, 110_592, 2), (24, 32, 2, 93_696, 2), (24, 16, 2, 85_248, 2),
+    (32, 64, 2, 109_568, 1), (32, 32, 2, 88_576, 2), (32, 16, 2, 78_080, 2),
+    # f32 (its kernel's layouts, 64 rows): two blocks up to nd 8, else one
+    (4, 64, 4, 42_496, 2), (8, 64, 4, 83_456, 2), (10, 64, 4, 103_936, 1),
+    (16, 64, 4, 165_376, 1), (20, 64, 4, 206_336, 1),
+    (24, 64, 4, 148_480, 1), (32, 64, 4, 197_632, 1),
+])
+def test_plan_bytes_and_residency_pinned(nd, rows, itemsize, nbytes, blocks):
+    assert prefill_shared_bytes(nd, rows, itemsize) == nbytes
+    assert prefill_blocks_per_sm(nd, rows, itemsize) == blocks
+
+
+def test_c_sources_compute_the_same_bytes():
+    """Each source pins its block bytes for every width class (and, at 16
+    bits, every row count) in static_asserts, which nvcc checks; they are
+    the plan's numbers, and the 16-bit kernel's launch bounds are the
+    plan's register cap."""
+    src16 = (CSRC / "flash_attention_16.cu").read_text()
+    got16 = {(int(nd), int(rows)): int(b) for nd, rows, b in re.findall(
+        r"static_assert\(block_bytes16<(\d+)>\((\d+)\) == (\d+),", src16)}
+    assert got16 == {(nd, rows): prefill_shared_bytes(nd, rows, 2)
+                     for nd in WIDTHS for rows in ROWS_16}
+    src32 = (CSRC / "flash_attention.cu").read_text()
+    got32 = {int(nd): int(b) for nd, b in re.findall(
+        r"static_assert\(block_bytes32<(\d+)>\(\) == (\d+),", src32)}
+    assert got32 == {nd: prefill_shared_bytes(nd, 64, 4) for nd in WIDTHS}
+    assert re.search(r"__launch_bounds__\(256, Shape16<ND>::kMinBlocks\)\s+"
+                     r"flash16_kernel", src16)
+    assert 256 == 4 * max(ROWS_16)
+    one = re.search(r"kMinBlocks = ND == (\d+) \|\| ND == (\d+) \|\| "
+                    r"ND == (\d+) \? 1 : 2;", src16).groups()
+    assert MIN_BLOCKS_16 == {int(nd): 1 for nd in one}
+    assert [max_registers_16(nd) for nd in WIDTHS] == [128, 128, 256, 256,
+                                                       128, 128, 256]
+
+
+@pytest.mark.parametrize("label,Hq,Dh,rows,blocks", [
+    ("Qwen2.5-14B", 40, 128, 32, 200),   # 120 blocks at 64 rows
+    ("zamba2", 32, 80, 32, 160),         # 96 at 64
+    ("gemma2-9b", 16, 256, 16, 144),     # 48 at 64, 80 at 32
+    ("stablelm-12b", 32, 160, 32, 160),
+    ("nemotron-4-340b", 96, 192, 64, 288),
+])
+def test_serving_prefill_fills_the_card(label, Hq, Dh, rows, blocks):
+    """Batch-1 prefill of the serving paths' longest prompt (132 = 128 +
+    4 soft-prompt tokens) launches at least one block an SM at 16 bits."""
+    for itemsize in (2,):
+        plan = prefill_plan(1, 132, Hq, Dh, Dh, itemsize, sms=132)
+        assert plan.rows == rows
+        assert -(-132 // plan.rows) * Hq == blocks >= 132
+    # where no row count reaches a wave (S 37 at Qwen's 40 heads: 120
+    # blocks of 16 rows), the plan takes the smallest
+    assert prefill_plan(1, 37, 40, 128, 128, 2).rows == 16
+    # many blocks already (ViT-Base scoring, 16 x 12 heads): 64 rows
+    assert prefill_plan(16, 213, 12, 64, 64, 2).rows == 64
+
+
+@pytest.mark.parametrize("shape", [(1, 132, 40, 128, 128), (1, 1, 4, 64, 64),
+                                   (16, 213, 12, 64, 64),
+                                   (1, 132, 16, 256, 256),
+                                   (2, 77, 24, 192, 128)])
+def test_f32_keeps_its_64_row_plan(shape):
+    plan = prefill_plan(*shape, 4)
+    nd = prefill_width(*shape[3:])
+    assert plan == PrefillPlan(64, nd, prefill_shared_bytes(nd, 64, 4),
+                               1 if nd > 8 else 2)
+
+
+def test_check_plan_refuses_what_cannot_launch():
+    good = prefill_plan(1, 132, 40, 128, 128, 2)
+    check_plan(good, 128, 128, 2)
+    for plan, Dh, itemsize in ((good._replace(rows=48), 128, 2),
+                               (good._replace(rows=32), 128, 4),
+                               (good._replace(nd=10), 128, 2),
+                               (good, 256, 2)):
+        with pytest.raises(ValueError, match="does not launch"):
+            check_plan(plan, Dh, Dh, itemsize)
