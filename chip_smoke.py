@@ -364,8 +364,10 @@ Phases, each of which fails the run with a nonzero exit:
  The wide attention shapes (head dims 160, 192 and 256; GQA groups up to
  16) run in phase 3 as well: the prefill kernel at gemma2-9b's (1, 132,
  16 / 8 x 256, softcap 50), stablelm-12b's (32 / 8 x 160) and
- nemotron-4-340b's (96 / 8 x 192, G 12) causal prefill, and with values
- narrower than the keys (192 / 128); the dense decode kernel at the same
+ nemotron-4-340b's (96 / 8 x 192, G 12) causal prefill, at deepseek-v3's
+ MLA prefill over its 128 heads (q/k 192, v 128, G 1), each with the
+ plan's rows and blocks, and with values narrower than the keys (192 /
+ 128, a window and a softcap); the dense decode kernel at the same
  three shapes over 8 slots of 512 (a window across a wrapped ring's seam,
  softcap; device time by split count at gemma2's); the paged decode
  kernel at the three shapes over 16 slots of page 16 (with a fully masked
@@ -1220,25 +1222,29 @@ def ptxas_report():
 
 def prefill_build_report():
     """Per instantiation of the prefill kernels, f32's
-    (flash_fwd_kernel<ND, vec16, float> and flash_fwd_wide_kernel) and the
-    16-bit one's (flash16_kernel<ND, vec, T>, bf16 and f16): HMMA
-    instructions in its SASS (cuobjdump of the built library) by kind,
-    TF32 (m16n8k8) and 16-bit (m16n8k16), and registers and spill bytes
-    from the ptxas report. Fails if an f32 one has no TF32 HMMA, a 16-bit
-    one no 16-bit HMMA, one spills, or a 16-bit instantiation of the f32
-    kernels is left in the library."""
+    (flash_fwd_kernel<ND, vec16, float> at ND 4-20 and flash_wide_kernel
+    at 24 and 32) and the 16-bit one's (flash16_kernel<ND, vec, T>, bf16
+    and f16): HMMA instructions in its SASS (cuobjdump of the built
+    library) by kind, TF32 (m16n8k8) and 16-bit (m16n8k16), and registers
+    and spill bytes from the ptxas report. Fails if an f32 one has no TF32
+    HMMA, a 16-bit one no 16-bit HMMA, one spills, a 16-bit instantiation
+    of the f32 kernels or an instantiation of the old f32 wide kernel
+    (flash_fwd_wide_kernel) is left in the library, or the 44 are not
+    there."""
     from repro_torch.kernels import build
-    pat = re.compile(r"(flash_fwd_(?:wide_)?kernel|flash16_kernel)ILi(\d+)"
-                     r"ELb(\d)E(f|13__nv_bfloat16|6__half)")
+    pat = re.compile(r"(flash_fwd_(?:wide_)?kernel|flash_wide_kernel|"
+                     r"flash16_kernel)ILi(\d+)E(?:Li(\d+)E)?"
+                     r"Lb(\d)E(f|13__nv_bfloat16|6__half)")
     dtypes = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
 
     def key(name):
         m = pat.search(name)
         return m and (f"{'16-bit' if m.group(1) == 'flash16_kernel' else 'f32'}"
                       f" ND {m.group(2)}"
-                      f"{' (wide)' if 'wide' in m.group(1) else ''}, "
-                      f"{'vector' if m.group(3) == '1' else 'single'} "
-                      f"loads, {dtypes[m.group(4)]}")
+                      f"{' (old wide)' if 'fwd_wide' in m.group(1) else ''}"
+                      f"{f' (wide, V {m.group(3)})' if m.group(3) else ''}, "
+                      f"{'vector' if m.group(4) == '1' else 'single'} "
+                      f"loads, {dtypes[m.group(5)]}")
     out = {key(name): dict(r) for name, r in ptxas_report().items()
            if key(name)}
     cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
@@ -1257,9 +1263,19 @@ def prefill_build_report():
     if old16:
         fail(f"16-bit instantiations of the f32 prefill kernels are left in "
              f"the library: {old16}")
-    if len(out) != 42:
-        fail(f"expected 42 prefill kernel instantiations (ND 4, 8, 10, 16, "
-             f"20, 24, 32 x copies x f32 / bf16 / f16), found {sorted(out)}")
+    old_wide = [n for n in out if "(old wide)" in n]
+    if old_wide:
+        fail(f"instantiations of the old f32 wide kernel are left in the "
+             f"library: {old_wide}")
+    wide = sorted(n for n in out if "(wide" in n)
+    if len(out) != 44 or wide != [
+            f"f32 ND {nd} (wide, V {nv}), {c} loads, f32"
+            for nd, nv in ((24, 16), (24, 24), (32, 32))
+            for c in ("single", "vector")]:
+        fail(f"expected 44 prefill kernel instantiations (f32: ND 4, 8, 10, "
+             f"16, 20 narrow, ND / V 24 / 16, 24 / 24 and 32 / 32 wide; the "
+             f"seven at bf16 and f16; each with both copies), found "
+             f"{sorted(out)}")
     for name, r in sorted(out.items()):
         say(f"prefill kernel {name}: {r.get('hmma_tf32')} HMMA .TF32 and "
             f"{r.get('hmma_16')} HMMA.16816 in its SASS, "
@@ -1277,11 +1293,12 @@ def prefill_build_report():
 def prefill_instantiation(report, Dh, Dv, dtype_name, vec=True):
     """The build report's entry for the instantiation a call of these
     widths at `dtype_name` ("f32", "bf16", "f16") launches."""
-    from repro_torch.kernels.flash_attention.kernel import (F32_WIDE,
-                                                            prefill_width)
+    from repro_torch.kernels.flash_attention.kernel import (
+        F32_WIDE, prefill_v_width, prefill_width)
     nd = prefill_width(Dh, Dv)
     kind = "f32" if dtype_name == "f32" else "16-bit"
-    wide = " (wide)" if kind == "f32" and nd >= F32_WIDE else ""
+    wide = (f" (wide, V {prefill_v_width(nd, Dv, 4)})"
+            if kind == "f32" and nd >= F32_WIDE else "")
     name = (f"{kind} ND {nd}{wide}, {'vector' if vec else 'single'} loads, "
             f"{dtype_name}")
     return name, report.get(name, {})
@@ -1428,7 +1445,8 @@ def prefill_shape(torch, F, gen, label, B, H, Dh, causal, lengths,
     Whisper's cross-attention: `q_len` queries over S keys, non-causal;
     values `Dv` wide where they are narrower than the keys (MLA's)."""
     from repro_torch.kernels.flash_attention import ref
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_fwd, prefill_plan)
     scale = Dh ** -0.5
     Hkv = Hkv or H
     Dv = Dv or Dh
@@ -1482,14 +1500,20 @@ def prefill_shape(torch, F, gen, label, B, H, Dh, causal, lengths,
     cap = f", softcap {softcap} (SDPA without)" if softcap else ""
     same = "matches" if picked == efficient else "differs from"
     kv = "" if Sq == S else f" over {S} keys"
+    plan = prefill_plan(B, Sq, H, Dh, Dv, 4, SMS)
+    blocks = -(-Sq // plan.rows) * H * B
     say(f"prefill {label}: q ({B}, {Sq}, {heads}, {Dh}){kv} {kind}{cap}: "
         f"max abs err {worst:.3g}; kernel {t_k:.4f} ms ({d_k:.4f} on the "
         f"device), plain {t_p:.4f} ms, SDPA {t_l:.4f} ms ({d_l:.4f}), bound "
         f"{b[0]:.5f} ms ({b[1]}, 3xTF32), fp32-pipe bound {b32[0]:.5f} ms; "
-        f"SDPA ran {picked} ({same} EFFICIENT_ATTENTION)")
+        f"plan {plan.rows} rows, {blocks} blocks, {plan.blocks_per_sm} an "
+        f"SM ({blocks / (SMS * plan.blocks_per_sm):.2f} waves); SDPA ran "
+        f"{picked} ({same} EFFICIENT_ATTENTION)")
     del lib, sdpa, sets
     return dict(shape=f"q ({B}, {Sq}, {H}, {Dh}), k, v ({B}, {S}, {Hkv}, "
                       f"{Dh} / {Dv}), {kind}{cap}",
+                plan_rows=plan.rows, plan_blocks=blocks,
+                blocks_per_sm=plan.blocks_per_sm,
                 max_abs_err=worst, ms=t_k, plain_ms=t_p, library_ms=t_l,
                 device_ms=d_k, library_device_ms=d_l,
                 bound_ms=b[0], bound_by=b[1], bound_fp32_ms=b32[0],
@@ -1498,8 +1522,10 @@ def prefill_shape(torch, F, gen, label, B, H, Dh, causal, lengths,
 
 def check_prefill_wide(torch, F, gen, results):
     """The wide instantiations at the wide families' batch-1 causal prefill
-    (S 37 and 132: the paths' longest prompt of 128 + 4), and values
-    narrower than the keys (Dh 192, Dv 128: MLA's widths) against plain."""
+    (S 37 and 132: the paths' longest prompt of 128 + 4), deepseek-v3's
+    MLA prefill at its 128 heads (q/k 192, v 128, G 1: the mla path's), and
+    values narrower than the keys (Dh 192, Dv 128) with a window and a
+    softcap, against plain."""
     from repro_torch.kernels.flash_attention import ref
     from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
     rec = results["flash_attention_prefill"]
@@ -1507,6 +1533,9 @@ def check_prefill_wide(torch, F, gen, results):
         torch, F, gen, label, 1, Hq, Dh, True, (37, 132), Hkv=Hkv,
         softcap=50.0 if label == "gemma2-9b" else None)
         for label, Hq, Hkv, Dh in WIDE_SHAPES}
+    rec["wide"]["deepseek-v3 MLA 128 heads 192 / 128"] = prefill_shape(
+        torch, F, gen, "deepseek-v3 MLA", 1, 128, 192, True, (37, 132),
+        Dv=128)
     q = torch.randn((2, 77, 24, 192), generator=gen, device="cuda")
     k = torch.randn((2, 77, 2, 192), generator=gen, device="cuda")
     v = torch.randn((2, 77, 2, 128), generator=gen, device="cuda")
@@ -3984,8 +4013,12 @@ def device_summary(prof, wall):
 # device-side names of the port's own kernels (csrc/)
 PORT_KERNELS = ("decode_kernel", "paged_decode_kernel",
                 "decode_combine_kernel", "flash_fwd_kernel",
-                "flash_fwd_wide_kernel", "flash16_kernel", "quantize_kernel",
+                "flash_wide_kernel", "flash16_kernel", "quantize_kernel",
                 "dequantize_kernel", "el2n_warp_kernel",
+                # flash_fwd_wide_kernel: the f32 wide layout of checkouts
+                # from before its redesign, which tools/time_prefill.py
+                # times beside this tree
+                "flash_fwd_wide_kernel",
                 # el2n_kernel: the EL2N kernel of checkouts from before its
                 # warp and block layouts, which tools/time_el2n.py --replays
                 # times beside this tree
@@ -7102,7 +7135,9 @@ def tp2_compare_serve(path, ref, ranks):
                     for rid, t in want["tokens"].items()}
             if wire == "fp32" and not all(same.values()):
                 fail(f"phase 23 {path} fp32 rank {r}: tokens differ from "
-                     f"one process: {same}")
+                     f"one process: {same}; router margin {got['router_margin']}"
+                     f" on the rank, {want['router_margin']} in one process "
+                     f"(a near tie routes a token to another expert)")
             rec[f"{wire}_rank{r}_requests_with_equal_tokens"] = sum(
                 same.values())
         rows, last = _agreeing_gap(ranks[0]["serve"][path][wire], want)
@@ -7736,8 +7771,9 @@ def main() -> None:
                           for case, r in results[name]["f32"].items()}
         if name in HEADS:
             rec["head_dims"], rec["groups"] = HEADS[name]
-            rec["wide"] = {case: {k: r.get(k) for k in keys}
-                           for case, r in results[name]["wide"].items()}
+            rec["wide"] = {case: {k: r.get(k) for k in keys + (
+                "plan_rows", "plan_blocks", "blocks_per_sm") if k in r or
+                k in keys} for case, r in results[name]["wide"].items()}
         if "g2" in results[name]:
             rec["slice_g2"] = {case: {k: r.get(k) for k in keys}
                                for case, r in results[name]["g2"].items()}

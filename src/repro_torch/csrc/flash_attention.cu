@@ -56,34 +56,78 @@
 //     warp's chain of tiles. Grid (ceil(Sq / 64), Hq, B); in a causal call
 //     the query blocks run last-first, the longest first.
 //
-// Head widths up to 256 in seven instantiations of ND = 8-column steps
-// (4, 8, 10, 16 and 20 in the layout above; 24 and 32 in the wide layout
-// below); tiles are zero-padded (cp.async zero-fill) to a multiple of 16
-// columns for QK^T and of 32 (16 at ND 10) for PV, as are the tile rows
-// past the tile's keys, so no stale shared value reaches an mma. Dynamic
-// shared memory: Q's two halves (2 x 64 rows), K and V (two buffers and
-// one small-half tile each), 165,376 bytes at ND 16 and 206,336 at ND 20
-// (stablelm-12b's head_dim 160), one block an SM.
+// Head widths up to 160 in five instantiations of ND = 8-column steps
+// (4, 8, 10, 16 and 20) take the layout above; tiles are zero-padded
+// (cp.async zero-fill) to a multiple of 16 columns for QK^T and of 32 (16
+// at ND 10) for PV, as are the tile rows past the tile's keys, so no stale
+// shared value reaches an mma. Dynamic shared memory: Q's two halves (2 x
+// 64 rows), K and V (two buffers and one small-half tile each), 165,376
+// bytes at ND 16 and 206,336 at ND 20 (stablelm-12b's head_dim 160), one
+// block an SM.
 //
-// The wide layout (flash_fwd_wide_kernel: ND 24 for head_dim 192, ND 32
-// for 256, gemma2-9b's). The layout above does not fit there: 247,296 and
-// 329,216 bytes, over the 232,448 a block may have, and a warp's o[ND][4]
-// alone would be 128 registers at ND 32. So the wide kernel keeps Q, K and
-// V in shared memory as plain f32 values (Q, and two cp.async buffers each
-// of K and V: 148,480 bytes at ND 24, 197,632 at ND 32) and splits every
-// fragment into its TF32 halves in registers as it loads it, and it gives
-// both warps of a row tile all 32 keys of every tile: each computes the
-// tile's 16 x 32 scores and the same online softmax, and each owns half of
-// the value columns (32-column groups 2i and 2i + 1), so o is ND / 2 n8
-// tiles a thread and the two warps' states need no merge. QK^T is computed
-// twice a row tile: 1.5x the narrow layout's products at Dh = Dv, on
-// shapes (serving prefill) that the bytes bound. Dh and Dv may differ (a
-// 192-wide QK^T with 128-wide values takes ND 24).
+// The wide layout (flash_wide_kernel<ND, NV>: keys of class ND 24 for head
+// dim 192 or 32 for 256, values of class NV, ND or 16 for MLA's 192 / 128).
+// The layout above does not fit there (247,296 and 329,216 bytes, over the
+// 232,448 a block may have; o[ND][4] alone 128 registers at ND 32). What
+// the design does about the three limits of the wide kernel it replaced
+// (8 warps over 64 rows, both warps of a row tile scoring all 32 keys):
+//  1. QK^T once a row tile. Each 16-row tile has four warps, and they
+//     split the head dims: warp w takes the 16-column pairs w, w + 4, ...
+//     (a quarter of Dh) for all 32 keys of a tile, so the four partial
+//     16 x 32 score tiles sum to QK^T. They meet in shared memory under a
+//     named barrier of the row tile's 128 threads: warp w sums the four
+//     partials of n8 key tile w in a fixed order and finishes them (scale,
+//     softcap, masks on edge tiles), and after a second barrier every warp
+//     reads all four finished tiles, so the four run the same online
+//     softmax (bitwise the same m and l). PV splits V's columns: warp w
+//     takes the 16-column groups w, w + 4, ... (n8 tile 2i + j takes V
+//     column 16m + 2c + j as its column c: one 8-byte load of each of two
+//     rows holds both tiles' B fragments). Splitting the head dims rather
+//     than the keys keeps each warp's Q in registers: a key split makes
+//     every warp read all of Q's halves a tile (32 KB a warp at ND 32).
+//     The exchange (10 KB a row tile) reuses the row tile's Q rows once Q
+//     is in registers.
+//  2. TF32 splits once. Q is split into its halves once, into registers
+//     (2 x 8 x ND / 8 registers: 48 at ND 24, 64 at ND 32). K and V stay
+//     plain f32 in shared memory and are split in registers as loaded; in
+//     a row tile each K and V value is loaded by one warp only, so at 16
+//     rows every value is split once a block. Splitting by the block into
+//     small-half tiles would cost 49,664 (ND 24) to 66,048 (ND 32) more
+//     bytes and the second block an SM, for nothing at 16 rows. P is split
+//     by each warp (all 32 keys feed its columns).
+//  3. A plan that fills the card. prefill_plan gives 16 rows (8 x rows
+//     threads, two K/V cp.async buffers of 32 keys: 95,232 bytes at ND 24
+//     / NV 16, 111,616 at 24 / 24, 148,480 at 32 / 32; two blocks an SM
+//     at ND 24), or 32 rows for longer prompts whose 32-row grid still
+//     fills the card. The grid is (Hq, ceil(Sq / rows), B): a causal call
+//     starts the longest query blocks of every head first. The loops run
+//     the classes' whole widths (zero columns past Dh and Dv, zero rows
+//     past the tile's keys), with no branch inside, so ptxas interleaves
+//     their independent products (a first build with a branch a pair, n8
+//     tile and column group took 1.34-1.41x these times).
+// Bounds at S 132, causal (bytes at 4 B a value over 3.35 TB/s; the
+// 3xTF32 products at 165 TFLOP/s take less): deepseek-v3 MLA (1, 132, 64 x
+// 192 / 128) 21.6 MB -> 0.00646 ms, at 128 heads 43.3 MB -> 0.0129 ms,
+// gemma2-9b 0.00194 ms, nemotron-4-340b 0.00629 ms. Measured (NVIDIA H100
+// 80GB HBM3, 700.00 W; tools/time_prefill.py, parent, change, change,
+// parent in one run), device ms at S 132, the replaced wide kernel's in
+// brackets, f32 SDPA's after: gemma2-9b 0.0182-0.0183 (0.0530-0.0531),
+// 0.0344-0.0353; MLA at 64 heads 0.0289 (0.0674-0.0675), 0.0389-0.0396;
+// nemotron-4-340b 0.0481-0.0483 (0.0940-0.0942), 0.0709-0.0735; MLA at
+// 128 heads 0.0533-0.0535 (0.1027-0.1033), 0.0607-0.0619. Where the time
+// goes (tools/prefill_wide_phase_clocks.py, gemma2-9b, the longest block,
+// ~5,300 cycles a tile): issuing the next tile's cp.async copies ~2,060
+// (a warp issues some 11 bytes a cycle), QK^T ~1,240 and PV ~1,060 (about
+// half the mma.sync pipe's rate), the exchange and the softmax ~830. Tried
+// and not kept: per-row bulk copies (cp.async.bulk on an mbarrier, issued
+// by one warp: 3,770 cycles a tile), a copy warp (one warp issues at a
+// third of four warps' rate), copies spread through QK^T (they stall its
+// products).
 //
 // q, k and v are all f32 here. bf16 and f16 q, k and v take the 16-bit
 // kernel of flash_attention_16.cu behind the same entry point (16-bit
-// tiles by cp.async, QK^T on m16n8k16, PV on TF32 with P split in two):
-// the entry point dispatches on the dtype code.
+// tiles by cp.async, QK^T on m16n8k16, P as three bf16 or two f16 terms
+// against V on m16n8k16): the entry point dispatches on the dtype code.
 //
 // Masks use the finite -2^30 of the plain version. A masked key (causal,
 // window) scores -2^30 and takes part in the max; an absent key (at or
@@ -495,34 +539,83 @@ __global__ void __launch_bounds__(kThr, ND <= 8 ? 2 : 1)
   }
 }
 
-// The wide layout (see the note at the top): one block an SM, Q, K and V
-// as f32 values in shared memory, TF32 halves split in registers at each
-// fragment load, both warps of a row tile over all 32 keys of a tile, each
-// owning the 32-column groups of V of its parity.
-template <int ND, bool kVec16, class T>
-__global__ void __launch_bounds__(kThr, 1)
-    flash_fwd_wide_kernel(FaParams p) {
-  static_assert(ND % 4 == 0, "V is taken in whole 32-column groups");
-  constexpr int LDK = 8 * ND, LDV = 8 * ND + 4;
-  constexpr int NP = ND / 2;         // 16-column pairs of k-steps in QK^T
-  constexpr int NG = ND / 4;         // 32-column groups of V
-  constexpr int NGW = (NG + 1) / 2;  // of which a warp owns every other
+// The wide layout (see the note at the top): a block of `rows` query rows
+// (16 or 32, prefill_plan's choice; 8 x rows threads), four warps a 16-row
+// tile. Warp w of a row tile takes the 16-column pairs w, w + 4, ... of
+// QK^T, with its Q values' TF32 halves in registers, and the 16-column
+// groups w, w + 4, ... of V in PV.
+constexpr int kWideWarps = 4;  // warps a 16-row tile
+constexpr int kWideThr = 256;  // threads of a 32-row block, the largest
+
+// Copy `rows` rows of `width` floats (a multiple of 4) as load_rows does,
+// with `nthr` threads: a row takes min(width / unit, nthr) threads, and
+// each steps along the row by that many copies, so a row wider than the
+// block's threads (4-byte copies) is still covered.
+template <int LD, bool kSwz, bool kVec16>
+__device__ __forceinline__ void load_rows_n(float* dst, const float* src,
+                                            long long ss, int n_rows,
+                                            int rows, int d, int width,
+                                            int tid, int nthr) {
+  constexpr int kUnit = kVec16 ? 4 : 1;  // floats a copy
+  const int per_row = width / kUnit, lanes = min(per_row, nthr);
+  const int step = nthr / lanes;  // rows a pass
+  const int r0 = tid / lanes, c0 = (tid - r0 * lanes) * kUnit;
+  if (r0 >= step) return;
+  for (int c = c0; c < width; c += lanes * kUnit) {
+    const int left = d - c;  // values of the copy below d, as comparisons
+    const int bytes = left >= kUnit ? 4 * kUnit : (left > 0 ? 4 * left : 0);
+    const float* s = src + r0 * ss + c;
+    for (int r = r0; r < rows; r += step, s += step * ss) {
+      const int n = r < n_rows ? bytes : 0;
+      const int pcol = kSwz ? c ^ ((r & 1) << 4) : c;  // chunk c / 4 ^ 4
+      if constexpr (kVec16)
+        cp_async16(dst + r * LD + pcol, n ? s : src, n);
+      else
+        cp_async4(dst + r * LD + pcol, n ? s : src, n);
+    }
+  }
+}
+
+// Wait on a barrier that only the 128 threads of one row tile use.
+__device__ __forceinline__ void row_tile_sync(int id) {
+  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
+}
+
+// ND: the width class of the keys (and of Q); NV: V's (ND, or 16 where
+// values of at most 128 sit under keys of class 24, as MLA's). The loops
+// run the classes' whole widths, over zero columns past Dh and Dv and zero
+// rows past the tile's keys, so no branch splits them and ptxas can
+// interleave their independent products.
+template <int ND, int NV, bool kVec16, class T>
+__global__ void __launch_bounds__(kWideThr, 1)
+    flash_wide_kernel(FaParams p) {
+  static_assert(ND % (2 * kWideWarps) == 0 && NV % (2 * kWideWarps) == 0,
+                "16-column pairs and groups split evenly over four warps");
+  constexpr int LDK = 8 * ND, LDV = 8 * NV + 4;
+  constexpr int NPW = ND / 8;  // 16-column pairs of QK^T a warp
+  constexpr int NGW = NV / 8;  // 16-column groups of V a warp
+  // a row tile's exchange: 4 x 4 partial n8 score tiles, then 4 finished
+  // ones, as float4s by lane
+  constexpr int kExchange = (16 + 4) * 32 * 4;
+  static_assert(kExchange <= 16 * LDK, "the exchange fits the Q rows");
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                // kBQ x LDK (swizzled as K)
-  float* ks = qs + kBQ * LDK;      // 2 buffers x kBK x LDK
+  const int nthr = blockDim.x, rows = nthr >> 3;
+  float* xq = smem;                // rows x LDK: Q, then the exchanges
+  float* ks = xq + rows * LDK;     // 2 buffers x kBK x LDK (swizzled)
   float* vs = ks + 2 * kBK * LDK;  // 2 buffers x kBK x LDV
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int rg = warp < 4 ? warp >> 1 : 5 - (warp >> 1);
-  const int half = warp & 1;  // this warp's groups of V: 2i + half
-  const int qblk = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = qblk * kBQ;
+  // row tile rg's four warps run on the four schedulers
+  const int rg = warp / kWideWarps, w = warp % kWideWarps;
+  // heads on x and query blocks on y, so a causal call starts the longest
+  // query blocks (the last) of every head first
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int qblk = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qblk * rows;
   const int hk = h / (p.Hq / p.Hkv);
-  const int dh16 = (p.Dh + 15) >> 4;
-  const int v_width = min(8 * ND, (p.Dv + 31) & ~31);
 
-  const int q_last = min(q0 + kBQ, p.Sq) - 1;
+  const int q_last = min(q0 + rows, p.Sq) - 1;
   int kv_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
   int kv_end = p.causal ? min(p.kv_len, q_last + 1) : p.kv_len;
   if (p.window > 0 && q_last >= p.kv_len + p.window - 1) {
@@ -535,108 +628,170 @@ __global__ void __launch_bounds__(kThr, 1)
   const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
   auto load_kv = [&](int it) {
     const int kt = kv_begin + it * kBK, n_keys = min(kBK, kv_end - kt);
-    load_rows<LDK, true, kVec16>(ks + (it & 1) * kBK * LDK, kb + kt * p.k_ss,
-                                 p.k_ss, n_keys, kBK, p.Dh, 16 * dh16, tid);
-    load_rows<LDV, false, kVec16>(vs + (it & 1) * kBK * LDV, vb + kt * p.v_ss,
-                                  p.v_ss, n_keys, kBK, p.Dv, v_width, tid);
+    load_rows_n<LDK, true, kVec16>(ks + (it & 1) * kBK * LDK,
+                                   kb + kt * p.k_ss, p.k_ss, n_keys, kBK,
+                                   p.Dh, 8 * ND, tid, nthr);
+    load_rows_n<LDV, false, kVec16>(vs + (it & 1) * kBK * LDV,
+                                    vb + kt * p.v_ss, p.v_ss, n_keys, kBK,
+                                    p.Dv, 8 * NV, tid, nthr);
   };
-  load_rows<LDK, true, kVec16>(
-      qs, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_ss,
-      p.q_ss, p.Sq - q0, kBQ, p.Dh, 16 * dh16, tid);
+  load_rows_n<LDK, true, kVec16>(
+      xq, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_ss,
+      p.q_ss, p.Sq - q0, rows, p.Dh, 8 * ND, tid, nthr);
+  cp_async_commit();
   if (n_tiles > 0) load_kv(0);
-  cp_async_commit();  // Q lands with the first tile
+  cp_async_commit();
+  cp_async_wait<1>();  // Q has landed; tile 0 may be in flight
+  __syncthreads();
 
-  // rows g and g + 8 of the warp's m16 tile; fragments as in the narrow
-  // kernel (chunk 4p + t of a 16-column pair, one swizzle offset)
+  // rows g and g + 8 of the row tile; fragments as in the narrow kernel
+  // (chunk 4p + t of a 16-column pair p, one swizzle offset)
   const int w_lo = q0 + 16 * rg, w_hi = w_lo + 15;
   const int row_a = w_lo + g, row_b = row_a + 8;
-  const bool active = w_lo < p.Sq;
+  const bool active = w_lo < p.Sq;  // a row tile of padding rows only loads
   const int swz = 16 * (g & 1);
   const int off_even = 4 * t + swz, off_odd = 4 * t - swz;
-  const float* qa = qs + (16 * rg + g) * LDK;
-  float o[4 * NGW][4];
+  // Q's TF32 halves of this warp's pairs w + 4i, split once: [i][k] holds
+  // the float4 of row g (k < 4) and of row g + 8 (k >= 4)
+  uint32_t qb[NPW][8], qm[NPW][8];
+  {
+    const float* qa = xq + (16 * rg + g) * LDK;
 #pragma unroll
-  for (int n = 0; n < 4 * NGW; ++n)
+    for (int i = 0; i < NPW; ++i) {
+      const int pp = w + kWideWarps * i;
+      const int off = 16 * pp + (pp & 1 ? off_odd : off_even);
+      uint32_t b0[4], m0[4], b8[4], m8[4];
+      split4(lds4(qa + off), b0, m0);
+      split4(lds4(qa + 8 * LDK + off), b8, m8);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        qb[i][k] = b0[k];
+        qm[i][k] = m0[k];
+        qb[i][4 + k] = b8[k];
+        qm[i][4 + k] = m8[k];
+      }
+    }
+  }
+  float o[2 * NGW][4];
+#pragma unroll
+  for (int n = 0; n < 2 * NGW; ++n)
     o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m_a = kMask, m_b = kMask, l_a = 0.f, l_b = 0.f;  // l: this lane's
   //                                                        share of the sum
+  // the row tile's exchange, in its Q rows (Q is in registers by now)
+  float4* part = reinterpret_cast<float4*>(xq + rg * 16 * LDK);  // [w][n][lane]
+  float4* fin = part + 16 * 32;                                   // [n][lane]
 
   for (int it = 0; it < n_tiles; ++it) {
     cp_async_wait<0>();
-    __syncthreads();  // tile `it` has landed; every warp is done with it - 1
+    // tile `it` has landed; every warp is done with tile it - 1 and with
+    // its exchange
+    __syncthreads();
     if (it + 1 < n_tiles) {
       load_kv(it + 1);  // into the buffer tile it - 1 used
       cp_async_commit();
     }
     const int kt = kv_begin + it * kBK, n_keys = min(kBK, kv_end - kt);
-    // a causal tile past the warp's last row holds only masked keys, which
-    // add exactly 0 once a row has seen a key of its own
+    // a causal tile past the row tile's last row holds only masked keys,
+    // which add exactly 0 once a row has seen a key of its own; the four
+    // warps decide together (they meet at barriers)
     if (!active || (p.causal && kt > w_hi)) continue;
     const float* kt_s = ks + (it & 1) * kBK * LDK;
     const float* vt_s = vs + (it & 1) * kBK * LDV;
 
-    // S = Q K^T: 16 rows x 32 keys, four n8 tiles
+    // this warp's share of S = Q K^T: its pairs, all 32 keys (four n8
+    // tiles)
     float s[4][4];
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-    for (int pp = 0; pp < NP; ++pp) {
-      if (pp < dh16) {
-        const int off = 16 * pp + (pp & 1 ? off_odd : off_even);
-        uint32_t qb0[4], qs0[4], qb8[4], qs8[4];
-        split4(lds4(qa + off), qb0, qs0);
-        split4(lds4(qa + 8 * LDK + off), qb8, qs8);
+    for (int i = 0; i < NPW; ++i) {
+      const int pp = w + kWideWarps * i;
+      const int off = 16 * pp + (pp & 1 ? off_odd : off_even);
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          uint32_t kbig[4], ksmall[4];
-          split4(lds4(kt_s + (8 * n + g) * LDK + off), kbig, ksmall);
+      for (int n = 0; n < 4; ++n) {
+        uint32_t kbig[4], ksmall[4];
+        split4(lds4(kt_s + (8 * n + g) * LDK + off), kbig, ksmall);
 #pragma unroll
-          for (int st = 0; st < 2; ++st) {
-            const uint32_t ab[4] = {qb0[2 * st], qb8[2 * st], qb0[2 * st + 1],
-                                    qb8[2 * st + 1]};
-            const uint32_t as[4] = {qs0[2 * st], qs8[2 * st], qs0[2 * st + 1],
-                                    qs8[2 * st + 1]};
-            const uint32_t bb[2] = {kbig[2 * st], kbig[2 * st + 1]};
-            const uint32_t bs[2] = {ksmall[2 * st], ksmall[2 * st + 1]};
-            mma_tf32(s[n], as, bb);
-            mma_tf32(s[n], ab, bs);
-            mma_tf32(s[n], ab, bb);
-          }
+        for (int st = 0; st < 2; ++st) {
+          const uint32_t ab[4] = {qb[i][2 * st], qb[i][4 + 2 * st],
+                                  qb[i][2 * st + 1], qb[i][5 + 2 * st]};
+          const uint32_t as[4] = {qm[i][2 * st], qm[i][4 + 2 * st],
+                                  qm[i][2 * st + 1], qm[i][5 + 2 * st]};
+          const uint32_t bb[2] = {kbig[2 * st], kbig[2 * st + 1]};
+          const uint32_t bs[2] = {ksmall[2 * st], ksmall[2 * st + 1]};
+          mma_tf32(s[n], as, bb);
+          mma_tf32(s[n], ab, bs);
+          mma_tf32(s[n], ab, bb);
         }
       }
     }
 
-    // scale, softcap and (on edge tiles only) masks; the tile's row max
-    const bool edge = n_keys < kBK || (p.causal && kt + kBK - 1 > w_lo) ||
-                      (p.window > 0 && kt <= w_hi - p.window);
+    // The partials meet: warp w sums the four of n8 tile w (keys 8w ..
+    // 8w + 7) in a fixed order and finishes them (scale, softcap and, on
+    // edge tiles only, masks); the finished tiles meet, so every warp
+    // holds the same scores.
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      part[(w * 4 + n) * 32 + lane] =
+          make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+    row_tile_sync(1 + rg);
+    float4 x = part[w * 32 + lane];
+#pragma unroll
+    for (int u = 1; u < kWideWarps; ++u) {
+      const float4 y = part[(u * 4 + w) * 32 + lane];
+      x.x += y.x;
+      x.y += y.y;
+      x.z += y.z;
+      x.w += y.w;
+    }
+    float f[4] = {x.x * p.scale, x.y * p.scale, x.z * p.scale, x.w * p.scale};
+    if (p.softcap > 0.f) {  // one branch: tanhf only where it is used
+      const float inv_cap = 1.f / p.softcap;  // a product, not a division
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f[e] = p.softcap * tanhf(f[e] * inv_cap);
+    }
+    const int j0 = 8 * w;  // this warp's n8 tile of keys
+    const bool edge = j0 + 8 > n_keys || (p.causal && kt + j0 + 7 > w_lo) ||
+                      (p.window > 0 && kt + j0 <= w_hi - p.window);
+    if (edge) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + 2 * t + (e & 1), key = kt + j;
+        const int row = e < 2 ? row_a : row_b;
+        if (j >= n_keys)
+          f[e] = -INFINITY;  // absent
+        else if ((p.causal && key > row) ||
+                 (p.window > 0 && key <= row - p.window))
+          f[e] = kMask;      // masked
+      }
+    }
+    fin[w * 32 + lane] = make_float4(f[0], f[1], f[2], f[3]);
+    row_tile_sync(1 + rg);
+    float sc[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const float4 y = fin[n * 32 + lane];
+      sc[n][0] = y.x;
+      sc[n][1] = y.y;
+      sc[n][2] = y.z;
+      sc[n][3] = y.w;
+    }
+
+    // online softmax on the fragments (the same in the four warps)
     float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = cap(s[n][e] * p.scale, p.softcap);
-        if (edge) {
-          const int j = 8 * n + 2 * t + (e & 1), key = kt + j;
-          const int row = e < 2 ? row_a : row_b;
-          if (j >= n_keys)
-            x = -INFINITY;  // absent
-          else if ((p.causal && key > row) ||
-                   (p.window > 0 && key <= row - p.window))
-            x = kMask;      // masked
-        }
-        s[n][e] = x;
-        if (e < 2) mx_a = fmaxf(mx_a, x); else mx_b = fmaxf(mx_b, x);
-      }
+      mx_a = fmaxf(mx_a, fmaxf(sc[n][0], sc[n][1]));
+      mx_b = fmaxf(mx_b, fmaxf(sc[n][2], sc[n][3]));
     }
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
       mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
       mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
     }
-
-    // online softmax on the fragments
     const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
     const float alpha_a = ex(m_a - mn_a), alpha_b = ex(m_b - mn_b);
     m_a = mn_a;
@@ -644,60 +799,60 @@ __global__ void __launch_bounds__(kThr, 1)
     float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
-      s[n][0] = ex(s[n][0] - m_a);
-      s[n][1] = ex(s[n][1] - m_a);
-      s[n][2] = ex(s[n][2] - m_b);
-      s[n][3] = ex(s[n][3] - m_b);
-      sum_a += s[n][0] + s[n][1];
-      sum_b += s[n][2] + s[n][3];
+      sc[n][0] = ex(sc[n][0] - m_a);
+      sc[n][1] = ex(sc[n][1] - m_a);
+      sc[n][2] = ex(sc[n][2] - m_b);
+      sc[n][3] = ex(sc[n][3] - m_b);
+      sum_a += sc[n][0] + sc[n][1];
+      sum_b += sc[n][2] + sc[n][3];
     }
     l_a = alpha_a * l_a + sum_a;
     l_b = alpha_b * l_b + sum_b;
 #pragma unroll
-    for (int n = 0; n < 4 * NGW; ++n) {
+    for (int n = 0; n < 2 * NGW; ++n) {
       o[n][0] *= alpha_a;
       o[n][1] *= alpha_a;
       o[n][2] *= alpha_b;
       o[n][3] *= alpha_b;
     }
 
-    // O += P V over this warp's groups of V, each k8 step of keys as in
-    // the narrow kernel (P's A fragment from S's C fragment, V's rows 2t
-    // and 2t + 1, n8 tile 4i + j of group m = 2i + half taking V column
-    // 32m + 4c + j as its column c)
+    // O += P V over this warp's groups m = w + 4i of V, each k8 step of
+    // keys as in the narrow kernel (P's A fragment from S's C fragment,
+    // V's rows 2t and 2t + 1); n8 tile 2i + j takes V column 16m + 2c + j
+    // as its column c, so a thread's B fragments of both tiles are one
+    // 8-byte load from each of the two rows
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      if (8 * kk < n_keys) {
-        uint32_t ab[4], as[4];
-        split_tf32(s[kk][0], ab[0], as[0]);
-        split_tf32(s[kk][2], ab[1], as[1]);
-        split_tf32(s[kk][1], ab[2], as[2]);
-        split_tf32(s[kk][3], ab[3], as[3]);
-        const float* vr = vt_s + (8 * kk + 2 * t) * LDV;
+      uint32_t ab[4], as[4];
+      split_tf32(sc[kk][0], ab[0], as[0]);
+      split_tf32(sc[kk][2], ab[1], as[1]);
+      split_tf32(sc[kk][1], ab[2], as[2]);
+      split_tf32(sc[kk][3], ab[3], as[3]);
+      const float* vr = vt_s + (8 * kk + 2 * t) * LDV;
 #pragma unroll
-        for (int i = 0; i < NGW; ++i) {
-          const int m = 2 * i + half;
-          if (m < NG && 32 * m < p.Dv) {
-            const int c = 32 * m + 4 * g;
-            uint32_t xb[4], xs[4], yb[4], ys[4];
-            split4(lds4(vr + c), xb, xs);
-            split4(lds4(vr + LDV + c), yb, ys);
+      for (int i = 0; i < NGW; ++i) {
+        const int c = 16 * (w + kWideWarps * i) + 2 * g;
+        const float2 x2 = *reinterpret_cast<const float2*>(vr + c);
+        const float2 y2 = *reinterpret_cast<const float2*>(vr + LDV + c);
+        uint32_t xb[2], xs[2], yb[2], ys[2];
+        split_tf32(x2.x, xb[0], xs[0]);
+        split_tf32(x2.y, xb[1], xs[1]);
+        split_tf32(y2.x, yb[0], ys[0]);
+        split_tf32(y2.y, yb[1], ys[1]);
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const uint32_t bb[2] = {xb[j], yb[j]};
-              mma_tf32(o[4 * i + j], as, bb);
-            }
+        for (int j = 0; j < 2; ++j) {
+          const uint32_t bb[2] = {xb[j], yb[j]};
+          mma_tf32(o[2 * i + j], as, bb);
+        }
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const uint32_t bs[2] = {xs[j], ys[j]};
-              mma_tf32(o[4 * i + j], ab, bs);
-            }
+        for (int j = 0; j < 2; ++j) {
+          const uint32_t bs[2] = {xs[j], ys[j]};
+          mma_tf32(o[2 * i + j], ab, bs);
+        }
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const uint32_t bb[2] = {xb[j], yb[j]};
-              mma_tf32(o[4 * i + j], ab, bb);
-            }
-          }
+        for (int j = 0; j < 2; ++j) {
+          const uint32_t bb[2] = {xb[j], yb[j]};
+          mma_tf32(o[2 * i + j], ab, bb);
         }
       }
     }
@@ -720,13 +875,11 @@ __global__ void __launch_bounds__(kThr, 1)
   };
 #pragma unroll
   for (int i = 0; i < NGW; ++i) {
-    const int m = 2 * i + half;
-    if (m < NG) {
+    const int m = w + kWideWarps * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        put_out(32 * m + 8 * t + j, 4 * i + j, 0);
-        put_out(32 * m + 8 * t + 4 + j, 4 * i + j, 1);
-      }
+    for (int j = 0; j < 2; ++j) {
+      put_out(16 * m + 4 * t + j, 2 * i + j, 0);
+      put_out(16 * m + 4 * t + 2 + j, 2 * i + j, 1);
     }
   }
 }
@@ -734,38 +887,44 @@ __global__ void __launch_bounds__(kThr, 1)
 // Widths from this ND up take the wide layout.
 constexpr int kWideND = 24;
 
-// Dynamic shared memory of a block of width class ND (see the note at the
-// top): the wide layout's Q and two K and V buffers, or the narrow one's
-// Q halves, two K and V buffers and their small halves.
+// Dynamic shared memory of a narrow block of width class ND (see the note
+// at the top): Q's halves, two K and V buffers and their small halves.
 template <int ND>
 constexpr int block_bytes32() {
   constexpr int LDK = 8 * ND, LDV = 8 * ND + 4;
-  return (ND >= kWideND ? kBQ * LDK + 2 * kBK * (LDK + LDV)
-                        : 2 * kBQ * LDK + 3 * kBK * (LDK + LDV)) *
+  return (2 * kBQ * LDK + 3 * kBK * (LDK + LDV)) *
+         static_cast<int>(sizeof(float));
+}
+
+// Dynamic shared memory of a wide block of `rows` query rows, keys of
+// class ND and values of class NV: Q (whose rows then hold the row tiles'
+// exchanges) and two K and V buffers.
+template <int ND, int NV>
+constexpr int wide_bytes32(int rows) {
+  return (rows * 8 * ND + 2 * kBK * (8 * ND + 8 * NV + 4)) *
          static_cast<int>(sizeof(float));
 }
 
 // The bytes prefill_plan (kernels/flash_attention/kernel.py) computes for
-// each width class at 4 B a value; tests/test_torch_prefill_plan.py reads
-// these lines.
+// each width class at 4 B a value (and, wide, each row count);
+// tests/test_torch_prefill_plan.py reads these lines.
 static_assert(block_bytes32<4>() == 42496, "ND 4");
 static_assert(block_bytes32<8>() == 83456, "ND 8");
 static_assert(block_bytes32<10>() == 103936, "ND 10");
 static_assert(block_bytes32<16>() == 165376, "ND 16");
 static_assert(block_bytes32<20>() == 206336, "ND 20");
-static_assert(block_bytes32<24>() == 148480, "ND 24");
-static_assert(block_bytes32<32>() == 197632, "ND 32");
+static_assert(wide_bytes32<24, 16>(16) == 95232, "ND 24, NV 16, 16 rows");
+static_assert(wide_bytes32<24, 16>(32) == 107520, "ND 24, NV 16, 32 rows");
+static_assert(wide_bytes32<24, 24>(16) == 111616, "ND 24, 16 rows");
+static_assert(wide_bytes32<24, 24>(32) == 123904, "ND 24, 32 rows");
+static_assert(wide_bytes32<32, 32>(16) == 148480, "ND 32, 16 rows");
+static_assert(wide_bytes32<32, 32>(32) == 164864, "ND 32, 32 rows");
 
 template <int ND, bool kVec16, class T>
 cudaError_t launch(const FaParams& p, cudaStream_t stream) {
-  constexpr bool kWide = ND >= kWideND;
   constexpr int bytes = block_bytes32<ND>();
   static_assert(bytes <= 232448, "over the shared memory a block may have");
-  void (*kernel)(FaParams);
-  if constexpr (kWide)
-    kernel = flash_fwd_wide_kernel<ND, kVec16, T>;
-  else
-    kernel = flash_fwd_kernel<ND, kVec16, T>;
+  void (*kernel)(FaParams) = flash_fwd_kernel<ND, kVec16, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   // all of the SM's 228 KB as shared memory, so several blocks fit
@@ -779,23 +938,51 @@ cudaError_t launch(const FaParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The wide kernel, `rows` (16 or 32) query rows a block of 8 x rows
+// threads; grid (Hq, ceil(Sq / rows), B).
+template <int ND, int NV, bool kVec16, class T>
+cudaError_t launch_wide(const FaParams& p, int rows, cudaStream_t stream) {
+  static_assert(wide_bytes32<ND, NV>(kWideThr / 8) <= 232448,
+                "over the shared memory a block may have");
+  const int bytes = wide_bytes32<ND, NV>(rows);
+  void (*kernel)(FaParams) = flash_wide_kernel<ND, NV, kVec16, T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.Hq, (p.Sq + rows - 1) / rows, p.B);
+  kernel<<<grid, 8 * rows, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <bool kVec16, class T>
-cudaError_t launch_width(const FaParams& p, cudaStream_t stream) {
+cudaError_t launch_width(const FaParams& p, int rows, cudaStream_t stream) {
   const int d8 = (max(p.Dh, p.Dv) + 7) / 8;
+  if (d8 > 20) {  // the wide layout: width classes kWideND and 32
+    if (rows != 16 && rows != 32) return cudaErrorInvalidValue;
+    if (d8 > kWideND)  // gemma2's 256
+      return launch_wide<32, 32, kVec16, T>(p, rows, stream);
+    if (p.Dv <= 128)  // MLA's 192 / 128
+      return launch_wide<24, 16, kVec16, T>(p, rows, stream);
+    return launch_wide<24, 24, kVec16, T>(p, rows, stream);  // nemotron's
+  }
+  if (rows != kBQ) return cudaErrorInvalidValue;
   if (d8 <= 4) return launch<4, kVec16, T>(p, stream);
   if (d8 <= 8) return launch<8, kVec16, T>(p, stream);
   if (d8 <= 10) return launch<10, kVec16, T>(p, stream);  // zamba2's 80
   if (d8 <= 16) return launch<16, kVec16, T>(p, stream);
-  if (d8 <= 20) return launch<20, kVec16, T>(p, stream);  // stablelm's 160
-  if (d8 <= 24) return launch<24, kVec16, T>(p, stream);  // nemotron's 192
-  return launch<32, kVec16, T>(p, stream);                // gemma2's 256
+  return launch<20, kVec16, T>(p, stream);                // stablelm's 160
 }
 
 }  // namespace
 
 // q, k, v and o all of dtype `dtype` (kF32, kBF16 or kF16); strides in
-// elements; `rows` the query rows a block (prefill_plan's choice: 64 at
-// f32, 64, 32 or 16 at 16 bits).
+// elements; `rows` the query rows a block (prefill_plan's choice: at f32
+// 64 below width class kWideND and 32 or 16 from it, at 16 bits 64, 32 or
+// 16).
 extern "C" int sfp_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Sq, int Skv, int Hq, int Hkv, int Dh, int Dv, long long q_sb,
@@ -823,11 +1010,10 @@ extern "C" int sfp_flash_attention_fwd(
         o_sb, o_ss, o_sh, causal, window, softcap, scale, kv_len, rows};
     return (int)flash16_fwd(p16, dtype, vec, st);
   }
-  if (rows != kBQ) return (int)cudaErrorInvalidValue;
   FaParams p{q,    k,    v,    o,    B,    Sq,   Skv,  Hq,   Hkv,
              Dh,   Dv,   q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
              v_ss, v_sh, o_sb, o_ss, o_sh, causal, window, softcap,
              scale, kv_len};
-  return (int)(vec ? launch_width<true, float>(p, st)
-                   : launch_width<false, float>(p, st));
+  return (int)(vec ? launch_width<true, float>(p, rows, st)
+                   : launch_width<false, float>(p, rows, st));
 }

@@ -3,22 +3,24 @@
 Replaces the TPU kernel `repro/kernels/flash_attention/kernel.py::
 flash_attention_fwd` with two kernels behind one C entry point. f32 q, k
 and v take `csrc/flash_attention.cu`: QK^T and PV on the tensor cores at
-fp32 accuracy (3xTF32 mma.sync), K/V tiles double-buffered with cp.async,
-64 query rows a block; head dims up to 160 in one layout, 192 and 256 in a
-wide one (Q, K and V split into TF32 halves in registers, each warp of a
-pair owning half of the value columns). bf16 and f16 q, k and v take
+fp32 accuracy (3xTF32 mma.sync), K/V tiles double-buffered with cp.async;
+head dims up to 160 in one layout (64 query rows a block), 192 and 256 in
+a wide one (four warps a 16-row tile splitting QK^T's head dims, their
+partial scores summed through shared memory, Q's TF32 halves in
+registers, each warp a quarter of the value columns; 16 or 32 query rows
+a block as `prefill_plan` chooses). bf16 and f16 q, k and v take
 `csrc/flash_attention_16.cu`: 16-bit Q, K and V tiles by cp.async in a
 ring of 2 or 3 stages, QK^T and PV on m16n8k16 16-bit tensor cores
 (exact products, f32 sums) with P as three bf16 or two f16 terms (f32
 accuracy: never rounded once to 16 bits), one layout up to head dim 256,
-64, 32 or 16 query rows a block as `prefill_plan` chooses. Both read q, k and v in the model's
-(B, S, H, Dh) layout through strides, so none of the TPU wrapper's
-transpose, reshape and pad copies exist, and mask the ragged Sq/Skv edge
-themselves; the entry point picks 16-byte copies from the pointers and
-strides (else 4-byte copies at f32, plain loads at 16 bits). q, k and v
-are of one dtype, f32, bf16 or f16, read by the kernel itself, and the
-output is in their dtype, as the TPU kernel's. See the notes in the
-sources for the tiling.
+64, 32 or 16 query rows a block as `prefill_plan` chooses. Both read q, k
+and v in the model's (B, S, H, Dh) layout through strides, so none of the
+TPU wrapper's transpose, reshape and pad copies exist, and mask the ragged
+Sq/Skv edge themselves; the entry point picks 16-byte copies from the
+pointers and strides (else 4-byte copies at f32, plain loads at 16 bits).
+q, k and v are of one dtype, f32, bf16 or f16, read by the kernel itself,
+and the output is in their dtype, as the TPU kernel's. See the notes in
+the sources for the tiling.
 """
 from __future__ import annotations
 
@@ -37,8 +39,15 @@ BLOCK_RESERVED_BYTES = 1024  # the runtime's own shared memory a block
 SM_REGISTERS = 65_536
 # the kernels' width classes: 8-column steps of max(Dh, Dv)
 WIDTHS = (4, 8, 10, 16, 20, 24, 32)
-F32_ROWS = 64             # csrc/flash_attention.cu: kBQ
+F32_ROWS = 64             # csrc/flash_attention.cu: kBQ (narrow f32 blocks)
 F32_WIDE = 24             # csrc/flash_attention.cu: kWideND
+# values of at most this width under keys of class F32_WIDE (MLA's 192 /
+# 128) take V's own width class, 16, in the wide f32 layout
+F32_WIDE_V16 = 128
+ROWS_F32_WIDE = (32, 16)  # query rows a wide f32 block, largest first
+# wide f32: 32 rows only past this many query rows (more than five 32-key
+# tiles a causal block's run), where the 32-row grid fills the card
+F32_WIDE_ROWS32_FROM = 161
 ROWS_16 = (64, 32, 16)    # query rows a 16-bit block, largest first
 WIDE_16 = 20              # csrc/flash_attention_16.cu: Shape16::kWide
 # csrc/flash_attention_16.cu: Shape16::kMinBlocks, the blocks of 256
@@ -49,8 +58,9 @@ MIN_BLOCKS_16 = {10: 1, 16: 1, 32: 1}
 
 class PrefillPlan(NamedTuple):
     """What the prefill kernel launches: `rows` query rows a block (4 x rows
-    threads at 16 bits, 256 at f32), width class `nd`, the block's dynamic
-    shared memory and the blocks of it an SM holds."""
+    threads at 16 bits, 8 x rows in the wide f32 layout, 256 in the narrow
+    one), width class `nd`, the block's dynamic shared memory and the
+    blocks of it an SM holds."""
     rows: int
     nd: int
     shared_bytes: int
@@ -64,12 +74,22 @@ def prefill_width(Dh: int, Dv: int) -> int:
     return next(nd for nd in WIDTHS if d8 <= nd)
 
 
-def prefill_shared_bytes(nd: int, rows: int, itemsize: int) -> int:
-    """Dynamic shared memory of a block (csrc's block_bytes32 and
-    block_bytes16). f32: its kernel's layouts, 64 rows (narrow: Q's two TF32
-    halves, two K and V buffers and one small-half tile each, rows of 8 nd
-    floats, V's padded by 4; wide from nd 24: Q and two K and V buffers of
-    plain values). 16 bits: Q of `rows` rows and a ring of K and V tiles
+def prefill_v_width(nd: int, Dv: int, itemsize: int) -> int:
+    """V's width class in shared memory: the call's class `nd`, but 16 in
+    the wide f32 layout's class 24 when Dv <= F32_WIDE_V16."""
+    return 16 if itemsize == 4 and nd == F32_WIDE and Dv <= F32_WIDE_V16 \
+        else nd
+
+
+def prefill_shared_bytes(nd: int, rows: int, itemsize: int,
+                         nv: Optional[int] = None) -> int:
+    """Dynamic shared memory of a block (csrc's block_bytes32, wide_bytes32
+    and block_bytes16). f32, rows of 8 nd floats, V's padded by 4: narrow,
+    64 rows, Q's two TF32 halves, two K and V buffers and one small-half
+    tile each; wide from nd F32_WIDE, Q of `rows` rows (whose rows then
+    hold the row tiles' score exchanges) and two K and V buffers of plain
+    values, V's rows of 8 nv + 4 (`prefill_v_width`, default nd). 16 bits:
+    Q of `rows` rows and a ring of K and V tiles
     (Shape16::kStages of kKeys: 2 of 64 keys where the two warps of a row
     tile split the keys, 3 or 2 of 32 from nd WIDE_16, where they split
     V's columns), rows of 8 nd + 8 values, plus the wide split's score
@@ -77,7 +97,8 @@ def prefill_shared_bytes(nd: int, rows: int, itemsize: int) -> int:
     if itemsize == 4:
         ldk, ldv = 8 * nd, 8 * nd + 4
         if nd >= F32_WIDE:
-            return (F32_ROWS * ldk + 2 * TILE_KEYS * (ldk + ldv)) * 4
+            ldv = 8 * (nv or nd) + 4
+            return (rows * ldk + 2 * TILE_KEYS * (ldk + ldv)) * 4
         return (2 * F32_ROWS * ldk + 3 * TILE_KEYS * (ldk + ldv)) * 4
     ld = 8 * nd + 8
     if nd >= WIDE_16:
@@ -93,12 +114,16 @@ def max_registers_16(nd: int) -> int:
     return SM_REGISTERS // (256 * MIN_BLOCKS_16.get(nd, 2))
 
 
-def prefill_blocks_per_sm(nd: int, rows: int, itemsize: int) -> int:
+def prefill_blocks_per_sm(nd: int, rows: int, itemsize: int,
+                          nv: Optional[int] = None) -> int:
     """Blocks an SM holds by shared memory and by the launch bounds'
-    register cap: f32 two up to nd 8 (`__launch_bounds__(256, 2)`), else
-    one; 16 bits `max_registers_16` a thread at most."""
-    per = prefill_shared_bytes(nd, rows, itemsize) + BLOCK_RESERVED_BYTES
-    if itemsize == 4:
+    register cap: narrow f32 two up to nd 8 (`__launch_bounds__(256, 2)`),
+    else one; wide f32 blocks of 8 x rows threads at up to 255 registers
+    (allocated as 256); 16 bits `max_registers_16` a thread at most."""
+    per = prefill_shared_bytes(nd, rows, itemsize, nv) + BLOCK_RESERVED_BYTES
+    if itemsize == 4 and nd >= F32_WIDE:
+        cap = SM_REGISTERS // (8 * rows * 256)
+    elif itemsize == 4:
         cap = 2 if nd <= 8 else 1
     else:
         cap = SM_REGISTERS // (4 * rows * max_registers_16(nd))
@@ -108,28 +133,40 @@ def prefill_blocks_per_sm(nd: int, rows: int, itemsize: int) -> int:
 def prefill_plan(B: int, Sq: int, Hq: int, Dh: int, Dv: int, itemsize: int,
                  sms: int = 132) -> PrefillPlan:
     """The prefill kernel's launch for (B, Sq, Hq) queries of head dims
-    Dh / Dv at `itemsize` bytes a value on a card of `sms` SMs. f32: its
-    kernel's 64 rows. 16 bits: the largest of 64, 32 and 16 rows that launches
-    at least `sms` blocks (ceil(Sq / rows) x Hq x B), else 16: Qwen2.5-14B's
-    40 heads at S 132 take 32 (200 blocks, against 120 at 64), gemma2-9b's
-    16 take 16 (144). A function of shapes alone, so choosing it needs no
-    device sync."""
+    Dh / Dv at `itemsize` bytes a value on a card of `sms` SMs. Narrow f32
+    (below width class F32_WIDE): its kernel's 64 rows. 16 bits: the
+    largest of 64, 32 and 16 rows that launches at least `sms` blocks
+    (ceil(Sq / rows) x Hq x B), else 16: Qwen2.5-14B's 40 heads at S 132
+    take 32 (200 blocks, against 120 at 64), gemma2-9b's 16 take 16 (144).
+    Wide f32: 16 rows, or 32 from Sq F32_WIDE_ROWS32_FROM on where 32-row
+    blocks still number `sms`. On the H100 16 rows were the faster at S 37
+    to 132 for all four wide serving shapes (a 32-row block's first row
+    tile idles on the causal diagonal's last tile, a large share of a short
+    run), 32 from S 192 where the grid stays full (half the K/V copies a
+    query row); PERF.md has the sweep. A function of shapes alone, so
+    choosing it needs no device sync."""
     nd = prefill_width(Dh, Dv)
-    if itemsize == 4:
+    if itemsize == 4 and nd < F32_WIDE:
         rows = F32_ROWS
+    elif itemsize == 4:
+        rows = 32 if (Sq >= F32_WIDE_ROWS32_FROM
+                      and -(-Sq // 32) * Hq * B >= sms) else 16
     else:
         rows = next((r for r in ROWS_16[:-1]
                      if -(-Sq // r) * Hq * B >= sms), ROWS_16[-1])
-    return PrefillPlan(rows, nd, prefill_shared_bytes(nd, rows, itemsize),
-                       prefill_blocks_per_sm(nd, rows, itemsize))
+    nv = prefill_v_width(nd, Dv, itemsize)
+    return PrefillPlan(rows, nd, prefill_shared_bytes(nd, rows, itemsize, nv),
+                       prefill_blocks_per_sm(nd, rows, itemsize, nv))
 
 
 def check_plan(plan: PrefillPlan, Dh: int, Dv: int, itemsize: int) -> None:
-    """Raise unless `plan` launches these widths at this itemsize: f32
-    takes 64 rows, 16 bits 64, 32 or 16, and the width class must be the
-    call's."""
-    rows_ok = ROWS_16 if itemsize == 2 else (F32_ROWS,)
-    if plan.rows not in rows_ok or plan.nd != prefill_width(Dh, Dv):
+    """Raise unless `plan` launches these widths at this itemsize: narrow
+    f32 takes 64 rows, wide f32 32 or 16, 16 bits 64, 32 or 16, and the
+    width class must be the call's."""
+    nd = prefill_width(Dh, Dv)
+    rows_ok = (ROWS_16 if itemsize == 2 else
+               ROWS_F32_WIDE if nd >= F32_WIDE else (F32_ROWS,))
+    if plan.rows not in rows_ok or plan.nd != nd:
         raise ValueError(f"flash_attention_fwd: plan {plan} does not launch "
                          f"Dh {Dh}, Dv {Dv} at {itemsize} B a value")
 

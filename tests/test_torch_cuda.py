@@ -9,6 +9,8 @@ import torch
 
 torch.set_num_threads(2)
 
+import re  # noqa: E402
+
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
@@ -212,6 +214,37 @@ def test_round_to_nearest_crossing_launches_only_the_pair(gen):
     assert any("dequantize_kernel" in n for n in names), names
 
 
+# The wide f32 layout's own cases (head dims 192 and 256): (..., offset,
+# Dv, rows, q_layout). Each row count the plan can choose (32, 16) forced
+# at both width classes, MLA's 192 / 128 at G 1 with 64 and 128 heads,
+# rows that every key masks (a window ending before kv_len: rows from
+# kv_len + window - 1 on average every key), q heads-major and from a fused
+# qkv tensor, and one value off 16 bytes (4-byte copies, rows wider than
+# the block's 128 or 256 threads)
+PREFILL_F32_WIDE_CASES = [
+    *((1, 100, 8, 2, 192, True, None, None, None, 0, None, r, None)
+      for r in (32, 16)),
+    *((2, 77, 8, 4, 256, True, 16, 50.0, None, 0, None, r, None)
+      for r in (32, 16)),
+    *((1, 70, 6, 2, 256, False, None, None, 50, 1, None, r, None)
+      for r in (32, 16)),
+    *((1, 90, 4, 1, 176, True, 12, None, 60, 1, 128, r, None)
+      for r in (32, 16)),
+    (1, 132, 64, 64, 192, True, None, None, None, 0, 128, None, None),
+    (1, 132, 128, 128, 192, True, None, None, None, 0, 128, None, None),
+    (1, 37, 128, 128, 192, True, None, 50.0, None, 0, 128, None, None),
+    (1, 100, 4, 2, 256, True, 8, None, 40, 0, None, 32, None),
+    (1, 90, 8, 4, 192, True, 8, 30.0, 30, 0, 128, 16, None),
+    (1, 129, 6, 3, 256, False, 12, None, 50, 0, None, 16, None),
+    (1, 132, 16, 8, 256, True, None, 50.0, None, 0, None, None,
+     "transposed"),
+    (2, 65, 8, 2, 192, True, 20, None, None, 0, 128, 32, "transposed"),
+    (1, 70, 10, 2, 256, True, None, None, 60, 0, None, None, "fused"),
+    (1, 70, 10, 2, 192, True, None, None, 60, 1, None, 16, "fused"),
+    (2, 77, 24, 2, 192, True, 16, 50.0, None, 1, 128, None, None),
+]
+
+
 @pytest.mark.parametrize("case", [
     # (B, Sq, Hq, Hkv, Dh, causal, window, softcap, kv_len, offset)
     (2, 5, 4, 4, 32, True, None, None, None, 0),
@@ -241,12 +274,20 @@ def test_round_to_nearest_crossing_launches_only_the_pair(gen):
     (1, 200, 8, 4, 176, True, 16, None, 60, 0),
     (2, 65, 4, 2, 256, False, None, None, None, 1),
     (1, 90, 12, 1, 192, True, 24, 10.0, None, 1),
+    *PREFILL_F32_WIDE_CASES,
 ])
 def test_prefill_kernel_matches_plain(gen, case):
+    """One case, (B, Sq, Hq, Hkv, Dh, causal, window, softcap, kv_len,
+    offset) and optionally (Dv, rows, q_layout), as `_prefill_half`'s: the
+    plan forced to `rows` query rows a block, q heads-major or from a fused
+    qkv tensor."""
     from repro_torch.kernels.flash_attention import ref
     from repro_torch.kernels.flash_attention.ops import prefill_attention
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
-    B, S, Hq, Hkv, Dh, causal, window, softcap, kv_len, offset = case
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_fwd, prefill_plan)
+    B, S, Hq, Hkv, Dh, causal, window, softcap, kv_len, offset = case[:10]
+    Dv, rows, q_layout = tuple(case[10:]) + (None,) * (13 - len(case))
+    Dv = Dv or Dh
 
     def randn(shape):               # a view `offset` floats into its storage
         if not offset:
@@ -254,15 +295,31 @@ def test_prefill_kernel_matches_plain(gen, case):
         return torch.randn(int(np.prod(shape)) + offset, generator=gen,
                            device="cuda")[offset:].view(shape)
 
-    q = randn((B, S, Hq, Dh))
-    kv = randn((B, S, 2 * Hkv, Dh))
-    k, v = kv[:, :, :Hkv], kv[:, :, Hkv:]          # strided views
-    assert offset == 0 or q.data_ptr() % 16 and kv.data_ptr() % 16
+    if q_layout == "transposed":
+        q = randn((B, Hq, S, Dh)).transpose(1, 2)
+    elif q_layout == "fused":
+        q = randn((B, S, 2 * Hq, Dh))[:, :, Hq:]
+    else:
+        q = randn((B, S, Hq, Dh))
+    if Dv == Dh:
+        kv = randn((B, S, 2 * Hkv, Dh))
+        k, v = kv[:, :, :Hkv], kv[:, :, Hkv:]      # strided views
+    else:
+        k, v = randn((B, S, Hkv, Dh)), randn((B, S, Hkv, Dv))
+    assert offset == 0 or q.data_ptr() % 16 and k.data_ptr() % 16
     n = flash_attention_fwd.launches
-    got = prefill_attention(q, k, v, causal=causal, sliding_window=window,
-                            softcap=softcap, kv_len=kv_len)
-    assert flash_attention_fwd.launches == n + 1
     L = kv_len or S
+    if rows is None:
+        got = prefill_attention(q, k, v, causal=causal,
+                                sliding_window=window, softcap=softcap,
+                                kv_len=kv_len)
+    else:
+        plan = prefill_plan(B, S, Hq, Dh, Dv, 4)._replace(rows=rows)
+        got = flash_attention_fwd(q, k, v, causal=causal,
+                                  sliding_window=window, softcap=softcap,
+                                  scale=Dh ** -0.5, kv_len=L, plan=plan)
+    assert flash_attention_fwd.launches == n + 1
+    assert got.shape == (B, S, Hq, Dv)
     want = ref.attention(q, k[:, :L], v[:, :L], causal=causal,
                          sliding_window=window, softcap=softcap)
     assert torch.isfinite(got).all()
@@ -1302,6 +1359,26 @@ def _prefill_half(gen, case, dtype):
                                    sliding_window=window, softcap=softcap))
 
 
+def _kernel_names(fn, pad=8):
+    """The names of the CUDA kernels `fn` launches, in order, from one
+    torch.profiler session. `pad` one-value fills run before and after it
+    and are left out: a trace can lose a few events at its ends (as
+    chip_smoke.device_ms_cases finds), and a lost fill costs nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    marker = torch.empty(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(pad):
+            marker.fill_(0.0)
+        fn()
+        for _ in range(pad):
+            marker.fill_(0.0)
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "FillFunctor" not in e.name]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("B,S,Hq,Hkv,Dh,Dv,window,softcap", [
     (1, 132, 40, 8, 128, 128, None, None),    # Qwen2.5-14B
@@ -1317,8 +1394,6 @@ def test_prefill_16_bit_kernel_is_f32_accurate(gen, dtype, B, S, Hq, Hkv, Dh,
     once) is at most that of the f32 kernel's output on the widened
     inputs, rounded once to the same dtype, plus 0.5 percentage points.
     And the call runs the 16-bit kernel alone (the profiler's names)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.flash_attention import ref
     from repro_torch.kernels.flash_attention.ops import prefill_attention
     q = _bf16((B, S, Hq, Dh), gen, dtype=dtype)
@@ -1326,10 +1401,10 @@ def test_prefill_16_bit_kernel_is_f32_accurate(gen, dtype, B, S, Hq, Hkv, Dh,
     v = _bf16((B, S, Hkv, Dv), gen, dtype=dtype)
     kw = dict(causal=True, sliding_window=window, softcap=softcap)
     want = ref.attention(q, k, v, **kw)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        got = prefill_attention(q, k, v, **kw)
-        torch.cuda.synchronize()
-    names = {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+    out = []
+    names = set(_kernel_names(
+        lambda: out.append(prefill_attention(q, k, v, **kw))))
+    got = out[0]
     assert any("flash16_kernel" in x for x in names), names
     assert not any("flash_fwd" in x for x in names), names
     f32 = prefill_attention(q.float(), k.float(), v.float(), **kw).to(dtype)
@@ -1338,6 +1413,30 @@ def test_prefill_16_bit_kernel_is_f32_accurate(gen, dtype, B, S, Hq, Hkv, Dh,
     def share(x):
         return float((x.float() != want.float()).float().mean())
     assert share(got) <= share(f32) + 0.005, (share(got), share(f32))
+
+
+def test_prefill_f32_wide_runs_the_wide_kernel(gen):
+    """f32 calls at head dim 256 (gemma2-9b's) and at MLA's 192 / 128 run
+    the wide kernel alone (the profiler's names): no narrow f32
+    instantiation, no 16-bit kernel, no other kernel, and none of the old
+    wide kernel (flash_fwd_wide_kernel)."""
+    from repro_torch.kernels.flash_attention.ops import prefill_attention
+    args = [tuple(torch.randn((1, 132, h, d), generator=gen, device="cuda")
+                  for h, d in ((Hq, Dh), (Hkv, Dh), (Hkv, Dv)))
+            for Hq, Hkv, Dh, Dv in ((16, 8, 256, 256), (64, 64, 192, 128))]
+    for a in args:
+        prefill_attention(*a, causal=True, softcap=50.0)
+
+    def calls():
+        for a in args:
+            prefill_attention(*a, causal=True, softcap=50.0)
+    names = _kernel_names(calls)
+    assert len(names) == 2, names
+    assert all("flash_wide_kernel" in x for x in names), names
+    # widths classes 32 / 32 then 24 / 16, demangled or mangled
+    assert re.search(r"flash_wide_kernel(<32, 32,|ILi32ELi32E)", names[0]) \
+        and re.search(r"flash_wide_kernel(<24, 16,|ILi24ELi16E)",
+                      names[1]), names
 
 
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])

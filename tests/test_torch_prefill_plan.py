@@ -13,9 +13,9 @@ from pathlib import Path  # noqa: E402
 import pytest  # noqa: E402
 
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    MIN_BLOCKS_16, ROWS_16, WIDTHS, PrefillPlan, check_plan,
-    max_registers_16, prefill_blocks_per_sm, prefill_plan,
-    prefill_shared_bytes, prefill_width)
+    F32_WIDE, F32_WIDE_V16, MIN_BLOCKS_16, ROWS_16, ROWS_F32_WIDE, WIDTHS,
+    PrefillPlan, check_plan, max_registers_16, prefill_blocks_per_sm,
+    prefill_plan, prefill_shared_bytes, prefill_v_width, prefill_width)
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 BLOCK_MAX = 232_448   # dynamic shared memory a block may have on an H100
@@ -28,7 +28,8 @@ def test_shared_bytes_fit_a_block_at_every_head_dim(itemsize):
     for d in range(8, 257, 8):
         for dv in {d, min(d, 128)}:
             nd = prefill_width(d, dv)
-            for rows in (ROWS_16 if itemsize == 2 else (64,)):
+            for rows in (ROWS_16 if itemsize == 2 else
+                         ROWS_F32_WIDE if nd >= F32_WIDE else (64,)):
                 assert prefill_shared_bytes(nd, rows, itemsize) <= BLOCK_MAX
             plan = prefill_plan(1, 132, 8, d, dv, itemsize)
             assert plan.shared_bytes <= BLOCK_MAX and plan.blocks_per_sm >= 1
@@ -46,10 +47,14 @@ def test_shared_bytes_fit_a_block_at_every_head_dim(itemsize):
     (20, 64, 2, 94_208, 2), (20, 32, 2, 79_360, 2), (20, 16, 2, 71_936, 3),
     (24, 64, 2, 110_592, 2), (24, 32, 2, 93_696, 2), (24, 16, 2, 85_248, 2),
     (32, 64, 2, 109_568, 1), (32, 32, 2, 88_576, 2), (32, 16, 2, 78_080, 2),
-    # f32 (its kernel's layouts, 64 rows): two blocks up to nd 8, else one
+    # narrow f32 (64 rows): two blocks up to nd 8, else one
     (4, 64, 4, 42_496, 2), (8, 64, 4, 83_456, 2), (10, 64, 4, 103_936, 1),
     (16, 64, 4, 165_376, 1), (20, 64, 4, 206_336, 1),
-    (24, 64, 4, 148_480, 1), (32, 64, 4, 197_632, 1),
+    # wide f32 (32 or 16 rows, 8 x rows threads): Q of `rows` rows of 8 nd
+    # floats and two K and V buffers of 32 keys (V's rows padded by 4);
+    # two blocks of 16 rows at nd 24, else one
+    (24, 16, 4, 111_616, 2), (24, 32, 4, 123_904, 1),
+    (32, 16, 4, 148_480, 1), (32, 32, 4, 164_864, 1),
 ])
 def test_plan_bytes_and_residency_pinned(nd, rows, itemsize, nbytes, blocks):
     assert prefill_shared_bytes(nd, rows, itemsize) == nbytes
@@ -69,7 +74,26 @@ def test_c_sources_compute_the_same_bytes():
     src32 = (CSRC / "flash_attention.cu").read_text()
     got32 = {int(nd): int(b) for nd, b in re.findall(
         r"static_assert\(block_bytes32<(\d+)>\(\) == (\d+),", src32)}
-    assert got32 == {nd: prefill_shared_bytes(nd, 64, 4) for nd in WIDTHS}
+    assert got32 == {nd: prefill_shared_bytes(nd, 64, 4) for nd in WIDTHS
+                     if nd < F32_WIDE}
+    wide32 = {(int(nd), int(nv), int(rows)): int(b)
+              for nd, nv, rows, b in re.findall(
+                  r"static_assert\(wide_bytes32<(\d+), (\d+)>\((\d+)\) == "
+                  r"(\d+),", src32)}
+    assert wide32 == {(nd, nv, rows): prefill_shared_bytes(nd, rows, 4, nv)
+                      for nd in WIDTHS if nd >= F32_WIDE
+                      for nv in {nd, prefill_v_width(nd, F32_WIDE_V16, 4)}
+                      for rows in ROWS_F32_WIDE}
+    assert re.search(r"if \(p\.Dv <= (\d+)\)", src32).group(1) == \
+        str(F32_WIDE_V16)
+    assert re.search(r"constexpr int kWideND = (\d+);", src32).group(1) == \
+        str(F32_WIDE)
+    # the wide kernel's block is 8 x rows threads, 256 at most: the launch
+    # bounds' register cap (255) is the plan's
+    assert re.search(r"__launch_bounds__\(kWideThr, 1\)\s+flash_wide_kernel",
+                     src32)
+    assert re.search(r"constexpr int kWideThr = (\d+);", src32).group(1) == \
+        str(8 * max(ROWS_F32_WIDE))
     assert re.search(r"__launch_bounds__\(256, Shape16<ND>::kMinBlocks\)\s+"
                      r"flash16_kernel", src16)
     assert 256 == 4 * max(ROWS_16)
@@ -80,31 +104,46 @@ def test_c_sources_compute_the_same_bytes():
                                                        128, 128, 256]
 
 
-@pytest.mark.parametrize("label,Hq,Dh,rows,blocks", [
-    ("Qwen2.5-14B", 40, 128, 32, 200),   # 120 blocks at 64 rows
-    ("zamba2", 32, 80, 32, 160),         # 96 at 64
-    ("gemma2-9b", 16, 256, 16, 144),     # 48 at 64, 80 at 32
-    ("stablelm-12b", 32, 160, 32, 160),
-    ("nemotron-4-340b", 96, 192, 64, 288),
+@pytest.mark.parametrize("label,Hq,Dh,Dv,itemsize,rows,blocks", [
+    # 16 bits
+    pytest.param("Qwen2.5-14B", 40, 128, 128, 2, 32, 200,  # 120 at 64 rows
+                 id="Qwen2.5-14B-40-128-32-200"),
+    pytest.param("zamba2", 32, 80, 80, 2, 32, 160,         # 96 at 64
+                 id="zamba2-32-80-32-160"),
+    pytest.param("gemma2-9b", 16, 256, 256, 2, 16, 144,    # 48 at 64, 80 at 32
+                 id="gemma2-9b-16-256-16-144"),
+    pytest.param("stablelm-12b", 32, 160, 160, 2, 32, 160,
+                 id="stablelm-12b-32-160-32-160"),
+    pytest.param("nemotron-4-340b", 96, 192, 192, 2, 64, 288,
+                 id="nemotron-4-340b-96-192-64-288"),
+    # the wide f32 layout (64 rows before it: 48, 192, 384, 288 blocks)
+    pytest.param("gemma2-9b", 16, 256, 256, 4, 16, 144,
+                 id="f32-gemma2-9b-16-256-16-144"),
+    pytest.param("deepseek-v3 MLA, a rank's heads", 64, 192, 128, 4, 16, 576,
+                 id="f32-mla-64-192-128-16-576"),
+    pytest.param("deepseek-v3 MLA", 128, 192, 128, 4, 16, 1152,
+                 id="f32-mla-128-192-128-16-1152"),
+    pytest.param("nemotron-4-340b", 96, 192, 192, 4, 16, 864,
+                 id="f32-nemotron-4-340b-96-192-16-864"),
 ])
-def test_serving_prefill_fills_the_card(label, Hq, Dh, rows, blocks):
+def test_serving_prefill_fills_the_card(label, Hq, Dh, Dv, itemsize, rows,
+                                        blocks):
     """Batch-1 prefill of the serving paths' longest prompt (132 = 128 +
-    4 soft-prompt tokens) launches at least one block an SM at 16 bits."""
-    for itemsize in (2,):
-        plan = prefill_plan(1, 132, Hq, Dh, Dh, itemsize, sms=132)
-        assert plan.rows == rows
-        assert -(-132 // plan.rows) * Hq == blocks >= 132
+    4 soft-prompt tokens) launches at least one block an SM at 16 bits
+    and in the wide f32 layout."""
+    plan = prefill_plan(1, 132, Hq, Dh, Dv, itemsize, sms=132)
+    assert plan.rows == rows
+    assert -(-132 // plan.rows) * Hq == blocks >= 132
     # where no row count reaches a wave (S 37 at Qwen's 40 heads: 120
     # blocks of 16 rows), the plan takes the smallest
     assert prefill_plan(1, 37, 40, 128, 128, 2).rows == 16
+    assert prefill_plan(1, 37, 128, 192, 128, 4).rows == 16
     # many blocks already (ViT-Base scoring, 16 x 12 heads): 64 rows
     assert prefill_plan(16, 213, 12, 64, 64, 2).rows == 64
 
 
 @pytest.mark.parametrize("shape", [(1, 132, 40, 128, 128), (1, 1, 4, 64, 64),
-                                   (16, 213, 12, 64, 64),
-                                   (1, 132, 16, 256, 256),
-                                   (2, 77, 24, 192, 128)])
+                                   (16, 213, 12, 64, 64)])
 def test_f32_keeps_its_64_row_plan(shape):
     plan = prefill_plan(*shape, 4)
     nd = prefill_width(*shape[3:])
@@ -112,12 +151,44 @@ def test_f32_keeps_its_64_row_plan(shape):
                                1 if nd > 8 else 2)
 
 
+@pytest.mark.parametrize("shape,rows,nbytes,blocks", [
+    ((1, 132, 16, 256, 256), 16, 148_480, 1),    # gemma2-9b
+    ((2, 77, 24, 192, 128), 16, 95_232, 2),      # values of class 16
+    ((1, 132, 64, 192, 128), 16, 95_232, 2),     # MLA, a rank's heads
+    ((1, 132, 96, 192, 192), 16, 111_616, 2),    # nemotron-4-340b
+    ((1, 1, 4, 256, 256), 16, 148_480, 1),
+    ((1, 132, 8, 176, 176), 16, 111_616, 2),
+    # 32 rows from S 161 where 32-row blocks fill the card
+    ((1, 192, 64, 192, 128), 32, 107_520, 1),    # 6 x 64 blocks
+    ((1, 528, 16, 256, 256), 32, 164_864, 1),    # 17 x 16 blocks
+    ((1, 256, 16, 256, 256), 16, 148_480, 1),    # 8 x 16 < 132: 16 rows
+    ((1, 160, 96, 192, 192), 16, 111_616, 2),    # five tiles: 16 rows
+    ((2, 161, 96, 192, 192), 32, 123_904, 1),
+])
+def test_f32_wide_plan_pinned(shape, rows, nbytes, blocks):
+    """The wide f32 layout's plan (width classes 24 and 32): its rows, the
+    block's bytes (the C source's wide_bytes32) and blocks an SM."""
+    plan = prefill_plan(*shape, 4)
+    nd = prefill_width(*shape[3:])
+    assert nd >= F32_WIDE
+    assert plan == PrefillPlan(rows, nd, nbytes, blocks)
+    assert nbytes <= BLOCK_MAX
+
+
 def test_check_plan_refuses_what_cannot_launch():
     good = prefill_plan(1, 132, 40, 128, 128, 2)
     check_plan(good, 128, 128, 2)
+    wide = prefill_plan(1, 132, 16, 256, 256, 4)
+    for rows in ROWS_F32_WIDE:   # the wide f32 rows are accepted
+        check_plan(wide._replace(rows=rows), 256, 256, 4)
+        check_plan(wide._replace(rows=rows, nd=24), 192, 128, 4)
     for plan, Dh, itemsize in ((good._replace(rows=48), 128, 2),
                                (good._replace(rows=32), 128, 4),
+                               (good._replace(rows=16), 128, 4),
                                (good._replace(nd=10), 128, 2),
-                               (good, 256, 2)):
+                               (good, 256, 2),
+                               (wide._replace(rows=64), 256, 4),
+                               (wide._replace(rows=48), 256, 4),
+                               (wide, 192, 4)):
         with pytest.raises(ValueError, match="does not launch"):
             check_plan(plan, Dh, Dh, itemsize)

@@ -1,24 +1,34 @@
 #!/usr/bin/env python3
-"""Time the prefill attention kernel at 16 bits for one or more checkouts
-on the card, in alternating order, so a parent and a change are measured
-on one machine.
+"""Time the prefill attention kernel for one or more checkouts on the card,
+in alternating order, so a parent and a change are measured on one
+machine.
 
-    python3 tools/time_prefill.py CHECKOUT [CHECKOUT ...] [--rounds N] [--replays]
+    python3 tools/time_prefill.py CHECKOUT [CHECKOUT ...] [--rounds N]
+        [--only 16bit|f32wide] [--lengths 132,37] [--replays] [--f32-replays]
 
-Per run: the prefill kernel with all-bf16 and all-f16 q, k and v at the
-batch-1 serving shapes (causal, S 132 = a 128-token prompt and 4 soft
-prompt tokens): Qwen2.5-14B 40 / 8 x 128, zamba2 32 x 80, gemma2-9b 16 / 8
-x 256, stablelm-12b 32 / 8 x 160, nemotron-4-340b 96 / 8 x 192; and the
-f32 kernel at gemma2-9b's and nemotron-4-340b's shapes, aligned and one
-value off (its wide instantiations, for drift). Device ms
-(chip_smoke.device_ms_cases: the kernels' time under torch.profiler, one
-session for every case) over input copies past the L2, beside SDPA at the
-same dtype on the same values (K/V repeated over the group) and the bound
-(bytes at 2 B a value against 3.35 TB/s; operations at 989 TFLOP/s). With
---replays, then the bf16 dense and paged paths of chip_smoke.py phases 12
-and 13 (Qwen2.5-14B widths at 3 layers) with their profiled replays:
-tok/s, busy share, and the prefill kernel's launches and device us a
-launch.
+Per run, 16bit: the prefill kernel with all-bf16 and all-f16 q, k and v
+at the batch-1 serving shapes (causal, S 132 = a 128-token prompt and 4
+soft prompt tokens): Qwen2.5-14B 40 / 8 x 128, zamba2 32 x 80, gemma2-9b
+16 / 8 x 256, stablelm-12b 32 / 8 x 160, nemotron-4-340b 96 / 8 x 192,
+beside SDPA at the same dtype on the same values (K/V repeated over the
+group) and the bound (bytes at 2 B a value against 3.35 TB/s; operations
+at 989 TFLOP/s). f32wide: the f32 kernel's wide layout (head dims 192 and
+256) at S 132 and 37 (--lengths): gemma2-9b (softcap 50; SDPA without), deepseek-v3's
+MLA prefill at a rank's 64 heads and at all 128 (q/k 192, v 128, G 1),
+nemotron-4-340b, and gemma2-9b and nemotron-4-340b with every tensor one
+value off 16 bytes (4-byte copies); beside f32 SDPA and the bound (bytes
+at 4 B a value; operations at 3xTF32's 165 TFLOP/s), the plan's rows and
+blocks, every row count the checkout's plan can choose forced in turn
+(`rows_ms`), and the wide kernel's registers and spills from the
+checkout's ptxas report. Device ms (chip_smoke.device_ms_cases: the
+kernels' time under torch.profiler, one session for every case) over
+input copies past the L2. With --replays, then the bf16 dense and paged
+paths of chip_smoke.py phases 12 and 13 (Qwen2.5-14B widths at 3 layers)
+with their profiled replays: tok/s, busy share, and the prefill kernel's
+launches and device us a launch. With --f32-replays, the f32 paths
+whose prefill takes the wide layout, with their profiled replays and the
+same numbers: gemma2-9b at 6 layers through the dense engine (phase 14)
+and deepseek-v3 (MLA, 128 heads) at phase 20's cut.
 
 Each run is a process of its own that imports the checkout's `src/` (and
 builds its library into the checkout's `build/` on first use) and this
@@ -39,9 +49,74 @@ SHAPES = (("Qwen2.5-14B", 40, 8, 128), ("zamba2", 32, 32, 80),
           ("gemma2-9b", 16, 8, 256), ("stablelm-12b", 32, 8, 160),
           ("nemotron-4-340b", 96, 8, 192))
 S = 132
+# the f32 wide layout's shapes: (label, Hq, Hkv, Dh, Dv, softcap)
+F32_WIDE_SHAPES = (("gemma2-9b", 16, 8, 256, 256, 50.0),
+                   ("deepseek-v3 MLA 64 heads", 64, 64, 192, 128, None),
+                   ("nemotron-4-340b", 96, 8, 192, 192, None),
+                   ("deepseek-v3 MLA 128 heads", 128, 128, 192, 128, None))
 
 
-def child(checkout: str, replays: bool) -> None:
+def f32_wide(torch, F, cs, gen, cases, out, lengths):
+    """Add the f32 wide layout's cases at each of `lengths` to `cases`;
+    their bounds, plans and the wide kernel's registers to `out`."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    sweep = getattr(fk, "ROWS_F32_WIDE", ())   # () before the redesign
+    for Sq in lengths:
+        for label, Hq, Hkv, Dh, Dv, softcap in F32_WIDE_SHAPES:
+            for off in ((0, 1) if Sq == S and Hq != Hkv else (0,)):
+                per = Sq * (Hq + Hkv) * (Dh + Dv) * 4
+                sets = [tuple(torch.randn(Sq * h * d + off, generator=gen,
+                                          device="cuda")[off:]
+                              .view(1, Sq, h, d)
+                              for h, d in ((Hq, Dh), (Hkv, Dh), (Hkv, Dv)))
+                        for _ in range(cs.n_copies(per))]
+                kw = dict(causal=True, sliding_window=None, softcap=softcap,
+                          scale=Dh ** -0.5, kv_len=Sq)
+                case = f"{label} float32 S {Sq}{' off 1' if off else ''}"
+                cases[f"kernel {case}"] = [
+                    lambda s=s, kw=kw: fk.flash_attention_fwd(*s, **kw)
+                    for s in sets]
+                plan = fk.prefill_plan(1, Sq, Hq, Dh, Dv, 4, cs.SMS)
+                out["plan"][case] = dict(
+                    rows=plan.rows, blocks=-(-Sq // plan.rows) * Hq,
+                    blocks_per_sm=plan.blocks_per_sm)
+                out["bound_ms"][case], out["bound_by"][case] = cs.bound(
+                    per, cs._prefill_pairs(Sq, Sq, None) * Hq * 2
+                    * (Dh + Dv), cs.TF32X3_FLOPS)
+                if off:
+                    continue
+                for r in sweep:
+                    pr = plan._replace(rows=r)
+                    cases[f"kernel {case} rows {r}"] = [
+                        lambda s=s, kw=kw, pr=pr: fk.flash_attention_fwd(
+                            *s, plan=pr, **kw) for s in sets]
+                G = Hq // Hkv
+                lib = [(q.transpose(1, 2).contiguous(),
+                        k.repeat_interleave(G, 2).transpose(1, 2)
+                        .contiguous(),
+                        v.repeat_interleave(G, 2).transpose(1, 2)
+                        .contiguous()) for q, k, v in sets]
+                cases[f"sdpa {case}"] = [
+                    lambda s=s, sc=Dh ** -0.5: F.scaled_dot_product_attention(
+                        *s, is_causal=True, scale=sc) for s in lib]
+    out["registers"] = {name: r for name, r in cs.ptxas_report().items()
+                        if "wide_kernel" in name}
+
+
+def replay_record(summary) -> dict:
+    """tok/s, busy share, device ms and the prefill kernels' launches and
+    device us a launch of a path's profiled replay."""
+    p = summary["profile"]
+    us, n = p["port_kernel_us_per_launch"], p["port_kernel_launches"]
+    return {"tok_per_s": summary["tok_per_s"],
+            "busy": p["device_busy_share"],
+            "device_ms": p["device_kernel_s"] * 1e3,
+            "prefill_launches": {k: v for k, v in n.items() if "flash" in k},
+            "prefill_us": {k: v for k, v in us.items() if "flash" in k}}
+
+
+def child(checkout: str, replays: bool, f32_replays: bool, only: str,
+          lengths) -> None:
     sys.path.insert(0, str(Path(checkout).resolve() / "src"))
     sys.path.insert(1, str(ROOT))
     import torch
@@ -54,7 +129,11 @@ def child(checkout: str, replays: bool) -> None:
     build.timed_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases, bounds = {}, {}
-    for dtype in (torch.bfloat16, torch.float16):
+    wide = {"plan": {}, "bound_ms": {}, "bound_by": {}}
+    if only != "16bit":
+        f32_wide(torch, F, cs, gen, cases, wide, lengths)
+    for dtype in ((torch.bfloat16, torch.float16) if only != "f32wide"
+                  else ()):
         name = str(dtype)[6:]
         for label, Hq, Hkv, Dh in SHAPES:
             per = (S * (Hq + 2 * Hkv) * Dh + S * Hq * Dh) * 2
@@ -79,40 +158,30 @@ def child(checkout: str, replays: bool) -> None:
             bounds[case] = cs.bound(
                 per, cs._prefill_pairs(S, S, None) * Hq * 4 * Dh,
                 cs.BF16_FLOPS)
-    # the f32 kernel's wide instantiations at gemma2-9b's and
-    # nemotron-4-340b's shapes, 16-byte copies and (one value off) 4-byte
-    # ones: the same code in both builds, read for drift
-    for label, Hq, Hkv, Dh in SHAPES[2::2]:
-        for off in (0, 1):
-            sets = []
-            for _ in range(cs.n_copies(S * (2 * Hq + 2 * Hkv) * Dh * 4)):
-                qkv = [torch.randn(S * h * Dh + off, generator=gen,
-                                   device="cuda")[off:].view(1, S, h, Dh)
-                       for h in (Hq, Hkv, Hkv)]
-                sets.append(tuple(qkv))
-            kw = dict(causal=True, sliding_window=None, softcap=None,
-                      scale=Dh ** -0.5, kv_len=S)
-            cases[f"kernel {label} float32{' off 1' if off else ''}"] = [
-                lambda s=s, kw=kw: flash_attention_fwd(*s, **kw)
-                for s in sets]
     out = {"device_ms": cs.device_ms_cases(cases),
            "bound_ms": {c: b[0] for c, b in bounds.items()},
            "bound_by": {c: b[1] for c, b in bounds.items()}}
+    for key in ("bound_ms", "bound_by"):
+        out[key].update(wide[key])
+    if only != "16bit":
+        out["plan"], out["registers"] = wide["plan"], wide["registers"]
     del cases
     if replays:
         fw = cs.full_width_model(torch)
         for path, run in (("dense_bf16", cs.full_width),
                           ("paged_bf16", cs.full_width_paged)):
             _, summary = run(torch, fw, path, torch.bfloat16)
-            p = summary["profile"]
-            us, n = p["port_kernel_us_per_launch"], p["port_kernel_launches"]
-            out[path] = {
-                "tok_per_s": summary["tok_per_s"],
-                "busy": p["device_busy_share"],
-                "device_ms": p["device_kernel_s"] * 1e3,
-                "prefill_launches": {k: v for k, v in n.items()
-                                     if "flash" in k},
-                "prefill_us": {k: v for k, v in us.items() if "flash" in k}}
+            out[path] = replay_record(summary)
+        del fw
+    if f32_replays:
+        torch.cuda.empty_cache()
+        fw = cs.full_width_model(torch, "gemma2-9b", 6)
+        _, summary = cs.full_width(torch, fw, "gemma2")
+        out["gemma2"] = replay_record(summary)
+        del fw
+        torch.cuda.empty_cache()
+        _, summary = cs.full_width_moe(torch, "deepseek-v3-671b", "mla")
+        out["mla"] = replay_record(summary)
     print(json.dumps(out))
 
 
@@ -120,11 +189,16 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("checkouts", nargs="*")
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--only", choices=("16bit", "f32wide"))
     ap.add_argument("--replays", action="store_true")
+    ap.add_argument("--f32-replays", action="store_true")
+    ap.add_argument("--lengths", default=f"{S},37",
+                    help="f32wide: the sequence lengths, comma-separated")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.child, args.replays)
+        child(args.child, args.replays, args.f32_replays, args.only or "",
+              [int(x) for x in args.lengths.split(",")])
         return
     if not args.checkouts:
         ap.error("name at least one checkout")
@@ -138,7 +212,11 @@ def main() -> None:
         for c in args.checkouts + args.checkouts[::-1]:
             r = subprocess.run(
                 [sys.executable, __file__, "--child", c]
-                + ["--replays"] * args.replays, capture_output=True,
+                + ["--replays"] * args.replays
+                + ["--f32-replays"] * args.f32_replays
+                + ["--lengths", args.lengths]
+                + (["--only", args.only] if args.only else []),
+                capture_output=True,
                 text=True)
             if r.returncode:
                 err = r.stderr
