@@ -738,7 +738,7 @@ def queued_ms(fns, iters: int = 40) -> float:
     return best
 
 
-def device_ms_cases(cases, iters: int = 40):
+def device_ms_cases(cases, iters: int = 40, by_name=None):
     """device_ms of each case of `cases` (label -> fns) from ONE profiler
     session, so a sweep does not open a session a case (runs that opened
     some 150 sessions saw the later ones come back empty). The cases run
@@ -749,7 +749,9 @@ def device_ms_cases(cases, iters: int = 40):
     a row count as one; a case's time is device_ms's sum over its kernel
     names between its markers. Retaken when the cases do not come back
     one segment each or more than half a case's events went missing;
-    after three such traces, one device_ms session a case."""
+    after three such traces, one device_ms session a case. A dict
+    `by_name` receives each case's ms by kernel name (from the one
+    session only)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     marker = torch.empty(1, device="cuda")
@@ -783,9 +785,12 @@ def device_ms_cases(cases, iters: int = 40):
         if len(segments) == len(cases) and all(
                 sum(n for n, _ in seg.values()) >= iters // 2
                 for seg in segments):
-            return {label: sum(us / n * max(1, round(n / iters))
-                               for n, us in seg.values()) * 1e-3
-                    for label, seg in zip(cases, segments)}
+            split = {label: {name: us / n * max(1, round(n / iters)) * 1e-3
+                             for name, (n, us) in seg.items()}
+                     for label, seg in zip(cases, segments)}
+            if by_name is not None:
+                by_name.update(split)
+            return {label: sum(ms.values()) for label, ms in split.items()}
         say(f"device_ms_cases: a trace of {len(cases)} cases lost markers "
             f"or events")
     return {label: device_ms(fns, iters) for label, fns in cases.items()}
@@ -1167,6 +1172,60 @@ def check_prefill_cases(torch, gen):
     say(f"prefill: {len(PREFILL_CASES)} cases (ragged Sq 1/65/129, widths "
         f"20/40/176, 4-byte copies, GQA 5 and 12 with kv_len < Sq, windows, "
         f"softcaps, head dims 160/192/256): max abs err {worst:.3g}")
+    return max(worst, check_prefill_plans(torch, gen))
+
+
+# The narrow f32 layout's path shapes at which every row count, a split
+# count of 1, 3 and 8 and both groups are forced: (label, B, Sq, Skv, Hq,
+# Hkv, Dh, causal, window, kv_len)
+PREFILL_PLAN_SHAPES = (
+    ("whisper-base cross-attention Sq 1", 4, 1, 1500, 8, 8, 64, False, None,
+     None),
+    ("whisper-base cross-attention Sq 64", 4, 64, 1500, 8, 8, 64, False,
+     None, 1337),
+    ("qwen2-vl-72b", 2, 132, 132, 64, 8, 128, True, None, None),
+    ("Qwen2.5-14B, a window past kv_len", 1, 132, 132, 40, 8, 128, True, 24,
+     70),
+    ("ViT-Base", 16, 213, 213, 12, 12, 64, False, None, None),
+    ("zamba2", 1, 132, 132, 32, 32, 80, True, None, None),
+    ("stablelm-12b", 1, 132, 132, 32, 8, 160, True, None, None))
+
+
+def check_prefill_plans(torch, gen):
+    """The narrow f32 layout against plain at PREFILL_PLAN_SHAPES under
+    every plan the kernel takes there (rows 64, 32, 16; splits 1, 3, 8;
+    one head a block and the GQA group); returns the largest error."""
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_fwd, prefill_plan)
+    worst, n = 0.0, 0
+    for label, B, Sq, Skv, Hq, Hkv, Dh, causal, window, kv_len in \
+            PREFILL_PLAN_SHAPES:
+        q = torch.randn((B, Sq, Hq, Dh), generator=gen, device="cuda")
+        k = torch.randn((B, Skv, Hkv, Dh), generator=gen, device="cuda")
+        v = torch.randn((B, Skv, Hkv, Dh), generator=gen, device="cuda")
+        L = kv_len or Skv
+        want = ref.attention(q, k[:, :L], v[:, :L], causal=causal,
+                             sliding_window=window, scale=Dh ** -0.5)
+        base = prefill_plan(B, Sq, Hq, Dh, Dh, 4, SMS, Hkv=Hkv, kv_len=L)
+        for rows in (64, 32, 16):
+            for splits in (1, 3, 8):
+                for group in sorted({1, Hq // Hkv}):
+                    if group > rows:
+                        continue
+                    plan = base._replace(rows=rows, splits=splits,
+                                         group=group)
+                    got = flash_attention_fwd(
+                        q, k, v, causal=causal, sliding_window=window,
+                        softcap=None, scale=Dh ** -0.5, kv_len=L, plan=plan)
+                    err = float((got - want).abs().max())
+                    if not (torch.isfinite(got).all() and err <= ATTN_TOL):
+                        fail(f"prefill {label} at rows {rows}, splits "
+                             f"{splits}, group {group}: max|kernel - plain| "
+                             f"= {err:.3g} > {ATTN_TOL}")
+                    worst, n = max(worst, err), n + 1
+    say(f"prefill: the narrow layout's {n} forced plans at "
+        f"{len(PREFILL_PLAN_SHAPES)} path shapes: max abs err {worst:.3g}")
     return worst
 
 
@@ -1222,26 +1281,31 @@ def ptxas_report():
 
 def prefill_build_report():
     """Per instantiation of the prefill kernels, f32's
-    (flash_fwd_kernel<ND, vec16, float> at ND 4-20 and flash_wide_kernel
-    at 24 and 32) and the 16-bit one's (flash16_kernel<ND, vec, T>, bf16
-    and f16): HMMA instructions in its SASS (cuobjdump of the built
-    library) by kind, TF32 (m16n8k8) and 16-bit (m16n8k16), and registers
-    and spill bytes from the ptxas report. Fails if an f32 one has no TF32
-    HMMA, a 16-bit one no 16-bit HMMA, one spills, a 16-bit instantiation
-    of the f32 kernels or an instantiation of the old f32 wide kernel
-    (flash_fwd_wide_kernel) is left in the library, or the 44 are not
-    there."""
+    (flash_narrow_kernel<ND, vec16> at ND 4-20 and flash_wide_kernel<ND,
+    NV, vec16> at 24 and 32) and the 16-bit one's (flash16_kernel<ND, vec,
+    T>, bf16 and f16): HMMA instructions in its SASS (cuobjdump of the
+    built library) by kind, TF32 (m16n8k8) and 16-bit (m16n8k16), and
+    registers and spill bytes from the ptxas report. Fails if an f32 one
+    has no TF32 HMMA, a 16-bit one no 16-bit HMMA, one spills, a narrow
+    one takes more registers than the plan's F32_NARROW_REGISTERS, a 16-bit
+    instantiation of the f32 kernels or an instantiation of the old f32
+    kernels (flash_fwd_kernel, flash_fwd_wide_kernel) is left in the
+    library, or the 44 are not there."""
     from repro_torch.kernels import build
-    pat = re.compile(r"(flash_fwd_(?:wide_)?kernel|flash_wide_kernel|"
-                     r"flash16_kernel)ILi(\d+)E(?:Li(\d+)E)?"
-                     r"Lb(\d)E(f|13__nv_bfloat16|6__half)")
-    dtypes = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+    from repro_torch.kernels.flash_attention.kernel import (
+        F32_NARROW_REGISTERS)
+    pat = re.compile(r"(flash_fwd_(?:wide_)?kernel|flash_narrow_kernel|"
+                     r"flash_wide_kernel|flash16_kernel)ILi(\d+)E(?:Li(\d+)E)?"
+                     r"Lb(\d)E(f|13__nv_bfloat16|6__half|E)")
+    dtypes = {"f": "f32", "E": "f32", "13__nv_bfloat16": "bf16",
+              "6__half": "f16"}
+    old_names = {"flash_fwd_kernel": " (old narrow)",
+                 "flash_fwd_wide_kernel": " (old wide)"}
 
     def key(name):
         m = pat.search(name)
         return m and (f"{'16-bit' if m.group(1) == 'flash16_kernel' else 'f32'}"
-                      f" ND {m.group(2)}"
-                      f"{' (old wide)' if 'fwd_wide' in m.group(1) else ''}"
+                      f" ND {m.group(2)}{old_names.get(m.group(1), '')}"
                       f"{f' (wide, V {m.group(3)})' if m.group(3) else ''}, "
                       f"{'vector' if m.group(4) == '1' else 'single'} "
                       f"loads, {dtypes[m.group(5)]}")
@@ -1263,10 +1327,10 @@ def prefill_build_report():
     if old16:
         fail(f"16-bit instantiations of the f32 prefill kernels are left in "
              f"the library: {old16}")
-    old_wide = [n for n in out if "(old wide)" in n]
-    if old_wide:
-        fail(f"instantiations of the old f32 wide kernel are left in the "
-             f"library: {old_wide}")
+    old = [n for n in out if "(old " in n]
+    if old:
+        fail(f"instantiations of the old f32 kernels are left in the "
+             f"library: {old}")
     wide = sorted(n for n in out if "(wide" in n)
     if len(out) != 44 or wide != [
             f"f32 ND {nd} (wide, V {nv}), {c} loads, f32"
@@ -1287,6 +1351,12 @@ def prefill_build_report():
         if r.get("spill_bytes") != 0:
             fail(f"prefill kernel {name}: {r.get('spill_bytes')} bytes of "
                  f"register spills")
+        nd = int(name.split()[2].rstrip(","))
+        if name.startswith("f32") and "(wide" not in name \
+                and r.get("registers", 0) > F32_NARROW_REGISTERS[nd]:
+            fail(f"prefill kernel {name}: {r.get('registers')} registers, "
+                 f"over the {F32_NARROW_REGISTERS[nd]} the plan counts "
+                 f"(F32_NARROW_REGISTERS)")
     return out
 
 
@@ -1432,6 +1502,31 @@ def check_prefill(torch, F, gen, results):
                                  True, (37, 132)))
 
 
+def prefill_launch_shapes() -> dict:
+    """The prefill kernel's launches since the last reset_launches, by call
+    shape (flash_attention_fwd.shapes, which main() turns on; none for a
+    checkout from before the count)."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    out = {}
+    for (B, Sq, Skv, Hq, Hkv, Dh, Dv, causal, kv_len), n in sorted(
+            (getattr(flash_attention_fwd, "shapes", None) or {}).items()):
+        heads = f"{Hq}" if Hq == Hkv else f"{Hq} / {Hkv}"
+        dims = f"{Dh}" if Dh == Dv else f"{Dh} / {Dv}"
+        key = (f"({B}, {Sq}, {heads} x {dims}) over {Skv}"
+               f"{', causal' if causal else ''}"
+               f"{f', kv_len {kv_len}' if kv_len != Skv else ''}")
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def prefill_blocks(plan, B, Sq, Hq):
+    """Blocks a prefill plan launches for (B, Sq, Hq) queries: the narrow
+    f32 layout's ceil(Sq / (rows / group)) x Hq / group x B x splits, the
+    others' ceil(Sq / rows) x Hq x B."""
+    return (-(-Sq // (plan.rows // plan.group)) * (Hq // plan.group) * B
+            * plan.splits)
+
+
 def prefill_shape(torch, F, gen, label, B, H, Dh, causal, lengths,
                   Hkv=None, softcap=None, q_len=None, Dv=None):
     """An extra shape of the prefill kernel, not a kernel record: held
@@ -1500,19 +1595,21 @@ def prefill_shape(torch, F, gen, label, B, H, Dh, causal, lengths,
     cap = f", softcap {softcap} (SDPA without)" if softcap else ""
     same = "matches" if picked == efficient else "differs from"
     kv = "" if Sq == S else f" over {S} keys"
-    plan = prefill_plan(B, Sq, H, Dh, Dv, 4, SMS)
-    blocks = -(-Sq // plan.rows) * H * B
+    plan = prefill_plan(B, Sq, H, Dh, Dv, 4, SMS, Hkv=Hkv, kv_len=S)
+    blocks = prefill_blocks(plan, B, Sq, H)
     say(f"prefill {label}: q ({B}, {Sq}, {heads}, {Dh}){kv} {kind}{cap}: "
         f"max abs err {worst:.3g}; kernel {t_k:.4f} ms ({d_k:.4f} on the "
         f"device), plain {t_p:.4f} ms, SDPA {t_l:.4f} ms ({d_l:.4f}), bound "
         f"{b[0]:.5f} ms ({b[1]}, 3xTF32), fp32-pipe bound {b32[0]:.5f} ms; "
-        f"plan {plan.rows} rows, {blocks} blocks, {plan.blocks_per_sm} an "
+        f"plan {plan.rows} rows, {plan.splits} splits, group "
+        f"{plan.group}, {blocks} blocks, {plan.blocks_per_sm} an "
         f"SM ({blocks / (SMS * plan.blocks_per_sm):.2f} waves); SDPA ran "
         f"{picked} ({same} EFFICIENT_ATTENTION)")
     del lib, sdpa, sets
     return dict(shape=f"q ({B}, {Sq}, {H}, {Dh}), k, v ({B}, {S}, {Hkv}, "
                       f"{Dh} / {Dv}), {kind}{cap}",
-                plan_rows=plan.rows, plan_blocks=blocks,
+                plan_rows=plan.rows, plan_splits=plan.splits,
+                plan_group=plan.group, plan_blocks=blocks,
                 blocks_per_sm=plan.blocks_per_sm,
                 max_abs_err=worst, ms=t_k, plain_ms=t_p, library_ms=t_l,
                 device_ms=d_k, library_device_ms=d_l,
@@ -4012,13 +4109,13 @@ def device_summary(prof, wall):
 
 # device-side names of the port's own kernels (csrc/)
 PORT_KERNELS = ("decode_kernel", "paged_decode_kernel",
-                "decode_combine_kernel", "flash_fwd_kernel",
+                "decode_combine_kernel", "flash_narrow_kernel",
                 "flash_wide_kernel", "flash16_kernel", "quantize_kernel",
                 "dequantize_kernel", "el2n_warp_kernel",
-                # flash_fwd_wide_kernel: the f32 wide layout of checkouts
-                # from before its redesign, which tools/time_prefill.py
-                # times beside this tree
-                "flash_fwd_wide_kernel",
+                # flash_fwd_kernel, flash_fwd_wide_kernel: the f32 narrow
+                # and wide layouts of checkouts from before their redesigns,
+                # which tools/time_prefill.py times beside this tree
+                "flash_fwd_kernel", "flash_fwd_wide_kernel",
                 # el2n_kernel: the EL2N kernel of checkouts from before its
                 # warp and block layouts, which tools/time_el2n.py --replays
                 # times beside this tree
@@ -4277,6 +4374,7 @@ def full_width_train(torch):
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     launches = launch_counts()
+    prefill_shapes = prefill_launch_shapes()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     phases, i = {}, 0
@@ -4325,7 +4423,8 @@ def full_width_train(torch):
         "rounds": rounds, "eval": ev, "eval_s": eval_s,
         "samples_per_s": [samples / r["wall_s"] for r in rounds],
         "max_memory_allocated_gb": peak_gb, "analytical_bytes": analytical,
-        "wire_rel_err": wire_err, "launches": launches}
+        "wire_rel_err": wire_err, "launches": launches,
+        "prefill_shapes": prefill_shapes}
     say("train full width: " + json.dumps(summary, sort_keys=True))
     summary["profile"] = profile_round(torch, model, pcfg, state, cohorts[2])
     say("train profile: " + json.dumps(summary["profile"], sort_keys=True))
@@ -4813,6 +4912,7 @@ def full_width_async(torch):
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         launches = launch_counts()
+        prefill_shapes = prefill_launch_shapes()
         with open(out / "vit-base_sfprompt_cifar100-syn.jsonl") as f:
             recs = [json.loads(line) for line in f]
         for p in out.rglob("*.npz"):    # too large to bring back
@@ -4825,7 +4925,7 @@ def full_width_async(torch):
         runs[label] = dict(
             engine=engine, recs=recs, flushes=flushes, aggs=aggs,
             dispatch_s=dispatch_s, held_mb=held, total_s=total_s,
-            launches=launches,
+            launches=launches, prefill_shapes=prefill_shapes,
             peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         paths["async" if label == "secure" else "async_clear"] = launches
     sec, clr = runs["secure"], runs["clear"]
@@ -4885,6 +4985,7 @@ def full_width_async(torch):
             "contributions_mb_after_flush": r["held_mb"],
             "max_memory_allocated_gb": r["peak_gb"],
             "launches": r["launches"], "records": r["recs"],
+            "prefill_shapes": r["prefill_shapes"],
             "meter": e.meter.as_dict(), "aggs": r["aggs"]}
         say(f"async full width ({label}): dispatch rounds "
             f"{[round(s, 3) for s in r['dispatch_s']]} s, flushes "
@@ -6160,6 +6261,7 @@ def g2_full_width(torch, arch, path):
     toks, logits, wire, pre_s, dec_s = split_generate(torch, model, params,
                                                       batch, n_new)
     gen_launches = launch_counts()
+    gen_shapes = prefill_launch_shapes()
     n_pre = split.prompt_len + S + (64 if grid else 0)
     want = float(model.wire.head_body.payload_nbytes((B, n_pre, D))
                  + n_new * model.wire.head_body.payload_nbytes((B, 1, D)))
@@ -6185,7 +6287,8 @@ def g2_full_width(torch, arch, path):
                       tok_per_s=B * (n_new + 1) / (pre_s + dec_s),
                       wire_bytes=wire,
                       launches={k: v for k, v in gen_launches.items()
-                                if v}))
+                                if v},
+                      prefill_shapes=gen_shapes))
     launches = dict(gen_launches)
     if cfg.arch_type == "audio":
         K, n_local, bs, Sr = 2, 16, 4, 16
@@ -6210,6 +6313,7 @@ def g2_full_width(torch, arch, path):
         torch.cuda.synchronize()
         eval_s = time.perf_counter() - t0
         round_launches = launch_counts()
+        round_shapes = prefill_launch_shapes()
         bad = [k for k, v in list(m.items()) + list(ev.items())
                if not np.isfinite(v)]
         if bad:
@@ -6228,7 +6332,8 @@ def g2_full_width(torch, arch, path):
             phase_s={r["name"]: r["dur_ns"] * 1e-9
                      for r in trainer.tracer.records()
                      if r["kind"] == "span"},
-            launches={k: v for k, v in round_launches.items() if v})
+            launches={k: v for k, v in round_launches.items() if v},
+            prefill_shapes=round_shapes)
         launches = {k: v + round_launches[k] for k, v in launches.items()}
         del trainer, state
     summary["max_memory_allocated_gb"] = \
@@ -7556,6 +7661,10 @@ def main() -> None:
     say(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the prefill kernel's launches by shape in each path's counted run
+    import collections
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+    flash_attention_fwd.shapes = collections.Counter()
     import numpy
     say(f"torch {torch.__version__} cuda {torch.version.cuda} numpy "
         f"{numpy.__version__} | matmul.allow_tf32="

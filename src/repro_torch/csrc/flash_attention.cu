@@ -13,6 +13,10 @@
 //     -> 0.00194 ms, bytes;
 //   ViT-Base (16, 213, 12 x 64), non-causal:    2.230 GFLOP, 41.9 MB
 //     -> 0.0135 ms, operations;
+//   whisper-base cross-attention, Sq 1 over 1500 frames (4 x 8 x 64):
+//     24.6 MB -> 0.00734 ms, bytes;
+//   whisper-base encoder (4, 1500, 8 x 64): 18.4 GFLOP -> 0.1117 ms,
+//     operations;
 //   zamba2 (1, 132, 32 x 80), causal:           0.090 GFLOP, 5.41 MB
 //     -> 0.00161 ms, bytes;
 //   gemma2-9b (1, 132, 16 / 8 x 256), causal:  0.144 GFLOP, 6.49 MB
@@ -25,52 +29,77 @@
 // on the card (csrc/mma_probe.cu, timed by chip_smoke.py phase 3), so its
 // own ceiling is a third of that probe's rate.
 //
-// What the design does about the four limits of the SIMT kernel it
-// replaced:
-//  1. No tensor cores -> QK^T and PV run on mma.sync.m16n8k8 TF32 with the
-//     3xTF32 split (mma_tf32.cuh), so fp32 accuracy is kept: against the
-//     plain version the output moves by a few 1e-6 at the serving shapes,
-//     inside the 2e-5 tolerance of the tests.
-//  2. Shared-memory and shuffle issue -> every operand is split into TF32
-//     halves once: Q when it lands, each K and V tile by the whole block
-//     when it lands (big halves in place, small halves beside them), P in
-//     registers. Fragments are 16-byte loads: QK^T takes the head dims of a
-//     16-column pair in a permuted k order, and PV permutes V's columns, so
-//     one load serves two k-steps or four n8 tiles; rows are XOR-swizzled
-//     or padded so no load conflicts. The online softmax runs on the
-//     accumulator fragments with two quad shuffles a row and tile; row sums
-//     are reduced once, at the end. P never leaves registers: QK^T leaves
-//     thread (g, t) holding keys 2t and 2t + 1 of rows g and g + 8, and PV
-//     reads them as its A fragment by taking k = t as key 2t and k = t + 4
-//     as key 2t + 1, the same permutation applied to V's rows, which leaves
-//     the sum over keys unchanged.
-//  3. Synchronous loads -> K/V tiles of 32 keys are double-buffered in
-//     shared memory with cp.async: tile j + 1 is in flight while tile j
-//     computes. 16-byte copies when every base pointer and stride is a
-//     multiple of 4 floats, else 4-byte copies (the entry point chooses).
-//  4. 16 query rows a block -> 64 rows, so K and V are read 4x less often.
-//     A block is 8 warps: each m16 row tile has two, one for each 16-key
-//     half of every tile, and the halves' softmax states are merged at the
-//     end. That doubles the warps an SM holds at the batch-1 serving
-//     shapes (120 and 96 blocks, under one wave) and halves the longest
-//     warp's chain of tiles. Grid (ceil(Sq / 64), Hq, B); in a causal call
-//     the query blocks run last-first, the longest first.
+// Common to both f32 layouts: QK^T and PV run on mma.sync.m16n8k8 TF32
+// with the 3xTF32 split (mma_tf32.cuh), so fp32 accuracy is kept (against
+// the plain version the output moves by a few 1e-6, inside the tests'
+// 2e-5). Fragments are 16-byte loads: QK^T takes the head dims of a
+// 16-column pair in a permuted k order (k = t <-> dims 4t and 4t + 2, k =
+// t + 4 <-> 4t + 1 and 4t + 3, for A and B alike), so one load serves two
+// k-steps; Q and K rows are XOR-swizzled (16-byte chunk c of an odd row at
+// c ^ 4) so no load conflicts. P never leaves registers: QK^T leaves
+// thread (g, t) holding keys 2t and 2t + 1 of rows g and g + 8, and PV
+// reads them as its A fragment by taking k = t as key 2t and k = t + 4 as
+// key 2t + 1, the same permutation applied to V's rows, which leaves the
+// sum over keys unchanged. The online softmax runs on the accumulator
+// fragments with two quad shuffles a row and tile; row sums are reduced
+// once, at the end. K/V tiles of 32 keys stream through a ring of
+// shared-memory buffers by cp.async, the next tiles in flight while one
+// folds (16-byte copies when every base pointer and stride is a multiple
+// of 4 floats, else 4-byte copies; the entry point chooses). Q is split
+// into its TF32 halves once; K and V stay plain f32 in shared memory and
+// are split in registers as they are loaded. The loops run a width class's
+// whole width (zero columns past Dh and Dv, zero rows past the tile's keys),
+// with no branch inside, so ptxas interleaves their independent products.
 //
-// Head widths up to 160 in five instantiations of ND = 8-column steps
-// (4, 8, 10, 16 and 20) take the layout above; tiles are zero-padded
-// (cp.async zero-fill) to a multiple of 16 columns for QK^T and of 32 (16
-// at ND 10) for PV, as are the tile rows past the tile's keys, so no stale
-// shared value reaches an mma. Dynamic shared memory: Q's two halves (2 x
-// 64 rows), K and V (two buffers and one small-half tile each), 165,376
-// bytes at ND 16 and 206,336 at ND 20 (stablelm-12b's head_dim 160), one
-// block an SM.
+// The narrow layout (flash_narrow_kernel<ND>, head widths up to 160 in
+// five classes of ND 8-column steps: 4, 8, 10, 16 and 20). A block holds
+// `rows` rows (16, 32 or 64, prefill_plan's choice; 4 x rows threads);
+// each 16-row tile has two warps, one for each 16-key half of every tile,
+// whose softmax states merge at the end. What the design does about the
+// limits of the 64-row layout it replaced (one grid of (ceil(Sq / 64), Hq,
+// B) for every call):
+//  1. A plan that fills the card. prefill_plan takes 64, 32 or 16 rows by
+//     the shapes (a short prompt's heads: fewer rows, more blocks), and a
+//     key split where the blocks still do not fill the SMs while the keys
+//     run to many tiles (whisper's cross-attention: 1 or 64 queries of 32
+//     (b, h) rows over 1500 frames). Split s of S walks the s-th
+//     contiguous share of the block's tiles and writes its rows'
+//     unnormalised (m, l, acc) to a (B, Sq, Hq, S, Dv + 2) workspace,
+//     which the decode kernels' decode_combine_kernel (decode_common.cuh)
+//     merges, launched next on the stream, rows (b, s) standing for its
+//     slots.
+//  2. K/V read once a GQA group. A block may take `group` query heads of
+//     one kv head (the plan's choice: all G of a group): row m of the
+//     block is query position q0 + m / group of head h0 + m % group, so
+//     the G heads' rows stack in the M dimension and each K/V tile is
+//     copied and split once for all of them, not once a head. A row tile
+//     then spans 16 / G positions, so a causal block's diagonal wastes
+//     less.
+//  3. Q's TF32 halves in registers (ND up to 16: 2 x ND registers a
+//     thread), split once as the wide layout does; no small-half tiles in
+//     shared memory. A block is Q's rows and two K and V buffers: 82,944
+//     bytes at ND 16 and 32 rows, so two blocks share an SM. At ND 20
+//     (stablelm-12b's 160) Q's halves and o[20][4] would pass 255
+//     registers: Q's halves stay in shared memory there, split once by the
+//     block. Up to ND 10 the block holds three K/V buffers, two tiles in
+//     flight (1-3% faster than two at whisper's and ViT's head dim 64),
+//     and QK^T sums each n8 tile in two accumulators, even and odd
+//     16-column pairs, so four chains of products are in flight (1-6%).
+// A causal grid runs its query blocks last-first, the longest first.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; tools/time_prefill.py --only
+// f32narrow, parent and change in turns), device ms, the 64-row layout's in
+// brackets, f32 SDPA's after: whisper-base cross-attention, Sq 1 over 1500
+// frames, 0.0167 (0.1234), 0.1731; Sq 64, 0.0344 (0.1501), 0.1735; its
+// encoder (4, 1500, 8 x 64) 0.5175 (0.5966), 0.5841; qwen2-vl-72b (2, 132,
+// 64 / 8 x 128) 0.0413 (0.0758), 0.0604; Qwen2.5-14B 0.0205 (0.0262),
+// 0.0240; ViT-Base (16, 213, 12 x 64) 0.0855 (0.1076), 0.1071.
 //
 // The wide layout (flash_wide_kernel<ND, NV>: keys of class ND 24 for head
 // dim 192 or 32 for 256, values of class NV, ND or 16 for MLA's 192 / 128).
-// The layout above does not fit there (247,296 and 329,216 bytes, over the
-// 232,448 a block may have; o[ND][4] alone 128 registers at ND 32). What
-// the design does about the three limits of the wide kernel it replaced
-// (8 warps over 64 rows, both warps of a row tile scoring all 32 keys):
+// The narrow layout does not fit there (o[ND][4] alone 128 registers at
+// ND 32). What the design does about the three limits of the wide kernel
+// it replaced (8 warps over 64 rows, both warps of a row tile scoring all
+// 32 keys):
 //  1. QK^T once a row tile. Each 16-row tile has four warps, and they
 //     split the head dims: warp w takes the 16-column pairs w, w + 4, ...
 //     (a quarter of Dh) for all 32 keys of a tile, so the four partial
@@ -135,9 +164,11 @@
 // Tiles that straddle no edge skip the mask work. Dead tiles are never
 // visited, except that a block holding a row every key masks (a sliding
 // window that ends before kv_len) visits every tile: that row gets the
-// plain version's answer, the mean of v over all kv_len keys.
+// plain version's answer, the mean of v over all kv_len keys (with a key
+// split, each split's mean weighted by its count in the combine).
 
 #include "attention_common.cuh"
+#include "decode_common.cuh"  // decode_combine_kernel, kMaxSplits
 #include "dtype.cuh"
 #include "flash_attention_16.cuh"
 #include "mma_tf32.cuh"
@@ -146,12 +177,7 @@ namespace {
 
 using namespace sfp;
 
-// A block is 8 warps over 64 query rows: each m16 row tile has two warps,
-// one for each 16-key half of every 32-key tile (see the kernel).
-constexpr int kBQ = 64;
-constexpr int kThr = 256;
-
-// q, k, v and o of one dtype (the kernel's T: float, the one instantiated)
+// q, k, v and o (f32), and the narrow layout's key split and GQA group
 struct FaParams {
   const void* q;
   const void* k;
@@ -163,33 +189,10 @@ struct FaParams {
   int causal, window;
   float softcap, scale;
   int kv_len;
+  int splits;  // narrow: S key shares a block row (1: no split)
+  int group;   // narrow: query heads a block (a divisor of Hq / Hkv)
+  float* ws;   // narrow, S > 1: the (B, Sq, Hq, S, Dv + 2) workspace
 };
-
-// Copy `rows` rows of `width` floats (a multiple of 4) from src (row
-// stride ss) into dst (row stride LD) asynchronously: rows at or past
-// n_rows and columns at or past d are zero-filled. kSwz stores the 16-byte
-// chunk c of an odd row at c ^ 4 (see the kernel). A thread keeps one
-// column and steps down the rows, so the division and the column's byte
-// count are worked out once a call.
-template <int LD, bool kSwz, bool kVec16>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          long long ss, int n_rows, int rows,
-                                          int d, int width, int tid) {
-  constexpr int kUnit = kVec16 ? 4 : 1;  // floats a copy
-  const int per_row = width / kUnit, step = kThr / per_row;  // rows a pass
-  const int r0 = tid / per_row, col = (tid - r0 * per_row) * kUnit;
-  if (r0 >= step) return;
-  const int bytes = 4 * max(0, min(kUnit, d - col));
-  const float* s = src + r0 * ss + col;
-  for (int r = r0; r < rows; r += step, s += step * ss) {
-    const int n = r < n_rows ? bytes : 0;
-    const int pcol = kSwz ? col ^ ((r & 1) << 4) : col;  // chunk c ^ 4
-    if constexpr (kVec16)
-      cp_async16(dst + r * LD + pcol, n ? s : src, n);
-    else
-      cp_async4(dst + r * LD + pcol, n ? s : src, n);
-  }
-}
 
 // e^x of a score's difference from its row max (x <= 0, or -inf)
 __device__ __forceinline__ float ex(float x) {
@@ -209,11 +212,85 @@ __device__ __forceinline__ void split4(const float4& v, uint32_t (&big)[4],
   split_tf32(v.w, big[3], small[3]);
 }
 
-// Split n4 float4s of buf into TF32 halves: big halves in place, small
-// halves to `small` (same layout).
+// Copy `rows` rows of `width` floats (a multiple of 4) from src (row
+// stride ss) into dst (row stride LD) asynchronously, with `nthr` threads:
+// rows at or past n_rows and columns at or past d are zero-filled. kSwz
+// stores the 16-byte chunk c of an odd row at c ^ 4 (see the kernels). A
+// row takes min(width / unit, nthr) threads, and each steps along the row
+// by that many copies, so a row wider than the block's threads (4-byte
+// copies) is still covered.
+template <int LD, bool kSwz, bool kVec16>
+__device__ __forceinline__ void load_rows_n(float* dst, const float* src,
+                                            long long ss, int n_rows,
+                                            int rows, int d, int width,
+                                            int tid, int nthr) {
+  constexpr int kUnit = kVec16 ? 4 : 1;  // floats a copy
+  const int per_row = width / kUnit, lanes = min(per_row, nthr);
+  const int step = nthr / lanes;  // rows a pass
+  const int r0 = tid / lanes, c0 = (tid - r0 * lanes) * kUnit;
+  if (r0 >= step) return;
+  for (int c = c0; c < width; c += lanes * kUnit) {
+    const int left = d - c;  // values of the copy below d, as comparisons
+    const int bytes = left >= kUnit ? 4 * kUnit : (left > 0 ? 4 * left : 0);
+    const float* s = src + r0 * ss + c;
+    for (int r = r0; r < rows; r += step, s += step * ss) {
+      const int n = r < n_rows ? bytes : 0;
+      const int pcol = kSwz ? c ^ ((r & 1) << 4) : c;  // chunk c / 4 ^ 4
+      if constexpr (kVec16)
+        cp_async16(dst + r * LD + pcol, n ? s : src, n);
+      else
+        cp_async4(dst + r * LD + pcol, n ? s : src, n);
+    }
+  }
+}
+
+// The narrow layout (see the note at the top): a block of `rows` rows
+// (16, 32 or 64; 4 x rows threads), two warps a 16-row tile.
+constexpr int kNarrowThr = 256;  // threads of a 64-row block, the largest
+// Q's TF32 halves in registers up to this width class; at ND 20 they stay
+// in shared memory (see the note at the top).
+constexpr int kQRegND = 16;
+// K/V stages of the narrow kernel: three up to this width class (two
+// tiles in flight while one folds), two above it.
+constexpr int kStages3ND = 10;
+template <int ND>
+constexpr int kNarrowStages = ND <= kStages3ND ? 3 : 2;
+
+// Copy a narrow block's Q rows as load_rows_n does: row r is query
+// position q0 + r / group of head h0 + r % group (its own address); rows at
+// or past M or Sq and columns at or past Dh are zero-filled.
+template <int LD, bool kSwz, bool kVec16>
+__device__ __forceinline__ void load_q_rows(float* dst, const float* qb,
+                                            const FaParams& p, int q0,
+                                            int h0, int M, int rows,
+                                            int width, int tid, int nthr) {
+  constexpr int kUnit = kVec16 ? 4 : 1;  // floats a copy
+  const int per_row = width / kUnit, lanes = min(per_row, nthr);
+  const int step = nthr / lanes;  // rows a pass
+  const int r0 = tid / lanes, c0 = (tid - r0 * lanes) * kUnit;
+  if (r0 >= step) return;
+  for (int r = r0; r < rows; r += step) {
+    const int i = r / p.group, pos = q0 + i;
+    const bool live = r < M && pos < p.Sq;
+    const float* s = qb + pos * p.q_ss + (h0 + r - i * p.group) * p.q_sh;
+    for (int c = c0; c < width; c += lanes * kUnit) {
+      const int left = p.Dh - c;
+      const int n =
+          !live ? 0 : (left >= kUnit ? 4 * kUnit : (left > 0 ? 4 * left : 0));
+      const int pcol = kSwz ? c ^ ((r & 1) << 4) : c;
+      if constexpr (kVec16)
+        cp_async16(dst + r * LD + pcol, n ? s + c : qb, n);
+      else
+        cp_async4(dst + r * LD + pcol, n ? s + c : qb, n);
+    }
+  }
+}
+
+// Split n4 float4s of buf into TF32 halves with `nthr` threads: big halves
+// in place, small halves to `small` (same layout).
 __device__ __forceinline__ void split_rows(float* buf, float* small, int n4,
-                                           int tid) {
-  for (int idx = tid; idx < n4; idx += kThr) {
+                                           int tid, int nthr) {
+  for (int idx = tid; idx < n4; idx += nthr) {
     uint32_t big[4], sm[4];
     split4(lds4(buf + 4 * idx), big, sm);
     *reinterpret_cast<uint4*>(buf + 4 * idx) =
@@ -223,12 +300,11 @@ __device__ __forceinline__ void split_rows(float* buf, float* small, int n4,
   }
 }
 
-// Up to head width 64 two blocks share an SM (ptxas caps registers at 128
-// for that); wider, the shared memory (or, at 80, the registers without
-// spilling) holds one.
-template <int ND, bool kVec16, class T>
-__global__ void __launch_bounds__(kThr, ND <= 8 ? 2 : 1)
-    flash_fwd_kernel(FaParams p) {
+// ND: the width class of Q, K and V (8-column steps). Grid (ceil(Sq /
+// (rows / group)), Hq / group, B x splits).
+template <int ND, bool kVec16>
+__global__ void __launch_bounds__(kNarrowThr, 1)
+    flash_narrow_kernel(FaParams p) {
   // Q and K rows hold 8 ND floats, their 16-byte chunks XOR-swizzled on odd
   // rows where a row is a multiple of 32 banks (ND % 4 == 0; at ND 10 a row
   // is 20 chunks and odd rows already start 4 chunks over); V rows are
@@ -238,158 +314,220 @@ __global__ void __launch_bounds__(kThr, ND <= 8 ? 2 : 1)
   constexpr int NP = ND / 2;           // 16-column pairs of k-steps in QK^T
   constexpr int NG = ND / 4;           // 32-column groups of V (4 n8 tiles)
   constexpr bool kHalf = ND % 4 != 0;  // and a last 16-column group (2 tiles)
+  constexpr bool kQReg = ND <= kQRegND;
+  constexpr int NS = kNarrowStages<ND>;  // K/V buffers
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                 // kBQ x LDK: Q's big halves (as bits)
-  float* qsm = qs + kBQ * LDK;      // kBQ x LDK: Q's small halves
-  float* ks = qsm + kBQ * LDK;      // 2 buffers x kBK x LDK (big halves)
-  float* vs = ks + 2 * kBK * LDK;   // 2 buffers x kBK x LDV (big halves)
-  float* ksm = vs + 2 * kBK * LDV;  // kBK x LDK: small halves of K's tile
-  float* vsm = ksm + kBK * LDK;     // kBK x LDV: small halves of V's tile
+  const int nthr = blockDim.x, rows = nthr >> 2;
+  float* qs = smem;                 // rows x LDK: Q (its big halves at ND 20)
+  float* qsm = qs + rows * LDK;     // rows x LDK: Q's small halves (ND 20)
+  float* ks = qs + (kQReg ? 1 : 2) * rows * LDK;  // NS buffers x kBK x LDK
+  float* vs = ks + NS * kBK * LDK;                // NS buffers x kBK x LDV
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   // Warp w runs on scheduler w % 4. The two halves of a row tile go to
-  // two schedulers, and each scheduler holds row tiles 0 and 3 or 1 and 2,
-  // which a causal block's diagonal loads about evenly.
+  // two schedulers, and in a 64-row block each scheduler holds row tiles 0
+  // and 3 or 1 and 2, which a causal block's diagonal loads about evenly.
   const int rg = warp < 4 ? warp >> 1 : 5 - (warp >> 1);
   const int k0 = 16 * (warp & 1);  // first key of this warp's half
+  const int QR = rows / p.group;   // query positions a block
+  const int M = QR * p.group;      // rows in use
+  const int b = blockIdx.z / p.splits, split = blockIdx.z - b * p.splits;
   const int qblk = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = qblk * kBQ;
-  const int hk = h / (p.Hq / p.Hkv);
-  const int dh16 = (p.Dh + 15) >> 4;
-  const int v_width = min(8 * ND, (p.Dv + 31) & ~31);
+  const int q0 = qblk * QR, h0 = blockIdx.y * p.group;
+  const int hk = h0 / (p.Hq / p.Hkv);
 
-  const int q_last = min(q0 + kBQ, p.Sq) - 1;
+  const int q_last = min(q0 + QR, p.Sq) - 1;
   int kv_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
   int kv_end = p.causal ? min(p.kv_len, q_last + 1) : p.kv_len;
   if (p.window > 0 && q_last >= p.kv_len + p.window - 1) {
     kv_begin = 0;  // some row is fully masked: it averages every key
     kv_end = p.kv_len;
   }
-  const int n_tiles = (kv_end - kv_begin + kBK - 1) / kBK;
+  // this split's share of the block's tiles
+  const int n_all = (kv_end - kv_begin + kBK - 1) / kBK;
+  const int t_lo = split * n_all / p.splits;
+  const int t_hi = (split + 1) * n_all / p.splits;
 
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  // tile `it` into buffer it % NS
   auto load_kv = [&](int it) {
     const int kt = kv_begin + it * kBK, n_keys = min(kBK, kv_end - kt);
-    load_rows<LDK, kSwz, kVec16>(ks + (it & 1) * kBK * LDK, kb + kt * p.k_ss,
-                                 p.k_ss, n_keys, kBK, p.Dh, 16 * dh16, tid);
-    load_rows<LDV, false, kVec16>(vs + (it & 1) * kBK * LDV, vb + kt * p.v_ss,
-                                  p.v_ss, n_keys, kBK, p.Dv, v_width, tid);
+    const int buf = it % NS;
+    load_rows_n<LDK, kSwz, kVec16>(ks + buf * kBK * LDK, kb + kt * p.k_ss,
+                                   p.k_ss, n_keys, kBK, p.Dh, LDK, tid,
+                                   nthr);
+    load_rows_n<LDV, false, kVec16>(vs + buf * kBK * LDV, vb + kt * p.v_ss,
+                                    p.v_ss, n_keys, kBK, p.Dv, 8 * ND, tid,
+                                    nthr);
   };
-  load_rows<LDK, kSwz, kVec16>(
-      qs, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_ss,
-      p.q_ss, p.Sq - q0, kBQ, p.Dh, 16 * dh16, tid);
-  if (n_tiles > 0) load_kv(0);
+  load_q_rows<LDK, kSwz, kVec16>(
+      qs, static_cast<const float*>(p.q) + b * p.q_sb, p, q0, h0, M, rows,
+      LDK, tid, nthr);
   cp_async_commit();
-  cp_async_wait<0>();
+  // the first NS - 1 tiles, a commit group each (empty past t_hi, so the
+  // groups in flight keep one count)
+#pragma unroll
+  for (int j = 0; j < NS - 1; ++j) {
+    if (t_lo + j < t_hi) load_kv(t_lo + j);
+    cp_async_commit();
+  }
+  cp_async_wait<NS - 1>();  // Q has landed; the tiles may be in flight
   __syncthreads();
-  split_rows(qs, qsm, kBQ * LDK / 4, tid);  // Q serves every tile
 
-  // This thread's rows of the warp's m16 tile: g (C c0/c1) and g + 8
-  // (c2/c3). QK^T takes the head dims of a 16-column pair p as two k-steps
-  // with k = t <-> dims 4t and 4t + 2 and k = t + 4 <-> 4t + 1 and 4t + 3
-  // (A and B alike), so each fragment is one 16-byte load of chunk 4p + t;
-  // q rows 16 rg + g (+ 8) and key rows k0 + 8n + g all have g's parity,
-  // so one swizzle offset serves them all.
-  const int w_lo = q0 + 16 * rg, w_hi = w_lo + 15;
-  const int row_a = w_lo + g, row_b = row_a + 8;
-  const bool active = w_lo < p.Sq;  // a warp of padding rows only loads
+  // This thread's rows of the warp's m16 tile: m_a = 16 rg + g (C c0/c1)
+  // and m_b = m_a + 8 (c2/c3), query positions pos_a and pos_b. A
+  // fragment of a 16-column pair p is one 16-byte load of chunk 4p + t; Q
+  // rows m_a and m_b and key rows k0 + 8n + g all have g's parity, so one
+  // swizzle offset serves them all.
+  const int m_a = 16 * rg + g, m_b = m_a + 8;
+  const int pos_a = q0 + m_a / p.group, pos_b = q0 + m_b / p.group;
+  const bool live_a = m_a < M && pos_a < p.Sq;
+  const bool live_b = m_b < M && pos_b < p.Sq;
+  // the row tile's first and last query positions
+  const int w_lo = q0 + 16 * rg / p.group;
+  const int w_hi = q0 + min(16 * rg + 15, M - 1) / p.group;
+  const bool active = 16 * rg < M && w_lo < p.Sq;  // else padding rows only
   const int swz = kSwz ? 16 * (g & 1) : 0;
   const int off_even = 4 * t + swz, off_odd = 4 * t - swz;  // chunk 4p + t
-  const float* qa = qs + (16 * rg + g) * LDK;
-  const float* qm = qsm + (16 * rg + g) * LDK;
+  const float* qa = qs + m_a * LDK;
+  const float* qm = qsm + m_a * LDK;
+  // Q's TF32 halves of pair i: [i][k] holds the float4 of row m_a (k < 4)
+  // and of row m_b (k >= 4)
+  uint32_t qbig[kQReg ? NP : 1][8], qsmall[kQReg ? NP : 1][8];
+  if constexpr (kQReg) {
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int off = 16 * i + (i & 1 ? off_odd : off_even);
+      uint32_t b0[4], m0[4], b8[4], m8[4];
+      split4(lds4(qa + off), b0, m0);
+      split4(lds4(qa + 8 * LDK + off), b8, m8);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        qbig[i][k] = b0[k];
+        qsmall[i][k] = m0[k];
+        qbig[i][4 + k] = b8[k];
+        qsmall[i][4 + k] = m8[k];
+      }
+    }
+  } else {
+    split_rows(qs, qsm, rows * LDK / 4, tid, nthr);  // Q serves every tile
+  }
   float o[ND][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_a = kMask, m_b = kMask, l_a = 0.f, l_b = 0.f;  // l: this lane's
-  //                                                        share of the sum
+  float m_ra = kMask, m_rb = kMask, l_a = 0.f, l_b = 0.f;  // l: this lane's
+  //                                                          share of the sum
+  const float inv_cap = p.softcap > 0.f ? 1.f / p.softcap : 0.f;
 
-  for (int it = 0; it < n_tiles; ++it) {
-    if (it > 0) cp_async_wait<0>();
+  for (int it = t_lo; it < t_hi; ++it) {
+    cp_async_wait<NS - 2>();
     __syncthreads();  // tile `it` has landed; every warp is done with it - 1
-    if (it + 1 < n_tiles) {
-      load_kv(it + 1);  // into the buffer tile it - 1 used
-      cp_async_commit();
-    }
-    // each K and V value is split into TF32 halves once, by one thread
-    split_rows(ks + (it & 1) * kBK * LDK, ksm, kBK * LDK / 4, tid);
-    split_rows(vs + (it & 1) * kBK * LDV, vsm, kBK * LDV / 4, tid);
-    __syncthreads();
+    if (it + NS - 1 < t_hi) load_kv(it + NS - 1);  // where it - 1 was
+    cp_async_commit();
     const int kt = kv_begin + it * kBK, n_keys = min(kBK, kv_end - kt);
     // Keys k0 .. k0 + 15 of the tile are this warp's. A half with no
     // present key adds nothing; a causal half past the warp's last row
     // holds only masked keys, which add exactly 0 once a row has seen a
-    // key of its own (a tile before this one).
+    // key of its own (in this split, or, through the combine, in another).
     if (!active || k0 >= n_keys || (p.causal && kt + k0 > w_hi)) continue;
-    const float* kt_s = ks + (it & 1) * kBK * LDK + k0 * LDK;
-    const float* kt_m = ksm + k0 * LDK;
-    const float* vt_s = vs + (it & 1) * kBK * LDV + k0 * LDV;
-    const float* vt_m = vsm + k0 * LDV;
+    const int buf = it % NS;
+    const float* kt_s = ks + buf * kBK * LDK + k0 * LDK;
+    const float* vt_s = vs + buf * kBK * LDV + k0 * LDV;
 
-    // S = Q K^T: 16 rows x 16 keys, two n8 tiles
-    float s[2][4];
+    // S = Q K^T: 16 rows x 16 keys, two n8 tiles, each summed in two
+    // accumulators (even and odd pairs) so four chains of products are in
+    // flight, not two
+    float sa[2][2][4];
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sa[h][n][e] = 0.f;
 #pragma unroll
     for (int pp = 0; pp < NP; ++pp) {
-      if (pp < dh16) {
-        const int off = 16 * pp + (pp & 1 ? off_odd : off_even);
-        const uint4 qb0 = *reinterpret_cast<const uint4*>(qa + off);
-        const uint4 qb8 = *reinterpret_cast<const uint4*>(qa + 8 * LDK + off);
-        const uint4 qs0 = *reinterpret_cast<const uint4*>(qm + off);
-        const uint4 qs8 = *reinterpret_cast<const uint4*>(qm + 8 * LDK + off);
-        uint4 kbig[2], ksmall[2];
+      const int off = 16 * pp + (pp & 1 ? off_odd : off_even);
+      uint32_t a[8], am[8];  // rows m_a (0-3) and m_b (4-7), big and small
+      if constexpr (kQReg) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          a[k] = qbig[pp][k];
+          am[k] = qsmall[pp][k];
+        }
+      } else {
+        const uint4 x0 = *reinterpret_cast<const uint4*>(qa + off);
+        const uint4 x8 = *reinterpret_cast<const uint4*>(qa + 8 * LDK + off);
+        const uint4 y0 = *reinterpret_cast<const uint4*>(qm + off);
+        const uint4 y8 = *reinterpret_cast<const uint4*>(qm + 8 * LDK + off);
+        const uint32_t xa[8] = {x0.x, x0.y, x0.z, x0.w,
+                                x8.x, x8.y, x8.z, x8.w};
+        const uint32_t ya[8] = {y0.x, y0.y, y0.z, y0.w,
+                                y8.x, y8.y, y8.z, y8.w};
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          a[k] = xa[k];
+          am[k] = ya[k];
+        }
+      }
+      uint32_t kbig[2][4], ksmall[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        split4(lds4(kt_s + (8 * n + g) * LDK + off), kbig[n], ksmall[n]);
+#pragma unroll
+      for (int st = 0; st < 2; ++st) {
+        const uint32_t ab[4] = {a[2 * st], a[4 + 2 * st], a[2 * st + 1],
+                                a[5 + 2 * st]};
+        const uint32_t as[4] = {am[2 * st], am[4 + 2 * st], am[2 * st + 1],
+                                am[5 + 2 * st]};
 #pragma unroll
         for (int n = 0; n < 2; ++n) {
-          kbig[n] = *reinterpret_cast<const uint4*>(kt_s + (8 * n + g) * LDK +
-                                                    off);
-          ksmall[n] = *reinterpret_cast<const uint4*>(
-              kt_m + (8 * n + g) * LDK + off);
-        }
-#pragma unroll
-        for (int st = 0; st < 2; ++st) {
-          const uint32_t ab[4] = {st ? qb0.z : qb0.x, st ? qb8.z : qb8.x,
-                                  st ? qb0.w : qb0.y, st ? qb8.w : qb8.y};
-          const uint32_t as[4] = {st ? qs0.z : qs0.x, st ? qs8.z : qs8.x,
-                                  st ? qs0.w : qs0.y, st ? qs8.w : qs8.y};
-#pragma unroll
-          for (int n = 0; n < 2; ++n) {
-            const uint32_t bb[2] = {st ? kbig[n].z : kbig[n].x,
-                                    st ? kbig[n].w : kbig[n].y};
-            const uint32_t bs[2] = {st ? ksmall[n].z : ksmall[n].x,
-                                    st ? ksmall[n].w : ksmall[n].y};
-            mma_tf32(s[n], as, bb);
-            mma_tf32(s[n], ab, bs);
-            mma_tf32(s[n], ab, bb);
-          }
+          const uint32_t bb[2] = {kbig[n][2 * st], kbig[n][2 * st + 1]};
+          const uint32_t bs[2] = {ksmall[n][2 * st], ksmall[n][2 * st + 1]};
+          mma_tf32(sa[pp & 1][n], as, bb);
+          mma_tf32(sa[pp & 1][n], ab, bs);
+          mma_tf32(sa[pp & 1][n], ab, bb);
         }
       }
     }
 
     // scale, softcap and (on edge tiles only) masks; the tile's row max
+    float s[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = (sa[0][n][e] + sa[1][n][e]) * p.scale;
+    if (p.softcap > 0.f) {  // one branch: tanhf only where it is used
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = p.softcap * tanhf(s[n][e] * inv_cap);
+    }
     const bool edge = k0 + 16 > n_keys || (p.causal && kt + k0 + 15 > w_lo) ||
                       (p.window > 0 && kt + k0 <= w_hi - p.window);
+    if (edge) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = k0 + 8 * n + 2 * t + (e & 1), key = kt + j;
+          const int row = e < 2 ? pos_a : pos_b;
+          if (j >= n_keys)
+            s[n][e] = -INFINITY;  // absent
+          else if ((p.causal && key > row) ||
+                   (p.window > 0 && key <= row - p.window))
+            s[n][e] = kMask;      // masked
+        }
+      }
+    }
     float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
     for (int n = 0; n < 2; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = cap(s[n][e] * p.scale, p.softcap);
-        if (edge) {
-          const int j = k0 + 8 * n + 2 * t + (e & 1), key = kt + j;
-          const int row = e < 2 ? row_a : row_b;
-          if (j >= n_keys)
-            x = -INFINITY;  // absent
-          else if ((p.causal && key > row) ||
-                   (p.window > 0 && key <= row - p.window))
-            x = kMask;      // masked
-        }
-        s[n][e] = x;
-        if (e < 2) mx_a = fmaxf(mx_a, x); else mx_b = fmaxf(mx_b, x);
-      }
+      mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
     }
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
@@ -398,17 +536,17 @@ __global__ void __launch_bounds__(kThr, ND <= 8 ? 2 : 1)
     }
 
     // online softmax on the fragments
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    const float alpha_a = ex(m_a - mn_a), alpha_b = ex(m_b - mn_b);
-    m_a = mn_a;
-    m_b = mn_b;
+    const float mn_a = fmaxf(m_ra, mx_a), mn_b = fmaxf(m_rb, mx_b);
+    const float alpha_a = ex(m_ra - mn_a), alpha_b = ex(m_rb - mn_b);
+    m_ra = mn_a;
+    m_rb = mn_b;
     float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
     for (int n = 0; n < 2; ++n) {
-      s[n][0] = ex(s[n][0] - m_a);
-      s[n][1] = ex(s[n][1] - m_a);
-      s[n][2] = ex(s[n][2] - m_b);
-      s[n][3] = ex(s[n][3] - m_b);
+      s[n][0] = ex(s[n][0] - m_ra);
+      s[n][1] = ex(s[n][1] - m_ra);
+      s[n][2] = ex(s[n][2] - m_rb);
+      s[n][3] = ex(s[n][3] - m_rb);
       sum_a += s[n][0] + s[n][1];
       sum_b += s[n][2] + s[n][3];
     }
@@ -426,79 +564,90 @@ __global__ void __launch_bounds__(kThr, ND <= 8 ? 2 : 1)
     // and k = t + 4 as key 2t + 1; V's B fragment reads its rows in that
     // order. n8 tile 4m + i of a 32-column group m takes V column
     // 32m + 4j + i as its column j, so a thread's B fragments of the four
-    // tiles are one 16-byte load from each of rows 2t and 2t + 1, and its
-    // C fragments hold columns 32m + 8t + i (c0, c2) and 32m + 8t + 4 + i
-    // (c1, c3). A last 16-column group (ND 10) does the same with 2 tiles.
+    // tiles are one 16-byte load from each of rows 2t and 2t + 1, split
+    // into TF32 halves as loaded, and its C fragments hold columns
+    // 32m + 8t + i (c0, c2) and 32m + 8t + 4 + i (c1, c3). A last 16-column
+    // group (ND 10) does the same with 2 tiles.
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk) {
-      if (k0 + 8 * kk < n_keys) {
-        uint32_t ab[4], as[4];
-        split_tf32(s[kk][0], ab[0], as[0]);
-        split_tf32(s[kk][2], ab[1], as[1]);
-        split_tf32(s[kk][1], ab[2], as[2]);
-        split_tf32(s[kk][3], ab[3], as[3]);
-        const float* vr = vt_s + (8 * kk + 2 * t) * LDV;
-        const float* vm = vt_m + (8 * kk + 2 * t) * LDV;
+      uint32_t ab[4], as[4];
+      split_tf32(s[kk][0], ab[0], as[0]);
+      split_tf32(s[kk][2], ab[1], as[1]);
+      split_tf32(s[kk][1], ab[2], as[2]);
+      split_tf32(s[kk][3], ab[3], as[3]);
+      const float* vr = vt_s + (8 * kk + 2 * t) * LDV;
 #pragma unroll
-        for (int m = 0; m < NG; ++m) {
-          if (32 * m < p.Dv) {
-            const int c = 32 * m + 4 * g;
-            const uint4 xb = *reinterpret_cast<const uint4*>(vr + c);
-            const uint4 yb = *reinterpret_cast<const uint4*>(vr + LDV + c);
-            const uint4 xs = *reinterpret_cast<const uint4*>(vm + c);
-            const uint4 ys = *reinterpret_cast<const uint4*>(vm + LDV + c);
-            const uint32_t bb[4][2] = {
-                {xb.x, yb.x}, {xb.y, yb.y}, {xb.z, yb.z}, {xb.w, yb.w}};
-            const uint32_t bs[4][2] = {
-                {xs.x, ys.x}, {xs.y, ys.y}, {xs.z, ys.z}, {xs.w, ys.w}};
+      for (int m = 0; m < NG; ++m) {
+        const int c = 32 * m + 4 * g;
+        uint32_t xb[4], xs[4], yb[4], ys[4];
+        split4(lds4(vr + c), xb, xs);
+        split4(lds4(vr + LDV + c), yb, ys);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) mma_tf32(o[4 * m + i], as, bb[i]);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) mma_tf32(o[4 * m + i], ab, bs[i]);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) mma_tf32(o[4 * m + i], ab, bb[i]);
-          }
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t bb[2] = {xb[i], yb[i]};
+          mma_tf32(o[4 * m + i], as, bb);
         }
-        if constexpr (kHalf) {
-          if (32 * NG < p.Dv) {
-            const int c = 32 * NG + 2 * g;
-            const uint2 xb = *reinterpret_cast<const uint2*>(vr + c);
-            const uint2 yb = *reinterpret_cast<const uint2*>(vr + LDV + c);
-            const uint2 xs = *reinterpret_cast<const uint2*>(vm + c);
-            const uint2 ys = *reinterpret_cast<const uint2*>(vm + LDV + c);
-            const uint32_t bb[2][2] = {{xb.x, yb.x}, {xb.y, yb.y}};
-            const uint32_t bs[2][2] = {{xs.x, ys.x}, {xs.y, ys.y}};
 #pragma unroll
-            for (int i = 0; i < 2; ++i) mma_tf32(o[4 * NG + i], as, bb[i]);
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t bs[2] = {xs[i], ys[i]};
+          mma_tf32(o[4 * m + i], ab, bs);
+        }
 #pragma unroll
-            for (int i = 0; i < 2; ++i) mma_tf32(o[4 * NG + i], ab, bs[i]);
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t bb[2] = {xb[i], yb[i]};
+          mma_tf32(o[4 * m + i], ab, bb);
+        }
+      }
+      if constexpr (kHalf) {
+        const int c = 32 * NG + 2 * g;
+        const float2 x2 = *reinterpret_cast<const float2*>(vr + c);
+        const float2 y2 = *reinterpret_cast<const float2*>(vr + LDV + c);
+        uint32_t xb[2], xs[2], yb[2], ys[2];
+        split_tf32(x2.x, xb[0], xs[0]);
+        split_tf32(x2.y, xb[1], xs[1]);
+        split_tf32(y2.x, yb[0], ys[0]);
+        split_tf32(y2.y, yb[1], ys[1]);
 #pragma unroll
-            for (int i = 0; i < 2; ++i) mma_tf32(o[4 * NG + i], ab, bb[i]);
-          }
+        for (int i = 0; i < 2; ++i) {
+          const uint32_t bb[2] = {xb[i], yb[i]};
+          mma_tf32(o[4 * NG + i], as, bb);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const uint32_t bs[2] = {xs[i], ys[i]};
+          mma_tf32(o[4 * NG + i], ab, bs);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const uint32_t bb[2] = {xb[i], yb[i]};
+          mma_tf32(o[4 * NG + i], ab, bb);
         }
       }
     }
   }
 
-  // The two key halves of a row tile meet in the spent K buffers: the
-  // second half's (m, l, O) fragments go to shared memory, laid out by
+  // The two key halves of a row tile meet in the spent K and V buffers:
+  // the second half's (m, l, O) fragments go to shared memory, laid out by
   // lane, and the first half folds them into its own.
+  cp_async_wait<0>();
   __syncthreads();
-  float4* mo = reinterpret_cast<float4*>(ks);   // [rg][n][lane]: 512 ND
-  float4* ml = reinterpret_cast<float4*>(ksm);  // [rg][lane]: m, m, l, l
+  float4* mo = reinterpret_cast<float4*>(ks);  // [rg][n][lane]: 512 ND
+  float4* ml = reinterpret_cast<float4*>(vs);  // [rg][lane]: m, m, l, l
   if (active && k0) {
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       mo[(rg * ND + n) * 32 + lane] =
           make_float4(o[n][0], o[n][1], o[n][2], o[n][3]);
-    ml[rg * 32 + lane] = make_float4(m_a, m_b, l_a, l_b);
+    ml[rg * 32 + lane] = make_float4(m_ra, m_rb, l_a, l_b);
   }
   __syncthreads();
   if (!active || k0) return;
   const float4 other = ml[rg * 32 + lane];
-  const float mn_a = fmaxf(m_a, other.x), mn_b = fmaxf(m_b, other.y);
-  const float fa = ex(m_a - mn_a), fb = ex(m_b - mn_b);
+  const float mn_a = fmaxf(m_ra, other.x), mn_b = fmaxf(m_rb, other.y);
+  const float fa = ex(m_ra - mn_a), fb = ex(m_rb - mn_b);
   const float ga = ex(other.x - mn_a), gb = ex(other.y - mn_b);
+  m_ra = mn_a;
+  m_rb = mn_b;
   l_a = fa * l_a + ga * other.z;
   l_b = fb * l_b + gb * other.w;
 #pragma unroll
@@ -514,13 +663,45 @@ __global__ void __launch_bounds__(kThr, ND <= 8 ? 2 : 1)
     l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
     l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
-  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
-  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
-  T* ob = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  // Without a split the rows are normalised into the output; with one,
+  // row (b, pos, head)'s split goes unnormalised to the workspace:
+  // m, l, then acc.
+  const int head_a = h0 + m_a - (m_a / p.group) * p.group;
+  const int head_b = h0 + m_b - (m_b / p.group) * p.group;
+  float *da, *db;
+  float sa = 1.f, sb = 1.f;
+  if (p.splits == 1) {
+    float* ob = static_cast<float*>(p.o) + b * p.o_sb;
+    da = ob + pos_a * p.o_ss + head_a * p.o_sh;
+    db = ob + pos_b * p.o_ss + head_b * p.o_sh;
+    sa = 1.f / fmaxf(l_a, 1e-30f);
+    sb = 1.f / fmaxf(l_b, 1e-30f);
+  } else {
+    const long long ra =
+        ((static_cast<long long>(b) * p.Sq + pos_a) * p.Hq + head_a) *
+            p.splits + split;
+    const long long rb =
+        ((static_cast<long long>(b) * p.Sq + pos_b) * p.Hq + head_b) *
+            p.splits + split;
+    da = p.ws + ra * (p.Dv + 2);
+    db = p.ws + rb * (p.Dv + 2);
+    if (t == 0) {
+      if (live_a) {
+        da[0] = m_ra;
+        da[1] = l_a;
+      }
+      if (live_b) {
+        db[0] = m_rb;
+        db[1] = l_b;
+      }
+    }
+    da += 2;
+    db += 2;
+  }
   auto put_out = [&](int col, int n, int c) {
     if (col >= p.Dv) return;
-    if (row_a < p.Sq) put(ob + row_a * p.o_ss + col, o[n][c] * inv_a);
-    if (row_b < p.Sq) put(ob + row_b * p.o_ss + col, o[n][c + 2] * inv_b);
+    if (live_a) da[col] = o[n][c] * sa;
+    if (live_b) db[col] = o[n][c + 2] * sb;
   };
 #pragma unroll
   for (int m = 0; m < NG; ++m) {
@@ -547,35 +728,6 @@ __global__ void __launch_bounds__(kThr, ND <= 8 ? 2 : 1)
 constexpr int kWideWarps = 4;  // warps a 16-row tile
 constexpr int kWideThr = 256;  // threads of a 32-row block, the largest
 
-// Copy `rows` rows of `width` floats (a multiple of 4) as load_rows does,
-// with `nthr` threads: a row takes min(width / unit, nthr) threads, and
-// each steps along the row by that many copies, so a row wider than the
-// block's threads (4-byte copies) is still covered.
-template <int LD, bool kSwz, bool kVec16>
-__device__ __forceinline__ void load_rows_n(float* dst, const float* src,
-                                            long long ss, int n_rows,
-                                            int rows, int d, int width,
-                                            int tid, int nthr) {
-  constexpr int kUnit = kVec16 ? 4 : 1;  // floats a copy
-  const int per_row = width / kUnit, lanes = min(per_row, nthr);
-  const int step = nthr / lanes;  // rows a pass
-  const int r0 = tid / lanes, c0 = (tid - r0 * lanes) * kUnit;
-  if (r0 >= step) return;
-  for (int c = c0; c < width; c += lanes * kUnit) {
-    const int left = d - c;  // values of the copy below d, as comparisons
-    const int bytes = left >= kUnit ? 4 * kUnit : (left > 0 ? 4 * left : 0);
-    const float* s = src + r0 * ss + c;
-    for (int r = r0; r < rows; r += step, s += step * ss) {
-      const int n = r < n_rows ? bytes : 0;
-      const int pcol = kSwz ? c ^ ((r & 1) << 4) : c;  // chunk c / 4 ^ 4
-      if constexpr (kVec16)
-        cp_async16(dst + r * LD + pcol, n ? s : src, n);
-      else
-        cp_async4(dst + r * LD + pcol, n ? s : src, n);
-    }
-  }
-}
-
 // Wait on a barrier that only the 128 threads of one row tile use.
 __device__ __forceinline__ void row_tile_sync(int id) {
   asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
@@ -586,7 +738,7 @@ __device__ __forceinline__ void row_tile_sync(int id) {
 // run the classes' whole widths, over zero columns past Dh and Dv and zero
 // rows past the tile's keys, so no branch splits them and ptxas can
 // interleave their independent products.
-template <int ND, int NV, bool kVec16, class T>
+template <int ND, int NV, bool kVec16>
 __global__ void __launch_bounds__(kWideThr, 1)
     flash_wide_kernel(FaParams p) {
   static_assert(ND % (2 * kWideWarps) == 0 && NV % (2 * kWideWarps) == 0,
@@ -624,8 +776,8 @@ __global__ void __launch_bounds__(kWideThr, 1)
   }
   const int n_tiles = (kv_end - kv_begin + kBK - 1) / kBK;
 
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
   auto load_kv = [&](int it) {
     const int kt = kv_begin + it * kBK, n_keys = min(kBK, kv_end - kt);
     load_rows_n<LDK, true, kVec16>(ks + (it & 1) * kBK * LDK,
@@ -636,7 +788,8 @@ __global__ void __launch_bounds__(kWideThr, 1)
                                     p.Dv, 8 * NV, tid, nthr);
   };
   load_rows_n<LDK, true, kVec16>(
-      xq, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_ss,
+      xq,
+      static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_ss,
       p.q_ss, p.Sq - q0, rows, p.Dh, 8 * ND, tid, nthr);
   cp_async_commit();
   if (n_tiles > 0) load_kv(0);
@@ -867,7 +1020,7 @@ __global__ void __launch_bounds__(kWideThr, 1)
   }
   const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
-  T* ob = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  float* ob = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
   auto put_out = [&](int col, int n, int c) {
     if (col >= p.Dv) return;
     if (row_a < p.Sq) put(ob + row_a * p.o_ss + col, o[n][c] * inv_a);
@@ -887,12 +1040,13 @@ __global__ void __launch_bounds__(kWideThr, 1)
 // Widths from this ND up take the wide layout.
 constexpr int kWideND = 24;
 
-// Dynamic shared memory of a narrow block of width class ND (see the note
-// at the top): Q's halves, two K and V buffers and their small halves.
+// Dynamic shared memory of a narrow block of width class ND and `rows`
+// rows (see the note at the top): Q's rows (plain, or its two halves at ND
+// 20) and kNarrowStages<ND> K and V buffers.
 template <int ND>
-constexpr int block_bytes32() {
-  constexpr int LDK = 8 * ND, LDV = 8 * ND + 4;
-  return (2 * kBQ * LDK + 3 * kBK * (LDK + LDV)) *
+constexpr int narrow_bytes32(int rows) {
+  return ((ND <= kQRegND ? 1 : 2) * rows * 8 * ND +
+          kNarrowStages<ND> * kBK * (8 * ND + 8 * ND + 4)) *
          static_cast<int>(sizeof(float));
 }
 
@@ -906,13 +1060,23 @@ constexpr int wide_bytes32(int rows) {
 }
 
 // The bytes prefill_plan (kernels/flash_attention/kernel.py) computes for
-// each width class at 4 B a value (and, wide, each row count);
+// each width class and row count at 4 B a value;
 // tests/test_torch_prefill_plan.py reads these lines.
-static_assert(block_bytes32<4>() == 42496, "ND 4");
-static_assert(block_bytes32<8>() == 83456, "ND 8");
-static_assert(block_bytes32<10>() == 103936, "ND 10");
-static_assert(block_bytes32<16>() == 165376, "ND 16");
-static_assert(block_bytes32<20>() == 206336, "ND 20");
+static_assert(narrow_bytes32<4>(64) == 34304, "ND 4, 64 rows");
+static_assert(narrow_bytes32<4>(32) == 30208, "ND 4, 32 rows");
+static_assert(narrow_bytes32<4>(16) == 28160, "ND 4, 16 rows");
+static_assert(narrow_bytes32<8>(64) == 67072, "ND 8, 64 rows");
+static_assert(narrow_bytes32<8>(32) == 58880, "ND 8, 32 rows");
+static_assert(narrow_bytes32<8>(16) == 54784, "ND 8, 16 rows");
+static_assert(narrow_bytes32<10>(64) == 83456, "ND 10, 64 rows");
+static_assert(narrow_bytes32<10>(32) == 73216, "ND 10, 32 rows");
+static_assert(narrow_bytes32<10>(16) == 68096, "ND 10, 16 rows");
+static_assert(narrow_bytes32<16>(64) == 99328, "ND 16, 64 rows");
+static_assert(narrow_bytes32<16>(32) == 82944, "ND 16, 32 rows");
+static_assert(narrow_bytes32<16>(16) == 74752, "ND 16, 16 rows");
+static_assert(narrow_bytes32<20>(64) == 164864, "ND 20, 64 rows");
+static_assert(narrow_bytes32<20>(32) == 123904, "ND 20, 32 rows");
+static_assert(narrow_bytes32<20>(16) == 103424, "ND 20, 16 rows");
 static_assert(wide_bytes32<24, 16>(16) == 95232, "ND 24, NV 16, 16 rows");
 static_assert(wide_bytes32<24, 16>(32) == 107520, "ND 24, NV 16, 32 rows");
 static_assert(wide_bytes32<24, 24>(16) == 111616, "ND 24, 16 rows");
@@ -920,11 +1084,16 @@ static_assert(wide_bytes32<24, 24>(32) == 123904, "ND 24, 32 rows");
 static_assert(wide_bytes32<32, 32>(16) == 148480, "ND 32, 16 rows");
 static_assert(wide_bytes32<32, 32>(32) == 164864, "ND 32, 32 rows");
 
-template <int ND, bool kVec16, class T>
-cudaError_t launch(const FaParams& p, cudaStream_t stream) {
-  constexpr int bytes = block_bytes32<ND>();
-  static_assert(bytes <= 232448, "over the shared memory a block may have");
-  void (*kernel)(FaParams) = flash_fwd_kernel<ND, kVec16, T>;
+// The narrow kernel, `rows` (16, 32 or 64) rows a block of 4 x rows
+// threads, `group` query heads a block; grid (ceil(Sq / (rows / group)),
+// Hq / group, B x splits). With splits > 1 the combine follows on the
+// stream, reading the workspace as (B Sq, Hq) rows of S splits.
+template <int ND, bool kVec16>
+cudaError_t launch_narrow(const FaParams& p, int rows, cudaStream_t stream) {
+  static_assert(narrow_bytes32<ND>(kNarrowThr / 4) <= 232448,
+                "over the shared memory a block may have");
+  const int bytes = narrow_bytes32<ND>(rows);
+  void (*kernel)(FaParams) = flash_narrow_kernel<ND, kVec16>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   // all of the SM's 228 KB as shared memory, so several blocks fit
@@ -933,19 +1102,26 @@ cudaError_t launch(const FaParams& p, cudaStream_t stream) {
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + kBQ - 1) / kBQ, p.Hq, p.B);
-  kernel<<<grid, kThr, bytes, stream>>>(p);
+  const int qr = rows / p.group;
+  const dim3 grid((p.Sq + qr - 1) / qr, p.Hq / p.group, p.B * p.splits);
+  kernel<<<grid, 4 * rows, bytes, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return err;
+  const DecodeOut out{p.o,        p.ws,   p.B * p.Sq, p.Hq, p.splits,
+                      p.Dv,       p.o_ss, p.o_sh,     kF32};
+  decode_combine_kernel<<<(p.B * p.Sq * p.Hq + kWarps - 1) / kWarps,
+                          kThreads, 0, stream>>>(out);
   return cudaGetLastError();
 }
 
 // The wide kernel, `rows` (16 or 32) query rows a block of 8 x rows
 // threads; grid (Hq, ceil(Sq / rows), B).
-template <int ND, int NV, bool kVec16, class T>
+template <int ND, int NV, bool kVec16>
 cudaError_t launch_wide(const FaParams& p, int rows, cudaStream_t stream) {
   static_assert(wide_bytes32<ND, NV>(kWideThr / 8) <= 232448,
                 "over the shared memory a block may have");
   const int bytes = wide_bytes32<ND, NV>(rows);
-  void (*kernel)(FaParams) = flash_wide_kernel<ND, NV, kVec16, T>;
+  void (*kernel)(FaParams) = flash_wide_kernel<ND, NV, kVec16>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess)
@@ -958,31 +1134,42 @@ cudaError_t launch_wide(const FaParams& p, int rows, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool kVec16, class T>
+template <bool kVec16>
 cudaError_t launch_width(const FaParams& p, int rows, cudaStream_t stream) {
   const int d8 = (max(p.Dh, p.Dv) + 7) / 8;
   if (d8 > 20) {  // the wide layout: width classes kWideND and 32
     if (rows != 16 && rows != 32) return cudaErrorInvalidValue;
     if (d8 > kWideND)  // gemma2's 256
-      return launch_wide<32, 32, kVec16, T>(p, rows, stream);
+      return launch_wide<32, 32, kVec16>(p, rows, stream);
     if (p.Dv <= 128)  // MLA's 192 / 128
-      return launch_wide<24, 16, kVec16, T>(p, rows, stream);
-    return launch_wide<24, 24, kVec16, T>(p, rows, stream);  // nemotron's
+      return launch_wide<24, 16, kVec16>(p, rows, stream);
+    return launch_wide<24, 24, kVec16>(p, rows, stream);  // nemotron's
   }
-  if (rows != kBQ) return cudaErrorInvalidValue;
-  if (d8 <= 4) return launch<4, kVec16, T>(p, stream);
-  if (d8 <= 8) return launch<8, kVec16, T>(p, stream);
-  if (d8 <= 10) return launch<10, kVec16, T>(p, stream);  // zamba2's 80
-  if (d8 <= 16) return launch<16, kVec16, T>(p, stream);
-  return launch<20, kVec16, T>(p, stream);                // stablelm's 160
+  // the narrow plan: 16, 32 or 64 rows, a group dividing G and at most
+  // the rows, 1 to kMaxSplits splits (a workspace and a contiguous output
+  // past one)
+  const int G = p.Hq / p.Hkv;
+  if ((rows != 16 && rows != 32 && rows != 64) || p.group < 1 ||
+      G % p.group || rows < p.group || p.splits < 1 ||
+      p.splits > kMaxSplits ||
+      (p.splits > 1 &&
+       (!p.ws || p.o_sb != static_cast<long long>(p.Sq) * p.o_ss)))
+    return cudaErrorInvalidValue;
+  if (d8 <= 4) return launch_narrow<4, kVec16>(p, rows, stream);
+  if (d8 <= 8) return launch_narrow<8, kVec16>(p, rows, stream);
+  if (d8 <= 10) return launch_narrow<10, kVec16>(p, rows, stream);  // 80
+  if (d8 <= 16) return launch_narrow<16, kVec16>(p, rows, stream);
+  return launch_narrow<20, kVec16>(p, rows, stream);  // stablelm's 160
 }
 
 }  // namespace
 
 // q, k, v and o all of dtype `dtype` (kF32, kBF16 or kF16); strides in
-// elements; `rows` the query rows a block (prefill_plan's choice: at f32
-// 64 below width class kWideND and 32 or 16 from it, at 16 bits 64, 32 or
-// 16).
+// elements; `rows` the rows a block (prefill_plan's choice: at f32 64, 32
+// or 16 below width class kWideND and 32 or 16 from it, at 16 bits 64, 32
+// or 16); narrow f32 only: `splits` key shares a block row (workspace
+// `ws` of (B, Sq, Hq, splits, Dv + 2) floats past 1) and `group` query
+// heads a block.
 extern "C" int sfp_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Sq, int Skv, int Hq, int Hkv, int Dh, int Dv, long long q_sb,
@@ -990,7 +1177,8 @@ extern "C" int sfp_flash_attention_fwd(
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, int causal, int window, float softcap,
-    float scale, int kv_len, int rows, void* stream) {
+    float scale, int kv_len, int rows, int splits, int group, void* ws,
+    void* stream) {
   if (Dh > kDMax || Dv > kDMax) return (int)cudaErrorInvalidValue;
   if (B <= 0 || Sq <= 0) return (int)cudaGetLastError();
   // 16-byte copies need every row of q, k and v to start 16-byte aligned:
@@ -1010,10 +1198,11 @@ extern "C" int sfp_flash_attention_fwd(
         o_sb, o_ss, o_sh, causal, window, softcap, scale, kv_len, rows};
     return (int)flash16_fwd(p16, dtype, vec, st);
   }
-  FaParams p{q,    k,    v,    o,    B,    Sq,   Skv,  Hq,   Hkv,
-             Dh,   Dv,   q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-             v_ss, v_sh, o_sb, o_ss, o_sh, causal, window, softcap,
-             scale, kv_len};
-  return (int)(vec ? launch_width<true, float>(p, rows, st)
-                   : launch_width<false, float>(p, rows, st));
+  FaParams p{q,      k,     v,      o,    B,    Sq,     Skv,   Hq,
+             Hkv,    Dh,    Dv,     q_sb, q_ss, q_sh,   k_sb,  k_ss,
+             k_sh,   v_sb,  v_ss,   v_sh, o_sb, o_ss,   o_sh,  causal,
+             window, softcap, scale, kv_len, splits, group,
+             static_cast<float*>(ws)};
+  return (int)(vec ? launch_width<true>(p, rows, st)
+                   : launch_width<false>(p, rows, st));
 }

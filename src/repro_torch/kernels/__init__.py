@@ -114,3 +114,5 @@ def launch_counts() -> Dict[str, int]:
 def reset_launches() -> None:
     for fn in wrappers().values():
         fn.launches = 0
+        if getattr(fn, "shapes", None) is not None:
+            fn.shapes.clear()   # launches by shape, where a caller counts

@@ -55,9 +55,12 @@ SIGNATURES = {
         [_P, _P, _P, _P, _I]                  # q, k, v, out, their dtype
         + [_I] * 7                            # B, Sq, Skv, Hq, Hkv, Dh, Dv
         + [_L] * 12                           # (b, s, h) strides of q, k, v, out
-        + [_I, _I, _F, _F, _I, _I, _P]),      # causal, window, softcap, scale,
-    #                                           kv_len, query rows a block
-    #                                           (prefill_plan), stream
+        + [_I, _I, _F, _F, _I, _I, _I, _I, _P, _P]),
+    #                                           causal, window, softcap, scale,
+    #                                           kv_len; prefill_plan's rows a
+    #                                           block, splits and group;
+    #                                           workspace (B, Sq, Hq, splits,
+    #                                           Dv + 2) or null; stream
     "sfp_decode_attention_fwd": (
         [_P, _I, _P, _P, _I]                  # q, its dtype (the output's);
         #                                       k, v, their dtype

@@ -245,6 +245,39 @@ PREFILL_F32_WIDE_CASES = [
 ]
 
 
+# The narrow f32 layout's own cases (head dims up to 160): (..., offset,
+# Dv, rows, q_layout, splits, group, Skv). Every row count and every split
+# count 1-8 forced over a long key axis (whisper's cross-attention: Sq 1
+# and 64, non-causal, kv_len short of Skv), one head a block and the GQA
+# group (G 4, 5, 8) at every row count, ragged Sq, rows that every key
+# masks (a window ending before kv_len) under a split, q heads-major and
+# from a fused qkv tensor, and one value off 16 bytes (4-byte copies).
+PREFILL_F32_NARROW_CASES = [
+    *((2, 1, 8, 2, 64, False, None, None, 650, 0, None, r, None, n, 4, 700)
+      for r in (64, 32, 16) for n in range(1, 9)),
+    *((2, 64, 8, 2, 64, False, None, 30.0, 650, 0, None, r, None, n, g, 700)
+      for r in (64, 32, 16) for n in (1, 3, 8) for g in (1, 4)),
+    *((1, 100, 10, 2, 128, True, None, None, 70, 0, None, r, None, n, g)
+      for r in (64, 32, 16) for n in (1, 2) for g in (1, 5)),
+    *((2, 77, 16, 2, 128, True, 16, 20.0, None, 0, None, r, None, 3, g)
+      for r in (64, 32, 16) for g in (1, 8)),
+    *((1, 120, 8, 1, 64, True, 8, None, 40, 0, None, r, None, n, g)
+      for r in (64, 32, 16) for n in (1, 8) for g in (1, 8)),
+    *((1, 133, 32, 8, 160, True, None, None, None, 0, None, r, None, 1, g)
+      for r in (64, 32, 16) for g in (1, 4)),
+    *((2, S, 6, 2, 80, True, None, None, None, 0, None, 16, None, 1, 3)
+      for S in (1, 17, 33, 65, 129)),
+    (1, 90, 8, 2, 80, False, None, None, None, 1, None, 32, None, 4, 4,
+     600),
+    (2, 50, 6, 2, 40, True, 12, None, None, 1, None, 16, None, 2, 3),
+    (2, 65, 8, 2, 64, True, None, None, None, 0, None, 16, "transposed", 2,
+     4),
+    (1, 70, 10, 2, 160, True, None, None, 60, 0, None, 32, "fused", 1, 5),
+    (1, 33, 8, 8, 32, False, None, None, None, 1, None, 64, "fused", 5, 1,
+     900),
+]
+
+
 @pytest.mark.parametrize("case", [
     # (B, Sq, Hq, Hkv, Dh, causal, window, softcap, kv_len, offset)
     (2, 5, 4, 4, 32, True, None, None, None, 0),
@@ -275,19 +308,23 @@ PREFILL_F32_WIDE_CASES = [
     (2, 65, 4, 2, 256, False, None, None, None, 1),
     (1, 90, 12, 1, 192, True, 24, 10.0, None, 1),
     *PREFILL_F32_WIDE_CASES,
+    *PREFILL_F32_NARROW_CASES,
 ])
 def test_prefill_kernel_matches_plain(gen, case):
     """One case, (B, Sq, Hq, Hkv, Dh, causal, window, softcap, kv_len,
-    offset) and optionally (Dv, rows, q_layout), as `_prefill_half`'s: the
-    plan forced to `rows` query rows a block, q heads-major or from a fused
-    qkv tensor."""
+    offset) and optionally (Dv, rows, q_layout, splits, group, Skv), as
+    `_prefill_half`'s: the plan forced to `rows` rows a block (and, narrow
+    f32, `splits` key shares and `group` heads a block), q heads-major or
+    from a fused qkv tensor, keys Skv long (default Sq)."""
     from repro_torch.kernels.flash_attention import ref
     from repro_torch.kernels.flash_attention.ops import prefill_attention
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_fwd, prefill_plan)
     B, S, Hq, Hkv, Dh, causal, window, softcap, kv_len, offset = case[:10]
-    Dv, rows, q_layout = tuple(case[10:]) + (None,) * (13 - len(case))
+    Dv, rows, q_layout, splits, group, Skv = \
+        tuple(case[10:]) + (None,) * (16 - len(case))
     Dv = Dv or Dh
+    Skv = Skv or S
 
     def randn(shape):               # a view `offset` floats into its storage
         if not offset:
@@ -302,19 +339,20 @@ def test_prefill_kernel_matches_plain(gen, case):
     else:
         q = randn((B, S, Hq, Dh))
     if Dv == Dh:
-        kv = randn((B, S, 2 * Hkv, Dh))
+        kv = randn((B, Skv, 2 * Hkv, Dh))
         k, v = kv[:, :, :Hkv], kv[:, :, Hkv:]      # strided views
     else:
-        k, v = randn((B, S, Hkv, Dh)), randn((B, S, Hkv, Dv))
+        k, v = randn((B, Skv, Hkv, Dh)), randn((B, Skv, Hkv, Dv))
     assert offset == 0 or q.data_ptr() % 16 and k.data_ptr() % 16
     n = flash_attention_fwd.launches
-    L = kv_len or S
+    L = kv_len or Skv
     if rows is None:
         got = prefill_attention(q, k, v, causal=causal,
                                 sliding_window=window, softcap=softcap,
                                 kv_len=kv_len)
     else:
-        plan = prefill_plan(B, S, Hq, Dh, Dv, 4)._replace(rows=rows)
+        plan = prefill_plan(B, S, Hq, Dh, Dv, 4, Hkv=Hkv, kv_len=L)._replace(
+            rows=rows, splits=splits or 1, group=group or 1)
         got = flash_attention_fwd(q, k, v, causal=causal,
                                   sliding_window=window, softcap=softcap,
                                   scale=Dh ** -0.5, kv_len=L, plan=plan)
@@ -1258,6 +1296,39 @@ PREFILL_16_CASES = [
 ]
 
 
+# The narrow f32 layout's own cases (head dims up to 160): (..., offset,
+# Dv, rows, q_layout, splits, group, Skv). Every row count and every split
+# count 1-8 forced over a long key axis (whisper's cross-attention: Sq 1
+# and 64, non-causal, kv_len short of Skv), one head a block and the GQA
+# group (G 4, 5, 8) at every row count, ragged Sq, rows that every key
+# masks (a window ending before kv_len) under a split, q heads-major and
+# from a fused qkv tensor, and one value off 16 bytes (4-byte copies).
+PREFILL_F32_NARROW_CASES = [
+    *((2, 1, 8, 2, 64, False, None, None, 650, 0, None, r, None, n, 4, 700)
+      for r in (64, 32, 16) for n in range(1, 9)),
+    *((2, 64, 8, 2, 64, False, None, 30.0, 650, 0, None, r, None, n, g, 700)
+      for r in (64, 32, 16) for n in (1, 3, 8) for g in (1, 4)),
+    *((1, 100, 10, 2, 128, True, None, None, 70, 0, None, r, None, n, g)
+      for r in (64, 32, 16) for n in (1, 2) for g in (1, 5)),
+    *((2, 77, 16, 2, 128, True, 16, 20.0, None, 0, None, r, None, 3, g)
+      for r in (64, 32, 16) for g in (1, 8)),
+    *((1, 120, 8, 1, 64, True, 8, None, 40, 0, None, r, None, n, g)
+      for r in (64, 32, 16) for n in (1, 8) for g in (1, 8)),
+    *((1, 133, 32, 8, 160, True, None, None, None, 0, None, r, None, 1, g)
+      for r in (64, 32, 16) for g in (1, 4)),
+    *((2, S, 6, 2, 80, True, None, None, None, 0, None, 16, None, 1, 3)
+      for S in (1, 17, 33, 65, 129)),
+    (1, 90, 8, 2, 80, False, None, None, None, 1, None, 32, None, 4, 4,
+     600),
+    (2, 50, 6, 2, 40, True, 12, None, None, 1, None, 16, None, 2, 3),
+    (2, 65, 8, 2, 64, True, None, None, None, 0, None, 16, "transposed", 2,
+     4),
+    (1, 70, 10, 2, 160, True, None, None, 60, 0, None, 32, "fused", 1, 5),
+    (1, 33, 8, 8, 32, False, None, None, None, 1, None, 64, "fused", 5, 1,
+     900),
+]
+
+
 @pytest.mark.parametrize("case", [
     # (B, Sq, Hq, Hkv, Dh, causal, window, softcap, kv_len, offset)
     (2, 5, 4, 4, 32, True, None, None, None, 0),
@@ -1279,6 +1350,39 @@ PREFILL_16_CASES = [
 ])
 def test_prefill_kernel_matches_plain_bf16(gen, case):
     _prefill_half(gen, case, torch.bfloat16)
+
+
+# The narrow f32 layout's own cases (head dims up to 160): (..., offset,
+# Dv, rows, q_layout, splits, group, Skv). Every row count and every split
+# count 1-8 forced over a long key axis (whisper's cross-attention: Sq 1
+# and 64, non-causal, kv_len short of Skv), one head a block and the GQA
+# group (G 4, 5, 8) at every row count, ragged Sq, rows that every key
+# masks (a window ending before kv_len) under a split, q heads-major and
+# from a fused qkv tensor, and one value off 16 bytes (4-byte copies).
+PREFILL_F32_NARROW_CASES = [
+    *((2, 1, 8, 2, 64, False, None, None, 650, 0, None, r, None, n, 4, 700)
+      for r in (64, 32, 16) for n in range(1, 9)),
+    *((2, 64, 8, 2, 64, False, None, 30.0, 650, 0, None, r, None, n, g, 700)
+      for r in (64, 32, 16) for n in (1, 3, 8) for g in (1, 4)),
+    *((1, 100, 10, 2, 128, True, None, None, 70, 0, None, r, None, n, g)
+      for r in (64, 32, 16) for n in (1, 2) for g in (1, 5)),
+    *((2, 77, 16, 2, 128, True, 16, 20.0, None, 0, None, r, None, 3, g)
+      for r in (64, 32, 16) for g in (1, 8)),
+    *((1, 120, 8, 1, 64, True, 8, None, 40, 0, None, r, None, n, g)
+      for r in (64, 32, 16) for n in (1, 8) for g in (1, 8)),
+    *((1, 133, 32, 8, 160, True, None, None, None, 0, None, r, None, 1, g)
+      for r in (64, 32, 16) for g in (1, 4)),
+    *((2, S, 6, 2, 80, True, None, None, None, 0, None, 16, None, 1, 3)
+      for S in (1, 17, 33, 65, 129)),
+    (1, 90, 8, 2, 80, False, None, None, None, 1, None, 32, None, 4, 4,
+     600),
+    (2, 50, 6, 2, 40, True, 12, None, None, 1, None, 16, None, 2, 3),
+    (2, 65, 8, 2, 64, True, None, None, None, 0, None, 16, "transposed", 2,
+     4),
+    (1, 70, 10, 2, 160, True, None, None, 60, 0, None, 32, "fused", 1, 5),
+    (1, 33, 8, 8, 32, False, None, None, None, 1, None, 64, "fused", 5, 1,
+     900),
+]
 
 
 @pytest.mark.parametrize("case", [
@@ -1413,6 +1517,42 @@ def test_prefill_16_bit_kernel_is_f32_accurate(gen, dtype, B, S, Hq, Hkv, Dh,
     def share(x):
         return float((x.float() != want.float()).float().mean())
     assert share(got) <= share(f32) + 0.005, (share(got), share(f32))
+
+
+@pytest.mark.parametrize("shape", [
+    # (B, Sq, Skv, Hq, Hkv, Dh, causal): whisper-base's cross-attention at
+    # Sq 1 and 64 over 1500 frames (split), its encoder, qwen2-vl-72b (G 8,
+    # grouped), Qwen2.5-14B (G 5), ViT-Base, zamba2 and stablelm-12b
+    (4, 1, 1500, 8, 8, 64, False), (4, 64, 1500, 8, 8, 64, False),
+    (4, 1500, 1500, 8, 8, 64, False), (2, 132, 132, 64, 8, 128, True),
+    (1, 132, 132, 40, 8, 128, True), (16, 213, 213, 12, 12, 64, False),
+    (1, 132, 132, 32, 32, 80, True), (1, 132, 132, 32, 8, 160, True)])
+def test_prefill_f32_narrow_runs_the_narrow_kernel(gen, shape):
+    """f32 calls at head dims up to 160 run the narrow kernel of their width
+    class once (the profiler's names), then the decode kernels' combine
+    exactly where the plan splits the keys, and nothing else: no 16-bit
+    kernel, no wide one, none of the 64-row layout it replaced
+    (flash_fwd_kernel)."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_fwd, prefill_plan, prefill_width)
+    B, Sq, Skv, Hq, Hkv, Dh, causal = shape
+    q = torch.randn((B, Sq, Hq, Dh), generator=gen, device="cuda")
+    k, v = (torch.randn((B, Skv, Hkv, Dh), generator=gen, device="cuda")
+            for _ in range(2))
+    kw = dict(causal=causal, sliding_window=None, softcap=None,
+              scale=Dh ** -0.5, kv_len=Skv)
+    flash_attention_fwd(q, k, v, **kw)
+    plan = prefill_plan(B, Sq, Hq, Dh, Dh, 4, torch.cuda.get_device_properties(
+        0).multi_processor_count, Hkv=Hkv, kv_len=Skv)
+    names = _kernel_names(lambda: flash_attention_fwd(q, k, v, **kw))
+    nd = prefill_width(Dh, Dh)
+    assert len(names) == (2 if plan.splits > 1 else 1), (plan, names)
+    assert "flash_narrow_kernel" in names[0] and re.search(
+        rf"flash_narrow_kernel(<{nd}, |ILi{nd}E)", names[0]), names
+    if plan.splits > 1:
+        assert "decode_combine_kernel" in names[1], names
+    assert (plan.splits > 1) == (Skv == 1500 and Sq < 1500), plan
+    assert (plan.group > 1) == (Hq // Hkv in (4, 8)), plan
 
 
 def test_prefill_f32_wide_runs_the_wide_kernel(gen):

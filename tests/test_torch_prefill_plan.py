@@ -1,8 +1,9 @@
 """The prefill kernel's launch plan on the CPU
 (`kernels/flash_attention/kernel.py::prefill_plan`): query rows a block,
-width class, shared memory and blocks an SM, pinned to the values the CUDA
-sources compute (their static_asserts) and to the batch-1 serving shapes
-that must fill an H100's 132 SMs."""
+width class, shared memory and blocks an SM, and the narrow f32 layout's
+key split and GQA group, pinned to the values the CUDA sources compute
+(their static_asserts) and to the paths' shapes that must fill an H100's
+132 SMs."""
 import torch
 
 torch.set_num_threads(2)
@@ -13,7 +14,8 @@ from pathlib import Path  # noqa: E402
 import pytest  # noqa: E402
 
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    F32_WIDE, F32_WIDE_V16, MIN_BLOCKS_16, ROWS_16, ROWS_F32_WIDE, WIDTHS,
+    F32_NARROW_REGISTERS, F32_Q_REG, F32_ROWS, F32_STAGES3, F32_WIDE,
+    F32_WIDE_V16, MAX_SPLITS, MIN_BLOCKS_16, ROWS_16, ROWS_F32_WIDE, WIDTHS,
     PrefillPlan, check_plan, max_registers_16, prefill_blocks_per_sm,
     prefill_plan, prefill_shared_bytes, prefill_v_width, prefill_width)
 
@@ -29,7 +31,7 @@ def test_shared_bytes_fit_a_block_at_every_head_dim(itemsize):
         for dv in {d, min(d, 128)}:
             nd = prefill_width(d, dv)
             for rows in (ROWS_16 if itemsize == 2 else
-                         ROWS_F32_WIDE if nd >= F32_WIDE else (64,)):
+                         ROWS_F32_WIDE if nd >= F32_WIDE else F32_ROWS):
                 assert prefill_shared_bytes(nd, rows, itemsize) <= BLOCK_MAX
             plan = prefill_plan(1, 132, 8, d, dv, itemsize)
             assert plan.shared_bytes <= BLOCK_MAX and plan.blocks_per_sm >= 1
@@ -47,9 +49,16 @@ def test_shared_bytes_fit_a_block_at_every_head_dim(itemsize):
     (20, 64, 2, 94_208, 2), (20, 32, 2, 79_360, 2), (20, 16, 2, 71_936, 3),
     (24, 64, 2, 110_592, 2), (24, 32, 2, 93_696, 2), (24, 16, 2, 85_248, 2),
     (32, 64, 2, 109_568, 1), (32, 32, 2, 88_576, 2), (32, 16, 2, 78_080, 2),
-    # narrow f32 (64 rows): two blocks up to nd 8, else one
-    (4, 64, 4, 42_496, 2), (8, 64, 4, 83_456, 2), (10, 64, 4, 103_936, 1),
-    (16, 64, 4, 165_376, 1), (20, 64, 4, 206_336, 1),
+    # narrow f32 (64, 32 or 16 rows, rows / 8 warps): Q of `rows` rows of
+    # 8 nd floats (its two TF32 halves at nd 20) and three K and V buffers
+    # of 32 keys up to nd 10, else two (V's rows padded by 4); blocks by
+    # shared memory and by F32_NARROW_REGISTERS a thread
+    (4, 64, 4, 34_304, 1), (4, 32, 4, 30_208, 3), (4, 16, 4, 28_160, 6),
+    (8, 64, 4, 67_072, 1), (8, 32, 4, 58_880, 3), (8, 16, 4, 54_784, 4),
+    (10, 64, 4, 83_456, 1), (10, 32, 4, 73_216, 2), (10, 16, 4, 68_096, 3),
+    (16, 64, 4, 99_328, 1), (16, 32, 4, 82_944, 2), (16, 16, 4, 74_752, 3),
+    (20, 64, 4, 164_864, 1), (20, 32, 4, 123_904, 1),
+    (20, 16, 4, 103_424, 2),
     # wide f32 (32 or 16 rows, 8 x rows threads): Q of `rows` rows of 8 nd
     # floats and two K and V buffers of 32 keys (V's rows padded by 4);
     # two blocks of 16 rows at nd 24, else one
@@ -72,10 +81,27 @@ def test_c_sources_compute_the_same_bytes():
     assert got16 == {(nd, rows): prefill_shared_bytes(nd, rows, 2)
                      for nd in WIDTHS for rows in ROWS_16}
     src32 = (CSRC / "flash_attention.cu").read_text()
-    got32 = {int(nd): int(b) for nd, b in re.findall(
-        r"static_assert\(block_bytes32<(\d+)>\(\) == (\d+),", src32)}
-    assert got32 == {nd: prefill_shared_bytes(nd, 64, 4) for nd in WIDTHS
-                     if nd < F32_WIDE}
+    got32 = {(int(nd), int(rows)): int(b) for nd, rows, b in re.findall(
+        r"static_assert\(narrow_bytes32<(\d+)>\((\d+)\) == (\d+),", src32)}
+    assert got32 == {(nd, rows): prefill_shared_bytes(nd, rows, 4)
+                     for nd in WIDTHS if nd < F32_WIDE for rows in F32_ROWS}
+    for name, value in (("kQRegND", F32_Q_REG), ("kStages3ND", F32_STAGES3),
+                        ("kNarrowThr", 4 * max(F32_ROWS))):
+        assert re.search(rf"constexpr int {name} = (\d+);",
+                         src32).group(1) == str(value)
+    # the narrow kernel's launch bounds leave it up to 255 registers, which
+    # F32_NARROW_REGISTERS pins per width class (chip_smoke.py holds the
+    # build to them); a key split is merged by the decode kernels' combine
+    assert re.search(r"__launch_bounds__\(kNarrowThr, 1\)\s+"
+                     r"flash_narrow_kernel", src32)
+    assert set(F32_NARROW_REGISTERS) == {nd for nd in WIDTHS
+                                         if nd < F32_WIDE}
+    assert all(r % 8 == 0 and r <= 256
+               for r in F32_NARROW_REGISTERS.values())
+    assert "decode_combine_kernel<<<" in src32
+    common = (CSRC / "decode_common.cuh").read_text()
+    assert re.search(r"constexpr int kMaxSplits = (\d+);",
+                     common).group(1) == str(MAX_SPLITS)
     wide32 = {(int(nd), int(nv), int(rows)): int(b)
               for nd, nv, rows, b in re.findall(
                   r"static_assert\(wide_bytes32<(\d+), (\d+)>\((\d+)\) == "
@@ -142,13 +168,44 @@ def test_serving_prefill_fills_the_card(label, Hq, Dh, Dv, itemsize, rows,
     assert prefill_plan(16, 213, 12, 64, 64, 2).rows == 64
 
 
-@pytest.mark.parametrize("shape", [(1, 132, 40, 128, 128), (1, 1, 4, 64, 64),
-                                   (16, 213, 12, 64, 64)])
-def test_f32_keeps_its_64_row_plan(shape):
-    plan = prefill_plan(*shape, 4)
-    nd = prefill_width(*shape[3:])
-    assert plan == PrefillPlan(64, nd, prefill_shared_bytes(nd, 64, 4),
-                               1 if nd > 8 else 2)
+@pytest.mark.parametrize("label,shape,kw,want", [
+    # (B, Sq, Hq, Dh, Dv), prefill_plan's Hkv and kv_len, and (rows, nd,
+    # bytes, blocks an SM, splits, group)
+    ("whisper-base cross-attention Sq 1 over 1500", (4, 1, 8, 64, 64),
+     dict(Hkv=8, kv_len=1500), (16, 8, 54_784, 4, 8, 1)),
+    ("whisper-base cross-attention Sq 64 over 1500", (4, 64, 8, 64, 64),
+     dict(Hkv=8, kv_len=1500), (32, 8, 58_880, 3, 6, 1)),
+    ("whisper-base encoder", (4, 1500, 8, 64, 64), dict(Hkv=8),
+     (32, 8, 58_880, 3, 1, 1)),
+    ("whisper-base decoder self-attention", (4, 68, 8, 64, 64), dict(Hkv=8),
+     (32, 8, 58_880, 3, 1, 1)),
+    ("qwen2-vl-72b, G 8", (2, 132, 64, 128, 128), dict(Hkv=8),
+     (32, 16, 82_944, 2, 1, 8)),
+    ("Qwen2.5-14B, G 5", (1, 132, 40, 128, 128), dict(Hkv=8),
+     (64, 16, 99_328, 1, 1, 1)),
+    ("Qwen2.5-14B a rank of 2", (1, 132, 20, 128, 128), dict(Hkv=4),
+     (32, 16, 82_944, 2, 1, 1)),
+    ("ViT-Base a rank of 2", (16, 213, 6, 64, 64), {},
+     (32, 8, 58_880, 3, 1, 1)),
+    ("ViT-Base", (16, 213, 12, 64, 64), {}, (32, 8, 58_880, 3, 1, 1)),
+    ("stablelm-12b, G 4", (1, 132, 32, 160, 160), dict(Hkv=8),
+     (32, 20, 123_904, 1, 1, 4)),
+    ("zamba2", (1, 132, 32, 80, 80), {}, (64, 10, 83_456, 1, 1, 1)),
+    ("phi3.5-moe, G 4", (1, 132, 32, 128, 128), dict(Hkv=8),
+     (32, 16, 82_944, 2, 1, 4)),
+    ("head dim 96, G 4", (1, 132, 32, 96, 96), dict(Hkv=8),
+     (32, 16, 82_944, 2, 1, 4)),
+    ("a decode step, G 2", (1, 1, 4, 64, 64), dict(Hkv=2),
+     (16, 8, 54_784, 4, 1, 2)),
+])
+def test_f32_keeps_its_64_row_plan(label, shape, kw, want):
+    """The narrow f32 layout's plan at the paths' shapes (it was 64 rows
+    for every call before the row plan, the key split and the GQA group):
+    rows, width class, the block's bytes (the C source's narrow_bytes32),
+    blocks an SM, splits and group."""
+    plan = prefill_plan(*shape, 4, **kw)
+    assert plan == PrefillPlan(*want)
+    assert plan.shared_bytes <= BLOCK_MAX
 
 
 @pytest.mark.parametrize("shape,rows,nbytes,blocks", [
@@ -182,13 +239,29 @@ def test_check_plan_refuses_what_cannot_launch():
     for rows in ROWS_F32_WIDE:   # the wide f32 rows are accepted
         check_plan(wide._replace(rows=rows), 256, 256, 4)
         check_plan(wide._replace(rows=rows, nd=24), 192, 128, 4)
-    for plan, Dh, itemsize in ((good._replace(rows=48), 128, 2),
-                               (good._replace(rows=32), 128, 4),
-                               (good._replace(rows=16), 128, 4),
-                               (good._replace(nd=10), 128, 2),
-                               (good, 256, 2),
-                               (wide._replace(rows=64), 256, 4),
-                               (wide._replace(rows=48), 256, 4),
-                               (wide, 192, 4)):
+    narrow = prefill_plan(1, 132, 40, 128, 128, 4, Hkv=8)
+    for rows in F32_ROWS:        # narrow f32: rows, splits, a group of G
+        for splits in (1, MAX_SPLITS):
+            for group in (1, 5):
+                check_plan(narrow._replace(rows=rows, splits=splits,
+                                           group=group), 128, 128, 4, 5)
+    check_plan(narrow._replace(group=2), 128, 128, 4, 8)
+    for plan, Dh, itemsize, G in (
+            (good._replace(rows=48), 128, 2, 1),
+            (good._replace(nd=10), 128, 2, 1),
+            (good, 256, 2, 1),
+            (good._replace(splits=2), 128, 2, 1),
+            (good._replace(group=5), 128, 2, 5),
+            (wide._replace(rows=64), 256, 4, 1),
+            (wide._replace(rows=48), 256, 4, 1),
+            (wide, 192, 4, 1),
+            (wide._replace(splits=2), 256, 4, 1),
+            (narrow._replace(rows=48), 128, 4, 5),
+            (narrow._replace(splits=0), 128, 4, 5),
+            (narrow._replace(splits=MAX_SPLITS + 1), 128, 4, 5),
+            (narrow._replace(group=3), 128, 4, 5),
+            (narrow._replace(group=0), 128, 4, 5),
+            (narrow._replace(rows=16, group=32), 128, 4, 32),
+            (narrow._replace(nd=20), 128, 4, 5)):
         with pytest.raises(ValueError, match="does not launch"):
-            check_plan(plan, Dh, Dh, itemsize)
+            check_plan(plan, Dh, Dh, itemsize, G)

@@ -13,9 +13,11 @@ checkout's `build/`. Functions are paired by their mangled names with the
 anonymous-namespace tags (which depend on the build) removed; an old
 decode kernel `decode_kernel<kVec16, TKV>` is paired with the new
 `decode_kernel<128, 2, kVec16, TKV>`, the shape that serves the same
-calls. SASS lines are compared with their addresses and encodings
-removed. Prints one line for each old function (the same, differing, or
-missing from the new build) and exits 1 unless all are the same.
+calls, and an old `flash_wide_kernel<ND, NV, kVec16, float>` with the
+new `flash_wide_kernel<ND, NV, kVec16>`. SASS lines are compared with
+their addresses and encodings removed. Prints one line for each old
+function (the same, differing, or missing from the new build) and exits
+1 unless all are the same.
 """
 from __future__ import annotations
 
@@ -32,7 +34,10 @@ TAG = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}")
 # the decode kernels before their shape became template parameters, and
 # the shape that now serves the same calls (head dims <= 128, G <= 8)
 RENAMES = ((re.compile(r"(\d+(?:paged_)?decode_kernelI)(Lb\d)"),
-            r"\1Li128ELi2E\2"),)
+            r"\1Li128ELi2E\2"),
+           # the f32 wide kernel before its value type (only float was ever
+           # instantiated) left its template parameters
+           (re.compile(r"(flash_wide_kernelI(?:Li\d+E)+Lb\dE)f(?=E)"), r"\1"))
 
 
 def build(checkout: Path) -> tuple:
